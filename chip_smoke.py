@@ -2,32 +2,41 @@
 """Chip smoke test of the PyTorch/CUDA port on one NVIDIA card.
 
     python3 chip_smoke.py              # the whole run, from a checkout
-    python3 chip_smoke.py --layers 8   # cut depth (width is never cut)
+    python3 chip_smoke.py --layers 8   # cut every phase's depth (width is
+                                       # never cut)
 
 Phases (each raises on failure, so the script exits non-zero):
 
 1. card   — requires ``torch.cuda.is_available()``; prints
    ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``.
-2. build  — builds the CUDA kernel from ``src/repro_torch/csrc`` with
-   ``nvcc`` (sm_90a), then the Triton kernel; prints the seconds.
+2. build  — builds the three CUDA libraries from ``src/repro_torch/csrc``
+   with ``nvcc`` (sm_90a), one ``nvcc`` per source, all started together,
+   then the Triton kernel; prints the seconds and ``ptxas``' register and
+   spill lines.
 3. kernels — each kernel's wrapper against its plain PyTorch version on
-   the card: the paged-decode kernel at qwen2.5-14b decode shapes and the
-   edge cases of the reference's kernel tests, RMSNorm at the main path's
-   and the reference's shapes; then CUDA-event times of kernel, plain
-   version and one PyTorch library call, beside the least time the card
-   could take (``bound_ms``).
-4. serve  — the port's main path at full width: qwen2.5-14b (d 5120,
-   48 layers, bf16, seeded weights made on the card by the engine's
-   weights task) behind ``repro_torch.serve.ServeEngine`` on the UMT
-   runtime, paged KV pool (page size auto = 8) and ``paged_kernel=True``;
-   32 requests with prompt lengths from {256, 512, 1024, 2048}, 32 tokens
-   each, staggered arrivals, 16 slots.  Launch counters are zeroed right
-   before and read right after.  Then the teacher-forced checks: one
-   forward of the port over prompt + emitted tokens must put each emitted
-   token at (or within ``LOGIT_TOL`` of) its argmax, and the engine's step
-   path fed the same tokens must give that forward's logits within
-   ``REL_TOL`` at every position — while each fault planted in the decode
-   path (``PLANTED``) must fail both checks.
+   the card: paged GQA decode at qwen2.5-14b decode shapes, paged MLA
+   decode at minicpm3-4b's, the SSD scan at mamba2-780m's prefill shapes
+   (batch 1 and 16), RMSNorm, each with the edge cases of the reference's
+   kernel tests; then CUDA-event times of kernel, plain version and one
+   PyTorch library call where there is one, beside the least time the
+   card could take (``bound_ms``).
+4. serve  — the port's main paths at full width, one after the other,
+   each behind ``repro_torch.serve.ServeEngine`` on the UMT runtime with
+   seeded bf16 weights made on the card by the engine's weights task:
+   qwen2.5-14b (paged, ``paged_kernel=True``), minicpm3-4b (MLA, paged,
+   ``paged_kernel=True``) and mamba2-780m (SSD, ``page_size="auto"``).
+   Each takes 32 requests with prompt lengths from {256, 512, 1024, 2048},
+   32 tokens each, staggered arrivals, 16 slots.  Launch counters are
+   zeroed right before each phase and read right after; each phase's
+   identities are checked.  Then the teacher-forced checks: one forward
+   of the port over prompt + emitted tokens must put each emitted token at
+   (or within ``LOGIT_TOL`` of) its argmax, and the engine's step path fed
+   the same tokens must give that forward's logits within ``REL_TOL`` at
+   every position — while each fault planted in that path (``PLANTED``)
+   must fail both checks.  mamba2's forward of the checks runs the plain
+   SSD scan, so a fault of the kernel cannot sit on both sides, and its
+   conv weights are scaled up (``SSM_CONV_W_GAIN``, the reason beside it)
+   so that a fault of the scan or state can show at all.
 5. summary — one ``kernels`` JSON line, then the ``ok`` line.
 
 Nothing of JAX or of the ``repro`` package is imported.
@@ -50,9 +59,13 @@ HBM_BPS = 3.35e12
 BF16_FLOPS = 989e12
 F32_FLOPS = 67e12
 
-# the reference's kernel-test tolerances (tests/test_kernels.py:15-17)
+# the reference's kernel-test tolerances (tests/test_kernels.py:15-17;
+# the SSD scan's :220-221: its plain version rounds its intermediates to
+# bf16 where the kernel sums in f32)
 TOL = {"float32": dict(rtol=2e-5, atol=2e-5),
        "bfloat16": dict(rtol=2e-2, atol=2e-2)}
+SSD_TOL = {"float32": dict(rtol=1e-4, atol=1e-4),
+           "bfloat16": dict(rtol=4e-2, atol=4e-2)}
 # Token check: an emitted token may trail the teacher-forced forward's
 # argmax by at most this many logit units.  The engine's tokens come from
 # a qchunk prefill plus paged-kernel decode ticks (f32 softmax inside the
@@ -70,10 +83,39 @@ LOGIT_TOL = 1.0
 # (independent bf16 rounding in the two paths); each planted fault moves
 # some position past 1.3, as far as an unrelated model would.
 REL_TOL = 0.3
-# Faults planted in the decode path as controls: each must fail both the
-# token check and the logit check, or the checks prove nothing.
-PLANTED = ("rope_pos_plus_1", "kv_group_order", "slot_pos_rolled",
-           "newest_kv_left_out")
+# Faults planted in each phase's path as controls: each must fail both
+# the token check and the logit check, or the checks prove nothing.  The
+# SSD faults act in the prefill (the scan and the state it hands over) or
+# in the decode recurrence; the attention faults in the decode tick.
+PLANTED = {
+    "qwen2.5-14b": ("rope_pos_plus_1", "kv_group_order", "slot_pos_rolled",
+                    "newest_kv_left_out"),
+    "minicpm3-4b": ("rope_pos_plus_1", "slot_pos_rolled",
+                    "newest_kv_left_out", "q_rope_next_head"),
+    "mamba2-780m": ("state_not_handed", "dt_one_late", "conv_tail_rolled"),
+}
+PREFILL_FAULTS = ("state_not_handed", "dt_one_late")
+# The SSM phase's conv weights are scaled by this gain from the repo's
+# normal 0.02 to std 1.0, so that the checks can see a fault of the scan
+# or of the state.  At 0.02 the depthwise conv (fan-in 4) outputs x, B
+# and C of about 0.016, so C.B is about 0.003 and the SSD scan adds about
+# 1e-5 of D*x to each mixer's output: the state faults then move the
+# logits no more than bf16 noise does.  Every other leaf keeps the repo's
+# init.
+SSM_CONV_W_GAIN = 50.0
+# Per phase: decode attention through its paged kernel?  The kernel of the
+# phase, whose launches are counted per layer of each decode dispatch
+# (attention) or of each prefill call (SSD), and RMSNorm launches per
+# layer of each tick and prefill call (+ the final norm).
+PHASES = {
+    "qwen2.5-14b": dict(paged_kernel=True, kernel="paged_decode_attention",
+                        per="decode_dispatches", norms=2),
+    "minicpm3-4b": dict(paged_kernel=True,
+                        kernel="paged_mla_decode_attention",
+                        per="decode_dispatches", norms=4),
+    "mamba2-780m": dict(paged_kernel=False, kernel="ssd_scan",
+                        per="prefill_calls", norms=2),
+}
 
 
 def log(*a):
@@ -129,10 +171,10 @@ def clocks():
         check=True, timeout=60).stdout.strip()
 
 
-def close(got, want, dtype, what):
+def close(got, want, dtype, what, tols=TOL):
     import torch
 
-    tol = TOL[str(dtype).replace("torch.", "")]
+    tol = tols[str(dtype).replace("torch.", "")]
     err = (got.float() - want.float()).abs().max().item()
     if not torch.allclose(got.float(), want.float(), **tol):
         raise AssertionError(f"{what}: kernel vs plain max |err| {err:.3e} "
@@ -291,8 +333,11 @@ def check_rms_norm():
 
     rng = np.random.default_rng(6)
     out = {}
-    shapes = [(16, 1, 5120), (16 * 2048, 5120), (128, 256), (4, 32, 512),
-              (1, 64)]
+    # qwen2.5-14b's width; minicpm3-4b's (2560, q_ln 768, kv_ln 256) and
+    # mamba2-780m's (1536, gated 3072); the reference grid
+    shapes = [(16, 1, 5120), (16 * 2048, 5120), (16, 1, 2560),
+              (2048, 768), (16, 1, 256), (2048, 1536), (16, 1, 3072),
+              (128, 256), (4, 32, 512), (1, 64)]
     for dt in (torch.float32, torch.bfloat16):
         for shape in shapes:
             x = torch.tensor(rng.standard_normal(shape, np.float32),
@@ -329,10 +374,220 @@ def check_rms_norm():
     return rows[0]          # the prefill shape carries the bytes
 
 
+# ---------------------------------------------------------------- paged MLA
+def mla_case(b, h, rkv, dr, cache_len, ps, dtype, seed, pos=None,
+             garbage_rest=True):
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    if pos is None:
+        pos = rng.integers(0, cache_len, b)
+        pos[0] = cache_len - 1
+    pos = np.asarray(pos, np.int32)
+    table, num_pages = paged_table(b, cache_len, ps, pos, rng, garbage_rest)
+
+    def t(shape):
+        return torch.tensor(rng.standard_normal(shape, np.float32),
+                            device="cuda").to(dtype)
+    return (t((b, 1, h, rkv)), t((b, 1, h, dr)), t((num_pages, ps, rkv)),
+            t((num_pages, ps, dr)), torch.tensor(table, device="cuda"),
+            torch.tensor(pos, device="cuda"))
+
+
+def check_paged_mla():
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import (paged_mla_decode_attention as kern,
+                                     paged_mla_decode_attention_ref as plain)
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    n = 0
+    # the reference's grid (tests/test_kernels.py:140-163) in both dtypes,
+    # at its scale (rkv + dr)^-1/2; 40 heads (not a power of two)
+    for dt in (f32, bf16):
+        for shape in [(2, 4, 32, 16, 16, 4), (3, 2, 16, 8, 12, 1),
+                      (1, 8, 64, 32, 8, 8), (3, 40, 256, 32, 40, 8),
+                      (2, 6, 128, 64, 24, 2)]:
+            args = mla_case(*shape, dt, seed=9)
+            kw = dict(page_size=shape[-1],
+                      scale=(shape[2] + shape[3]) ** -0.5)
+            close(kern(*args, **kw), plain(*args, **kw), dt,
+                  f"mla grid {shape} {dt}")
+            n += 1
+    # poisoned garbage page must be inert; future pages masked
+    args = mla_case(3, 4, 32, 16, 16, 4, f32, seed=10, pos=[0, 5, 15])
+    kw = dict(page_size=4, scale=0.2)
+    clean = kern(*args, **kw)
+    args[2][0] = 1e4
+    args[3][0] = 1e4
+    poisoned = kern(*args, **kw)
+    if not torch.equal(clean, poisoned) or \
+            not torch.isfinite(poisoned).all():
+        raise AssertionError("garbage page leaked into the MLA output")
+    args = mla_case(2, 2, 16, 8, 16, 4, f32, seed=11, pos=[2, 9],
+                    garbage_rest=False)
+    close(kern(*args, **kw), plain(*args, **kw), f32, "mla future pages")
+    n += 2
+
+    # minicpm3-4b decode shapes: 16 slots, 40 heads, Rkv 256, Dr 32, ps 8,
+    # cache_len 2080, the model's scale (nope + rope)^-1/2, ragged pos as
+    # in the serve phase
+    rng = np.random.default_rng(0)
+    qpos = (rng.choice([256, 512, 1024, 2048], 16)
+            + rng.integers(0, 32, 16) - 1)
+    qpos[0] = 2079
+    kw = dict(page_size=8, scale=(64 + 32) ** -0.5)
+    errs = {}
+    for dt in (f32, bf16):
+        args = mla_case(16, 40, 256, 32, 2080, 8, dt, seed=1, pos=qpos)
+        errs[dt] = close(kern(*args, **kw), plain(*args, **kw), dt,
+                         f"minicpm3 shapes {dt}")
+        n += 1
+    log(f"paged_mla_decode: {n} cases match the plain version (f32 "
+        f"rtol/atol 2e-5, bf16 2e-2); minicpm3 shapes max|err| f32 "
+        f"{errs[f32]:.3e} bf16 {errs[bf16]:.3e}")
+
+    args = mla_case(16, 40, 256, 32, 2080, 8, bf16, seed=1, pos=qpos)
+    ql, qr, cp, kp, table, pos = args
+    k_ms = time_ms(lambda: kern(*args, **kw))
+    p_ms = time_ms(lambda: plain(*args, **kw), iters=5)
+    # library yardstick: SDPA over [ckv || krope] keys (E 288) and ckv
+    # values (Ev 256) gathered dense beforehand, one kv head broadcast to
+    # the 40 query heads (the gather is not timed; the port never calls
+    # SDPA)
+    cd = cp[table.long()].reshape(16, 1, -1, 256)
+    kd = torch.cat([cd, kp[table.long()].reshape(16, 1, -1, 32)], dim=-1)
+    qh = torch.cat([ql, qr], dim=-1).transpose(1, 2)       # (16, 40, 1, 288)
+    mask = (torch.arange(kd.shape[2], device="cuda")[None, :]
+            <= pos.long()[:, None])[:, None, None, :]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    l_ms = time_ms(lambda: sdpa(qh, kd, cd, attn_mask=mask,
+                                scale=kw["scale"], enable_gqa=True))
+    live = int((pos.long() + 1).sum().item())
+    nbytes = (live * (256 + 32) * 2 + (ql.numel() + qr.numel()) * 2
+              + ql.numel() * 2 + table.numel() * 4 + pos.numel() * 4)
+    flops = live * 40 * (256 + 32 + 256) * 2
+    bound = max(nbytes / HBM_BPS, flops / BF16_FLOPS) * 1e3
+    bound_by = "bytes" if nbytes / HBM_BPS >= flops / BF16_FLOPS \
+        else "operations"
+    log(f"paged_mla_decode minicpm3 bf16 (B 16, H 40, Rkv 256, Dr 32, ps 8, "
+        f"live positions {live}): max_err {errs[bf16]:.3e} kernel_ms "
+        f"{k_ms:.4f} plain_ms {p_ms:.4f} library_ms {l_ms:.4f} bound_ms "
+        f"{bound:.4f} ({bound_by}: {nbytes} B, {flops} FLOP; f32 "
+        f"CUDA-core floor {flops / F32_FLOPS * 1e3:.4f} ms)")
+    return {"name": "paged_mla_decode_attention", "route": "cuda",
+            "source": "src/repro_torch/csrc/paged_mla_decode.cu",
+            "replaces": "src/repro/kernels/paged_attention/kernel.py:200",
+            "max_abs_err": errs[bf16], "ms": k_ms, "plain_ms": p_ms,
+            "bound_ms": bound, "bound_by": bound_by, "library_ms": l_ms}
+
+
+# ----------------------------------------------------------------- SSD scan
+def ssd_case(b, s, h, p, n, dtype, seed):
+    """tests/test_kernels.py:211-216, drawn with numpy on the card."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+
+    def t(shape, scale=1.0, dt=dtype):
+        return (torch.tensor(rng.standard_normal(shape, np.float32),
+                             device="cuda") * scale).to(dt)
+    x = t((b, s, h, p))
+    dt = torch.nn.functional.softplus(t((b, s, h), dt=torch.float32)) * 0.1
+    a = -torch.exp(t((h,), 0.3, torch.float32))
+    return x, dt, a, t((b, s, h, n), 0.5), t((b, s, h, n), 0.5)
+
+
+def check_ssd():
+    import torch
+
+    from repro_torch.kernels import ssd_scan as kern
+    from repro_torch.kernels import ssd_scan_ref as plain
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    n = 0
+
+    def both(args, chunk, dt, what, plain_chunk=None):
+        y, hf = kern(*args, chunk=chunk)
+        y_r, hf_r = plain(*args, chunk=plain_chunk or chunk)
+        return max(close(y, y_r, dt, f"{what} y", SSD_TOL),
+                   close(hf, hf_r, dt, f"{what} h_final", SSD_TOL))
+
+    # the reference's grid (tests/test_kernels.py:205-243) in both dtypes
+    for dt in (f32, bf16):
+        for b, s, h, p, nn, chunk in [(1, 128, 2, 64, 32, 32),
+                                      (2, 256, 4, 32, 64, 64),
+                                      (1, 64, 1, 16, 16, 64)]:
+            both(ssd_case(b, s, h, p, nn, dt, seed=4), chunk, dt,
+                 f"ssd grid {(b, s, h, p, nn, chunk)} {dt}")
+            n += 1
+    # chunk invariance, and a short last chunk (S not a multiple of the
+    # chunk) against the plain version over one chunk of all S positions
+    args = ssd_case(1, 128, 2, 32, 32, f32, seed=5)
+    ys = [kern(*args, chunk=c)[0] for c in (16, 32, 128)]
+    for y in ys[1:]:
+        close(y, ys[0], f32, "ssd chunk invariance", SSD_TOL)
+    for s, chunk in ((100, 32), (300, 256), (2047, 256)):
+        both(ssd_case(2, s, 3, 64, 128, f32, seed=6), chunk, f32,
+             f"ssd partial last chunk S {s}", plain_chunk=s)
+    n += 4
+    # mamba2-780m prefill shapes: 48 heads, P 64, N 128, chunk 256, S 2048
+    errs = {}
+    for b in (1, 16):
+        for dt in (f32, bf16):
+            errs[(b, dt)] = both(ssd_case(b, 2048, 48, 64, 128, dt, seed=1),
+                                 256, dt, f"mamba2 shapes B {b} {dt}")
+            n += 1
+    log(f"ssd_scan: {n} cases match the plain version (f32 rtol/atol 1e-4, "
+        f"bf16 4e-2); mamba2 shapes max|err| "
+        + ", ".join(f"B {b} {str(dt)[6:]} {e:.3e}"
+                    for (b, dt), e in errs.items()))
+
+    rows = []
+    for b in (1, 16):
+        args = ssd_case(b, 2048, 48, 64, 128, bf16, seed=1)
+        k_ms = time_ms(lambda: kern(*args, chunk=256))
+        p_ms = time_ms(lambda: plain(*args, chunk=256), iters=2, warmup=1)
+        bh, s, p, nn = b * 48, 2048, 64, 128
+        # as the wrapper hands it over: x, dt, a, B and C per (b, h) row
+        # read once, y and h_final written once
+        nbytes = (bh * s * (p + 2 * nn) * 2 + bh * s * 4 + bh * 4
+                  + bh * s * p * 2 + bh * p * nn * 4)
+        q = 256
+        per_chunk = q * (q + 1) // 2 * (nn + p) + 2 * q * p * nn
+        flops = 2 * bh * (s // q) * per_chunk
+        bound = max(nbytes / HBM_BPS, flops / BF16_FLOPS) * 1e3
+        bound_by = "bytes" if nbytes / HBM_BPS >= flops / BF16_FLOPS \
+            else "operations"
+        log(f"ssd_scan mamba2 bf16 (B {b}, S 2048, H 48, P 64, N 128, "
+            f"chunk 256): max_err {errs[(b, bf16)]:.3e} kernel_ms "
+            f"{k_ms:.4f} plain_ms {p_ms:.4f} library_ms none (no single "
+            f"PyTorch call computes it) bound_ms {bound:.4f} ({bound_by}: "
+            f"{nbytes} B, {flops} FLOP; f32 CUDA-core floor "
+            f"{flops / F32_FLOPS * 1e3:.4f} ms)")
+        rows.append({"name": "ssd_scan", "route": "cuda",
+                     "source": "src/repro_torch/csrc/ssd_chunk.cu",
+                     "replaces": "src/repro/kernels/ssd_chunk/kernel.py:80",
+                     "max_abs_err": errs[(b, bf16)], "ms": k_ms,
+                     "plain_ms": p_ms, "bound_ms": bound,
+                     "bound_by": bound_by, "library_ms": None})
+    return rows[0]          # batch 1: the serve phase's prefill shape
+
+
 # ------------------------------------------------------------- main path
-def steps_alone(cfg, params, smi, slots=16, cache_len=2080, ps=8):
+def arch_of(cfg):
+    """The phase's arch name (a ``tiny()`` config for a CPU rehearsal
+    carries a suffix)."""
+    return cfg.name.removesuffix("-tiny")
+
+
+def steps_alone(cfg, params, smi, paged_kernel, slots=16, cache_len=2080,
+                ps=8):
     """Where a tick's time goes: one decode tick and one prefill of the
-    main path's shapes, run alone (no engine, no other thread), host-timed
+    phase's shapes, run alone (no engine, no other thread), host-timed
     around a synchronize, and the decode tick once more under
     torch.profiler for the device's busy time by kernel."""
     import numpy as np
@@ -357,7 +612,7 @@ def steps_alone(cfg, params, smi, slots=16, cache_len=2080, ps=8):
                         .astype(np.int32), device="cuda")
     active = torch.ones(slots, dtype=torch.bool, device="cuda")
     decode = make_decode_step(cfg, cache_len=cache_len, page_size=ps,
-                              paged_kernel=True)
+                              paged_kernel=paged_kernel)
 
     def tick():
         nonlocal cache
@@ -392,20 +647,55 @@ def steps_alone(cfg, params, smi, slots=16, cache_len=2080, ps=8):
     ptoks = torch.tensor(rng.integers(0, cfg.vocab, (1, 2048))
                          .astype(np.int32), device="cuda")
     pre_ms = host_ms(lambda: prefill(params, ptoks), 2)
-    log(f"steps alone ({smi}): decode tick (16 slots, paged kernel) "
-        f"{tick_ms:.2f} ms host; device busy {busy:.2f} ms in one "
-        f"profiled tick; prefill (1 x 2048) {pre_ms:.2f} ms host")
+    log(f"steps alone ({cfg.name}, {smi}): decode tick (16 slots"
+        f"{', paged kernel' if paged_kernel else ''}) {tick_ms:.2f} ms "
+        f"host; device busy {busy:.2f} ms in one profiled tick; prefill "
+        f"(1 x 2048) {pre_ms:.2f} ms host")
     for key, ms, n in rows[:8]:
         log(f"  tick kernel {ms:8.3f} ms x{n:5d}  {key[:90]}")
 
 
-@contextlib.contextmanager
-def planted(fault):
-    """The decode path with one fault of ``PLANTED`` swapped into the
-    attention module (``None``: as it is)."""
-    from repro_torch.models import attention as att
+def plain_ssd(x, dt, a, bmat, cmat, *, chunk):
+    """The reference model's own SSD math (``ssd_chunked``, state carried
+    in the activation dtype from a zero state) in place of the kernel, at
+    any length: a length that does not split into equal chunks is one
+    chunk (the math does not depend on the chunk length)."""
+    import torch
 
-    rope, kern = att.apply_rope, att.paged_decode_attention
+    from repro_torch.models.ssm import ssd_chunked
+
+    b, s, h, p = x.shape
+    nc = max(1, s // chunk)
+    init = torch.zeros((b, h, p, bmat.shape[-1]), dtype=x.dtype,
+                       device=x.device)
+    return ssd_chunked(x, dt, a, bmat, cmat,
+                       chunk if nc * (s // nc) == s else s, init)
+
+
+@contextlib.contextmanager
+def swapped(*swaps):
+    """Module attributes swapped for the block: (module, name, value)."""
+    saved = [(m, k, getattr(m, k)) for m, k, _ in swaps]
+    for m, k, v in swaps:
+        setattr(m, k, v)
+    try:
+        yield
+    finally:
+        for m, k, v in saved:
+            setattr(m, k, v)
+
+
+def planted(fault):
+    """The path with one fault of ``PLANTED`` swapped into its module
+    (``None``: as it is)."""
+    import torch
+
+    from repro_torch.models import attention as att
+    from repro_torch.models import blocks, ssm
+
+    rope, kern, mla = (att.apply_rope, att.paged_decode_attention,
+                       att.paged_mla_decode_attention)
+    scan, ssm_apply = ssm.ssd_scan, blocks.ssm_apply
 
     def rope_pos_plus_1(x, pos, theta=10_000.0):
         return rope(x, pos + 1, theta)
@@ -418,37 +708,66 @@ def planted(fault):
         o = kern(qs.contiguous(), kp, vp, table, pos, **kw)
         return o.view(b, 1, h // g, g, dh).transpose(2, 3).reshape(q.shape)
 
-    def slot_pos_rolled(q, kp, vp, table, pos, **kw):
-        return kern(q, kp, vp, table, pos.roll(1), **kw)
+    def pos_fault(fn, shift):
+        def wrapped(*args, **kw):
+            *front, pos = args
+            return fn(*front, shift(pos), **kw)
+        return wrapped
 
-    def newest_kv_left_out(q, kp, vp, table, pos, **kw):
-        return kern(q, kp, vp, table, pos - 1, **kw)
+    def q_rope_next_head(q_lat, q_rope, *args, **kw):
+        # head h scores with the rope query of head h + 1
+        return mla(q_lat, q_rope.roll(-1, dims=2).contiguous(), *args, **kw)
 
-    swap = {"rope_pos_plus_1": ("apply_rope", rope_pos_plus_1),
-            "kv_group_order": ("paged_decode_attention", kv_group_order),
-            "slot_pos_rolled": ("paged_decode_attention", slot_pos_rolled),
-            "newest_kv_left_out": ("paged_decode_attention",
-                                   newest_kv_left_out)}.get(fault)
-    if fault is not None and swap is None:
-        raise KeyError(fault)
-    if swap is not None:
-        setattr(att, *swap)
-    try:
-        yield
-    finally:
-        att.apply_rope, att.paged_decode_attention = rope, kern
+    def state_not_handed(*args, **kw):
+        y, hf = scan(*args, **kw)
+        return y, torch.zeros_like(hf)
+
+    def dt_one_late(x, dt, *args, **kw):
+        return scan(x, torch.cat([dt[:, :1], dt[:, :-1]], 1), *args, **kw)
+
+    def conv_tail_rolled(x, p, cfg, spec, *, mode, cache=None, **kw):
+        if mode == "decode":
+            cache["conv"].copy_(cache["conv"].roll(1, dims=1))
+        return ssm_apply(x, p, cfg, spec, mode=mode, cache=cache, **kw)
+
+    def roll(pos):
+        return pos.roll(1)
+
+    def older(pos):
+        return pos - 1
+
+    swaps = {
+        None: (),
+        "rope_pos_plus_1": ((att, "apply_rope", rope_pos_plus_1),),
+        "kv_group_order": ((att, "paged_decode_attention", kv_group_order),),
+        "slot_pos_rolled": ((att, "paged_decode_attention",
+                             pos_fault(kern, roll)),
+                            (att, "paged_mla_decode_attention",
+                             pos_fault(mla, roll))),
+        "newest_kv_left_out": ((att, "paged_decode_attention",
+                                pos_fault(kern, older)),
+                               (att, "paged_mla_decode_attention",
+                                pos_fault(mla, older))),
+        "q_rope_next_head": ((att, "paged_mla_decode_attention",
+                              q_rope_next_head),),
+        "state_not_handed": ((ssm, "ssd_scan", state_not_handed),),
+        "dt_one_late": ((ssm, "ssd_scan", dt_one_late),),
+        "conv_tail_rolled": ((blocks, "ssm_apply", conv_tail_rolled),),
+    }
+    return swapped(*swaps[fault])
 
 
-def path_check(cfg, params, prompts, toks, ref, device, slots=16,
-               cache_len=2080, ps=8):
+def path_check(cfg, params, prompts, toks, ref, device, paged_kernel,
+               slots=16, cache_len=2080, ps=8):
     """The engine's step path teacher-forced with its emitted tokens: each
     prompt through the prefill step and the paged insert, then the tokens
-    one tick at a time through the paged-kernel decode forward, ``slots``
-    requests per round — as plain and under each planted fault.  Returns
-    name -> {"rel": aggregate relative logit error against ``ref``,
-    "rel_max": worst position, "effect": the same distance from the path
-    as built, "gap": worst gap of the path's argmax under ``ref``,
-    "same": path argmax equal to the emitted token}."""
+    one tick at a time through the decode forward (paged kernel where the
+    phase has one), ``slots`` requests per round — as built and under each
+    planted fault (a fault of the prefill side gets its own prefill).
+    Returns name -> {"rel": aggregate relative logit error against
+    ``ref``, "rel_max": worst position, "effect": the same distance from
+    the path as built, "gap": worst gap of the path's argmax under
+    ``ref``, "same": path argmax equal to the emitted token}."""
     import numpy as np
     import torch
 
@@ -467,28 +786,32 @@ def path_check(cfg, params, prompts, toks, ref, device, slots=16,
                                 .manual_seed(3))).int().view(slots, pps)
     table = table.to(device)
     pages = {"table": table, "page_size": ps, "cache_len": cache_len,
-             "kernel": True}
-    names = [None, *PLANTED]
+             "kernel": paged_kernel}
+    names = [None, *PLANTED[arch_of(cfg)]]
     acc = {n: {"d2": 0.0, "r2": 0.0, "e2": 0.0, "rel_max": 0.0, "gap": 0.0,
                "same": 0} for n in names}
     gen = len(toks[0])
     for r0 in range(0, len(prompts), slots):
         idx = list(range(r0, min(r0 + slots, len(prompts))))
-        first = []
-        for s, i in enumerate(idx):
-            rows, lg = prefill(p, torch.tensor(prompts[i][None],
-                                               device=device))
-            cache = insert(cache, rows, 0, s, table[s])
-            first.append(lg[0, -1].float())
         pad = slots - len(idx)
         pos0 = torch.tensor([len(prompts[i]) for i in idx] + [0] * pad,
                             dtype=torch.int32, device=device)
         feed = torch.tensor(np.stack([toks[i] for i in idx]
                                      + [np.zeros(gen, np.int32)] * pad),
                             device=device)
+
+        def prefill_round():
+            return [prefill(p, torch.tensor(prompts[i][None], device=device))
+                    for i in idx]
+
+        clean = prefill_round()
         for n in names:
-            rows = [torch.stack(first)]
             with planted(n):
+                rounds = prefill_round() if n in PREFILL_FAULTS else clean
+                for s, (rows, _) in enumerate(rounds):
+                    cache = insert(cache, rows, 0, s, table[s])
+                rows = [torch.stack([lg[0, -1].float() for _, lg in rounds])]
+                del rounds
                 for j in range(gen - 1):
                     o = forward(p, cfg, feed[:, j:j + 1], mode="decode",
                                 pos=pos0 + j, cache=cache, pages=pages)
@@ -512,22 +835,35 @@ def path_check(cfg, params, prompts, toks, ref, device, slots=16,
                 a["gap"] = max(a["gap"], gap.max().item())
                 a["same"] += int((am.cpu() == torch.as_tensor(
                     toks[i]).long()).sum())
+        del clean
     return {n: {"rel": (a["d2"] / a["r2"]) ** 0.5, "rel_max": a["rel_max"],
                 "effect": (a["e2"] / a["r2"]) ** 0.5, "gap": a["gap"],
                 "same": a["same"]} for n, a in acc.items()}
 
 
+def reference_forward():
+    """The forward of the checks: the port's model, with the SSD scan's
+    plain version in place of the kernel (the reference model's own math)
+    so that a fault of the kernel cannot sit on both sides."""
+    from repro_torch.models import ssm
+
+    return swapped((ssm, "ssd_scan", plain_ssd))
+
+
 def serve(cfg, smi, device="cuda", seed=0):
-    """Drive the main path; returns (launch counts, engine stats)."""
+    """Drive one main path; returns (launch counts, engine stats)."""
     import numpy as np
     import torch
 
-    from repro_torch.kernels import paged_decode_attention, rms_norm
+    from repro_torch import kernels
     from repro_torch.models.lm import forward, init_params
     from repro_torch.serve import Request, ServeEngine
     from repro_torch.steps import (greedy_oneshot, make_prefill_step,
                                    make_serve_step)
 
+    phase = PHASES[arch_of(cfg)]
+    paged_kernel = phase["paged_kernel"]
+    counted = (phase["kernel"], "rms_norm")
     cuda = device == "cuda"
     slots, cache_len, n_req, gen = 16, 2080, 32, 32
     rng = np.random.default_rng(seed)
@@ -541,20 +877,24 @@ def serve(cfg, smi, device="cuda", seed=0):
         t = time.perf_counter()
         box["params"] = init_params(
             cfg, torch.Generator(device).manual_seed(seed), device)
+        for blk in box["params"]["blocks"]:
+            if "conv_w" in blk["mixer"]:
+                blk["mixer"]["conv_w"].mul_(SSM_CONV_W_GAIN)
         if cuda:
             torch.cuda.synchronize()
         box["weights_s"] = time.perf_counter() - t
         return box["params"]
 
+    t_phase = time.perf_counter()
     if cuda:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-    paged_decode_attention.launches.reset()
-    rms_norm.launches.reset()
+    for name in counted:
+        getattr(kernels, name).launches.reset()
     t0 = time.perf_counter()
     with ServeEngine(cfg, weights, slots=slots, cache_len=cache_len,
-                     page_size="auto", paged_kernel=True, sync_ticks=True,
-                     device=device) as eng:
+                     page_size="auto", paged_kernel=paged_kernel,
+                     sync_ticks=True, device=device) as eng:
         reqs = [Request(i, prompts[i], max_new_tokens=gen)
                 for i in range(n_req)]
         for r, g in zip(reqs, gaps):
@@ -567,8 +907,8 @@ def serve(cfg, smi, device="cuda", seed=0):
         wall = time.perf_counter() - t0
         stats = eng.stats()
     eng = None                          # drop the pool before what follows
-    launches = {"paged_decode_attention": paged_decode_attention.launches
-                .value, "rms_norm": rms_norm.launches.value}
+    launches = {name: getattr(kernels, name).launches.value
+                for name in counted}
     peak = torch.cuda.max_memory_allocated() if cuda else 0
     params = box["params"]
     for r in reqs:
@@ -578,16 +918,18 @@ def serve(cfg, smi, device="cuda", seed=0):
     log(f"serve: {cfg.name} d {cfg.d_model} layers {cfg.n_layers} "
         f"{cfg.dtype}, "
         f"{n_req} requests x {gen} tokens, {slots} slots, cache_len "
-        f"{cache_len}, page_size {stats['page_size']}; decode dispatches "
+        f"{cache_len}, page_size {stats['page_size']}, paged_kernel "
+        f"{paged_kernel}; decode dispatches "
         f"{stats['decode_dispatches']}, prefill calls "
         f"{stats['prefill_calls']}, launches {launches}")
-    log(f"serve figures ({smi}): tokens_s {stats['tokens_out'] / wall:.2f} "
+    log(f"serve figures ({cfg.name}, {smi}): tokens_s "
+        f"{stats['tokens_out'] / wall:.2f} "
         f"wall_s {wall:.3f} p50_ttft_s {stats['p50_ttft_s']:.4f} "
         f"p50_tick_s {stats['p50_tick_s']:.4f} p99_tick_s "
         f"{stats['p99_tick_s']:.4f} peak_mem_gb {peak / 1e9:.2f} "
         f"(weights task included: {box['weights_s']:.2f} s)")
     if cuda:
-        steps_alone(cfg, params, smi)
+        steps_alone(cfg, params, smi, paged_kernel)
 
     # teacher-forced forward over prompt + emitted[:-1]: the gap is how
     # far each emitted token's logit trails that forward's max
@@ -595,8 +937,9 @@ def serve(cfg, smi, device="cuda", seed=0):
     ref, gaps_all, top2, spread, exact = [], [], [], [], 0
     for r, toks in zip(reqs, toks_all):
         seq = np.concatenate([prompts[r.rid], toks[:-1]])
-        lg = forward(params, cfg, torch.tensor(seq[None], device=device),
-                     mode="train")["logits"][0, len(prompts[r.rid]) - 1:]
+        with reference_forward():
+            lg = forward(params, cfg, torch.tensor(seq[None], device=device),
+                         mode="train")["logits"][0, len(prompts[r.rid]) - 1:]
         lg = lg.float()
         if tuple(lg.shape) != (gen, cfg.vocab) or \
                 not torch.isfinite(lg).all():
@@ -614,23 +957,24 @@ def serve(cfg, smi, device="cuda", seed=0):
     top2, spread = torch.cat(top2), torch.cat(spread)
     worst = gaps_all.max().item()
     q = torch.quantile(gaps_all, torch.tensor([0.5, 0.99])).tolist()
-    log(f"teacher-forced: {exact}/{n_req * gen} emitted tokens are the "
-        f"forward's argmax; gap p50 {q[0]:.4f} p99 {q[1]:.4f} max "
+    log(f"teacher-forced ({cfg.name}): {exact}/{n_req * gen} emitted tokens "
+        f"are the forward's argmax; gap p50 {q[0]:.4f} p99 {q[1]:.4f} max "
         f"{worst:.4f} (tolerance {LOGIT_TOL}); forward's top-2 margin p50 "
         f"{top2.median().item():.4f}, logit std p50 "
         f"{spread.median().item():.4f}")
 
-    # logit check of the step path, plain and with each planted fault
+    # logit check of the step path, as built and with each planted fault
     res = path_check(cfg, params, [prompts[r.rid] for r in reqs], toks_all,
-                     ref, device, slots=slots, cache_len=cache_len)
+                     ref, device, paged_kernel, slots=slots,
+                     cache_len=cache_len)
     del ref
     for n, m in res.items():
-        log(f"logit check [{n or 'as built'}]: worst position rel err "
-            f"{m['rel_max']:.4f} (tolerance {REL_TOL}), all positions "
-            f"{m['rel']:.4f}, off the path as built by {m['effect']:.4f}; "
-            f"its argmax trails the forward's by at most {m['gap']:.4f} "
-            f"(token tolerance {LOGIT_TOL}); {m['same']}/{n_req * gen} "
-            "equal the engine's tokens")
+        log(f"logit check [{cfg.name}, {n or 'as built'}]: worst position "
+            f"rel err {m['rel_max']:.4f} (tolerance {REL_TOL}), all "
+            f"positions {m['rel']:.4f}, off the path as built by "
+            f"{m['effect']:.4f}; its argmax trails the forward's by at most "
+            f"{m['gap']:.4f} (token tolerance {LOGIT_TOL}); "
+            f"{m['same']}/{n_req * gen} equal the engine's tokens")
 
     # for information: engine tokens against the port's one-shot path
     prefill = make_prefill_step(cfg, cache_len=cache_len)
@@ -644,27 +988,90 @@ def serve(cfg, smi, device="cuda", seed=0):
         for j, i in enumerate(idx):
             same += int((ref[j].numpy()
                          == np.asarray(reqs[i].out_tokens)).sum())
-    log(f"one-shot agreement (information): {same}/{n_req * gen} engine "
-        "tokens equal the port's greedy_oneshot tokens")
+    log(f"one-shot agreement (information, {cfg.name}): {same}/"
+        f"{n_req * gen} engine tokens equal the port's greedy_oneshot "
+        "tokens")
     if worst > LOGIT_TOL:
-        raise AssertionError(f"an emitted token trails the forward's argmax "
-                             f"by {worst:.4f} > {LOGIT_TOL}")
+        raise AssertionError(f"{cfg.name}: an emitted token trails the "
+                             f"forward's argmax by {worst:.4f} > {LOGIT_TOL}")
     if res[None]["rel_max"] > REL_TOL:
-        raise AssertionError(f"step path logits off the forward's by "
-                             f"{res[None]['rel_max']:.4f} > {REL_TOL}")
-    missed = [n for n in PLANTED if res[n]["rel_max"] <= REL_TOL
-              or res[n]["gap"] <= LOGIT_TOL]
+        raise AssertionError(f"{cfg.name}: step path logits off the "
+                             f"forward's by {res[None]['rel_max']:.4f} > "
+                             f"{REL_TOL}")
+    missed = [n for n in res if n is not None and (
+        res[n]["rel_max"] <= REL_TOL or res[n]["gap"] <= LOGIT_TOL)]
     if missed:
-        raise AssertionError(f"the checks do not reject the planted faults "
-                             f"{missed}")
+        raise AssertionError(f"{cfg.name}: the checks do not reject the "
+                             f"planted faults {missed}")
+    log(f"phase {cfg.name}: {time.perf_counter() - t_phase:.1f} s")
     return launches, stats
+
+
+def check_launches(cfg, launches, stats):
+    """The phase's launch identities: its kernel once per layer of each
+    decode dispatch (attention) or prefill call (SSD); RMSNorm at every
+    norm site of every tick and prefill call."""
+    phase = PHASES[arch_of(cfg)]
+    kern = phase["kernel"]
+    want = {kern: cfg.n_layers * stats[phase["per"]],
+            "rms_norm": (phase["norms"] * cfg.n_layers + 1)
+            * (stats["decode_dispatches"] + stats["prefill_calls"])}
+    for name, n in want.items():
+        if launches[name] != n or n <= 0:
+            raise AssertionError(f"{cfg.name}: {name} launches "
+                                 f"{launches[name]} != {n} (identity of "
+                                 "the main path)")
+    log(f"launch identities ({cfg.name}): {kern} {launches[kern]} = "
+        f"{cfg.n_layers} x {stats[phase['per']]} {phase['per']}; rms_norm "
+        f"{launches['rms_norm']} = {phase['norms'] * cfg.n_layers + 1} x "
+        f"({stats['decode_dispatches']} + {stats['prefill_calls']})")
+
+
+def build_all():
+    """Every kernel library built at once: one ``nvcc`` per source, started
+    together, then the Triton kernel compiled by a first call."""
+    import threading
+
+    import torch
+
+    from repro_torch.kernels import build, rms_norm
+    from repro_torch.kernels.paged_attention import ops as paged_ops
+    from repro_torch.kernels.ssd_chunk import ops as ssd_ops
+
+    t0 = time.perf_counter()
+    errors = []
+
+    def run(fn):
+        try:
+            fn()
+        except Exception as e:            # noqa: BLE001 — re-raised below
+            errors.append(e)
+    threads = [threading.Thread(target=run, args=(fn,)) for fn in (
+        paged_ops.library, paged_ops.mla_library, ssd_ops.library)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+    t_nvcc = time.perf_counter() - t0
+    x = torch.ones(2, 64, device="cuda")
+    rms_norm(x, torch.ones(64, device="cuda"))          # Triton compiles
+    torch.cuda.synchronize()
+    log(f"build: three nvcc builds in parallel, all ready in {t_nvcc:.2f} s; "
+        f"triton first call {time.perf_counter() - t0 - t_nvcc:.2f} s")
+    for name, info in build.build_log.items():
+        log(f"  {name}: nvcc {info['seconds']:.2f} s")
+        for line in info["ptxas"].splitlines():
+            if "registers" in line or "spill" in line:
+                log("    ptxas:", line.strip())
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--layers", type=int, default=48,
-                    help="model depth for the serve phase (width is never "
-                         "cut)")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="cut every serve phase to this depth (0: full "
+                         "depth; width is never cut)")
     args = ap.parse_args(argv)
 
     smi = card()
@@ -676,44 +1083,28 @@ def main(argv=None):
     sys.path.insert(0, str(ROOT / "src"))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
 
-    from repro_torch.kernels import build
-    from repro_torch.kernels.paged_attention import ops as paged_ops
-    from repro_torch.kernels.rmsnorm import rms_norm
-
-    t0 = time.perf_counter()
-    paged_ops.library()                                 # nvcc
-    t_nvcc = time.perf_counter() - t0
-    x = torch.ones(2, 64, device="cuda")
-    rms_norm(x, torch.ones(64, device="cuda"))          # Triton compiles
-    torch.cuda.synchronize()
-    info = build.build_log["paged_decode"]
-    log(f"build: nvcc {info['seconds']:.2f} s (library ready in "
-        f"{t_nvcc:.2f} s), triton first call "
-        f"{time.perf_counter() - t0 - t_nvcc:.2f} s")
-    for line in info["ptxas"].splitlines():
-        if "registers" in line or "spill" in line:
-            log("  ptxas:", line.strip())
-
-    rows = [check_paged_decode(), check_rms_norm()]
+    build_all()
+    rows = [check_paged_decode(), check_rms_norm(), check_paged_mla(),
+            check_ssd()]
     log(f"clocks after the kernel timings (sm, power, temp): {clocks()}")
     from repro_torch.configs import get
 
-    cfg = get("qwen2.5-14b")
-    if args.layers != cfg.n_layers:
-        log(f"depth cut: {args.layers} of {cfg.n_layers} layers")
-        cfg = cfg.replace(n_layers=args.layers)
-    launches, stats = serve(cfg, smi)
-    if launches["paged_decode_attention"] != \
-            cfg.n_layers * stats["decode_dispatches"]:
-        raise AssertionError(
-            f"paged-decode launches {launches['paged_decode_attention']}"
-            f" != {cfg.n_layers} x {stats['decode_dispatches']} "
-            "decode dispatches")
-    if launches["rms_norm"] <= 0:
-        raise AssertionError("no RMSNorm kernel launch on the main path")
+    launches = {}
+    for arch in PHASES:
+        cfg = get(arch)
+        if args.layers and args.layers != cfg.n_layers:
+            log(f"depth cut: {args.layers} of {cfg.n_layers} layers")
+            cfg = cfg.replace(n_layers=args.layers)
+        got, stats = serve(cfg, smi)
+        check_launches(cfg, got, stats)
+        for name, n in got.items():         # RMSNorm: every phase's sum
+            launches[name] = launches.get(name, 0) + n
+        torch.cuda.empty_cache()            # the next phase's weights
     for row in rows:
         row["launches"] = launches[row["name"]]
+    log(f"total {time.perf_counter() - t_start:.1f} s")
     keys = ["name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms"]

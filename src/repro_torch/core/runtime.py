@@ -289,6 +289,7 @@ class UMTRuntime:
         self._pool: list[Worker] = []
         self._pool_lock = threading.Lock()
         self._workers: list[Worker] = []
+        self._spawn_lock = threading.Lock()       # spawn vs shutdown
         self._outstanding = 0
         self._quiet_lock = threading.Lock()       # outstanding/quiet only —
         self._quiet = threading.Event()           # never shared with the
@@ -316,7 +317,8 @@ class UMTRuntime:
         if not self.running:        # idempotent: fds are closed below
             return
         self.wait_all()
-        self.running = False
+        with self._spawn_lock:      # no spawn once running is false
+            self.running = False
         with self._pool_lock:
             pool = list(self._pool)
             self._pool.clear()
@@ -337,11 +339,18 @@ class UMTRuntime:
         os.close(self._wake_r)
         os.close(self._wake_w)
 
-    def _spawn(self, core: int) -> Worker:
-        w = Worker(self, core)
-        self._workers.append(w)
-        self.stats_extra["spawned"] += 1
-        w.start()
+    def _spawn(self, core: int) -> Worker | None:
+        """Start a worker on ``core``; None once shut down.  A worker
+        joins ``_workers`` only after ``start()``, under the lock that
+        ``shutdown`` holds to clear ``running``, so shutdown never joins
+        a worker that was not started."""
+        with self._spawn_lock:
+            if not self.running:
+                return None
+            w = Worker(self, core)
+            w.start()
+            self._workers.append(w)
+            self.stats_extra["spawned"] += 1
         return w
 
     # ------------------------------------------------------------ submission

@@ -23,7 +23,8 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_lock = threading.Lock()
+_lock = threading.Lock()            # guards _locks
+_locks: dict[str, threading.Lock] = {}
 _loaded: dict[str, ctypes.CDLL] = {}
 build_log: dict[str, dict] = {}     # name -> {"seconds", "ptxas", "path"}
 
@@ -43,8 +44,11 @@ def nvcc_path() -> str:
 def load_library(name: str, sources: list[str]) -> ctypes.CDLL:
     """The library ``name`` built from ``sources`` (``nvcc`` now unless the
     hashed library already exists), loaded once per process.  The build's
-    seconds and ``ptxas`` log go to ``build_log[name]``."""
+    seconds and ``ptxas`` log go to ``build_log[name]``.  Libraries of
+    different names build in parallel when called from several threads."""
     with _lock:
+        lock = _locks.setdefault(name, threading.Lock())
+    with lock:
         if name in _loaded:
             return _loaded[name]
         srcs = [CSRC / s for s in sources]

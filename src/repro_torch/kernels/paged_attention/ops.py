@@ -1,10 +1,11 @@
-"""Wrapper of the paged GQA decode kernel (``csrc/paged_decode.cu``).
+"""Wrappers of the paged decode kernels: GQA (``csrc/paged_decode.cu``)
+and absorbed MLA (``csrc/paged_mla_decode.cu``).
 
 Engine-layout arguments, as ``repro/kernels/paged_attention/ops.py``
 takes them: one decode token per slot, pools as the paged KV cache
 stores them.  A CPU tensor goes to the plain version (``ref.py``); a
 CUDA tensor launches the kernel on the current stream or raises — there
-is no fallback.  The kernel's design note is at the top of its source.
+is no fallback.  Each kernel's design note is at the top of its source.
 """
 from __future__ import annotations
 
@@ -14,11 +15,14 @@ import torch
 
 from ..build import load_library
 from ..counter import LaunchCounter
-from .ref import paged_decode_attention_ref
+from .ref import paged_decode_attention_ref, paged_mla_decode_attention_ref
 
 SOURCES = ["paged_decode.cu"]
 HEAD_DIMS = (16, 32, 64, 128)
 MAX_GROUP = 16
+MLA_SOURCES = ["paged_mla_decode.cu"]
+MLA_LATENT_DIMS = (16, 32, 64, 128, 256)
+MLA_MAX_ROPE_DIM = 64
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -102,3 +106,91 @@ def paged_decode_attention(q, k_pool, v_pool, table, pos, *, page_size,
 
 
 paged_decode_attention.launches = LaunchCounter()
+
+
+# ------------------------------------------------------------- absorbed MLA
+def mla_library() -> ctypes.CDLL:
+    """The built MLA kernel library (``nvcc`` at first use)."""
+    lib = load_library("paged_mla_decode", MLA_SOURCES)
+    fn = lib.repro_paged_mla_decode
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [i, p, p, p, p, p, p, p, i, i, i, i, i, i,
+                       ctypes.c_float, p]
+        fn.restype = i
+    return lib
+
+
+def _check_mla(q_lat, q_rope, ckv_pool, krope_pool, table, pos, page_size):
+    if q_lat.dim() != 4 or q_lat.shape[1] != 1:
+        raise ValueError(f"q_lat must be (B, 1, H, Rkv), got "
+                         f"{tuple(q_lat.shape)}")
+    b, _, h, rkv = q_lat.shape
+    if q_rope.dim() != 4 or q_rope.shape[:3] != q_lat.shape[:3]:
+        raise ValueError(f"q_rope {tuple(q_rope.shape)} does not match "
+                         f"q_lat {tuple(q_lat.shape)}")
+    dr = q_rope.shape[3]
+    if ckv_pool.dim() != 3 or krope_pool.dim() != 3 \
+            or ckv_pool.shape[:2] != krope_pool.shape[:2] \
+            or ckv_pool.shape[1] != page_size or ckv_pool.shape[2] != rkv \
+            or krope_pool.shape[2] != dr:
+        raise ValueError(f"pools {tuple(ckv_pool.shape)} / "
+                         f"{tuple(krope_pool.shape)} do not match page_size "
+                         f"{page_size}, Rkv {rkv}, Dr {dr}")
+    if rkv not in MLA_LATENT_DIMS:
+        raise ValueError(f"latent dim {rkv} not in {MLA_LATENT_DIMS}")
+    if dr % 8 or not 0 < dr <= MLA_MAX_ROPE_DIM:
+        raise ValueError(f"rope dim {dr}: need a multiple of 8 in "
+                         f"[8, {MLA_MAX_ROPE_DIM}]")
+    ts = (q_lat, q_rope, ckv_pool, krope_pool)
+    if q_lat.dtype not in _DTYPES or any(t.dtype != q_lat.dtype for t in ts):
+        raise TypeError(f"dtypes {[str(t.dtype) for t in ts]}: need "
+                        "matching float32 or bfloat16")
+    if table.dtype != torch.int32 or pos.dtype != torch.int32:
+        raise TypeError("table and pos must be int32")
+    if table.dim() != 2 or table.shape[0] != b or pos.shape != (b,):
+        raise ValueError(f"table {tuple(table.shape)} / pos "
+                         f"{tuple(pos.shape)} do not match {b} slots")
+    for name, t in (("q_lat", q_lat), ("q_rope", q_rope),
+                    ("ckv_pool", ckv_pool), ("krope_pool", krope_pool),
+                    ("table", table), ("pos", pos)):
+        if t.device != q_lat.device:
+            raise ValueError(f"{name} is on {t.device}, q_lat on "
+                             f"{q_lat.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+
+
+def paged_mla_decode_attention(q_lat, q_rope, ckv_pool, krope_pool, table,
+                               pos, *, page_size, scale):
+    """Absorbed MLA decode over paged latent pools.  q_lat: (B, 1, H, Rkv)
+    (q_nope already absorbed through wk_b); q_rope: (B, 1, H, Dr); pools:
+    (P, page_size, Rkv) / (P, page_size, Dr); table: (B, pages_per_slot)
+    int32 (page 0 = garbage page); pos: (B,) int32.  Returns the attended
+    latent (B, 1, H, Rkv) in q_lat's dtype; the caller applies wv_b."""
+    if q_lat.device.type == "cpu":
+        return paged_mla_decode_attention_ref(
+            q_lat, q_rope, ckv_pool, krope_pool, table, pos,
+            page_size=page_size, scale=scale)
+    if q_lat.device.type != "cuda":
+        raise RuntimeError(f"paged_mla_decode_attention: no kernel for "
+                           f"device {q_lat.device}")
+    _check_mla(q_lat, q_rope, ckv_pool, krope_pool, table, pos, page_size)
+    b, _, h, rkv = q_lat.shape
+    out = torch.empty_like(q_lat)
+    fn = mla_library().repro_paged_mla_decode
+    err = fn(_DTYPES[q_lat.dtype], q_lat.data_ptr(), q_rope.data_ptr(),
+             ckv_pool.data_ptr(), krope_pool.data_ptr(), table.data_ptr(),
+             pos.data_ptr(), out.data_ptr(), b, h, rkv, q_rope.shape[3],
+             table.shape[1], page_size, float(scale),
+             torch.cuda.current_stream(q_lat.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"paged_mla_decode kernel launch failed: CUDA "
+                           f"error {err}")
+    paged_mla_decode_attention.launches.add()
+    return out
+
+
+paged_mla_decode_attention.launches = LaunchCounter()

@@ -1,8 +1,8 @@
-"""Plain PyTorch version of the paged decode kernel: gather the pages
-dense (the copy the kernel avoids) and attend with a masked f32 softmax —
-the semantics of ``repro/kernels/paged_attention/ref.py``.  The CPU path
-of :func:`..ops.paged_decode_attention` and the kernel's oracle on the
-card."""
+"""Plain PyTorch versions of the paged decode kernels (GQA and absorbed
+MLA): gather the pages dense (the copy the kernels avoid) and attend with
+a masked f32 softmax — the semantics of
+``repro/kernels/paged_attention/ref.py``.  The CPU paths of the wrappers
+in :mod:`.ops` and the kernels' oracles on the card."""
 from __future__ import annotations
 
 import torch
@@ -38,3 +38,23 @@ def paged_decode_attention_ref(q, k_pool, v_pool, table, pos, *,
     out = torch.einsum("bhqk,bkhd->bqhd", probs, vd.float())
     any_valid = ok.any(dim=1)[:, None, None, None]
     return torch.where(any_valid, out, 0.0).to(q.dtype)
+
+
+def paged_mla_decode_attention_ref(q_lat, q_rope, ckv_pool, krope_pool,
+                                   table, pos, *, page_size, scale):
+    """Same signature/layout as ``ops.paged_mla_decode_attention``: gather
+    the latent pages dense, score ``q_lat . ckv + q_rope . krope`` in f32,
+    masked softmax, attend over the latent itself (the absorbed form's V
+    is its K).  A row with no valid position gives zeros."""
+    cd = _gather(ckv_pool, table, page_size)    # (B, T, Rkv)
+    kd = _gather(krope_pool, table, page_size)  # (B, T, Dr)
+    scores = (torch.einsum("bshr,btr->bhst", q_lat.float(), cd.float())
+              + torch.einsum("bshr,btr->bhst", q_rope.float(),
+                             kd.float())) * scale
+    ok = (torch.arange(cd.shape[1], device=q_lat.device)[None, :]
+          <= pos.long()[:, None])
+    scores = torch.where(ok[:, None, None, :], scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    lat = torch.einsum("bhst,btr->bshr", probs, cd.float())
+    any_valid = ok.any(dim=1)[:, None, None, None]
+    return torch.where(any_valid, lat, 0.0).to(q_lat.dtype)

@@ -1,7 +1,11 @@
 """Serving driver — thin CLI over the port's continuous-batching engine.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --tiny --paged-kernel
-    PYTHONPATH=src python -m repro_torch.launch.serve --tiny --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --tiny --device cpu \
+        --arch minicpm3-4b --paged-kernel
+
+``--arch`` picks a ported family: qwen2.5-14b (GQA, the default),
+minicpm3-4b (MLA) or mamba2-780m (SSD).
 
 The flags and the one JSON line (same keys) of ``repro.launch.serve``,
 plus ``--device {cuda,cpu}`` (default ``cuda``; ``cuda`` without a card

@@ -1,12 +1,13 @@
-"""GQA attention (PyTorch port of the GQA half of
-``repro/models/attention.py``).
+"""GQA and MLA attention (PyTorch port of ``repro/models/attention.py``).
 
 Three paths, as in the reference: ``full`` (materialised scores, train),
 ``qchunk`` (a loop over query chunks, prefill) and ``decode`` (one query
 token per slot against a dense or paged cache).  On the paged decode leg
-with ``pages["kernel"]`` set, attention runs in the hand-written CUDA
-kernel (``repro_torch.kernels.paged_decode_attention``), which reads the
-pages in place through the block table.
+with ``pages["kernel"]`` set, attention runs in a hand-written CUDA
+kernel that reads the pages in place through the block table:
+``paged_decode_attention`` for GQA, ``paged_mla_decode_attention`` for
+MLA's absorbed form (latent pools ``ckv``/``krope``, ``wv_b`` applied
+outside).
 
 Caches are updated in place: a decode step writes the new token's K/V
 into the pool it was given and returns the same tensors (the shape/dtype
@@ -14,14 +15,14 @@ contract of ``layers.check_cache_invariant``).  The cast points of the
 reference are kept, because bf16 equality depends on them: probabilities
 are cast to q's dtype before the PV product, decode divides by the
 softmax sum after the bf16 PV product, and weights are cast to the
-activation dtype at each use.  MLA and the verify / prefill_chunk modes
-belong to later slices and raise.
+activation dtype at each use.  The verify / prefill_chunk modes belong to
+a later slice and raise.
 """
 from __future__ import annotations
 
 import torch
 
-from ..kernels import paged_decode_attention
+from ..kernels import paged_decode_attention, paged_mla_decode_attention
 from .layers import apply_rope, page_gather, page_scatter, rms_norm
 
 NEG_INF = -1e30
@@ -248,4 +249,126 @@ def gqa_apply(x, p, cfg, spec, *, mode, pos, cache=None, cache_len=None,
             raise ValueError(f"unknown mode {mode!r}")
 
     out = out.reshape(b, s, h * dh) @ p["wo"].to(dt)
+    return out, new_cache
+
+
+# ====================================================================== MLA
+def mla_param_shapes(cfg):
+    """name -> (shape, init kind), the reference's layout."""
+    d, h = cfg.d_model, cfg.n_heads
+    rq, rkv = cfg.q_lora_rank, cfg.kv_lora_rank
+    dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    return {
+        "ln": ((d,), "ones"),
+        "wq_a": ((d, rq), "normal"),
+        "q_ln": ((rq,), "ones"),
+        "wq_b": ((rq, h * (dn + dr)), "normal"),
+        "wkv_a": ((d, rkv + dr), "normal"),
+        "kv_ln": ((rkv,), "ones"),
+        "wk_b": ((rkv, h * dn), "normal"),
+        "wv_b": ((rkv, h * dv), "normal"),
+        "wo": ((h * dv, d), "normal"),
+    }
+
+
+def mla_cache_shapes(cfg, spec, batch, seq):
+    del spec
+    return {"ckv": (batch, seq, cfg.kv_lora_rank),
+            "krope": (batch, seq, cfg.qk_rope_dim)}
+
+
+def _mla_q(xn, p, cfg, dt):
+    b, s, _ = xn.shape
+    h, dn, dr = cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim
+    qa = rms_norm(xn @ p["wq_a"].to(dt), p["q_ln"], cfg.norm_eps)
+    q = (qa @ p["wq_b"].to(dt)).view(b, s, h, dn + dr)
+    return q[..., :dn], q[..., dn:]          # q_nope, q_rope
+
+
+def mla_apply(x, p, cfg, spec, *, mode, pos, cache=None, cache_len=None,
+              pages=None):
+    """x: (B,S,D) -> (out, new_cache or None).  Decode runs the absorbed
+    form (scores in the latent space, against the ``ckv``/``krope``
+    caches, dense or paged); train and prefill the non-absorbed form
+    (q/k dim nope + rope, v dim ``v_head_dim``) at the explicit scale
+    ``(nope + rope)^-1/2``."""
+    if mode in ("verify", "prefill_chunk"):
+        raise NotImplementedError(
+            f"mla_apply mode {mode!r} is not ported yet (ROADMAP.md queue 1, "
+            "item 5: serve features past the main path)")
+    b, s, _ = x.shape
+    h = cfg.n_heads
+    rkv, dn, dr, dv = (cfg.kv_lora_rank, cfg.qk_nope_dim, cfg.qk_rope_dim,
+                       cfg.v_head_dim)
+    dt = x.dtype
+    scale = (dn + dr) ** -0.5
+    xn = rms_norm(x, p["ln"], cfg.norm_eps)
+
+    q_nope, q_rope = _mla_q(xn, p, cfg, dt)
+    kva = xn @ p["wkv_a"].to(dt)
+    ckv = rms_norm(kva[..., :rkv], p["kv_ln"], cfg.norm_eps)   # (B,S,rkv)
+    k_rope = kva[..., rkv:]                                    # (B,S,dr)
+
+    if mode == "decode":
+        pos = torch.as_tensor(pos, device=x.device)
+        per_slot = pos.dim() == 1
+        rp = pos[:, None] if per_slot else pos             # (B,1) | scalar
+        q_rope = apply_rope(q_rope, rp, cfg.rope_theta)
+        k_rope = apply_rope(k_rope[:, :, None, :], rp,
+                            cfg.rope_theta)[:, :, 0, :]
+        cc, kr = cache["ckv"], cache["krope"]
+        fused = paged_leaf(pages, None) and pages.get("kernel")
+        if paged_leaf(pages, None):
+            table, ps = pages["table"], pages["page_size"]
+            page_scatter(cc, table, ps, pos, ckv)
+            page_scatter(kr, table, ps, pos, k_rope)
+            if not fused:
+                cd, kd = page_gather(cc, table, ps), page_gather(kr, table,
+                                                                 ps)
+        else:
+            _cache_update(cc, ckv, pos)
+            _cache_update(kr, k_rope, pos)
+            cd, kd = cc, kr
+        wk_b = p["wk_b"].to(dt).view(rkv, h, dn)
+        # absorb q_nope through wk_b: (B,1,H,rkv)
+        q_lat = torch.einsum("bshn,rhn->bshr", q_nope, wk_b)
+        if fused:
+            pv = pos if per_slot else pos.expand(b)
+            lat = paged_mla_decode_attention(
+                q_lat.contiguous(), q_rope.contiguous(), cc, kr,
+                table.int(), pv.int(), page_size=ps, scale=scale)
+        else:
+            scores = (torch.einsum("bshr,btr->bhst", q_lat, cd)
+                      + torch.einsum("bshr,btr->bhst", q_rope, kd))
+            scores = scores.float() * scale
+            valid = torch.arange(cd.shape[1], device=x.device) <= rp
+            mb = torch.where(valid, 0.0, NEG_INF).float()   # (B,T) | (T,)
+            scores = scores + (mb[:, None, None, :] if per_slot
+                               else mb[None, None, None, :])
+            probs = torch.softmax(scores, dim=-1).to(dt)
+            lat = torch.einsum("bhst,btr->bshr", probs, cd)  # (B,1,H,rkv)
+        out = torch.einsum("bshr,rhv->bshv", lat,
+                           p["wv_b"].to(dt).view(rkv, h, dv))
+        new_cache = {"ckv": cc, "krope": kr}
+    elif mode in ("train", "prefill"):
+        positions = pos + torch.arange(s, device=x.device)
+        q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+        k_rope = apply_rope(k_rope[:, :, None, :], positions,
+                            cfg.rope_theta)[:, :, 0, :]
+        k_nope = (ckv @ p["wk_b"].to(dt)).view(b, s, h, dn)
+        vfull = (ckv @ p["wv_b"].to(dt)).view(b, s, h, dv)
+        q = torch.cat([q_nope, q_rope], dim=-1)
+        k = torch.cat([k_nope, k_rope[:, :, None, :].expand(b, s, h, dr)],
+                      dim=-1)
+        if mode == "prefill":
+            out = qchunk_attention(q, k, vfull, scale=scale)
+            new_cache = {"ckv": _pad_seq(ckv, cache_len),
+                         "krope": _pad_seq(k_rope, cache_len)}
+        else:
+            out = full_attention(q, k, vfull, scale=scale)
+            new_cache = None
+    else:
+        raise ValueError(f"unknown mode {mode!r}")
+
+    out = out.reshape(b, s, h * dv) @ p["wo"].to(dt)
     return out, new_cache

@@ -1,10 +1,11 @@
-"""Residual block = attention mixer + dense MLP (PyTorch port of
-``repro/models/blocks.py``).  SSM mixers, MLA and MoE belong to later
-slices and raise."""
+"""Residual block = mixer (GQA or MLA attention, or SSD) + MLP (dense or
+none) (PyTorch port of ``repro/models/blocks.py``).  MoE belongs to a
+later slice and raises."""
 from __future__ import annotations
 
 from . import attention as attn_mod
 from .layers import check_cache_invariant, mlp_dense, rms_norm
+from .ssm import ssm_apply, ssm_cache_shapes, ssm_param_shapes
 
 
 def _unported(what, item):
@@ -14,9 +15,10 @@ def _unported(what, item):
 
 def _mixer(spec):
     if spec.kind == "ssm":
-        _unported("the SSM mixer", 8)
+        return ssm_param_shapes, ssm_cache_shapes, ssm_apply
     if spec.attn == "mla":
-        _unported("MLA attention", 6)
+        return attn_mod.mla_param_shapes, attn_mod.mla_cache_shapes, \
+            attn_mod.mla_apply
     return attn_mod.gqa_param_shapes, attn_mod.gqa_cache_shapes, \
         attn_mod.gqa_apply
 

@@ -2,8 +2,8 @@
 ``repro/models/layers.py``).
 
 ``rms_norm`` is the kernel wrapper: the Triton kernel for CUDA tensors,
-the plain version for CPU ones.  Audio and vision frontends belong to
-later slices and raise.
+the plain version for CPU ones; ``gated_rms_norm`` goes through it too.
+Audio and vision frontends belong to later slices and raise.
 """
 from __future__ import annotations
 
@@ -15,9 +15,10 @@ import torch.nn.functional as F
 
 from ..kernels import rms_norm
 
-__all__ = ["rms_norm", "check_cache_invariant", "page_gather",
-           "page_scatter", "rope_freqs", "apply_rope", "mlp_dense",
-           "embed_tokens", "lm_logits", "tree_leaves", "tree_map"]
+__all__ = ["rms_norm", "gated_rms_norm", "check_cache_invariant",
+           "page_gather", "page_scatter", "rope_freqs", "apply_rope",
+           "mlp_dense", "embed_tokens", "lm_logits", "tree_leaves",
+           "tree_map"]
 
 
 def _frontend_unported(cfg):
@@ -25,6 +26,11 @@ def _frontend_unported(cfg):
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.frontend!r} frontend is not ported yet "
             "(ROADMAP.md queue 1, item 7)")
+
+
+def gated_rms_norm(x, z, w, eps=1e-5):
+    """Mamba2-style norm: ``rms_norm(x * silu(z))``, the gate in f32."""
+    return rms_norm(x * F.silu(z.float()).to(x.dtype), w, eps)
 
 
 # --------------------------------------------------------- cache invariance

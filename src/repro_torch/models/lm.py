@@ -74,6 +74,15 @@ def _init_leaf(m: LeafMeta, cfg, generator, device, dtype):
         return torch.zeros(m.shape, dtype=dtype, device=device)
     if m.init == "ones":
         return torch.ones(m.shape, dtype=dtype, device=device)
+    if m.init in ("A_log", "dt_bias"):
+        h = m.shape[-1]
+        if m.init == "A_log":
+            base = np.log(np.linspace(1.0, 16.0, h, dtype=np.float32))
+        else:
+            dt0 = np.linspace(1e-3, 1e-1, h, dtype=np.float32)
+            base = np.log(np.expm1(dt0))
+        return torch.from_numpy(np.array(np.broadcast_to(base, m.shape))
+                                ).to(device=device, dtype=dtype)
     std = 0.02 / np.sqrt(2.0 * cfg.n_layers) if m.init == "normal_out" \
         else 0.02
     out = torch.empty(m.shape, dtype=dtype, device=device)
@@ -87,7 +96,8 @@ def _init_leaf(m: LeafMeta, cfg, generator, device, dtype):
 def init_params(cfg, generator: torch.Generator, device="cuda",
                 dtype=None):
     """Seeded weights in the reference's layout and init kinds (normal
-    0.02, ``normal_out``, zeros for the QKV biases, ones for the norms),
+    0.02, ``normal_out``, zeros for the QKV biases, ones for the norms,
+    the SSM's fixed ``A_log`` and ``dt_bias`` ramps),
     made directly on ``device`` one leaf at a time.  ``dtype`` defaults
     to ``cfg.dtype``.  ``torch.Generator`` and ``jax.random`` give
     different numbers from one seed: tests that compare with the

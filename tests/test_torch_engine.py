@@ -1,5 +1,6 @@
-"""The port's ServeEngine on the UMT runtime (CPU, tiny qwen2.5-14b,
-f32): engine tokens equal the port's one-shot tokens exactly under
+"""The port's ServeEngine on the UMT runtime (CPU, f32, the tiny configs
+of qwen2.5-14b, minicpm3-4b and mamba2-780m): engine tokens equal the
+port's one-shot tokens exactly under
 seeded random arrivals and slot churn (the ``tests/test_serve_engine.py``
 pattern), on UMT and on the baseline runtime; they equal the reference
 ``repro.serve.ServeEngine``'s tokens on the same weights; ``stats()``
@@ -30,9 +31,12 @@ N_REQ, PLEN, GEN_MAX = 6, 8, 6
 CACHE_LEN = 16
 
 
-@pytest.fixture(scope="module")
-def built():
-    cfg = get("qwen2.5-14b").tiny()
+ARCHS = ["qwen2.5-14b", "minicpm3-4b", "mamba2-780m"]
+
+
+@pytest.fixture(scope="module", params=ARCHS)
+def built(request):
+    cfg = get(request.param).tiny()
     jp = jax_init_params(cfg, jax.random.PRNGKey(0))
     params = params_from_numpy(jax.tree.map(np.asarray, jp), cfg, "cpu")
     prompts = np.random.default_rng(1).integers(
@@ -171,11 +175,13 @@ def _reference_json_keys():
     return re.findall(r'^\s+"(\w+)":', '\n    ' + block, re.M)
 
 
-def test_cli_prints_the_reference_json_line():
+@pytest.mark.parametrize("arch", ARCHS)
+def test_cli_prints_the_reference_json_line(arch):
     out = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.serve", "--tiny",
-         "--device", "cpu", "--paged-kernel", "--batch", "2", "--requests",
-         "3", "--prompt-len", "8", "--gen", "4", "--cores", "3"],
+         "--arch", arch, "--device", "cpu", "--paged-kernel", "--batch", "2",
+         "--requests", "3", "--prompt-len", "8", "--gen", "4", "--cores",
+         "3"],
         capture_output=True, text=True, timeout=120, cwd=ROOT,
         env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
         check=True)
@@ -184,3 +190,4 @@ def test_cli_prints_the_reference_json_line():
     row = json.loads(lines[0])
     assert list(row) == _reference_json_keys()
     assert row["paged_kernel"] is True and row["generated_shape"] == [3, 4]
+    assert row["arch"] == f"{arch}-tiny"

@@ -65,13 +65,57 @@ def test_cuda_is_the_default_and_raises_without_a_card():
     assert resolve_device("cpu").type == "cpu"
 
 
+# The one change a copy carries: the port's runtime repairs the race in
+# which ``shutdown`` joins a worker the leader has spawned but not yet
+# started (``tests/test_torch_runtime.py``).  (original, repaired) pairs.
+RUNTIME_FIX = [
+    ("""        self._workers: list[Worker] = []
+""",
+     """        self._workers: list[Worker] = []
+        self._spawn_lock = threading.Lock()       # spawn vs shutdown
+"""),
+    ("""        self.wait_all()
+        self.running = False
+""",
+     """        self.wait_all()
+        with self._spawn_lock:      # no spawn once running is false
+            self.running = False
+"""),
+    ("""    def _spawn(self, core: int) -> Worker:
+        w = Worker(self, core)
+        self._workers.append(w)
+        self.stats_extra["spawned"] += 1
+        w.start()
+        return w
+""",
+     """    def _spawn(self, core: int) -> Worker | None:
+        \"\"\"Start a worker on ``core``; None once shut down.  A worker
+        joins ``_workers`` only after ``start()``, under the lock that
+        ``shutdown`` holds to clear ``running``, so shutdown never joins
+        a worker that was not started.\"\"\"
+        with self._spawn_lock:
+            if not self.running:
+                return None
+            w = Worker(self, core)
+            w.start()
+            self._workers.append(w)
+            self.stats_extra["spawned"] += 1
+        return w
+"""),
+]
+
+
 @pytest.mark.parametrize("rel", [str(p) for p in COPIES])
 def test_copies_equal_their_originals(rel):
     """Each copy equals its original once the package path is replaced
     (``repro.`` -> ``repro_torch.``); the request module may differ only
-    in its import of ``core``."""
+    in its import of ``core``, the runtime only by ``RUNTIME_FIX``."""
     orig = re.sub(r"\brepro\.", "repro_torch.", (REF / rel).read_text())
     copy = (PORT / rel).read_text()
+    if rel == str(Path("core/runtime.py")):
+        for old, new in RUNTIME_FIX:
+            assert orig.count(old) == 1, old
+            orig = orig.replace(old, new)
     if rel == str(Path("serve/request.py")):
         def strip(s):
             return [ln for ln in s.splitlines()

@@ -4,20 +4,25 @@ On the CPU the port's wrappers take their plain PyTorch versions; those
 are held against the reference's Pallas kernels run in interpret mode
 (``repro.kernels``) on the grids of ``tests/test_kernels.py``.  The
 ``gpu`` cases hold each hand-written kernel against its plain version on
-the card at the same grids plus the qwen2.5-14b shapes; they skip here.
+the card at the same grids plus the main paths' shapes (qwen2.5-14b,
+minicpm3-4b, mamba2-780m); they skip here.
 
 Tolerances: the reference's own (rtol = atol = 2e-5 in f32, 2e-2 in
-bf16, ``tests/test_kernels.py:15-17``) — the two sides sum in different
-orders (XLA:CPU vs PyTorch, or the kernel's online softmax vs the plain
-version's one-pass softmax), and bf16 outputs may round one ulp apart.
+bf16, ``tests/test_kernels.py:15-17``; for the SSD scan 1e-4 and 4e-2,
+``:220-221``) — the two sides sum in different orders (XLA:CPU vs
+PyTorch, or a kernel's online softmax vs the plain version's one-pass
+softmax, or the SSD kernel's f32 sums vs the plain version's bf16
+intermediates), and bf16 outputs may round one ulp apart.
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.kernels import (paged_decode_attention,
-                                 paged_decode_attention_ref, rms_norm,
-                                 rms_norm_ref)
+                                 paged_decode_attention_ref,
+                                 paged_mla_decode_attention,
+                                 paged_mla_decode_attention_ref, rms_norm,
+                                 rms_norm_ref, ssd_scan, ssd_scan_ref)
 
 TOL = {"float32": dict(rtol=2e-5, atol=2e-5),
        "bfloat16": dict(rtol=2e-2, atol=2e-2)}
@@ -27,6 +32,15 @@ GRID = [(2, 4, 4, 32, 16, 4),         # MHA
         (2, 6, 3, 16, 12, 1),         # page_size 1
         (1, 2, 2, 32, 8, 8)]          # single page covers the cache
 RMS_SHAPES = [(128, 256), (4, 32, 512), (1, 64)]
+MLA_GRID = [(2, 4, 32, 16, 16, 4),    # tests/test_kernels.py:140-144
+            (3, 2, 16, 8, 12, 1),     # page_size 1
+            (1, 8, 64, 32, 8, 8)]     # single page
+MLA_SHAPE = (16, 40, 256, 32, 2080, 8)   # minicpm3-4b decode
+SSD_GRID = [(1, 128, 2, 64, 32, 32),  # tests/test_kernels.py:205-209
+            (2, 256, 4, 32, 64, 64),
+            (1, 64, 1, 16, 16, 64)]   # single chunk
+SSD_TOL = {"float32": dict(rtol=1e-4, atol=1e-4),
+           "bfloat16": dict(rtol=4e-2, atol=4e-2)}
 
 
 @pytest.fixture(scope="module")
@@ -38,6 +52,16 @@ def ref():
 
     from repro.kernels import paged_decode_attention, rms_norm
     return jnp, paged_decode_attention, rms_norm
+
+
+@pytest.fixture(scope="module")
+def jref():
+    """The reference's MLA and SSD kernels (imported here, as above)."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.kernels import paged_mla_decode_attention, ssd_scan
+    return jax, jnp, paged_mla_decode_attention, ssd_scan
 
 
 @pytest.fixture
@@ -162,6 +186,142 @@ def test_rms_norm_plain_matches_pallas(shape, dtype, ref):
     _close(got.float(), np.asarray(want.astype(jnp.float32)), dtype)
 
 
+def _mla_inputs(b, h, rkv, dr, cache_len, ps, seed, pos=None,
+                garbage_rest=True):
+    rng = np.random.default_rng(seed)
+    if pos is None:
+        pos = rng.integers(0, cache_len, b)
+        pos[-1] = cache_len - 1
+    pos = np.asarray(pos, np.int32)
+    table, num_pages = _table(b, cache_len, ps, pos, garbage_rest)
+    return (rng.standard_normal((b, 1, h, rkv), np.float32),
+            rng.standard_normal((b, 1, h, dr), np.float32),
+            rng.standard_normal((num_pages, ps, rkv), np.float32),
+            rng.standard_normal((num_pages, ps, dr), np.float32),
+            table, pos)
+
+
+def _mla_torch(inputs, dtype, device="cpu"):
+    return ([_to_torch(x, dtype, device) for x in inputs[:4]]
+            + [torch.tensor(inputs[4], device=device),
+               torch.tensor(inputs[5], device=device)])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,h,rkv,dr,cache_len,ps",
+                         MLA_GRID + [(2, 40, 256, 32, 24, 8)])
+def test_paged_mla_plain_matches_pallas(b, h, rkv, dr, cache_len, ps,
+                                        dtype, jref):
+    _, jnp, jax_mla, _ = jref
+    inputs = _mla_inputs(b, h, rkv, dr, cache_len, ps, seed=9)
+    scale = (rkv + dr) ** -0.5
+    want = jax_mla(*(jnp.asarray(x).astype(dtype) for x in inputs[:4]),
+                   jnp.asarray(inputs[4]), jnp.asarray(inputs[5]),
+                   page_size=ps, scale=scale, interpret=True)
+    got = paged_mla_decode_attention(*_mla_torch(inputs, dtype),
+                                     page_size=ps, scale=scale)
+    assert tuple(got.shape) == (b, 1, h, rkv) and got.dtype == getattr(
+        torch, dtype)
+    _close(got.float(), np.asarray(want.astype(jnp.float32)), dtype)
+
+
+def test_paged_mla_plain_garbage_and_future_pages(jref):
+    """The poisoned garbage page never leaks; pages allocated past pos are
+    masked (the reference's GQA edge cases, on the latent pools)."""
+    _, jnp, jax_mla, _ = jref
+    inputs = _mla_inputs(3, 4, 32, 16, 16, 4, seed=10, pos=[0, 5, 15])
+    args = _mla_torch(inputs, "float32")
+    clean = paged_mla_decode_attention(*args, page_size=4, scale=0.2)
+    args[2][0], args[3][0] = 1e4, 1e4
+    poisoned = paged_mla_decode_attention(*args, page_size=4, scale=0.2)
+    assert torch.equal(clean, poisoned) and torch.isfinite(poisoned).all()
+    inputs = _mla_inputs(2, 2, 16, 8, 16, 4, seed=11, pos=[2, 9],
+                         garbage_rest=False)
+    want = jax_mla(*(jnp.asarray(x) for x in inputs), page_size=4,
+                   scale=0.2, interpret=True)
+    got = paged_mla_decode_attention(*_mla_torch(inputs, "float32"),
+                                     page_size=4, scale=0.2)
+    _close(got, np.asarray(want), "float32")
+
+
+def test_paged_mla_wrapper_takes_plain_only_on_cpu():
+    args = _mla_torch(_mla_inputs(2, 4, 32, 16, 16, 4, seed=3), "float32")
+    before = paged_mla_decode_attention.launches.value
+    out = paged_mla_decode_attention(*args, page_size=4, scale=0.2)
+    assert torch.equal(out, paged_mla_decode_attention_ref(
+        *args, page_size=4, scale=0.2))
+    assert paged_mla_decode_attention.launches.value == before
+    with pytest.raises(RuntimeError, match="no kernel"):
+        paged_mla_decode_attention(*[a.to("meta") for a in args],
+                                   page_size=4, scale=0.2)
+
+
+def _ssd_inputs(b, s, h, p, n, seed):
+    """tests/test_kernels.py:211-216 with numpy draws."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((b, s, h, p), np.float32)
+    dt = np.log1p(np.exp(rng.standard_normal((b, s, h)))) * 0.1
+    a = -np.exp(rng.standard_normal(h) * 0.3)
+    bmat = rng.standard_normal((b, s, h, n), np.float32) * 0.5
+    cmat = rng.standard_normal((b, s, h, n), np.float32) * 0.5
+    return x, dt.astype(np.float32), a.astype(np.float32), bmat, cmat
+
+
+def _ssd_torch(inputs, dtype, device="cpu"):
+    x, dt, a, bmat, cmat = inputs
+    return (_to_torch(x, dtype, device), torch.tensor(dt, device=device),
+            torch.tensor(a, device=device), _to_torch(bmat, dtype, device),
+            _to_torch(cmat, dtype, device))
+
+
+def _ssd_close(got, want, dtype):
+    np.testing.assert_allclose(np.asarray(got, np.float32),
+                               np.asarray(want, np.float32), **SSD_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,s,h,p,n,chunk", SSD_GRID)
+def test_ssd_plain_matches_pallas(b, s, h, p, n, chunk, dtype, jref):
+    _, jnp, _, jax_ssd = jref
+    inputs = _ssd_inputs(b, s, h, p, n, seed=4)
+    x, dt, a, bmat, cmat = inputs
+    y_j, h_j = jax_ssd(jnp.asarray(x).astype(dtype), jnp.asarray(dt),
+                       jnp.asarray(a), jnp.asarray(bmat).astype(dtype),
+                       jnp.asarray(cmat).astype(dtype), chunk=chunk,
+                       interpret=True)
+    y, hf = ssd_scan(*_ssd_torch(inputs, dtype), chunk=chunk)
+    assert y.dtype == getattr(torch, dtype) and hf.dtype == torch.float32
+    assert tuple(y.shape) == (b, s, h, p) and tuple(hf.shape) == (b, h, p, n)
+    _ssd_close(y.float(), y_j.astype(jnp.float32), dtype)
+    _ssd_close(hf, h_j, dtype)
+
+
+def test_ssd_plain_state_carries_across_chunks(jref):
+    """Chunk sizes 16, 32, 128 give the same scan (and the Pallas
+    kernel's), tests/test_kernels.py:224-243."""
+    _, jnp, _, jax_ssd = jref
+    inputs = _ssd_inputs(1, 128, 2, 32, 32, seed=5)
+    args = _ssd_torch(inputs, "float32")
+    outs = [ssd_scan(*args, chunk=c) for c in (16, 32, 128)]
+    for y, hf in outs[1:]:
+        _ssd_close(y, outs[0][0], "float32")
+        _ssd_close(hf, outs[0][1], "float32")
+    y_j, _ = jax_ssd(*(jnp.asarray(x) for x in inputs), chunk=16,
+                     interpret=True)
+    _ssd_close(outs[0][0], y_j, "float32")
+
+
+def test_ssd_wrapper_takes_plain_only_on_cpu():
+    args = _ssd_torch(_ssd_inputs(1, 64, 2, 16, 16, seed=3), "float32")
+    before = ssd_scan.launches.value
+    y, hf = ssd_scan(*args, chunk=16)
+    y_r, hf_r = ssd_scan_ref(*args, chunk=16)
+    assert torch.equal(y, y_r) and torch.equal(hf, hf_r)
+    assert ssd_scan.launches.value == before
+    with pytest.raises(RuntimeError, match="no kernel"):
+        ssd_scan(*[a.to("meta") for a in args], chunk=16)
+
+
 # --------------------------------------------- kernel vs plain (on the card)
 def _paged_case_cuda(shape, dtype, device, seed, **kw):
     q, kp, vp, table, pos = _paged_inputs(*shape, seed=seed, **kw)
@@ -224,3 +384,61 @@ def test_rms_norm_kernel_matches_plain(shape, dtype, cuda):
     torch.cuda.synchronize()
     assert rms_norm.launches.value == before + 1
     _close(got.float().cpu(), rms_norm_ref(x, w).float().cpu(), dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", MLA_GRID + [(3, 40, 256, 32, 40, 8),
+                                              MLA_SHAPE])
+def test_paged_mla_kernel_matches_plain(shape, dtype, cuda):
+    ps = shape[-1]
+    args = _mla_torch(_mla_inputs(*shape, seed=1), dtype, cuda)
+    scale = (64 + 32) ** -0.5
+    before = paged_mla_decode_attention.launches.value
+    got = paged_mla_decode_attention(*args, page_size=ps, scale=scale)
+    torch.cuda.synchronize()
+    assert paged_mla_decode_attention.launches.value == before + 1
+    want = paged_mla_decode_attention_ref(*args, page_size=ps, scale=scale)
+    _close(got.float().cpu(), want.float().cpu(), dtype)
+
+
+@pytest.mark.gpu
+def test_paged_mla_kernel_garbage_and_future_pages(cuda):
+    args = _mla_torch(_mla_inputs(3, 4, 32, 16, 16, 4, seed=10,
+                                  pos=[0, 5, 15]), "float32", cuda)
+    clean = paged_mla_decode_attention(*args, page_size=4, scale=0.2)
+    args[2][0], args[3][0] = 1e4, 1e4
+    poisoned = paged_mla_decode_attention(*args, page_size=4, scale=0.2)
+    assert torch.equal(clean, poisoned) and torch.isfinite(poisoned).all()
+    args = _mla_torch(_mla_inputs(2, 2, 16, 8, 16, 4, seed=11, pos=[2, 9],
+                                  garbage_rest=False), "float32", cuda)
+    _close(paged_mla_decode_attention(*args, page_size=4, scale=0.2).cpu(),
+           paged_mla_decode_attention_ref(*args, page_size=4,
+                                          scale=0.2).cpu(), "float32")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", SSD_GRID + [(1, 2048, 48, 64, 128, 256)])
+def test_ssd_kernel_matches_plain(shape, dtype, cuda):
+    *dims, chunk = shape
+    args = _ssd_torch(_ssd_inputs(*dims, seed=4), dtype, cuda)
+    before = ssd_scan.launches.value
+    y, hf = ssd_scan(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ssd_scan.launches.value == before + 1
+    y_r, hf_r = ssd_scan_ref(*args, chunk=chunk)
+    _ssd_close(y.float().cpu(), y_r.float().cpu(), dtype)
+    _ssd_close(hf.cpu(), hf_r.float().cpu(), dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s,chunk", [(100, 32), (300, 256), (7, 4)])
+def test_ssd_kernel_partial_last_chunk(s, chunk, cuda):
+    """A short last chunk adds nothing past S: the kernel at ``chunk``
+    equals the plain version over one chunk of all S positions."""
+    args = _ssd_torch(_ssd_inputs(2, s, 3, 64, 128, seed=6), "float32", cuda)
+    y, hf = ssd_scan(*args, chunk=chunk)
+    y_r, hf_r = ssd_scan_ref(*args, chunk=s)
+    _ssd_close(y.cpu(), y_r.cpu(), "float32")
+    _ssd_close(hf.cpu(), hf_r.cpu(), "float32")

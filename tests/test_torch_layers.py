@@ -34,6 +34,19 @@ def test_rms_norm_matches_jax():
            J.rms_norm(jnp.asarray(x), jnp.asarray(w), 1e-5))
 
 
+def test_gated_rms_norm_matches_jax():
+    """Mamba2's norm, rms_norm(x * silu(z)), at mamba2-780m's tiny inner
+    width; the gate runs in f32 on both sides."""
+    r = _rng(7)
+    x = r.standard_normal((2, 5, 128), np.float32)
+    z = r.standard_normal((2, 5, 128), np.float32)
+    w = r.standard_normal(128, np.float32) * 0.1 + 1.0
+    _close(T.gated_rms_norm(torch.tensor(x), torch.tensor(z),
+                            torch.tensor(w), 1e-5),
+           J.gated_rms_norm(jnp.asarray(x), jnp.asarray(z), jnp.asarray(w),
+                            1e-5))
+
+
 @pytest.mark.parametrize("pos_kind", ["scalar", "seq", "per_slot"])
 def test_apply_rope_matches_jax(pos_kind):
     x = _rng().standard_normal((3, 4, 2, 16), np.float32)

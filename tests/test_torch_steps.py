@@ -1,8 +1,10 @@
 """The reference's serve-step bars (``tests/test_serve_steps.py``) held
-inside the port, on the CPU with the kernels' plain versions: paged
-decode gives the dense decode's tokens, any slot schedule gives the
-one-shot tokens, page_size 1 works, and the insert/decode steps keep
-every cache leaf's shape and dtype (the in-place update contract)."""
+inside the port, on the CPU with the kernels' plain versions, for each
+ported family (GQA, MLA, SSD): paged decode gives the dense decode's
+tokens, any slot schedule gives the one-shot tokens, page_size 1 works,
+and the insert/decode steps keep every cache leaf's shape and dtype (the
+in-place update contract).  The SSM's conv and state leaves stay dense
+per slot under a paged engine, so its paged legs exercise exactly that."""
 import numpy as np
 import pytest
 import torch
@@ -20,9 +22,10 @@ SLOTS, PLEN, GEN = 3, 8, 4
 CACHE_LEN = PLEN + GEN
 
 
-@pytest.fixture(scope="module")
-def built():
-    cfg = get("qwen2.5-14b").tiny()
+@pytest.fixture(scope="module",
+                params=["qwen2.5-14b", "minicpm3-4b", "mamba2-780m"])
+def built(request):
+    cfg = get(request.param).tiny()
     params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     prompts = torch.tensor(np.random.default_rng(1).integers(
         0, cfg.vocab, (SLOTS, PLEN)).astype(np.int32))
