@@ -9,34 +9,47 @@ Phases (each raises on failure, so the script exits non-zero):
 
 1. card   — requires ``torch.cuda.is_available()``; prints
    ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``.
-2. build  — builds the three CUDA libraries from ``src/repro_torch/csrc``
+2. build  — builds the four CUDA libraries from ``src/repro_torch/csrc``
    with ``nvcc`` (sm_90a), one ``nvcc`` per source, all started together,
    then the Triton kernel; prints the seconds and ``ptxas``' register and
    spill lines.
 3. kernels — each kernel's wrapper against its plain PyTorch version on
    the card: paged GQA decode at qwen2.5-14b decode shapes, paged MLA
    decode at minicpm3-4b's, the SSD scan at mamba2-780m's prefill shapes
-   (batch 1 and 16), RMSNorm, each with the edge cases of the reference's
+   (batch 1 and 16), flash attention at qwen2.5-14b's and mixtral-8x7b's
+   prefill shapes, RMSNorm, each with the edge cases of the reference's
    kernel tests; then CUDA-event times of kernel, plain version and one
    PyTorch library call where there is one, beside the least time the
    card could take (``bound_ms``).
 4. serve  — the port's main paths at full width, one after the other,
    each behind ``repro_torch.serve.ServeEngine`` on the UMT runtime with
    seeded bf16 weights made on the card by the engine's weights task:
-   qwen2.5-14b (paged, ``paged_kernel=True``), minicpm3-4b (MLA, paged,
-   ``paged_kernel=True``) and mamba2-780m (SSD, ``page_size="auto"``).
-   Each takes 32 requests with prompt lengths from {256, 512, 1024, 2048},
-   32 tokens each, staggered arrivals, 16 slots.  Launch counters are
-   zeroed right before each phase and read right after; each phase's
-   identities are checked.  Then the teacher-forced checks: one forward
-   of the port over prompt + emitted tokens must put each emitted token at
-   (or within ``LOGIT_TOL`` of) its argmax, and the engine's step path fed
-   the same tokens must give that forward's logits within ``REL_TOL`` at
-   every position — while each fault planted in that path (``PLANTED``)
-   must fail both checks.  mamba2's forward of the checks runs the plain
-   SSD scan, so a fault of the kernel cannot sit on both sides, and its
-   conv weights are scaled up (``SSM_CONV_W_GAIN``, the reason beside it)
-   so that a fault of the scan or state can show at all.
+   qwen2.5-14b (paged, ``paged_kernel=True``, flash prefill), minicpm3-4b
+   (MLA, paged, ``paged_kernel=True``), mamba2-780m (SSD,
+   ``page_size="auto"``) at full depth, each with 32 requests with prompt
+   lengths from {256, 512, 1024, 2048} and 16 slots; then mixtral-8x7b
+   (MoE, sliding-window rings, flash prefill) at 16 of its 32 layers (the
+   whole model does not fit one card), 16 requests, each prompt length of
+   {1024, 2048, 6144, 8192} four times, 8 slots.  32 tokens each,
+   staggered arrivals.  Launch counters are zeroed right before each
+   phase and read right after; each phase's identities are checked.  Then
+   the teacher-forced checks: one forward of the port over prompt +
+   emitted tokens must put each emitted token at (or within ``LOGIT_TOL``
+   of) its argmax, and the engine's step path fed the same tokens must
+   give that forward's logits within ``REL_TOL`` at every position —
+   while each fault planted in that path (``PLANTED``) must fail both
+   checks.  The forward of the checks runs plain attention
+   (``full_attention`` with the true window mask) and mamba2's the plain
+   SSD scan, so a fault of a kernel or of the ring cannot sit on both
+   sides; mamba2's conv weights are scaled up (``SSM_CONV_W_GAIN``, the
+   reason beside it) so that a fault of the scan or state can show at
+   all; mixtral's forward takes the expert ids the step path picked (the
+   reason is in ``serve``) and computes everything else itself, while
+   the route check holds those ids to the forward's own wherever its
+   choice is clear (``ROUTE_MARGIN``, ``ROUTE_MARGIN_FIRST``), and the
+   registry's capacity MoE dispatch, which the phase does not serve, is
+   held at mixtral's layer shape against its rule
+   (``check_capacity_dispatch``).
 5. summary — one ``kernels`` JSON line, then the ``ok`` line.
 
 Nothing of JAX or of the ``repro`` package is imported.
@@ -66,6 +79,17 @@ TOL = {"float32": dict(rtol=2e-5, atol=2e-5),
        "bfloat16": dict(rtol=2e-2, atol=2e-2)}
 SSD_TOL = {"float32": dict(rtol=1e-4, atol=1e-4),
            "bfloat16": dict(rtol=4e-2, atol=4e-2)}
+# Flash attention in bf16, row by row: the error of each (b, s, h) output
+# row over that row's norm.  TOL's bf16 2e-2 is as large as a typical
+# output value of a row that attends over thousands of keys (about
+# sqrt(e / n) for N(0, 1) inputs: 0.026 at mixtral's window of 4096), so
+# at the serve shapes it could not see a key tile left out.  The kernel's
+# own error is bf16 rounding (P before the P.V product, the output), a
+# few 1e-3 of a row's norm; a row missing one 64-key tile of 4096 is off
+# by about 0.12.  Bounds: the RMS over rows and the worst row.  The
+# capacity MoE dispatch is held to the same row bounds
+# (``check_capacity_dispatch``).
+ROW_TOL = dict(rms=1e-2, worst=5e-2)
 # Token check: an emitted token may trail the teacher-forced forward's
 # argmax by at most this many logit units.  The engine's tokens come from
 # a qchunk prefill plus paged-kernel decode ticks (f32 softmax inside the
@@ -86,15 +110,41 @@ REL_TOL = 0.3
 # Faults planted in each phase's path as controls: each must fail both
 # the token check and the logit check, or the checks prove nothing.  The
 # SSD faults act in the prefill (the scan and the state it hands over) or
-# in the decode recurrence; the attention faults in the decode tick.
+# in the decode recurrence; the paged attention faults in the decode
+# tick; mixtral's in the flash prefill (query head h reads kv head
+# h % Hkv), in the MoE (the second pick's weight dropped, prefill and
+# decode) and in the ring a prefill hands decode (the reference's
+# placement: the last ``ring`` positions unrolled, wrong for a prompt past
+# the window and no multiple of it — 6144 here).
 PLANTED = {
     "qwen2.5-14b": ("rope_pos_plus_1", "kv_group_order", "slot_pos_rolled",
                     "newest_kv_left_out"),
     "minicpm3-4b": ("rope_pos_plus_1", "slot_pos_rolled",
                     "newest_kv_left_out", "q_rope_next_head"),
     "mamba2-780m": ("state_not_handed", "dt_one_late", "conv_tail_rolled"),
+    "mixtral-8x7b": ("flash_kv_group_order", "moe_second_pick_dropped",
+                     "ring_not_rolled"),
 }
-PREFILL_FAULTS = ("state_not_handed", "dt_one_late")
+# mixtral's teacher-forced forward takes the expert ids of the step path
+# (the reason is in ``serve``), so a wrong top-k on the card would sit on
+# both sides of the logit checks.  The route check holds it: wherever the
+# forward's own k-th and (k+1)-th router probabilities lie more than a
+# bound apart, the path must have picked the forward's own top-k set.  At
+# random init bf16 rounding differences between the two computations grow
+# through the layers (the logits of a position differ by up to 0.13 of
+# their spread) and flip picks at wide margins too: on an H100 the widest
+# margin of a flip read 0.1492 over 1,122,048 (layer, position) pairs, p99
+# 0.0562, and 1096 pairs above 0.05 differed.  The bound is twice the
+# widest; about 1 % of the pairs lie above it.  In the first MoE layer the
+# two computations differ only by one attention layer and its widest flip
+# read 0.0107, so there the bound is 0.03 and covers most positions.
+# ``ROUTE_FAULTS`` are planted in the routing itself, so that the forward
+# takes the faulty ids too: each must fail the route check.
+ROUTE_MARGIN = 0.3
+ROUTE_MARGIN_FIRST = 0.03
+ROUTE_FAULTS = ("moe_ids_permuted",)
+PREFILL_FAULTS = ("state_not_handed", "dt_one_late", "flash_kv_group_order",
+                  "moe_second_pick_dropped", "ring_not_rolled")
 # The SSM phase's conv weights are scaled by this gain from the repo's
 # normal 0.02 to std 1.0, so that the checks can see a fault of the scan
 # or of the state.  At 0.02 the depthwise conv (fan-in 4) outputs x, B
@@ -103,18 +153,43 @@ PREFILL_FAULTS = ("state_not_handed", "dt_one_late")
 # logits no more than bf16 noise does.  Every other leaf keeps the repo's
 # init.
 SSM_CONV_W_GAIN = 50.0
-# Per phase: decode attention through its paged kernel?  The kernel of the
-# phase, whose launches are counted per layer of each decode dispatch
-# (attention) or of each prefill call (SSD), and RMSNorm launches per
-# layer of each tick and prefill call (+ the final norm).
+# Traffic of a phase: slots, cache_len, prompt lengths (drawn at random,
+# or ``each`` length n_req / len(lens) times in a seeded order), requests,
+# tokens per request.
+TRAFFIC = dict(slots=16, cache_len=2080, lens=(256, 512, 1024, 2048),
+               each=False, n_req=32, gen=32)
+# mixtral-8x7b: prompts inside the 4096 window, at multiples of it, and
+# past it but no multiple (the ring's hard case); cache_len holds the
+# longest prompt + 32 tokens
+MIXTRAL_TRAFFIC = dict(slots=8, cache_len=8224, lens=(1024, 2048, 6144, 8192),
+                       each=True, n_req=16, gen=32)
+# Per phase: decode attention through its paged kernel?  For each kernel
+# of the phase, the engine count its launches follow once per layer
+# (decode dispatches or prefill calls; None: no launch at all — mixtral's
+# attention leaves are rings, which decode reads without the paged
+# kernel, as the reference does); RMSNorm launches per layer of each tick
+# and prefill call (+ the final norm); the traffic; the depth cut.
 PHASES = {
-    "qwen2.5-14b": dict(paged_kernel=True, kernel="paged_decode_attention",
-                        per="decode_dispatches", norms=2),
-    "minicpm3-4b": dict(paged_kernel=True,
-                        kernel="paged_mla_decode_attention",
-                        per="decode_dispatches", norms=4),
-    "mamba2-780m": dict(paged_kernel=False, kernel="ssd_scan",
-                        per="prefill_calls", norms=2),
+    "qwen2.5-14b": dict(paged_kernel=True, norms=2, traffic=TRAFFIC,
+                        kernels={"paged_decode_attention": "decode_dispatches",
+                                 "flash_attention": "prefill_calls"}),
+    "minicpm3-4b": dict(paged_kernel=True, norms=4, traffic=TRAFFIC,
+                        kernels={"paged_mla_decode_attention":
+                                 "decode_dispatches"}),
+    "mamba2-780m": dict(paged_kernel=False, norms=2, traffic=TRAFFIC,
+                        kernels={"ssd_scan": "prefill_calls"}),
+    # 16 of 32 layers: full depth is 93.4 GB of bf16 weights, more than
+    # the card holds; 16 layers are 46.4 GB + 0.5 GB of embedding and head.
+    # The dropless MoE dispatch, as Mixtral is served: at this init the
+    # capacity dispatch (the registry's default) drops some (token, pick)
+    # pairs of every long prompt, and which ones depends on the sequence
+    # length — so prefill + decode and the checks' one forward over prompt
+    # + tokens would differ by construction (``check_capacity_dispatch``
+    # holds that dispatch on the card).
+    "mixtral-8x7b": dict(paged_kernel=True, norms=2, traffic=MIXTRAL_TRAFFIC,
+                         layers=16, moe_impl="ragged",
+                         kernels={"flash_attention": "prefill_calls",
+                                  "paged_decode_attention": None}),
 }
 
 
@@ -577,6 +652,184 @@ def check_ssd():
     return rows[0]          # batch 1: the serve phase's prefill shape
 
 
+# ---------------------------------------------------------- flash attention
+def row_rel(got, want):
+    """Per output row (the last axis): ||got - want|| / ||want||, rows with
+    ``want`` all zero left out.  Returns (RMS over rows, worst row)."""
+    g, w = got.float(), want.float()
+    n2 = w.square().sum(-1)
+    live = n2 > 0
+    r = (g - w).square().sum(-1)[live] / n2[live]
+    return r.mean().sqrt().item(), r.max().sqrt().item()
+
+
+def flash_rows_close(got, want, what):
+    rms, worst = row_rel(got, want)
+    if rms > ROW_TOL["rms"] or worst > ROW_TOL["worst"]:
+        raise AssertionError(
+            f"{what}: kernel vs plain row error RMS {rms:.3e} / worst "
+            f"{worst:.3e} outside {ROW_TOL}")
+    return rms, worst
+
+
+def flash_case(b, sq, sk, h, hkv, d, dtype, seed):
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+
+    def t(shape):
+        return torch.tensor(rng.standard_normal(shape, np.float32),
+                            device="cuda").to(dtype)
+    return t((b, sq, h, d)), t((b, sk, hkv, d)), t((b, sk, hkv, d))
+
+
+def flash_pairs(sq, sk, causal, window):
+    """(query, key) pairs the mask leaves: the work of one head."""
+    import numpy as np
+
+    i = np.arange(sq)
+    hi = np.minimum(i, sk - 1) if causal else np.full(sq, sk - 1)
+    lo = np.maximum(0, i - window + 1) if window else np.zeros(sq, int)
+    return int(np.maximum(0, hi - lo + 1).sum())
+
+
+def check_flash():
+    import torch
+
+    from repro_torch.kernels import flash_attention as kern
+    from repro_torch.kernels import flash_attention_ref as plain
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    n = 0
+    rows_err = {}
+
+    def both(shape, dt, what, seed=0, **kw):
+        args = flash_case(*shape, dt, seed)
+        got, want = kern(*args, **kw), plain(*args, **kw)
+        err = close(got, want, dt, what)
+        if dt == bf16:
+            rows_err[what] = flash_rows_close(got, want, what)
+        return err, args
+
+    # the reference's grid (tests/test_kernels.py:26-77) in both dtypes,
+    # lengths no multiple of a tile, the registry's group sizes, windows,
+    # non-causal
+    for dt in (f32, bf16):
+        for shape in [(1, 128, 128, 2, 2, 64), (2, 256, 256, 4, 1, 64),
+                      (1, 128, 256, 8, 2, 128), (1, 64, 64, 2, 2, 32),
+                      (2, 100, 100, 4, 2, 64), (1, 300, 300, 6, 1, 128)]:
+            both(shape, dt, f"flash grid {shape} {dt}")
+            n += 1
+        for g in (1, 2, 4, 5, 6, 8, 12):
+            both((2, 130, 130, 2 * g, 2, 64), dt, f"flash group {g} {dt}",
+                 seed=g, window=40)
+            n += 1
+        for w in (1, 16, 100):
+            both((2, 300, 300, 8, 2, 128), dt, f"flash window {w} {dt}",
+                 window=w)
+            n += 1
+        for w in (None, 30):
+            both((2, 64, 128, 4, 2, 64), dt, f"flash non-causal w {w} {dt}",
+                 causal=False, window=w)
+            n += 1
+        # Sq > Sk + window - 1: rows past Sk + window - 2 see no key
+        _, args = both((1, 200, 40, 4, 2, 32), dt, f"flash dead rows {dt}",
+                       window=16)
+        dead = kern(*args, window=16)[:, 40 + 16 - 1:]
+        if not torch.equal(dead, torch.zeros_like(dead)):
+            raise AssertionError("flash: rows with no valid key are not 0")
+        n += 1
+    # the serve paths' prefill shapes: qwen2.5-14b (1 x 2048 and 16 x 512,
+    # causal, 40 / 8 heads) and mixtral-8x7b (1 x 8192, window 4096, 32 / 8)
+    serve = {"qwen 1x2048": ((1, 2048, 2048, 40, 8, 128), None),
+             "qwen 16x512": ((16, 512, 512, 40, 8, 128), None),
+             "mixtral 1x8192": ((1, 8192, 8192, 32, 8, 128), 4096)}
+    errs = {}
+    for name, (shape, w) in serve.items():
+        for dt in (f32, bf16):
+            errs[(name, dt)], _ = both(shape, dt, f"flash {name} {dt}",
+                                       window=w)
+            n += 1
+            torch.cuda.empty_cache()
+    worst = max(rows_err, key=lambda k: rows_err[k][0])
+    log(f"flash_attention: {n} cases match the plain version (f32 "
+        f"rtol/atol 2e-5, bf16 2e-2 and row error {ROW_TOL}); serve "
+        "shapes max|err| " + ", ".join(f"{k} {str(dt)[6:]} {e:.3e}"
+                                       for (k, dt), e in errs.items())
+        + "; bf16 row error RMS / worst: " + ", ".join(
+            f"{k} {rows_err[f'flash {k} {bf16}'][0]:.3e} / "
+            f"{rows_err[f'flash {k} {bf16}'][1]:.3e}" for k in serve)
+        + f"; largest RMS of all bf16 cases {rows_err[worst][0]:.3e} "
+        f"({worst})")
+
+    # planted kernel fault: mixtral's window one 64-key tile short, as a
+    # kernel whose window bound is off by a tile would compute it.  The
+    # row check must reject it; what the elementwise bf16 tolerance says
+    # of it is logged.
+    q, k, v = flash_case(1, 8192, 8192, 32, 8, 128, bf16, 0)
+    got, want = kern(q, k, v, window=4096 - 64), plain(q, k, v, window=4096)
+    rms, worst = row_rel(got, want)
+    elementwise = torch.allclose(got.float(), want.float(), **TOL["bfloat16"])
+    log(f"flash planted fault (window one tile short, mixtral 1x8192): row "
+        f"error RMS {rms:.3e} / worst {worst:.3e}; elementwise bf16 "
+        f"tolerance alone {'passes' if elementwise else 'rejects'} it")
+    if rms <= ROW_TOL["rms"] and worst <= ROW_TOL["worst"]:
+        raise AssertionError("flash: the row check does not reject the "
+                             "planted fault (window one tile short)")
+    del q, k, v, got, want
+    torch.cuda.empty_cache()
+
+    rows = []
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for name, (shape, w) in serve.items():
+        if name == "qwen 16x512":
+            continue
+        b, sq, sk, h, hkv, d = shape
+        q, k, v = flash_case(*shape, bf16, seed=0)
+        k_ms = time_ms(lambda: kern(q, k, v, window=w))
+        p_ms = time_ms(lambda: plain(q, k, v, window=w), iters=2, warmup=1,
+                       reps=3)
+        torch.cuda.empty_cache()
+        # library yardstick: SDPA on (B, H, S, D) views, GQA expanded by
+        # the call; the window as an explicit boolean mask (the port never
+        # calls SDPA)
+        qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+        if w is None:
+            l_ms = time_ms(lambda: sdpa(qh, kh, vh, is_causal=True,
+                                        enable_gqa=True))
+        else:
+            i = torch.arange(sq, device="cuda")[:, None]
+            j = torch.arange(sk, device="cuda")[None, :]
+            mask = (j <= i) & (j > i - w)
+            l_ms = time_ms(lambda: sdpa(qh, kh, vh, attn_mask=mask,
+                                        enable_gqa=True))
+            del mask
+        pairs = flash_pairs(sq, sk, True, w)
+        flops = 4 * b * h * pairs * d
+        nbytes = 2 * (2 * b * sq * h * d + 2 * b * sk * hkv * d)
+        bound = max(nbytes / HBM_BPS, flops / BF16_FLOPS) * 1e3
+        bound_by = "bytes" if nbytes / HBM_BPS >= flops / BF16_FLOPS \
+            else "operations"
+        log(f"flash_attention {name} bf16 (H {h}/{hkv}, D {d}, window {w}): "
+            f"max_err {errs[(name, bf16)]:.3e} kernel_ms {k_ms:.4f} "
+            f"plain_ms {p_ms:.4f} library_ms {l_ms:.4f} bound_ms "
+            f"{bound:.4f} ({bound_by}: {flops} FLOP over {pairs} pairs per "
+            f"head, {nbytes} B; f32 CUDA-core floor "
+            f"{flops / F32_FLOPS * 1e3:.4f} ms); {flops / k_ms / 1e9:.1f} "
+            "TFLOP/s")
+        rows.append({"name": "flash_attention", "route": "cuda",
+                     "source": "src/repro_torch/csrc/flash_attention.cu",
+                     "replaces":
+                         "src/repro/kernels/flash_attention/kernel.py:106",
+                     "max_abs_err": errs[(name, bf16)], "ms": k_ms,
+                     "plain_ms": p_ms, "bound_ms": bound,
+                     "bound_by": bound_by, "library_ms": l_ms})
+        del q, k, v
+        torch.cuda.empty_cache()
+    return rows[-1]         # mixtral's prefill: this slice's main path
+
+
 # ------------------------------------------------------------- main path
 def arch_of(cfg):
     """The phase's arch name (a ``tiny()`` config for a CPU rehearsal
@@ -584,10 +837,10 @@ def arch_of(cfg):
     return cfg.name.removesuffix("-tiny")
 
 
-def steps_alone(cfg, params, smi, paged_kernel, slots=16, cache_len=2080,
-                ps=8):
-    """Where a tick's time goes: one decode tick and one prefill of the
-    phase's shapes, run alone (no engine, no other thread), host-timed
+def steps_alone(cfg, params, smi, paged_kernel, traffic, ps=8):
+    """Where a tick's time goes: one decode tick of the phase's shapes
+    (``traffic``'s slots, cache_len and prompt lengths) and one prefill of
+    its longest prompt, run alone (no engine, no other thread), host-timed
     around a synchronize, and the decode tick once more under
     torch.profiler for the device's busy time by kernel."""
     import numpy as np
@@ -596,13 +849,13 @@ def steps_alone(cfg, params, smi, paged_kernel, slots=16, cache_len=2080,
     from repro_torch.steps import (init_paged_slot_cache, make_decode_step,
                                    make_prefill_step)
 
+    slots, cache_len = traffic["slots"], traffic["cache_len"]
     rng = np.random.default_rng(5)
     pps = cache_len // ps
     num_pages = 1 + slots * pps
     cache = init_paged_slot_cache(cfg, slots, cache_len, torch.bfloat16, ps,
                                   num_pages, "cuda")
-    pos = rng.choice([256, 512, 1024, 2048], slots) + rng.integers(0, 31,
-                                                                   slots)
+    pos = rng.choice(traffic["lens"], slots) + rng.integers(0, 31, slots)
     pos_dev = torch.tensor(pos.astype(np.int32), device="cuda")
     cache["pos"] = pos_dev.clone()
     table = torch.tensor(rng.permutation(np.arange(1, num_pages))
@@ -644,13 +897,15 @@ def steps_alone(cfg, params, smi, paged_kernel, slots=16, cache_len=2080,
     busy = sum(r[1] for r in rows)          # one stream: kernels serialise
     del cache
     prefill = make_prefill_step(cfg, cache_len=cache_len)
-    ptoks = torch.tensor(rng.integers(0, cfg.vocab, (1, 2048))
+    plen = max(traffic["lens"])
+    ptoks = torch.tensor(rng.integers(0, cfg.vocab, (1, plen))
                          .astype(np.int32), device="cuda")
     pre_ms = host_ms(lambda: prefill(params, ptoks), 2)
-    log(f"steps alone ({cfg.name}, {smi}): decode tick (16 slots"
+    log(f"steps alone ({cfg.name}, {smi}): decode tick ({slots} slots"
         f"{', paged kernel' if paged_kernel else ''}) {tick_ms:.2f} ms "
-        f"host; device busy {busy:.2f} ms in one profiled tick; prefill "
-        f"(1 x 2048) {pre_ms:.2f} ms host")
+        f"host; device busy {busy:.2f} ms in one profiled tick (idle "
+        f"{max(0.0, 1 - busy / tick_ms) * 100:.0f} %); prefill (1 x {plen}) "
+        f"{pre_ms:.2f} ms host")
     for key, ms, n in rows[:8]:
         log(f"  tick kernel {ms:8.3f} ms x{n:5d}  {key[:90]}")
 
@@ -691,11 +946,12 @@ def planted(fault):
     import torch
 
     from repro_torch.models import attention as att
-    from repro_torch.models import blocks, ssm
+    from repro_torch.models import blocks, moe, ssm
 
     rope, kern, mla = (att.apply_rope, att.paged_decode_attention,
                        att.paged_mla_decode_attention)
     scan, ssm_apply = ssm.ssd_scan, blocks.ssm_apply
+    flash, route = att.flash_attention, moe.route
 
     def rope_pos_plus_1(x, pos, theta=10_000.0):
         return rope(x, pos + 1, theta)
@@ -730,6 +986,27 @@ def planted(fault):
             cache["conv"].copy_(cache["conv"].roll(1, dims=1))
         return ssm_apply(x, p, cfg, spec, mode=mode, cache=cache, **kw)
 
+    def flash_kv_group_order(q, k, v, **kw):
+        # flat head h reads kv head h % Hkv instead of h // group
+        b, s, h, d = q.shape
+        g = h // k.shape[2]
+        qs = q.view(b, s, g, h // g, d).transpose(2, 3).reshape(q.shape)
+        o = flash(qs.contiguous(), k, v, **kw)
+        return o.view(b, s, h // g, g, d).transpose(2, 3).reshape(q.shape)
+
+    def moe_second_pick_dropped(*args, **kw):
+        topv, topi, lb = route(*args, **kw)
+        return topv * torch.tensor([1.0, 0.0], device=topv.device), topi, lb
+
+    def moe_ids_permuted(xn, router, cfg, aux=True):
+        # each pick goes to the next expert, with its own weight
+        topv, topi, lb = route(xn, router, cfg, aux)
+        return topv, (topi + 1) % cfg.n_experts, lb
+
+    def ring_not_rolled(t, ring):
+        # the reference's placement: the last ring positions unrolled
+        return t[:, t.shape[1] - ring:]
+
     def roll(pos):
         return pos.roll(1)
 
@@ -753,21 +1030,27 @@ def planted(fault):
         "state_not_handed": ((ssm, "ssd_scan", state_not_handed),),
         "dt_one_late": ((ssm, "ssd_scan", dt_one_late),),
         "conv_tail_rolled": ((blocks, "ssm_apply", conv_tail_rolled),),
+        "flash_kv_group_order": ((att, "flash_attention",
+                                  flash_kv_group_order),),
+        "moe_second_pick_dropped": ((moe, "route", moe_second_pick_dropped),),
+        "moe_ids_permuted": ((moe, "route", moe_ids_permuted),),
+        "ring_not_rolled": ((att, "ring_from_prefill", ring_not_rolled),),
     }
     return swapped(*swaps[fault])
 
 
 def path_check(cfg, params, prompts, toks, ref, device, paged_kernel,
-               slots=16, cache_len=2080, ps=8):
+               slots=16, cache_len=2080, ps=8, names=None):
     """The engine's step path teacher-forced with its emitted tokens: each
     prompt through the prefill step and the paged insert, then the tokens
     one tick at a time through the decode forward (paged kernel where the
     phase has one), ``slots`` requests per round — as built and under each
-    planted fault (a fault of the prefill side gets its own prefill).
-    Returns name -> {"rel": aggregate relative logit error against
-    ``ref``, "rel_max": worst position, "effect": the same distance from
-    the path as built, "gap": worst gap of the path's argmax under
-    ``ref``, "same": path argmax equal to the emitted token}."""
+    planted fault (a fault of the prefill side gets its own prefill), or
+    under ``names`` only.  Returns name -> {"rel": aggregate relative
+    logit error against ``ref``, "rel_max": worst position, "effect": the
+    same distance from the path as built, "gap": worst gap of the path's
+    argmax under ``ref``, "same": path argmax equal to the emitted token}
+    ({} when ``ref`` is None: the path only runs)."""
     import numpy as np
     import torch
 
@@ -787,7 +1070,8 @@ def path_check(cfg, params, prompts, toks, ref, device, paged_kernel,
     table = table.to(device)
     pages = {"table": table, "page_size": ps, "cache_len": cache_len,
              "kernel": paged_kernel}
-    names = [None, *PLANTED[arch_of(cfg)]]
+    if names is None:
+        names = [None, *PLANTED[arch_of(cfg)]]
     acc = {n: {"d2": 0.0, "r2": 0.0, "e2": 0.0, "rel_max": 0.0, "gap": 0.0,
                "same": 0} for n in names}
     gen = len(toks[0])
@@ -817,6 +1101,8 @@ def path_check(cfg, params, prompts, toks, ref, device, paged_kernel,
                                 pos=pos0 + j, cache=cache, pages=pages)
                     rows.append(o["logits"][:len(idx), 0].float())
             lg = torch.stack(rows, dim=1)               # (round, gen, V)
+            if ref is None:
+                continue
             if n is None:
                 built = lg
             a = acc[n]
@@ -836,9 +1122,192 @@ def path_check(cfg, params, prompts, toks, ref, device, paged_kernel,
                 a["same"] += int((am.cpu() == torch.as_tensor(
                     toks[i]).long()).sum())
         del clean
+    if ref is None:
+        return {}
     return {n: {"rel": (a["d2"] / a["r2"]) ** 0.5, "rel_max": a["rel_max"],
                 "effect": (a["e2"] / a["r2"]) ** 0.5, "gap": a["gap"],
                 "same": a["same"]} for n, a in acc.items()}
+
+
+def moe_layers(cfg):
+    return cfg.n_repeats * sum(spec.mlp == "moe" for spec in cfg.pattern)
+
+
+@contextlib.contextmanager
+def routes_recorded(store):
+    """Every MoE routing in the block appends its (B, S, K) expert ids to
+    ``store``."""
+    from repro_torch.models import moe
+
+    route = moe.route
+
+    def recorded(*args, **kw):
+        out = route(*args, **kw)
+        store.append(out[1])
+        return out
+    with swapped((moe, "route", recorded)):
+        yield
+
+
+def path_routes(store, cfg, lens, slots, gen):
+    """Per request, per MoE layer, the (S + gen - 1, K) expert ids that
+    ``path_check`` (as built) gave each position, from the order it routes
+    in: per round of ``slots`` requests, each request's prefill, then
+    gen - 1 decode ticks over the round's slots."""
+    import torch
+
+    n = moe_layers(cfg)
+    it = iter(store)
+    out = []
+    for r0 in range(0, len(lens), slots):
+        idx = range(r0, min(r0 + slots, len(lens)))
+        pre = [[next(it)[0] for _ in range(n)] for _ in idx]
+        dec = [[next(it) for _ in range(n)] for _ in range(gen - 1)]
+        for s in range(len(idx)):
+            out.append([torch.cat([pre[s][layer]]
+                                  + [dec[j][layer][s] for j in range(gen - 1)])
+                        for layer in range(n)])
+    return out
+
+
+@contextlib.contextmanager
+def routes_forced(layers, flips):
+    """MoE layers route, in call order, to the expert ids ``layers`` gives
+    (their weights still come from this forward's own router); ``flips``
+    gets, per layer, which positions would have picked another top-k set
+    on their own, and the margin between the forward's own k-th and
+    (k+1)-th router probabilities there."""
+    from repro_torch.models import moe
+
+    it = iter(layers)
+
+    def forced(xn, router, cfg, aux=True):
+        probs = moe.router_probs(xn, router)
+        topi = next(it)[None]
+        own_v, own = probs.topk(cfg.top_k + 1, dim=-1)
+        own = own[..., :cfg.top_k]
+        flips.append(((own.sort(-1).values != topi.sort(-1).values)
+                      .any(-1)[0],
+                      (own_v[..., -2] - own_v[..., -1])[0]))
+        topv = probs.gather(-1, topi)
+        return topv / topv.sum(dim=-1, keepdim=True), topi, None
+    with swapped((moe, "route", forced)):
+        yield
+
+
+def recorded_routes(cfg, params, plist, toks, device, phase, fault=None):
+    """Per request, per MoE layer, the expert ids of one run of
+    ``path_check`` over ``plist`` — the path as built, or with ``fault``
+    planted in its routing."""
+    store = []
+    with planted(fault), routes_recorded(store):
+        path_check(cfg, params, plist, toks, None, device,
+                   phase["paged_kernel"], slots=phase["traffic"]["slots"],
+                   cache_len=phase["traffic"]["cache_len"], names=[None])
+    return path_routes(store, cfg, [len(x) for x in plist],
+                       phase["traffic"]["slots"], len(toks[0]))
+
+
+def route_check(flips, n_moe, starts):
+    """Route check over the ``flips`` of ``routes_forced`` (one forward
+    per request, in order; ``starts``: each request's first checked
+    position).  Returns its figures; ``wide_flips`` counts the (layer,
+    position) pairs whose margin is above the layer's bound
+    (``ROUTE_MARGIN_FIRST`` in the first MoE layer, ``ROUTE_MARGIN`` after
+    it) and whose path picked another top-k set."""
+    import torch
+
+    flip = torch.cat([f for f, _ in flips])
+    margin = torch.cat([m for _, m in flips])
+    checked = torch.cat([
+        torch.arange(len(f), device=f.device) >= starts[k // n_moe]
+        for k, (f, _) in enumerate(flips)])
+    first = torch.cat([torch.full_like(f, k % n_moe == 0)
+                       for k, (f, _) in enumerate(flips)])
+    sure = margin > torch.where(first, ROUTE_MARGIN_FIRST, ROUTE_MARGIN)
+    at_flips = margin[flip]
+    return {
+        "pairs": flip.numel(), "flips": flip.sum().item(),
+        "flips_checked": (flip & checked).sum().item(),
+        "sure": sure.sum().item(), "sure_first": (sure & first).sum().item(),
+        "pairs_first": first.sum().item(),
+        "widest_flip": at_flips.max().item() if at_flips.numel() else 0.0,
+        "flip_margin_p99": torch.quantile(
+            at_flips[:2 ** 24].float(), 0.99).item()
+        if at_flips.numel() else 0.0,
+        "wide_flips": (flip & sure).sum().item(),
+        "widest_by_layer": [
+            max((m[f].max().item() for f, m in flips[i::n_moe] if f.any()),
+                default=0.0) for i in range(n_moe)]}
+
+
+def route_line(what, f):
+    return (f"{what}: the forward's own top-k differs from the path's at "
+            f"{f['flips']} of {f['pairs']} (layer, position) pairs "
+            f"({f['flips_checked']} at checked positions); margin at those "
+            f"p99 {f['flip_margin_p99']:.4f} widest {f['widest_flip']:.4f}; "
+            f"{f['sure']} pairs have a margin above the bound "
+            f"({f['sure_first']} of the first MoE layer's {f['pairs_first']} "
+            f"above {ROUTE_MARGIN_FIRST}, the rest above {ROUTE_MARGIN}), "
+            f"{f['wide_flips']} of them differ; widest flip margin by layer "
+            + " ".join(f"{m:.4f}" for m in f["widest_by_layer"]))
+
+
+def check_capacity_dispatch(cfg, params, device, seed=0):
+    """The registry's capacity dispatch (``moe_mlp``) on the card at the
+    phase's layer shape and first MoE layer's weights, for 2 x 4096
+    tokens: against the dropless dispatch with the weights of the picks
+    that overflow zeroed, the overflow found by a numpy walk of the
+    reference's rule (per batch row, token-major, pick-minor; a pick
+    keeps the next slot of its expert's queue, dropped past
+    ``capacity``).  At capacity factor 0.9 (below an even share) the
+    rule must drop picks; the registry's factor is checked too.  Returns
+    the drops at the registry's factor."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import moe
+
+    p = {k: v[0] for k, v in params["blocks"][0]["mlp"].items()}
+    g = torch.Generator(device).manual_seed(seed)
+    xn = torch.randn((2, 4096, cfg.d_model), generator=g, device=device,
+                     dtype=getattr(torch, cfg.dtype))
+    route = moe.route
+    drops = {}
+    for cf in (0.9, cfg.capacity_factor):
+        c_cfg = cfg.replace(capacity_factor=cf)
+        got, _ = moe.moe_mlp(xn, p, c_cfg, aux=False)
+        topv, topi, _ = route(xn, p["router"], c_cfg, aux=False)
+        c = moe.capacity(xn.shape[1], c_cfg)
+        ids = topi.reshape(topi.shape[0], -1).cpu().numpy()
+        keep = np.zeros(ids.shape, bool)
+        for b in range(ids.shape[0]):
+            for e in range(cfg.n_experts):
+                at = np.flatnonzero(ids[b] == e)
+                keep[b, at[:c]] = True
+        drops[cf] = int((~keep).sum())
+        mask = torch.as_tensor(keep, device=device).view(topv.shape)
+
+        def masked(*args, **kw):
+            v, i, lb = route(*args, **kw)
+            return v * mask, i, lb
+        with swapped((moe, "route", masked)):
+            want, _ = moe.moe_mlp_ragged(xn, p, c_cfg, aux=False)
+        rms, worst = row_rel(got, want)
+        log(f"MoE capacity dispatch ({cfg.name}, 2 x 4096 tokens, d "
+            f"{cfg.d_model}, d_ff {cfg.d_ff}, capacity factor {cf}: "
+            f"{c} slots per expert): {drops[cf]} of {ids.size} picks "
+            f"dropped; against dropless with those picks zeroed, row error "
+            f"RMS {rms:.3e} / worst {worst:.3e} (bounds "
+            f"{ROW_TOL})")
+        if rms > ROW_TOL["rms"] or worst > ROW_TOL["worst"]:
+            raise AssertionError(f"{cfg.name}: the capacity dispatch differs "
+                                 f"from its rule at capacity factor {cf}")
+        del got, want
+    if drops[0.9] == 0:
+        raise AssertionError(f"{cfg.name}: capacity factor 0.9 dropped no "
+                             "pick; the check saw no overflow")
+    return drops[cfg.capacity_factor]
 
 
 def reference_forward():
@@ -862,12 +1331,19 @@ def serve(cfg, smi, device="cuda", seed=0):
                                    make_serve_step)
 
     phase = PHASES[arch_of(cfg)]
+    traffic = phase["traffic"]
     paged_kernel = phase["paged_kernel"]
-    counted = (phase["kernel"], "rms_norm")
+    counted = (*phase["kernels"], "rms_norm")
     cuda = device == "cuda"
-    slots, cache_len, n_req, gen = 16, 2080, 32, 32
+    moe = any(spec.mlp == "moe" for spec in cfg.pattern)
+    slots, cache_len, n_req, gen = (traffic[k] for k in (
+        "slots", "cache_len", "n_req", "gen"))
     rng = np.random.default_rng(seed)
-    lens = rng.choice([256, 512, 1024, 2048], n_req)
+    if traffic["each"]:
+        lens = rng.permutation(np.repeat(traffic["lens"],
+                                         n_req // len(traffic["lens"])))
+    else:
+        lens = rng.choice(traffic["lens"], n_req)
     prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32) for n in lens]
     gaps = rng.exponential(0.03, n_req)
 
@@ -928,16 +1404,34 @@ def serve(cfg, smi, device="cuda", seed=0):
         f"p50_tick_s {stats['p50_tick_s']:.4f} p99_tick_s "
         f"{stats['p99_tick_s']:.4f} peak_mem_gb {peak / 1e9:.2f} "
         f"(weights task included: {box['weights_s']:.2f} s)")
+    if moe:
+        check_capacity_dispatch(cfg, params, device)
     if cuda:
-        steps_alone(cfg, params, smi, paged_kernel)
+        steps_alone(cfg, params, smi, paged_kernel, traffic)
 
     # teacher-forced forward over prompt + emitted[:-1]: the gap is how
-    # far each emitted token's logit trails that forward's max
+    # far each emitted token's logit trails that forward's max.  With MoE
+    # the forward takes the expert ids of the step path as built (one run
+    # of it recorded first): at random init, bf16 rounding differences
+    # between any two computations flip near-tied top-2 choices, each flip
+    # moves a token's MoE output by O(1), and neither check could tell a
+    # fault from that.  The route check holds which experts the path
+    # picks wherever the forward's own choice is clear (``ROUTE_MARGIN``,
+    # ``ROUTE_MARGIN_FIRST``);
+    # the CPU tests hold them to the reference (tests/test_torch_moe.py).
+    # Everything else, the pick weights included, the forward computes
+    # itself.
     toks_all = [np.asarray(r.out_tokens, np.int32) for r in reqs]
+    plist = [prompts[r.rid] for r in reqs]
+    routes = flips = None
+    if moe:
+        flips = []
+        routes = recorded_routes(cfg, params, plist, toks_all, device, phase)
     ref, gaps_all, top2, spread, exact = [], [], [], [], 0
-    for r, toks in zip(reqs, toks_all):
+    for k, (r, toks) in enumerate(zip(reqs, toks_all)):
         seq = np.concatenate([prompts[r.rid], toks[:-1]])
-        with reference_forward():
+        with reference_forward(), routes_forced(routes[k], flips) \
+                if moe else contextlib.nullcontext():
             lg = forward(params, cfg, torch.tensor(seq[None], device=device),
                          mode="train")["logits"][0, len(prompts[r.rid]) - 1:]
         lg = lg.float()
@@ -962,11 +1456,36 @@ def serve(cfg, smi, device="cuda", seed=0):
         f"{worst:.4f} (tolerance {LOGIT_TOL}); forward's top-2 margin p50 "
         f"{top2.median().item():.4f}, logit std p50 "
         f"{spread.median().item():.4f}")
+    peak_checks = torch.cuda.max_memory_allocated() if cuda else 0
+    built, route_missed = {"wide_flips": 0}, []
+    if moe:
+        n_moe = moe_layers(cfg)
+        starts = [len(x) - 1 for x in plist]
+        built = route_check(flips, n_moe, starts)
+        log(route_line(f"route check [{cfg.name}, as built]", built))
+        del routes, flips
+        # planted in the routing: recorded from the path under the fault
+        # and forced on the forward, over one round of requests
+        for fault in ROUTE_FAULTS:
+            k_f = min(slots, n_req)
+            routes = recorded_routes(cfg, params, plist[:k_f],
+                                     toks_all[:k_f], device, phase, fault)
+            flips = []
+            for k in range(k_f):
+                seq = np.concatenate([plist[k], toks_all[k][:-1]])
+                with reference_forward(), routes_forced(routes[k], flips):
+                    forward(params, cfg, torch.tensor(seq[None],
+                                                      device=device),
+                            mode="train")
+            f = route_check(flips, n_moe, starts[:k_f])
+            log(route_line(f"route check [{cfg.name}, {fault}]", f))
+            if f["wide_flips"] == 0:
+                route_missed.append(fault)
+            del routes, flips
 
     # logit check of the step path, as built and with each planted fault
-    res = path_check(cfg, params, [prompts[r.rid] for r in reqs], toks_all,
-                     ref, device, paged_kernel, slots=slots,
-                     cache_len=cache_len)
+    res = path_check(cfg, params, plist, toks_all, ref, device,
+                     paged_kernel, slots=slots, cache_len=cache_len)
     del ref
     for n, m in res.items():
         log(f"logit check [{cfg.name}, {n or 'as built'}]: worst position "
@@ -980,7 +1499,7 @@ def serve(cfg, smi, device="cuda", seed=0):
     prefill = make_prefill_step(cfg, cache_len=cache_len)
     step = make_serve_step(cfg)
     same = 0
-    for n in sorted(set(lens.tolist())):
+    for n in sorted(set(lens.tolist())):      # one batch per length
         idx = [i for i in range(n_req) if lens[i] == n]
         ps = torch.tensor(np.stack([prompts[i] for i in idx]),
                           device=device)
@@ -998,32 +1517,44 @@ def serve(cfg, smi, device="cuda", seed=0):
         raise AssertionError(f"{cfg.name}: step path logits off the "
                              f"forward's by {res[None]['rel_max']:.4f} > "
                              f"{REL_TOL}")
-    missed = [n for n in res if n is not None and (
+    if built["wide_flips"]:
+        raise AssertionError(
+            f"{cfg.name}: the step path's experts differ from the forward's "
+            f"own at {built['wide_flips']} (layer, position) pairs whose "
+            f"margin is above the bound")
+    missed = route_missed + [n for n in res if n is not None and (
         res[n]["rel_max"] <= REL_TOL or res[n]["gap"] <= LOGIT_TOL)]
     if missed:
         raise AssertionError(f"{cfg.name}: the checks do not reject the "
                              f"planted faults {missed}")
-    log(f"phase {cfg.name}: {time.perf_counter() - t_phase:.1f} s")
+    log(f"phase {cfg.name}: {time.perf_counter() - t_phase:.1f} s; peak "
+        f"device memory of the teacher-forced forward "
+        f"{peak_checks / 1e9:.2f} GB")
     return launches, stats
 
 
 def check_launches(cfg, launches, stats):
-    """The phase's launch identities: its kernel once per layer of each
-    decode dispatch (attention) or prefill call (SSD); RMSNorm at every
-    norm site of every tick and prefill call."""
+    """The phase's launch identities: each kernel once per layer of each
+    decode dispatch (paged attention) or prefill call (SSD scan, flash
+    attention), or never (a kernel the phase's path must not take);
+    RMSNorm at every norm site of every tick and prefill call."""
     phase = PHASES[arch_of(cfg)]
-    kern = phase["kernel"]
-    want = {kern: cfg.n_layers * stats[phase["per"]],
-            "rms_norm": (phase["norms"] * cfg.n_layers + 1)
-            * (stats["decode_dispatches"] + stats["prefill_calls"])}
+    want = {k: cfg.n_layers * stats[per] if per else 0
+            for k, per in phase["kernels"].items()}
+    want["rms_norm"] = (phase["norms"] * cfg.n_layers + 1) * (
+        stats["decode_dispatches"] + stats["prefill_calls"])
     for name, n in want.items():
-        if launches[name] != n or n <= 0:
+        if launches[name] != n or (n <= 0 and phase["kernels"].get(name,
+                                                                   True)):
             raise AssertionError(f"{cfg.name}: {name} launches "
                                  f"{launches[name]} != {n} (identity of "
                                  "the main path)")
-    log(f"launch identities ({cfg.name}): {kern} {launches[kern]} = "
-        f"{cfg.n_layers} x {stats[phase['per']]} {phase['per']}; rms_norm "
-        f"{launches['rms_norm']} = {phase['norms'] * cfg.n_layers + 1} x "
+    parts = [f"{k} {launches[k]} = " + (
+        f"{cfg.n_layers} x {stats[per]} {per}" if per else "0 (not on "
+        "this path)") for k, per in phase["kernels"].items()]
+    log(f"launch identities ({cfg.name}): " + "; ".join(parts)
+        + f"; rms_norm {launches['rms_norm']} = "
+        f"{phase['norms'] * cfg.n_layers + 1} x "
         f"({stats['decode_dispatches']} + {stats['prefill_calls']})")
 
 
@@ -1035,6 +1566,7 @@ def build_all():
     import torch
 
     from repro_torch.kernels import build, rms_norm
+    from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.paged_attention import ops as paged_ops
     from repro_torch.kernels.ssd_chunk import ops as ssd_ops
 
@@ -1047,7 +1579,8 @@ def build_all():
         except Exception as e:            # noqa: BLE001 — re-raised below
             errors.append(e)
     threads = [threading.Thread(target=run, args=(fn,)) for fn in (
-        paged_ops.library, paged_ops.mla_library, ssd_ops.library)]
+        paged_ops.library, paged_ops.mla_library, ssd_ops.library,
+        flash_ops.library)]
     for t in threads:
         t.start()
     for t in threads:
@@ -1058,7 +1591,7 @@ def build_all():
     x = torch.ones(2, 64, device="cuda")
     rms_norm(x, torch.ones(64, device="cuda"))          # Triton compiles
     torch.cuda.synchronize()
-    log(f"build: three nvcc builds in parallel, all ready in {t_nvcc:.2f} s; "
+    log(f"build: four nvcc builds in parallel, all ready in {t_nvcc:.2f} s; "
         f"triton first call {time.perf_counter() - t0 - t_nvcc:.2f} s")
     for name, info in build.build_log.items():
         log(f"  {name}: nvcc {info['seconds']:.2f} s")
@@ -1087,23 +1620,25 @@ def main(argv=None):
 
     build_all()
     rows = [check_paged_decode(), check_rms_norm(), check_paged_mla(),
-            check_ssd()]
+            check_ssd(), check_flash()]
     log(f"clocks after the kernel timings (sm, power, temp): {clocks()}")
     from repro_torch.configs import get
 
     launches = {}
-    for arch in PHASES:
+    for arch, phase in PHASES.items():
         cfg = get(arch)
-        if args.layers and args.layers != cfg.n_layers:
-            log(f"depth cut: {args.layers} of {cfg.n_layers} layers")
-            cfg = cfg.replace(n_layers=args.layers)
+        layers = args.layers or phase.get("layers", cfg.n_layers)
+        if layers != cfg.n_layers:
+            log(f"depth cut: {layers} of {cfg.n_layers} layers ({arch})")
+            cfg = cfg.replace(n_layers=layers)
+        cfg = cfg.replace(moe_impl=phase.get("moe_impl", cfg.moe_impl))
         got, stats = serve(cfg, smi)
         check_launches(cfg, got, stats)
         for name, n in got.items():         # RMSNorm: every phase's sum
             launches[name] = launches.get(name, 0) + n
         torch.cuda.empty_cache()            # the next phase's weights
     for row in rows:
-        row["launches"] = launches[row["name"]]
+        row["launches"] = launches.get(row["name"], 0)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     keys = ["name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

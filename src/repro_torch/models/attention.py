@@ -1,13 +1,19 @@
 """GQA and MLA attention (PyTorch port of ``repro/models/attention.py``).
 
 Three paths, as in the reference: ``full`` (materialised scores, train),
-``qchunk`` (a loop over query chunks, prefill) and ``decode`` (one query
-token per slot against a dense or paged cache).  On the paged decode leg
-with ``pages["kernel"]`` set, attention runs in a hand-written CUDA
-kernel that reads the pages in place through the block table:
-``paged_decode_attention`` for GQA, ``paged_mla_decode_attention`` for
-MLA's absorbed form (latent pools ``ckv``/``krope``, ``wv_b`` applied
-outside).
+prefill, and ``decode`` (one query token per slot against a dense or
+paged cache).  GQA prefill runs ``flash_attention`` — the hand-written
+CUDA kernel on the card, its plain version on the CPU — where the
+reference calls ``qchunk_attention``, which computes the same causal
+(+window) attention; ``qchunk_attention`` stays as the oracle, and MLA
+prefill keeps it (its qk and v head dims differ).  A sliding-window
+prefill hands decode a ring of ``min(window, cache_len)`` slots with
+position p in slot p % ring, the convention decode reads and writes.  On
+the paged decode leg with ``pages["kernel"]`` set, attention runs in a
+hand-written CUDA kernel that reads the pages in place through the block
+table: ``paged_decode_attention`` for GQA, ``paged_mla_decode_attention``
+for MLA's absorbed form (latent pools ``ckv``/``krope``, ``wv_b``
+applied outside).
 
 Caches are updated in place: a decode step writes the new token's K/V
 into the pool it was given and returns the same tensors (the shape/dtype
@@ -22,7 +28,8 @@ from __future__ import annotations
 
 import torch
 
-from ..kernels import paged_decode_attention, paged_mla_decode_attention
+from ..kernels import (flash_attention, paged_decode_attention,
+                       paged_mla_decode_attention)
 from .layers import apply_rope, page_gather, page_scatter, rms_norm
 
 NEG_INF = -1e30
@@ -173,6 +180,17 @@ def _pad_seq(t, target):
     return out
 
 
+def ring_from_prefill(t, ring):
+    """The ring cache a prefill of S >= ``ring`` positions hands decode:
+    the last ``ring`` positions of ``t`` (B, S, ...) with position p in
+    slot p % ring, as decode writes (slot ``pos % ring``) and reads
+    (``decode_attention``'s slot positions) the ring.  The reference keeps
+    them unrolled (``t[:, S - ring:]``), which is the same only when
+    S % ring == 0."""
+    s = t.shape[1]
+    return torch.roll(t[:, s - ring:], s % ring, dims=1)
+
+
 def gqa_apply(x, p, cfg, spec, *, mode, pos, cache=None, cache_len=None,
               pages=None):
     """x: (B,S,D) -> (out, new_cache or None).  cache: {"k","v"}
@@ -230,13 +248,18 @@ def gqa_apply(x, p, cfg, spec, *, mode, pos, cache=None, cache_len=None,
             q = apply_rope(q, positions, cfg.rope_theta)
             k = apply_rope(k, positions, cfg.rope_theta)
         if mode == "prefill":
-            out = qchunk_attention(q, k, v, window=spec.window)
+            # the flash kernel on the card, its plain version on the CPU
+            # (the reference runs qchunk_attention here: same function)
+            out = flash_attention(q.contiguous(), k.contiguous(),
+                                  v.contiguous(), causal=True,
+                                  window=spec.window)
             w = spec.window
             if w is not None:
                 # the ring only needs min(window, cache_len) slots
                 ring = w if cache_len is None else min(w, cache_len)
                 if s >= ring:
-                    kc, vc = k[:, s - ring:], v[:, s - ring:]  # slot=pos%W
+                    kc = ring_from_prefill(k, ring)
+                    vc = ring_from_prefill(v, ring)
                 else:
                     kc, vc = _pad_seq(k, ring), _pad_seq(v, ring)
             else:

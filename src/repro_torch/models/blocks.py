@@ -1,16 +1,13 @@
-"""Residual block = mixer (GQA or MLA attention, or SSD) + MLP (dense or
-none) (PyTorch port of ``repro/models/blocks.py``).  MoE belongs to a
-later slice and raises."""
+"""Residual block = mixer (GQA or MLA attention, or SSD) + MLP (dense,
+top-k MoE, or none) (PyTorch port of ``repro/models/blocks.py``).
+``cfg.moe_impl`` picks the MoE dispatch: "onehot" (capacity, the
+reference's default) or "ragged" (dropless)."""
 from __future__ import annotations
 
 from . import attention as attn_mod
 from .layers import check_cache_invariant, mlp_dense, rms_norm
+from .moe import moe_mlp, moe_mlp_ragged, moe_param_shapes
 from .ssm import ssm_apply, ssm_cache_shapes, ssm_param_shapes
-
-
-def _unported(what, item):
-    raise NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md queue 1, item {item})")
 
 
 def _mixer(spec):
@@ -39,7 +36,7 @@ def block_param_shapes(cfg, spec):
     if spec.mlp == "dense":
         out["mlp"] = dense_mlp_shapes(cfg)
     elif spec.mlp == "moe":
-        _unported("the MoE MLP", 7)
+        out["mlp"] = moe_param_shapes(cfg)
     return out
 
 
@@ -50,16 +47,20 @@ def block_cache_shapes(cfg, spec, batch, seq):
 
 def block_apply(x, p, cfg, spec, *, mode, pos, cache=None, cache_len=None,
                 pages=None):
-    """Returns the new residual stream and the block's new cache."""
+    """Returns the new residual stream and the block's new cache.  The
+    MoE load-balance term is dropped: it only matters to training."""
     _, _, apply_fn = _mixer(spec)
     out, new_cache = apply_fn(x, p["mixer"], cfg, spec, mode=mode, pos=pos,
                               cache=cache, cache_len=cache_len, pages=pages)
     if mode == "decode":
         check_cache_invariant(cache, new_cache, f"{spec.kind}/{spec.attn}")
     x = x + out
-    if spec.mlp == "dense":
+    if spec.mlp != "none":
         xn = rms_norm(x, p["mlp"]["ln"], cfg.norm_eps)
-        x = x + mlp_dense(xn, p["mlp"], cfg)
-    elif spec.mlp != "none":
-        _unported("the MoE MLP", 7)
+        if spec.mlp == "dense":
+            y = mlp_dense(xn, p["mlp"], cfg)
+        else:
+            fn = moe_mlp_ragged if cfg.moe_impl == "ragged" else moe_mlp
+            y, _ = fn(xn, p["mlp"], cfg, aux=False)
+        x = x + y
     return x, new_cache

@@ -124,7 +124,8 @@ def _layer(tree, r):
 @torch.no_grad()
 def forward(params, cfg, tokens, *, mode="train", pos=0, cache=None,
             cache_len=None, pages=None):
-    """tokens: (B, S) int.  Returns {"logits", "cache"}.
+    """tokens: (B, S) int.  Returns {"logits", "cache"} (the reference's
+    MoE "aux" term belongs to the training slice).
 
     mode: "train" (all-position logits, no cache) | "prefill" (cache
     padded to ``cache_len`` + last-position logits) | "decode" (S == 1;

@@ -1,5 +1,5 @@
 """The port's ServeEngine on the UMT runtime (CPU, f32, the tiny configs
-of qwen2.5-14b, minicpm3-4b and mamba2-780m): engine tokens equal the
+of qwen2.5-14b, minicpm3-4b, mamba2-780m and mixtral-8x7b): engine tokens equal the
 port's one-shot tokens exactly under
 seeded random arrivals and slot churn (the ``tests/test_serve_engine.py``
 pattern), on UMT and on the baseline runtime; they equal the reference
@@ -31,7 +31,7 @@ N_REQ, PLEN, GEN_MAX = 6, 8, 6
 CACHE_LEN = 16
 
 
-ARCHS = ["qwen2.5-14b", "minicpm3-4b", "mamba2-780m"]
+ARCHS = ["qwen2.5-14b", "minicpm3-4b", "mamba2-780m", "mixtral-8x7b"]
 
 
 @pytest.fixture(scope="module", params=ARCHS)

@@ -1,9 +1,9 @@
 """The reference's serve-step bars (``tests/test_serve_steps.py``) held
 inside the port, on the CPU with the kernels' plain versions, for each
-ported family (GQA, MLA, SSD): paged decode gives the dense decode's
-tokens, any slot schedule gives the one-shot tokens, page_size 1 works,
-and the insert/decode steps keep every cache leaf's shape and dtype (the
-in-place update contract).  The SSM's conv and state leaves stay dense
+ported family (GQA, MLA, SSD, GQA + MoE): paged decode gives the dense
+decode's tokens, any slot schedule gives the one-shot tokens, page_size 1
+works, and the insert/decode steps keep every cache leaf's shape and
+dtype (the in-place update contract).  The SSM's conv and state leaves stay dense
 per slot under a paged engine, so its paged legs exercise exactly that."""
 import numpy as np
 import pytest
@@ -23,7 +23,8 @@ CACHE_LEN = PLEN + GEN
 
 
 @pytest.fixture(scope="module",
-                params=["qwen2.5-14b", "minicpm3-4b", "mamba2-780m"])
+                params=["qwen2.5-14b", "minicpm3-4b", "mamba2-780m",
+                        "mixtral-8x7b"])
 def built(request):
     cfg = get(request.param).tiny()
     params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
