@@ -14,13 +14,17 @@ Phases (each raises on failure, so the script exits non-zero):
    then the Triton kernel; prints the seconds and ``ptxas``' register and
    spill lines.
 3. kernels — each kernel's wrapper against its plain PyTorch version on
-   the card: paged GQA decode at qwen2.5-14b decode shapes, paged MLA
-   decode at minicpm3-4b's, the SSD scan at mamba2-780m's prefill shapes
-   (batch 1 and 16), flash attention at qwen2.5-14b's and mixtral-8x7b's
+   the card: paged GQA decode at qwen2.5-14b decode shapes (its split
+   boundaries, and its combine kernel against the plain combine on the
+   split kernel's own partials), paged MLA decode at minicpm3-4b's, the
+   SSD scan at mamba2-780m's prefill shapes (batch 1 and 16), flash
+   attention at qwen2.5-14b's (1 x 2048, 16 x 512) and mixtral-8x7b's
    prefill shapes, RMSNorm, each with the edge cases of the reference's
    kernel tests; then CUDA-event times of kernel, plain version and one
    PyTorch library call where there is one, beside the least time the
-   card could take (``bound_ms``).
+   card could take (``bound_ms``); for the paged GQA decode, whose call is
+   short enough that the host's time to enqueue it can exceed the
+   kernel's, also its and SDPA's device time alone (``torch.profiler``).
 4. serve  — the port's main paths at full width, one after the other,
    each behind ``repro_torch.serve.ServeEngine`` on the UMT runtime with
    seeded bf16 weights made on the card by the engine's weights task:
@@ -238,6 +242,24 @@ def time_ms(fn, iters=20, warmup=5, reps=5):
     return statistics.median(times)
 
 
+def device_ms(fn, iters=20):
+    """Device time per call: the kernels' time in a ``torch.profiler``
+    trace of ``iters`` calls after warm-up, summed over every kernel the
+    call launches.  Unlike ``time_ms`` it leaves out the host's time to
+    enqueue, which on a slow host exceeds a short kernel's."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.device_time_total for e in prof.key_averages()) / iters / 1e3
+
+
 def clocks():
     """SM clock, power draw and temperature right now (nvidia-smi)."""
     return subprocess.run(
@@ -305,6 +327,8 @@ def check_paged_decode():
 
     from repro_torch.kernels.paged_attention import (
         paged_decode_attention as kern, paged_decode_attention_ref as plain)
+    from repro_torch.kernels.paged_attention import ops as paged_ops
+    from repro_torch.kernels.paged_attention import ref as paged_ref
 
     f32, bf16 = torch.float32, torch.bfloat16
     n = 0
@@ -324,29 +348,72 @@ def check_paged_decode():
                 close(kern(*args, **kw), plain(*args, **kw), dt,
                       f"paged group {g} dh {dh} {dt}")
                 n += 1
-    # windows (tests/test_kernels.py:123-137)
-    for w in (1, 3, 7, 100):
-        args, kw = paged_case(3, 4, 2, 32, 24, 4, f32, seed=8, window=w)
-        close(kern(*args, **kw), plain(*args, **kw), f32, f"window {w}")
+    for dt in (f32, bf16):
+        # windows (tests/test_kernels.py:123-137)
+        for w in (1, 3, 7, 100):
+            args, kw = paged_case(3, 4, 2, 32, 24, 4, dt, seed=8, window=w)
+            close(kern(*args, **kw), plain(*args, **kw), dt,
+                  f"window {w} {dt}")
+            n += 1
+        # poisoned garbage page must be inert (:165-182): bit-identical
+        for w in (None, 3):
+            args, kw = paged_case(3, 4, 2, 32, 16, 4, dt, seed=10,
+                                  pos=[0, 5, 15], window=w)
+            q, kp, vp, table, pos = args
+            clean = kern(*args, **kw)
+            kp2, vp2 = kp.clone(), vp.clone()
+            kp2[0] = 1e4
+            vp2[0] = 1e4
+            poisoned = kern(q, kp2, vp2, table, pos, **kw)
+            if not torch.equal(clean, poisoned) or \
+                    not torch.isfinite(poisoned).all():
+                raise AssertionError(f"garbage page leaked into the kernel "
+                                     f"output ({dt}, window {w})")
+            n += 1
+        # allocated-but-future pages are masked (:185-201)
+        args, kw = paged_case(2, 2, 2, 16, 16, 4, dt, seed=11, pos=[2, 9],
+                              garbage_rest=False)
+        close(kern(*args, **kw), plain(*args, **kw), dt,
+              f"future pages {dt}")
         n += 1
-    # poisoned garbage page must be inert (:165-182)
-    args, kw = paged_case(3, 4, 2, 32, 16, 4, f32, seed=10,
-                          pos=[0, 5, 15])
-    q, kp, vp, table, pos = args
-    clean = kern(*args, **kw)
-    kp2, vp2 = kp.clone(), vp.clone()
-    kp2[0] = 1e4
-    vp2[0] = 1e4
-    poisoned = kern(q, kp2, vp2, table, pos, **kw)
-    if not torch.equal(clean, poisoned) or \
-            not torch.isfinite(poisoned).all():
-        raise AssertionError("garbage page leaked into the kernel output")
-    n += 1
-    # allocated-but-future pages are masked (:185-201)
-    args, kw = paged_case(2, 2, 2, 16, 16, 4, f32, seed=11, pos=[2, 9],
-                          garbage_rest=False)
-    close(kern(*args, **kw), plain(*args, **kw), f32, "future pages")
-    n += 1
+    # split boundaries at qwen's width: positions at and around the split
+    # length, a slot at 0, a window that empties whole splits
+    n_split, split_len = paged_ops.split_plan(
+        8, 8, 2080, 8, paged_ops.sm_count(torch.device("cuda")))
+    edge = [split_len - 2, split_len - 1, split_len, 0, 2079,
+            2 * split_len - 1, 2 * split_len, 1]
+    for dt in (f32, bf16):
+        for w in (None, 100, split_len):
+            args, kw = paged_case(8, 40, 8, 128, 2080, 8, dt, seed=12,
+                                  pos=edge, window=w)
+            close(kern(*args, **kw), plain(*args, **kw), dt,
+                  f"split edges (n_split {n_split}, split_len "
+                  f"{split_len}) window {w} {dt}")
+            n += 1
+    # the combine kernel against its plain version on the split kernel's
+    # own partials (qwen's decode shape; these launches are not counted)
+    comb_err = {}
+    rng = np.random.default_rng(0)
+    cpos = (rng.choice([256, 512, 1024, 2048], 16)
+            + rng.integers(0, 32, 16) - 1)
+    for dt in (f32, bf16):
+        args, kw = paged_case(16, 40, 8, 128, 2080, 8, dt, seed=13,
+                              pos=cpos, window=1000 if dt == f32 else None)
+        ns, sl = paged_ops.split_plan(16, 8, 2080, 8, paged_ops.sm_count(
+            torch.device("cuda")))
+        acc, m, l = paged_ops.paged_decode_partials(
+            *args, n_split=ns, split_len=sl, **kw)
+        comb_err[dt] = close(paged_ops.paged_decode_combine(acc, m, l, dt),
+                             paged_ref.paged_decode_combine_ref(acc, m, l,
+                                                                dt),
+                             dt, f"combine {dt}")
+        if not torch.equal(l == 0, m == -torch.inf):
+            raise AssertionError("an empty split's partial is not "
+                                 "(m = -inf, l = 0)")
+        n += 1
+    log(f"paged_decode combine: kernel vs plain on the split kernel's "
+        f"partials ({ns} splits of {sl}) max|err| f32 {comb_err[f32]:.3e} "
+        f"bf16 {comb_err[bf16]:.3e}")
 
     # qwen2.5-14b decode shapes: 16 slots, Hkv 8, group 5, Dh 128, ps 8,
     # cache_len 2080, ragged pos up to 2079 (prompt lengths of the serve
@@ -380,6 +447,9 @@ def check_paged_decode():
     qh = q.transpose(1, 2)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     l_ms = time_ms(lambda: sdpa(qh, kd, vd, attn_mask=mask, enable_gqa=True))
+    k_dev = device_ms(lambda: kern(*args, **kw))
+    l_dev = device_ms(lambda: sdpa(qh, kd, vd, attn_mask=mask,
+                                   enable_gqa=True))
     live = int((pos.long() + 1).sum().item())
     nbytes = (live * 8 * 128 * 2 * 2 + 2 * q.numel() * 2
               + table.numel() * 4 + pos.numel() * 4)
@@ -390,8 +460,10 @@ def check_paged_decode():
     log(f"paged_decode qwen bf16 (B 16, H 40/8, Dh 128, ps 8, "
         f"live positions {live}): max_err {errs[bf16]:.3e} kernel_ms "
         f"{k_ms:.4f} plain_ms {p_ms:.4f} library_ms {l_ms:.4f} bound_ms "
-        f"{bound:.4f} ({bound_by}: {nbytes} B)")
+        f"{bound:.4f} ({bound_by}: {nbytes} B); device time alone "
+        f"(profiler): kernel {k_dev:.4f} library {l_dev:.4f}")
     return {"name": "paged_decode_attention", "route": "cuda",
+            "device_ms": k_dev, "library_device_ms": l_dev,
             "source": "src/repro_torch/csrc/paged_decode.cu",
             "replaces": "src/repro/kernels/paged_attention/kernel.py:121",
             "max_abs_err": errs[bf16], "ms": k_ms, "plain_ms": p_ms,
@@ -783,8 +855,6 @@ def check_flash():
     rows = []
     sdpa = torch.nn.functional.scaled_dot_product_attention
     for name, (shape, w) in serve.items():
-        if name == "qwen 16x512":
-            continue
         b, sq, sk, h, hkv, d = shape
         q, k, v = flash_case(*shape, bf16, seed=0)
         k_ms = time_ms(lambda: kern(q, k, v, window=w))
@@ -798,6 +868,7 @@ def check_flash():
         if w is None:
             l_ms = time_ms(lambda: sdpa(qh, kh, vh, is_causal=True,
                                         enable_gqa=True))
+
         else:
             i = torch.arange(sq, device="cuda")[:, None]
             j = torch.arange(sk, device="cuda")[None, :]
@@ -818,7 +889,8 @@ def check_flash():
             f"head, {nbytes} B; f32 CUDA-core floor "
             f"{flops / F32_FLOPS * 1e3:.4f} ms); {flops / k_ms / 1e9:.1f} "
             "TFLOP/s")
-        rows.append({"name": "flash_attention", "route": "cuda",
+        rows.append({"name": "flash_attention", "shape": name,
+                     "route": "cuda",
                      "source": "src/repro_torch/csrc/flash_attention.cu",
                      "replaces":
                          "src/repro/kernels/flash_attention/kernel.py:106",
@@ -827,7 +899,7 @@ def check_flash():
                      "bound_by": bound_by, "library_ms": l_ms})
         del q, k, v
         torch.cuda.empty_cache()
-    return rows[-1]         # mixtral's prefill: this slice's main path
+    return rows             # one row per serve shape
 
 
 # ------------------------------------------------------------- main path
@@ -1620,7 +1692,7 @@ def main(argv=None):
 
     build_all()
     rows = [check_paged_decode(), check_rms_norm(), check_paged_mla(),
-            check_ssd(), check_flash()]
+            check_ssd(), *check_flash()]
     log(f"clocks after the kernel timings (sm, power, temp): {clocks()}")
     from repro_torch.configs import get
 
@@ -1643,7 +1715,8 @@ def main(argv=None):
     keys = ["name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms"]
-    log(json.dumps({"kernels": [{k: row[k] for k in keys}
+    extra = ["shape", "device_ms", "library_device_ms"]
+    log(json.dumps({"kernels": [{k: row[k] for k in keys + extra if k in row}
                                 for row in rows]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -20,6 +20,11 @@ from .ref import paged_decode_attention_ref, paged_mla_decode_attention_ref
 SOURCES = ["paged_decode.cu"]
 HEAD_DIMS = (16, 32, 64, 128)
 MAX_GROUP = 16
+# positions per split block of the GQA decode (rounded up to whole pages),
+# and the most split blocks per SM the plan makes before it lengthens them
+SPLIT_POSITIONS = 256
+MAX_BLOCKS_PER_SM = 16
+MAX_GRID_Z = 65535
 MLA_SOURCES = ["paged_mla_decode.cu"]
 MLA_LATENT_DIMS = (16, 32, 64, 128, 256)
 MLA_MAX_ROPE_DIM = 64
@@ -31,11 +36,48 @@ def library() -> ctypes.CDLL:
     lib = load_library("paged_decode", SOURCES)
     fn = lib.repro_paged_decode
     if fn.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [i, p, p, p, p, p, p, i, i, i, i, i, i, i,
-                       ctypes.c_float, p]
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        fn.argtypes = [i, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, f,
+                       i, i, p]
         fn.restype = i
+        lib.repro_paged_decode_split.argtypes = [i, p, p, p, p, p, p, p, p,
+                                                 i, i, i, i, i, i, i, f, i,
+                                                 i, p]
+        lib.repro_paged_decode_split.restype = i
+        lib.repro_paged_decode_combine.argtypes = [i, p, p, p, p, i, i, i, p]
+        lib.repro_paged_decode_combine.restype = i
     return lib
+
+
+def split_plan(b, hkv, capacity, page_size, sm_count):
+    """(n_split, split_len) of the GQA decode: blocks of ``split_len``
+    consecutive positions (whole pages, about ``SPLIT_POSITIONS``) cover
+    the table's ``capacity`` positions, at most ``MAX_BLOCKS_PER_SM`` split
+    blocks per SM over the ``b * hkv`` (slot, kv head) pairs.  A pure
+    function of shapes: it never reads the slots' positions, which live
+    on the card."""
+    ps = page_size
+    length = ps * -(-SPLIT_POSITIONS // ps)
+    n = -(-capacity // length)
+    cap = max(1, min(MAX_GRID_Z, MAX_BLOCKS_PER_SM * sm_count // (b * hkv)))
+    if n > cap:                     # fewer, longer splits
+        per_split = -(-capacity // cap)
+        length = ps * -(-per_split // ps)
+        n = -(-capacity // length)
+    return n, length
+
+
+_SM_COUNT: dict[int, int] = {}
+
+
+def sm_count(device) -> int:
+    """The card's SM count, read once per device."""
+    idx = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    if idx not in _SM_COUNT:
+        _SM_COUNT[idx] = torch.cuda.get_device_properties(
+            idx).multi_processor_count
+    return _SM_COUNT[idx]
 
 
 def _check(q, k_pool, v_pool, table, pos, page_size):
@@ -89,23 +131,89 @@ def paged_decode_attention(q, k_pool, v_pool, table, pos, *, page_size,
                            f"device {q.device}")
     _check(q, k_pool, v_pool, table, pos, page_size)
     b, _, h, dh = q.shape
-    hkv = k_pool.shape[2]
+    hkv, pps = k_pool.shape[2], table.shape[1]
     scale = (dh ** -0.5) if scale is None else float(scale)
+    n_split, split_len = split_plan(b, hkv, pps * page_size, page_size,
+                                    sm_count(q.device))
     out = torch.empty_like(q)
-    fn = library().repro_paged_decode
-    err = fn(_DTYPES[q.dtype], q.data_ptr(), k_pool.data_ptr(),
-             v_pool.data_ptr(), table.data_ptr(), pos.data_ptr(),
-             out.data_ptr(), b, h, hkv, dh, table.shape[1], page_size,
-             0 if window is None else int(window), scale,
-             torch.cuda.current_stream(q.device).cuda_stream)
+    parts = (None, None, None)
+    if n_split > 1:     # one scratch allocation: the tick is host-bound
+        scratch = _scratch(q, n_split)
+        parts = _part_ptrs(scratch.data_ptr(), n_split * b * h, dh)
+    err = library().repro_paged_decode(
+        _DTYPES[q.dtype], q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+        table.data_ptr(), pos.data_ptr(), out.data_ptr(), *parts, b, h, hkv,
+        dh, pps, page_size, 0 if window is None else int(window), scale,
+        n_split, split_len, torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"paged_decode kernel launch failed: CUDA error "
                            f"{err}")
-    paged_decode_attention.launches.add()
+    paged_decode_attention.launches.add()   # one per call: split + combine
     return out
 
 
 paged_decode_attention.launches = LaunchCounter()
+
+
+def _scratch(q, n_split):
+    """f32 scratch of the split partials: acc (n_split, B, H, Dh), then m
+    and l (n_split, B, H)."""
+    b, _, h, dh = q.shape
+    return torch.empty(n_split * b * h * (dh + 2), dtype=torch.float32,
+                       device=q.device)
+
+
+def _part_ptrs(base, rows, dh):
+    """Addresses of acc, m and l in a scratch of ``rows`` partial rows."""
+    return base, base + 4 * rows * dh, base + 4 * rows * (dh + 1)
+
+
+def paged_decode_partials(q, k_pool, v_pool, table, pos, *, page_size,
+                          n_split, split_len, window=None, scale=None):
+    """The split kernel alone (CUDA tensors): the partials (acc (n_split, B,
+    H, Dh), m and l (n_split, B, H), f32, m in log2 units) that the combine
+    merges.  For holding the combine kernel against its plain version on
+    the kernel's own partials; not counted as a launch of the wrapper."""
+    _check(q, k_pool, v_pool, table, pos, page_size)
+    b, _, h, dh = q.shape
+    hkv, pps = k_pool.shape[2], table.shape[1]
+    scale = (dh ** -0.5) if scale is None else float(scale)
+    rows = n_split * b * h
+    scratch = _scratch(q, n_split)
+    acc = scratch[:rows * dh].view(n_split, b, h, dh)
+    m = scratch[rows * dh:rows * (dh + 1)].view(n_split, b, h)
+    l = scratch[rows * (dh + 1):].view(n_split, b, h)
+    err = library().repro_paged_decode_split(
+        _DTYPES[q.dtype], q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+        table.data_ptr(), pos.data_ptr(), *_part_ptrs(scratch.data_ptr(),
+                                                      rows, dh),
+        b, h, hkv, dh, pps, page_size,
+        0 if window is None else int(window), scale, n_split, split_len,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"paged_decode split launch failed: CUDA error "
+                           f"{err}")
+    return acc, m, l
+
+
+def paged_decode_combine(acc, m, l, dtype):
+    """The combine kernel alone (CUDA tensors): partials -> (B, 1, H, Dh)
+    in ``dtype``; the counterpart of ``ref.paged_decode_combine_ref``."""
+    n_split, b, h, dh = acc.shape
+    if not all(t.is_cuda and t.is_contiguous() and t.dtype == torch.float32
+               for t in (acc, m, l)) or m.shape != (n_split, b, h) \
+            or l.shape != m.shape:
+        raise ValueError("partials must be contiguous f32 CUDA tensors of "
+                         "shapes (S, B, H, Dh), (S, B, H), (S, B, H)")
+    out = torch.empty((b, 1, h, dh), dtype=dtype, device=acc.device)
+    err = library().repro_paged_decode_combine(
+        _DTYPES[dtype], acc.data_ptr(), m.data_ptr(), l.data_ptr(),
+        out.data_ptr(), n_split, b * h, dh,
+        torch.cuda.current_stream(acc.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"paged_decode combine launch failed: CUDA error "
+                           f"{err}")
+    return out
 
 
 # ------------------------------------------------------------- absorbed MLA

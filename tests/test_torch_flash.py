@@ -225,3 +225,42 @@ def test_flash_kernel_mixtral_prefill_shape(cuda):
     heads."""
     _kernel_vs_plain((1, 8192, 8192, 32, 8, 128), "bfloat16", cuda,
                      window=4096)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("sq", [127, 128, 129, 255])
+def test_flash_kernel_lengths_around_the_tiles(sq, dtype, cuda):
+    """Lengths at and around the 128-row query tile and 64-key tile."""
+    _kernel_vs_plain((2, sq, sq, 8, 2, 128), dtype, cuda)
+    _kernel_vs_plain((1, sq, sq, 4, 4, 64), dtype, cuda, window=64)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("sk", [64, 128, 65])
+def test_flash_kernel_one_and_two_key_tiles(sk, dtype, cuda):
+    """Query tiles whose loop runs over exactly one or two key tiles (the
+    ring's prologue and epilogue without a steady state)."""
+    _kernel_vs_plain((1, 128, sk, 8, 2, 128), dtype, cuda, causal=False)
+    _kernel_vs_plain((1, sk, sk, 8, 2, 128), dtype, cuda)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_kernel_more_keys_than_queries_noncausal(dtype, cuda):
+    _kernel_vs_plain((2, 100, 700, 8, 2, 128), dtype, cuda, causal=False)
+    _kernel_vs_plain((1, 129, 1000, 4, 1, 64), dtype, cuda, causal=False,
+                     window=200)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("group", GROUPS)
+def test_flash_kernel_gqa_groups_d128(group, cuda):
+    """The bf16 D 128 kernel packs a kv head's group of query heads into
+    one block's rows: every group size of the registry, causal and
+    windowed, lengths off the packing."""
+    _kernel_vs_plain((2, 203, 203, 2 * group, 2, 128), "bfloat16", cuda,
+                     seed=group)
+    _kernel_vs_plain((1, 150, 150, 3 * group, 3, 128), "bfloat16", cuda,
+                     seed=group, window=37)

@@ -442,3 +442,88 @@ def test_ssd_kernel_partial_last_chunk(s, chunk, cuda):
     y_r, hf_r = ssd_scan_ref(*args, chunk=s)
     _ssd_close(y.cpu(), y_r.cpu(), "float32")
     _ssd_close(hf.cpu(), hf_r.cpu(), "float32")
+
+
+def _split_len(b, hkv, capacity, ps, device):
+    from repro_torch.kernels.paged_attention import ops
+    return ops.split_plan(b, hkv, capacity, ps, ops.sm_count(device))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("window", [1, 3, 7, 100])
+def test_paged_decode_kernel_window_bf16(window, cuda):
+    args = _paged_case_cuda((3, 4, 2, 32, 24, 4), "bfloat16", cuda, seed=8)
+    got = paged_decode_attention(*args, page_size=4, window=window)
+    want = paged_decode_attention_ref(*args, page_size=4, window=window)
+    _close(got.float().cpu(), want.float().cpu(), "bfloat16")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("window", [None, 3, 300])
+@pytest.mark.parametrize("shape", [(3, 4, 2, 32, 16, 4),
+                                   (4, 40, 8, 128, 2080, 8)])
+def test_paged_decode_kernel_garbage_page_bit_identical(shape, window, dtype,
+                                                        cuda):
+    """Page 0 poisoned with 1e4: nothing behind a masked position is read,
+    so the output is bit-identical (split and one-split shapes)."""
+    pos = [0, 5, 15] if shape[0] == 3 else [0, 255, 1000, 2079]
+    args = _paged_case_cuda(shape, dtype, cuda, seed=10, pos=pos)
+    ps = shape[-1]
+    clean = paged_decode_attention(*args, page_size=ps, window=window)
+    args[1][0] = 1e4
+    args[2][0] = 1e4
+    poisoned = paged_decode_attention(*args, page_size=ps, window=window)
+    assert torch.equal(clean, poisoned) and torch.isfinite(poisoned).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("window", [None, 100, "split"])
+def test_paged_decode_kernel_split_edges(window, dtype, cuda):
+    """Positions at and around the split length (L - 1, L, L + 1, 2L),
+    a slot at position 0, the last position, and windows that empty whole
+    splits (100) or end on a split edge (L), at qwen2.5-14b's widths."""
+    n_split, length = _split_len(8, 8, 2080, 8, cuda)
+    assert n_split > 1
+    pos = [length - 2, length - 1, length, 0, 2079, 2 * length - 1,
+           2 * length, 1]
+    w = length if window == "split" else window
+    args = _paged_case_cuda((8, 40, 8, 128, 2080, 8), dtype, cuda, seed=12,
+                            pos=pos)
+    got = paged_decode_attention(*args, page_size=8, window=w)
+    want = paged_decode_attention_ref(*args, page_size=8, window=w)
+    _close(got.float().cpu(), want.float().cpu(), dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_decode_kernel_one_split(dtype, cuda):
+    """A table of one split's capacity: the split kernel writes the output
+    itself (no combine)."""
+    assert _split_len(3, 2, 200, 8, cuda)[0] == 1
+    args = _paged_case_cuda((3, 10, 2, 128, 200, 8), dtype, cuda, seed=14,
+                            pos=[0, 100, 199])
+    got = paged_decode_attention(*args, page_size=8)
+    want = paged_decode_attention_ref(*args, page_size=8)
+    _close(got.float().cpu(), want.float().cpu(), dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_decode_combine_kernel_matches_plain(dtype, cuda):
+    """The combine kernel against its plain version on the split kernel's
+    own partials; empty splits are (m = -inf, l = 0)."""
+    from repro_torch.kernels.paged_attention import (
+        paged_decode_combine, paged_decode_combine_ref,
+        paged_decode_partials)
+    n_split, length = _split_len(16, 8, 2080, 8, cuda)
+    args = _paged_case_cuda((16, 40, 8, 128, 2080, 8), dtype, cuda, seed=13)
+    acc, m, l = paged_decode_partials(*args, page_size=8, n_split=n_split,
+                                      split_len=length, window=700)
+    assert torch.equal(l == 0, m == -torch.inf)
+    got = paged_decode_combine(acc, m, l, getattr(torch, dtype))
+    want = paged_decode_combine_ref(acc, m, l, getattr(torch, dtype))
+    _close(got.float().cpu(), want.float().cpu(), dtype)
+    full = paged_decode_attention_ref(*args, page_size=8, window=700)
+    _close(got.float().cpu(), full.float().cpu(), dtype)
