@@ -242,12 +242,19 @@ def time_ms(fn, iters=20, warmup=5, reps=5):
     return statistics.median(times)
 
 
-def device_ms(fn, iters=20):
+def device_ms(fn, iters=20, per_call=None):
     """Device time per call: the kernels' time in a ``torch.profiler``
     trace of ``iters`` calls after warm-up, summed over every kernel the
     call launches.  Unlike ``time_ms`` it leaves out the host's time to
-    enqueue, which on a slow host exceeds a short kernel's."""
+    enqueue, which on a slow host exceeds a short kernel's.  The trace
+    must hold every launch, or the sum would read low: each kernel name a
+    whole multiple of ``iters`` times, each with a duration, and
+    ``per_call`` kernels a call where the caller knows the number.
+    Otherwise it returns None (no device time)."""
+    import collections
+
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
@@ -257,7 +264,20 @@ def device_ms(fn, iters=20):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    return sum(e.device_time_total for e in prof.key_averages()) / iters / 1e3
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    names = collections.Counter(e.name for e in kernels)
+    whole = (kernels and all(c % iters == 0 for c in names.values())
+             and all(e.time_range.elapsed_us() > 0 for e in kernels)
+             and (per_call is None or len(kernels) == per_call * iters))
+    if not whole:
+        log(f"device_ms: the trace does not hold every launch of {iters} "
+            f"calls ({dict(names)}); no device time")
+        return None
+    return sum(e.time_range.elapsed_us() for e in kernels) / iters / 1e3
+
+
+def ms_text(ms):
+    return "not measured" if ms is None else f"{ms:.4f}"
 
 
 def clocks():
@@ -332,28 +352,39 @@ def check_paged_decode():
 
     f32, bf16 = torch.float32, torch.bfloat16
     n = 0
+    rows_err = {}
+
+    def held(got, want, dt, what):
+        """Elementwise TOL; in bf16 also the row bound ROW_TOL over each
+        (slot, head) output row: at 2000 positions a typical output is
+        about 0.04, as large as TOL's 2e-2."""
+        err = close(got, want, dt, what)
+        if dt == bf16:
+            rows_err[what] = rows_close(got, want, what)
+        return err
+
     # the reference's grid (tests/test_kernels.py:99-121) in both dtypes
     for dt in (f32, bf16):
         for shape in [(2, 4, 4, 32, 16, 4), (3, 8, 2, 64, 32, 8),
                       (2, 4, 1, 32, 16, 2), (2, 6, 3, 16, 12, 1),
                       (1, 2, 2, 32, 8, 8)]:
             args, kw = paged_case(*shape, dt, seed=7)
-            close(kern(*args, **kw), plain(*args, **kw), dt,
-                  f"paged grid {shape} {dt}")
+            held(kern(*args, **kw), plain(*args, **kw), dt,
+                 f"paged grid {shape} {dt}")
             n += 1
         # every GQA group size in REGISTRY (1, 2, 4, 5, 6, 8, 12)
         for g in (1, 2, 4, 5, 6, 8, 12):
             for dh in (64, 128):
                 args, kw = paged_case(3, 2 * g, 2, dh, 40, 8, dt, seed=g)
-                close(kern(*args, **kw), plain(*args, **kw), dt,
-                      f"paged group {g} dh {dh} {dt}")
+                held(kern(*args, **kw), plain(*args, **kw), dt,
+                     f"paged group {g} dh {dh} {dt}")
                 n += 1
     for dt in (f32, bf16):
         # windows (tests/test_kernels.py:123-137)
         for w in (1, 3, 7, 100):
             args, kw = paged_case(3, 4, 2, 32, 24, 4, dt, seed=8, window=w)
-            close(kern(*args, **kw), plain(*args, **kw), dt,
-                  f"window {w} {dt}")
+            held(kern(*args, **kw), plain(*args, **kw), dt,
+                 f"window {w} {dt}")
             n += 1
         # poisoned garbage page must be inert (:165-182): bit-identical
         for w in (None, 3):
@@ -373,22 +404,21 @@ def check_paged_decode():
         # allocated-but-future pages are masked (:185-201)
         args, kw = paged_case(2, 2, 2, 16, 16, 4, dt, seed=11, pos=[2, 9],
                               garbage_rest=False)
-        close(kern(*args, **kw), plain(*args, **kw), dt,
-              f"future pages {dt}")
+        held(kern(*args, **kw), plain(*args, **kw), dt,
+             f"future pages {dt}")
         n += 1
     # split boundaries at qwen's width: positions at and around the split
     # length, a slot at 0, a window that empties whole splits
-    n_split, split_len = paged_ops.split_plan(
-        8, 8, 2080, 8, paged_ops.sm_count(torch.device("cuda")))
+    n_split, split_len = paged_ops.split_plan(2080, 8)
     edge = [split_len - 2, split_len - 1, split_len, 0, 2079,
             2 * split_len - 1, 2 * split_len, 1]
     for dt in (f32, bf16):
         for w in (None, 100, split_len):
             args, kw = paged_case(8, 40, 8, 128, 2080, 8, dt, seed=12,
                                   pos=edge, window=w)
-            close(kern(*args, **kw), plain(*args, **kw), dt,
-                  f"split edges (n_split {n_split}, split_len "
-                  f"{split_len}) window {w} {dt}")
+            held(kern(*args, **kw), plain(*args, **kw), dt,
+                 f"split edges (n_split {n_split}, split_len "
+                 f"{split_len}) window {w} {dt}")
             n += 1
     # the combine kernel against its plain version on the split kernel's
     # own partials (qwen's decode shape; these launches are not counted)
@@ -399,14 +429,13 @@ def check_paged_decode():
     for dt in (f32, bf16):
         args, kw = paged_case(16, 40, 8, 128, 2080, 8, dt, seed=13,
                               pos=cpos, window=1000 if dt == f32 else None)
-        ns, sl = paged_ops.split_plan(16, 8, 2080, 8, paged_ops.sm_count(
-            torch.device("cuda")))
+        ns, sl = paged_ops.split_plan(2080, 8)
         acc, m, l = paged_ops.paged_decode_partials(
             *args, n_split=ns, split_len=sl, **kw)
-        comb_err[dt] = close(paged_ops.paged_decode_combine(acc, m, l, dt),
-                             paged_ref.paged_decode_combine_ref(acc, m, l,
-                                                                dt),
-                             dt, f"combine {dt}")
+        comb_err[dt] = held(paged_ops.paged_decode_combine(acc, m, l, dt),
+                            paged_ref.paged_decode_combine_ref(acc, m, l,
+                                                               dt),
+                            dt, f"combine {dt}")
         if not torch.equal(l == 0, m == -torch.inf):
             raise AssertionError("an empty split's partial is not "
                                  "(m = -inf, l = 0)")
@@ -426,12 +455,48 @@ def check_paged_decode():
     for dt in (f32, bf16):
         args, kw = paged_case(16, 40, 8, 128, 2080, 8, dt, seed=1,
                               pos=qpos)
-        errs[dt] = close(kern(*args, **kw), plain(*args, **kw), dt,
-                         f"qwen shapes {dt}")
+        errs[dt] = held(kern(*args, **kw), plain(*args, **kw), dt,
+                        f"qwen shapes {dt}")
         n += 1
+    worst = max(rows_err, key=lambda k: rows_err[k][1])
     log(f"paged_decode: {n} cases match the plain version "
-        f"(f32 rtol/atol 2e-5, bf16 2e-2); qwen shapes max|err| "
-        f"f32 {errs[f32]:.3e} bf16 {errs[bf16]:.3e}")
+        f"(f32 rtol/atol 2e-5, bf16 2e-2 and row error {ROW_TOL}); qwen "
+        f"shapes max|err| f32 {errs[f32]:.3e} bf16 {errs[bf16]:.3e}; bf16 "
+        f"row error RMS / worst: qwen shapes "
+        f"{rows_err[f'qwen shapes {bf16}'][0]:.3e} / "
+        f"{rows_err[f'qwen shapes {bf16}'][1]:.3e}, combine "
+        f"{rows_err[f'combine {bf16}'][0]:.3e} / "
+        f"{rows_err[f'combine {bf16}'][1]:.3e}; worst row of all bf16 "
+        f"cases {rows_err[worst][1]:.3e} ({worst})")
+
+    # planted kernel faults at qwen's decode shape in bf16: the last
+    # 64-position tile of every slot left out (a bound one tile short),
+    # and each row's last non-empty split dropped from the combine (on
+    # the split kernel's own partials).  The row check must reject both;
+    # what the elementwise bf16 tolerance says of each is logged.
+    args, kw = paged_case(16, 40, 8, 128, 2080, 8, bf16, seed=1, pos=qpos)
+    q, kp, vp, table, pos = args
+    want = plain(*args, **kw)
+    acc, m, l = paged_ops.paged_decode_partials(
+        *args, n_split=n_split, split_len=split_len, **kw)
+    last, slots = pos.long() // split_len, torch.arange(16, device="cuda")
+    m[last, slots] = -torch.inf
+    l[last, slots] = 0
+    faults = {"last tile of each slot left out":
+              kern(q, kp, vp, table, pos - 64, **kw),
+              "last split of each row dropped from the combine":
+              paged_ops.paged_decode_combine(acc, m, l, bf16)}
+    for name, got in faults.items():
+        rms, worst = row_rel(got, want)
+        elementwise = torch.allclose(got.float(), want.float(),
+                                     **TOL["bfloat16"])
+        log(f"paged_decode planted fault ({name}, qwen shapes): row error "
+            f"RMS {rms:.3e} / worst {worst:.3e}; elementwise bf16 "
+            f"tolerance alone {'passes' if elementwise else 'rejects'} it")
+        if rms <= ROW_TOL["rms"] and worst <= ROW_TOL["worst"]:
+            raise AssertionError(f"paged_decode: the row check does not "
+                                 f"reject the planted fault ({name})")
+    del acc, m, l, faults
 
     # times at the qwen decode shapes, bf16
     args, kw = paged_case(16, 40, 8, 128, 2080, 8, bf16, seed=1, pos=qpos)
@@ -447,7 +512,7 @@ def check_paged_decode():
     qh = q.transpose(1, 2)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     l_ms = time_ms(lambda: sdpa(qh, kd, vd, attn_mask=mask, enable_gqa=True))
-    k_dev = device_ms(lambda: kern(*args, **kw))
+    k_dev = device_ms(lambda: kern(*args, **kw), per_call=2)  # + combine
     l_dev = device_ms(lambda: sdpa(qh, kd, vd, attn_mask=mask,
                                    enable_gqa=True))
     live = int((pos.long() + 1).sum().item())
@@ -461,7 +526,7 @@ def check_paged_decode():
         f"live positions {live}): max_err {errs[bf16]:.3e} kernel_ms "
         f"{k_ms:.4f} plain_ms {p_ms:.4f} library_ms {l_ms:.4f} bound_ms "
         f"{bound:.4f} ({bound_by}: {nbytes} B); device time alone "
-        f"(profiler): kernel {k_dev:.4f} library {l_dev:.4f}")
+        f"(profiler): kernel {ms_text(k_dev)} library {ms_text(l_dev)}")
     return {"name": "paged_decode_attention", "route": "cuda",
             "device_ms": k_dev, "library_device_ms": l_dev,
             "source": "src/repro_torch/csrc/paged_decode.cu",
@@ -735,7 +800,7 @@ def row_rel(got, want):
     return r.mean().sqrt().item(), r.max().sqrt().item()
 
 
-def flash_rows_close(got, want, what):
+def rows_close(got, want, what):
     rms, worst = row_rel(got, want)
     if rms > ROW_TOL["rms"] or worst > ROW_TOL["worst"]:
         raise AssertionError(
@@ -781,7 +846,7 @@ def check_flash():
         got, want = kern(*args, **kw), plain(*args, **kw)
         err = close(got, want, dt, what)
         if dt == bf16:
-            rows_err[what] = flash_rows_close(got, want, what)
+            rows_err[what] = rows_close(got, want, what)
         return err, args
 
     # the reference's grid (tests/test_kernels.py:26-77) in both dtypes,

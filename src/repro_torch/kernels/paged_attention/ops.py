@@ -21,9 +21,8 @@ SOURCES = ["paged_decode.cu"]
 HEAD_DIMS = (16, 32, 64, 128)
 MAX_GROUP = 16
 # positions per split block of the GQA decode (rounded up to whole pages),
-# and the most split blocks per SM the plan makes before it lengthens them
+# and the grid's z limit, which caps the number of splits
 SPLIT_POSITIONS = 256
-MAX_BLOCKS_PER_SM = 16
 MAX_GRID_Z = 65535
 MLA_SOURCES = ["paged_mla_decode.cu"]
 MLA_LATENT_DIMS = (16, 32, 64, 128, 256)
@@ -49,35 +48,20 @@ def library() -> ctypes.CDLL:
     return lib
 
 
-def split_plan(b, hkv, capacity, page_size, sm_count):
+def split_plan(capacity, page_size):
     """(n_split, split_len) of the GQA decode: blocks of ``split_len``
     consecutive positions (whole pages, about ``SPLIT_POSITIONS``) cover
-    the table's ``capacity`` positions, at most ``MAX_BLOCKS_PER_SM`` split
-    blocks per SM over the ``b * hkv`` (slot, kv head) pairs.  A pure
-    function of shapes: it never reads the slots' positions, which live
-    on the card."""
+    the table's ``capacity`` positions in at most ``MAX_GRID_Z`` splits.
+    A pure function of shapes: it never reads the slots' positions, which
+    live on the card."""
     ps = page_size
     length = ps * -(-SPLIT_POSITIONS // ps)
     n = -(-capacity // length)
-    cap = max(1, min(MAX_GRID_Z, MAX_BLOCKS_PER_SM * sm_count // (b * hkv)))
-    if n > cap:                     # fewer, longer splits
-        per_split = -(-capacity // cap)
+    if n > MAX_GRID_Z:              # fewer, longer splits
+        per_split = -(-capacity // MAX_GRID_Z)
         length = ps * -(-per_split // ps)
         n = -(-capacity // length)
     return n, length
-
-
-_SM_COUNT: dict[int, int] = {}
-
-
-def sm_count(device) -> int:
-    """The card's SM count, read once per device."""
-    idx = device.index if device.index is not None \
-        else torch.cuda.current_device()
-    if idx not in _SM_COUNT:
-        _SM_COUNT[idx] = torch.cuda.get_device_properties(
-            idx).multi_processor_count
-    return _SM_COUNT[idx]
 
 
 def _check(q, k_pool, v_pool, table, pos, page_size):
@@ -133,8 +117,7 @@ def paged_decode_attention(q, k_pool, v_pool, table, pos, *, page_size,
     b, _, h, dh = q.shape
     hkv, pps = k_pool.shape[2], table.shape[1]
     scale = (dh ** -0.5) if scale is None else float(scale)
-    n_split, split_len = split_plan(b, hkv, pps * page_size, page_size,
-                                    sm_count(q.device))
+    n_split, split_len = split_plan(pps * page_size, page_size)
     out = torch.empty_like(q)
     parts = (None, None, None)
     if n_split > 1:     # one scratch allocation: the tick is host-bound

@@ -257,9 +257,9 @@ def test_flash_kernel_more_keys_than_queries_noncausal(dtype, cuda):
 @pytest.mark.gpu
 @pytest.mark.parametrize("group", GROUPS)
 def test_flash_kernel_gqa_groups_d128(group, cuda):
-    """The bf16 D 128 kernel packs a kv head's group of query heads into
-    one block's rows: every group size of the registry, causal and
-    windowed, lengths off the packing."""
+    """Every group size of the registry at D 128 in bf16, through the
+    kernel's h / (H / Hkv) kv-head index: causal and windowed, lengths
+    off the tiles."""
     _kernel_vs_plain((2, 203, 203, 2 * group, 2, 128), "bfloat16", cuda,
                      seed=group)
     _kernel_vs_plain((1, 150, 150, 3 * group, 3, 128), "bfloat16", cuda,

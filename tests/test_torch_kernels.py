@@ -12,7 +12,12 @@ bf16, ``tests/test_kernels.py:15-17``; for the SSD scan 1e-4 and 4e-2,
 ``:220-221``) — the two sides sum in different orders (XLA:CPU vs
 PyTorch, or a kernel's online softmax vs the plain version's one-pass
 softmax, or the SSD kernel's f32 sums vs the plain version's bf16
-intermediates), and bf16 outputs may round one ulp apart.
+intermediates), and bf16 outputs may round one ulp apart.  On the card
+a bf16 paged decode also bounds each (slot, head) output row's error by a
+share of that row's norm (RMS over rows 1e-2, worst row 5e-2, as the
+flash cases): a row that averages V over 2000 positions has typical
+values near 0.04, about the elementwise 2e-2, so only the row bound sees
+a 64-position tile left out (about 0.18 of the row's norm).
 """
 import numpy as np
 import pytest
@@ -41,6 +46,7 @@ SSD_GRID = [(1, 128, 2, 64, 32, 32),  # tests/test_kernels.py:205-209
             (1, 64, 1, 16, 16, 64)]   # single chunk
 SSD_TOL = {"float32": dict(rtol=1e-4, atol=1e-4),
            "bfloat16": dict(rtol=4e-2, atol=4e-2)}
+ROW_TOL = dict(rms=1e-2, worst=5e-2)
 
 
 @pytest.fixture(scope="module")
@@ -74,6 +80,18 @@ def cuda():
 def _close(a, b, dtype):
     np.testing.assert_allclose(np.asarray(a, np.float32),
                                np.asarray(b, np.float32), **TOL[dtype])
+
+
+def _decode_close(got, want, dtype):
+    """Elementwise tolerance, and in bf16 the row bound (ROW_TOL) over
+    each (slot, head) output row."""
+    g, w = got.float().cpu(), want.float().cpu()
+    _close(g, w, dtype)
+    if dtype == "bfloat16":
+        n2 = w.square().sum(-1)
+        r = (g - w).square().sum(-1)[n2 > 0] / n2[n2 > 0]
+        assert r.mean().sqrt().item() <= ROW_TOL["rms"]
+        assert r.max().sqrt().item() <= ROW_TOL["worst"]
 
 
 def _to_torch(x, dtype, device="cpu"):
@@ -343,7 +361,7 @@ def test_paged_decode_kernel_matches_plain(shape, dtype, cuda):
     torch.cuda.synchronize()
     assert paged_decode_attention.launches.value == before + 1
     want = paged_decode_attention_ref(*args, page_size=ps)
-    _close(got.float().cpu(), want.float().cpu(), dtype)
+    _decode_close(got, want, dtype)
 
 
 @pytest.mark.gpu
@@ -444,9 +462,9 @@ def test_ssd_kernel_partial_last_chunk(s, chunk, cuda):
     _ssd_close(hf.cpu(), hf_r.cpu(), "float32")
 
 
-def _split_len(b, hkv, capacity, ps, device):
-    from repro_torch.kernels.paged_attention import ops
-    return ops.split_plan(b, hkv, capacity, ps, ops.sm_count(device))
+def _split_len(capacity, ps):
+    from repro_torch.kernels.paged_attention import split_plan
+    return split_plan(capacity, ps)
 
 
 @pytest.mark.gpu
@@ -455,7 +473,7 @@ def test_paged_decode_kernel_window_bf16(window, cuda):
     args = _paged_case_cuda((3, 4, 2, 32, 24, 4), "bfloat16", cuda, seed=8)
     got = paged_decode_attention(*args, page_size=4, window=window)
     want = paged_decode_attention_ref(*args, page_size=4, window=window)
-    _close(got.float().cpu(), want.float().cpu(), "bfloat16")
+    _decode_close(got, want, "bfloat16")
 
 
 @pytest.mark.gpu
@@ -484,7 +502,7 @@ def test_paged_decode_kernel_split_edges(window, dtype, cuda):
     """Positions at and around the split length (L - 1, L, L + 1, 2L),
     a slot at position 0, the last position, and windows that empty whole
     splits (100) or end on a split edge (L), at qwen2.5-14b's widths."""
-    n_split, length = _split_len(8, 8, 2080, 8, cuda)
+    n_split, length = _split_len(2080, 8)
     assert n_split > 1
     pos = [length - 2, length - 1, length, 0, 2079, 2 * length - 1,
            2 * length, 1]
@@ -493,7 +511,7 @@ def test_paged_decode_kernel_split_edges(window, dtype, cuda):
                             pos=pos)
     got = paged_decode_attention(*args, page_size=8, window=w)
     want = paged_decode_attention_ref(*args, page_size=8, window=w)
-    _close(got.float().cpu(), want.float().cpu(), dtype)
+    _decode_close(got, want, dtype)
 
 
 @pytest.mark.gpu
@@ -501,12 +519,12 @@ def test_paged_decode_kernel_split_edges(window, dtype, cuda):
 def test_paged_decode_kernel_one_split(dtype, cuda):
     """A table of one split's capacity: the split kernel writes the output
     itself (no combine)."""
-    assert _split_len(3, 2, 200, 8, cuda)[0] == 1
+    assert _split_len(200, 8)[0] == 1
     args = _paged_case_cuda((3, 10, 2, 128, 200, 8), dtype, cuda, seed=14,
                             pos=[0, 100, 199])
     got = paged_decode_attention(*args, page_size=8)
     want = paged_decode_attention_ref(*args, page_size=8)
-    _close(got.float().cpu(), want.float().cpu(), dtype)
+    _decode_close(got, want, dtype)
 
 
 @pytest.mark.gpu
@@ -517,13 +535,13 @@ def test_paged_decode_combine_kernel_matches_plain(dtype, cuda):
     from repro_torch.kernels.paged_attention import (
         paged_decode_combine, paged_decode_combine_ref,
         paged_decode_partials)
-    n_split, length = _split_len(16, 8, 2080, 8, cuda)
+    n_split, length = _split_len(2080, 8)
     args = _paged_case_cuda((16, 40, 8, 128, 2080, 8), dtype, cuda, seed=13)
     acc, m, l = paged_decode_partials(*args, page_size=8, n_split=n_split,
                                       split_len=length, window=700)
     assert torch.equal(l == 0, m == -torch.inf)
     got = paged_decode_combine(acc, m, l, getattr(torch, dtype))
     want = paged_decode_combine_ref(acc, m, l, getattr(torch, dtype))
-    _close(got.float().cpu(), want.float().cpu(), dtype)
+    _decode_close(got, want, dtype)
     full = paged_decode_attention_ref(*args, page_size=8, window=700)
-    _close(got.float().cpu(), full.float().cpu(), dtype)
+    _decode_close(got, full, dtype)

@@ -18,37 +18,34 @@ from repro_torch.kernels.paged_attention import (paged_decode_attention_ref,
                                                  paged_decode_combine_ref,
                                                  paged_decode_partials_ref,
                                                  split_plan)
-from repro_torch.kernels.paged_attention.ops import (MAX_BLOCKS_PER_SM,
-                                                     MAX_GRID_Z,
+from repro_torch.kernels.paged_attention.ops import (MAX_GRID_Z,
                                                      SPLIT_POSITIONS)
 
-PLAN_SHAPES = [(b, hkv, cap, ps, sm)
-               for b, hkv in ((1, 1), (16, 8), (64, 8), (256, 16))
-               for cap, ps in ((8, 8), (16, 4), (40, 8), (2080, 8),
-                               (8224, 16), (32768, 1), (131072, 64))
-               for sm in (1, 132)]
+# tables of 1 page to 2**22 pages: the largest reach the grid's z limit
+PLAN_SHAPES = [(pages * ps, ps)
+               for pages in (1, 2, 5, 31, 32, 33, 260, 1028, 4096, 2 ** 20,
+                             2 ** 22)
+               for ps in (1, 4, 8, 16, 64)]
 
 
-@pytest.mark.parametrize("b,hkv,cap,ps,sm", PLAN_SHAPES)
-def test_split_plan_covers_capacity_within_grid(b, hkv, cap, ps, sm):
-    n, length = split_plan(b, hkv, cap, ps, sm)
+@pytest.mark.parametrize("cap,ps", PLAN_SHAPES)
+def test_split_plan_covers_capacity_within_grid(cap, ps):
+    n, length = split_plan(cap, ps)
     assert length % ps == 0 and length >= ps
     assert n * length >= cap > (n - 1) * length      # covers, no idle split
     assert 1 <= n <= MAX_GRID_Z
-    # as many split blocks as the SMs are given, unless one split each
-    assert n == 1 or n * b * hkv <= MAX_BLOCKS_PER_SM * sm
     # about SPLIT_POSITIONS each while the grid allows it
-    if -(-cap // (ps * -(-SPLIT_POSITIONS // ps))) * b * hkv \
-            <= MAX_BLOCKS_PER_SM * sm:
-        assert length == ps * -(-SPLIT_POSITIONS // ps)
+    default = ps * -(-SPLIT_POSITIONS // ps)
+    if -(-cap // default) <= MAX_GRID_Z:
+        assert length == default
 
 
 def test_split_plan_reads_shapes_only():
     """The plan takes no tensor: the slots' positions stay on the card
     (no host read in the decode tick)."""
     params = list(inspect.signature(split_plan).parameters)
-    assert params == ["b", "hkv", "capacity", "page_size", "sm_count"]
-    assert split_plan(16, 8, 2080, 8, 132) == (9, 256)
+    assert params == ["capacity", "page_size"]
+    assert split_plan(2080, 8) == (9, 256)
 
 
 def _inputs(b, h, hkv, dh, cap, ps, pos, seed):
@@ -86,7 +83,7 @@ def test_plain_split_combine_equals_unsplit(edges, window):
 def test_plain_split_combine_on_the_plan(cap, ps):
     """The kernel's own split edges (from the plan) merge to the unsplit
     result, a slot at 0 and slots on the edges included."""
-    n, length = split_plan(4, 2, cap, ps, 132)
+    n, length = split_plan(cap, ps)
     pos = [0, min(length, cap - 1), min(length - 1, cap - 1), cap - 1]
     args = _inputs(4, 10, 2, 32, cap, ps, pos, seed=4)
     edges = [min(z * length, cap) for z in range(n + 1)]
