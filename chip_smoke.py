@@ -14,17 +14,21 @@ Phases (each raises on failure, so the script exits non-zero):
    then the Triton kernel; prints the seconds and ``ptxas``' register and
    spill lines.
 3. kernels — each kernel's wrapper against its plain PyTorch version on
-   the card: paged GQA decode at qwen2.5-14b decode shapes (its split
-   boundaries, and its combine kernel against the plain combine on the
-   split kernel's own partials), paged MLA decode at minicpm3-4b's, the
-   SSD scan at mamba2-780m's prefill shapes (batch 1 and 16), flash
-   attention at qwen2.5-14b's (1 x 2048, 16 x 512) and mixtral-8x7b's
-   prefill shapes, RMSNorm, each with the edge cases of the reference's
-   kernel tests; then CUDA-event times of kernel, plain version and one
-   PyTorch library call where there is one, beside the least time the
-   card could take (``bound_ms``); for the paged GQA decode, whose call is
-   short enough that the host's time to enqueue it can exceed the
-   kernel's, also its and SDPA's device time alone (``torch.profiler``).
+   the card: paged GQA decode at qwen2.5-14b decode shapes and paged MLA
+   decode at minicpm3-4b's (each: its split boundaries, its combine
+   kernel against the plain combine on the split kernel's own partials,
+   bf16 held row by row, and two planted faults the row check must
+   reject), the SSD scan at mamba2-780m's prefill shapes (batch 1 and 16;
+   B and C also in the model's own layout, one group read in place; bf16
+   y held row by row against the plain version in f32, and a planted
+   fault between its phases the row check must reject), flash attention
+   at qwen2.5-14b's (1 x 2048, 16 x 512) and mixtral-8x7b's prefill
+   shapes, RMSNorm, each with the edge cases of the reference's kernel
+   tests; then CUDA-event times of kernel, plain version and one PyTorch
+   library call where there is one, beside the least time the card could
+   take (``bound_ms``); for the paged decodes and the SSD scan, also the
+   device time alone (``torch.profiler``), where the trace holds every
+   launch.
 4. serve  — the port's main paths at full width, one after the other,
    each behind ``repro_torch.serve.ServeEngine`` on the UMT runtime with
    seeded bf16 weights made on the card by the engine's weights task:
@@ -94,6 +98,20 @@ SSD_TOL = {"float32": dict(rtol=1e-4, atol=1e-4),
 # capacity MoE dispatch is held to the same row bounds
 # (``check_capacity_dispatch``).
 ROW_TOL = dict(rms=1e-2, worst=5e-2)
+# The SSD scan in bf16, row by row: each (b, s, h) row of y against the
+# plain version computed in f32 from the same bf16 inputs.  SSD_TOL's
+# bf16 4e-2 holds the kernel against the plain version in bf16, whose own
+# intermediates round to bf16; here the kernel's error alone is held.
+# Its bf16 roundings: x * w in the chunk states, the state entering a
+# chunk, the decay-weighted C B^T (P before P.V, as in attention) and y
+# itself, each a relative error up to 2^-8 (RMS about 1.1e-3), about
+# 2.5e-3 of a row's norm for four in a chain; a row's 64 values average
+# the rest.  So the bounds of ROW_TOL (RMS 1e-2, worst row 5e-2) leave a
+# factor of 4 at the RMS.  A row that loses the cross-chunk term (the
+# planted fault: one chunk's state not handed on) is off by about its
+# whole norm in the first ~30 rows of the chunk, RMS over rows above
+# 0.05.
+SSD_ROW_TOL = dict(rms=1e-2, worst=5e-2)
 # Token check: an emitted token may trail the teacher-forced forward's
 # argmax by at most this many logit units.  The engine's tokens come from
 # a qchunk prefill plus paged-kernel decode ticks (f32 softmax inside the
@@ -247,10 +265,12 @@ def device_ms(fn, iters=20, per_call=None):
     trace of ``iters`` calls after warm-up, summed over every kernel the
     call launches.  Unlike ``time_ms`` it leaves out the host's time to
     enqueue, which on a slow host exceeds a short kernel's.  The trace
-    must hold every launch, or the sum would read low: each kernel name a
-    whole multiple of ``iters`` times, each with a duration, and
-    ``per_call`` kernels a call where the caller knows the number.
-    Otherwise it returns None (no device time)."""
+    must hold every launch, or the sum would read low: one more call runs
+    first inside the trace (the profiler can miss a window's first
+    launch), and of each kernel name, launched k times a call, the last
+    k * ``iters`` launches are summed, which the trace must hold — each
+    with a duration, and ``per_call`` kernels a call where the caller
+    knows the number.  Otherwise it returns None (no device time)."""
     import collections
 
     import torch
@@ -261,18 +281,32 @@ def device_ms(fn, iters=20, per_call=None):
         fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
+        for _ in range(iters + 1):
             fn()
         torch.cuda.synchronize()
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    names = collections.Counter(e.name for e in kernels)
-    whole = (kernels and all(c % iters == 0 for c in names.values())
-             and all(e.time_range.elapsed_us() > 0 for e in kernels)
+    by_name = collections.defaultdict(list)
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name].append(e)
+    kernels, whole = [], bool(by_name)
+    for evs in by_name.values():
+        k = -(-len(evs) // (iters + 1))          # launches of it per call
+        whole &= len(evs) >= k * (iters + 1) - 1
+        kernels += sorted(evs, key=lambda e: e.time_range.start)[
+            -k * iters:]
+    whole = (whole and all(e.time_range.elapsed_us() > 0 for e in kernels)
              and (per_call is None or len(kernels) == per_call * iters))
     if not whole:
-        log(f"device_ms: the trace does not hold every launch of {iters} "
-            f"calls ({dict(names)}); no device time")
+        counts = {k: len(v) for k, v in by_name.items()}
+        log(f"device_ms: the trace does not hold every launch of the last "
+            f"{iters} of {iters + 1} calls ({counts}); no device time")
         return None
+    by_kernel = collections.Counter()
+    for e in kernels:      # "void (anonymous namespace)::f<T>(args)" -> f<T>
+        name = e.name.replace("(anonymous namespace)::", "")
+        by_kernel[name.split("(")[0].split()[-1]] += e.time_range.elapsed_us()
+    log("  device ms per call by kernel: " + ", ".join(
+        f"{k} {v / iters / 1e3:.4f}" for k, v in by_kernel.items()))
     return sum(e.time_range.elapsed_us() for e in kernels) / iters / 1e3
 
 
@@ -302,6 +336,49 @@ def close(got, want, dtype, what, tols=TOL):
 
 
 # ------------------------------------------------------------ paged decode
+def held_rows(got, want, dt, what, rows_err):
+    """A paged decode's output held to its plain version: elementwise TOL;
+    in bf16 also the row bound ROW_TOL over each (slot, head) output row
+    (into ``rows_err[what]``): at 2000 positions a typical output is about
+    0.04, as large as TOL's 2e-2."""
+    import torch
+
+    err = close(got, want, dt, what)
+    if dt == torch.bfloat16:
+        rows_err[what] = rows_close(got, want, what)
+    return err
+
+
+def planted_rows(kernel, shape, faults, want, elementwise_tol):
+    """Planted kernel faults: each output must fail the row check (ROW_TOL
+    or the bound given); what the elementwise tolerance alone says of it
+    is logged."""
+    import torch
+
+    for name, (got, tol) in faults.items():
+        rms, worst = row_rel(got, want)
+        elementwise = torch.allclose(got.float(), want.float(),
+                                     **elementwise_tol)
+        log(f"{kernel} planted fault ({name}, {shape}): row error RMS "
+            f"{rms:.3e} / worst {worst:.3e}; elementwise tolerance alone "
+            f"{'passes' if elementwise else 'rejects'} it")
+        if rms <= tol["rms"] and worst <= tol["worst"]:
+            raise AssertionError(f"{kernel}: the row check does not reject "
+                                 f"the planted fault ({name})")
+
+
+def decode_pos():
+    """Ragged positions of 16 decode slots as in the serve phases: prompt
+    lengths of ``TRAFFIC`` plus up to 31 generated tokens, slot 0 full."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    pos = (rng.choice([256, 512, 1024, 2048], 16)
+           + rng.integers(0, 32, 16) - 1)
+    pos[0] = 2079
+    return pos
+
+
 def paged_table(b, cache_len, ps, pos, rng, garbage_rest=True):
     """Block table covering each slot's pos with shuffled physical pages;
     the rest on garbage page 0 (or allocated ahead of pos)."""
@@ -355,13 +432,7 @@ def check_paged_decode():
     rows_err = {}
 
     def held(got, want, dt, what):
-        """Elementwise TOL; in bf16 also the row bound ROW_TOL over each
-        (slot, head) output row: at 2000 positions a typical output is
-        about 0.04, as large as TOL's 2e-2."""
-        err = close(got, want, dt, what)
-        if dt == bf16:
-            rows_err[what] = rows_close(got, want, what)
-        return err
+        return held_rows(got, want, dt, what, rows_err)
 
     # the reference's grid (tests/test_kernels.py:99-121) in both dtypes
     for dt in (f32, bf16):
@@ -447,10 +518,7 @@ def check_paged_decode():
     # qwen2.5-14b decode shapes: 16 slots, Hkv 8, group 5, Dh 128, ps 8,
     # cache_len 2080, ragged pos up to 2079 (prompt lengths of the serve
     # phase + up to 31 generated tokens)
-    rng = np.random.default_rng(0)
-    qpos = (rng.choice([256, 512, 1024, 2048], 16)
-            + rng.integers(0, 32, 16) - 1)
-    qpos[0] = 2079
+    qpos = decode_pos()
     errs = {}
     for dt in (f32, bf16):
         args, kw = paged_case(16, 40, 8, 128, 2080, 8, dt, seed=1,
@@ -482,21 +550,13 @@ def check_paged_decode():
     last, slots = pos.long() // split_len, torch.arange(16, device="cuda")
     m[last, slots] = -torch.inf
     l[last, slots] = 0
-    faults = {"last tile of each slot left out":
-              kern(q, kp, vp, table, pos - 64, **kw),
-              "last split of each row dropped from the combine":
-              paged_ops.paged_decode_combine(acc, m, l, bf16)}
-    for name, got in faults.items():
-        rms, worst = row_rel(got, want)
-        elementwise = torch.allclose(got.float(), want.float(),
-                                     **TOL["bfloat16"])
-        log(f"paged_decode planted fault ({name}, qwen shapes): row error "
-            f"RMS {rms:.3e} / worst {worst:.3e}; elementwise bf16 "
-            f"tolerance alone {'passes' if elementwise else 'rejects'} it")
-        if rms <= ROW_TOL["rms"] and worst <= ROW_TOL["worst"]:
-            raise AssertionError(f"paged_decode: the row check does not "
-                                 f"reject the planted fault ({name})")
-    del acc, m, l, faults
+    planted_rows("paged_decode", "qwen shapes", {
+        "last tile of each slot left out":
+        (kern(q, kp, vp, table, pos - 64, **kw), ROW_TOL),
+        "last split of each row dropped from the combine":
+        (paged_ops.paged_decode_combine(acc, m, l, bf16), ROW_TOL)},
+        want, TOL["bfloat16"])
+    del acc, m, l
 
     # times at the qwen decode shapes, bf16
     args, kw = paged_case(16, 40, 8, 128, 2080, 8, bf16, seed=1, pos=qpos)
@@ -608,14 +668,20 @@ def mla_case(b, h, rkv, dr, cache_len, ps, dtype, seed, pos=None,
 
 
 def check_paged_mla():
-    import numpy as np
     import torch
 
     from repro_torch.kernels import (paged_mla_decode_attention as kern,
                                      paged_mla_decode_attention_ref as plain)
+    from repro_torch.kernels.paged_attention import ops as paged_ops
+    from repro_torch.kernels.paged_attention import ref as paged_ref
 
     f32, bf16 = torch.float32, torch.bfloat16
     n = 0
+    rows_err = {}
+
+    def held(got, want, dt, what):
+        return held_rows(got, want, dt, what, rows_err)
+
     # the reference's grid (tests/test_kernels.py:140-163) in both dtypes,
     # at its scale (rkv + dr)^-1/2; 40 heads (not a power of two)
     for dt in (f32, bf16):
@@ -625,44 +691,92 @@ def check_paged_mla():
             args = mla_case(*shape, dt, seed=9)
             kw = dict(page_size=shape[-1],
                       scale=(shape[2] + shape[3]) ** -0.5)
-            close(kern(*args, **kw), plain(*args, **kw), dt,
-                  f"mla grid {shape} {dt}")
+            held(kern(*args, **kw), plain(*args, **kw), dt,
+                 f"mla grid {shape} {dt}")
             n += 1
-    # poisoned garbage page must be inert; future pages masked
-    args = mla_case(3, 4, 32, 16, 16, 4, f32, seed=10, pos=[0, 5, 15])
-    kw = dict(page_size=4, scale=0.2)
-    clean = kern(*args, **kw)
-    args[2][0] = 1e4
-    args[3][0] = 1e4
-    poisoned = kern(*args, **kw)
-    if not torch.equal(clean, poisoned) or \
-            not torch.isfinite(poisoned).all():
-        raise AssertionError("garbage page leaked into the MLA output")
-    args = mla_case(2, 2, 16, 8, 16, 4, f32, seed=11, pos=[2, 9],
-                    garbage_rest=False)
-    close(kern(*args, **kw), plain(*args, **kw), f32, "mla future pages")
-    n += 2
-
-    # minicpm3-4b decode shapes: 16 slots, 40 heads, Rkv 256, Dr 32, ps 8,
-    # cache_len 2080, the model's scale (nope + rope)^-1/2, ragged pos as
-    # in the serve phase
-    rng = np.random.default_rng(0)
-    qpos = (rng.choice([256, 512, 1024, 2048], 16)
-            + rng.integers(0, 32, 16) - 1)
-    qpos[0] = 2079
+    # poisoned garbage page must be inert, bit for bit (one split and
+    # split shapes); future pages masked
+    for dt in (f32, bf16):
+        for shape, pos in (((3, 4, 32, 16, 16, 4), [0, 5, 15]),
+                           ((4, 40, 256, 32, 2080, 8), [0, 255, 1000, 2079])):
+            args = mla_case(*shape, dt, seed=10, pos=pos)
+            kw = dict(page_size=shape[-1], scale=0.2)
+            clean = kern(*args, **kw)
+            args[2][0] = 1e4
+            args[3][0] = 1e4
+            poisoned = kern(*args, **kw)
+            if not torch.equal(clean, poisoned) or \
+                    not torch.isfinite(poisoned).all():
+                raise AssertionError(f"garbage page leaked into the MLA "
+                                     f"output ({dt}, {shape})")
+            n += 1
+        args = mla_case(2, 2, 16, 8, 16, 4, dt, seed=11, pos=[2, 9],
+                        garbage_rest=False)
+        kw = dict(page_size=4, scale=0.2)
+        held(kern(*args, **kw), plain(*args, **kw), dt,
+             f"mla future pages {dt}")
+        n += 1
+    # minicpm3-4b decode widths: 40 heads, Rkv 256, Dr 32, ps 8,
+    # cache_len 2080, the model's scale (nope + rope)^-1/2
     kw = dict(page_size=8, scale=(64 + 32) ** -0.5)
+    n_split, split_len = paged_ops.split_plan(2080, 8)
+    # split boundaries: positions at and around the split length, a slot
+    # at 0, the last position
+    edge = [split_len - 2, split_len - 1, split_len, 0, 2079,
+            2 * split_len - 1, 2 * split_len, 1]
+    for dt in (f32, bf16):
+        args = mla_case(8, 40, 256, 32, 2080, 8, dt, seed=12, pos=edge)
+        held(kern(*args, **kw), plain(*args, **kw), dt,
+             f"mla split edges (n_split {n_split}, split_len {split_len}) "
+             f"{dt}")
+        n += 1
+    qpos = decode_pos()
     errs = {}
     for dt in (f32, bf16):
         args = mla_case(16, 40, 256, 32, 2080, 8, dt, seed=1, pos=qpos)
-        errs[dt] = close(kern(*args, **kw), plain(*args, **kw), dt,
-                         f"minicpm3 shapes {dt}")
+        errs[dt] = held(kern(*args, **kw), plain(*args, **kw), dt,
+                        f"minicpm3 shapes {dt}")
         n += 1
-    log(f"paged_mla_decode: {n} cases match the plain version (f32 "
-        f"rtol/atol 2e-5, bf16 2e-2); minicpm3 shapes max|err| f32 "
-        f"{errs[f32]:.3e} bf16 {errs[bf16]:.3e}")
-
+    # the shared combine kernel against its plain version on the bf16
+    # split kernel's own partials (these launches are not counted)
     args = mla_case(16, 40, 256, 32, 2080, 8, bf16, seed=1, pos=qpos)
+    want = plain(*args, **kw)
+    acc, m, l = paged_ops.paged_mla_decode_partials(
+        *args, n_split=n_split, split_len=split_len, **kw)
+    if not torch.equal(l == 0, m == -torch.inf):
+        raise AssertionError("an empty MLA split's partial is not (m = "
+                             "-inf, l = 0)")
+    comb_err = held(paged_ops.paged_decode_combine(acc, m, l, bf16),
+                    paged_ref.paged_decode_combine_ref(acc, m, l, bf16),
+                    bf16, f"mla combine {bf16}")
+    n += 1
+    worst = max(rows_err, key=lambda k: rows_err[k][1])
+    log(f"paged_mla_decode: {n} cases match the plain version (f32 "
+        f"rtol/atol 2e-5, bf16 2e-2 and row error {ROW_TOL}); minicpm3 "
+        f"shapes max|err| f32 {errs[f32]:.3e} bf16 {errs[bf16]:.3e}; bf16 "
+        f"row error RMS / worst: minicpm3 shapes "
+        f"{rows_err[f'minicpm3 shapes {bf16}'][0]:.3e} / "
+        f"{rows_err[f'minicpm3 shapes {bf16}'][1]:.3e}, combine on the "
+        f"split kernel's partials ({n_split} splits of {split_len}) max|err| "
+        f"{comb_err:.3e}; worst row of all bf16 cases "
+        f"{rows_err[worst][1]:.3e} ({worst})")
+
+    # planted kernel faults at minicpm3's decode shape in bf16: the last
+    # 64-position tile of every slot left out, and each row's last
+    # non-empty split dropped from the combine (on the split kernel's
+    # own partials); the row check must reject both
     ql, qr, cp, kp, table, pos = args
+    last, slots = pos.long() // split_len, torch.arange(16, device="cuda")
+    m[last, slots] = -torch.inf
+    l[last, slots] = 0
+    planted_rows("paged_mla_decode", "minicpm3 shapes", {
+        "last tile of each slot left out":
+        (kern(ql, qr, cp, kp, table, pos - 64, **kw), ROW_TOL),
+        "last split of each row dropped from the combine":
+        (paged_ops.paged_decode_combine(acc, m, l, bf16), ROW_TOL)},
+        want, TOL["bfloat16"])
+    del acc, m, l
+
     k_ms = time_ms(lambda: kern(*args, **kw))
     p_ms = time_ms(lambda: plain(*args, **kw), iters=5)
     # library yardstick: SDPA over [ckv || krope] keys (E 288) and ckv
@@ -675,8 +789,13 @@ def check_paged_mla():
     mask = (torch.arange(kd.shape[2], device="cuda")[None, :]
             <= pos.long()[:, None])[:, None, None, :]
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    l_ms = time_ms(lambda: sdpa(qh, kd, cd, attn_mask=mask,
-                                scale=kw["scale"], enable_gqa=True))
+
+    def library():
+        return sdpa(qh, kd, cd, attn_mask=mask, scale=kw["scale"],
+                    enable_gqa=True)
+    l_ms = time_ms(library)
+    k_dev = device_ms(lambda: kern(*args, **kw), per_call=2)  # + combine
+    l_dev = device_ms(library)
     live = int((pos.long() + 1).sum().item())
     nbytes = (live * (256 + 32) * 2 + (ql.numel() + qr.numel()) * 2
               + ql.numel() * 2 + table.numel() * 4 + pos.numel() * 4)
@@ -685,11 +804,13 @@ def check_paged_mla():
     bound_by = "bytes" if nbytes / HBM_BPS >= flops / BF16_FLOPS \
         else "operations"
     log(f"paged_mla_decode minicpm3 bf16 (B 16, H 40, Rkv 256, Dr 32, ps 8, "
-        f"live positions {live}): max_err {errs[bf16]:.3e} kernel_ms "
-        f"{k_ms:.4f} plain_ms {p_ms:.4f} library_ms {l_ms:.4f} bound_ms "
-        f"{bound:.4f} ({bound_by}: {nbytes} B, {flops} FLOP; f32 "
-        f"CUDA-core floor {flops / F32_FLOPS * 1e3:.4f} ms)")
+        f"live positions {live}, {n_split} splits of {split_len}): max_err "
+        f"{errs[bf16]:.3e} kernel_ms {k_ms:.4f} plain_ms {p_ms:.4f} "
+        f"library_ms {l_ms:.4f} bound_ms {bound:.4f} ({bound_by}: {nbytes} "
+        f"B, {flops} FLOP); device time alone (profiler): kernel "
+        f"{ms_text(k_dev)} library {ms_text(l_dev)}")
     return {"name": "paged_mla_decode_attention", "route": "cuda",
+            "device_ms": k_dev, "library_device_ms": l_dev,
             "source": "src/repro_torch/csrc/paged_mla_decode.cu",
             "replaces": "src/repro/kernels/paged_attention/kernel.py:200",
             "max_abs_err": errs[bf16], "ms": k_ms, "plain_ms": p_ms,
@@ -713,20 +834,47 @@ def ssd_case(b, s, h, p, n, dtype, seed):
     return x, dt, a, t((b, s, h, n), 0.5), t((b, s, h, n), 0.5)
 
 
+def ssd_model_layout(b, s, h, p, n, dtype, seed):
+    """x, dt, a, B and C as ``models/ssm.py`` hands them to the scan at
+    mamba2-780m's ``ssm_ngroups = 1``: x a view of the conv output (B, S,
+    H*P + 2N), B and C its one group expanded to every head (head stride
+    0), read in place."""
+    import torch
+
+    x, dt, a, bmat, cmat = ssd_case(b, s, h, p, n, dtype, seed)
+    conv = torch.cat([x.flatten(2), bmat[:, :, 0], cmat[:, :, 0]], -1)
+    bc = conv[..., h * p:].unflatten(-1, (2, 1, n))
+    return (conv[..., :h * p].unflatten(-1, (h, p)), dt, a,
+            bc[:, :, 0].expand(b, s, h, n), bc[:, :, 1].expand(b, s, h, n))
+
+
 def check_ssd():
     import torch
 
     from repro_torch.kernels import ssd_scan as kern
     from repro_torch.kernels import ssd_scan_ref as plain
+    from repro_torch.kernels.ssd_chunk import ops as ssd_ops
 
     f32, bf16 = torch.float32, torch.bfloat16
     n = 0
+    rows_err = {}
+
+    def plain_f32(args, chunk):
+        """The plain version in f32 from the same (bf16) inputs."""
+        x, dt, a, bmat, cmat = args
+        return plain(x.float(), dt, a, bmat.float(), cmat.float(),
+                     chunk=chunk)
 
     def both(args, chunk, dt, what, plain_chunk=None):
         y, hf = kern(*args, chunk=chunk)
         y_r, hf_r = plain(*args, chunk=plain_chunk or chunk)
-        return max(close(y, y_r, dt, f"{what} y", SSD_TOL),
-                   close(hf, hf_r, dt, f"{what} h_final", SSD_TOL))
+        err = max(close(y, y_r, dt, f"{what} y", SSD_TOL),
+                  close(hf, hf_r, dt, f"{what} h_final", SSD_TOL))
+        if dt == bf16:      # y row by row against the f32 plain version
+            rows_err[what] = rows_close(
+                y, plain_f32(args, plain_chunk or chunk)[0], f"{what} y",
+                SSD_ROW_TOL)
+        return err
 
     # the reference's grid (tests/test_kernels.py:205-243) in both dtypes
     for dt in (f32, bf16):
@@ -738,49 +886,90 @@ def check_ssd():
             n += 1
     # chunk invariance, and a short last chunk (S not a multiple of the
     # chunk) against the plain version over one chunk of all S positions
-    args = ssd_case(1, 128, 2, 32, 32, f32, seed=5)
-    ys = [kern(*args, chunk=c)[0] for c in (16, 32, 128)]
-    for y in ys[1:]:
-        close(y, ys[0], f32, "ssd chunk invariance", SSD_TOL)
-    for s, chunk in ((100, 32), (300, 256), (2047, 256)):
-        both(ssd_case(2, s, 3, 64, 128, f32, seed=6), chunk, f32,
-             f"ssd partial last chunk S {s}", plain_chunk=s)
-    n += 4
-    # mamba2-780m prefill shapes: 48 heads, P 64, N 128, chunk 256, S 2048
+    for dt in (f32, bf16):
+        args = ssd_case(1, 128, 2, 32, 32, dt, seed=5)
+        ys = [kern(*args, chunk=c)[0] for c in (16, 32, 128)]
+        for y in ys[1:]:
+            close(y, ys[0], dt, f"ssd chunk invariance {dt}", SSD_TOL)
+        for s, chunk in ((100, 32), (300, 256), (2047, 256)):
+            both(ssd_case(2, s, 3, 64, 128, dt, seed=6), chunk, dt,
+                 f"ssd partial last chunk S {s} {dt}", plain_chunk=s)
+        n += 4
+    # mamba2-780m prefill shapes: 48 heads, P 64, N 128, chunk 256, S 2048,
+    # per-head B and C, then B and C in the model's own layout (one group
+    # broadcast to every head, read in place): the same numbers bit for bit
     errs = {}
     for b in (1, 16):
         for dt in (f32, bf16):
-            errs[(b, dt)] = both(ssd_case(b, 2048, 48, 64, 128, dt, seed=1),
-                                 256, dt, f"mamba2 shapes B {b} {dt}")
-            n += 1
+            args = ssd_model_layout(b, 2048, 48, 64, 128, dt, seed=1)
+            per_head = [t.contiguous() for t in args]
+            what = f"mamba2 shapes B {b} {dt}"
+            errs[(b, dt)] = both(per_head, 256, dt, what)
+            y, hf = kern(*args, chunk=256)
+            y2, hf2 = kern(*per_head, chunk=256)
+            if not (torch.equal(y, y2) and torch.equal(hf, hf2)):
+                raise AssertionError(f"{what}: B and C read in place (head "
+                                     "stride 0) differ from per-head copies")
+            n += 2
+    worst = max(rows_err, key=lambda k: rows_err[k][1])
     log(f"ssd_scan: {n} cases match the plain version (f32 rtol/atol 1e-4, "
-        f"bf16 4e-2); mamba2 shapes max|err| "
+        f"bf16 4e-2, and bf16 y row by row against the plain version in f32 "
+        f"{SSD_ROW_TOL}); mamba2 shapes max|err| "
         + ", ".join(f"B {b} {str(dt)[6:]} {e:.3e}"
-                    for (b, dt), e in errs.items()))
+                    for (b, dt), e in errs.items())
+        + f"; bf16 row error RMS / worst at B 1: "
+        f"{rows_err[f'mamba2 shapes B 1 {bf16}'][0]:.3e} / "
+        f"{rows_err[f'mamba2 shapes B 1 {bf16}'][1]:.3e}; worst row of all "
+        f"bf16 cases {rows_err[worst][1]:.3e} ({worst})")
+
+    # the bf16 phases one by one, and a planted fault between them: the
+    # state entering chunk 4 of 8 not handed on (zeroed).  The row check
+    # must reject it.
+    args = ssd_model_layout(1, 2048, 48, 64, 128, bf16, seed=1)
+    want = plain_f32(args, 256)[0]
+    states, decay = ssd_ops.ssd_chunk_states(*args, chunk=256)
+    h_prev, _ = ssd_ops.ssd_state_pass(states, decay)
+    rows_close(ssd_ops.ssd_chunk_output(*args, h_prev, chunk=256), want,
+               "ssd phases one by one", SSD_ROW_TOL)
+    h_prev[:, :, 4] = 0
+    planted_rows("ssd_scan", "mamba2 shapes B 1", {
+        "state entering chunk 4 not handed on":
+        (ssd_ops.ssd_chunk_output(*args, h_prev, chunk=256), SSD_ROW_TOL)},
+        want, SSD_TOL["bfloat16"])
+    del states, decay, h_prev
 
     rows = []
     for b in (1, 16):
-        args = ssd_case(b, 2048, 48, 64, 128, bf16, seed=1)
+        args = ssd_model_layout(b, 2048, 48, 64, 128, bf16, seed=1)
         k_ms = time_ms(lambda: kern(*args, chunk=256))
+        k_dev = device_ms(lambda: kern(*args, chunk=256), per_call=3)
         p_ms = time_ms(lambda: plain(*args, chunk=256), iters=2, warmup=1)
-        bh, s, p, nn = b * 48, 2048, 64, 128
-        # as the wrapper hands it over: x, dt, a, B and C per (b, h) row
-        # read once, y and h_final written once
-        nbytes = (bh * s * (p + 2 * nn) * 2 + bh * s * 4 + bh * 4
-                  + bh * s * p * 2 + bh * p * nn * 4)
-        q = 256
+        h, s, p, nn, q = 48, 2048, 64, 128, 256
+        # x, dt and a read once, y and h_final written once; B and C once
+        # per group (ngroups 1): the kernel reads the model's broadcast
+        # view in place, so the 48 heads share one copy in device memory.
+        # The count of the first version, B and C once per head (what its
+        # wrapper's copies wrote out), is logged beside it.
+        rest = (b * s * h * p * 2 + b * s * h * 4 + h * 4
+                + b * s * h * p * 2 + b * h * p * nn * 4)
+        nbytes = rest + b * s * 2 * nn * 2
+        nbytes_head = rest + b * s * h * 2 * nn * 2
         per_chunk = q * (q + 1) // 2 * (nn + p) + 2 * q * p * nn
-        flops = 2 * bh * (s // q) * per_chunk
+        flops = 2 * b * h * (s // q) * per_chunk
         bound = max(nbytes / HBM_BPS, flops / BF16_FLOPS) * 1e3
+        bound_head = max(nbytes_head / HBM_BPS, flops / BF16_FLOPS) * 1e3
         bound_by = "bytes" if nbytes / HBM_BPS >= flops / BF16_FLOPS \
             else "operations"
         log(f"ssd_scan mamba2 bf16 (B {b}, S 2048, H 48, P 64, N 128, "
-            f"chunk 256): max_err {errs[(b, bf16)]:.3e} kernel_ms "
-            f"{k_ms:.4f} plain_ms {p_ms:.4f} library_ms none (no single "
-            f"PyTorch call computes it) bound_ms {bound:.4f} ({bound_by}: "
-            f"{nbytes} B, {flops} FLOP; f32 CUDA-core floor "
-            f"{flops / F32_FLOPS * 1e3:.4f} ms)")
+            f"chunk 256, B and C in the model's layout): max_err "
+            f"{errs[(b, bf16)]:.3e} kernel_ms {k_ms:.4f} plain_ms "
+            f"{p_ms:.4f} library_ms none (no single PyTorch call computes "
+            f"it) bound_ms {bound:.4f} ({bound_by}: {nbytes} B with B and "
+            f"C once per group, {flops} FLOP) [B and C once per head: "
+            f"{bound_head:.4f} ms, {nbytes_head} B]; device time alone "
+            f"(profiler, three launches) {ms_text(k_dev)}")
         rows.append({"name": "ssd_scan", "route": "cuda",
+                     "device_ms": k_dev,
                      "source": "src/repro_torch/csrc/ssd_chunk.cu",
                      "replaces": "src/repro/kernels/ssd_chunk/kernel.py:80",
                      "max_abs_err": errs[(b, bf16)], "ms": k_ms,
@@ -800,12 +989,12 @@ def row_rel(got, want):
     return r.mean().sqrt().item(), r.max().sqrt().item()
 
 
-def rows_close(got, want, what):
+def rows_close(got, want, what, tol=ROW_TOL):
     rms, worst = row_rel(got, want)
-    if rms > ROW_TOL["rms"] or worst > ROW_TOL["worst"]:
+    if rms > tol["rms"] or worst > tol["worst"]:
         raise AssertionError(
             f"{what}: kernel vs plain row error RMS {rms:.3e} / worst "
-            f"{worst:.3e} outside {ROW_TOL}")
+            f"{worst:.3e} outside {tol}")
     return rms, worst
 
 

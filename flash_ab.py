@@ -1,6 +1,9 @@
 #!/usr/bin/env python3
-"""Time the bf16 flash-attention kernel of two or more source trees on one
-NVIDIA card, at the serve paths' prefill shapes.
+"""Time the bf16 kernels of two or more source trees on one NVIDIA card,
+at the serve paths' shapes: flash-attention prefill (qwen2.5-14b,
+mixtral-8x7b), the SSD chunk scan (mamba2-780m's 1 x 2048 prefill, B and
+C in the model's own layout) and the paged MLA decode (minicpm3-4b's
+decode tick).
 
     python3 flash_ab.py TREE [TREE ...]
 
@@ -12,9 +15,11 @@ and then in reverse (A B B A for two), so a drift of the card's clocks
 over the call shows as a gap between one tree's two readings.
 
 Per tree and shape, the kernel's output is first held to the tree's plain
-version by ``chip_smoke.ROW_TOL``, then timed with
-``chip_smoke.time_ms`` (median of five 20-call CUDA-event windows).
-Prints the card's name and power limit, then one JSON line per reading.
+version (flash and MLA row by row, ``chip_smoke.ROW_TOL``; the SSD scan
+elementwise, ``chip_smoke.SSD_TOL``, as every tree's plain version is
+bf16), then timed with ``chip_smoke.time_ms`` (median of five 20-call
+CUDA-event windows).  Prints the card's name and power limit, then one
+JSON line per reading.
 """
 from __future__ import annotations
 
@@ -30,25 +35,44 @@ SHAPES = {"qwen 1x2048": ((1, 2048, 2048, 40, 8, 128), None),
 
 
 def one(tree):
-    """Check and time one tree's kernel; one JSON line per shape."""
+    """Check and time one tree's kernels; one JSON line per shape."""
     sys.path.insert(0, str(ROOT))
     import torch
 
     import chip_smoke as smoke
 
     sys.path.insert(0, str(Path(tree).resolve() / "src"))
-    from repro_torch.kernels import flash_attention as kern
-    from repro_torch.kernels import flash_attention_ref as plain
+    from repro_torch import kernels
 
+    def report(name, ms):
+        print(json.dumps({"tree": tree, "shape": name, "ms": ms}),
+              flush=True)
+
+    kern, plain = kernels.flash_attention, kernels.flash_attention_ref
     for name, (shape, w) in SHAPES.items():
         q, k, v = smoke.flash_case(*shape, torch.bfloat16, seed=0)
         smoke.rows_close(kern(q, k, v, window=w), plain(q, k, v, window=w),
                          f"{tree} {name}")
-        ms = smoke.time_ms(lambda: kern(q, k, v, window=w))
-        print(json.dumps({"tree": tree, "shape": name, "ms": ms}),
-              flush=True)
+        report(f"flash {name}", smoke.time_ms(lambda: kern(q, k, v,
+                                                           window=w)))
         del q, k, v
         torch.cuda.empty_cache()
+
+    kern, plain = kernels.ssd_scan, kernels.ssd_scan_ref
+    args = smoke.ssd_model_layout(1, 2048, 48, 64, 128, torch.bfloat16,
+                                  seed=1)
+    smoke.close(kern(*args, chunk=256)[0], plain(*args, chunk=256)[0],
+                torch.bfloat16, f"{tree} ssd", smoke.SSD_TOL)
+    report("ssd mamba2 1x2048", smoke.time_ms(lambda: kern(*args,
+                                                           chunk=256)))
+
+    kern = kernels.paged_mla_decode_attention
+    plain = kernels.paged_mla_decode_attention_ref
+    args = smoke.mla_case(16, 40, 256, 32, 2080, 8, torch.bfloat16, seed=1,
+                          pos=smoke.decode_pos())
+    kw = dict(page_size=8, scale=(64 + 32) ** -0.5)
+    smoke.rows_close(kern(*args, **kw), plain(*args, **kw), f"{tree} mla")
+    report("mla minicpm3 decode", smoke.time_ms(lambda: kern(*args, **kw)))
 
 
 def main(argv):

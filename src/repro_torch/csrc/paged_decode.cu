@@ -46,9 +46,9 @@
 //     memory, one warp per query row; the reference grid's f32 cases
 //     only.
 //   * each block writes its unnormalised accumulator (f32), max and sum to
-//     scratch the wrapper allocates; the combine kernel merges a row's
-//     splits by log-sum-exp (a row whose splits are all empty writes
-//     zeros).  With one split the split kernel writes the output itself.
+//     scratch the wrapper allocates; the combine kernel (paged_combine.cuh,
+//     shared with the MLA decode) merges a row's splits by log-sum-exp (a
+//     row whose splits are all empty writes zeros).  With one split the split kernel writes the output itself.
 //
 // Measured (NVIDIA H100 80GB HBM3, 700 W; chip_smoke.py, PERF.md): at the
 // serve shape the split kernel takes about 0.038 ms and the combine 0.0066
@@ -61,6 +61,8 @@
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "paged_combine.cuh"
 
 namespace {
 
@@ -502,50 +504,6 @@ paged_split_simt_kernel(const float* __restrict__ q,
       }
     }
   }
-}
-
-// ================================================================ combine
-// out[row, d] = sum_z acc[z, row, d] 2^(m_z - M) / sum_z l_z 2^(m_z - M)
-// over the splits with l_z > 0 (M their largest m); no such split: 0.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-paged_combine_kernel(const float* __restrict__ pacc,
-                     const float* __restrict__ pm,
-                     const float* __restrict__ pl, T* __restrict__ out,
-                     int n_split, int rows, int DH) {
-  const size_t i = (size_t)blockIdx.x * kThreads + threadIdx.x;
-  if (i >= (size_t)rows * DH) return;
-  const size_t row = i / DH;
-  float mx = -INFINITY;
-  for (int z = 0; z < n_split; ++z)
-    if (pl[z * (size_t)rows + row] > 0.f)
-      mx = fmaxf(mx, pm[z * (size_t)rows + row]);
-  float l = 0.f, a = 0.f;
-  for (int z = 0; z < n_split; ++z) {
-    const size_t zr = z * (size_t)rows + row;
-    const float lz = pl[zr];
-    if (lz > 0.f) {
-      const float f = exp2f(pm[zr] - mx);
-      l += lz * f;
-      a += pacc[zr * DH + (i % DH)] * f;
-    }
-  }
-  const float v = l > 0.f ? a / l : 0.f;
-  if constexpr (sizeof(T) == 4)
-    out[i] = v;
-  else
-    out[i] = __float2bfloat16(v);
-}
-
-template <typename T>
-cudaError_t launch_combine(const float* pacc, const float* pm,
-                           const float* pl, void* out, int n_split, int rows,
-                           int DH, cudaStream_t stream) {
-  const size_t n = (size_t)rows * DH;
-  paged_combine_kernel<T><<<(unsigned)((n + kThreads - 1) / kThreads),
-                            kThreads, 0, stream>>>(
-      pacc, pm, pl, static_cast<T*>(out), n_split, rows, DH);
-  return cudaGetLastError();
 }
 
 template <int DH>

@@ -5,7 +5,8 @@ The build runs at first use, never at import, from the checkout's own
 sources into ``build/repro_torch/`` at the repository root (listed in
 ``.gitignore``).  The library's file name carries a hash of its sources
 and flags, so an edited source builds anew and an unchanged one is
-reused.  A failed build raises with the compiler's output.
+reused; the headers under ``csrc`` (``*.cuh``) go into every library's
+hash.  A failed build raises with the compiler's output.
 """
 from __future__ import annotations
 
@@ -53,7 +54,7 @@ def load_library(name: str, sources: list[str]) -> ctypes.CDLL:
             return _loaded[name]
         srcs = [CSRC / s for s in sources]
         h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-        for src in srcs:
+        for src in srcs + sorted(CSRC.glob("*.cuh")):
             h.update(src.name.encode())
             h.update(src.read_bytes())
         out = BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"

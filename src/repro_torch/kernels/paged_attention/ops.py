@@ -1,5 +1,7 @@
 """Wrappers of the paged decode kernels: GQA (``csrc/paged_decode.cu``)
-and absorbed MLA (``csrc/paged_mla_decode.cu``).
+and absorbed MLA (``csrc/paged_mla_decode.cu``), both split over
+positions (``split_plan``) and merged by one combine kernel
+(``csrc/paged_combine.cuh``).
 
 Engine-layout arguments, as ``repro/kernels/paged_attention/ops.py``
 takes them: one decode token per slot, pools as the paged KV cache
@@ -49,8 +51,9 @@ def library() -> ctypes.CDLL:
 
 
 def split_plan(capacity, page_size):
-    """(n_split, split_len) of the GQA decode: blocks of ``split_len``
-    consecutive positions (whole pages, about ``SPLIT_POSITIONS``) cover
+    """(n_split, split_len) of the paged decodes (GQA and MLA): blocks of
+    ``split_len`` consecutive positions (whole pages, about
+    ``SPLIT_POSITIONS``) cover
     the table's ``capacity`` positions in at most ``MAX_GRID_Z`` splits.
     A pure function of shapes: it never reads the slots' positions, which
     live on the card."""
@@ -146,6 +149,15 @@ def _scratch(q, n_split):
                        device=q.device)
 
 
+def _part_views(scratch, n_split, b, h, dh):
+    """The partials in a scratch: acc (n_split, B, H, Dh), m and l
+    (n_split, B, H)."""
+    rows = n_split * b * h
+    return (scratch[:rows * dh].view(n_split, b, h, dh),
+            scratch[rows * dh:rows * (dh + 1)].view(n_split, b, h),
+            scratch[rows * (dh + 1):].view(n_split, b, h))
+
+
 def _part_ptrs(base, rows, dh):
     """Addresses of acc, m and l in a scratch of ``rows`` partial rows."""
     return base, base + 4 * rows * dh, base + 4 * rows * (dh + 1)
@@ -163,9 +175,6 @@ def paged_decode_partials(q, k_pool, v_pool, table, pos, *, page_size,
     scale = (dh ** -0.5) if scale is None else float(scale)
     rows = n_split * b * h
     scratch = _scratch(q, n_split)
-    acc = scratch[:rows * dh].view(n_split, b, h, dh)
-    m = scratch[rows * dh:rows * (dh + 1)].view(n_split, b, h)
-    l = scratch[rows * (dh + 1):].view(n_split, b, h)
     err = library().repro_paged_decode_split(
         _DTYPES[q.dtype], q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         table.data_ptr(), pos.data_ptr(), *_part_ptrs(scratch.data_ptr(),
@@ -176,7 +185,7 @@ def paged_decode_partials(q, k_pool, v_pool, table, pos, *, page_size,
     if err != 0:
         raise RuntimeError(f"paged_decode split launch failed: CUDA error "
                            f"{err}")
-    return acc, m, l
+    return _part_views(scratch, n_split, b, h, dh)
 
 
 def paged_decode_combine(acc, m, l, dtype):
@@ -205,10 +214,12 @@ def mla_library() -> ctypes.CDLL:
     lib = load_library("paged_mla_decode", MLA_SOURCES)
     fn = lib.repro_paged_mla_decode
     if fn.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [i, p, p, p, p, p, p, p, i, i, i, i, i, i,
-                       ctypes.c_float, p]
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        fn.argtypes = [i] + [p] * 10 + [i] * 6 + [f, i, i, p]
         fn.restype = i
+        lib.repro_paged_mla_decode_split.argtypes = ([p] * 9 + [i] * 6
+                                                     + [f, i, i, p])
+        lib.repro_paged_mla_decode_split.restype = i
     return lib
 
 
@@ -270,18 +281,47 @@ def paged_mla_decode_attention(q_lat, q_rope, ckv_pool, krope_pool, table,
                            f"device {q_lat.device}")
     _check_mla(q_lat, q_rope, ckv_pool, krope_pool, table, pos, page_size)
     b, _, h, rkv = q_lat.shape
+    n_split, split_len = split_plan(table.shape[1] * page_size, page_size)
     out = torch.empty_like(q_lat)
-    fn = mla_library().repro_paged_mla_decode
-    err = fn(_DTYPES[q_lat.dtype], q_lat.data_ptr(), q_rope.data_ptr(),
-             ckv_pool.data_ptr(), krope_pool.data_ptr(), table.data_ptr(),
-             pos.data_ptr(), out.data_ptr(), b, h, rkv, q_rope.shape[3],
-             table.shape[1], page_size, float(scale),
-             torch.cuda.current_stream(q_lat.device).cuda_stream)
+    parts = (None, None, None)      # f32 runs unsplit; one split: direct
+    if q_lat.dtype == torch.bfloat16 and n_split > 1:
+        scratch = _scratch(q_lat, n_split)
+        parts = _part_ptrs(scratch.data_ptr(), n_split * b * h, rkv)
+    err = mla_library().repro_paged_mla_decode(
+        _DTYPES[q_lat.dtype], q_lat.data_ptr(), q_rope.data_ptr(),
+        ckv_pool.data_ptr(), krope_pool.data_ptr(), table.data_ptr(),
+        pos.data_ptr(), out.data_ptr(), *parts, b, h, rkv, q_rope.shape[3],
+        table.shape[1], page_size, float(scale), n_split, split_len,
+        torch.cuda.current_stream(q_lat.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"paged_mla_decode kernel launch failed: CUDA "
                            f"error {err}")
-    paged_mla_decode_attention.launches.add()
+    paged_mla_decode_attention.launches.add()  # one a call: split, combine
     return out
 
 
 paged_mla_decode_attention.launches = LaunchCounter()
+
+
+def paged_mla_decode_partials(q_lat, q_rope, ckv_pool, krope_pool, table,
+                              pos, *, page_size, scale, n_split, split_len):
+    """The bf16 MLA split kernel alone (CUDA tensors): the partials (acc
+    (n_split, B, H, Rkv), m and l (n_split, B, H), f32, m in log2 units)
+    that ``paged_decode_combine`` merges — the counterpart of
+    ``ref.paged_mla_decode_partials_ref``; not counted as a launch."""
+    _check_mla(q_lat, q_rope, ckv_pool, krope_pool, table, pos, page_size)
+    if q_lat.dtype != torch.bfloat16:
+        raise TypeError("the MLA split kernel is the bf16 path")
+    b, _, h, rkv = q_lat.shape
+    rows = n_split * b * h
+    scratch = _scratch(q_lat, n_split)
+    err = mla_library().repro_paged_mla_decode_split(
+        q_lat.data_ptr(), q_rope.data_ptr(), ckv_pool.data_ptr(),
+        krope_pool.data_ptr(), table.data_ptr(), pos.data_ptr(),
+        *_part_ptrs(scratch.data_ptr(), rows, rkv), b, h, rkv,
+        q_rope.shape[3], table.shape[1], page_size, float(scale), n_split,
+        split_len, torch.cuda.current_stream(q_lat.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"paged_mla_decode split launch failed: CUDA "
+                           f"error {err}")
+    return _part_views(scratch, n_split, b, h, rkv)

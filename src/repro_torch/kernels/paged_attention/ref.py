@@ -61,13 +61,22 @@ def paged_decode_partials_ref(q, k_pool, v_pool, table, pos, *, page_size,
     ok = kj <= p_
     if window is not None:
         ok &= kj > p_ - window
+    return _partials(s, vd, ok, edges)
+
+
+def _partials(s, v, ok, edges):
+    """Per split [lo, hi) of ``edges``: the unnormalised accumulator of
+    the log2-unit scores s (B, H, T) over the values v (B, T, H, D) at the
+    valid positions ``ok`` (B, T), its max m and sum l.  A split with no
+    valid position gives m = -inf, l = 0, acc = 0."""
+    kj = torch.arange(s.shape[-1], device=s.device)[None, :]
     accs, ms, ls = [], [], []
     for lo, hi in zip(edges[:-1], edges[1:]):
         live = (ok & (kj >= lo) & (kj < hi))[:, None, :]        # (B, 1, T)
         m = torch.where(live, s, -torch.inf).amax(-1)           # (B, H)
         p = torch.where(live, torch.exp2(s - torch.where(
             torch.isfinite(m), m, 0.0)[..., None]), 0.0)
-        accs.append(torch.einsum("bhk,bkhd->bhd", p, vd))
+        accs.append(torch.einsum("bhk,bkhd->bhd", p, v))
         ms.append(m)
         ls.append(p.sum(-1))
     return torch.stack(accs), torch.stack(ms), torch.stack(ls)
@@ -106,3 +115,22 @@ def paged_mla_decode_attention_ref(q_lat, q_rope, ckv_pool, krope_pool,
     lat = torch.einsum("bhst,btr->bshr", probs, cd.float())
     any_valid = ok.any(dim=1)[:, None, None, None]
     return torch.where(any_valid, lat, 0.0).to(q_lat.dtype)
+
+
+def paged_mla_decode_partials_ref(q_lat, q_rope, ckv_pool, krope_pool,
+                                  table, pos, *, page_size, scale, edges):
+    """The MLA split kernel's function in plain PyTorch: split z scores the
+    valid positions t with ``edges[z] <= t < edges[z + 1]`` and gives its
+    unnormalised f32 accumulator over the latent rows acc (S, B, H, Rkv),
+    its max m and sum l (S, B, H), in log2 units; an empty split gives m =
+    -inf, l = 0.  ``paged_decode_combine_ref`` merges them."""
+    cd = _gather(ckv_pool, table, page_size).float()        # (B, T, Rkv)
+    kd = _gather(krope_pool, table, page_size).float()      # (B, T, Dr)
+    s = (torch.einsum("bqhr,btr->bht", q_lat.float(), cd)
+         + torch.einsum("bqhr,btr->bht", q_rope.float(), kd)) \
+        * (scale * LOG2E)
+    ok = (torch.arange(cd.shape[1], device=cd.device)[None, :]
+          <= pos.long()[:, None])
+    b, t, rkv = cd.shape
+    return _partials(s, cd[:, :, None].expand(b, t, q_lat.shape[2], rkv),
+                     ok, edges)

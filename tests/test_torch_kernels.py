@@ -17,7 +17,11 @@ a bf16 paged decode also bounds each (slot, head) output row's error by a
 share of that row's norm (RMS over rows 1e-2, worst row 5e-2, as the
 flash cases): a row that averages V over 2000 positions has typical
 values near 0.04, about the elementwise 2e-2, so only the row bound sees
-a 64-position tile left out (about 0.18 of the row's norm).
+a 64-position tile left out (about 0.18 of the row's norm).  The bf16
+MLA decode takes the same row bound, and the bf16 SSD scan is held row
+by row (each (b, s, h) row of y) by the same numbers against its plain
+version computed in f32 from the same bf16 inputs (``_ssd_rows_close``;
+the bound's derivation is at ``chip_smoke.SSD_ROW_TOL``).
 """
 import numpy as np
 import pytest
@@ -417,7 +421,7 @@ def test_paged_mla_kernel_matches_plain(shape, dtype, cuda):
     torch.cuda.synchronize()
     assert paged_mla_decode_attention.launches.value == before + 1
     want = paged_mla_decode_attention_ref(*args, page_size=ps, scale=scale)
-    _close(got.float().cpu(), want.float().cpu(), dtype)
+    _decode_close(got, want, dtype)
 
 
 @pytest.mark.gpu
@@ -545,3 +549,172 @@ def test_paged_decode_combine_kernel_matches_plain(dtype, cuda):
     _decode_close(got, want, dtype)
     full = paged_decode_attention_ref(*args, page_size=8, window=700)
     _decode_close(got, full, dtype)
+
+
+# ------------------------------- the chunk-parallel SSD scan (on the card)
+def _f32_inputs(args):
+    x, dt, a, bmat, cmat = args
+    return x.float(), dt, a, bmat.float(), cmat.float()
+
+
+def _plain_scan(args, chunk):
+    """The plain chunk-parallel decomposition in f32: (y, h_final)."""
+    from repro_torch.kernels.ssd_chunk import (ssd_chunk_output_ref,
+                                               ssd_chunk_states_ref,
+                                               ssd_state_pass_ref)
+    f = _f32_inputs(args)
+    h_prev, hf = ssd_state_pass_ref(*ssd_chunk_states_ref(*f, chunk=chunk))
+    return ssd_chunk_output_ref(*f, h_prev, chunk=chunk), hf
+
+
+def _rel(got, want):
+    return ((got.float() - want.float()).norm() / want.float().norm()).item()
+
+
+def _ssd_rows_close(got, want):
+    """Each (b, s, h) row of y: error over the row's norm, RMS over rows
+    and worst row (``ROW_TOL``)."""
+    g, w = got.float().cpu(), want.float().cpu()
+    n2 = w.square().sum(-1)
+    r = (g - w).square().sum(-1)[n2 > 0] / n2[n2 > 0]
+    assert r.mean().sqrt().item() <= ROW_TOL["rms"]
+    assert r.max().sqrt().item() <= ROW_TOL["worst"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(2, 300, 3, 64, 128, 256),
+                                   (2, 200, 4, 16, 32, 64),
+                                   (1, 2048, 48, 64, 128, 256)])
+def test_ssd_kernel_phases_match_plain(shape, cuda):
+    """Each bf16 phase against its plain version in f32 on the same
+    inputs: the chunk states (bf16 rounding of x * w: 1e-2 of the states'
+    norm), the state pass and the chunk output on the plain states, and
+    the composed scan, y row by row."""
+    from repro_torch.kernels.ssd_chunk import (
+        ssd_chunk_output, ssd_chunk_output_ref, ssd_chunk_states,
+        ssd_chunk_states_ref, ssd_state_pass, ssd_state_pass_ref)
+    *dims, chunk = shape
+    args = _ssd_torch(_ssd_inputs(*dims, seed=4), "bfloat16", cuda)
+    f = _f32_inputs(args)
+    states, decay = ssd_chunk_states(*args, chunk=chunk)
+    states_r, decay_r = ssd_chunk_states_ref(*f, chunk=chunk)
+    torch.testing.assert_close(decay, decay_r, rtol=1e-5, atol=1e-4)
+    assert _rel(states, states_r) <= 1e-2
+    h_prev, hf = ssd_state_pass(states_r.clone(), decay_r)
+    h_prev_r, hf_r = ssd_state_pass_ref(states_r, decay_r)
+    torch.testing.assert_close(h_prev, h_prev_r, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(hf, hf_r, rtol=1e-5, atol=1e-5)
+    y = ssd_chunk_output(*args, h_prev_r.contiguous(), chunk=chunk)
+    _ssd_rows_close(y, ssd_chunk_output_ref(*f, h_prev_r, chunk=chunk))
+    before = ssd_scan.launches.value
+    y, hf = ssd_scan(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ssd_scan.launches.value == before + 1
+    y_r, hf_r = _plain_scan(args, chunk)
+    _ssd_rows_close(y, y_r)
+    assert _rel(hf, hf_r) <= 1e-2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_kernel_reads_group_broadcast_in_place(dtype, cuda):
+    """x, B and C as the model hands them over: views of one (B, S, C)
+    activation, B and C one group broadcast to every head (head stride
+    0).  The kernel reads them in place and gives what it gives on
+    per-head contiguous copies, bit for bit."""
+    b, s, h, p, n = 2, 300, 4, 64, 128
+    rng = np.random.default_rng(8)
+    conv = torch.tensor(rng.standard_normal((b, s, h * p + 2 * n),
+                                            np.float32) * 0.5,
+                        device=cuda).to(getattr(torch, dtype))
+    x = conv[..., :h * p].unflatten(-1, (h, p))
+    bc = conv[..., h * p:].unflatten(-1, (2, 1, n))
+    bmat = bc[:, :, 0].expand(b, s, h, n)
+    cmat = bc[:, :, 1].expand(b, s, h, n)
+    assert bmat.stride(2) == 0 and not x.is_contiguous()
+    _, dt, a, _, _ = _ssd_torch(_ssd_inputs(b, s, h, p, n, seed=8),
+                                "float32", cuda)
+    y, hf = ssd_scan(x, dt, a, bmat, cmat, chunk=64)
+    y2, hf2 = ssd_scan(x.contiguous(), dt, a, bmat.contiguous(),
+                       cmat.contiguous(), chunk=64)
+    assert torch.equal(y, y2) and torch.equal(hf, hf2)
+    y_r, hf_r = _plain_scan((x, dt, a, bmat, cmat), 64)
+    if dtype == "float32":
+        _ssd_close(y.cpu(), y_r.cpu(), dtype)
+        _ssd_close(hf.cpu(), hf_r.cpu(), dtype)
+    else:
+        _ssd_rows_close(y, y_r)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("chunk", [1, 5, 16, 64, 100, 256])
+def test_ssd_kernel_chunk_sizes(chunk, dtype, cuda):
+    """Chunk lengths 1..256, most with a short last chunk, against the
+    plain decomposition at the same chunk."""
+    args = _ssd_torch(_ssd_inputs(1, 200, 2, 32, 64, seed=7), dtype, cuda)
+    y, hf = ssd_scan(*args, chunk=chunk)
+    y_r, hf_r = _plain_scan(args, chunk)
+    if dtype == "float32":
+        _ssd_close(y.cpu(), y_r.cpu(), dtype)
+        _ssd_close(hf.cpu(), hf_r.cpu(), dtype)
+    else:
+        _ssd_rows_close(y, y_r)
+        assert _rel(hf, hf_r) <= 1e-2
+
+
+# -------------------------------------- the split MLA decode (on the card)
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_mla_kernel_split_edges(dtype, cuda):
+    """Positions at and around the split length, a slot at 0 and the last
+    position, at minicpm3-4b's widths."""
+    n_split, length = _split_len(2080, 8)
+    assert n_split > 1
+    pos = [length - 2, length - 1, length, 0, 2079, 2 * length - 1,
+           2 * length, 1]
+    args = _mla_torch(_mla_inputs(8, 40, 256, 32, 2080, 8, seed=12,
+                                  pos=pos), dtype, cuda)
+    kw = dict(page_size=8, scale=(64 + 32) ** -0.5)
+    _decode_close(paged_mla_decode_attention(*args, **kw),
+                  paged_mla_decode_attention_ref(*args, **kw), dtype)
+
+
+@pytest.mark.gpu
+def test_paged_mla_split_and_combine_match_plain(cuda):
+    """The bf16 split kernel's partials: empty splits are (m = -inf, l =
+    0) where the plain partials are empty; the shared combine kernel on
+    them matches its plain version and the unsplit plain decode."""
+    from repro_torch.kernels.paged_attention import (
+        paged_decode_combine, paged_decode_combine_ref,
+        paged_mla_decode_partials, paged_mla_decode_partials_ref)
+    n_split, length = _split_len(2080, 8)
+    args = _mla_torch(_mla_inputs(*MLA_SHAPE, seed=13), "bfloat16", cuda)
+    kw = dict(page_size=8, scale=(64 + 32) ** -0.5)
+    acc, m, l = paged_mla_decode_partials(*args, n_split=n_split,
+                                          split_len=length, **kw)
+    edges = [min(z * length, 2080) for z in range(n_split + 1)]
+    _, m_r, l_r = paged_mla_decode_partials_ref(*args, edges=edges, **kw)
+    assert torch.equal(l == 0, m == -torch.inf)
+    assert torch.equal(l == 0, l_r == 0)
+    got = paged_decode_combine(acc, m, l, torch.bfloat16)
+    _decode_close(got, paged_decode_combine_ref(acc, m, l, torch.bfloat16),
+                  "bfloat16")
+    _decode_close(got, paged_mla_decode_attention_ref(*args, **kw),
+                  "bfloat16")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(3, 4, 32, 16, 16, 4),
+                                   (4, 40, 256, 32, 2080, 8)])
+def test_paged_mla_kernel_garbage_page_bit_identical_bf16(shape, cuda):
+    """Page 0 poisoned with 1e4 in bf16 (one-split and split shapes):
+    nothing behind a masked position is read."""
+    pos = [0, 5, 15] if shape[0] == 3 else [0, 255, 1000, 2079]
+    args = _mla_torch(_mla_inputs(*shape, seed=10, pos=pos), "bfloat16",
+                      cuda)
+    kw = dict(page_size=shape[-1], scale=0.2)
+    clean = paged_mla_decode_attention(*args, **kw)
+    args[2][0], args[3][0] = 1e4, 1e4
+    poisoned = paged_mla_decode_attention(*args, **kw)
+    assert torch.equal(clean, poisoned) and torch.isfinite(poisoned).all()
