@@ -4,6 +4,7 @@
     python3 chip_smoke.py              # the whole run, from a checkout
     python3 chip_smoke.py --layers 8   # cut every phase's depth (width is
                                        # never cut)
+    python3 chip_smoke.py --phases qwen2.5-14b-prefix   # some phases only
 
 Phases (each raises on failure, so the script exits non-zero):
 
@@ -38,9 +39,17 @@ Phases (each raises on failure, so the script exits non-zero):
    lengths from {256, 512, 1024, 2048} and 16 slots; then mixtral-8x7b
    (MoE, sliding-window rings, flash prefill) at 16 of its 32 layers (the
    whole model does not fit one card), 16 requests, each prompt length of
-   {1024, 2048, 6144, 8192} four times, 8 slots.  32 tokens each,
-   staggered arrivals.  Launch counters are zeroed right before each
-   phase and read right after; each phase's identities are checked.  Then
+   {1024, 2048, 6144, 8192} four times, 8 slots; then chunked prefill and
+   the shared-prefix cache, qwen2.5-14b (``qwen2.5-14b-prefix``) and
+   minicpm3-4b (``minicpm3-4b-prefix``) at full width and depth: 4
+   prefixes of 1001 tokens, each heading 8 prompts with tails of 24-1000
+   tokens, chunks of 512, one prompt per prefix first and the other 28
+   once those have 2 tokens out (28 hits, each forking a partial page).
+   32 tokens each, staggered arrivals.  Launch counters are zeroed right
+   before each phase and read right after; the engine's steps are counted
+   by wrapping them (one-shot prefills, chunks, gathers, ticks) and each
+   phase's identities are checked, with the prefix counters and no page
+   leaked after shutdown.  Then
    the teacher-forced checks: one forward of the port over prompt +
    emitted tokens must put each emitted token at (or within ``LOGIT_TOL``
    of) its argmax, and the engine's step path fed the same tokens must
@@ -57,8 +66,15 @@ Phases (each raises on failure, so the script exits non-zero):
    choice is clear (``ROUTE_MARGIN``, ``ROUTE_MARGIN_FIRST``), and the
    registry's capacity MoE dispatch, which the phase does not serve, is
    held at mixtral's layer shape against its rule
-   (``check_capacity_dispatch``).
-5. summary — one ``kernels`` JSON line, then the ``ok`` line.
+   (``check_capacity_dispatch``).  The prefix phases' step path is the
+   engine's own hit path (gather, the tail's chunks at the matched
+   offset, an insert with the shared pages masked, paged-kernel decode),
+   with three planted faults of it (``HIT_FAULTS``).
+5. cli    — ``repro_torch.launch.serve`` on the card at full width, as
+   an engine (paged kernel, ``--chunk 512 --prefix-cache on``) and one
+   shot: each run's kernels launched, and both token sets held by the
+   teacher-forced token check.
+6. summary — one ``kernels`` JSON line, then the ``ok`` line.
 
 Nothing of JAX or of the ``repro`` package is imported.
 """
@@ -146,6 +162,16 @@ PLANTED = {
     "mamba2-780m": ("state_not_handed", "dt_one_late", "conv_tail_rolled"),
     "mixtral-8x7b": ("flash_kv_group_order", "moe_second_pick_dropped",
                      "ring_not_rolled"),
+    # the prefix phases' hit path: the gather reads the table one page
+    # on; the COW fork's page is not copied (its positions of the
+    # gathered row zeroed, and the slot's own page for it left empty:
+    # the one matched position alone, zeroed, is below what the checks
+    # see at minicpm3-4b — worst rel 0.19, gap 0.63 on an H100); a
+    # tail chunk's q_off is one late (RoPE and the causal mask shifted)
+    "qwen2.5-14b-prefix": ("gather_table_shifted", "fork_not_copied",
+                           "tail_q_off_plus_1"),
+    "minicpm3-4b-prefix": ("gather_table_shifted", "fork_not_copied",
+                           "tail_q_off_plus_1"),
 }
 # mixtral's teacher-forced forward takes the expert ids of the step path
 # (the reason is in ``serve``), so a wrong top-k on the card would sit on
@@ -167,6 +193,7 @@ ROUTE_MARGIN_FIRST = 0.03
 ROUTE_FAULTS = ("moe_ids_permuted",)
 PREFILL_FAULTS = ("state_not_handed", "dt_one_late", "flash_kv_group_order",
                   "moe_second_pick_dropped", "ring_not_rolled")
+HIT_FAULTS = ("gather_table_shifted", "fork_not_copied", "tail_q_off_plus_1")
 # The SSM phase's conv weights are scaled by this gain from the repo's
 # normal 0.02 to std 1.0, so that the checks can see a fault of the scan
 # or of the state.  At 0.02 the depthwise conv (fan-in 4) outputs x, B
@@ -185,21 +212,34 @@ TRAFFIC = dict(slots=16, cache_len=2080, lens=(256, 512, 1024, 2048),
 # longest prompt + 32 tokens
 MIXTRAL_TRAFFIC = dict(slots=8, cache_len=8224, lens=(1024, 2048, 6144, 8192),
                        each=True, n_req=16, gen=32)
+# A chat or agent service: 4 shared prefixes (system prompts) of 1001
+# tokens, each heading 8 prompts with a tail of its own, two of each
+# length: prompts of 1025, 1201, 1537 and 2001 tokens.  Wave 1 is one
+# prompt per prefix; wave 2, the other 28, arrives once every wave-1
+# request has emitted 2 tokens (so it is admitted and its pages are in
+# the trie).  1001 is no multiple of the page size 8, so every hit also
+# forks a partial page.
+PREFIX_TRAFFIC = dict(slots=16, cache_len=2080, n_req=32, gen=32,
+                      n_prefix=4, prefix_len=1001, tails=(24, 200, 536, 1000))
 # Per phase: decode attention through its paged kernel?  For each kernel
-# of the phase, the engine count its launches follow once per layer
-# (decode dispatches or prefill calls; None: no launch at all — mixtral's
-# attention leaves are rings, which decode reads without the paged
-# kernel, as the reference does); RMSNorm launches per layer of each tick
-# and prefill call (+ the final norm); the traffic; the depth cut.
+# of the phase, the engine step whose calls its launches follow once per
+# layer (the decode tick or the one-shot prefill, counted by wrapping the
+# engine's steps; None: no launch at all — mixtral's attention leaves are
+# rings, which decode reads without the paged kernel, as the reference
+# does); RMSNorm launches per layer of each tick, one-shot prefill and
+# prefill chunk (+ the final norm, which a chunk that skips the LM head
+# skips too); the traffic; the depth cut; the engine's options.  Chunks
+# attend in plain ``full_attention`` and gathers launch nothing, as in the
+# reference.  qwen2.5-14b and minicpm3-4b run with the prefix cache on
+# (``prefix_cache="auto"``); their random prompts must never hit.
 PHASES = {
     "qwen2.5-14b": dict(paged_kernel=True, norms=2, traffic=TRAFFIC,
-                        kernels={"paged_decode_attention": "decode_dispatches",
-                                 "flash_attention": "prefill_calls"}),
+                        kernels={"paged_decode_attention": "decode",
+                                 "flash_attention": "prefill"}),
     "minicpm3-4b": dict(paged_kernel=True, norms=4, traffic=TRAFFIC,
-                        kernels={"paged_mla_decode_attention":
-                                 "decode_dispatches"}),
+                        kernels={"paged_mla_decode_attention": "decode"}),
     "mamba2-780m": dict(paged_kernel=False, norms=2, traffic=TRAFFIC,
-                        kernels={"ssd_scan": "prefill_calls"}),
+                        kernels={"ssd_scan": "prefill"}),
     # 16 of 32 layers: full depth is 93.4 GB of bf16 weights, more than
     # the card holds; 16 layers are 46.4 GB + 0.5 GB of embedding and head.
     # The dropless MoE dispatch, as Mixtral is served: at this init the
@@ -210,8 +250,19 @@ PHASES = {
     # holds that dispatch on the card).
     "mixtral-8x7b": dict(paged_kernel=True, norms=2, traffic=MIXTRAL_TRAFFIC,
                          layers=16, moe_impl="ragged",
-                         kernels={"flash_attention": "prefill_calls",
+                         kernels={"flash_attention": "prefill",
                                   "paged_decode_attention": None}),
+    # chunked prefill and the shared-prefix cache: every prompt is longer
+    # than the chunk, so no one-shot prefill (and no flash launch) is due
+    "qwen2.5-14b-prefix": dict(
+        arch="qwen2.5-14b", paged_kernel=True, norms=2,
+        traffic=PREFIX_TRAFFIC, prefill_chunk=512, prefix_cache="on",
+        kernels={"paged_decode_attention": "decode",
+                 "flash_attention": None}),
+    "minicpm3-4b-prefix": dict(
+        arch="minicpm3-4b", paged_kernel=True, norms=4,
+        traffic=PREFIX_TRAFFIC, prefill_chunk=512, prefix_cache="on",
+        kernels={"paged_mla_decode_attention": "decode"}),
 }
 
 
@@ -1236,21 +1287,85 @@ def steps_alone(cfg, params, smi, paged_kernel, traffic, ps=8):
         log(f"  tick kernel {ms:8.3f} ms x{n:5d}  {key[:90]}")
 
 
+def prefix_steps_alone(cfg, params, smi, traffic, chunk, ps=8):
+    """The hit path's two steps alone (no engine, no other thread): one
+    gather of a prefix's pages into a row, and one ``chunk``-token chunk
+    of the tail at the prefix's offset (extent bucket as the engine sets
+    it, no LM head); host-timed around a synchronize over 3 calls, and
+    the device's busy time per call in a ``torch.profiler`` trace of more
+    calls (kernel time summed, as ``steps_alone`` reads a tick; the
+    kernel count per call says whether the trace holds every launch), with
+    the chunk's largest kernels."""
+    import numpy as np
+    import torch
+
+    from repro_torch.steps import (init_paged_slot_cache,
+                                   make_prefill_chunk_step,
+                                   make_prefix_gather_step)
+
+    cache_len, m = traffic["cache_len"], traffic["prefix_len"]
+    pps = cache_len // ps
+    pool = init_paged_slot_cache(cfg, 1, cache_len, torch.bfloat16, ps,
+                                 1 + pps, "cuda")
+    trow = torch.arange(1, pps + 1, dtype=torch.int32, device="cuda")
+    trow[-(-m // ps):] = 0
+    gather = make_prefix_gather_step(cfg, cache_len=cache_len, page_size=ps)
+    step = make_prefill_chunk_step(cfg, cache_len)
+    rows = gather(pool, trow, m)
+    toks = torch.tensor(np.random.default_rng(6).integers(
+        0, cfg.vocab, (1, chunk)).astype(np.int32), device="cuda")
+    ext = min(cache_len, -(-(m + chunk) // chunk) * chunk)
+
+    def one_gather():
+        gather(pool, trow, m)
+
+    def one_chunk():
+        step(params, rows, toks, m, attn_extent=ext, want_logits=False)
+
+    out, top = {}, {}
+    for what, fn, n in (("gather", one_gather, 20), ("chunk", one_chunk, 3)):
+        fn()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        host = (time.perf_counter() - t) / 3 * 1e3
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU,
+                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        evs = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+        for e in evs:
+            ms, k = top.get((what, e.name), (0.0, 0))
+            top[what, e.name] = (ms + e.time_range.elapsed_us() / 1e3 / n,
+                                 k + 1)
+        busy = sum(e.time_range.elapsed_us() for e in evs) / n / 1e3
+        out[what] = (host, busy, len(evs) / n)
+    log(f"prefix steps alone ({cfg.name}, {smi}): one gather of {m} tokens "
+        f"({-(-m // ps)} pages of {ps}) {out['gather'][0]:.2f} ms host, "
+        f"device busy {out['gather'][1]:.4f} ms ({out['gather'][2]:.0f} "
+        f"kernels); one {chunk}-token chunk at offset {m} (extent {ext}, "
+        f"no LM head) {out['chunk'][0]:.2f} ms host, device busy "
+        f"{out['chunk'][1]:.3f} ms ({out['chunk'][2]:.0f} kernels)")
+    for (what, key), (ms, k) in sorted(top.items(), key=lambda r: -r[1][0])[:8]:
+        log(f"  {what} kernel {ms:8.3f} ms a call (x{k}) {key[:90]}")
+
+
 def plain_ssd(x, dt, a, bmat, cmat, *, chunk):
     """The reference model's own SSD math (``ssd_chunked``, state carried
-    in the activation dtype from a zero state) in place of the kernel, at
-    any length: a length that does not split into equal chunks is one
-    chunk (the math does not depend on the chunk length)."""
+    in the activation dtype from a zero state) in place of the kernel."""
     import torch
 
     from repro_torch.models.ssm import ssd_chunked
 
-    b, s, h, p = x.shape
-    nc = max(1, s // chunk)
+    b, _, h, p = x.shape
     init = torch.zeros((b, h, p, bmat.shape[-1]), dtype=x.dtype,
                        device=x.device)
-    return ssd_chunked(x, dt, a, bmat, cmat,
-                       chunk if nc * (s // nc) == s else s, init)
+    return ssd_chunked(x, dt, a, bmat, cmat, chunk, init)
 
 
 @contextlib.contextmanager
@@ -1366,41 +1481,109 @@ def planted(fault):
 
 
 def path_check(cfg, params, prompts, toks, ref, device, paged_kernel,
-               slots=16, cache_len=2080, ps=8, names=None):
+               slots=16, cache_len=2080, ps=8, names=None, phase=None,
+               plan=None, chunk=512):
     """The engine's step path teacher-forced with its emitted tokens: each
     prompt through the prefill step and the paged insert, then the tokens
     one tick at a time through the decode forward (paged kernel where the
     phase has one), ``slots`` requests per round — as built and under each
-    planted fault (a fault of the prefill side gets its own prefill), or
-    under ``names`` only.  Returns name -> {"rel": aggregate relative
-    logit error against ``ref``, "rel_max": worst position, "effect": the
-    same distance from the path as built, "gap": worst gap of the path's
+    planted fault of ``phase`` (a fault of the prefill side gets its own
+    prefill), or under ``names`` only.  ``plan`` (the prefix phases): per
+    request (source request, matched tokens), or (None, 0) for a cold
+    prompt; each prompt is chunk-prefilled in ``chunk``-token chunks, and
+    a hit takes the engine's hit path: gather of its source's pages (the
+    fork page included), the tail's chunks from the matched offset, an
+    insert with the shared pages masked; its table row then starts with
+    its source's pages.  Returns name -> {"rel": aggregate relative logit
+    error against ``ref``, "rel_max": worst position, "effect": the same
+    distance from the path as built, "gap": worst gap of the path's
     argmax under ``ref``, "same": path argmax equal to the emitted token}
     ({} when ``ref`` is None: the path only runs)."""
     import numpy as np
     import torch
 
-    from repro_torch.models.lm import forward
+    from repro_torch.models.lm import forward, init_cache
     from repro_torch.steps import (cast_tree, init_paged_slot_cache,
                                    make_batched_insert_step,
-                                   make_prefill_step)
+                                   make_prefill_chunk_step,
+                                   make_prefill_step,
+                                   make_prefix_gather_step)
 
     p = cast_tree(params, cfg.dtype)
-    prefill = make_prefill_step(cfg, cache_len=cache_len)
+    dt = getattr(torch, cfg.dtype)
     insert = make_batched_insert_step(cfg, cache_len=cache_len, page_size=ps)
     pps = cache_len // ps
-    cache = init_paged_slot_cache(cfg, slots, cache_len, getattr(
-        torch, cfg.dtype), ps, 1 + slots * pps, device)
-    table = (1 + torch.randperm(slots * pps, generator=torch.Generator()
-                                .manual_seed(3))).int().view(slots, pps)
-    table = table.to(device)
-    pages = {"table": table, "page_size": ps, "cache_len": cache_len,
-             "kernel": paged_kernel}
+    g = torch.Generator().manual_seed(3)
+    if plan is None:
+        prefill = make_prefill_step(cfg, cache_len=cache_len)
+        num_pages = 1 + slots * pps
+        rows_of = (1 + torch.randperm(slots * pps, generator=g)).int().view(
+            slots, pps)
+    else:
+        chunk_step = make_prefill_chunk_step(cfg, cache_len)
+        gather = make_prefix_gather_step(cfg, cache_len=cache_len,
+                                         page_size=ps)
+        shared = [m // ps if src is not None else 0 for src, m in plan]
+        num_pages = 1 + sum(pps - k for k in shared)
+        perm = (1 + torch.randperm(num_pages - 1, generator=g)).int()
+        rows_of, k0 = [], 0
+        for (src, _), k in zip(plan, shared):
+            own = perm[k0:k0 + pps - k]
+            k0 += pps - k
+            rows_of.append(own if src is None
+                           else torch.cat([rows_of[src][:k], own]))
+    cache = init_paged_slot_cache(cfg, slots, cache_len, dt, ps, num_pages,
+                                  device)
     if names is None:
-        names = [None, *PLANTED[arch_of(cfg)]]
+        names = [None, *PLANTED[phase or arch_of(cfg)]]
     acc = {n: {"d2": 0.0, "r2": 0.0, "e2": 0.0, "rel_max": 0.0, "gap": 0.0,
                "same": 0} for n in names}
     gen = len(toks[0])
+
+    def zero_page(rows, k):
+        for blk in rows["blocks"]:
+            for leaf in blk.values():
+                leaf[:, :, k * ps:(k + 1) * ps] = 0
+
+    def chunked_round(idx, fault):
+        """The prefix phases' prefill side, request by request (a hit
+        gathers pages an earlier request of the round inserted)."""
+        nonlocal cache
+        firsts = []
+        for s, i in enumerate(idx):
+            src, m = plan[i]
+            n_tok = len(prompts[i])
+            t = torch.tensor(prompts[i][None], device=device)
+            ins_row = rows_of[i].clone()
+            c0 = off = 0
+            if src is None:
+                rows = init_cache(cfg, 1, cache_len, dt, device)
+            else:
+                k = m // ps
+                trow = torch.zeros(pps, dtype=torch.int32)
+                held = k + int(m % ps > 0)             # + the fork page
+                trow[:held] = rows_of[src][:held]
+                if fault == "gather_table_shifted":
+                    trow = torch.cat([trow[1:], trow[:1] * 0])
+                rows = gather(cache, trow.to(device), m)
+                if fault == "fork_not_copied":
+                    zero_page(rows, k)
+                c0, off = m, int(fault == "tail_q_off_plus_1")
+                ins_row[:k] = 0             # the garbage page: not written
+            while c0 < n_tok:
+                c1 = min(c0 + chunk, n_tok)
+                rows, lg = chunk_step(
+                    p, rows, t[:, c0:c1], c0 + off,
+                    attn_extent=min(cache_len, -(-c1 // chunk) * chunk),
+                    want_logits=c1 == n_tok)
+                c0 = c1
+            if fault == "fork_not_copied" and src is not None:
+                zero_page(rows, m // ps)        # the slot's page: empty
+            cache = insert(cache, rows, 0, s, ins_row.to(device))
+            firsts.append(lg[0, -1].float())
+            del rows
+        return firsts
+
     for r0 in range(0, len(prompts), slots):
         idx = list(range(r0, min(r0 + slots, len(prompts))))
         pad = slots - len(idx)
@@ -1409,19 +1592,30 @@ def path_check(cfg, params, prompts, toks, ref, device, paged_kernel,
         feed = torch.tensor(np.stack([toks[i] for i in idx]
                                      + [np.zeros(gen, np.int32)] * pad),
                             device=device)
+        trows = ([rows_of[s] for s in range(len(idx))] if plan is None
+                 else [rows_of[i] for i in idx])
+        table = torch.stack(trows + [torch.zeros(pps, dtype=torch.int32)]
+                            * pad).to(device)
+        pages = {"table": table, "page_size": ps, "cache_len": cache_len,
+                 "kernel": paged_kernel}
 
         def prefill_round():
             return [prefill(p, torch.tensor(prompts[i][None], device=device))
                     for i in idx]
 
-        clean = prefill_round()
+        clean = prefill_round() if plan is None else None
         for n in names:
-            with planted(n):
-                rounds = prefill_round() if n in PREFILL_FAULTS else clean
-                for s, (rows, _) in enumerate(rounds):
-                    cache = insert(cache, rows, 0, s, table[s])
-                rows = [torch.stack([lg[0, -1].float() for _, lg in rounds])]
-                del rounds
+            with planted(None if n in HIT_FAULTS else n):
+                if plan is not None:
+                    rows = [torch.stack(chunked_round(idx, n))]
+                else:
+                    rounds = (prefill_round() if n in PREFILL_FAULTS
+                              else clean)
+                    for s, (rc, _) in enumerate(rounds):
+                        cache = insert(cache, rc, 0, s, table[s])
+                    rows = [torch.stack([lg[0, -1].float()
+                                         for _, lg in rounds])]
+                    del rounds
                 for j in range(gen - 1):
                     o = forward(p, cfg, feed[:, j:j + 1], mode="decode",
                                 pos=pos0 + j, cache=cache, pages=pages)
@@ -1645,8 +1839,44 @@ def reference_forward():
     return swapped((ssm, "ssd_scan", plain_ssd))
 
 
-def serve(cfg, smi, device="cuda", seed=0):
-    """Drive one main path; returns (launch counts, engine stats)."""
+def prefix_prompts(cfg, traffic, rng):
+    """The prefix phases' prompts, wave 1 first (one per prefix), then
+    wave 2 in a seeded order; and per prompt its (source request, matched
+    tokens) by the trie's rule: the common run with its prefix's wave-1
+    prompt, at most all but the last token ((None, 0) for wave 1).
+    Prefix j's k-th prompt has tail ``tails[(j + k // 2) % 4]``: two of
+    each length, and the four wave-1 prompts one of each."""
+    import numpy as np
+
+    n_pre, tails = traffic["n_prefix"], traffic["tails"]
+    per = traffic["n_req"] // n_pre
+    prompts = {}
+    for j in range(n_pre):
+        head = rng.integers(0, cfg.vocab, traffic["prefix_len"])
+        for k in range(per):
+            tail = rng.integers(0, cfg.vocab, tails[(j + k // 2) % len(tails)])
+            prompts[j, k] = np.concatenate([head, tail]).astype(np.int32)
+    wave2 = [(j, k) for j in range(n_pre) for k in range(1, per)]
+    order = [(j, 0) for j in range(n_pre)] + [
+        wave2[i] for i in rng.permutation(len(wave2))]
+    plist = [prompts[key] for key in order]
+    plan = []
+    for (j, k), pr in zip(order, plist):
+        if k == 0:
+            plan.append((None, 0))
+            continue
+        n = min(len(pr) - 1, len(plist[j]))
+        diff = np.flatnonzero(pr[:n] != plist[j][:n])
+        plan.append((j, int(diff[0]) if len(diff) else n))
+    return plist, plan
+
+
+def serve(cfg, smi, device="cuda", seed=0, name=None):
+    """Drive one main path (phase ``name``, by default the config's
+    arch); returns (launch counts, engine stats, engine step calls)."""
+    import collections
+    import threading
+
     import numpy as np
     import torch
 
@@ -1656,7 +1886,8 @@ def serve(cfg, smi, device="cuda", seed=0):
     from repro_torch.steps import (greedy_oneshot, make_prefill_step,
                                    make_serve_step)
 
-    phase = PHASES[arch_of(cfg)]
+    name = name or arch_of(cfg)
+    phase = PHASES[name]
     traffic = phase["traffic"]
     paged_kernel = phase["paged_kernel"]
     counted = (*phase["kernels"], "rms_norm")
@@ -1665,12 +1896,20 @@ def serve(cfg, smi, device="cuda", seed=0):
     slots, cache_len, n_req, gen = (traffic[k] for k in (
         "slots", "cache_len", "n_req", "gen"))
     rng = np.random.default_rng(seed)
-    if traffic["each"]:
+    prefix = "prefix_len" in traffic
+    plan = None
+    if prefix:
+        prompts, plan = prefix_prompts(cfg, traffic, rng)
+        lens = np.array([len(x) for x in prompts])
+        wave1 = [i for i, (src, _) in enumerate(plan) if src is None]
+    elif traffic["each"]:
         lens = rng.permutation(np.repeat(traffic["lens"],
                                          n_req // len(traffic["lens"])))
     else:
         lens = rng.choice(traffic["lens"], n_req)
-    prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32) for n in lens]
+    if not prefix:
+        prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32)
+                   for n in lens]
     gaps = rng.exponential(0.03, n_req)
 
     box = {}
@@ -1691,15 +1930,43 @@ def serve(cfg, smi, device="cuda", seed=0):
     if cuda:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-    for name in counted:
-        getattr(kernels, name).launches.reset()
+    eng = ServeEngine(cfg, weights, slots=slots, cache_len=cache_len,
+                      page_size="auto", paged_kernel=paged_kernel,
+                      sync_ticks=True, device=device,
+                      prefill_chunk=phase.get("prefill_chunk"),
+                      prefix_cache=phase.get("prefix_cache"))
+    # the engine's steps, counted: one-shot prefills, chunks with and
+    # without the LM head, gathers, decode ticks
+    calls, calls_lock = collections.Counter(), threading.Lock()
+
+    def counting(fn, key):
+        def run(*a, **kw):
+            with calls_lock:
+                calls[key(kw) if callable(key) else key] += 1
+            return fn(*a, **kw)
+        return run
+    eng.prefill = counting(eng.prefill, "prefill")
+    eng.decode = counting(eng.decode, "decode")
+    if eng.chunk is not None:
+        eng.chunk = counting(eng.chunk, lambda kw: "chunk"
+                             if kw["want_logits"] else "chunk_mid")
+    if eng.gather is not None:
+        eng.gather = counting(eng.gather, "gather")
+    for k in counted:
+        getattr(kernels, k).launches.reset()
     t0 = time.perf_counter()
-    with ServeEngine(cfg, weights, slots=slots, cache_len=cache_len,
-                     page_size="auto", paged_kernel=paged_kernel,
-                     sync_ticks=True, device=device) as eng:
-        reqs = [Request(i, prompts[i], max_new_tokens=gen)
-                for i in range(n_req)]
-        for r, g in zip(reqs, gaps):
+    reqs = [Request(i, prompts[i], max_new_tokens=gen)
+            for i in range(n_req)]
+    with eng:
+        for i, (r, g) in enumerate(zip(reqs, gaps)):
+            if prefix and i == len(wave1):
+                # wave 2 once every wave-1 request has 2 tokens out: it
+                # was admitted, and its pages are in the trie
+                t_w = time.perf_counter()
+                while any(len(reqs[w].out_tokens) < 2 for w in wave1):
+                    if time.perf_counter() - t_w > 600:
+                        raise AssertionError(f"{name}: wave 1 stalled")
+                    time.sleep(0.005)
             eng.submit(r)
             time.sleep(float(g))
         eng.close()
@@ -1708,31 +1975,67 @@ def serve(cfg, smi, device="cuda", seed=0):
             torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         stats = eng.stats()
+    pager = eng.pager
     eng = None                          # drop the pool before what follows
-    launches = {name: getattr(kernels, name).launches.value
-                for name in counted}
+    launches = {k: getattr(kernels, k).launches.value for k in counted}
     peak = torch.cuda.max_memory_allocated() if cuda else 0
     params = box["params"]
     for r in reqs:
         toks = r.wait()
         if len(toks) != gen:
             raise AssertionError(f"request {r.rid}: {len(toks)} tokens")
-    log(f"serve: {cfg.name} d {cfg.d_model} layers {cfg.n_layers} "
+    log(f"serve [{name}]: {cfg.name} d {cfg.d_model} layers {cfg.n_layers} "
         f"{cfg.dtype}, "
         f"{n_req} requests x {gen} tokens, {slots} slots, cache_len "
         f"{cache_len}, page_size {stats['page_size']}, paged_kernel "
-        f"{paged_kernel}; decode dispatches "
+        f"{paged_kernel}, prefill_chunk {phase.get('prefill_chunk')}, "
+        f"prefix_cache {stats['prefix_cache']}; decode dispatches "
         f"{stats['decode_dispatches']}, prefill calls "
-        f"{stats['prefill_calls']}, launches {launches}")
-    log(f"serve figures ({cfg.name}, {smi}): tokens_s "
+        f"{stats['prefill_calls']}, step calls {dict(calls)}, launches "
+        f"{launches}")
+    log(f"prefix and chunks [{name}]: prefix_hits {stats['prefix_hits']} "
+        f"prefix_tokens_saved {stats['prefix_tokens_saved']} cow_forks "
+        f"{stats['cow_forks']} prefill_chunks {stats['prefill_chunks']} "
+        f"prefill_chunk_tasks {stats['prefill_chunk_tasks']}; pager after "
+        f"shutdown: live_refs {pager.live_refs} used_pages "
+        f"{pager.used_pages} cached_pages {pager.cached_pages}")
+    waves = ""
+    if prefix:
+        ttft = [sorted(r.ttft for r in reqs if (plan[r.rid][0] is None) == w)
+                for w in (True, False)]
+        waves = (f" p50_ttft_wave1_s {np.median(ttft[0]):.4f} "
+                 f"p50_ttft_wave2_s {np.median(ttft[1]):.4f}")
+    log(f"serve figures ({name}, {smi}): tokens_s "
         f"{stats['tokens_out'] / wall:.2f} "
-        f"wall_s {wall:.3f} p50_ttft_s {stats['p50_ttft_s']:.4f} "
+        f"wall_s {wall:.3f} p50_ttft_s {stats['p50_ttft_s']:.4f}{waves} "
         f"p50_tick_s {stats['p50_tick_s']:.4f} p99_tick_s "
         f"{stats['p99_tick_s']:.4f} peak_mem_gb {peak / 1e9:.2f} "
         f"(weights task included: {box['weights_s']:.2f} s)")
+    if prefix:
+        n_hit = sum(src is not None for src, _ in plan)
+        saved = sum(m for _, m in plan)
+        if not (stats["prefix_hits"] == n_hit
+                and stats["prefix_tokens_saved"] == saved
+                and stats["cow_forks"] >= n_hit
+                and stats["prefill_chunks"] > 0):
+            raise AssertionError(
+                f"{name}: prefix_hits {stats['prefix_hits']} (want "
+                f"{n_hit}), prefix_tokens_saved "
+                f"{stats['prefix_tokens_saved']} (want {saved}), cow_forks "
+                f"{stats['cow_forks']} (want >= {n_hit}), prefill_chunks "
+                f"{stats['prefill_chunks']} (want > 0)")
+    elif stats["prefix_hits"]:
+        raise AssertionError(f"{name}: {stats['prefix_hits']} prefix hits "
+                             "on random prompts")
+    if pager.live_refs or pager.used_pages != pager.cached_pages:
+        raise AssertionError(f"{name}: pages leaked: live_refs "
+                             f"{pager.live_refs}, used {pager.used_pages} "
+                             f"!= cached {pager.cached_pages}")
     if moe:
         check_capacity_dispatch(cfg, params, device)
-    if cuda:
+    if cuda and prefix:
+        prefix_steps_alone(cfg, params, smi, traffic, phase["prefill_chunk"])
+    elif cuda:
         steps_alone(cfg, params, smi, paged_kernel, traffic)
 
     # teacher-forced forward over prompt + emitted[:-1]: the gap is how
@@ -1777,7 +2080,7 @@ def serve(cfg, smi, device="cuda", seed=0):
     top2, spread = torch.cat(top2), torch.cat(spread)
     worst = gaps_all.max().item()
     q = torch.quantile(gaps_all, torch.tensor([0.5, 0.99])).tolist()
-    log(f"teacher-forced ({cfg.name}): {exact}/{n_req * gen} emitted tokens "
+    log(f"teacher-forced ({name}): {exact}/{n_req * gen} emitted tokens "
         f"are the forward's argmax; gap p50 {q[0]:.4f} p99 {q[1]:.4f} max "
         f"{worst:.4f} (tolerance {LOGIT_TOL}); forward's top-2 margin p50 "
         f"{top2.median().item():.4f}, logit std p50 "
@@ -1811,10 +2114,12 @@ def serve(cfg, smi, device="cuda", seed=0):
 
     # logit check of the step path, as built and with each planted fault
     res = path_check(cfg, params, plist, toks_all, ref, device,
-                     paged_kernel, slots=slots, cache_len=cache_len)
+                     paged_kernel, slots=slots, cache_len=cache_len,
+                     phase=name, plan=plan,
+                     chunk=phase.get("prefill_chunk") or 512)
     del ref
     for n, m in res.items():
-        log(f"logit check [{cfg.name}, {n or 'as built'}]: worst position "
+        log(f"logit check [{name}, {n or 'as built'}]: worst position "
             f"rel err {m['rel_max']:.4f} (tolerance {REL_TOL}), all "
             f"positions {m['rel']:.4f}, off the path as built by "
             f"{m['effect']:.4f}; its argmax trails the forward's by at most "
@@ -1833,14 +2138,14 @@ def serve(cfg, smi, device="cuda", seed=0):
         for j, i in enumerate(idx):
             same += int((ref[j].numpy()
                          == np.asarray(reqs[i].out_tokens)).sum())
-    log(f"one-shot agreement (information, {cfg.name}): {same}/"
+    log(f"one-shot agreement (information, {name}): {same}/"
         f"{n_req * gen} engine tokens equal the port's greedy_oneshot "
         "tokens")
     if worst > LOGIT_TOL:
-        raise AssertionError(f"{cfg.name}: an emitted token trails the "
+        raise AssertionError(f"{name}: an emitted token trails the "
                              f"forward's argmax by {worst:.4f} > {LOGIT_TOL}")
     if res[None]["rel_max"] > REL_TOL:
-        raise AssertionError(f"{cfg.name}: step path logits off the "
+        raise AssertionError(f"{name}: step path logits off the "
                              f"forward's by {res[None]['rel_max']:.4f} > "
                              f"{REL_TOL}")
     if built["wide_flips"]:
@@ -1851,37 +2156,113 @@ def serve(cfg, smi, device="cuda", seed=0):
     missed = route_missed + [n for n in res if n is not None and (
         res[n]["rel_max"] <= REL_TOL or res[n]["gap"] <= LOGIT_TOL)]
     if missed:
-        raise AssertionError(f"{cfg.name}: the checks do not reject the "
+        raise AssertionError(f"{name}: the checks do not reject the "
                              f"planted faults {missed}")
-    log(f"phase {cfg.name}: {time.perf_counter() - t_phase:.1f} s; peak "
+    log(f"phase {name}: {time.perf_counter() - t_phase:.1f} s; peak "
         f"device memory of the teacher-forced forward "
         f"{peak_checks / 1e9:.2f} GB")
-    return launches, stats
+    return launches, stats, calls
 
 
-def check_launches(cfg, launches, stats):
+def check_launches(cfg, launches, stats, calls, name=None):
     """The phase's launch identities: each kernel once per layer of each
-    decode dispatch (paged attention) or prefill call (SSD scan, flash
+    decode tick (paged attention) or one-shot prefill (SSD scan, flash
     attention), or never (a kernel the phase's path must not take);
-    RMSNorm at every norm site of every tick and prefill call."""
-    phase = PHASES[arch_of(cfg)]
-    want = {k: cfg.n_layers * stats[per] if per else 0
+    RMSNorm at every norm site of every tick, one-shot prefill and chunk
+    (a chunk that skips the LM head skips the final norm too); gathers
+    launch none.  The engine's step calls (``calls``) are first held to
+    its own counters."""
+    name = name or arch_of(cfg)
+    phase = PHASES[name]
+    n_chunks = calls["chunk"] + calls["chunk_mid"]
+    held = {"decode_dispatches": (calls["decode"],
+                                  stats["decode_dispatches"]),
+            "prefill_calls": (calls["prefill"] + calls["chunk"],
+                              stats["prefill_calls"]),
+            "prefill_chunks": (n_chunks, stats["prefill_chunks"]),
+            "prefix_hits": (calls["gather"], stats["prefix_hits"])}
+    for k, (got, want) in held.items():
+        if got != want:
+            raise AssertionError(f"{name}: step calls give {k} {got}, the "
+                                 f"engine counted {want}")
+    norms = phase["norms"] * cfg.n_layers
+    want = {k: cfg.n_layers * calls[per] if per else 0
             for k, per in phase["kernels"].items()}
-    want["rms_norm"] = (phase["norms"] * cfg.n_layers + 1) * (
-        stats["decode_dispatches"] + stats["prefill_calls"])
-    for name, n in want.items():
-        if launches[name] != n or (n <= 0 and phase["kernels"].get(name,
-                                                                   True)):
-            raise AssertionError(f"{cfg.name}: {name} launches "
-                                 f"{launches[name]} != {n} (identity of "
-                                 "the main path)")
+    want["rms_norm"] = (norms + 1) * (calls["decode"] + calls["prefill"]
+                                      + calls["chunk"]) \
+        + norms * calls["chunk_mid"]
+    for k, n in want.items():
+        if launches[k] != n or (n <= 0 and phase["kernels"].get(k, True)):
+            raise AssertionError(f"{name}: {k} launches {launches[k]} != "
+                                 f"{n} (identity of the main path)")
     parts = [f"{k} {launches[k]} = " + (
-        f"{cfg.n_layers} x {stats[per]} {per}" if per else "0 (not on "
+        f"{cfg.n_layers} x {calls[per]} {per}" if per else "0 (not on "
         "this path)") for k, per in phase["kernels"].items()]
-    log(f"launch identities ({cfg.name}): " + "; ".join(parts)
-        + f"; rms_norm {launches['rms_norm']} = "
-        f"{phase['norms'] * cfg.n_layers + 1} x "
-        f"({stats['decode_dispatches']} + {stats['prefill_calls']})")
+    log(f"launch identities ({name}): " + "; ".join(parts)
+        + f"; rms_norm {launches['rms_norm']} = {norms + 1} x "
+        f"({calls['decode']} decode + {calls['prefill']} prefill + "
+        f"{calls['chunk']} final chunks) + {norms} x {calls['chunk_mid']} "
+        f"other chunks; {calls['gather']} gathers")
+
+
+def check_cli(smi, arch="qwen2.5-14b", seed=1):
+    """The port's CLI (``repro_torch.launch.serve``) on the card at full
+    width: the engine (paged kernel, chunked prefill, prefix cache on) and
+    the one-shot path, same weights (seed 0) and prompts (``seed``).  Each
+    run's launches of its kernels must be above zero, and each token set
+    is held by the teacher-forced token check (``LOGIT_TOL``), so the two
+    are equal within that tolerance; how many tokens agree exactly is
+    printed."""
+    import numpy as np
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.configs import get
+    from repro_torch.launch import serve as cli
+    from repro_torch.models.lm import forward, init_params
+
+    cfg = get(arch)
+    argv = ["--arch", arch, "--batch", "4", "--requests", "4",
+            "--prompt-len", "1000", "--gen", "16", "--seed", str(seed)]
+    legs = {"engine": (["--paged-kernel", "--chunk", "512",
+                        "--prefix-cache", "on"],
+                       ("paged_decode_attention", "rms_norm")),
+            "oneshot": (["--mode", "oneshot"],
+                        ("flash_attention", "rms_norm"))}
+    out = {}
+    for leg, (extra, used) in legs.items():
+        for k in used:
+            getattr(kernels, k).launches.reset()
+        toks = np.asarray(cli.serve(argv + extra), np.int32)
+        got = {k: getattr(kernels, k).launches.value for k in used}
+        if tuple(toks.shape) != (4, 16) or min(got.values()) <= 0:
+            raise AssertionError(f"CLI {leg}: tokens {toks.shape}, "
+                                 f"launches {got}")
+        out[leg] = toks
+        log(f"CLI {leg} ({arch}, {smi}): launches {got}")
+        torch.cuda.empty_cache()
+    params = init_params(cfg, torch.Generator("cuda").manual_seed(0), "cuda")
+    prompts = cli._prompts(cfg, 4, 1000, seed)
+    worst = {}
+    for leg, toks in out.items():
+        gaps = []
+        for p, t in zip(prompts, toks):
+            seq = torch.tensor(np.concatenate([p, t[:-1]])[None],
+                               device="cuda")
+            lg = forward(params, cfg, seq, mode="train")["logits"][
+                0, len(p) - 1:].float()
+            tt = torch.tensor(t, device="cuda").long()
+            gaps.append((lg.max(-1).values - lg.gather(1, tt[:, None])[:, 0])
+                        .max().item())
+        worst[leg] = max(gaps)
+    same = int((out["engine"] == out["oneshot"]).sum())
+    log(f"CLI token sets ({arch}): {same}/{out['engine'].size} equal; "
+        f"worst teacher-forced gap engine {worst['engine']:.4f}, oneshot "
+        f"{worst['oneshot']:.4f} (tolerance {LOGIT_TOL})")
+    if max(worst.values()) > LOGIT_TOL:
+        raise AssertionError(f"CLI: a token trails the forward's argmax by "
+                             f"{max(worst.values()):.4f} > {LOGIT_TOL}")
+    del params
 
 
 def build_all():
@@ -1931,7 +2312,13 @@ def main(argv=None):
     ap.add_argument("--layers", type=int, default=0,
                     help="cut every serve phase to this depth (0: full "
                          "depth; width is never cut)")
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help="comma-separated serve phases to run (default: "
+                         "all, in order)")
     args = ap.parse_args(argv)
+    phases = args.phases.split(",")
+    if not set(phases) <= set(PHASES):
+        ap.error(f"--phases: pick from {', '.join(PHASES)}")
 
     smi = card()
     import torch
@@ -1951,18 +2338,21 @@ def main(argv=None):
     from repro_torch.configs import get
 
     launches = {}
-    for arch, phase in PHASES.items():
+    for name in phases:
+        phase = PHASES[name]
+        arch = phase.get("arch", name)
         cfg = get(arch)
         layers = args.layers or phase.get("layers", cfg.n_layers)
         if layers != cfg.n_layers:
-            log(f"depth cut: {layers} of {cfg.n_layers} layers ({arch})")
+            log(f"depth cut: {layers} of {cfg.n_layers} layers ({name})")
             cfg = cfg.replace(n_layers=layers)
         cfg = cfg.replace(moe_impl=phase.get("moe_impl", cfg.moe_impl))
-        got, stats = serve(cfg, smi)
-        check_launches(cfg, got, stats)
-        for name, n in got.items():         # RMSNorm: every phase's sum
-            launches[name] = launches.get(name, 0) + n
+        got, stats, calls = serve(cfg, smi, name=name)
+        check_launches(cfg, got, stats, calls, name=name)
+        for k, n in got.items():            # every phase's sum
+            launches[k] = launches.get(k, 0) + n
         torch.cuda.empty_cache()            # the next phase's weights
+    check_cli(smi)
     for row in rows:
         row["launches"] = launches.get(row["name"], 0)
     log(f"total {time.perf_counter() - t_start:.1f} s")

@@ -4,16 +4,20 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --tiny --device cpu \
         --arch minicpm3-4b --paged-kernel
 
-``--arch`` picks a ported family: qwen2.5-14b (GQA, the default),
-minicpm3-4b (MLA) or mamba2-780m (SSD).
+``--arch`` picks a config of the registry whose families the port
+serves: GQA (qwen2.5-14b, the default), MLA (minicpm3-4b), SSD
+(mamba2-780m) and MoE with sliding-window attention (mixtral-8x7b).
 
 The flags and the one JSON line (same keys) of ``repro.launch.serve``,
 plus ``--device {cuda,cpu}`` (default ``cuda``; ``cuda`` without a card
-raises).  ``--mode oneshot`` runs the one-shot batch path.  Options whose
-engine features belong to later slices (``--chunk``, ``--spec``,
-``--prefix-cache on``, ``--policy ondemand``, ``--mesh``) raise
-``NotImplementedError``.  Weights are a seeded ``torch.Generator`` init
-on the device (seed 0); prompts are drawn with numpy from ``--seed``.
+raises).  ``--mode oneshot`` runs the one-shot batch path; ``--chunk N``
+prefills prompts longer than N in chunks of N tokens, and
+``--prefix-cache {auto,on,off}`` sets shared-prefix KV reuse (auto: on
+for a paged engine on a chunk-exact config), as in the reference.
+Options whose engine features belong to later slices (``--spec``,
+``--policy ondemand``, ``--mesh``) raise ``NotImplementedError``.
+Weights are a seeded ``torch.Generator`` init on the device (seed 0);
+prompts are drawn with numpy from ``--seed``.
 """
 from __future__ import annotations
 
@@ -170,7 +174,8 @@ def serve(argv=None):
                     help="engine: KV page-pool size incl. garbage page "
                          "(0 = dense-equivalent capacity)")
     ap.add_argument("--chunk", type=int, default=0,
-                    help="engine: chunked prefill (not ported yet)")
+                    help="engine: chunked prefill of prompts longer than "
+                         "this many tokens (0 = one-shot prefill)")
     ap.add_argument("--paged-kernel", action="store_true",
                     help="engine: decode attention through the paged-decode "
                          "CUDA kernel (reads KV pages in place)")
@@ -187,8 +192,8 @@ def serve(argv=None):
                     help="tensor-parallel mesh (not ported yet)")
     ap.add_argument("--prefix-cache", choices=("auto", "on", "off"),
                     default="auto",
-                    help="engine: shared-prefix KV reuse (auto = off in "
-                         "this port; on is not ported yet)")
+                    help="engine: shared-prefix KV reuse (auto = on for "
+                         "a paged engine on a chunk-exact config)")
     args = ap.parse_args(argv)
     if args.requests <= 0:
         args.requests = args.batch

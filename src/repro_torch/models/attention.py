@@ -21,8 +21,10 @@ contract of ``layers.check_cache_invariant``).  The cast points of the
 reference are kept, because bf16 equality depends on them: probabilities
 are cast to q's dtype before the PV product, decode divides by the
 softmax sum after the bf16 PV product, and weights are cast to the
-activation dtype at each use.  The verify / prefill_chunk modes belong to
-a later slice and raise.
+activation dtype at each use.  "prefill_chunk" (a cache-append chunk of a
+chunked prefill) runs plain ``full_attention`` at the chunk's query offset,
+as the reference does; the verify mode belongs to a later slice and
+raises.
 """
 from __future__ import annotations
 
@@ -83,20 +85,24 @@ def full_attention(q, k, v, *, window=None, q_off=0, scale=None):
 
 
 def qchunk_attention(q, k, v, *, window=None, chunk=512, scale=None):
-    """Forward-only prefill: loop over query chunks vs full K/V."""
+    """Forward-only prefill: loop over query chunks vs full K/V.
+
+    Where ``s`` splits into ``n = max(1, s // chunk)`` equal chunks this
+    is the reference's split; where it does not (1025 or 1537 positions
+    at chunk 512), the port takes chunks of ``chunk`` queries and a short
+    last one, where the reference asserts.  Each query row is computed
+    the same way in both: the split only groups rows."""
     b, s, h, dh = q.shape
     k = _expand_kv(k, h)
     v = _expand_kv(v, h)
     n = max(1, s // chunk)
-    chunk = s // n
-    if n * chunk != s:
-        raise ValueError(f"qchunk_attention: {s} positions do not split "
-                         f"into {n} equal chunks")
+    if n * (s // n) == s:
+        chunk = s // n
     outs = []
-    for i in range(n):
-        bias = _mask_bias(chunk, s, i * chunk, window, q.device)
-        outs.append(_sdpa(q[:, i * chunk:(i + 1) * chunk], k, v, bias,
-                          scale))
+    for c0 in range(0, s, chunk):
+        c1 = min(c0 + chunk, s)
+        bias = _mask_bias(c1 - c0, s, c0, window, q.device)
+        outs.append(_sdpa(q[:, c0:c1], k, v, bias, scale))
     return torch.cat(outs, dim=1)
 
 
@@ -192,15 +198,19 @@ def ring_from_prefill(t, ring):
 
 
 def gqa_apply(x, p, cfg, spec, *, mode, pos, cache=None, cache_len=None,
-              pages=None):
+              pages=None, attn_extent=None):
     """x: (B,S,D) -> (out, new_cache or None).  cache: {"k","v"}
     unexpanded.  With ``pages`` (decode) the K/V leaves are paged pools
     (P, page_size, Hkv, Dh): the new token's K/V is scattered through the
     block table, then attention reads a gathered dense view — or, with
-    ``pages["kernel"]``, the pages in place in the CUDA kernel."""
-    if mode in ("verify", "prefill_chunk"):
+    ``pages["kernel"]``, the pages in place in the CUDA kernel.
+    "prefill_chunk" writes the chunk's K/V into the dense row cache at
+    ``[pos, pos + S)`` (``pos`` a host int) and attends over its first
+    ``attn_extent`` positions in plain ``full_attention``, as the
+    reference does outside any kernel."""
+    if mode == "verify":
         raise NotImplementedError(
-            f"gqa_apply mode {mode!r} is not ported yet (ROADMAP.md queue 1, "
+            "gqa_apply mode 'verify' is not ported yet (ROADMAP.md queue 1, "
             "item 5: serve features past the main path)")
     b, s, _ = x.shape
     h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -247,7 +257,17 @@ def gqa_apply(x, p, cfg, spec, *, mode, pos, cache=None, cache_len=None,
         if cfg.pos_emb == "rope":
             q = apply_rope(q, positions, cfg.rope_theta)
             k = apply_rope(k, positions, cfg.rope_theta)
-        if mode == "prefill":
+        if mode == "prefill_chunk":
+            # cache-append chunk: masked key lanes add exact zeros, so any
+            # extent >= pos + S gives the same rows; a linear cache is
+            # required (``steps.chunkable``)
+            kc, vc = cache["k"], cache["v"]
+            kc[:, pos:pos + s] = k.to(kc.dtype)
+            vc[:, pos:pos + s] = v.to(vc.dtype)
+            ext = kc.shape[1] if attn_extent is None else attn_extent
+            out = full_attention(q, kc[:, :ext], vc[:, :ext], q_off=pos)
+            new_cache = {"k": kc, "v": vc}
+        elif mode == "prefill":
             # the flash kernel on the card, its plain version on the CPU
             # (the reference runs qchunk_attention here: same function)
             out = flash_attention(q.contiguous(), k.contiguous(),
@@ -309,15 +329,17 @@ def _mla_q(xn, p, cfg, dt):
 
 
 def mla_apply(x, p, cfg, spec, *, mode, pos, cache=None, cache_len=None,
-              pages=None):
+              pages=None, attn_extent=None):
     """x: (B,S,D) -> (out, new_cache or None).  Decode runs the absorbed
     form (scores in the latent space, against the ``ckv``/``krope``
-    caches, dense or paged); train and prefill the non-absorbed form
-    (q/k dim nope + rope, v dim ``v_head_dim``) at the explicit scale
-    ``(nope + rope)^-1/2``."""
-    if mode in ("verify", "prefill_chunk"):
+    caches, dense or paged); train, prefill and "prefill_chunk" the
+    non-absorbed form (q/k dim nope + rope, v dim ``v_head_dim``) at the
+    explicit scale ``(nope + rope)^-1/2``.  A chunk appends its latent to
+    the dense row cache at ``[pos, pos + S)`` and rebuilds K/V from the
+    cached latent of the first ``attn_extent`` positions."""
+    if mode == "verify":
         raise NotImplementedError(
-            f"mla_apply mode {mode!r} is not ported yet (ROADMAP.md queue 1, "
+            "mla_apply mode 'verify' is not ported yet (ROADMAP.md queue 1, "
             "item 5: serve features past the main path)")
     b, s, _ = x.shape
     h = cfg.n_heads
@@ -372,6 +394,23 @@ def mla_apply(x, p, cfg, spec, *, mode, pos, cache=None, cache_len=None,
             lat = torch.einsum("bhst,btr->bshr", probs, cd)  # (B,1,H,rkv)
         out = torch.einsum("bshr,rhv->bshv", lat,
                            p["wv_b"].to(dt).view(rkv, h, dv))
+        new_cache = {"ckv": cc, "krope": kr}
+    elif mode == "prefill_chunk":
+        positions = pos + torch.arange(s, device=x.device)
+        q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+        k_rope = apply_rope(k_rope[:, :, None, :], positions,
+                            cfg.rope_theta)[:, :, 0, :]
+        cc, kr = cache["ckv"], cache["krope"]
+        cc[:, pos:pos + s] = ckv.to(cc.dtype)
+        kr[:, pos:pos + s] = k_rope.to(kr.dtype)
+        sk = cc.shape[1] if attn_extent is None else attn_extent
+        cs = cc[:, :sk].to(dt)
+        k_nope = (cs @ p["wk_b"].to(dt)).view(b, sk, h, dn)
+        vfull = (cs @ p["wv_b"].to(dt)).view(b, sk, h, dv)
+        q = torch.cat([q_nope, q_rope], dim=-1)
+        k = torch.cat([k_nope, kr[:, :sk].to(dt)[:, :, None, :].expand(
+            b, sk, h, dr)], dim=-1)
+        out = full_attention(q, k, vfull, q_off=pos, scale=scale)
         new_cache = {"ckv": cc, "krope": kr}
     elif mode in ("train", "prefill"):
         positions = pos + torch.arange(s, device=x.device)

@@ -46,13 +46,14 @@ def block_cache_shapes(cfg, spec, batch, seq):
 
 
 def block_apply(x, p, cfg, spec, *, mode, pos, cache=None, cache_len=None,
-                pages=None):
+                pages=None, attn_extent=None):
     """Returns the new residual stream and the block's new cache.  The
     MoE load-balance term is dropped: it only matters to training."""
     _, _, apply_fn = _mixer(spec)
     out, new_cache = apply_fn(x, p["mixer"], cfg, spec, mode=mode, pos=pos,
-                              cache=cache, cache_len=cache_len, pages=pages)
-    if mode == "decode":
+                              cache=cache, cache_len=cache_len, pages=pages,
+                              attn_extent=attn_extent)
+    if mode in ("decode", "prefill_chunk"):
         check_cache_invariant(cache, new_cache, f"{spec.kind}/{spec.attn}")
     x = x + out
     if spec.mlp != "none":

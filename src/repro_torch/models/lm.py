@@ -123,18 +123,24 @@ def _layer(tree, r):
 # ---------------------------------------------------------------- forward
 @torch.no_grad()
 def forward(params, cfg, tokens, *, mode="train", pos=0, cache=None,
-            cache_len=None, pages=None):
+            cache_len=None, pages=None, attn_extent=None, want_logits=True):
     """tokens: (B, S) int.  Returns {"logits", "cache"} (the reference's
     MoE "aux" term belongs to the training slice).
 
     mode: "train" (all-position logits, no cache) | "prefill" (cache
     padded to ``cache_len`` + last-position logits) | "decode" (S == 1;
     ``pos`` a scalar or (B,) per-slot positions; the cache is updated in
-    place and its ``pos`` advanced by one).  ``pages`` (decode): the
-    paged-KV descriptor ``{"table", "page_size", "cache_len",
-    "kernel"}`` of ``repro.models.lm.forward``.  The reference's
-    "prefill_chunk" and "verify" modes belong to a later slice."""
-    if mode not in ("train", "prefill", "decode"):
+    place and its ``pos`` advanced by one) | "prefill_chunk" (a
+    cache-append chunk: the S tokens are written in place at ``[pos, pos
+    + S)`` of a dense row cache, ``pos`` a host int; last-position
+    logits, like "prefill").  ``pages`` (decode): the paged-KV descriptor
+    ``{"table", "page_size", "cache_len", "kernel"}`` of
+    ``repro.models.lm.forward``.  ``attn_extent`` (prefill_chunk): the
+    chunk attends over the first ``attn_extent`` cache positions (must
+    cover pos + S); ``want_logits=False`` (prefill_chunk) skips the final
+    norm and the LM head of a non-final chunk.  The reference's "verify"
+    mode belongs to a later slice."""
+    if mode not in ("train", "prefill", "decode", "prefill_chunk"):
         raise NotImplementedError(
             f"forward mode {mode!r} is not ported yet (ROADMAP.md queue 1, "
             "item 5)")
@@ -145,7 +151,8 @@ def forward(params, cfg, tokens, *, mode="train", pos=0, cache=None,
     dt = getattr(torch, cfg.dtype)
     x = embed_tokens(tokens, params["embed"], cfg, dt)
     s = x.shape[1]
-    if mode == "decode":
+    cache_in = mode in ("decode", "prefill_chunk")
+    if cache_in:
         cache_blocks = cache["blocks"]
         new_blocks = cache_blocks                   # updated in place
     else:
@@ -153,10 +160,11 @@ def forward(params, cfg, tokens, *, mode="train", pos=0, cache=None,
 
     for r in range(cfg.n_repeats):
         for i, spec in enumerate(cfg.pattern):
-            bc = _layer(cache_blocks[i], r) if mode == "decode" else None
+            bc = _layer(cache_blocks[i], r) if cache_in else None
             x, nc = block_apply(x, _layer(params["blocks"][i], r), cfg, spec,
                                 mode=mode, pos=pos, cache=bc,
-                                cache_len=cache_len, pages=pages)
+                                cache_len=cache_len, pages=pages,
+                                attn_extent=attn_extent)
             if mode == "prefill":
                 if new_blocks[i] is None:
                     new_blocks[i] = {
@@ -168,10 +176,17 @@ def forward(params, cfg, tokens, *, mode="train", pos=0, cache=None,
     new_cache = None
     if mode == "decode":
         new_cache = {"pos": cache["pos"] + 1, "blocks": new_blocks}
+    elif mode == "prefill_chunk":
+        new_cache = {"pos": torch.full((), pos + s, dtype=torch.int32,
+                                       device=x.device),
+                     "blocks": new_blocks}
+        x = x[:, -1:]
     elif mode == "prefill":
         new_cache = {"pos": torch.full((), s, dtype=torch.int32,
                                        device=x.device),
                      "blocks": tuple(new_blocks)}
         x = x[:, -1:]
+    if not want_logits:                 # non-final chunk: cache only
+        return {"logits": None, "cache": new_cache}
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return {"logits": lm_logits(x, params, cfg), "cache": new_cache}

@@ -68,13 +68,22 @@ def ssd_chunked(xs, dt, a_coef, b_in, c_in, chunk, init_state):
 
     xs: (B,S,H,P) values; dt: (B,S,H) f32 step sizes; a_coef: (H,)
     negative; b_in/c_in: (B,S,H,N).  Returns (y: (B,S,H,P), final state
-    (B,H,P,N) in the dtype the carry promotes to from ``init_state``)."""
+    (B,H,P,N) in the dtype the carry promotes to from ``init_state``).
+
+    Where ``s`` splits into ``max(1, s // chunk)`` equal chunks this is
+    the reference's split; where it does not (17 positions at chunk 8),
+    the port takes chunks of ``chunk`` positions and a short last one,
+    where the reference asserts: the last chunk is padded with dt 0 and
+    x 0, which add nothing to the state or to y (the SSD kernel's rule),
+    and the padded rows of y are dropped."""
     b, s, h, p = xs.shape
     nc = max(1, s // chunk)
     q = s // nc
     if nc * q != s:
-        raise ValueError(f"ssd_chunked: {s} positions do not split into "
-                         f"{nc} equal chunks")
+        q, nc = chunk, -(-s // chunk)
+        pad = nc * q - s
+        xs, dt, b_in, c_in = (F.pad(t, (0, 0) * (t.dim() - 2) + (0, pad))
+                              for t in (xs, dt, b_in, c_in))
 
     def r(t):
         return t.reshape(b, nc, q, *t.shape[2:])
@@ -113,14 +122,14 @@ def ssd_chunked(xs, dt, a_coef, b_in, c_in, chunk, init_state):
     y_off = torch.einsum("bcihn,bchpn->bcihp", c_in,
                          h_prevs.to(c_in.dtype))
     y_off = y_off * torch.exp(cum)[..., None].to(y_off.dtype)
-    y = (y_diag + y_off).reshape(b, s, h, p)
+    y = (y_diag + y_off).reshape(b, nc * q, h, p)[:, :s]
     return y, hprev
 
 
 def ssm_apply(x, p, cfg, spec, *, mode, pos, cache=None, cache_len=None,
-              pages=None):
+              pages=None, attn_extent=None):
     """Mamba2 block mixer. x: (B,S,D) -> (out, new_cache or None)."""
-    del spec, pos, cache_len, pages
+    del spec, pos, cache_len, pages, attn_extent
     if mode == "prefill_chunk":
         raise NotImplementedError(
             "chunked prefill is not supported for SSM blocks")

@@ -11,7 +11,10 @@ rows.  The same task graph as the reference runs on the port's
 
   * **intake**   — blocks on the request queue (monitored ``io.wait``);
   * **prefill**  — one task per coalesced arrival round, one batched
-    prefill per prompt shape, batch padded to a power of two;
+    prefill per prompt shape, batch padded to a power of two; with
+    ``prefill_chunk=C`` a prompt longer than C prefills as cache-append
+    chunks of C tokens, each chunk its own **continuation task**, so
+    decode ticks and other rounds interleave between chunks;
   * **decode**   — the driver: admit prefilled rows (blocking on free
     pages, never corrupting), one masked decode tick over the pool under
     the pool lock, then finish completed requests *before* freeing their
@@ -32,11 +35,20 @@ Correctness bar (tested): each request's greedy tokens equal the
 one-shot path's (a prefix of them under ``eos_id``/``stop``) for any
 arrival order and slot schedule.
 
+Shared-prefix KV reuse (``prefix_cache``, the reference's rule: "auto"
+is on for a paged engine on a chunk-exact config): admitted prompts'
+full pages enter a radix trie (:mod:`.prefix`); a prompt whose prefix is
+cached gathers those pages into a fresh row (the fork page, a partial
+match, copied: copy-on-write) and chunk-prefills only its tail; its slot
+then shares the prefix pages, which the insert never writes.  Every
+gather, insert and tick is enqueued on the one stream under the pool
+lock, so a gather reads pages before any later write of them, and a
+page is adopted by the trie only after the insert that fills it is
+enqueued.
+
 Options of the reference that belong to later slices raise
-``NotImplementedError`` naming their ROADMAP item: ``prefill_chunk``,
-``prefix_cache="on"``, ``spec``, on-demand policies (eviction and
-restore) and tensor parallelism (``tp``/``mesh``).  ``prefix_cache``
-"auto" resolves to off.
+``NotImplementedError`` naming their ROADMAP item: ``spec``, on-demand
+policies (eviction and restore) and tensor parallelism (``tp``/``mesh``).
 """
 from __future__ import annotations
 
@@ -49,10 +61,14 @@ import torch
 
 from ..core import UMTRuntime, io
 from ..device import resolve_device
-from ..steps import (make_batched_insert_step, make_decode_step,
-                     make_prefill_step)
+from ..models.lm import init_cache
+from ..steps import (chunkable, make_batched_insert_step, make_decode_step,
+                     make_prefill_chunk_step, make_prefill_step,
+                     make_prefix_gather_step)
 from .kvstate import KVState
+from .pager import GARBAGE_PAGE
 from .policy import make_policy
+from .prefix import PrefixCache
 from .request import Request, RequestQueue
 
 
@@ -100,13 +116,6 @@ class ServeEngine:
                  device="cuda"):
         if mesh is not None or tp:
             _unported("tensor parallelism (tp/mesh)", 9)
-        if prefill_chunk is not None:
-            _unported("prefill_chunk (chunked prefill)", 5)
-        if prefix_cache in (True, "on"):
-            _unported("prefix_cache='on' (radix prefix cache)", 5)
-        if prefix_cache not in (None, "auto", False, "off"):
-            raise ValueError(f"prefix_cache={prefix_cache!r}: pick "
-                             "True/'on', False/'off' or None/'auto'")
         if spec not in (None, "off"):
             _unported("spec (speculative decoding)", 5)
         self.policy = make_policy(policy)
@@ -138,10 +147,44 @@ class ServeEngine:
         if self.paged_kernel and not self.paged:
             raise ValueError("paged_kernel=True needs a paged engine "
                              "(page_size is None here)")
+        self.prefill_chunk = prefill_chunk
+        self._chunkable = chunkable(cfg, cache_len)
+        if prefill_chunk is not None:
+            assert prefill_chunk >= 1
+            if not self._chunkable:
+                raise ValueError(
+                    f"{cfg.name}: chunked prefill needs linear-cache "
+                    "attention blocks (no MoE, no SSM, no SWA ring "
+                    "shorter than cache_len)")
         self.max_prefill_batch = max_prefill_batch or slots
 
         self.queue = RequestQueue()
         self.prefill = make_prefill_step(cfg, cache_len=cache_len)
+        # the chunk step serves chunked prefill and the prefix hit's tail
+        self.chunk = (make_prefill_chunk_step(cfg, cache_len)
+                      if self._chunkable else None)
+        # chunk width of a prefix hit's tail when the engine has no
+        # prefill_chunk of its own (the reference's restore width)
+        self.restore_chunk = prefill_chunk or (
+            1 << ((cache_len - 1).bit_length() // 2))
+        # shared-prefix KV reuse qualifies where the hit path is exact:
+        # shareable pages + chunk-exact prefill of the tail
+        can_prefix = self.paged and self._chunkable
+        if prefix_cache in (True, "on"):
+            if not can_prefix:
+                raise ValueError(
+                    f"{cfg.name}: prefix_cache='on' needs a paged engine "
+                    "on a chunk-exact config (steps.chunkable) — the hit "
+                    "path gathers shared pages into a row cache and "
+                    "chunk-prefills the tail")
+            self._use_prefix = True
+        elif prefix_cache in (False, "off"):
+            self._use_prefix = False
+        elif prefix_cache in (None, "auto"):
+            self._use_prefix = can_prefix
+        else:
+            raise ValueError(f"prefix_cache={prefix_cache!r}: pick "
+                             "True/'on', False/'off' or None/'auto'")
         self.insert = make_batched_insert_step(cfg, cache_len=cache_len,
                                                page_size=page_size)
         self.decode = make_decode_step(cfg, cache_len=cache_len,
@@ -160,6 +203,13 @@ class ServeEngine:
                           device=self.device)
         self.pager = self.kv.pager
         self.pages_per_slot = self.kv.pages_per_slot
+        self.prefix = (PrefixCache(self.pager, page_size)
+                       if self._use_prefix else None)
+        self.gather = (make_prefix_gather_step(cfg, cache_len=cache_len,
+                                               page_size=page_size)
+                       if self.prefix is not None else None)
+        # orders every read (gather) and write (insert, tick) of the pool
+        # on the stream
         self._pool_lock = threading.Lock()
         self._tokens = self.kv.to_dev(np.zeros((slots, 1), np.int32))
         self._active = np.zeros((slots,), bool)
@@ -189,9 +239,14 @@ class ServeEngine:
         self.stats_max_live_slots = 0
         self.stats_prefill_calls = 0
         self.stats_prefill_reqs = 0
+        self.stats_prefill_chunks = 0
+        self.stats_prefill_chunk_tasks = 0
         self.stats_stopped_early = 0
         self.stats_admission_blocks = 0
         self.stats_decode_dispatches = 0
+        self.stats_prefix_hits = 0
+        self.stats_prefix_tokens_saved = 0
+        self.stats_cow_forks = 0
 
     # ------------------------------------------------------------ lifecycle
     def start(self):
@@ -281,7 +336,16 @@ class ServeEngine:
                     "be admitted")
         return None
 
+    def _drop_prefix_hold(self, req: Request):
+        """Release the pager holds a request's prefix match still carries
+        (failure and finish paths where no admission adopted them; a
+        no-op once one did)."""
+        if req.prefix_hold is not None and self.prefix is not None:
+            self.prefix.release(req.prefix_hold)
+            req.prefix_hold = None
+
     def _finish_failed(self, req: Request, exc: BaseException):
+        self._drop_prefix_hold(req)
         if not req.done.is_set():
             req.error = exc
             req.t_done = time.monotonic()
@@ -332,16 +396,132 @@ class ServeEngine:
     def _prefill_group(self, grp, remaining):
         """Batched prefill of same-shape prompts, the batch padded to the
         next power of two (repeating the last row; rows are independent,
-        so padding cannot perturb the real ones)."""
+        so padding cannot perturb the real ones).  Prefix-cache hits leave
+        the group first, each for its own tail-only chunk chain; a group
+        the policy chunks is handed to a chunk chain (one task per chunk,
+        :meth:`_prefill_chunk_task`), which owns its accounting from then
+        on."""
+        if self.prefix is not None:
+            grp = [r for r in grp
+                   if not self._try_prefix_prefill(r, remaining)]
+            if not grp:
+                return
         bg = len(grp)
         toks = np.stack([np.asarray(r.prefill_tokens) for r in grp])
         bpad = 1 << (bg - 1).bit_length()
         if bpad > bg:
             toks = np.concatenate(
                 [toks, np.repeat(toks[-1:], bpad - bg, axis=0)])
-        rows_cache, logits = self.prefill(self._params,
-                                          self.kv.to_dev(toks))
+        tj = self.kv.to_dev(toks)
+        chunk = (self.policy.chunk_len(self, grp[0].total_len)
+                 if self.chunk is not None else None)
+        if chunk is not None:
+            rows = init_cache(self.cfg, bpad, self.cache_len,
+                              getattr(torch, self.cfg.dtype), self.device)
+            for r in grp:
+                remaining.remove(r)
+            self._start_chain(grp, tj, rows, 0, int(chunk),
+                              f"serve.prefill.chunk:{grp[0].rid}@0")
+            return
+        rows_cache, logits = self.prefill(self._params, tj)
         self._account_prefilled(grp, remaining, rows_cache, logits)
+
+    def _start_chain(self, grp, tj, rows_cache, c0, chunk, name):
+        st = {"rows_cache": rows_cache, "c0": c0, "chunks": 0,
+              "chunk": chunk, "unaccounted": list(grp)}
+        try:
+            self.rt.submit(self._prefill_chunk_task, grp, tj, st, name=name)
+        except BaseException as e:          # noqa: BLE001
+            for r in st["unaccounted"]:     # the chain never started
+                self._finish_failed(r, e)
+            raise
+
+    def _try_prefix_prefill(self, req, remaining) -> bool:
+        """Prefix-cache hit path: match the prompt's longest cached
+        prefix (full pages, plus a partial run into the divergence page:
+        the copy-on-write fork source), gather the matched pages into a
+        fresh batch-1 row cache, then chunk-prefill only the uncached
+        tail from the divergence position.  The fork source is never
+        written: the admitted slot's own fresh page receives the copy at
+        insert.  Returns True when the request took this path (its chunk
+        chain owns its accounting from then on)."""
+        toks = np.asarray(req.prefill_tokens)
+        plen = len(toks)
+        if plen < 2 or self.chunk is None:
+            return False
+        # at most plen - 1: the last position is always recomputed (the
+        # tail's last chunk makes the first token's logits)
+        m = self.prefix.match_and_lock(toks, plen - 1)
+        if m.tokens == 0:
+            return False
+        try:
+            kv = self.kv
+            trow = np.full((self.pages_per_slot,), GARBAGE_PAGE, np.int32)
+            trow[:len(m.pages)] = m.pages
+            if m.fork_src is not None:
+                trow[len(m.pages)] = m.fork_src
+            trow_dev = kv.to_dev(trow)
+            # enqueued under the pool lock: before any later insert or
+            # tick that writes these pages (one stream, in order), so
+            # the fork's hold can drop as soon as the read is queued
+            with self._pool_lock:
+                rows_cache = self.gather(kv.cache, trow_dev, m.tokens)
+            self.prefix.release_fork(m)
+            req.prefix_hold = m
+            with self._lock:
+                self.stats_prefix_hits += 1
+                self.stats_prefix_tokens_saved += m.tokens
+                if m.fork_len:
+                    self.stats_cow_forks += 1
+        except BaseException:                   # noqa: BLE001
+            self.prefix.release(m)
+            raise
+        remaining.remove(req)
+        self._start_chain([req], kv.to_dev(toks[None]), rows_cache,
+                          m.tokens, int(self.restore_chunk),
+                          f"serve.prefill.hit:{req.rid}@{m.tokens}")
+        return True
+
+    def _prefill_chunk_task(self, grp, tj, st):
+        """One cache-append chunk of a chunked prefill, re-submitted as a
+        continuation task per chunk: concurrent long rounds interleave
+        chunk by chunk on a saturated pool, where a loop inside one task
+        would hold its worker for the whole prefill.  The chain owns the
+        group's failure accounting."""
+        try:
+            plen = tj.shape[1]
+            c, c0 = st["chunk"], st["c0"]
+            c1 = min(c0 + c, plen)
+            # extent bucket, a multiple of the chunk: attention work stays
+            # at the one-shot level; non-final chunks skip the LM head
+            ext = min(self.cache_len, -(-c1 // c) * c)
+            rows_cache, logits = self.chunk(
+                self._params, st["rows_cache"], tj[:, c0:c1], c0,
+                attn_extent=ext, want_logits=c1 >= plen)
+            st.update(rows_cache=rows_cache, c0=c1, chunks=st["chunks"] + 1)
+            # the chunk completes before the next one is queued: chunks
+            # queued back to back would hold the device like one long
+            # prefill, and the gap is where decode ticks interleave
+            if self.device.type == "cuda":
+                torch.cuda.current_stream(self.device).synchronize()
+            with self._lock:
+                self.stats_prefill_chunk_tasks += 1
+            if c1 < plen:
+                self.rt.submit(self._prefill_chunk_task, grp, tj, st,
+                               name=f"serve.prefill.chunk:{grp[0].rid}"
+                                    f"@{c1}")
+                return
+            with self._lock:            # rounds run on concurrent workers
+                self.stats_prefill_chunks += st["chunks"]
+            self._account_prefilled(grp, st["unaccounted"], rows_cache,
+                                    logits)
+        except BaseException as e:              # noqa: BLE001
+            for r in list(st["unaccounted"]):
+                self._finish_failed(r, e)
+            st["unaccounted"] = []
+            raise
+        finally:
+            self._work.set()
 
     def _account_prefilled(self, grp, remaining, rows_cache, logits):
         """Stamp TTFT, emit the prefill token, finish done-at-prefill
@@ -409,6 +589,7 @@ class ServeEngine:
     def _finish(self, req: Request):
         """Complete a request inline; the response write, when a sink is
         configured, is its own UMT task."""
+        self._drop_prefix_hold(req)
         self._materialise_tokens(req)
         req.t_done = time.monotonic()
         with self._lock:
@@ -430,9 +611,10 @@ class ServeEngine:
 
     def _do_inserts(self):
         """Admit prefilled rows into free slots, strictly head-first.
-        Paged: the head reserves its worst-case pages; if the pool cannot
-        cover them admission *blocks* (nothing is written) until a
-        completion frees pages."""
+        Paged: the head reserves its worst-case pages (a prefix hit only
+        those past its shared prefix pages); if the pool cannot cover them
+        admission *blocks* (nothing is written) until a completion frees
+        pages."""
         while True:
             free = np.flatnonzero(~self._active)
             if len(free) == 0:
@@ -442,9 +624,16 @@ class ServeEngine:
                     return
                 req, rows_cache, row, t0 = self._inserts[0]
             ids = None
+            shared: list[int] = []
             if self.paged:
-                ids = self.pager.alloc(self.pager.pages_for(
-                    self.policy.admission_tokens(self, req)))
+                if req.prefix_hold is not None:
+                    shared = list(req.prefix_hold.pages)
+                need = self.pager.pages_for(
+                    self.policy.admission_tokens(self, req))
+                ids = self._alloc_pages(need - len(shared))
+                if ids is None and self._drop_queued_holds():
+                    shared = []
+                    ids = self._alloc_pages(need)
                 if ids is None:         # admission blocked on free pages
                     if self._blocked_head != req.rid:
                         self._blocked_head = req.rid
@@ -459,8 +648,10 @@ class ServeEngine:
             kv = self.kv
             with self._pool_lock:
                 if self.paged:
-                    req.pages = ids
-                    table_row = kv.bind_slot_pages(s, ids)
+                    req.pages = shared + ids
+                    req.prefix_hold = None  # the holds are the slot's now
+                    table_row = kv.bind_slot_pages(s, req.pages,
+                                                   n_shared=len(shared))
                     new_cache = self.insert(kv.cache, rows_cache, row, s,
                                             table_row)
                 else:
@@ -475,6 +666,48 @@ class ServeEngine:
             self._rebind_active()
             self._slot_req[s] = req
             req.slot = s
+            # the prompt's full pages become reusable: their insert is
+            # queued above, before any gather a later match enqueues
+            if self.prefix is not None and req.total_len >= self.page_size:
+                self.prefix.insert(req.tokens, req.pages, req.total_len)
+
+    def _drop_queued_holds(self) -> bool:
+        """A blocked head holds nothing, and neither do the rows queued
+        behind it: with no slot live, their holds could pin the very
+        pages the head waits for.  Each falls back to all-fresh pages at
+        admission (its gathered row holds the whole prefix: only the
+        sharing is lost).  Returns whether any hold was dropped."""
+        with self._lock:
+            held = [q for q, *_ in self._inserts if q.prefix_hold]
+        for q in held:
+            self._drop_prefix_hold(q)
+        return bool(held)
+
+    def _alloc_pages(self, n: int):
+        """Allocate ``n`` pages; on a shortfall the policy first reclaims
+        idle prefix-cache pages (refcount-0 trie leaves)."""
+        if n <= 0:
+            return []
+        got = self.pager.alloc(n)
+        if got is None and self.prefix is not None:
+            deficit = n - self.pager.free_pages
+            if deficit > 0:
+                self.policy.prefix_evict(self, deficit)
+            got = self.pager.alloc(n)
+        return got
+
+    def _prefix_insert_slot(self, req: Request):
+        """Adopt a finished slot's complete pages into the trie, keyed on
+        prompt + generated minus the last token: exactly the written
+        cache extent."""
+        if self.prefix is None or not req.pages:
+            return
+        toks = np.asarray(req.tokens)
+        gen = req.out_tokens[:-1]
+        key = toks if not gen else np.concatenate(
+            [toks, np.asarray(gen).reshape((len(gen),) + toks.shape[1:])])
+        if len(key) >= self.page_size:
+            self.prefix.insert(key, req.pages, len(key))
 
     def _release_slot(self, s: int):
         """Free a slot and its pages now; its table row is re-pointed at
@@ -535,6 +768,7 @@ class ServeEngine:
                 # queued so far, so nothing pending reads the pages freed
                 # next
                 self._finish(req)
+                self._prefix_insert_slot(req)   # pages -> reuse capital
                 self._release_slot(s)
                 freed = True
         if freed:
@@ -586,8 +820,8 @@ class ServeEngine:
             "max_live_slots": self.stats_max_live_slots,
             "prefill_calls": self.stats_prefill_calls,
             "prefill_reqs": self.stats_prefill_reqs,
-            "prefill_chunks": 0,
-            "prefill_chunk_tasks": 0,
+            "prefill_chunks": self.stats_prefill_chunks,
+            "prefill_chunk_tasks": self.stats_prefill_chunk_tasks,
             "stopped_early": self.stats_stopped_early,
             "admission_blocks": self.stats_admission_blocks,
             "evictions": 0,
@@ -604,10 +838,10 @@ class ServeEngine:
             "spec_accepted": 0,
             "spec_rollbacks": 0,
             "spec_accept_rate": 0.0,
-            "prefix_cache": False,
-            "prefix_hits": 0,
-            "prefix_tokens_saved": 0,
-            "cow_forks": 0,
+            "prefix_cache": self.prefix is not None,
+            "prefix_hits": self.stats_prefix_hits,
+            "prefix_tokens_saved": self.stats_prefix_tokens_saved,
+            "cow_forks": self.stats_cow_forks,
             "policy": self.policy.name,
             "donate": self.donate,
             "paged_kernel": self.paged_kernel,
@@ -621,6 +855,8 @@ class ServeEngine:
             "page_size": self.page_size,
         }
         out.update(self.kv.stats())     # versions, commits, pager pool
+        if self.prefix is not None:
+            out.update(self.prefix.stats())
         return out
 
 

@@ -85,15 +85,28 @@ class KVState:
         self.version += 1
 
     # ------------------------------------------------------------ block table
-    def bind_slot_pages(self, slot: int, ids) -> torch.Tensor:
+    def bind_slot_pages(self, slot: int, ids, *,
+                        n_shared: int = 0) -> torch.Tensor:
         """Point ``slot``'s block table at physical pages ``ids``
         (unreserved logical pages at the garbage page), refresh the device
         mirror, and return the slot's table row on the device for the
-        insert step."""
+        insert step.
+
+        ``n_shared`` (prefix-cache hit): the leading ``n_shared`` pages of
+        ``ids`` are shared prefix pages.  Decode and the paged kernel read
+        them through the real table, but the returned insert row points
+        them at the garbage page: the insert scatters every logical page
+        of the prefilled row, and writing a shared page would change it
+        under every other holder (the row holds the same content there,
+        but the insert never needs to write it)."""
+        if not 0 <= n_shared <= len(ids):
+            raise ValueError(f"n_shared {n_shared} of {len(ids)} pages")
         self._table[slot, :] = GARBAGE_PAGE
         self._table[slot, :len(ids)] = ids
         self.sync_table()
-        return self.to_dev(self._table[slot])
+        insert_row = self._table[slot].copy()
+        insert_row[:n_shared] = GARBAGE_PAGE
+        return self.to_dev(insert_row)
 
     def release_slot_pages(self, slot: int) -> None:
         """Re-point a finished slot's table row at the garbage page so the

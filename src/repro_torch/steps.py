@@ -5,8 +5,8 @@ The reference jits each step and donates the cache argument so XLA
 aliases it in place.  Here the steps run eagerly and update the pool in
 place themselves, under the same contract: every cache leaf keeps its
 shape and dtype (``models.layers.check_cache_invariant``), so the caller
-simply rebinds the returned cache.  Train, verify, prefill-chunk and
-prefix-gather steps belong to later slices.
+simply rebinds the returned cache.  Train and verify steps belong to
+later slices.
 """
 from __future__ import annotations
 
@@ -152,6 +152,78 @@ def make_batched_insert_step(cfg, *, cache_len: int,
     return insert_step
 
 
+def make_prefix_gather_step(cfg, *, cache_len: int, page_size: int):
+    """The read half of a prefix-cache hit: a fresh batch-1 dense row
+    cache gathered from shared KV pages,
+
+        (cache, table_row, pos) -> row_cache
+
+    ``table_row`` is a (pages_per_slot,) physical page vector whose
+    leading entries are the matched prefix pages (plus the copy-on-write
+    fork source) and whose tail points at garbage page 0; ``pos`` (a host
+    int) is the number of valid prefix tokens.  Positions past ``pos``
+    hold garbage-page content, which the tail's chunks overwrite or the
+    position mask excludes.  A pure read of the pool: the caller enqueues
+    it before any later step that writes those pages."""
+    if cache_len % page_size:
+        raise ValueError(f"page_size {page_size} must divide cache_len "
+                         f"{cache_len}")
+    assert chunkable(cfg, cache_len), (
+        f"{cfg.name}: prefix-cache gather rides the chunked-prefill "
+        "machinery — non-chunkable configs bypass the prefix cache")
+    pps = cache_len // page_size
+
+    @torch.no_grad()
+    def gather_step(cache, table_row, pos):
+        blocks = []
+        for spec, cb in zip(cfg.pattern, cache["blocks"]):
+            paged = paged_names(spec, cache_len)
+            assert set(cb) == paged, (spec, set(cb), paged)
+            idx = table_row.long()
+            blocks.append({
+                name: c[:, idx].reshape((c.shape[0], 1, pps * page_size)
+                                        + tuple(c.shape[3:]))
+                for name, c in cb.items()})
+        return {"pos": torch.full((), int(pos), dtype=torch.int32,
+                                  device=table_row.device),
+                "blocks": tuple(blocks)}
+
+    return gather_step
+
+
+def make_prefill_chunk_step(cfg, cache_len: int | None = None):
+    """Cache-append prefill continuation (chunked prefill):
+
+        (params, row_cache, tokens, q_off) -> (row_cache, last logits)
+
+    ``row_cache`` is a dense (B, cache_len) cache (start from
+    ``init_cache``), updated in place; ``tokens`` is the (B, C) chunk
+    written at positions ``[q_off, q_off + C)`` (``q_off`` a host int).
+    Keywords ``attn_extent`` (the key extent each chunk attends over) and
+    ``want_logits`` (False: a non-final chunk skips the LM head, and the
+    logits come back None).  The last chunk's logits equal the one-shot
+    prefill's within rounding; MoE, SSM and sliding-window rings shorter
+    than ``cache_len`` cannot chunk exactly (:func:`chunkable`)."""
+    assert cache_len is not None
+    assert chunkable(cfg, cache_len), (
+        f"{cfg.name}: chunked prefill needs linear-cache attention blocks "
+        "(no MoE, no SSM, no SWA ring shorter than cache_len)")
+
+    def chunk_step(params, row_cache, tokens, q_off, patches=None, *,
+                   attn_extent=None, want_logits=True):
+        if patches is not None:
+            raise NotImplementedError(
+                "vision patches are not ported yet (ROADMAP.md queue 1, "
+                "item 7)")
+        out = forward(cast_tree(params, cfg.dtype), cfg, tokens,
+                      mode="prefill_chunk", pos=int(q_off), cache=row_cache,
+                      cache_len=cache_len, attn_extent=attn_extent,
+                      want_logits=want_logits)
+        return out["cache"], out["logits"]
+
+    return chunk_step
+
+
 def make_decode_step(cfg, *, cache_len: int | None = None,
                      page_size: int | None = None,
                      paged_kernel: bool = False):
@@ -197,4 +269,5 @@ def make_decode_step(cfg, *, cache_len: int | None = None,
 __all__ = ["cast_tree", "make_prefill_step", "make_serve_step",
            "greedy_oneshot", "init_slot_cache", "init_paged_slot_cache",
            "paged_names", "chunkable", "make_batched_insert_step",
+           "make_prefix_gather_step", "make_prefill_chunk_step",
            "make_decode_step", "init_cache"]

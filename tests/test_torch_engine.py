@@ -84,8 +84,9 @@ def test_engine_matches_oneshot_under_random_arrivals(built, seed, umt,
             f"request {r.rid} (seed {seed})")
     assert stats["requests"] == N_REQ == stats["prefill_reqs"]
     assert 0.0 < stats["occupancy"] <= 1.0
-    if page_size is not None:
-        assert pager.live_refs == 0 and pager.used_pages == 0
+    if page_size is not None:   # pages in use only as the trie's cache
+        assert pager.live_refs == 0
+        assert pager.used_pages == pager.cached_pages
 
 
 def test_tight_pool_blocks_admission_but_stays_exact(built):
@@ -145,7 +146,7 @@ def test_port_engine_equals_reference_engine(built):
              for i in range(N_REQ)]
     with JServeEngine(built["cfg"], built["jp"], slots=3,
                       cache_len=CACHE_LEN, n_cores=4, page_size=4,
-                      paged_kernel=True, prefix_cache="off") as eng:
+                      paged_kernel=True) as eng:
         for r in jreqs:
             eng.submit(r)
         eng.close()
@@ -157,15 +158,31 @@ def test_port_engine_equals_reference_engine(built):
     for jr, tr in zip(jreqs, treqs):
         assert list(np.asarray(tr.wait())) == list(np.asarray(jr.wait()))
     assert set(tstats) == set(jstats)
-    assert tstats["prefix_cache"] is False
+    assert tstats["prefix_cache"] == jstats["prefix_cache"]
 
 
 @pytest.mark.parametrize("kw", [
-    dict(prefill_chunk=4), dict(prefix_cache="on"), dict(spec="ngram"),
-    dict(policy="ondemand"), dict(tp=True), dict(mesh=object())])
+    dict(spec="ngram"), dict(policy="ondemand"), dict(tp=True),
+    dict(mesh=object())])
 def test_options_of_later_slices_raise(built, kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ServeEngine(built["cfg"], built["params"], device="cpu", **kw)
+
+
+@pytest.mark.parametrize("arch,kw", [
+    ("mamba2-780m", dict(prefill_chunk=4)),
+    ("qwen2.5-14b", dict(prefix_cache="on", page_size=None))])
+def test_options_the_reference_refuses_raise_its_error(arch, kw):
+    """Chunked prefill on a config that cannot chunk exactly, and the
+    prefix cache on a dense engine: ``ValueError`` on both engines."""
+    from repro.serve import ServeEngine as JServeEngine
+
+    cfg = get(arch).tiny()
+    with pytest.raises(ValueError, match="chunk"):
+        ServeEngine(cfg, lambda: None, cache_len=CACHE_LEN, device="cpu",
+                    **kw)
+    with pytest.raises(ValueError, match="chunk"):
+        JServeEngine(cfg, lambda: None, cache_len=CACHE_LEN, **kw)
 
 
 def _reference_json_keys():
@@ -175,13 +192,16 @@ def _reference_json_keys():
     return re.findall(r'^\s+"(\w+)":', '\n    ' + block, re.M)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
-def test_cli_prints_the_reference_json_line(arch):
+@pytest.mark.parametrize("arch,extra", [
+    *((a, ()) for a in ARCHS),
+    ("qwen2.5-14b", ("--chunk", "3")),
+    ("minicpm3-4b", ("--chunk", "5", "--prefix-cache", "on"))])
+def test_cli_prints_the_reference_json_line(arch, extra):
     out = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.serve", "--tiny",
          "--arch", arch, "--device", "cpu", "--paged-kernel", "--batch", "2",
          "--requests", "3", "--prompt-len", "8", "--gen", "4", "--cores",
-         "3"],
+         "3", *extra],
         capture_output=True, text=True, timeout=120, cwd=ROOT,
         env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
         check=True)
@@ -191,3 +211,7 @@ def test_cli_prints_the_reference_json_line(arch):
     assert list(row) == _reference_json_keys()
     assert row["paged_kernel"] is True and row["generated_shape"] == [3, 4]
     assert row["arch"] == f"{arch}-tiny"
+    if "--chunk" in extra:              # 8-token prompts in c-token chunks
+        c = int(extra[extra.index("--chunk") + 1])
+        assert row["prefill_chunks"] == -(-8 // c) * row["prefill_calls"] > 0
+    assert row["prefix_cache"] is (arch in ("qwen2.5-14b", "minicpm3-4b"))

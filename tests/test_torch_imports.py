@@ -17,7 +17,7 @@ COPIES = sorted(
     [p.relative_to(REF) for p in (REF / "configs").glob("*.py")]
     + [p.relative_to(REF) for p in (REF / "core").glob("*.py")]
     + [Path("serve/pager.py"), Path("serve/policy.py"),
-       Path("serve/request.py")])
+       Path("serve/prefix.py"), Path("serve/request.py")])
 
 
 def _port_modules():
