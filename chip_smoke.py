@@ -40,12 +40,19 @@ Phases (each raises on failure, so the script exits non-zero):
    (MoE, sliding-window rings, flash prefill) at 16 of its 32 layers (the
    whole model does not fit one card), 16 requests, each prompt length of
    {1024, 2048, 6144, 8192} four times, 8 slots; then chunked prefill and
-   the shared-prefix cache, qwen2.5-14b (``qwen2.5-14b-prefix``) and
-   minicpm3-4b (``minicpm3-4b-prefix``) at full width and depth: 4
+   the shared-prefix cache, qwen2.5-14b (``qwen2.5-14b-prefix``, 24 of
+   its 48 layers) and minicpm3-4b (``minicpm3-4b-prefix``, full depth): 4
    prefixes of 1001 tokens, each heading 8 prompts with tails of 24-1000
    tokens, chunks of 512, one prompt per prefix first and the other 28
-   once those have 2 tokens out (28 hits, each forking a partial page).
-   32 tokens each, staggered arrivals.  Launch counters are zeroed right
+   once those have 2 tokens out (28 hits, each forking a partial page);
+   then on-demand paging with eviction and restore (``policy="ondemand"``,
+   ``qwen2.5-14b-ondemand`` and ``mamba2-780m-ondemand``): the cold
+   phases' traffic into a pool of two worst cases (``ONDEMAND_PAGES``),
+   so that slots grow page by page and the youngest is evicted and
+   restored — by prefill-replay through 512-token chunks on qwen2.5-14b,
+   by decode-replay through the serve step on mamba2-780m.
+   32 tokens each, staggered arrivals; each phase's requests must finish
+   within ``DRAIN_S`` (``repro_torch.serve.drain``).  Launch counters are zeroed right
    before each phase and read right after; the engine's steps are counted
    by wrapping them (one-shot prefills, chunks, gathers, ticks) and each
    phase's identities are checked, with the prefix counters and no page
@@ -69,7 +76,13 @@ Phases (each raises on failure, so the script exits non-zero):
    (``check_capacity_dispatch``).  The prefix phases' step path is the
    engine's own hit path (gather, the tail's chunks at the matched
    offset, an insert with the shared pages masked, paged-kernel decode),
-   with three planted faults of it (``HIT_FAULTS``).
+   with three planted faults of it (``HIT_FAULTS``).  The on-demand
+   phases' step path grows each slot's table as its position crosses a
+   page and restores each request where the engine evicted it, with
+   planted faults of the restore and the growth (``RESTORE_FAULTS``);
+   their bars: pages grown, evictions, restores = evictions, no page
+   leaked, and every restore that re-derived another token than the one
+   emitted (``restore_divergences``) within the token tolerance there.
 5. cli    — ``repro_torch.launch.serve`` on the card at full width, as
    an engine (paged kernel, ``--chunk 512 --prefix-cache on``) and one
    shot: each run's kernels launched, and both token sets held by the
@@ -82,6 +95,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import gc
 import json
 import subprocess
 import sys
@@ -172,6 +186,14 @@ PLANTED = {
                            "tail_q_off_plus_1"),
     "minicpm3-4b-prefix": ("gather_table_shifted", "fork_not_copied",
                            "tail_q_off_plus_1"),
+    # the on-demand phases' restore and growth: a prefill-replay over one
+    # token too few (the slot resumes a position early), a page grown
+    # into the slot but never published in the block table (the tick
+    # writes and reads the garbage page), a decode-replay that starts
+    # from a blank state (every leaf of its prefilled row zeroed)
+    "qwen2.5-14b-ondemand": ("restore_drops_last_token",
+                             "grown_page_not_published"),
+    "mamba2-780m-ondemand": ("restore_state_dropped",),
 }
 # mixtral's teacher-forced forward takes the expert ids of the step path
 # (the reason is in ``serve``), so a wrong top-k on the card would sit on
@@ -194,6 +216,12 @@ ROUTE_FAULTS = ("moe_ids_permuted",)
 PREFILL_FAULTS = ("state_not_handed", "dt_one_late", "flash_kv_group_order",
                   "moe_second_pick_dropped", "ring_not_rolled")
 HIT_FAULTS = ("gather_table_shifted", "fork_not_copied", "tail_q_off_plus_1")
+# A serve phase's requests must all finish within this many seconds of
+# the last submission (``repro_torch.serve.drain``), or the phase fails
+# with the engine's stats and every thread's stack.
+DRAIN_S = 600
+RESTORE_FAULTS = ("restore_drops_last_token", "grown_page_not_published",
+                  "restore_state_dropped")
 # The SSM phase's conv weights are scaled by this gain from the repo's
 # normal 0.02 to std 1.0, so that the checks can see a fault of the scan
 # or of the state.  At 0.02 the depthwise conv (fan-in 4) outputs x, B
@@ -221,6 +249,15 @@ MIXTRAL_TRAFFIC = dict(slots=8, cache_len=8224, lens=(1024, 2048, 6144, 8192),
 # forks a partial page.
 PREFIX_TRAFFIC = dict(slots=16, cache_len=2080, n_req=32, gen=32,
                       n_prefix=4, prefix_len=1001, tails=(24, 200, 536, 1000))
+# On-demand paging: a pool of 520 usable pages of 8, two of the longest
+# requests at their worst (2 x 260 pages; about 0.8 GiB of qwen's K/V
+# against 6.5 GiB for the 16 x 260 pages of the cold phase).  The pool,
+# not the slots, then bounds admission, and the requests admitted
+# together grow into it until the youngest is evicted.  A pool of 1024
+# pages mostly outlasts this traffic's growth (31 positions, 4 pages, per
+# request against prompts of 32-256 pages): rehearsed on the CPU with the
+# tiny configs, same lengths and arrivals, it rarely evicted at all.
+ONDEMAND_PAGES = 521
 # Per phase: decode attention through its paged kernel?  For each kernel
 # of the phase, the engine step whose calls its launches follow once per
 # layer (the decode tick or the one-shot prefill, counted by wrapping the
@@ -253,16 +290,37 @@ PHASES = {
                          kernels={"flash_attention": "prefill",
                                   "paged_decode_attention": None}),
     # chunked prefill and the shared-prefix cache: every prompt is longer
-    # than the chunk, so no one-shot prefill (and no flash launch) is due
+    # than the chunk, so no one-shot prefill (and no flash launch) is due.
+    # qwen2.5-14b's at half depth since PR 17, to keep the script's time
+    # with the on-demand phases: what it holds (the gather, the tail's
+    # chunks at an offset, shared-page admission) is the same in every
+    # layer, and its planted faults still trail by 3.5 logits or more.
+    # minicpm3-4b's stays at full depth: at 31 layers two of its planted
+    # faults were no longer rejected.
     "qwen2.5-14b-prefix": dict(
         arch="qwen2.5-14b", paged_kernel=True, norms=2,
         traffic=PREFIX_TRAFFIC, prefill_chunk=512, prefix_cache="on",
-        kernels={"paged_decode_attention": "decode",
-                 "flash_attention": None}),
+        layers=24, kernels={"paged_decode_attention": "decode",
+                            "flash_attention": None}),
     "minicpm3-4b-prefix": dict(
         arch="minicpm3-4b", paged_kernel=True, norms=4,
         traffic=PREFIX_TRAFFIC, prefill_chunk=512, prefix_cache="on",
         kernels={"paged_mla_decode_attention": "decode"}),
+    # on-demand paging, eviction and restore: prefill-replay through 512-
+    # token chunks (qwen2.5-14b: prompts past 512 chunk too, so flash runs
+    # for the 256- and 512-token prompts only; a restore re-hits the trie
+    # with the pages its eviction handed over), decode-replay through the
+    # serve step (mamba2-780m: the prompt's one-shot prefill with the SSD
+    # kernel, then one batch-1 serve step per emitted token)
+    "qwen2.5-14b-ondemand": dict(
+        arch="qwen2.5-14b", paged_kernel=True, norms=2, traffic=TRAFFIC,
+        prefill_chunk=512, policy="ondemand", num_pages=ONDEMAND_PAGES,
+        kernels={"paged_decode_attention": "decode",
+                 "flash_attention": "prefill"}),
+    "mamba2-780m-ondemand": dict(
+        arch="mamba2-780m", paged_kernel=False, norms=2, traffic=TRAFFIC,
+        policy="ondemand", num_pages=ONDEMAND_PAGES,
+        kernels={"ssd_scan": "prefill"}),
 }
 
 
@@ -1355,6 +1413,74 @@ def prefix_steps_alone(cfg, params, smi, traffic, chunk, ps=8):
         log(f"  {what} kernel {ms:8.3f} ms a call (x{k}) {key[:90]}")
 
 
+def restore_alone(cfg, params, smi, traffic, chunk, n_out=16):
+    """One restore of the phase's longest prompt with ``n_out`` tokens out,
+    alone (no engine, no other thread), as the engine runs it: a
+    prefill-replay of prompt + emitted[:-1] through ``chunk``-token chunks
+    (the last with the LM head), or, where ``chunk`` is None (the config
+    does not chunk exactly), decode-replay: the prompt's one-shot prefill
+    and ``n_out - 1`` batch-1 serve steps.  Host-timed around a
+    synchronize (median of 3), and the device's busy time in one profiled
+    call (kernel time summed, as ``steps_alone`` reads a tick)."""
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from repro_torch.models.lm import init_cache
+    from repro_torch.steps import (make_prefill_chunk_step,
+                                   make_prefill_step, make_serve_step)
+
+    cache_len, plen = traffic["cache_len"], max(traffic["lens"])
+    n = plen + n_out - 1
+    t = torch.tensor(np.random.default_rng(7).integers(
+        0, cfg.vocab, (1, n)).astype(np.int32), device="cuda")
+    if chunk is None:
+        prefill = make_prefill_step(cfg, cache_len=cache_len)
+        step = make_serve_step(cfg)
+        what = (f"decode-replay: prefill 1 x {plen} + {n_out - 1} serve "
+                "steps")
+
+        def one():
+            rows, _ = prefill(params, t[:, :plen])
+            for k in range(plen, n):
+                _, rows = step(params, rows, t[:, k:k + 1])
+    else:
+        step = make_prefill_chunk_step(cfg, cache_len)
+        what = f"prefill-replay: {n} tokens in chunks of {chunk}"
+
+        def one():
+            rows, c0 = init_cache(cfg, 1, cache_len, torch.bfloat16,
+                                  "cuda"), 0
+            while c0 < n:
+                c1 = min(c0 + chunk, n)
+                rows, _ = step(params, rows, t[:, c0:c1], c0,
+                               attn_extent=min(cache_len,
+                                               -(-c1 // chunk) * chunk),
+                               want_logits=c1 == n)
+                c0 = c1
+
+    one()
+    host = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        one()
+        torch.cuda.synchronize()
+        host.append((time.perf_counter() - t0) * 1e3)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU,
+                        torch.profiler.ProfilerActivity.CUDA]) as prof:
+        one()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.time_range.elapsed_us() for e in evs) / 1e3
+    log(f"restore alone ({cfg.name}, {smi}): {what}: "
+        f"{statistics.median(host):.2f} ms host, device busy {busy:.3f} ms "
+        f"({len(evs)} kernels)")
+
+
 def plain_ssd(x, dt, a, bmat, cmat, *, chunk):
     """The reference model's own SSD math (``ssd_chunked``, state carried
     in the activation dtype from a zero state) in place of the kernel."""
@@ -1482,7 +1608,7 @@ def planted(fault):
 
 def path_check(cfg, params, prompts, toks, ref, device, paged_kernel,
                slots=16, cache_len=2080, ps=8, names=None, phase=None,
-               plan=None, chunk=512):
+               plan=None, chunk=512, evictions=None, replay=False):
     """The engine's step path teacher-forced with its emitted tokens: each
     prompt through the prefill step and the paged insert, then the tokens
     one tick at a time through the decode forward (paged kernel where the
@@ -1498,7 +1624,18 @@ def path_check(cfg, params, prompts, toks, ref, device, paged_kernel,
     error against ``ref``, "rel_max": worst position, "effect": the same
     distance from the path as built, "gap": worst gap of the path's
     argmax under ``ref``, "same": path argmax equal to the emitted token}
-    ({} when ``ref`` is None: the path only runs)."""
+    ({} when ``ref`` is None: the path only runs).
+
+    ``evictions`` (the on-demand phases): per request, the numbers of
+    tokens it had out when the engine evicted it.  Admission then writes
+    only the pages of the prompt, the table grows a page as a slot's
+    write position crosses into it, and before the tick that follows an
+    eviction the request is restored as the engine restores it, onto the
+    slot's other set of pages: prompt + emitted[:-1] through
+    ``chunk``-token chunks, or (``replay``) the prompt's prefill and the
+    emitted tokens through the serve step one at a time.  (The engine's
+    restore may re-hit the trie and chunk its tail only; here it is
+    computed whole.)"""
     import numpy as np
     import torch
 
@@ -1507,7 +1644,7 @@ def path_check(cfg, params, prompts, toks, ref, device, paged_kernel,
                                    make_batched_insert_step,
                                    make_prefill_chunk_step,
                                    make_prefill_step,
-                                   make_prefix_gather_step)
+                                   make_prefix_gather_step, make_serve_step)
 
     p = cast_tree(params, cfg.dtype)
     dt = getattr(torch, cfg.dtype)
@@ -1516,9 +1653,13 @@ def path_check(cfg, params, prompts, toks, ref, device, paged_kernel,
     g = torch.Generator().manual_seed(3)
     if plan is None:
         prefill = make_prefill_step(cfg, cache_len=cache_len)
-        num_pages = 1 + slots * pps
-        rows_of = (1 + torch.randperm(slots * pps, generator=g)).int().view(
-            slots, pps)
+        n_rows = slots * (1 if evictions is None else 2)
+        num_pages = 1 + n_rows * pps
+        rows_of = (1 + torch.randperm(n_rows * pps, generator=g)).int().view(
+            n_rows, pps)
+        if evictions is not None:
+            restore_step = (make_serve_step(cfg) if replay
+                            else make_prefill_chunk_step(cfg, cache_len))
     else:
         chunk_step = make_prefill_chunk_step(cfg, cache_len)
         gather = make_prefix_gather_step(cfg, cache_len=cache_len,
@@ -1584,6 +1725,67 @@ def path_check(cfg, params, prompts, toks, ref, device, paged_kernel,
             del rows
         return firsts
 
+    od = {}                     # the on-demand slots' pages and positions
+
+    def admit_row(s, n_tok):
+        """Slot s's insert row at an on-demand admission of ``n_tok``
+        positions: their pages, the rest at the garbage page."""
+        k = -(-n_tok // ps)
+        row = od["own"][s].clone()
+        row[k:] = 0
+        od["pub"][s] = k
+        return row.to(device)
+
+    def restore(s, i, j, fault):
+        """Request i, evicted with j + 1 tokens out, restored into slot s
+        on the slot's other pages."""
+        nonlocal cache
+        od["own"][s], od["spare"][s] = od["spare"][s], od["own"][s]
+        if replay:
+            rows, _ = prefill(p, torch.tensor(prompts[i][None],
+                                              device=device))
+            if fault == "restore_state_dropped":
+                for blk in rows["blocks"]:
+                    for leaf in blk.values():
+                        leaf.zero_()
+            for k in range(j):
+                fed = torch.tensor([[int(toks[i][k])]], dtype=torch.int32,
+                                   device=device)
+                _, rows = restore_step(p, rows, fed)
+            n_tok = len(prompts[i]) + j
+        else:
+            seq = np.concatenate([prompts[i], toks[i][:j]])
+            if fault == "restore_drops_last_token":
+                seq = seq[:-1]
+            n_tok = len(seq)
+            t = torch.tensor(seq[None], device=device)
+            rows, c0 = init_cache(cfg, 1, cache_len, dt, device), 0
+            while c0 < n_tok:
+                c1 = min(c0 + chunk, n_tok)
+                rows, _ = restore_step(
+                    p, rows, t[:, c0:c1], c0,
+                    attn_extent=min(cache_len, -(-c1 // chunk) * chunk),
+                    want_logits=False)
+                c0 = c1
+        cache = insert(cache, rows, 0, s, admit_row(s, n_tok))
+        od["pos"][s] = n_tok
+
+    def before_tick(j, idx, pages, fault):
+        """Restores due before tick j, then each slot's table grown to its
+        write position; returns the positions tick j writes."""
+        for s, i in enumerate(idx):
+            if j + 1 in evictions[i]:
+                restore(s, i, j, fault)
+        tab = torch.zeros((slots, pps), dtype=torch.int32)
+        for s in range(len(idx)):
+            k = od["pub"][s]
+            if fault != "grown_page_not_published":
+                k = max(k, od["pos"][s] // ps + 1)
+            tab[s, :k] = od["own"][s][:k]
+        pages["table"] = tab.to(device)
+        return torch.tensor(od["pos"] + [0] * (slots - len(idx)),
+                            dtype=torch.int32, device=device)
+
     for r0 in range(0, len(prompts), slots):
         idx = list(range(r0, min(r0 + slots, len(prompts))))
         pad = slots - len(idx)
@@ -1605,20 +1807,30 @@ def path_check(cfg, params, prompts, toks, ref, device, paged_kernel,
 
         clean = prefill_round() if plan is None else None
         for n in names:
-            with planted(None if n in HIT_FAULTS else n):
+            if evictions is not None:
+                od.update(own=list(rows_of[:slots]),
+                          spare=list(rows_of[slots:]), pub=[0] * slots,
+                          pos=[len(prompts[i]) for i in idx])
+            with planted(None if n in HIT_FAULTS + RESTORE_FAULTS else n):
                 if plan is not None:
                     rows = [torch.stack(chunked_round(idx, n))]
                 else:
                     rounds = (prefill_round() if n in PREFILL_FAULTS
                               else clean)
                     for s, (rc, _) in enumerate(rounds):
-                        cache = insert(cache, rc, 0, s, table[s])
+                        cache = insert(cache, rc, 0, s, table[s]
+                                       if evictions is None else
+                                       admit_row(s, len(prompts[idx[s]])))
                     rows = [torch.stack([lg[0, -1].float()
                                          for _, lg in rounds])]
                     del rounds
                 for j in range(gen - 1):
+                    pos = pos0 + j
+                    if evictions is not None:
+                        pos = before_tick(j, idx, pages, n)
+                        od["pos"] = [q + 1 for q in od["pos"]]
                     o = forward(p, cfg, feed[:, j:j + 1], mode="decode",
-                                pos=pos0 + j, cache=cache, pages=pages)
+                                pos=pos, cache=cache, pages=pages)
                     rows.append(o["logits"][:len(idx), 0].float())
             lg = torch.stack(rows, dim=1)               # (round, gen, V)
             if ref is None:
@@ -1882,7 +2094,8 @@ def serve(cfg, smi, device="cuda", seed=0, name=None):
 
     from repro_torch import kernels
     from repro_torch.models.lm import forward, init_params
-    from repro_torch.serve import Request, ServeEngine
+    from repro_torch.serve import Request, ServeEngine, drain
+    from repro_torch.serve.watchdog import abandon
     from repro_torch.steps import (greedy_oneshot, make_prefill_step,
                                    make_serve_step)
 
@@ -1930,11 +2143,14 @@ def serve(cfg, smi, device="cuda", seed=0, name=None):
     if cuda:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+    ondemand = phase.get("policy") == "ondemand"
     eng = ServeEngine(cfg, weights, slots=slots, cache_len=cache_len,
                       page_size="auto", paged_kernel=paged_kernel,
                       sync_ticks=True, device=device,
                       prefill_chunk=phase.get("prefill_chunk"),
-                      prefix_cache=phase.get("prefix_cache"))
+                      prefix_cache=phase.get("prefix_cache"),
+                      policy=phase.get("policy"),
+                      num_pages=phase.get("num_pages"))
     # the engine's steps, counted: one-shot prefills, chunks with and
     # without the LM head, gathers, decode ticks
     calls, calls_lock = collections.Counter(), threading.Lock()
@@ -1952,30 +2168,47 @@ def serve(cfg, smi, device="cuda", seed=0, name=None):
                              if kw["want_logits"] else "chunk_mid")
     if eng.gather is not None:
         eng.gather = counting(eng.gather, "gather")
+    eng.replay = counting(eng.replay, "replay")
+    # per request, the tokens it had out at each eviction (through the
+    # class's function and the ``eng`` variable, never a bound method: the
+    # engine must not reach itself once ``eng`` is dropped, or its pool
+    # and weights outlive the phase until a garbage collection)
+    evicted = collections.defaultdict(list)
+
+    def recorded_evict(s):
+        req = eng._slot_req[s]
+        evicted[req.rid].append(len(req.out_tokens))
+        return ServeEngine._evict_slot(eng, s)
+    eng._evict_slot = recorded_evict
     for k in counted:
         getattr(kernels, k).launches.reset()
     t0 = time.perf_counter()
     reqs = [Request(i, prompts[i], max_new_tokens=gen)
             for i in range(n_req)]
-    with eng:
-        for i, (r, g) in enumerate(zip(reqs, gaps)):
-            if prefix and i == len(wave1):
-                # wave 2 once every wave-1 request has 2 tokens out: it
-                # was admitted, and its pages are in the trie
-                t_w = time.perf_counter()
-                while any(len(reqs[w].out_tokens) < 2 for w in wave1):
-                    if time.perf_counter() - t_w > 600:
-                        raise AssertionError(f"{name}: wave 1 stalled")
-                    time.sleep(0.005)
-            eng.submit(r)
-            time.sleep(float(g))
-        eng.close()
-        eng.join()
-        if cuda:
-            torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        stats = eng.stats()
-    pager = eng.pager
+    eng.start()
+    for i, (r, g) in enumerate(zip(reqs, gaps)):
+        if prefix and i == len(wave1):
+            # wave 2 once every wave-1 request has 2 tokens out: it was
+            # admitted, and its pages are in the trie
+            t_w = time.perf_counter()
+            while any(len(reqs[w].out_tokens) < 2 for w in wave1):
+                for w in wave1:
+                    if reqs[w].error is not None:   # failed in the engine
+                        abandon(eng, f"{name}: request {w} failed: "
+                                     f"{reqs[w].error!r}")
+                if time.perf_counter() - t_w > DRAIN_S:
+                    abandon(eng, f"{name}: wave 1 stalled")
+                time.sleep(0.005)
+        eng.submit(r)
+        time.sleep(float(g))
+    # every request and the engine's tasks within DRAIN_S, or the phase
+    # fails with the engine's stats and every thread's stack
+    stats = drain(eng, reqs, DRAIN_S)
+    if cuda:
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    pager, divergences = eng.pager, list(eng.restore_divergences)
+    eng_chunkable = eng.chunk is not None
     eng = None                          # drop the pool before what follows
     launches = {k: getattr(kernels, k).launches.value for k in counted}
     peak = torch.cuda.max_memory_allocated() if cuda else 0
@@ -1993,6 +2226,17 @@ def serve(cfg, smi, device="cuda", seed=0, name=None):
         f"{stats['decode_dispatches']}, prefill calls "
         f"{stats['prefill_calls']}, step calls {dict(calls)}, launches "
         f"{launches}")
+    if ondemand:
+        per = sorted(evicted.items())
+        log(f"on-demand [{name}]: pool {phase['num_pages'] - 1} pages, "
+            f"pages_grown {stats['pages_grown']} pages_grown_multi "
+            f"{stats['pages_grown_multi']} admission_blocks "
+            f"{stats['admission_blocks']} evictions {stats['evictions']} "
+            f"restores {stats['restores']} restore_divergences "
+            f"{stats['restore_divergences']}; replay steps "
+            f"{calls['replay']}; {len(per)} requests evicted, at most "
+            f"{max((len(v) for _, v in per), default=0)} times one; tokens "
+            f"out at each eviction {dict(per)}")
     log(f"prefix and chunks [{name}]: prefix_hits {stats['prefix_hits']} "
         f"prefix_tokens_saved {stats['prefix_tokens_saved']} cow_forks "
         f"{stats['cow_forks']} prefill_chunks {stats['prefill_chunks']} "
@@ -2024,16 +2268,29 @@ def serve(cfg, smi, device="cuda", seed=0, name=None):
                 f"{stats['prefix_tokens_saved']} (want {saved}), cow_forks "
                 f"{stats['cow_forks']} (want >= {n_hit}), prefill_chunks "
                 f"{stats['prefill_chunks']} (want > 0)")
-    elif stats["prefix_hits"]:
+    elif stats["prefix_hits"] > stats["restores"]:
+        # random prompts: only a restore can re-hit (its own pages)
         raise AssertionError(f"{name}: {stats['prefix_hits']} prefix hits "
-                             "on random prompts")
+                             f"on random prompts, {stats['restores']} "
+                             "restores")
     if pager.live_refs or pager.used_pages != pager.cached_pages:
         raise AssertionError(f"{name}: pages leaked: live_refs "
                              f"{pager.live_refs}, used {pager.used_pages} "
                              f"!= cached {pager.cached_pages}")
+    if ondemand:
+        n_ev = sum(len(v) for v in evicted.values())
+        if not (stats["pages_grown"] > 0 and stats["evictions"] > 0
+                and stats["restores"] == stats["evictions"] == n_ev):
+            raise AssertionError(
+                f"{name}: pages_grown {stats['pages_grown']} (want > 0), "
+                f"evictions {stats['evictions']} (want > 0, = {n_ev} "
+                f"recorded), restores {stats['restores']} (want = "
+                "evictions)")
     if moe:
         check_capacity_dispatch(cfg, params, device)
-    if cuda and prefix:
+    if cuda and ondemand:
+        restore_alone(cfg, params, smi, traffic, phase.get("prefill_chunk"))
+    elif cuda and prefix:
         prefix_steps_alone(cfg, params, smi, traffic, phase["prefill_chunk"])
     elif cuda:
         steps_alone(cfg, params, smi, paged_kernel, traffic)
@@ -2085,6 +2342,18 @@ def serve(cfg, smi, device="cuda", seed=0, name=None):
         f"{worst:.4f} (tolerance {LOGIT_TOL}); forward's top-2 margin p50 "
         f"{top2.median().item():.4f}, logit std p50 "
         f"{spread.median().item():.4f}")
+    # a restore that re-derived another token than the one emitted (the
+    # engine recorded it and fed the emitted one on): both must be within
+    # the token tolerance of the forward's argmax there, a near-tie
+    div_worst = 0.0
+    for rid, k, want, got in divergences:
+        lg = ref[rid][k]
+        g_want, g_got = ((lg.max() - lg[t]).item() for t in (want, got))
+        div_worst = max(div_worst, g_want, g_got)
+        log(f"restore divergence ({name}): request {rid} token {k}: "
+            f"emitted {want} (gap {g_want:.4f}), re-derived {got} (gap "
+            f"{g_got:.4f}); forward's top-2 margin there "
+            f"{(lg.topk(2).values[0] - lg.topk(2).values[1]).item():.4f}")
     peak_checks = torch.cuda.max_memory_allocated() if cuda else 0
     built, route_missed = {"wide_flips": 0}, []
     if moe:
@@ -2116,7 +2385,10 @@ def serve(cfg, smi, device="cuda", seed=0, name=None):
     res = path_check(cfg, params, plist, toks_all, ref, device,
                      paged_kernel, slots=slots, cache_len=cache_len,
                      phase=name, plan=plan,
-                     chunk=phase.get("prefill_chunk") or 512)
+                     chunk=phase.get("prefill_chunk") or 512,
+                     evictions=([set(evicted[r.rid]) for r in reqs]
+                                if ondemand else None),
+                     replay=ondemand and not eng_chunkable)
     del ref
     for n, m in res.items():
         log(f"logit check [{name}, {n or 'as built'}]: worst position "
@@ -2144,6 +2416,10 @@ def serve(cfg, smi, device="cuda", seed=0, name=None):
     if worst > LOGIT_TOL:
         raise AssertionError(f"{name}: an emitted token trails the "
                              f"forward's argmax by {worst:.4f} > {LOGIT_TOL}")
+    if div_worst > LOGIT_TOL:
+        raise AssertionError(f"{name}: a restore re-derived a token that "
+                             f"trails the forward's argmax by "
+                             f"{div_worst:.4f} > {LOGIT_TOL}")
     if res[None]["rel_max"] > REL_TOL:
         raise AssertionError(f"{name}: step path logits off the "
                              f"forward's by {res[None]['rel_max']:.4f} > "
@@ -2189,7 +2465,7 @@ def check_launches(cfg, launches, stats, calls, name=None):
     want = {k: cfg.n_layers * calls[per] if per else 0
             for k, per in phase["kernels"].items()}
     want["rms_norm"] = (norms + 1) * (calls["decode"] + calls["prefill"]
-                                      + calls["chunk"]) \
+                                      + calls["chunk"] + calls["replay"]) \
         + norms * calls["chunk_mid"]
     for k, n in want.items():
         if launches[k] != n or (n <= 0 and phase["kernels"].get(k, True)):
@@ -2201,8 +2477,9 @@ def check_launches(cfg, launches, stats, calls, name=None):
     log(f"launch identities ({name}): " + "; ".join(parts)
         + f"; rms_norm {launches['rms_norm']} = {norms + 1} x "
         f"({calls['decode']} decode + {calls['prefill']} prefill + "
-        f"{calls['chunk']} final chunks) + {norms} x {calls['chunk_mid']} "
-        f"other chunks; {calls['gather']} gathers")
+        f"{calls['chunk']} final chunks + {calls['replay']} replay steps) "
+        f"+ {norms} x {calls['chunk_mid']} other chunks; {calls['gather']} "
+        "gathers")
 
 
 def check_cli(smi, arch="qwen2.5-14b", seed=1):
@@ -2351,6 +2628,7 @@ def main(argv=None):
         check_launches(cfg, got, stats, calls, name=name)
         for k, n in got.items():            # every phase's sum
             launches[k] = launches.get(k, 0) + n
+        gc.collect()                        # the phase's engine, if a cycle
         torch.cuda.empty_cache()            # the next phase's weights
     check_cli(smi)
     for row in rows:

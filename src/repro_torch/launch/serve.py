@@ -13,9 +13,11 @@ plus ``--device {cuda,cpu}`` (default ``cuda``; ``cuda`` without a card
 raises).  ``--mode oneshot`` runs the one-shot batch path; ``--chunk N``
 prefills prompts longer than N in chunks of N tokens, and
 ``--prefix-cache {auto,on,off}`` sets shared-prefix KV reuse (auto: on
-for a paged engine on a chunk-exact config), as in the reference.
-Options whose engine features belong to later slices (``--spec``,
-``--policy ondemand``, ``--mesh``) raise ``NotImplementedError``.
+for a paged engine on a chunk-exact config), and ``--policy ondemand``
+on-demand paging with eviction and restore (set ``--pages`` below the
+dense-equivalent pool to make it evict), as in the reference.  Options
+whose engine features belong to later slices (``--spec``, ``--mesh``)
+raise ``NotImplementedError``.
 Weights are a seeded ``torch.Generator`` init on the device (seed 0);
 prompts are drawn with numpy from ``--seed``.
 """
@@ -184,7 +186,9 @@ def serve(argv=None):
                          "updated in place")
     ap.add_argument("--policy", choices=("reserve", "ondemand"),
                     default="reserve",
-                    help="engine: scheduler policy (ondemand not ported yet)")
+                    help="engine: scheduler policy — worst-case page "
+                         "reservation, or on-demand growth with "
+                         "preemption-by-eviction (paged only)")
     ap.add_argument("--spec", choices=("off", "ngram"), default="off",
                     help="engine: speculative decoding (not ported yet)")
     ap.add_argument("--spec-k", type=int, default=4)

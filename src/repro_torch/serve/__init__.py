@@ -1,7 +1,9 @@
 """``repro_torch.serve`` — the continuous-batching serve engine on the UMT
-runtime, ported to PyTorch (main path: reserve policy, paged or dense KV
-pool, paged-decode kernel).  ``pager``, ``policy`` and ``request`` are
-copies of the reference's JAX-free modules.
+runtime, ported to PyTorch: paged or dense KV pool, paged-decode kernel,
+chunked prefill, the shared-prefix cache, and the reserve and on-demand
+(eviction and restore) policies.  ``pager``, ``policy``, ``prefix`` and
+``request`` are copies of the reference's JAX-free modules;
+:func:`drain` waits for an engine's requests under a deadline.
 
 Usage::
 
@@ -19,13 +21,23 @@ Usage::
         eng.close()
         eng.join()
     print(eng.stats())
+
+    # or, failing loudly (stats + every thread's stack) past a deadline:
+    eng = ServeEngine(cfg, params, slots=4, cache_len=48).start()
+    reqs = [Request(i, p, max_new_tokens=16) for i, p in enumerate(prompts)]
+    for r in reqs:
+        eng.submit(r)
+    stats = drain(eng, reqs, timeout_s=120)
 """
-from .engine import ServeEngine, auto_page_size
+from .engine import PORT_ONLY_STATS, ServeEngine, auto_page_size
 from .kvstate import KVState
 from .pager import GARBAGE_PAGE, PagePool
-from .policy import POLICIES, SchedulerPolicy, SlotView, make_policy
+from .policy import (POLICIES, OnDemandPolicy, SchedulerPolicy, SlotView,
+                     make_policy)
 from .request import Request, RequestQueue
+from .watchdog import drain
 
 __all__ = ["ServeEngine", "Request", "RequestQueue", "KVState", "PagePool",
-           "GARBAGE_PAGE", "auto_page_size", "SchedulerPolicy", "SlotView",
-           "make_policy", "POLICIES"]
+           "GARBAGE_PAGE", "auto_page_size", "SchedulerPolicy",
+           "OnDemandPolicy", "SlotView", "make_policy", "POLICIES",
+           "PORT_ONLY_STATS", "drain"]

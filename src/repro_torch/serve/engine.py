@@ -46,9 +46,20 @@ lock, so a gather reads pages before any later write of them, and a
 page is adopted by the trie only after the insert that fills it is
 enqueued.
 
+On-demand paging (``policy="ondemand"``): admission reserves only the
+prefill extent; before each tick the fault pass grows a slot's block
+table page by page as its write position crosses a page boundary, and
+when the pool is dry the policy names a victim, which is evicted (its
+tokens brought to the host, its written pages handed to the trie, its
+slot and pages freed) and resubmitted as a restore.  A restore replays
+prompt + generated[:-1] through the chunk step where prefill chunks
+exactly (prefill-replay), or re-prefills the prompt and feeds the
+recorded tokens through the serve step (decode-replay: SSD, sliding-window
+rings, MoE), then re-enters admission at the head of the queue.
+
 Options of the reference that belong to later slices raise
-``NotImplementedError`` naming their ROADMAP item: ``spec``, on-demand
-policies (eviction and restore) and tensor parallelism (``tp``/``mesh``).
+``NotImplementedError`` naming their ROADMAP item: ``spec`` and tensor
+parallelism (``tp``/``mesh``).
 """
 from __future__ import annotations
 
@@ -64,12 +75,16 @@ from ..device import resolve_device
 from ..models.lm import init_cache
 from ..steps import (chunkable, make_batched_insert_step, make_decode_step,
                      make_prefill_chunk_step, make_prefill_step,
-                     make_prefix_gather_step)
+                     make_prefix_gather_step, make_serve_step)
 from .kvstate import KVState
 from .pager import GARBAGE_PAGE
-from .policy import make_policy
+from .policy import SchedulerPolicy, SlotView, make_policy
 from .prefix import PrefixCache
 from .request import Request, RequestQueue
+
+
+# keys of ``ServeEngine.stats()`` that the reference's engine does not have
+PORT_ONLY_STATS = ("restore_divergences",)
 
 
 def percentile(xs, q):
@@ -98,6 +113,17 @@ class ServeEngine:
     callable returning one (run as the weights task).  ``donate`` and
     ``spec_k`` are accepted for parity: the pool is always updated in
     place, and speculative decoding is not ported yet.
+
+    Deviation of the restore check: the reference asserts that a restore
+    re-derives every emitted token exactly.  With ``strict_restore`` (the
+    default on the CPU, where the port runs in f32 as the reference's
+    tests do) the port asserts the same.  On the card, in bf16, a restore
+    recomputes positions through other kernels than the ticks did (the
+    chunk step's plain attention, or a batch-1 serve step), and a near-tie
+    can flip; there the mismatch is recorded in ``restore_divergences``
+    (rid, token index, emitted, re-derived) and counted in ``stats()``,
+    and the restore feeds the *emitted* token on, so the stream stays the
+    one the caller saw.
     """
 
     def __init__(self, cfg, params, *, slots: int = 4, cache_len: int = 64,
@@ -119,9 +145,6 @@ class ServeEngine:
         if spec not in (None, "off"):
             _unported("spec (speculative decoding)", 5)
         self.policy = make_policy(policy)
-        if self.policy.on_demand:
-            _unported(f"policy {self.policy.name!r} (on-demand paging, "
-                      "eviction and restore)", 5)
         self.device = resolve_device(device)
         self.cfg = cfg
         self.slots = slots
@@ -147,6 +170,15 @@ class ServeEngine:
         if self.paged_kernel and not self.paged:
             raise ValueError("paged_kernel=True needs a paged engine "
                              "(page_size is None here)")
+        if self.policy.on_demand and not self.paged:
+            raise ValueError(
+                f"policy {self.policy.name!r} is on-demand paging — it "
+                "needs a paged engine (page_size is None here)")
+        # only build per-tick SlotView snapshots for policies that
+        # override the unforced-preemption hook (ref engine.py:441)
+        self._policy_may_evict = (type(self.policy).maybe_evict
+                                  is not SchedulerPolicy.maybe_evict)
+        self.strict_restore = self.device.type == "cpu"
         self.prefill_chunk = prefill_chunk
         self._chunkable = chunkable(cfg, cache_len)
         if prefill_chunk is not None:
@@ -163,8 +195,14 @@ class ServeEngine:
         # the chunk step serves chunked prefill and the prefix hit's tail
         self.chunk = (make_prefill_chunk_step(cfg, cache_len)
                       if self._chunkable else None)
-        # chunk width of a prefix hit's tail when the engine has no
-        # prefill_chunk of its own (the reference's restore width)
+        # the restore after an eviction: prefill-replay of prompt +
+        # generated[:-1] through the chunk step where prefill chunks
+        # exactly, decode-replay of the emitted tokens through the serve
+        # step otherwise (MoE capacity, SSD chunking, SWA rings)
+        self._restore_prefill = self._chunkable
+        self.replay = make_serve_step(cfg)
+        # chunk width of a prefix hit's tail and of a prefill-replay when
+        # the engine has no prefill_chunk of its own
         self.restore_chunk = prefill_chunk or (
             1 << ((cache_len - 1).bit_length() // 2))
         # shared-prefix KV reuse qualifies where the hit path is exact:
@@ -215,6 +253,12 @@ class ServeEngine:
         self._active = np.zeros((slots,), bool)
         self._active_dev = self.kv.to_dev(self._active)
         self._slot_req: list[Request | None] = [None] * slots
+        # what the policy decides over: the position each slot's next tick
+        # writes (drives on-demand growth) and its admission sequence
+        # (drives the victim order)
+        self._slot_pos = np.zeros((slots,), np.int64)
+        self._slot_seq = np.zeros((slots,), np.int64)
+        self._admit_seq = 0
         self._blocked_head = None
         self._inserts: collections.deque = collections.deque()
         self._lock = threading.Lock()          # inserts/counters only
@@ -243,6 +287,11 @@ class ServeEngine:
         self.stats_prefill_chunk_tasks = 0
         self.stats_stopped_early = 0
         self.stats_admission_blocks = 0
+        self.stats_evictions = 0
+        self.stats_restores = 0
+        self.stats_pages_grown = 0
+        self.stats_pages_grown_multi = 0
+        self.restore_divergences: list = []
         self.stats_decode_dispatches = 0
         self.stats_prefix_hits = 0
         self.stats_prefix_tokens_saved = 0
@@ -279,6 +328,10 @@ class ServeEngine:
         self.close()
         if self._started:
             self.join()
+            # the task handles hold the engine's bound methods: dropped,
+            # the engine (pool, weights) is freed as soon as the caller
+            # drops it, not at the next cyclic garbage collection
+            self._h_intake = self._h_decode = None
         if self._own_rt:
             self.rt.shutdown()
 
@@ -413,8 +466,14 @@ class ServeEngine:
             toks = np.concatenate(
                 [toks, np.repeat(toks[-1:], bpad - bg, axis=0)])
         tj = self.kv.to_dev(toks)
-        chunk = (self.policy.chunk_len(self, grp[0].total_len)
-                 if self.chunk is not None else None)
+        if self.chunk is not None and grp[0].resume \
+                and grp[0].restore_tokens is not None:
+            # prefill-replay restore (ref engine.py:930-938): through the
+            # chunk step at the restore width, whatever the depth
+            chunk = self.restore_chunk
+        else:
+            chunk = (self.policy.chunk_len(self, grp[0].total_len)
+                     if self.chunk is not None else None)
         if chunk is not None:
             rows = init_cache(self.cfg, bpad, self.cache_len,
                               getattr(torch, self.cfg.dtype), self.device)
@@ -534,6 +593,13 @@ class ServeEngine:
             self.stats_prefill_calls += 1
             self.stats_prefill_reqs += len(grp)
         for i, r in enumerate(grp):
+            if r.resume:
+                # checked while still unaccounted: a restore that raises
+                # fails its request (the reference's removes it first, and
+                # its engine then never drains)
+                self._account_restore(grp, r, t0_host[i, 0], rows_cache)
+                remaining.remove(r)
+                continue
             remaining.remove(r)
             r.t_first = now
             first = t0_host[i, 0]
@@ -557,6 +623,66 @@ class ServeEngine:
                     self._inserts.append((r, rows_cache, i, t0))
                     self._pending_prefills -= 1
         self._work.set()
+
+    def _account_restore(self, grp, r: Request, t0, rows_cache):
+        """A restore's prefill is done (ref engine.py:1109-1145): every
+        token it replays was emitted (and stop-checked) before the
+        eviction, so nothing is appended and TTFT keeps its first stamp;
+        the row re-enters at the *head* of admission, so evicted requests
+        outrank new arrivals."""
+        if len(grp) != 1:
+            raise RuntimeError("restore rounds are singleton")
+        if r.restore_tokens is None:
+            # decode-replay: the prefill covered the prompt only and
+            # re-derived the first token; the serve step re-feeds the rest
+            self._check_restore(r, 0, t0)
+            rows_cache = self._replay_generated(r, rows_cache)
+            r.total_len += len(r.out_tokens) - 1
+        else:
+            # prefill-replay: the prefill covered prompt + generated[:-1];
+            # its argmax re-derives the last emitted token
+            self._check_restore(r, len(r.out_tokens) - 1, t0)
+        # the next tick is fed the emitted token (equal to the re-derived
+        # one unless a divergence was recorded)
+        tok = self.kv.to_dev(
+            np.asarray(r.out_tokens[-1], np.int32).reshape(1, 1))
+        r.resume = False
+        with self._lock:
+            self.stats_restores += 1
+            self._inserts.appendleft((r, rows_cache, 0, tok))
+            self._pending_prefills -= 1
+
+    def _check_restore(self, r: Request, k: int, got):
+        """Token ``k`` re-derived by a restore against the emitted one:
+        the reference's assertion under ``strict_restore``, else a
+        recorded divergence (see the class docstring)."""
+        want = int(np.asarray(r.out_tokens[k]))
+        if int(got) == want:
+            return
+        if self.strict_restore:
+            raise AssertionError(f"request {r.rid}: restore diverged from "
+                                 f"the emitted stream at token {k}")
+        with self._lock:
+            self.restore_divergences.append((r.rid, k, want, int(got)))
+
+    def _replay_generated(self, req: Request, rows_cache):
+        """Decode-replay (ref engine.py:1169-1201): re-feed the emitted
+        tokens one at a time through the serve step on the freshly
+        prefilled row cache, advancing it to prompt + generated[:-1] —
+        the computation the ticks ran, one row wide.  One host read for
+        the whole chain, then every re-derived token is checked."""
+        toks = req.out_tokens
+        if len(toks) <= 1:
+            return rows_cache
+        cache, nxts = rows_cache, []
+        for k in range(len(toks) - 1):
+            fed = self.kv.to_dev(np.asarray(toks[k], np.int32).reshape(1, 1))
+            nxt, cache = self.replay(self._params, cache, fed)
+            nxts.append(nxt)
+        got = torch.cat(nxts).reshape(-1).cpu().numpy()
+        for k, g in enumerate(got):
+            self._check_restore(req, k + 1, g)
+        return cache
 
     @staticmethod
     def _hit_stop(req: Request, n_new: int = 1) -> bool:
@@ -666,10 +792,95 @@ class ServeEngine:
             self._rebind_active()
             self._slot_req[s] = req
             req.slot = s
+            self._slot_pos[s] = req.total_len   # next cache write position
+            self._admit_seq += 1
+            self._slot_seq[s] = self._admit_seq
             # the prompt's full pages become reusable: their insert is
             # queued above, before any gather a later match enqueues
             if self.prefix is not None and req.total_len >= self.page_size:
-                self.prefix.insert(req.tokens, req.pages, req.total_len)
+                key = (req.restore_tokens
+                       if req.restore_tokens is not None else req.tokens)
+                self.prefix.insert(key, req.pages, req.total_len)
+
+    def _slot_views(self) -> list:
+        """Read-only live-slot snapshots for policy decisions."""
+        views = []
+        for s in np.flatnonzero(self._active):
+            s = int(s)
+            req = self._slot_req[s]
+            views.append(SlotView(
+                slot=s, rid=req.rid, admit_seq=int(self._slot_seq[s]),
+                pages_held=len(req.pages) if req.pages else 0,
+                next_pos=int(self._slot_pos[s]),
+                emitted=len(req.out_tokens), budget=req.max_new))
+        return views
+
+    def _evict_slot(self, s: int):
+        """Preempt live slot ``s`` (ref engine.py:1407-1435; *which* slot
+        is the policy's call): bring its tokens to the host, hand its
+        written pages to the trie, free the slot and its pages, and
+        resubmit the request as a restore.  Finish before free: the
+        device->host copy of the tokens drains the stream first, and any
+        later write of a freed page is queued behind everything that read
+        it.  The caller refreshes the active mask and block table after
+        its batch of evictions."""
+        req = self._slot_req[s]
+        self._materialise_tokens(req)
+        req.build_restore(self._restore_prefill)
+        self._prefix_insert_slot(req)   # restores re-hit these pages
+        self._release_slot(s)
+        self.stats_evictions += 1
+        with self._lock:
+            self._pending_prefills += 1
+        self.rt.submit(self._prefill_round, [req],
+                       name=f"serve.restore:{req.rid}"
+                            f"@{len(req.out_tokens)}")
+
+    def _page_faults(self):
+        """On-demand growth (ref engine.py:1469-1524, without speculation's
+        lookahead): a live slot whose next write position lies past its
+        pages grows one page at a time, oldest slot first (the default
+        victim spares the oldest, so the head of the line grows before
+        younger slots take the pages it needs).  A dry pool is a block
+        the policy resolves by naming a victim to evict.  Under
+        worst-case reservation nothing ever faults: one comparison per
+        live slot."""
+        grown = evicted = False
+        ps = self.page_size
+        order = sorted(np.flatnonzero(self._active),
+                       key=lambda x: self._slot_seq[x])
+        for s in order:
+            s = int(s)
+            if not self._active[s]:     # evicted as a victim this pass
+                continue
+            req = self._slot_req[s]
+            grown_here = 0
+            while self._active[s] and len(req.pages) * ps <= self._slot_pos[s]:
+                got = self._alloc_pages(1)
+                if got is not None:
+                    self.kv.grow_slot_pages(s, got, base=len(req.pages))
+                    req.pages.extend(got)
+                    self.stats_pages_grown += 1
+                    grown_here += 1
+                    grown = True
+                    continue
+                victim = self.policy.select_victim(
+                    self, self._slot_views(), needy=s)
+                if victim is None or not self._active[int(victim)]:
+                    raise RuntimeError(
+                        f"policy {self.policy.name!r} returned no live "
+                        f"victim for page-starved slot {s} — eviction is "
+                        "the only unblock for an on-demand fault")
+                self._evict_slot(int(victim))
+                evicted = True
+            if grown_here > 1:
+                self.stats_pages_grown_multi += 1
+            if not self._active.any():
+                break
+        if grown or evicted:
+            self.kv.sync_table()
+        if evicted:
+            self._rebind_active()
 
     def _drop_queued_holds(self) -> bool:
         """A blocked head holds nothing, and neither do the rows queued
@@ -722,6 +933,20 @@ class ServeEngine:
 
     def _tick(self):
         kv = self.kv
+        # pre-dispatch policy window (ref engine.py:1541-1556): unforced
+        # preemption, then on-demand page faults; both may evict, and the
+        # tick runs over whatever is still live
+        if self._policy_may_evict:
+            v = self.policy.maybe_evict(self, self._slot_views())
+            if v is not None:
+                self._evict_slot(int(v))
+                self._rebind_active()
+                if self.paged:
+                    kv.sync_table()
+        if self.paged:
+            self._page_faults()
+        if not self._active.any():
+            return                      # everything evicted: no tick
         with self._pool_lock:
             if self.paged:
                 new_tokens, new_cache = self.decode(
@@ -733,6 +958,7 @@ class ServeEngine:
             kv.commit(new_cache)
         self.stats_decode_dispatches += 1
         self._tokens = new_tokens
+        self._slot_pos[self._active] += 1   # each live slot wrote one pos
         if self.sync_ticks and self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         now = time.monotonic()
@@ -782,7 +1008,17 @@ class ServeEngine:
                     and self._pending_prefills == 0)
 
     def _decode_loop(self):
+        """Deviation from the reference's loop (ref engine.py:1791-1809),
+        which clears the doorbell after the insert pass and, with rows
+        queued, goes straight round again: with nothing live and the head
+        blocked on pages, that spins (holding the GIL) until whatever
+        holds the pages lets go.  Here the doorbell is cleared *before*
+        the insert pass, and a pass that admits nothing with nothing live
+        waits on it: every event that can unblock the head (a prefill or
+        restore round queued, a prefix hold dropped, the weights loaded)
+        rings it."""
         while True:
+            self._work.clear()
             self._do_inserts()
             if self._active.any():
                 self._tick()
@@ -790,11 +1026,6 @@ class ServeEngine:
             self._last_tick_t = None     # idle gap: not tick jitter
             if self._drained():
                 break
-            self._work.clear()
-            with self._lock:
-                pending = bool(self._inserts)
-            if pending:
-                continue
             # nothing live: a monitored wait frees this core for prefill /
             # weights / intake work
             io.wait(self._work, self.idle_wait)
@@ -824,10 +1055,11 @@ class ServeEngine:
             "prefill_chunk_tasks": self.stats_prefill_chunk_tasks,
             "stopped_early": self.stats_stopped_early,
             "admission_blocks": self.stats_admission_blocks,
-            "evictions": 0,
-            "restores": 0,
-            "pages_grown": 0,
-            "pages_grown_multi": 0,
+            "evictions": self.stats_evictions,
+            "restores": self.stats_restores,
+            "pages_grown": self.stats_pages_grown,
+            "pages_grown_multi": self.stats_pages_grown_multi,
+            "restore_divergences": len(self.restore_divergences),
             "decode_dispatches": self.stats_decode_dispatches,
             "dispatches_per_token": (
                 self.stats_decode_dispatches
@@ -860,4 +1092,5 @@ class ServeEngine:
         return out
 
 
-__all__ = ["ServeEngine", "auto_page_size", "percentile"]
+__all__ = ["ServeEngine", "PORT_ONLY_STATS", "auto_page_size",
+           "percentile"]

@@ -108,6 +108,19 @@ class KVState:
         insert_row[:n_shared] = GARBAGE_PAGE
         return self.to_dev(insert_row)
 
+    def grow_slot_pages(self, slot: int, ids, *, base: int) -> None:
+        """On-demand growth (``repro/serve/kvstate.py::grow_slot_pages``):
+        bind physical pages ``ids`` at the slot's logical pages ``[base,
+        base + len(ids))``, where its next write position crossed a page
+        boundary mid-decode.  Host-side only; the caller publishes one
+        :meth:`sync_table` per tick over every slot grown in it."""
+        if not (0 <= base and base + len(ids) <= self.pages_per_slot):
+            raise ValueError(f"slot {slot}: grow [{base}, {base + len(ids)})"
+                             f" exceeds {self.pages_per_slot} logical pages")
+        if (self._table[slot, base:base + len(ids)] != GARBAGE_PAGE).any():
+            raise ValueError(f"slot {slot}: growing over live table entries")
+        self._table[slot, base:base + len(ids)] = ids
+
     def release_slot_pages(self, slot: int) -> None:
         """Re-point a finished slot's table row at the garbage page so the
         dead slot's frozen-pos writes land nowhere.  Host-side only; the

@@ -4,8 +4,11 @@ port's one-shot tokens exactly under
 seeded random arrivals and slot churn (the ``tests/test_serve_engine.py``
 pattern), on UMT and on the baseline runtime; they equal the reference
 ``repro.serve.ServeEngine``'s tokens on the same weights; ``stats()``
-carries the reference's keys; options of later slices raise; and the CLI
-prints the reference's JSON line."""
+carries the reference's keys (and the port's ``PORT_ONLY_STATS``); options
+of later slices raise; and the CLI prints the reference's JSON line.
+Every engine drains under a deadline (``repro_torch.serve.drain``): a
+wedged engine fails with its stats and every thread's stack instead of
+hanging the run."""
 import json
 import os
 import re
@@ -22,13 +25,14 @@ import torch
 from repro.configs import get
 from repro.models.lm import init_params as jax_init_params
 from repro_torch.params import params_from_numpy
-from repro_torch.serve import Request, ServeEngine
+from repro_torch.serve import PORT_ONLY_STATS, Request, ServeEngine, drain
 from repro_torch.steps import (greedy_oneshot, make_prefill_step,
                                make_serve_step)
 
 ROOT = Path(__file__).resolve().parents[1]
 N_REQ, PLEN, GEN_MAX = 6, 8, 6
 CACHE_LEN = 16
+TIMEOUT_S = 120
 
 
 ARCHS = ["qwen2.5-14b", "minicpm3-4b", "mamba2-780m", "mixtral-8x7b"]
@@ -52,16 +56,12 @@ def _run(b, reqs, gaps=None, **kw):
     kw.setdefault("cache_len", CACHE_LEN)
     kw.setdefault("n_cores", 4)
     kw.setdefault("device", "cpu")
-    with ServeEngine(b["cfg"], b["params"], **kw) as eng:
-        for i, r in enumerate(reqs):
-            eng.submit(r)
-            if gaps is not None and gaps[i] > 0:
-                time.sleep(gaps[i])
-        eng.close()
-        eng.join()
-        stats = eng.stats()
-        pager = eng.pager
-    return stats, pager
+    eng = ServeEngine(b["cfg"], b["params"], **kw).start()
+    for i, r in enumerate(reqs):
+        eng.submit(r)
+        if gaps is not None and gaps[i] > 0:
+            time.sleep(gaps[i])
+    return drain(eng, reqs, TIMEOUT_S), eng.pager
 
 
 @pytest.mark.parametrize("seed,umt,page_size,paged_kernel", [
@@ -121,16 +121,38 @@ def test_weights_task_and_response_sink(built):
     seen = []
     reqs = [Request(i, built["prompts"][i], max_new_tokens=3)
             for i in range(2)]
-    with ServeEngine(built["cfg"], lambda: built["params"], slots=2,
-                     cache_len=CACHE_LEN, n_cores=4, device="cpu",
-                     response_sink=seen.append, paged_kernel=True) as eng:
-        for r in reqs:
-            eng.submit(r)
-        eng.close()
-        eng.join()
+    eng = ServeEngine(built["cfg"], lambda: built["params"], slots=2,
+                      cache_len=CACHE_LEN, n_cores=4, device="cpu",
+                      response_sink=seen.append, paged_kernel=True).start()
+    for r in reqs:
+        eng.submit(r)
+    drain(eng, reqs, TIMEOUT_S)
     for r in reqs:
         assert np.array_equal(r.wait(), built["ref"][r.rid, :3])
     assert sorted(r.rid for r in seen) == [0, 1]
+
+
+def test_a_shut_down_engine_is_freed_when_dropped(built):
+    """An engine holds its pool and weights: once shut down and dropped
+    it must be freed at once, not at the next cyclic collection (its task
+    handles hold its bound methods)."""
+    import gc
+    import weakref
+
+    reqs = [Request(i, built["prompts"][i], max_new_tokens=3)
+            for i in range(2)]
+    eng = ServeEngine(built["cfg"], built["params"], slots=2,
+                      cache_len=CACHE_LEN, n_cores=4, device="cpu").start()
+    for r in reqs:
+        eng.submit(r)
+    drain(eng, reqs, TIMEOUT_S)
+    ref = weakref.ref(eng)
+    gc.disable()
+    try:
+        del eng
+        assert ref() is None, "a dropped engine is kept alive by a cycle"
+    finally:
+        gc.enable()
 
 
 def test_port_engine_equals_reference_engine(built):
@@ -144,26 +166,23 @@ def test_port_engine_equals_reference_engine(built):
     gens = [GEN_MAX, 3, 5, 1, GEN_MAX, 2]
     jreqs = [JRequest(i, built["prompts"][i], max_new_tokens=gens[i])
              for i in range(N_REQ)]
-    with JServeEngine(built["cfg"], built["jp"], slots=3,
-                      cache_len=CACHE_LEN, n_cores=4, page_size=4,
-                      paged_kernel=True) as eng:
-        for r in jreqs:
-            eng.submit(r)
-        eng.close()
-        eng.join()
-        jstats = eng.stats()
+    eng = JServeEngine(built["cfg"], built["jp"], slots=3,
+                       cache_len=CACHE_LEN, n_cores=4, page_size=4,
+                       paged_kernel=True).start()
+    for r in jreqs:
+        eng.submit(r)
+    jstats = drain(eng, jreqs, TIMEOUT_S)
     treqs = [Request(i, built["prompts"][i], max_new_tokens=gens[i])
              for i in range(N_REQ)]
     tstats, _ = _run(built, treqs, page_size=4, paged_kernel=True)
     for jr, tr in zip(jreqs, treqs):
         assert list(np.asarray(tr.wait())) == list(np.asarray(jr.wait()))
-    assert set(tstats) == set(jstats)
+    assert set(tstats) - set(PORT_ONLY_STATS) == set(jstats)
     assert tstats["prefix_cache"] == jstats["prefix_cache"]
 
 
 @pytest.mark.parametrize("kw", [
-    dict(spec="ngram"), dict(policy="ondemand"), dict(tp=True),
-    dict(mesh=object())])
+    dict(spec="ngram"), dict(tp=True), dict(mesh=object())])
 def test_options_of_later_slices_raise(built, kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ServeEngine(built["cfg"], built["params"], device="cpu", **kw)
@@ -195,7 +214,9 @@ def _reference_json_keys():
 @pytest.mark.parametrize("arch,extra", [
     *((a, ()) for a in ARCHS),
     ("qwen2.5-14b", ("--chunk", "3")),
-    ("minicpm3-4b", ("--chunk", "5", "--prefix-cache", "on"))])
+    ("minicpm3-4b", ("--chunk", "5", "--prefix-cache", "on")),
+    ("qwen2.5-14b", ("--policy", "ondemand", "--page-size", "2", "--pages",
+                     "10"))])
 def test_cli_prints_the_reference_json_line(arch, extra):
     out = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.serve", "--tiny",
@@ -215,3 +236,6 @@ def test_cli_prints_the_reference_json_line(arch, extra):
         c = int(extra[extra.index("--chunk") + 1])
         assert row["prefill_chunks"] == -(-8 // c) * row["prefill_calls"] > 0
     assert row["prefix_cache"] is (arch in ("qwen2.5-14b", "minicpm3-4b"))
+    if "--policy" in extra:     # prompts of 4 full pages: every slot grows
+        assert row["policy"] == "ondemand" and row["pages_grown"] > 0
+        assert row["restores"] == row["evictions"]

@@ -10,7 +10,8 @@ tokens with request 0 (a system prompt), which is served to completion
 first so its pages are in the trie when the rest arrive.  Tokens are
 held exactly: to the port's one-shot tokens (the cold leg) and to the
 reference engine's; the prefix and chunk counters equal the reference
-engine's.
+engine's.  Every engine drains under a deadline
+(``repro_torch.serve.drain``).
 """
 import time
 
@@ -22,12 +23,14 @@ import torch
 from repro.configs import get
 from repro.models.lm import init_params as jax_init_params
 from repro_torch.params import params_from_numpy
-from repro_torch.serve import Request, ServeEngine
+from repro_torch.serve import PORT_ONLY_STATS, Request, ServeEngine, drain
+from repro_torch.serve.watchdog import abandon
 from repro_torch.steps import (greedy_oneshot, make_prefill_step,
                                make_serve_step)
 
 N_REQ, PLEN, GEN, N_SHARED, PS = 6, 12, 4, 9, 4
 CACHE_LEN = PLEN + GEN
+TIMEOUT_S = 120
 COUNTERS = ("prefix_hits", "prefix_tokens_saved", "cow_forks",
             "prefill_chunks", "prefill_chunk_tasks", "prefill_calls",
             "prefix_cache")
@@ -49,19 +52,15 @@ def built(request):
 
 def _serve(eng, reqs, gaps=0.0):
     """Request 0 to completion first (its pages warm the trie), then the
-    rest."""
+    rest; the deadline covers both waits."""
     eng.start()
     eng.submit(reqs[0])
-    reqs[0].wait(timeout=120)
+    if not reqs[0].done.wait(TIMEOUT_S):
+        abandon(eng, f"request 0 not done after {TIMEOUT_S} s")
     for r in reqs[1:]:
         eng.submit(r)
         time.sleep(gaps)
-    eng.close()
-    eng.join()
-    stats = eng.stats()
-    pager = eng.pager
-    eng.shutdown()
-    return stats, pager
+    return drain(eng, reqs, TIMEOUT_S), eng.pager
 
 
 def _port(b, rt=None, **kw):
@@ -104,7 +103,7 @@ def test_prefix_hit_equals_cold_leg_and_reference_engine(built, chunk):
     assert stats["cow_forks"] == N_REQ - 1
     assert {k: stats[k] for k in COUNTERS} == {k: jstats[k]
                                                 for k in COUNTERS}
-    assert set(stats) == set(jstats)
+    assert set(stats) - set(PORT_ONLY_STATS) == set(jstats)
     assert pager.live_refs == 0
     assert pager.used_pages == pager.cached_pages > 0
 
@@ -154,6 +153,73 @@ def test_tight_pool_drops_the_hold_and_stays_exact(built):
         assert np.array_equal(toks[i], built["ref"][i])
     assert stats["max_live_slots"] == 1
     assert pager.live_refs == 0 and pager.used_pages == pager.cached_pages
+
+
+def test_blocked_head_waits_while_a_hit_holds_its_pages(built):
+    """Forced interleaving: room for one request; a prefix hit's chain is
+    held (its chunk step waits on an event) while the hit holds two of
+    the trie's pages, and a cold request queued behind it becomes the
+    head of admission, blocked on those pages with nothing live.  The
+    decode driver must wait on its doorbell, not spin: over a 0.5 s hold
+    its insert pass runs a few times (one per ``idle_wait`` at most),
+    where a spin runs it thousands of times.  Released, both requests
+    finish exact and no page leaks."""
+    import threading
+
+    b = built
+    cold = np.random.default_rng(5).integers(
+        0, b["cfg"].vocab, (1, PLEN)).astype(np.int32)
+    cold_ref = greedy_oneshot(make_prefill_step(b["cfg"], cache_len=CACHE_LEN),
+                              make_serve_step(b["cfg"]), b["params"],
+                              torch.tensor(cold), None, GEN).numpy()[0]
+    need = -(-(PLEN + GEN - 1) // PS)
+    eng = ServeEngine(b["cfg"], b["params"], slots=3, cache_len=CACHE_LEN,
+                      n_cores=4, page_size=PS, paged_kernel=True,
+                      num_pages=need + 1, prefix_cache="on",
+                      device="cpu").start()
+    reqs = [Request(0, b["prompts"][0], max_new_tokens=GEN),
+            Request(1, b["prompts"][1], max_new_tokens=GEN),
+            Request(2, cold[0], max_new_tokens=GEN)]
+    eng.submit(reqs[0])
+    if not reqs[0].done.wait(TIMEOUT_S):
+        abandon(eng, "request 0 not done")
+    entered, go = threading.Event(), threading.Event()
+    chunk = eng.chunk
+
+    def held_chunk(*a, **kw):
+        entered.set()
+        assert go.wait(TIMEOUT_S)
+        return chunk(*a, **kw)
+    eng.chunk = held_chunk
+    passes = [0]
+    do_inserts = eng._do_inserts
+
+    def counted():
+        passes[0] += 1
+        return do_inserts()
+    eng._do_inserts = counted
+    eng.submit(reqs[1])                 # the hit: holds 2 pages, held
+    assert entered.wait(TIMEOUT_S)
+    eng.submit(reqs[2])                 # cold: blocks behind the hold
+    t0 = time.monotonic()
+    while eng._blocked_head != 2:
+        if time.monotonic() - t0 > TIMEOUT_S:
+            go.set()
+            abandon(eng, "the cold request never blocked")
+        time.sleep(0.005)
+    n0 = passes[0]
+    time.sleep(0.5)
+    n_held = passes[0] - n0
+    go.set()
+    stats = drain(eng, reqs, TIMEOUT_S)
+    assert n_held <= 0.5 / eng.idle_wait + 20, (
+        f"{n_held} insert passes in 0.5 s while blocked: the driver spins")
+    assert np.array_equal(reqs[0].wait(), b["ref"][0])
+    assert np.array_equal(reqs[1].wait(), b["ref"][1])
+    assert np.array_equal(reqs[2].wait(), cold_ref)
+    assert stats["prefix_hits"] == 1 and stats["admission_blocks"] >= 1
+    assert eng.pager.live_refs == 0
+    assert eng.pager.used_pages == eng.pager.cached_pages
 
 
 # ------------------------------------------------- steps and block table
