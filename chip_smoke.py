@@ -50,7 +50,13 @@ Phases (each raises on failure, so the script exits non-zero):
    phases' traffic into a pool of two worst cases (``ONDEMAND_PAGES``),
    so that slots grow page by page and the youngest is evicted and
    restored — by prefill-replay through 512-token chunks on qwen2.5-14b,
-   by decode-replay through the serve step on mamba2-780m.
+   by decode-replay through the serve step on mamba2-780m; then
+   speculative decoding (``qwen2.5-14b-spec``, full width and depth,
+   ``spec_k=4``, 16 requests, each prompt length four times): three legs
+   on one set of weights with the same prompts and arrivals, (a) spec
+   off, (b) a drafter that never drafts (every window one token), (c)
+   an oracle drafter of leg (b)'s continuation with one rejected lane
+   every third window (``serve_spec``).
    32 tokens each, staggered arrivals; each phase's requests must finish
    within ``DRAIN_S`` (``repro_torch.serve.drain``).  Launch counters are zeroed right
    before each phase and read right after; the engine's steps are counted
@@ -83,6 +89,17 @@ Phases (each raises on failure, so the script exits non-zero):
    their bars: pages grown, evictions, restores = evictions, no page
    leaked, and every restore that re-derived another token than the one
    emitted (``restore_divergences``) within the token tolerance there.
+   The verify check (``verify_check``; the spec phase and minicpm3-4b's
+   phase) feeds the verify step the emitted tokens in windows of
+   ``VERIFY_S`` lanes over the paged pools and holds every lane's logits
+   within ``REL_TOL`` of the forward's, with the window written one
+   position late (and, on qwen2.5-14b, the in-window mask dropped)
+   planted; the spec phase's bars: every leg's tokens within
+   ``LOGIT_TOL``, leg (c) drafts, accepts and rolls back in fewer
+   dispatches than leg (a), no page leaked, and leg (c) rerun with the
+   engine committing its drafts must fail the token check.  Its launch
+   identities hold per leg: the paged decode only in leg (a), a verify
+   call as a tick for RMSNorm.
 5. cli    — ``repro_torch.launch.serve`` on the card at full width, as
    an engine (paged kernel, ``--chunk 512 --prefix-cache on``) and one
    shot: each run's kernels launched, and both token sets held by the
@@ -222,6 +239,9 @@ HIT_FAULTS = ("gather_table_shifted", "fork_not_copied", "tail_q_off_plus_1")
 DRAIN_S = 600
 RESTORE_FAULTS = ("restore_drops_last_token", "grown_page_not_published",
                   "restore_state_dropped")
+# The verify check's window: the spec phase's spec_k drafts + the last
+# committed token (``verify_check``).
+VERIFY_S = 5
 # The SSM phase's conv weights are scaled by this gain from the repo's
 # normal 0.02 to std 1.0, so that the checks can see a fault of the scan
 # or of the state.  At 0.02 the depthwise conv (fan-in 4) outputs x, B
@@ -258,6 +278,11 @@ PREFIX_TRAFFIC = dict(slots=16, cache_len=2080, n_req=32, gen=32,
 # request against prompts of 32-256 pages): rehearsed on the CPU with the
 # tiny configs, same lengths and arrivals, it rarely evicted at all.
 ONDEMAND_PAGES = 521
+# Speculative decoding: 16 requests, each prompt length four times, the
+# same prompts and arrivals in every leg (``serve_spec``): a service that
+# turns speculation on for its decode-bound streams.
+SPEC_TRAFFIC = dict(slots=16, cache_len=2080, lens=(256, 512, 1024, 2048),
+                    each=True, n_req=16, gen=32)
 # Per phase: decode attention through its paged kernel?  For each kernel
 # of the phase, the engine step whose calls its launches follow once per
 # layer (the decode tick or the one-shot prefill, counted by wrapping the
@@ -273,8 +298,11 @@ PHASES = {
     "qwen2.5-14b": dict(paged_kernel=True, norms=2, traffic=TRAFFIC,
                         kernels={"paged_decode_attention": "decode",
                                  "flash_attention": "prefill"}),
+    # minicpm3-4b also holds the MLA verify mode over its paged latent
+    # pools (``verify_check``), with the window-late fault planted
     "minicpm3-4b": dict(paged_kernel=True, norms=4, traffic=TRAFFIC,
-                        kernels={"paged_mla_decode_attention": "decode"}),
+                        kernels={"paged_mla_decode_attention": "decode"},
+                        verify_faults=("window_late",)),
     "mamba2-780m": dict(paged_kernel=False, norms=2, traffic=TRAFFIC,
                         kernels={"ssd_scan": "prefill"}),
     # 16 of 32 layers: full depth is 93.4 GB of bf16 weights, more than
@@ -321,6 +349,25 @@ PHASES = {
         arch="mamba2-780m", paged_kernel=False, norms=2, traffic=TRAFFIC,
         policy="ondemand", num_pages=ONDEMAND_PAGES,
         kernels={"ssd_scan": "prefill"}),
+    # speculative decoding, full width and depth, three legs on one set of
+    # weights (``serve_spec``): (a) spec off, paged-kernel decode ticks;
+    # (b) and (c) every tick a verify dispatch spec_k + 1 lanes wide
+    # (gather path, no paged kernel: ``spec_kernels``), (b) drafting
+    # nothing (one-token windows), (c) an oracle drafter with a rejected
+    # lane every third window.  Planted: the verify window written one
+    # position late (lane j's K/V at pos + j + 1; minicpm3-4b's verify
+    # check too) and the in-window causal mask dropped (lane j also sees
+    # lane j + 1), each in ``verify_check``; and the engine committing
+    # its drafts instead of the verify step's argmaxes, in a rerun of leg
+    # (c) that must fail the token check (its corrupted lanes land in the
+    # stream)
+    "qwen2.5-14b-spec": dict(
+        arch="qwen2.5-14b", paged_kernel=True, norms=2, traffic=SPEC_TRAFFIC,
+        spec_k=4, verify_faults=("window_late", "mask_dropped"),
+        kernels={"paged_decode_attention": "decode",
+                 "flash_attention": "prefill"},
+        spec_kernels={"paged_decode_attention": None,
+                      "flash_attention": "prefill"}),
 }
 
 
@@ -1272,17 +1319,20 @@ def arch_of(cfg):
     return cfg.name.removesuffix("-tiny")
 
 
-def steps_alone(cfg, params, smi, paged_kernel, traffic, ps=8):
+def steps_alone(cfg, params, smi, paged_kernel, traffic, ps=8,
+                verify_k=None):
     """Where a tick's time goes: one decode tick of the phase's shapes
     (``traffic``'s slots, cache_len and prompt lengths) and one prefill of
     its longest prompt, run alone (no engine, no other thread), host-timed
     around a synchronize, and the decode tick once more under
-    torch.profiler for the device's busy time by kernel."""
+    torch.profiler for the device's busy time by kernel.  With
+    ``verify_k``: the same for one verify dispatch over the same live
+    slots at S=1 and at S=verify_k+1 ("verify alone")."""
     import numpy as np
     import torch
 
     from repro_torch.steps import (init_paged_slot_cache, make_decode_step,
-                                   make_prefill_step)
+                                   make_prefill_step, make_verify_step)
 
     slots, cache_len = traffic["slots"], traffic["cache_len"]
     rng = np.random.default_rng(5)
@@ -1316,20 +1366,43 @@ def steps_alone(cfg, params, smi, paged_kernel, traffic, ps=8):
         torch.cuda.synchronize()
         return (time.perf_counter() - t) / n * 1e3
 
-    tick_ms = host_ms(tick, 5)
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CPU,
-                        torch.profiler.ProfilerActivity.CUDA]) as prof:
-        tick()
-        torch.cuda.synchronize()
-    by_name: dict = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            ms, n = by_name.get(e.name, (0.0, 0))
-            by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
-    rows = sorted(((k, ms, n) for k, (ms, n) in by_name.items()),
-                  key=lambda r: -r[1])
-    busy = sum(r[1] for r in rows)          # one stream: kernels serialise
+    def measured(fn):
+        """Host ms over 5 calls; device busy ms and (kernel, ms, count)
+        rows, largest first, from one more call under torch.profiler."""
+        host = host_ms(fn, 5)
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU,
+                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        by_name: dict = {}
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                ms, n = by_name.get(e.name, (0.0, 0))
+                by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3,
+                                   n + 1)
+        rows = sorted(((k, ms, n) for k, (ms, n) in by_name.items()),
+                      key=lambda r: -r[1])
+        # one stream: kernels serialise
+        return host, sum(r[1] for r in rows), rows
+
+    tick_ms, busy, rows = measured(tick)
+    verified, lane0 = [], []
+    if verify_k:
+        verify = make_verify_step(cfg, cache_len=cache_len, page_size=ps)
+        # positions kept inside the table: pos + S <= cache_len
+        vpos = torch.tensor(np.minimum(pos, cache_len - verify_k - 1)
+                            .astype(np.int32), device="cuda")
+        win = torch.tensor(rng.integers(0, cfg.vocab, (slots, verify_k + 1))
+                           .astype(np.int32), device="cuda")
+        for s in (1, verify_k + 1):
+            n_tok = torch.full((slots,), s, dtype=torch.int32,
+                               device="cuda")
+
+            def one():
+                return verify(params, cache, win[:, :s], vpos, n_tok, table)
+            verified.append((s, *measured(one)))
+            lane0.append(one()[0][:, 0])    # the same lane-0 token and pos
     del cache
     prefill = make_prefill_step(cfg, cache_len=cache_len)
     plen = max(traffic["lens"])
@@ -1343,6 +1416,18 @@ def steps_alone(cfg, params, smi, paged_kernel, traffic, ps=8):
         f"{pre_ms:.2f} ms host")
     for key, ms, n in rows[:8]:
         log(f"  tick kernel {ms:8.3f} ms x{n:5d}  {key[:90]}")
+    if lane0:
+        log(f"verify alone ({cfg.name}): lane 0's argmax (the same token at "
+            f"the same position) equal at S=1 and S={verify_k + 1} in "
+            f"{int((lane0[0] == lane0[1]).sum())}/{slots} slots")
+    for s, host, vbusy, vrows in verified:
+        log(f"verify alone ({cfg.name}, {smi}): one verify dispatch, S={s} "
+            f"over {slots} live slots, extent {cache_len} (gather path): "
+            f"{host:.2f} ms host; device busy {vbusy:.2f} ms (idle "
+            f"{max(0.0, 1 - vbusy / host) * 100:.0f} %); the decode tick "
+            f"beside it {tick_ms:.2f} / {busy:.2f} ms")
+        for key, ms, n in vrows[:8]:
+            log(f"  verify S={s} kernel {ms:8.3f} ms x{n:5d}  {key[:90]}")
 
 
 def prefix_steps_alone(cfg, params, smi, traffic, chunk, ps=8):
@@ -1517,8 +1602,11 @@ def planted(fault):
 
     rope, kern, mla = (att.apply_rope, att.paged_decode_attention,
                        att.paged_mla_decode_attention)
+    from repro_torch.serve import engine
+
     scan, ssm_apply = ssm.ssd_scan, blocks.ssm_apply
     flash, route = att.flash_attention, moe.route
+    scatter_window, verify = att.page_scatter_window, att.verify_attention
 
     def rope_pos_plus_1(x, pos, theta=10_000.0):
         return rope(x, pos + 1, theta)
@@ -1574,6 +1662,16 @@ def planted(fault):
         # the reference's placement: the last ring positions unrolled
         return t[:, t.shape[1] - ring:]
 
+    def window_late(pool, table, ps, pos, update, n_tok):
+        return scatter_window(pool, table, ps, pos + 1, update, n_tok)
+
+    def mask_dropped(q, k, v, pos, **kw):
+        # lane j's mask ends at pos + j + 1: it sees lane j + 1
+        return verify(q, k, v, pos + 1, **kw)
+
+    def commits_drafts(draft, argmax):
+        return len(draft), list(draft) + [int(argmax[len(draft)])]
+
     def roll(pos):
         return pos.roll(1)
 
@@ -1602,6 +1700,9 @@ def planted(fault):
         "moe_second_pick_dropped": ((moe, "route", moe_second_pick_dropped),),
         "moe_ids_permuted": ((moe, "route", moe_ids_permuted),),
         "ring_not_rolled": ((att, "ring_from_prefill", ring_not_rolled),),
+        "window_late": ((att, "page_scatter_window", window_late),),
+        "mask_dropped": ((att, "verify_attention", mask_dropped),),
+        "commits_drafts": ((engine, "accept_window", commits_drafts),),
     }
     return swapped(*swaps[fault])
 
@@ -1677,8 +1778,7 @@ def path_check(cfg, params, prompts, toks, ref, device, paged_kernel,
                                   device)
     if names is None:
         names = [None, *PLANTED[phase or arch_of(cfg)]]
-    acc = {n: {"d2": 0.0, "r2": 0.0, "e2": 0.0, "rel_max": 0.0, "gap": 0.0,
-               "same": 0} for n in names}
+    acc = {n: new_tally() for n in names}
     gen = len(toks[0])
 
     def zero_page(rows, k):
@@ -1837,28 +1937,115 @@ def path_check(cfg, params, prompts, toks, ref, device, paged_kernel,
                 continue
             if n is None:
                 built = lg
-            a = acc[n]
-            for s, i in enumerate(idx):
-                d = lg[s] - ref[i]
-                c = ref[i] - ref[i].mean(dim=-1, keepdim=True)
-                d2, r2 = d.square().sum(-1), c.square().sum(-1)
-                a["d2"] += d2.sum().item()
-                a["r2"] += r2.sum().item()
-                a["e2"] += (lg[s] - built[s]).square().sum().item()
-                a["rel_max"] = max(a["rel_max"],
-                                   (d2 / r2).sqrt().max().item())
-                am = lg[s].argmax(-1)
-                gap = ref[i].max(-1).values - ref[i].gather(
-                    1, am[:, None])[:, 0]
-                a["gap"] = max(a["gap"], gap.max().item())
-                a["same"] += int((am.cpu() == torch.as_tensor(
-                    toks[i]).long()).sum())
+            tally(acc[n], lg, built, ref, toks, idx)
         del clean
     if ref is None:
         return {}
+    return summary(acc)
+
+
+def new_tally():
+    return {"d2": 0.0, "r2": 0.0, "e2": 0.0, "rel_max": 0.0, "gap": 0.0,
+            "same": 0}
+
+
+def tally(a, lg, built, ref, toks, idx):
+    """Adds one round of a step path's logits ``lg`` (round, gen, V) to
+    ``a``: against the forward's ``ref`` of requests ``idx`` and against
+    the path as built (``built``)."""
+    import torch
+
+    for s, i in enumerate(idx):
+        d = lg[s] - ref[i]
+        c = ref[i] - ref[i].mean(dim=-1, keepdim=True)
+        d2, r2 = d.square().sum(-1), c.square().sum(-1)
+        a["d2"] += d2.sum().item()
+        a["r2"] += r2.sum().item()
+        a["e2"] += (lg[s] - built[s]).square().sum().item()
+        a["rel_max"] = max(a["rel_max"], (d2 / r2).sqrt().max().item())
+        am = lg[s].argmax(-1)
+        gap = ref[i].max(-1).values - ref[i].gather(1, am[:, None])[:, 0]
+        a["gap"] = max(a["gap"], gap.max().item())
+        a["same"] += int((am.cpu() == torch.as_tensor(toks[i]).long()).sum())
+
+
+def summary(acc):
+    """name -> {"rel": aggregate relative logit error, "rel_max": worst
+    position, "effect": distance from the path as built, "gap": worst gap
+    of the path's argmax under the forward, "same": argmaxes equal to the
+    emitted tokens}."""
     return {n: {"rel": (a["d2"] / a["r2"]) ** 0.5, "rel_max": a["rel_max"],
                 "effect": (a["e2"] / a["r2"]) ** 0.5, "gap": a["gap"],
                 "same": a["same"]} for n, a in acc.items()}
+
+
+def verify_check(cfg, params, prompts, toks, ref, device, names, slots=16,
+                 cache_len=2080, ps=8, s=VERIFY_S):
+    """The verify step teacher-forced: each prompt through the prefill
+    step and the paged insert, as the engine admits it; then the emitted
+    tokens in windows of ``s`` lanes (a committed token and the s - 1
+    after it as drafts, every lane accepted) at offsets 0, s, 2s, ... of
+    the stream, one verify forward a window over ``slots`` requests a
+    round, paged with the gather path as the engine's verify step runs
+    it; the last window is short (masked lanes).  Lane j's logits are held
+    to the forward's ``ref`` at that position, the first token's to the
+    prefill's — as built and under each planted fault of ``names``.
+    Returns ``summary``'s dict."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models.lm import forward
+    from repro_torch.steps import (cast_tree, init_paged_slot_cache,
+                                   make_batched_insert_step,
+                                   make_prefill_step)
+
+    p = cast_tree(params, cfg.dtype)
+    prefill = make_prefill_step(cfg, cache_len=cache_len)
+    insert = make_batched_insert_step(cfg, cache_len=cache_len, page_size=ps)
+    pps = cache_len // ps
+    g = torch.Generator().manual_seed(4)
+    own = (1 + torch.randperm(slots * pps, generator=g)).int().view(slots,
+                                                                    pps)
+    cache = init_paged_slot_cache(cfg, slots, cache_len,
+                                  getattr(torch, cfg.dtype), ps,
+                                  1 + slots * pps, device)
+    acc = {n: new_tally() for n in names}
+    gen = len(toks[0])
+    for r0 in range(0, len(prompts), slots):
+        idx = list(range(r0, min(r0 + slots, len(prompts))))
+        pad = slots - len(idx)
+        table = torch.cat([own[:len(idx)],
+                           torch.zeros((pad, pps), dtype=torch.int32)])
+        pages = {"table": table.to(device), "page_size": ps,
+                 "cache_len": cache_len, "kernel": False}
+        rows = [prefill(p, torch.tensor(prompts[i][None], device=device))
+                for i in idx]
+        first = torch.stack([lg[0, -1].float() for _, lg in rows])
+        feed = torch.zeros((slots, gen + s), dtype=torch.int32)
+        feed[:len(idx), :gen] = torch.tensor(np.stack([toks[i] for i in idx]))
+        feed = feed.to(device)
+        plen = torch.tensor([len(prompts[i]) for i in idx] + [0] * pad,
+                            dtype=torch.int32, device=device)
+        for n in names:
+            for slot, (rc, _) in enumerate(rows):
+                cache = insert(cache, rc, 0, slot, pages["table"][slot])
+            lanes = [first[:, None]]
+            with planted(n):
+                for j0 in range(0, gen - 1, s):
+                    k = min(s, gen - 1 - j0)
+                    n_tok = torch.tensor([k] * len(idx) + [0] * pad,
+                                         dtype=torch.int32, device=device)
+                    o = forward(p, cfg, feed[:, j0:j0 + s], mode="verify",
+                                pos=plen + j0, cache=cache,
+                                cache_len=cache_len, pages=pages,
+                                n_tok=n_tok)
+                    lanes.append(o["logits"][:len(idx), :k].float())
+            lg = torch.cat(lanes, dim=1)                # (round, gen, V)
+            if n is None:
+                built = lg
+            tally(acc[n], lg, built, ref, toks, idx)
+        del rows
+    return summary(acc)
 
 
 def moe_layers(cfg):
@@ -2083,6 +2270,52 @@ def prefix_prompts(cfg, traffic, rng):
     return plist, plan
 
 
+def weights_task(cfg, seed, device, box):
+    """The engine's weights task: seeded weights made on ``device`` into
+    ``box["params"]``, the seconds it took into ``box["weights_s"]``."""
+    import torch
+
+    from repro_torch.models.lm import init_params
+
+    def weights():
+        t = time.perf_counter()
+        box["params"] = init_params(
+            cfg, torch.Generator(device).manual_seed(seed), device)
+        for blk in box["params"]["blocks"]:
+            if "conv_w" in blk["mixer"]:
+                blk["mixer"]["conv_w"].mul_(SSM_CONV_W_GAIN)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        box["weights_s"] = time.perf_counter() - t
+        return box["params"]
+    return weights
+
+
+def forced_logits(cfg, params, prompt, toks, device):
+    """The forward of the checks over prompt + toks[:-1], f32 logits
+    (len(toks), V) at the positions that predict each of ``toks``."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models.lm import forward
+
+    seq = np.concatenate([prompt, toks[:-1]])
+    with reference_forward():
+        lg = forward(params, cfg, torch.tensor(seq[None], device=device),
+                     mode="train")["logits"][0, len(prompt) - 1:]
+    return lg.float()
+
+
+def log_checks(what, name, res, total):
+    for n, m in res.items():
+        log(f"{what} [{name}, {n or 'as built'}]: worst position rel err "
+            f"{m['rel_max']:.4f} (tolerance {REL_TOL}), all positions "
+            f"{m['rel']:.4f}, off the path as built by {m['effect']:.4f}; "
+            f"its argmax trails the forward's by at most {m['gap']:.4f} "
+            f"(token tolerance {LOGIT_TOL}); {m['same']}/{total} equal the "
+            "engine's tokens")
+
+
 def serve(cfg, smi, device="cuda", seed=0, name=None):
     """Drive one main path (phase ``name``, by default the config's
     arch); returns (launch counts, engine stats, engine step calls)."""
@@ -2093,7 +2326,7 @@ def serve(cfg, smi, device="cuda", seed=0, name=None):
     import torch
 
     from repro_torch import kernels
-    from repro_torch.models.lm import forward, init_params
+    from repro_torch.models.lm import forward
     from repro_torch.serve import Request, ServeEngine, drain
     from repro_torch.serve.watchdog import abandon
     from repro_torch.steps import (greedy_oneshot, make_prefill_step,
@@ -2124,21 +2357,8 @@ def serve(cfg, smi, device="cuda", seed=0, name=None):
         prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32)
                    for n in lens]
     gaps = rng.exponential(0.03, n_req)
-
     box = {}
-
-    def weights():                      # the engine's weights task
-        t = time.perf_counter()
-        box["params"] = init_params(
-            cfg, torch.Generator(device).manual_seed(seed), device)
-        for blk in box["params"]["blocks"]:
-            if "conv_w" in blk["mixer"]:
-                blk["mixer"]["conv_w"].mul_(SSM_CONV_W_GAIN)
-        if cuda:
-            torch.cuda.synchronize()
-        box["weights_s"] = time.perf_counter() - t
-        return box["params"]
-
+    weights = weights_task(cfg, seed, device, box)
     t_phase = time.perf_counter()
     if cuda:
         torch.cuda.synchronize()
@@ -2315,12 +2535,9 @@ def serve(cfg, smi, device="cuda", seed=0, name=None):
         routes = recorded_routes(cfg, params, plist, toks_all, device, phase)
     ref, gaps_all, top2, spread, exact = [], [], [], [], 0
     for k, (r, toks) in enumerate(zip(reqs, toks_all)):
-        seq = np.concatenate([prompts[r.rid], toks[:-1]])
-        with reference_forward(), routes_forced(routes[k], flips) \
-                if moe else contextlib.nullcontext():
-            lg = forward(params, cfg, torch.tensor(seq[None], device=device),
-                         mode="train")["logits"][0, len(prompts[r.rid]) - 1:]
-        lg = lg.float()
+        with routes_forced(routes[k], flips) if moe \
+                else contextlib.nullcontext():
+            lg = forced_logits(cfg, params, prompts[r.rid], toks, device)
         if tuple(lg.shape) != (gen, cfg.vocab) or \
                 not torch.isfinite(lg).all():
             raise AssertionError(f"request {r.rid}: bad logits "
@@ -2389,14 +2606,15 @@ def serve(cfg, smi, device="cuda", seed=0, name=None):
                      evictions=([set(evicted[r.rid]) for r in reqs]
                                 if ondemand else None),
                      replay=ondemand and not eng_chunkable)
+    log_checks("logit check", name, res, n_req * gen)
+    # the verify mode over the same paged pools, where the phase asks
+    vres = {}
+    if phase.get("verify_faults"):
+        vres = verify_check(cfg, params, plist, toks_all, ref, device,
+                            [None, *phase["verify_faults"]], slots=slots,
+                            cache_len=cache_len)
+        log_checks(f"verify check (S={VERIFY_S})", name, vres, n_req * gen)
     del ref
-    for n, m in res.items():
-        log(f"logit check [{name}, {n or 'as built'}]: worst position "
-            f"rel err {m['rel_max']:.4f} (tolerance {REL_TOL}), all "
-            f"positions {m['rel']:.4f}, off the path as built by "
-            f"{m['effect']:.4f}; its argmax trails the forward's by at most "
-            f"{m['gap']:.4f} (token tolerance {LOGIT_TOL}); "
-            f"{m['same']}/{n_req * gen} equal the engine's tokens")
 
     # for information: engine tokens against the port's one-shot path
     prefill = make_prefill_step(cfg, cache_len=cache_len)
@@ -2420,17 +2638,18 @@ def serve(cfg, smi, device="cuda", seed=0, name=None):
         raise AssertionError(f"{name}: a restore re-derived a token that "
                              f"trails the forward's argmax by "
                              f"{div_worst:.4f} > {LOGIT_TOL}")
-    if res[None]["rel_max"] > REL_TOL:
-        raise AssertionError(f"{name}: step path logits off the "
-                             f"forward's by {res[None]['rel_max']:.4f} > "
-                             f"{REL_TOL}")
+    for what, r in (("step path", res), ("verify step", vres)):
+        if r and r[None]["rel_max"] > REL_TOL:
+            raise AssertionError(f"{name}: {what} logits off the forward's "
+                                 f"by {r[None]['rel_max']:.4f} > {REL_TOL}")
     if built["wide_flips"]:
         raise AssertionError(
             f"{cfg.name}: the step path's experts differ from the forward's "
             f"own at {built['wide_flips']} (layer, position) pairs whose "
             f"margin is above the bound")
     missed = route_missed + [n for n in res if n is not None and (
-        res[n]["rel_max"] <= REL_TOL or res[n]["gap"] <= LOGIT_TOL)]
+        res[n]["rel_max"] <= REL_TOL or res[n]["gap"] <= LOGIT_TOL)] + \
+        verify_missed(vres)
     if missed:
         raise AssertionError(f"{name}: the checks do not reject the "
                              f"planted faults {missed}")
@@ -2440,19 +2659,251 @@ def serve(cfg, smi, device="cuda", seed=0, name=None):
     return launches, stats, calls
 
 
-def check_launches(cfg, launches, stats, calls, name=None):
+def verify_missed(vres):
+    """The verify check's planted faults it does not reject: each must
+    move some position past ``REL_TOL``."""
+    return [n for n, m in vres.items()
+            if n is not None and m["rel_max"] <= REL_TOL]
+
+
+def drafter_policy(drafter):
+    """The reserve policy with ``drafter`` plugged in through its
+    ``spec_drafter`` hook (the engine untouched, as the reference's
+    ``OraclePolicy`` does)."""
+    from repro_torch.serve import SchedulerPolicy
+
+    class DrafterPolicy(SchedulerPolicy):
+        def spec_drafter(self, eng, mode):
+            return drafter
+    return DrafterPolicy()
+
+
+class NeverDrafter:
+    """Drafts nothing: every window of its leg is one token a slot."""
+
+    name = "never"
+
+    def draft(self, ctx, k):
+        return []
+
+
+class OracleDrafter:
+    """Proposes a stream's continuation in ``streams`` (prompt + tokens)
+    while the context still matches it; in every third window it changes
+    the last lane, so that lane is rejected (a rollback)."""
+
+    name = "oracle"
+
+    def __init__(self, streams, vocab):
+        self.streams = [list(map(int, x)) for x in streams]
+        self.vocab = vocab
+        self.windows = 0
+
+    def draft(self, ctx, k):
+        n = len(ctx)
+        for st in self.streams:
+            if n < len(st) and st[n - 1] == ctx[-1] and st[:n] == ctx:
+                d = st[n:n + k]
+                self.windows += 1
+                if self.windows % 3 == 0:
+                    d[-1] = (d[-1] + 1) % self.vocab
+                return d
+        return []
+
+
+def serve_spec(cfg, smi, device="cuda", seed=0, name="qwen2.5-14b-spec"):
+    """Speculative decoding on one set of weights, the same prompts and
+    arrivals in three legs: (a) spec off; (b) spec on, a drafter that
+    never drafts (every window one token a slot); (c) spec on, an oracle
+    drafter proposing leg (b)'s continuation, one rejected lane every
+    third window.  Bars: every stream of every leg within ``LOGIT_TOL``
+    of the forward's argmax; no prefix hit (random prompts), no page
+    leaked; leg (c) drafts, accepts and rolls back, in fewer dispatches
+    than leg (a); the verify step teacher-forced (``verify_check``, S =
+    ``VERIFY_S``) within ``REL_TOL`` of the forward, rejecting the
+    planted verify faults; leg (c) rerun with the engine committing its
+    drafts must fail the token check.  Returns, per leg, (kernels of the
+    leg, launch counts, engine stats, engine step calls) for
+    ``check_launches``."""
+    import collections
+    import threading
+
+    import numpy as np
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.serve import Request, ServeEngine, drain
+
+    phase = PHASES[name]
+    traffic, spec_k = phase["traffic"], phase["spec_k"]
+    slots, cache_len, n_req, gen = (traffic[k] for k in (
+        "slots", "cache_len", "n_req", "gen"))
+    counted = (*phase["kernels"], "rms_norm")
+    rng = np.random.default_rng(seed)
+    lens = rng.permutation(np.repeat(traffic["lens"],
+                                     n_req // len(traffic["lens"])))
+    prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32) for n in lens]
+    gaps = rng.exponential(0.03, n_req)
+    box = {}
+    t_phase = time.perf_counter()
+
+    cuda = device == "cuda"
+
+    def leg(drafter, params):
+        """One engine over the phase's traffic; its counts and figures."""
+        if cuda:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        eng = ServeEngine(
+            cfg, params, slots=slots, cache_len=cache_len, page_size="auto",
+            paged_kernel=True, sync_ticks=True, device=device,
+            prefix_cache=phase.get("prefix_cache"),
+            policy=None if drafter is None else drafter_policy(drafter),
+            spec=None if drafter is None else drafter.name, spec_k=spec_k)
+        calls, lock = collections.Counter(), threading.Lock()
+
+        def counting(fn, key):
+            def run(*a, **kw):
+                with lock:
+                    calls[key] += 1
+                return fn(*a, **kw)
+            return run
+        for key in ("prefill", "decode", "verify", "gather", "replay"):
+            if getattr(eng, key) is not None:
+                setattr(eng, key, counting(getattr(eng, key), key))
+        for k in counted:
+            getattr(kernels, k).launches.reset()
+        t0 = time.perf_counter()
+        reqs = [Request(i, prompts[i], max_new_tokens=gen)
+                for i in range(n_req)]
+        eng.start()
+        for r, g in zip(reqs, gaps):
+            eng.submit(r)
+            time.sleep(float(g))
+        stats = drain(eng, reqs, DRAIN_S)
+        if cuda:
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: getattr(kernels, k).launches.value for k in counted}
+        pager = eng.pager
+        eng = None                      # the pool, before what follows
+        toks = [np.asarray(r.wait(), np.int32) for r in reqs]
+        if any(len(t) != gen for t in toks):
+            raise AssertionError(f"{name}: a stream of {[len(t) for t in toks]}"
+                                 f" tokens, want {gen}")
+        if stats["prefix_hits"] or pager.live_refs \
+                or pager.used_pages != pager.cached_pages:
+            raise AssertionError(
+                f"{name}: prefix hits {stats['prefix_hits']} on random "
+                f"prompts, or pages leaked: live_refs {pager.live_refs}, "
+                f"used {pager.used_pages} != cached {pager.cached_pages}")
+        return dict(toks=toks, stats=stats, calls=calls, launches=launches,
+                    wall=wall,
+                    peak=torch.cuda.max_memory_allocated() if cuda else 0)
+
+    legs = {"a": leg(None, weights_task(cfg, seed, device, box))}
+    params = box["params"]
+    legs["b"] = leg(NeverDrafter(), params)
+    streams = [np.concatenate([p, t]) for p, t in zip(prompts,
+                                                      legs["b"]["toks"])]
+    legs["c"] = leg(OracleDrafter(streams, cfg.vocab), params)
+    with planted("commits_drafts"):
+        legs["commits_drafts"] = leg(OracleDrafter(streams, cfg.vocab),
+                                     params)
+
+    # the token check of every leg: one forward per distinct stream
+    gaps_of, ref = {}, []
+    for key, g in legs.items():
+        g["worst"] = 0.0
+        for i, t in enumerate(g["toks"]):
+            memo = (i, t.tobytes())
+            if memo not in gaps_of:         # leg (a)'s are all new
+                lg = forced_logits(cfg, params, prompts[i], t, device)
+                gap = lg.max(-1).values - lg.gather(
+                    1, torch.tensor(t, device=device).long()[:, None])[:, 0]
+                gaps_of[memo] = gap.max().item()
+                if key == "a":
+                    ref.append(lg)
+            g["worst"] = max(g["worst"], gaps_of[memo])
+    fault = legs.pop("commits_drafts")
+
+    def shared(x, y):
+        return sum(int((u == v).sum()) for u, v in zip(legs[x]["toks"],
+                                                       legs[y]["toks"]))
+
+    for key, what in (("a", "spec off"), ("b", "no drafts"),
+                      ("c", "oracle drafts")):
+        g = legs[key]
+        st = g["stats"]
+        log(f"spec leg ({key}) [{name}, {what}, {smi}]: tokens_s "
+            f"{st['tokens_out'] / g['wall']:.2f} wall_s {g['wall']:.3f} "
+            f"p50_ttft_s {st['p50_ttft_s']:.4f} p50_tick_s "
+            f"{st['p50_tick_s']:.4f} p99_tick_s {st['p99_tick_s']:.4f} "
+            f"peak_mem_gb {g['peak'] / 1e9:.2f} decode_dispatches "
+            f"{st['decode_dispatches']} dispatches_per_token "
+            f"{st['dispatches_per_token']:.4f} spec_drafted "
+            f"{st['spec_drafted']} spec_accepted {st['spec_accepted']} "
+            f"spec_rollbacks {st['spec_rollbacks']} accept_rate "
+            f"{st['spec_accept_rate']:.4f}; step calls {dict(g['calls'])}; "
+            f"worst token gap {g['worst']:.4f} (tolerance {LOGIT_TOL})")
+    log(f"spec legs [{name}]: leg (b) shares {shared('b', 'a')}/"
+        f"{n_req * gen} tokens with leg (a), leg (c) {shared('c', 'b')} with "
+        f"leg (b); weights task {box['weights_s']:.2f} s")
+    log(f"spec fault [{name}, commits_drafts]: the engine committing its "
+        f"drafts in leg (c): worst token gap {fault['worst']:.4f} "
+        f"(must exceed {LOGIT_TOL}); spec_drafted "
+        f"{fault['stats']['spec_drafted']}")
+    if cuda:
+        steps_alone(cfg, params, smi, True, traffic, verify_k=spec_k)
+    vres = verify_check(cfg, params, prompts, legs["a"]["toks"], ref, device,
+                        [None, *phase["verify_faults"]], slots=slots,
+                        cache_len=cache_len)
+    log_checks(f"verify check (S={VERIFY_S})", name, vres, n_req * gen)
+    del ref
+    c, a = legs["c"]["stats"], legs["a"]["stats"]
+    bad = [k for k in "abc" if legs[k]["worst"] > LOGIT_TOL]
+    if bad:
+        raise AssertionError(f"{name}: an emitted token of leg(s) {bad} "
+                             f"trails the forward's argmax by more than "
+                             f"{LOGIT_TOL}")
+    if not (c["spec_drafted"] > 0 and c["spec_accepted"] > 0
+            and c["spec_rollbacks"] > 0
+            and c["decode_dispatches"] < a["decode_dispatches"]):
+        raise AssertionError(
+            f"{name}: leg (c) spec_drafted {c['spec_drafted']}, "
+            f"spec_accepted {c['spec_accepted']}, spec_rollbacks "
+            f"{c['spec_rollbacks']} (each > 0), decode_dispatches "
+            f"{c['decode_dispatches']} (< leg (a)'s "
+            f"{a['decode_dispatches']})")
+    if vres[None]["rel_max"] > REL_TOL:
+        raise AssertionError(f"{name}: verify step logits off the forward's "
+                             f"by {vres[None]['rel_max']:.4f} > {REL_TOL}")
+    missed = verify_missed(vres) + (
+        ["commits_drafts"] if fault["worst"] <= LOGIT_TOL else [])
+    if missed:
+        raise AssertionError(f"{name}: the checks do not reject the planted "
+                             f"faults {missed}")
+    log(f"phase {name}: {time.perf_counter() - t_phase:.1f} s")
+    spec = phase["spec_kernels"]
+    return [(phase["kernels"] if k == "a" else spec, legs[k]["launches"],
+             legs[k]["stats"], legs[k]["calls"]) for k in "abc"]
+
+
+def check_launches(cfg, launches, stats, calls, name=None, kernels=None):
     """The phase's launch identities: each kernel once per layer of each
     decode tick (paged attention) or one-shot prefill (SSD scan, flash
     attention), or never (a kernel the phase's path must not take);
     RMSNorm at every norm site of every tick, one-shot prefill and chunk
     (a chunk that skips the LM head skips the final norm too); gathers
     launch none.  The engine's step calls (``calls``) are first held to
-    its own counters."""
+    its own counters.  ``kernels`` (a spec leg): the leg's own kernel
+    map in place of the phase's; a verify call counts as a tick."""
     name = name or arch_of(cfg)
     phase = PHASES[name]
+    kernels = phase["kernels"] if kernels is None else kernels
     n_chunks = calls["chunk"] + calls["chunk_mid"]
-    held = {"decode_dispatches": (calls["decode"],
-                                  stats["decode_dispatches"]),
+    ticks = calls["decode"] + calls["verify"]
+    held = {"decode_dispatches": (ticks, stats["decode_dispatches"]),
             "prefill_calls": (calls["prefill"] + calls["chunk"],
                               stats["prefill_calls"]),
             "prefill_chunks": (n_chunks, stats["prefill_chunks"]),
@@ -2463,20 +2914,21 @@ def check_launches(cfg, launches, stats, calls, name=None):
                                  f"engine counted {want}")
     norms = phase["norms"] * cfg.n_layers
     want = {k: cfg.n_layers * calls[per] if per else 0
-            for k, per in phase["kernels"].items()}
-    want["rms_norm"] = (norms + 1) * (calls["decode"] + calls["prefill"]
+            for k, per in kernels.items()}
+    want["rms_norm"] = (norms + 1) * (ticks + calls["prefill"]
                                       + calls["chunk"] + calls["replay"]) \
         + norms * calls["chunk_mid"]
     for k, n in want.items():
-        if launches[k] != n or (n <= 0 and phase["kernels"].get(k, True)):
+        if launches[k] != n or (n <= 0 and kernels.get(k, True)):
             raise AssertionError(f"{name}: {k} launches {launches[k]} != "
                                  f"{n} (identity of the main path)")
     parts = [f"{k} {launches[k]} = " + (
         f"{cfg.n_layers} x {calls[per]} {per}" if per else "0 (not on "
-        "this path)") for k, per in phase["kernels"].items()]
+        "this path)") for k, per in kernels.items()]
     log(f"launch identities ({name}): " + "; ".join(parts)
         + f"; rms_norm {launches['rms_norm']} = {norms + 1} x "
-        f"({calls['decode']} decode + {calls['prefill']} prefill + "
+        f"({calls['decode']} decode + {calls['verify']} verify + "
+        f"{calls['prefill']} prefill + "
         f"{calls['chunk']} final chunks + {calls['replay']} replay steps) "
         f"+ {norms} x {calls['chunk_mid']} other chunks; {calls['gather']} "
         "gathers")
@@ -2624,10 +3076,15 @@ def main(argv=None):
             log(f"depth cut: {layers} of {cfg.n_layers} layers ({name})")
             cfg = cfg.replace(n_layers=layers)
         cfg = cfg.replace(moe_impl=phase.get("moe_impl", cfg.moe_impl))
-        got, stats, calls = serve(cfg, smi, name=name)
-        check_launches(cfg, got, stats, calls, name=name)
-        for k, n in got.items():            # every phase's sum
-            launches[k] = launches.get(k, 0) + n
+        if "spec_k" in phase:
+            runs = serve_spec(cfg, smi, name=name)
+        else:
+            runs = [(None, *serve(cfg, smi, name=name))]
+        for kernels, got, stats, calls in runs:
+            check_launches(cfg, got, stats, calls, name=name,
+                           kernels=kernels)
+            for k, n in got.items():        # every phase's sum
+                launches[k] = launches.get(k, 0) + n
         gc.collect()                        # the phase's engine, if a cycle
         torch.cuda.empty_cache()            # the next phase's weights
     check_cli(smi)

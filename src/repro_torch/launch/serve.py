@@ -3,6 +3,8 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --tiny --paged-kernel
     PYTHONPATH=src python -m repro_torch.launch.serve --tiny --device cpu \
         --arch minicpm3-4b --paged-kernel
+    PYTHONPATH=src python -m repro_torch.launch.serve --tiny --device cpu \
+        --spec ngram
 
 ``--arch`` picks a config of the registry whose families the port
 serves: GQA (qwen2.5-14b, the default), MLA (minicpm3-4b), SSD
@@ -13,11 +15,12 @@ plus ``--device {cuda,cpu}`` (default ``cuda``; ``cuda`` without a card
 raises).  ``--mode oneshot`` runs the one-shot batch path; ``--chunk N``
 prefills prompts longer than N in chunks of N tokens, and
 ``--prefix-cache {auto,on,off}`` sets shared-prefix KV reuse (auto: on
-for a paged engine on a chunk-exact config), and ``--policy ondemand``
+for a paged engine on a chunk-exact config), ``--policy ondemand``
 on-demand paging with eviction and restore (set ``--pages`` below the
-dense-equivalent pool to make it evict), as in the reference.  Options
-whose engine features belong to later slices (``--spec``, ``--mesh``)
-raise ``NotImplementedError``.
+dense-equivalent pool to make it evict), and ``--spec ngram`` speculative
+decoding with windows of up to ``--spec-k`` drafted tokens, as in the
+reference.  ``--mesh`` (tensor parallelism, a later slice) raises
+``NotImplementedError``.
 Weights are a seeded ``torch.Generator`` init on the device (seed 0);
 prompts are drawn with numpy from ``--seed``.
 """
@@ -190,8 +193,14 @@ def serve(argv=None):
                          "reservation, or on-demand growth with "
                          "preemption-by-eviction (paged only)")
     ap.add_argument("--spec", choices=("off", "ngram"), default="off",
-                    help="engine: speculative decoding (not ported yet)")
-    ap.add_argument("--spec-k", type=int, default=4)
+                    help="engine: speculative decoding — draft up to "
+                         "--spec-k tokens per slot by n-gram prompt lookup, "
+                         "verify them in one dispatch and commit the "
+                         "longest agreeing prefix (the verify step's "
+                         "argmaxes, never the drafts)")
+    ap.add_argument("--spec-k", type=int, default=4,
+                    help="engine: drafted tokens per verify window "
+                         "(--spec only)")
     ap.add_argument("--mesh", default=None, metavar="DATA,MODEL",
                     help="tensor-parallel mesh (not ported yet)")
     ap.add_argument("--prefix-cache", choices=("auto", "on", "off"),

@@ -23,8 +23,10 @@ are cast to q's dtype before the PV product, decode divides by the
 softmax sum after the bf16 PV product, and weights are cast to the
 activation dtype at each use.  "prefill_chunk" (a cache-append chunk of a
 chunked prefill) runs plain ``full_attention`` at the chunk's query offset,
-as the reference does; the verify mode belongs to a later slice and
-raises.
+as the reference does.  "verify" (speculative decoding) appends a window
+of S tokens per slot and scores every lane against the cache, causally
+within the window; a paged leaf takes the gather path there, as in the
+reference (scatter the window, ``page_gather``, plain attention).
 """
 from __future__ import annotations
 
@@ -32,7 +34,8 @@ import torch
 
 from ..kernels import (flash_attention, paged_decode_attention,
                        paged_mla_decode_attention)
-from .layers import apply_rope, page_gather, page_scatter, rms_norm
+from .layers import (apply_rope, page_gather, page_scatter,
+                     page_scatter_window, rms_norm)
 
 NEG_INF = -1e30
 
@@ -136,6 +139,41 @@ def decode_attention(q, k_cache, v_cache, pos, *, window=None, scale=None):
     return out / l.transpose(1, 2).to(q.dtype)      # (B,1,H,1)
 
 
+def verify_attention(q, k_cache, v_cache, pos, *, scale=None):
+    """Speculative-decode verify: q (B,S,H,Dh), lane j of slot b at
+    position ``pos_b + j``; caches (B,Sc,Hkv,Dh) already holding the
+    window's K/V (linear caches only: ``steps.speculatable``).
+
+    The reference's formulation, :func:`decode_attention`'s partial
+    softmax (f32 scores, the PV product on unnormalised probabilities in
+    q's dtype, the sum divided at the end) under a per-lane causal mask.
+    Where the reference expands K/V to H heads, the port groups each KV
+    head's ``H / Hkv`` query heads and S lanes into one block of rows
+    ``(B, Hkv, group * S, Dh)`` (flat head h reads KV head h // group, as
+    ``_expand_kv``), so K/V are read as stored, never copied per query
+    head: the same dot products, summed in another order."""
+    b, s, h, dh = q.shape
+    sc, hkv = k_cache.shape[1], k_cache.shape[2]
+    g = h // hkv
+    qg = q.reshape(b, s, hkv, g, dh).permute(0, 2, 3, 1, 4).reshape(
+        b, hkv, g * s, dh)                          # rows (head r, lane j)
+    pos = torch.as_tensor(pos, device=q.device)
+    qp = pos[:, None] + torch.arange(s, device=q.device)          # (B,S)
+    valid = (torch.arange(sc, device=q.device)[None, None, :]
+             <= qp[:, :, None])                                   # (B,S,Sc)
+    bias = torch.where(valid, 0.0, NEG_INF).float()[:, None, None]
+    scale = (dh ** -0.5) if scale is None else scale
+    scores = torch.einsum("bgrd,bkgd->bgrk", qg, k_cache).float()
+    scores = scores.view(b, hkv, g, s, sc) * scale + bias
+    m = scores.amax(dim=-1, keepdim=True)
+    p = torch.exp(scores - m)
+    l = p.sum(dim=-1, keepdim=True)
+    out = torch.einsum("bgrk,bkgd->bgrd",
+                       p.to(q.dtype).view(b, hkv, g * s, sc), v_cache)
+    out = out.view(b, hkv, g, s, dh) / l.to(q.dtype)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, s, h, dh)
+
+
 # ====================================================================== GQA
 def gqa_param_shapes(cfg):
     """Flat (d, H*dh) weights, as the reference stores them:
@@ -177,6 +215,32 @@ def _cache_update(c, u, idx):
     return c
 
 
+def _cache_update_window(c, u, pos, n_tok):
+    """Dense-cache counterpart of ``page_scatter_window``: write the verify
+    window ``u`` (B,S,...) into cache ``c`` (B,Sc,...) at per-slot
+    positions ``pos_b + j`` for lanes ``j < n_tok_b``, in place.
+
+    The reference sends masked lanes past the cache extent, where JAX's
+    scatter drops them; ``index_put_`` raises on such an index instead.
+    Here a masked lane writes back the value it finds at position
+    ``(pos_b + j) % Sc``: read before the write, so the cache is left as
+    it was there.  With S <= Sc a slot's lanes name distinct positions, so
+    no masked lane shares a position with a valid one."""
+    b, s = u.shape[:2]
+    if s > c.shape[1]:
+        raise ValueError(f"verify window {s} longer than the cache "
+                         f"{c.shape[1]}")
+    lane = torch.arange(s, device=c.device)
+    idx = (torch.as_tensor(pos, device=c.device).long()[:, None] + lane) \
+        % c.shape[1]                                              # (B,S)
+    valid = lane[None, :] < torch.as_tensor(n_tok, device=c.device)[:, None]
+    rows = torch.arange(b, device=c.device)[:, None]
+    keep = c[rows, idx]
+    valid = valid.view((b, s) + (1,) * (c.dim() - 2))
+    c[rows, idx] = torch.where(valid, u.to(c.dtype), keep)
+    return c
+
+
 def _pad_seq(t, target):
     """Right-pad dim 1 (sequence) with zeros up to ``target`` slots."""
     if target is None or t.shape[1] >= target:
@@ -198,7 +262,7 @@ def ring_from_prefill(t, ring):
 
 
 def gqa_apply(x, p, cfg, spec, *, mode, pos, cache=None, cache_len=None,
-              pages=None, attn_extent=None):
+              pages=None, attn_extent=None, n_tok=None):
     """x: (B,S,D) -> (out, new_cache or None).  cache: {"k","v"}
     unexpanded.  With ``pages`` (decode) the K/V leaves are paged pools
     (P, page_size, Hkv, Dh): the new token's K/V is scattered through the
@@ -207,11 +271,9 @@ def gqa_apply(x, p, cfg, spec, *, mode, pos, cache=None, cache_len=None,
     "prefill_chunk" writes the chunk's K/V into the dense row cache at
     ``[pos, pos + S)`` (``pos`` a host int) and attends over its first
     ``attn_extent`` positions in plain ``full_attention``, as the
-    reference does outside any kernel."""
-    if mode == "verify":
-        raise NotImplementedError(
-            "gqa_apply mode 'verify' is not ported yet (ROADMAP.md queue 1, "
-            "item 5: serve features past the main path)")
+    reference does outside any kernel.  "verify" appends the (B,S) window
+    at per-slot positions ``pos`` (B,), lanes ``>= n_tok`` masked, and
+    scores every lane (:func:`verify_attention`)."""
     b, s, _ = x.shape
     h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     dt = x.dtype
@@ -251,6 +313,27 @@ def gqa_apply(x, p, cfg, spec, *, mode, pos, cache=None, cache_len=None,
             _cache_update(kc, k, idx)
             _cache_update(vc, v, idx)
             out = decode_attention(q, kc, vc, pos, window=w)
+        new_cache = {"k": kc, "v": vc}
+    elif mode == "verify":
+        # a linear cache (steps.speculatable): logical index == position;
+        # the paged leaf scatters the window and reads a gathered view,
+        # as the reference does — the paged kernel is a one-query decode
+        pos = torch.as_tensor(pos, device=x.device)
+        qp = pos[:, None] + torch.arange(s, device=x.device)     # (B,S)
+        if cfg.pos_emb == "rope":
+            q = apply_rope(q, qp, cfg.rope_theta)
+            k = apply_rope(k, qp, cfg.rope_theta)
+        kc, vc = cache["k"], cache["v"]
+        if paged_leaf(pages, spec.window):
+            table, ps = pages["table"], pages["page_size"]
+            page_scatter_window(kc, table, ps, pos, k, n_tok)
+            page_scatter_window(vc, table, ps, pos, v, n_tok)
+            out = verify_attention(q, page_gather(kc, table, ps),
+                                   page_gather(vc, table, ps), pos)
+        else:
+            _cache_update_window(kc, k, pos, n_tok)
+            _cache_update_window(vc, v, pos, n_tok)
+            out = verify_attention(q, kc, vc, pos)
         new_cache = {"k": kc, "v": vc}
     else:
         positions = pos + torch.arange(s, device=x.device)
@@ -329,18 +412,16 @@ def _mla_q(xn, p, cfg, dt):
 
 
 def mla_apply(x, p, cfg, spec, *, mode, pos, cache=None, cache_len=None,
-              pages=None, attn_extent=None):
+              pages=None, attn_extent=None, n_tok=None):
     """x: (B,S,D) -> (out, new_cache or None).  Decode runs the absorbed
     form (scores in the latent space, against the ``ckv``/``krope``
     caches, dense or paged); train, prefill and "prefill_chunk" the
     non-absorbed form (q/k dim nope + rope, v dim ``v_head_dim``) at the
     explicit scale ``(nope + rope)^-1/2``.  A chunk appends its latent to
     the dense row cache at ``[pos, pos + S)`` and rebuilds K/V from the
-    cached latent of the first ``attn_extent`` positions."""
-    if mode == "verify":
-        raise NotImplementedError(
-            "mla_apply mode 'verify' is not ported yet (ROADMAP.md queue 1, "
-            "item 5: serve features past the main path)")
+    cached latent of the first ``attn_extent`` positions.  "verify" runs
+    the absorbed decode form over the window's S lanes (positions ``pos_b
+    + j``, lanes ``>= n_tok`` not written), as the reference does."""
     b, s, _ = x.shape
     h = cfg.n_heads
     rkv, dn, dr, dv = (cfg.kv_lora_rank, cfg.qk_nope_dim, cfg.qk_rope_dim,
@@ -392,6 +473,37 @@ def mla_apply(x, p, cfg, spec, *, mode, pos, cache=None, cache_len=None,
                                else mb[None, None, None, :])
             probs = torch.softmax(scores, dim=-1).to(dt)
             lat = torch.einsum("bhst,btr->bshr", probs, cd)  # (B,1,H,rkv)
+        out = torch.einsum("bshr,rhv->bshv", lat,
+                           p["wv_b"].to(dt).view(rkv, h, dv))
+        new_cache = {"ckv": cc, "krope": kr}
+    elif mode == "verify":
+        # the absorbed decode form over S lanes, with a per-lane mask; the
+        # paged leaf takes the gather path, as in the reference
+        pos = torch.as_tensor(pos, device=x.device)
+        qp = pos[:, None] + torch.arange(s, device=x.device)     # (B,S)
+        q_rope = apply_rope(q_rope, qp, cfg.rope_theta)
+        k_rope = apply_rope(k_rope[:, :, None, :], qp,
+                            cfg.rope_theta)[:, :, 0, :]
+        cc, kr = cache["ckv"], cache["krope"]
+        if paged_leaf(pages, None):
+            table, ps = pages["table"], pages["page_size"]
+            page_scatter_window(cc, table, ps, pos, ckv, n_tok)
+            page_scatter_window(kr, table, ps, pos, k_rope, n_tok)
+            cd, kd = page_gather(cc, table, ps), page_gather(kr, table, ps)
+        else:
+            _cache_update_window(cc, ckv, pos, n_tok)
+            _cache_update_window(kr, k_rope, pos, n_tok)
+            cd, kd = cc, kr
+        wk_b = p["wk_b"].to(dt).view(rkv, h, dn)
+        q_lat = torch.einsum("bshn,rhn->bshr", q_nope, wk_b)   # (B,S,H,rkv)
+        scores = (torch.einsum("bshr,btr->bhst", q_lat, cd)
+                  + torch.einsum("bshr,btr->bhst", q_rope, kd))
+        scores = scores.float() * scale
+        valid = (torch.arange(cd.shape[1], device=x.device)[None, None, :]
+                 <= qp[:, :, None])                              # (B,S,T)
+        scores = scores + torch.where(valid, 0.0, NEG_INF).float()[:, None]
+        probs = torch.softmax(scores, dim=-1).to(dt)
+        lat = torch.einsum("bhst,btr->bshr", probs, cd)          # (B,S,H,rkv)
         out = torch.einsum("bshr,rhv->bshv", lat,
                            p["wv_b"].to(dt).view(rkv, h, dv))
         new_cache = {"ckv": cc, "krope": kr}

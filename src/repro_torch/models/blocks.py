@@ -46,14 +46,18 @@ def block_cache_shapes(cfg, spec, batch, seq):
 
 
 def block_apply(x, p, cfg, spec, *, mode, pos, cache=None, cache_len=None,
-                pages=None, attn_extent=None):
+                pages=None, attn_extent=None, n_tok=None):
     """Returns the new residual stream and the block's new cache.  The
-    MoE load-balance term is dropped: it only matters to training."""
+    MoE load-balance term is dropped: it only matters to training.
+    ``n_tok`` (verify mode) is passed to the mixer only when set, so the
+    SSD mixer, which never verifies (``steps.speculatable``), keeps its
+    signature."""
     _, _, apply_fn = _mixer(spec)
+    kw = {} if n_tok is None else {"n_tok": n_tok}
     out, new_cache = apply_fn(x, p["mixer"], cfg, spec, mode=mode, pos=pos,
                               cache=cache, cache_len=cache_len, pages=pages,
-                              attn_extent=attn_extent)
-    if mode in ("decode", "prefill_chunk"):
+                              attn_extent=attn_extent, **kw)
+    if mode in ("decode", "prefill_chunk", "verify"):
         check_cache_invariant(cache, new_cache, f"{spec.kind}/{spec.attn}")
     x = x + out
     if spec.mlp != "none":

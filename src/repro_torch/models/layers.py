@@ -16,9 +16,9 @@ import torch.nn.functional as F
 from ..kernels import rms_norm
 
 __all__ = ["rms_norm", "gated_rms_norm", "check_cache_invariant",
-           "page_gather", "page_scatter", "rope_freqs", "apply_rope",
-           "mlp_dense", "embed_tokens", "lm_logits", "tree_leaves",
-           "tree_map"]
+           "page_gather", "page_scatter", "page_scatter_window",
+           "rope_freqs", "apply_rope", "mlp_dense", "embed_tokens",
+           "lm_logits", "tree_leaves", "tree_map"]
 
 
 def _frontend_unported(cfg):
@@ -101,6 +101,30 @@ def page_scatter(pool, table, page_size, idx, update):
     idx = idx.long()
     page = torch.gather(table.long(), 1, (idx // page_size)[:, None])[:, 0]
     pool[page, idx % page_size] = update[:, 0].to(pool.dtype)
+    return pool
+
+
+def page_scatter_window(pool, table, page_size, pos, update, n_tok):
+    """Write a per-slot window of tokens into the paged pool, in place (the
+    speculative-decode verify append).
+
+    pos: (B,) first logical position per slot; update: (B, S, ...) the
+    window's values; n_tok: (B,) valid lanes per slot (0: a dead slot).
+    Lane j of slot b lands at logical position ``pos_b + j`` when ``j <
+    n_tok_b``; masked lanes (padding past a short draft, every lane of a
+    dead slot) go to garbage page 0, offset 0, as the reference sends
+    them, so a padded write never touches a live page.  Valid lanes of
+    distinct slots never collide: each slot owns its pages."""
+    b, s = update.shape[:2]
+    lane = torch.arange(s, device=pool.device)
+    idx = pos.long()[:, None] + lane                          # (B, S)
+    valid = lane[None, :] < n_tok.long()[:, None]
+    # the clamp keeps a masked lane's lookup inside the table; valid lanes
+    # are covered (the engine grows or reserves pages through pos + n_tok)
+    lp = (idx // page_size).clamp(0, table.shape[1] - 1)
+    page = torch.where(valid, torch.gather(table.long(), 1, lp), 0)
+    off = torch.where(valid, idx % page_size, 0)
+    pool[page, off] = update.to(pool.dtype)
     return pool
 
 

@@ -123,7 +123,8 @@ def _layer(tree, r):
 # ---------------------------------------------------------------- forward
 @torch.no_grad()
 def forward(params, cfg, tokens, *, mode="train", pos=0, cache=None,
-            cache_len=None, pages=None, attn_extent=None, want_logits=True):
+            cache_len=None, pages=None, attn_extent=None, want_logits=True,
+            n_tok=None):
     """tokens: (B, S) int.  Returns {"logits", "cache"} (the reference's
     MoE "aux" term belongs to the training slice).
 
@@ -133,17 +134,22 @@ def forward(params, cfg, tokens, *, mode="train", pos=0, cache=None,
     place and its ``pos`` advanced by one) | "prefill_chunk" (a
     cache-append chunk: the S tokens are written in place at ``[pos, pos
     + S)`` of a dense row cache, ``pos`` a host int; last-position
-    logits, like "prefill").  ``pages`` (decode): the paged-KV descriptor
-    ``{"table", "page_size", "cache_len", "kernel"}`` of
-    ``repro.models.lm.forward``.  ``attn_extent`` (prefill_chunk): the
-    chunk attends over the first ``attn_extent`` cache positions (must
-    cover pos + S); ``want_logits=False`` (prefill_chunk) skips the final
-    norm and the LM head of a non-final chunk.  The reference's "verify"
-    mode belongs to a later slice."""
-    if mode not in ("train", "prefill", "decode", "prefill_chunk"):
-        raise NotImplementedError(
-            f"forward mode {mode!r} is not ported yet (ROADMAP.md queue 1, "
-            "item 5)")
+    logits, like "prefill") | "verify" (speculative decoding: a window of
+    S tokens per slot written in place at per-slot positions ``pos`` (B,)
+    onward, lanes ``>= n_tok`` (B,) masked; logits for all S lanes, and
+    the cache's ``pos`` comes back unchanged: the engine owns
+    acceptance, so positions are host-authoritative there).  ``pages``
+    (decode, verify): the paged-KV descriptor ``{"table", "page_size",
+    "cache_len", "kernel"}`` of ``repro.models.lm.forward``.
+    ``attn_extent`` (prefill_chunk): the chunk attends over the first
+    ``attn_extent`` cache positions (must cover pos + S);
+    ``want_logits=False`` (prefill_chunk) skips the final norm and the LM
+    head of a non-final chunk."""
+    if mode not in ("train", "prefill", "decode", "prefill_chunk",
+                    "verify"):
+        raise ValueError(f"unknown forward mode {mode!r}")
+    if mode == "verify" and n_tok is None:
+        raise ValueError("verify mode needs n_tok")
     if cfg.pos_emb != "rope":
         raise NotImplementedError(
             f"{cfg.name}: {cfg.pos_emb!r} positions are not ported yet "
@@ -151,7 +157,7 @@ def forward(params, cfg, tokens, *, mode="train", pos=0, cache=None,
     dt = getattr(torch, cfg.dtype)
     x = embed_tokens(tokens, params["embed"], cfg, dt)
     s = x.shape[1]
-    cache_in = mode in ("decode", "prefill_chunk")
+    cache_in = mode in ("decode", "prefill_chunk", "verify")
     if cache_in:
         cache_blocks = cache["blocks"]
         new_blocks = cache_blocks                   # updated in place
@@ -164,7 +170,7 @@ def forward(params, cfg, tokens, *, mode="train", pos=0, cache=None,
             x, nc = block_apply(x, _layer(params["blocks"][i], r), cfg, spec,
                                 mode=mode, pos=pos, cache=bc,
                                 cache_len=cache_len, pages=pages,
-                                attn_extent=attn_extent)
+                                attn_extent=attn_extent, n_tok=n_tok)
             if mode == "prefill":
                 if new_blocks[i] is None:
                     new_blocks[i] = {
@@ -176,6 +182,8 @@ def forward(params, cfg, tokens, *, mode="train", pos=0, cache=None,
     new_cache = None
     if mode == "decode":
         new_cache = {"pos": cache["pos"] + 1, "blocks": new_blocks}
+    elif mode == "verify":
+        new_cache = {"pos": cache["pos"], "blocks": new_blocks}
     elif mode == "prefill_chunk":
         new_cache = {"pos": torch.full((), pos + s, dtype=torch.int32,
                                        device=x.device),

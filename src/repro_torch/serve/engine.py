@@ -57,9 +57,18 @@ exactly (prefill-replay), or re-prefills the prompt and feeds the
 recorded tokens through the serve step (decode-replay: SSD, sliding-window
 rings, MoE), then re-enters admission at the head of the queue.
 
-Options of the reference that belong to later slices raise
-``NotImplementedError`` naming their ROADMAP item: ``spec`` and tensor
-parallelism (``tp``/``mesh``).
+Speculative decoding (``spec="ngram"``, or any mode the policy's
+``spec_drafter`` resolves): every tick drafts up to ``spec_k`` tokens per
+live slot from the slot's own stream (:mod:`.spec`), verifies the whole
+pool's windows in one dispatch (``steps.make_verify_step``, always
+``spec_k + 1`` lanes wide) and commits each slot's longest agreeing
+draft prefix plus the model's correction, so the tokens are the verify
+step's argmaxes, never drafts.  Positions are the host's
+(``_slot_pos``), tokens are host ints from admission on, and the tick
+reads its argmaxes to the host once.
+
+Tensor parallelism (``tp``/``mesh``) belongs to a later slice and raises
+``NotImplementedError`` naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -75,7 +84,8 @@ from ..device import resolve_device
 from ..models.lm import init_cache
 from ..steps import (chunkable, make_batched_insert_step, make_decode_step,
                      make_prefill_chunk_step, make_prefill_step,
-                     make_prefix_gather_step, make_serve_step)
+                     make_prefix_gather_step, make_serve_step,
+                     make_verify_step, speculatable)
 from .kvstate import KVState
 from .pager import GARBAGE_PAGE
 from .policy import SchedulerPolicy, SlotView, make_policy
@@ -98,6 +108,20 @@ def auto_page_size(cache_len: int, cap: int = 8) -> int:
                if cache_len % d == 0)
 
 
+def accept_window(draft, argmax):
+    """Greedy acceptance of one slot's verify window.  Lane j's argmax is
+    the token decode emits after lanes 0..j, and draft j sits in lane j +
+    1, so the drafts are accepted while each equals the argmax of the lane
+    before it: the longest agreeing prefix, ``m`` drafts.  The committed
+    tokens are the argmaxes of lanes 0..m (the accepted drafts' values,
+    then the model's correction), never the drafts themselves.  Returns
+    (m, committed tokens)."""
+    m = 0
+    while m < len(draft) and int(argmax[m]) == draft[m]:
+        m += 1
+    return m, [int(argmax[j]) for j in range(m + 1)]
+
+
 def _unported(option, item):
     raise NotImplementedError(
         f"ServeEngine {option} is not ported yet (ROADMAP.md queue 1, "
@@ -110,9 +134,14 @@ class ServeEngine:
     Parameters mirror ``repro.serve.ServeEngine``; ``device`` (default
     ``"cuda"``) places the weights' consumers, the pool and every step.
     ``params`` is a weights tree already on ``device`` or a zero-arg
-    callable returning one (run as the weights task).  ``donate`` and
-    ``spec_k`` are accepted for parity: the pool is always updated in
-    place, and speculative decoding is not ported yet.
+    callable returning one (run as the weights task).  ``donate`` is
+    accepted for parity: the pool is always updated in place.  ``spec``
+    (None/"off", "ngram", "ngram:max,min", or a mode the policy's
+    ``spec_drafter`` knows) turns on speculative decoding with windows of
+    up to ``spec_k`` drafted tokens; a config that ``speculatable``
+    refuses raises ``ValueError``.  A tick that fails on the device fails
+    every live request with its error; there is no fallback to another
+    tick or to the CPU.
 
     Deviation of the restore check: the reference asserts that a restore
     re-derives every emitted token exactly.  With ``strict_restore`` (the
@@ -142,8 +171,6 @@ class ServeEngine:
                  device="cuda"):
         if mesh is not None or tp:
             _unported("tensor parallelism (tp/mesh)", 9)
-        if spec not in (None, "off"):
-            _unported("spec (speculative decoding)", 5)
         self.policy = make_policy(policy)
         self.device = resolve_device(device)
         self.cfg = cfg
@@ -228,6 +255,22 @@ class ServeEngine:
         self.decode = make_decode_step(cfg, cache_len=cache_len,
                                        page_size=page_size,
                                        paged_kernel=self.paged_kernel)
+        # speculative decoding: the drafter is the policy's choice, the
+        # verify step runs every tick, spec_k + 1 lanes wide
+        self.spec_mode = None if spec in (None, "off") else str(spec)
+        self.spec_k = int(spec_k)
+        self.verify = self.drafter = None
+        if self.spec_mode is not None:
+            if self.spec_k < 1:
+                raise ValueError(f"spec_k={spec_k}: need >= 1")
+            if not speculatable(cfg, cache_len):
+                raise ValueError(
+                    f"{cfg.name}: speculative decoding needs a chunk-exact "
+                    "config (no MoE, no SSM, no SWA ring shorter than "
+                    "cache_len) and a scalar greedy-token frontend")
+            self.verify = make_verify_step(cfg, cache_len=cache_len,
+                                           page_size=page_size)
+            self.drafter = self.policy.spec_drafter(self, self.spec_mode)
 
         self._params = None if callable(params) else params
         self._params_fn = params if callable(params) else None
@@ -296,6 +339,9 @@ class ServeEngine:
         self.stats_prefix_hits = 0
         self.stats_prefix_tokens_saved = 0
         self.stats_cow_forks = 0
+        self.stats_spec_drafted = 0
+        self.stats_spec_accepted = 0
+        self.stats_spec_rollbacks = 0
 
     # ------------------------------------------------------------ lifecycle
     def start(self):
@@ -603,8 +649,8 @@ class ServeEngine:
             remaining.remove(r)
             r.t_first = now
             first = t0_host[i, 0]
-            if r.needs_host_tokens:
-                first = int(first)
+            if r.needs_host_tokens or self.drafter is not None:
+                first = int(first)      # a spec stream is host ints
             r.out_tokens.append(first)
             stopped = r.needs_host_tokens and self._hit_stop(r)
             if stopped or r.max_new == 1:   # done straight from prefill
@@ -836,14 +882,17 @@ class ServeEngine:
                        name=f"serve.restore:{req.rid}"
                             f"@{len(req.out_tokens)}")
 
-    def _page_faults(self):
-        """On-demand growth (ref engine.py:1469-1524, without speculation's
-        lookahead): a live slot whose next write position lies past its
-        pages grows one page at a time, oldest slot first (the default
-        victim spares the oldest, so the head of the line grows before
-        younger slots take the pages it needs).  A dry pool is a block
-        the policy resolves by naming a victim to evict.  Under
-        worst-case reservation nothing ever faults: one comparison per
+    def _page_faults(self, ahead=None):
+        """On-demand growth (ref engine.py:1469-1524): a live slot whose
+        last write position this tick lies past its pages grows one page
+        at a time, oldest slot first (the default victim spares the
+        oldest, so the head of the line grows before younger slots take
+        the pages it needs).  ``ahead`` ((slots,) ints, speculative
+        decoding): the tick writes positions up to ``_slot_pos[s] +
+        ahead[s]``, which can cross several page boundaries in one tick.
+        A dry pool is a block the policy resolves by naming a victim to
+        evict.  Under worst-case reservation nothing ever faults (the
+        window is clamped to the request's budget): one comparison per
         live slot."""
         grown = evicted = False
         ps = self.page_size
@@ -854,8 +903,9 @@ class ServeEngine:
             if not self._active[s]:     # evicted as a victim this pass
                 continue
             req = self._slot_req[s]
+            need = self._slot_pos[s] + (0 if ahead is None else ahead[s])
             grown_here = 0
-            while self._active[s] and len(req.pages) * ps <= self._slot_pos[s]:
+            while self._active[s] and len(req.pages) * ps <= need:
                 got = self._alloc_pages(1)
                 if got is not None:
                     self.kv.grow_slot_pages(s, got, base=len(req.pages))
@@ -931,18 +981,54 @@ class ServeEngine:
             self.pager.release(req.pages)
             req.pages = None
 
-    def _tick(self):
-        kv = self.kv
-        # pre-dispatch policy window (ref engine.py:1541-1556): unforced
-        # preemption, then on-demand page faults; both may evict, and the
-        # tick runs over whatever is still live
+    def _maybe_preempt(self):
+        """The policy's unforced preemption before a dispatch (ref
+        engine.py:1541-1556); the on-demand fault pass follows it."""
         if self._policy_may_evict:
             v = self.policy.maybe_evict(self, self._slot_views())
             if v is not None:
                 self._evict_slot(int(v))
-                self._rebind_active()
-                if self.paged:
-                    kv.sync_table()
+                self._after_frees()
+
+    def _record_tick(self, n_live: int):
+        now = time.monotonic()
+        if self._last_tick_t is not None:
+            with self._lock:    # stats() iterates this deque concurrently
+                self._tick_intervals.append(now - self._last_tick_t)
+        self._last_tick_t = now
+        self.stats_ticks += 1
+        self.stats_occupancy_sum += n_live / self.slots
+        self.stats_max_live_slots = max(self.stats_max_live_slots, n_live)
+
+    def _end_if_done(self, s: int, stopped: bool) -> bool:
+        """Finish slot ``s``'s request when it stopped or ran out of
+        budget, then free the slot; returns whether it did.  Finish
+        FIRST: its device->host copy drains everything queued so far, so
+        nothing pending reads the pages freed next."""
+        req = self._slot_req[s]
+        if not (stopped or len(req.out_tokens) >= req.max_new):
+            return False
+        req.stopped = stopped and len(req.out_tokens) < req.max_new
+        if req.stopped:
+            with self._lock:
+                self.stats_stopped_early += 1
+        self._finish(req)
+        self._prefix_insert_slot(req)       # pages -> reuse capital
+        self._release_slot(s)
+        return True
+
+    def _after_frees(self):
+        """Publish freed slots: the active mask, and the block table."""
+        self._rebind_active()
+        if self.paged:
+            self.kv.sync_table()
+
+    def _tick(self):
+        kv = self.kv
+        # pre-dispatch policy window: unforced preemption, then on-demand
+        # page faults; both may evict, and the tick runs over whatever is
+        # still live
+        self._maybe_preempt()
         if self.paged:
             self._page_faults()
         if not self._active.any():
@@ -961,18 +1047,9 @@ class ServeEngine:
         self._slot_pos[self._active] += 1   # each live slot wrote one pos
         if self.sync_ticks and self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
-        now = time.monotonic()
-        if self._last_tick_t is not None:
-            with self._lock:    # stats() iterates this deque concurrently
-                self._tick_intervals.append(now - self._last_tick_t)
-        self._last_tick_t = now
         live = np.flatnonzero(self._active)
-        n_live = len(live)
-        self.stats_ticks += 1
-        self.stats_decode_tokens += n_live
-        self.stats_occupancy_sum += n_live / self.slots
-        if n_live > self.stats_max_live_slots:
-            self.stats_max_live_slots = n_live
+        self._record_tick(len(live))
+        self.stats_decode_tokens += len(live)
         host_toks = None
         if any(self._slot_req[s].needs_host_tokens for s in live):
             host_toks = self._tokens.cpu().numpy()   # one small sync
@@ -985,22 +1062,124 @@ class ServeEngine:
                 stopped = self._hit_stop(req)
             else:
                 req.out_tokens.append(self._tokens)  # whole tick tensor
-            if stopped or len(req.out_tokens) >= req.max_new:
-                req.stopped = stopped and len(req.out_tokens) < req.max_new
-                if req.stopped:
-                    with self._lock:
-                        self.stats_stopped_early += 1
-                # finish FIRST: its device->host copy drains everything
-                # queued so far, so nothing pending reads the pages freed
-                # next
-                self._finish(req)
-                self._prefix_insert_slot(req)   # pages -> reuse capital
-                self._release_slot(s)
-                freed = True
+            freed |= self._end_if_done(int(s), stopped)
         if freed:
-            self._rebind_active()
+            self._after_frees()
+
+    def _spec_window(self, req: Request) -> list[int]:
+        """Drafts for one live slot (ref engine.py:1633-1648): the policy
+        says how many, the drafter proposes, the engine clamps to
+        ``spec_k`` and to the request's remaining budget, so a window
+        never writes a position the plain run would not."""
+        k = min(int(self.policy.spec_draft_k(self, req)), self.spec_k,
+                req.max_new - len(req.out_tokens) - 1)
+        if k <= 0:
+            return []
+        ctx = np.asarray(req.tokens).reshape(-1).tolist() \
+            + [int(t) for t in req.out_tokens]
+        return [int(d) for d in self.drafter.draft(ctx, k)[:k]]
+
+    def _check_window_private(self, live, drafts):
+        """Under the prefix cache every page a verify window writes must be
+        the slot's own: allocated, held once, not in the trie."""
+        kv, ps = self.kv, self.page_size
+        for s in live:
+            last = self._slot_pos[s] + len(drafts.get(s, ()))
+            for lp in range(int(self._slot_pos[s]) // ps, int(last) // ps + 1):
+                pid = int(kv._table[s, lp])
+                if (pid == GARBAGE_PAGE or self.pager.refcount(pid) != 1
+                        or self.pager.is_cached(pid)):
+                    raise RuntimeError(f"slot {s} would verify-write shared "
+                                       f"or cached page {pid}")
+
+    def _tick_spec(self):
+        """One speculative tick (ref engine.py:1650-1784): draft per slot,
+        verify every live slot's window in ONE dispatch, commit each
+        slot's longest agreeing prefix plus the correction, scan stops
+        inside the window.  Every tick goes through the verify step, a
+        tick with no draft too: the decode step's device-side ``pos + 1``
+        would go stale, since positions advance by what each slot
+        commits.  One host read of the argmaxes per tick.
+
+        Deviation: every dispatch has the one width ``spec_k + 1`` (a
+        slot that drafted less has masked lanes), where the reference
+        narrows a tick in which nobody drafted to S=1.  So a slot's
+        tokens never depend on whether its neighbours drafted in that
+        tick: on an H100 the GEMMs of 16 rows and of 80 round
+        differently (the MLP's down projection), which flips near-tied
+        argmaxes between the two widths (``chip_smoke.py``'s "verify
+        alone" counts them).  A tick with no draft pays for the full
+        width."""
+        kv = self.kv
+        self._maybe_preempt()
+        # draft before the fault pass: growth must cover the whole window
+        drafts = {}
+        for s in np.flatnonzero(self._active):
+            d = self._spec_window(self._slot_req[int(s)])
+            if d:
+                drafts[int(s)] = d
+        if self.paged:
+            ahead = np.zeros((self.slots,), np.int64)
+            for s, d in drafts.items():
+                ahead[s] = len(d)
+            self._page_faults(ahead=ahead)
+            # the fault pass may have evicted a drafted slot
+            drafts = {s: d for s, d in drafts.items() if self._active[s]}
+        if not self._active.any():
+            return                      # everything evicted: no tick
+        live = [int(s) for s in np.flatnonzero(self._active)]
+        if self.prefix is not None:
+            self._check_window_private(live, drafts)
+        toks = np.zeros((self.slots, 1 + self.spec_k), np.int32)
+        n_tok = np.zeros((self.slots,), np.int32)       # 0: a dead slot
+        for s in live:
+            win = [int(self._slot_req[s].out_tokens[-1])] + drafts.get(s, [])
+            toks[s, :len(win)] = win
+            n_tok[s] = len(win)
+        with self._pool_lock:
+            args = (self._params, kv.cache, kv.to_dev(toks),
+                    kv.to_dev(self._slot_pos.astype(np.int32)),
+                    kv.to_dev(n_tok))
             if self.paged:
-                self.kv.sync_table()
+                args += (kv.table_dev,)
+            nxt, new_cache = self.verify(*args)
+            kv.commit(new_cache)
+        self.stats_decode_dispatches += 1
+        host_nxt = nxt.cpu().numpy()    # the tick's one host sync
+        self._record_tick(len(live))
+        freed = False
+        for s in live:
+            req = self._slot_req[s]
+            d = drafts.get(s, [])
+            m, commit = accept_window(d, host_nxt[s])
+            n_before = len(req.out_tokens)
+            req.out_tokens.extend(commit)
+            self._slot_pos[s] += len(commit)
+            req.spec_drafted += len(d)
+            req.spec_accepted += m
+            self.stats_spec_drafted += len(d)
+            self.stats_spec_accepted += m
+            if m < len(d):
+                # rejected lanes wrote past the committed extent: masked
+                # out of every later read, overwritten by the next window
+                self.stats_spec_rollbacks += 1
+            stopped = (req.needs_host_tokens
+                       and self._hit_stop(req, n_new=len(commit)))
+            # tokens the stream keeps (a stop inside the window truncates)
+            self.stats_decode_tokens += len(req.out_tokens) - n_before
+            freed |= self._end_if_done(s, stopped)
+        if freed:
+            self._after_frees()
+
+    def _fail_live(self, exc: BaseException):
+        """A tick that raised fails every live request with its error: no
+        other tick or device takes over."""
+        for s in np.flatnonzero(self._active):
+            req = self._slot_req[int(s)]
+            if not req.done.is_set():
+                req.error = exc
+                req.t_done = time.monotonic()
+                req.done.set()
 
     def _drained(self) -> bool:
         with self._lock:
@@ -1016,12 +1195,17 @@ class ServeEngine:
         the insert pass, and a pass that admits nothing with nothing live
         waits on it: every event that can unblock the head (a prefill or
         restore round queued, a prefix hold dropped, the weights loaded)
-        rings it."""
+        rings it.  A drafter set picks the speculative tick."""
+        tick = self._tick if self.drafter is None else self._tick_spec
         while True:
             self._work.clear()
             self._do_inserts()
             if self._active.any():
-                self._tick()
+                try:
+                    tick()
+                except BaseException as e:      # noqa: BLE001 — re-raised
+                    self._fail_live(e)
+                    raise
                 continue
             self._last_tick_t = None     # idle gap: not tick jitter
             if self._drained():
@@ -1032,8 +1216,8 @@ class ServeEngine:
 
     # ------------------------------------------------------------ reporting
     def stats(self) -> dict:
-        """The reference's key set; features outside this slice report as
-        off or 0."""
+        """The reference's key set; tensor parallelism, not ported, reports
+        as off."""
         with self._lock:
             n = self._n_completed
             tokens_out = self._tokens_out
@@ -1064,12 +1248,13 @@ class ServeEngine:
             "dispatches_per_token": (
                 self.stats_decode_dispatches
                 / max(self.stats_decode_tokens, 1)),
-            "spec": "off",
-            "spec_k": 0,
-            "spec_drafted": 0,
-            "spec_accepted": 0,
-            "spec_rollbacks": 0,
-            "spec_accept_rate": 0.0,
+            "spec": self.spec_mode or "off",
+            "spec_k": self.spec_k if self.spec_mode else 0,
+            "spec_drafted": self.stats_spec_drafted,
+            "spec_accepted": self.stats_spec_accepted,
+            "spec_rollbacks": self.stats_spec_rollbacks,
+            "spec_accept_rate": (self.stats_spec_accepted
+                                 / max(self.stats_spec_drafted, 1)),
             "prefix_cache": self.prefix is not None,
             "prefix_hits": self.stats_prefix_hits,
             "prefix_tokens_saved": self.stats_prefix_tokens_saved,
@@ -1092,5 +1277,5 @@ class ServeEngine:
         return out
 
 
-__all__ = ["ServeEngine", "PORT_ONLY_STATS", "auto_page_size",
-           "percentile"]
+__all__ = ["ServeEngine", "PORT_ONLY_STATS", "accept_window",
+           "auto_page_size", "percentile"]

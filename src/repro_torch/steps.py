@@ -5,8 +5,8 @@ The reference jits each step and donates the cache argument so XLA
 aliases it in place.  Here the steps run eagerly and update the pool in
 place themselves, under the same contract: every cache leaf keeps its
 shape and dtype (``models.layers.check_cache_invariant``), so the caller
-simply rebinds the returned cache.  Train and verify steps belong to
-later slices.
+simply rebinds the returned cache.  The train step belongs to a later
+slice.
 """
 from __future__ import annotations
 
@@ -92,6 +92,15 @@ def chunkable(cfg, cache_len: int) -> bool:
         if spec.window is not None and spec.window < cache_len:
             return False
     return True
+
+
+def speculatable(cfg, cache_len: int) -> bool:
+    """Can draft-and-verify speculative decoding be exact for this config?
+    The verify window needs what chunked prefill needs (:func:`chunkable`:
+    no MoE capacity coupling, no SSD scan, no sliding-window ring shorter
+    than ``cache_len``) and one greedy token per position (not the audio
+    frontend's codebook vector)."""
+    return chunkable(cfg, cache_len) and cfg.frontend != "audio_codebooks"
 
 
 def init_paged_slot_cache(cfg, slots: int, cache_len: int, dtype,
@@ -266,8 +275,54 @@ def make_decode_step(cfg, *, cache_len: int | None = None,
     return decode_step
 
 
+def make_verify_step(cfg, *, cache_len: int, page_size: int | None = None):
+    """Draft-and-verify speculative decode over the slot pool:
+
+        (params, cache, tokens, pos, n_tok[, table]) -> (argmax, cache)
+
+    ``tokens`` (slots, S): per slot the last committed token followed by
+    up to S - 1 drafted tokens, right-padded; ``pos`` (slots,) int32: the
+    cache position of the window's first token (the last committed
+    token's K/V is written there, as decode does); ``n_tok`` (slots,)
+    int32: valid lanes per slot (0: a dead slot, none of its lanes
+    written).  The whole window is appended and scored in one dispatch:
+    the (slots, S) int32 argmax at lane j is the token greedy decode
+    emits after ``tokens[:, :j + 1]``.  The cache's ``pos`` comes back
+    unchanged (the engine owns acceptance).  Rejected lanes need no
+    rollback: their writes lie past the committed extent, which every
+    later read masks out and the next window overwrites.  With
+    ``page_size`` the linear attention leaves are paged pools read
+    through ``table``, always by the gather path: the paged kernel is a
+    one-query decode and stays on the decode tick, as in the reference."""
+    paged = page_size is not None
+    if paged and cache_len % page_size:
+        raise ValueError("paged verify needs cache_len divisible by "
+                         "page_size")
+    if not speculatable(cfg, cache_len):
+        raise ValueError(
+            f"{cfg.name}: speculative decoding needs a chunk-exact config "
+            "(no MoE, no SSM, no SWA ring shorter than cache_len) and a "
+            "scalar greedy-token frontend")
+
+    def verify_step(params, cache, tokens, pos, n_tok, table=None):
+        pages = ({"table": table, "page_size": page_size,
+                  "cache_len": cache_len, "kernel": False}
+                 if paged else None)
+        out = forward(cast_tree(params, cfg.dtype), cfg, tokens,
+                      mode="verify", pos=pos, cache=cache,
+                      cache_len=cache_len, pages=pages, n_tok=n_tok)
+        return out["logits"].argmax(dim=-1).int(), out["cache"]
+
+    if not paged:
+        def verify_step_dense(params, cache, tokens, pos, n_tok):
+            return verify_step(params, cache, tokens, pos, n_tok)
+        return verify_step_dense
+    return verify_step
+
+
 __all__ = ["cast_tree", "make_prefill_step", "make_serve_step",
            "greedy_oneshot", "init_slot_cache", "init_paged_slot_cache",
-           "paged_names", "chunkable", "make_batched_insert_step",
-           "make_prefix_gather_step", "make_prefill_chunk_step",
-           "make_decode_step", "init_cache"]
+           "paged_names", "chunkable", "speculatable",
+           "make_batched_insert_step", "make_prefix_gather_step",
+           "make_prefill_chunk_step", "make_decode_step",
+           "make_verify_step", "init_cache"]

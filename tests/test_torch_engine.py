@@ -181,8 +181,7 @@ def test_port_engine_equals_reference_engine(built):
     assert tstats["prefix_cache"] == jstats["prefix_cache"]
 
 
-@pytest.mark.parametrize("kw", [
-    dict(spec="ngram"), dict(tp=True), dict(mesh=object())])
+@pytest.mark.parametrize("kw", [dict(tp=True), dict(mesh=object())])
 def test_options_of_later_slices_raise(built, kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ServeEngine(built["cfg"], built["params"], device="cpu", **kw)

@@ -17,7 +17,8 @@ COPIES = sorted(
     [p.relative_to(REF) for p in (REF / "configs").glob("*.py")]
     + [p.relative_to(REF) for p in (REF / "core").glob("*.py")]
     + [Path("serve/pager.py"), Path("serve/policy.py"),
-       Path("serve/prefix.py"), Path("serve/request.py")])
+       Path("serve/prefix.py"), Path("serve/request.py"),
+       Path("serve/spec.py")])
 
 
 def _port_modules():

@@ -131,8 +131,12 @@ def test_prefill_and_decode_logits_match(model):
 
 def test_modes_outside_the_slice_raise(model):
     cfg, _, tp, toks = model
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # verify is ported (tests/test_torch_spec.py); without its window
+    # lengths it is refused, as is a mode the reference does not have
+    with pytest.raises(ValueError, match="n_tok"):
         tlm.forward(tp, cfg, torch.tensor(toks), mode="verify")
+    with pytest.raises(ValueError, match="unknown forward mode"):
+        tlm.forward(tp, cfg, torch.tensor(toks), mode="bogus")
     # families still unported: the audio and vision frontends (MoE and the
     # attention + SSD + MoE hybrid are ported: see the jamba test below)
     for arch in ("musicgen-large", "internvl2-2b"):
