@@ -25,9 +25,13 @@ Phases (each raises on failure, so the script exits non-zero):
    fault between its phases the row check must reject), flash attention
    at qwen2.5-14b's (1 x 2048, 16 x 512) and mixtral-8x7b's prefill
    shapes, RMSNorm, each with the edge cases of the reference's kernel
-   tests; then CUDA-event times of kernel, plain version and one PyTorch
-   library call where there is one, beside the least time the card could
-   take (``bound_ms``); for the paged decodes and the SSD scan, also the
+   tests, and RMSNorm's backward (through autograd, at qwen2.5-14b's
+   training shape 4096 x 5120 and the forward's grid, f32 and bf16: dx
+   row by row, dw by its relative error, with the mean term dropped and
+   one row block left out of dw planted); then CUDA-event times of
+   kernel, plain version and one PyTorch library call where there is
+   one, beside the least time the card could take (``bound_ms``); for
+   the paged decodes, the SSD scan and RMSNorm's backward, also the
    device time alone (``torch.profiler``), where the trace holds every
    launch.
 4. serve  — the port's main paths at full width, one after the other,
@@ -99,11 +103,23 @@ Phases (each raises on failure, so the script exits non-zero):
    dispatches than leg (a), no page leaked, and leg (c) rerun with the
    engine committing its drafts must fail the token check.  Its launch
    identities hold per leg: the paged decode only in leg (a), a verify
-   call as a tick for RMSNorm.
+   call as a tick for RMSNorm.  Then the training path
+   (``qwen2.5-14b-train``, ``train_phase``): qwen2.5-14b at full width
+   and 4 of its 48 layers (``TRAIN``: the train state bounds the depth),
+   f32 masters and AdamW state, bf16 compute, remat "full", microbatches
+   of 4 x 1024 tokens, accum 2, through ``steps.make_train_step`` on the
+   UMT runtime with ``UMTPrefetcher`` and an async ``CheckpointManager``;
+   bars (a)-(h) in its docstring, among them one step through the
+   kernels against the plain norm, accumulation against one large
+   microbatch, two planted faults, and a save, restore and continuation
+   that ends at the uninterrupted run's params.
 5. cli    — ``repro_torch.launch.serve`` on the card at full width, as
    an engine (paged kernel, ``--chunk 512 --prefix-cache on``) and one
    shot: each run's kernels launched, and both token sets held by the
-   teacher-forced token check.
+   teacher-forced token check.  Then ``repro_torch.launch.train`` with
+   ``examples/train_100m.py``'s model (``check_train_cli``): a run with
+   checkpoints, the run resumed from its step-10 save, and ``--umt-off``,
+   each with the same losses where they overlap.
 6. summary — one ``kernels`` JSON line, then the ``ok`` line.
 
 Nothing of JAX or of the ``repro`` package is imported.
@@ -127,6 +143,40 @@ HBM_BPS = 3.35e12
 BF16_FLOPS = 989e12
 F32_FLOPS = 67e12
 
+# the train phase (``train_phase``): qwen2.5-14b at full width, 4 of its
+# 48 layers.  Memory, from configs/archs.py: embedding + untied head
+# 2 x 152064 x 5120 = 1.557 B params, each layer 275.3 M; at 4 layers
+# 2.658 B params x 16 B (f32 param, grad, m, v) = 42.5 GB, plus 5.3 GB of
+# bf16 compute copies, the f32 logits (2.5 GB a copy at 4096 tokens) and
+# one layer's f32 scores under remat (0.67 GB): about 60 GB.  6 layers
+# would be about 70 GB, and full depth about 235 GB.  Microbatches of 4 x
+# 1024 tokens, accum 2; AdamW at lr 1e-3 after 2 warmup steps over the
+# phase's 10 steps, on one fixed batch.
+TRAIN = dict(layers=4, micro=4, seq=1024, accum=2, steps=10, ckpt_at=5,
+             hp=dict(lr=1e-3, warmup=2, total_steps=10))
+TRAIN_CUT = ("the train state at full depth, about 235 GB, does not fit "
+             "one 80 GB card; 4 layers take about 60 GB")
+# (a): the synthetic labels are the tokens themselves (the reference's
+# SyntheticTokenSource), which the embedding and head learn to copy in a
+# few AdamW steps; 10 steps on one batch must take the loss down by at
+# least 1 nat, 8 % of its start near ln(152064) = 11.9: an optimizer
+# that does not move the weights keeps it within a few hundredths.
+LOSS_DROP = 1.0
+# (c), (d): two bf16 steps against each other.  Both round the norms'
+# and the GEMMs' outputs to bf16 (2^-8 relative), at other places: a
+# kernel vs plain norm output may differ by one bf16 ulp, and accum 1 x 8
+# runs every GEMM at another shape than accum 2 x 4.  Loss within 1e-3
+# relative, the global grad norm 1e-2, each parameter leaf's gradient
+# within 5e-2 of its L2 norm.  The planted faults move a leaf by about
+# 1 (dw zeroed: the norm weights' gradients vanish) or 0.5 (a microbatch
+# dropped: every gradient is about halved).
+TRAIN_TOL = dict(loss=1e-3, grad_norm=1e-2, leaf=5e-2)
+# the train CLI on the card: examples/train_100m.py's model (qwen2.5-14b
+# family, d_model 512, 16 layers, vocab 32000, about 92 M params)
+TRAIN_CLI = ["--arch", "qwen2.5-14b", "--tiny", "--d-model", "512",
+             "--n-layers", "16", "--vocab", "32000", "--batch", "8",
+             "--seq", "128", "--steps", "30", "--log-every", "1"]
+
 # the reference's kernel-test tolerances (tests/test_kernels.py:15-17;
 # the SSD scan's :220-221: its plain version rounds its intermediates to
 # bf16 where the kernel sums in f32)
@@ -145,6 +195,14 @@ SSD_TOL = {"float32": dict(rtol=1e-4, atol=1e-4),
 # capacity MoE dispatch is held to the same row bounds
 # (``check_capacity_dispatch``).
 ROW_TOL = dict(rms=1e-2, worst=5e-2)
+# the RMSNorm backward's dw, by its relative L2 error: in f32 a sum over
+# up to 4096 rows in another order than the plain version's; in bf16
+# both round the same f32 sums to bf16, and an entry that rounds the
+# other way is 2^-8 off: 2e-3 allows some 6 % of entries to (an H100
+# reads 1.1e-4 at worst).  One program's block of rows left out
+# (16 of 4096) moves dw by 1/256 where dy leans along x, as in the
+# planted case, and by about 1/sqrt(264) where dy is independent of x.
+DW_TOL = {"float32": 1e-5, "bfloat16": 2e-3}
 # The SSD scan in bf16, row by row: each (b, s, h) row of y against the
 # plain version computed in f32 from the same bf16 inputs.  SSD_TOL's
 # bf16 4e-2 holds the kernel against the plain version in bf16, whose own
@@ -340,9 +398,13 @@ PHASES = {
     # with the pages its eviction handed over), decode-replay through the
     # serve step (mamba2-780m: the prompt's one-shot prefill with the SSD
     # kernel, then one batch-1 serve step per emitted token)
+    # qwen2.5-14b's at half depth, to make room for the train phase
+    # within the script's time: growth, eviction and restore are the same
+    # in every layer
     "qwen2.5-14b-ondemand": dict(
         arch="qwen2.5-14b", paged_kernel=True, norms=2, traffic=TRAFFIC,
         prefill_chunk=512, policy="ondemand", num_pages=ONDEMAND_PAGES,
+        layers=24,
         kernels={"paged_decode_attention": "decode",
                  "flash_attention": "prefill"}),
     "mamba2-780m-ondemand": dict(
@@ -368,6 +430,11 @@ PHASES = {
                  "flash_attention": "prefill"},
         spec_kernels={"paged_decode_attention": None,
                       "flash_attention": "prefill"}),
+    # the training path (``train_phase``, ``TRAIN``): RMSNorm forward and
+    # backward are its kernels; attention runs plain (the reference's
+    # train mode), and the other kernels raise under autograd
+    "qwen2.5-14b-train": dict(arch="qwen2.5-14b", train=True,
+                              layers=TRAIN["layers"]),
 }
 
 
@@ -800,6 +867,110 @@ def check_rms_norm():
                      "bound_ms": bound, "bound_by": bound_by,
                      "library_ms": l_ms})
     return rows[0]          # the prefill shape carries the bytes
+
+
+def check_rms_norm_bwd():
+    """The RMSNorm backward kernel (``rms_norm_bwd``, through autograd's
+    ``RMSNormFn`` as training calls it) against the plain backward
+    (``rms_norm_bwd_ref``) at qwen2.5-14b's training shape (4096 x 5120:
+    a microbatch of 4 x 1024 tokens) and the forward check's grid, in f32
+    and bf16: dx elementwise (``TOL``) and, in bf16, row by row
+    (``ROW_TOL``); dw by its relative L2 error (``DW_TOL``).  Two planted
+    faults must fail: the mean term dropped from dx, and one program's
+    block of rows left out of dw (from the kernel's own partials).  Then
+    the times at the training shape in bf16: kernel, plain, and
+    ``torch.autograd.grad`` through ``F.rms_norm`` on the backward
+    alone."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import rms_norm, rms_norm_bwd, rms_norm_bwd_ref
+    from repro_torch.kernels.rmsnorm import kernel as rk
+
+    rng = np.random.default_rng(7)
+    shapes = [(4096, 5120), (16, 1, 5120), (16, 1, 2560), (2048, 768),
+              (16, 1, 256), (2048, 1536), (16, 1, 3072), (128, 256),
+              (4, 32, 512), (1, 64)]
+    errs = {}
+    for dt in (torch.float32, torch.bfloat16):
+        for shape in shapes:
+            x, dy = (torch.tensor(rng.standard_normal(shape, np.float32),
+                                  device="cuda").to(dt) for _ in range(2))
+            w = torch.tensor(rng.standard_normal(shape[-1], np.float32)
+                             * 0.1 + 1.0, device="cuda").to(dt)
+            xg, wg = x.clone().requires_grad_(), w.clone().requires_grad_()
+            dx, dw = torch.autograd.grad(rms_norm(xg, wg), (xg, wg), dy)
+            pdx, pdw = rms_norm_bwd_ref(x, w, dy)
+            what = f"rms_norm_bwd {shape} {dt}"
+            err = close(dx, pdx, dt, what + " dx")
+            if dt == torch.bfloat16:
+                rows_close(dx, pdx, what + " dx")
+            rel = ((dw.float() - pdw.float()).norm()
+                   / pdw.float().norm()).item()
+            if rel > DW_TOL[str(dt)[6:]]:
+                raise AssertionError(f"{what}: dw relative error {rel:.3e} "
+                                     f"> {DW_TOL[str(dt)[6:]]}")
+            errs[(shape, dt)] = (err, rel)
+    log(f"rms_norm_bwd: {2 * len(shapes)} cases match the plain backward "
+        f"(dx f32 rtol/atol 2e-5, bf16 2e-2 and rows {ROW_TOL}; dw "
+        f"relative L2 {DW_TOL}); worst dw error "
+        f"{max(r for _, r in errs.values()):.3e}")
+
+    # planted faults at the training shape, bf16; dy leans along x, as a
+    # loss gradient does along the norm's output, so that the mean term
+    # is large (with independent dy it is about 0.014 of a row)
+    bf16 = torch.bfloat16
+    shape = (4096, 5120)
+    x, dy = (torch.tensor(rng.standard_normal(shape, np.float32),
+                          device="cuda") for _ in range(2))
+    x, dy = x.to(bf16), (0.5 * x + dy).to(bf16)
+    w = torch.tensor(rng.standard_normal(5120, np.float32) * 0.1 + 1.0,
+                     device="cuda").to(bf16)
+    rstd = torch.rsqrt(x.float().square().mean(-1) + 1e-5)
+    pdx, pdw = rms_norm_bwd_ref(x, w, dy)
+    dx, dw = rms_norm_bwd(x, w, dy, rstd)
+    xh = x.float() * rstd[:, None]
+    mean_term = (xh * (xh * w.float() * dy.float()).mean(-1, keepdim=True)
+                 * rstd[:, None])
+    planted_rows("rms_norm_bwd dx", "4096 x 5120", {
+        "mean term dropped": ((dx.float() + mean_term).to(bf16), ROW_TOL)},
+        pdx, TOL["bfloat16"])
+    n = rk.programs(shape[0], x.device)
+    partials = torch.empty((n, 5120), dtype=torch.float32, device="cuda")
+    rk.launch_bwd(x, w, dy, rstd, torch.empty_like(x),
+                  torch.empty(5120, dtype=bf16, device="cuda"), partials)
+    short = (partials.sum(0) - partials[n // 2]).to(bf16)
+    rel = ((short.float() - pdw.float()).norm() / pdw.float().norm()).item()
+    log(f"rms_norm_bwd planted fault (one row block of {n} left out of dw, "
+        f"4096 x 5120): dw relative error {rel:.3e}")
+    if rel <= DW_TOL["bfloat16"]:
+        raise AssertionError("rms_norm_bwd: the dw check does not reject "
+                             "one row block left out")
+
+    # times at the training shape, bf16
+    k_ms = time_ms(lambda: rms_norm_bwd(x, w, dy, rstd))
+    p_ms = time_ms(lambda: rms_norm_bwd_ref(x, w, dy))
+    xg, wg = x.clone().requires_grad_(), w.clone().requires_grad_()
+    y = torch.nn.functional.rms_norm(xg, (5120,), wg, 1e-5)
+    l_ms = time_ms(lambda: torch.autograd.grad(y, (xg, wg), dy,
+                                               retain_graph=True))
+    k_dev = device_ms(lambda: rms_norm_bwd(x, w, dy, rstd), per_call=2)
+    nbytes = 3 * x.numel() * 2 + w.numel() * 2      # x, dy, w in; dx out
+    flops = 9 * x.numel()
+    bound = max(nbytes / HBM_BPS, flops / F32_FLOPS) * 1e3
+    bound_by = "bytes" if nbytes / HBM_BPS >= flops / F32_FLOPS \
+        else "operations"
+    err, rel = errs[(shape, bf16)]
+    log(f"rms_norm_bwd {shape} bf16: max_err {err:.3e} (dw rel {rel:.3e}) "
+        f"kernel_ms {k_ms:.4f} plain_ms {p_ms:.4f} library_ms {l_ms:.4f} "
+        f"bound_ms {bound:.4f} ({bound_by}: {nbytes} B); device time "
+        f"alone (profiler, both launches) {ms_text(k_dev)}")
+    return {"name": "rms_norm_bwd", "route": "triton",
+            "source": "src/repro_torch/kernels/rmsnorm/kernel.py",
+            "replaces": "src/repro/models/layers.py:11",
+            "shape": "4096 x 5120 bf16", "device_ms": k_dev,
+            "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
+            "bound_ms": bound, "bound_by": bound_by, "library_ms": l_ms}
 
 
 # ---------------------------------------------------------------- paged MLA
@@ -2889,6 +3060,432 @@ def serve_spec(cfg, smi, device="cuda", seed=0, name="qwen2.5-14b-spec"):
              legs[k]["stats"], legs[k]["calls"]) for k in "abc"]
 
 
+# ------------------------------------------------------------------ train
+def leaf_names(tree, prefix=""):
+    """Names of a dict/tuple tree's leaves in ``tree_leaves`` order."""
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree)
+                for n in leaf_names(tree[k], f"{prefix}/{k}")]
+    if isinstance(tree, (tuple, list)):
+        return [n for i, t in enumerate(tree)
+                for n in leaf_names(t, f"{prefix}[{i}]")]
+    return [prefix]
+
+
+def grad_gaps(got, want):
+    """Per leaf ||got - want|| / ||want|| (f32), in ``tree_leaves``
+    order."""
+    from repro_torch.models.layers import tree_leaves
+
+    out = []
+    for g, w in zip(tree_leaves(got), tree_leaves(want)):
+        den = w.float().norm().item()
+        out.append((g.float() - w.float()).norm().item() / (den or 1.0))
+    return out
+
+
+def worst_gap(gaps, names):
+    i = max(range(len(gaps)), key=gaps.__getitem__)
+    return gaps[i], names[i]
+
+
+def traced(fn):
+    """One call of ``fn`` under ``torch.profiler``: (its result, host s,
+    device busy s, [(kernel, ms)] largest first).  The port runs on one
+    stream, so the kernels' durations add up to the busy time."""
+    import collections
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        host = time.perf_counter() - t0
+    by = collections.Counter()
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            # "void ns::f<T, ...>(args)" -> "ns::f<T, ...", cut short
+            name = e.name.replace("(anonymous namespace)::", "")
+            name = name.split("(")[0].removeprefix("void ").strip()
+            by[name[:56]] += e.time_range.elapsed_us()
+    return out, host, sum(by.values()) / 1e6, [
+        (k, v / 1e3) for k, v in by.most_common()]
+
+
+@contextlib.contextmanager
+def deterministic():
+    """Deterministic algorithms for the block (the embedding's backward
+    accumulates rows by sorting instead of atomics), so that two runs of
+    the same steps give the same bits; ops without such a version only
+    warn."""
+    import warnings
+
+    import torch
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+class FixedBatch:
+    """A ``SyntheticTokenSource``-like source whose every step is one
+    batch made on the card from ``seed``: (accum, micro, seq) tokens,
+    labels = tokens as the reference's synthetic source sets them."""
+
+    def __init__(self, vocab, accum, micro, seq, seed, device="cuda"):
+        import torch
+
+        g = torch.Generator(device).manual_seed(seed)
+        tok = torch.randint(0, vocab, (accum, micro, seq), generator=g,
+                            device=device, dtype=torch.int32)
+        self.batch = {"tokens": tok, "labels": tok}
+
+    def fetch(self, step):
+        del step
+        return self.batch
+
+
+def train_phase(cfg, smi, name="qwen2.5-14b-train", seed=0, device="cuda"):
+    """The port's training path at full width (``TRAIN`` and the depth
+    cut are stated there): seeded f32 master weights on the card, bf16
+    compute, remat "full", f32 AdamW state, microbatches of
+    ``TRAIN["micro"]`` x ``TRAIN["seq"]`` tokens, ``accum`` 2, through
+    ``steps.make_train_step`` on the UMT runtime with ``UMTPrefetcher``
+    and an async ``CheckpointManager``.  Bars (each raises):
+    (a) the first loss is finite and ``TRAIN["steps"]`` steps on one batch
+    lower it by ``LOSS_DROP``; (b) every parameter leaf gets a finite,
+    nonzero gradient; (c) one step's gradients through the kernels agree
+    with the same step through the plain norm (``TRAIN_TOL``); (d) accum 2
+    of ``micro`` rows agrees with accum 1 of 2 x ``micro`` rows; (e) the
+    planted faults (the backward's dw zeroed; the second microbatch's
+    gradient dropped) fail (c) and (d); (f) a save at step ``ckpt_at``,
+    restored into a fresh state and continued, ends at the uninterrupted
+    run's params (rtol 1e-5 / atol 1e-6, the reference's bar); (g) the
+    RMSNorm forward and backward launch identities; (h) peak device
+    memory under 80 GB.  Returns the main path's launches (the timed
+    run).  ``device="cpu"`` rehearses it on a tiny config (no memory bar,
+    no launches)."""
+    import shutil
+    import statistics
+
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.core import UMTRuntime
+    from repro_torch.data import UMTPrefetcher
+    from repro_torch.kernels.rmsnorm import ops as rms_ops
+    from repro_torch.models import attention, blocks, layers, lm, ssm
+    from repro_torch.models.layers import tree_leaves, tree_map
+    from repro_torch.optim import OptHParams, adamw_init
+    from repro_torch.steps import make_grad_step, make_train_step
+
+    t_phase = time.perf_counter()
+    tr = TRAIN
+    accum, micro, seq, n = tr["accum"], tr["micro"], tr["seq"], tr["steps"]
+    tokens = accum * micro * seq
+    counted = ("rms_norm", "rms_norm_bwd")
+    card = device == "cuda"
+    sync = torch.cuda.synchronize if card else (lambda: None)
+    if card:
+        torch.cuda.reset_peak_memory_stats()
+    params = lm.init_params(cfg, torch.Generator(device).manual_seed(seed),
+                            device, dtype=cfg.param_dtype)
+    names = leaf_names(params, "params")
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    n_blocks = sum(t.numel() for t in tree_leaves(params["blocks"]))
+    log(f"{name} ({smi}): {cfg.n_layers} of 48 layers ({TRAIN_CUT}); "
+        f"{n_params / 1e9:.3f} B params ({cfg.param_dtype} masters, "
+        f"{cfg.dtype} compute, {cfg.opt_dtype} AdamW state, remat "
+        f"{cfg.remat}); microbatches {micro} x {seq}, accum {accum}")
+    src = FixedBatch(cfg.vocab, accum, micro, seq, seed + 1, device)
+    batch = src.batch
+    grad_step = make_grad_step(cfg)
+    norms = 2 * cfg.n_layers                       # in the blocks
+
+    def launches():
+        return {k: getattr(kernels, k).launches.value for k in counted}
+
+    def identities(got, micro_steps, what):
+        want = {"rms_norm": micro_steps * (2 * norms + 1),
+                "rms_norm_bwd": micro_steps * (norms + 1)}
+        if card and got != want:
+            raise AssertionError(f"{name}: launches {got} != {want} "
+                                 f"({what}; identity of the train path)")
+        return (f"rms_norm {got['rms_norm']} = {micro_steps} x (2 x "
+                f"{norms} + 1: forward, remat recompute, final norm); "
+                f"rms_norm_bwd {got['rms_norm_bwd']} = {micro_steps} x "
+                f"({norms} + 1)")
+
+    # (b), (c), (e): one step's gradients, kernels against the plain norm
+    for k in counted:
+        getattr(kernels, k).launches.reset()
+    g_k, loss_k = grad_step(params, batch)
+    sync()
+    log(f"{name}: launch identities (one grad step): "
+        + identities(launches(), accum, "one grad step"))
+    bad = [nm for nm, g in zip(names, tree_leaves(g_k))
+           if not bool(torch.isfinite(g).all()) or g.abs().max().item() == 0]
+    if bad or not torch.isfinite(loss_k):
+        raise AssertionError(f"{name}: loss {float(loss_k)}; leaves with a "
+                             f"zero or non-finite gradient: {bad}")
+    log(f"{name}: (b) every one of {len(names)} parameter leaves has a "
+        "finite, nonzero gradient")
+    plain = [(m, "rms_norm", kernels.rms_norm_ref)
+             for m in (attention, blocks, layers, lm, ssm)]
+
+    def dw_zeroed(x, w, dy, rstd):
+        dx, dw = kernels.rms_norm_bwd(x, w, dy, rstd)
+        return dx, torch.zeros_like(dw)
+    # the wrapper counts through its module's name, which the swap takes
+    dw_zeroed.launches = kernels.rms_norm_bwd.launches
+
+    def compare(g_a, l_a, g_b, l_b, what):
+        gaps = grad_gaps(g_a, g_b)
+        n_a = torch.stack([g.float().norm() for g in tree_leaves(g_a)]
+                          ).norm().item()
+        n_b = torch.stack([g.float().norm() for g in tree_leaves(g_b)]
+                          ).norm().item()
+        dl = abs(float(l_a) - float(l_b)) / abs(float(l_b))
+        dn = abs(n_a - n_b) / n_b
+        gap, where = worst_gap(gaps, names)
+        ok = dl <= TRAIN_TOL["loss"] and dn <= TRAIN_TOL["grad_norm"] \
+            and gap <= TRAIN_TOL["leaf"]
+        log(f"{name}: {what}: loss {float(l_a):.6f} vs {float(l_b):.6f} "
+            f"(rel {dl:.3e}), grad norm {n_a:.6f} vs {n_b:.6f} (rel "
+            f"{dn:.3e}), worst leaf {where} rel {gap:.3e}, median leaf "
+            f"{statistics.median(gaps):.3e} -> "
+            f"{'within' if ok else 'outside'} {TRAIN_TOL}")
+        return ok
+
+    with swapped(*plain):
+        g_p, loss_p = grad_step(params, batch)
+    if not compare(g_k, loss_k, g_p, loss_p, "(c) kernels vs plain norm"):
+        raise AssertionError(f"{name}: (c) the kernels' step disagrees "
+                             "with the plain norm's")
+    if card:                        # the CPU has no backward kernel
+        with swapped((rms_ops, "rms_norm_bwd", dw_zeroed)):
+            g_f, loss_f = grad_step(params, batch)
+        if compare(g_f, loss_f, g_p, loss_p, "(e) planted: dw zeroed"):
+            raise AssertionError(f"{name}: (c) does not reject the "
+                                 "backward with dw zeroed")
+        del g_f
+    del g_p
+
+    # (d), (e): accum 2 of micro rows against accum 1 of 2 * micro rows
+    whole = {k: v.reshape(1, accum * micro, seq) for k, v in batch.items()}
+    g_1, loss_1 = grad_step(params, whole)
+    if not compare(g_k, loss_k, g_1, loss_1,
+                   f"(d) accum {accum} x {micro} vs accum 1 x "
+                   f"{accum * micro}"):
+        raise AssertionError(f"{name}: (d) accumulation disagrees with "
+                             "one large microbatch")
+    calls = [0]
+    fwd = lm.forward
+
+    def second_dropped(*a, **kw):
+        out = fwd(*a, **kw)
+        calls[0] += 1
+        if calls[0] == 2:          # the second microbatch: no gradient
+            lg = out["logits"]
+            out = dict(out, logits=lg.detach() + 0 * lg)
+        return out
+    from repro_torch import steps as steps_mod
+    with swapped((steps_mod, "forward", second_dropped)):
+        g_d, loss_d = grad_step(params, batch)
+    if compare(g_d, loss_d, g_1, loss_1,
+               "(e) planted: second microbatch's gradient dropped"):
+        raise AssertionError(f"{name}: (d) does not reject the dropped "
+                             "microbatch")
+    del g_k, g_1, g_d
+    gc.collect()
+    if card:
+        torch.cuda.empty_cache()
+
+    # (a), (f), (g): the main path, then a restore and its continuation
+    hp = OptHParams(**tr["hp"])
+    state = {"params": params, "opt": adamw_init(params, cfg.opt_dtype),
+             "step": torch.zeros((), dtype=torch.int32, device=device)}
+    del params
+    step_fn = make_train_step(cfg, hp)
+    ckpt = ROOT / "build" / "train_phase_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    losses, times = [], []
+    with deterministic(), UMTRuntime(n_cores=2, umt=True) as rt:
+        mgr = CheckpointManager(str(ckpt), rt=rt, keep=1)
+        pf = UMTPrefetcher(src, rt, depth=2)
+        for k in counted:
+            getattr(kernels, k).launches.reset()
+        for step in range(n):
+            t0 = time.perf_counter()
+            if card and step == tr["ckpt_at"]:   # the first step the
+                # checkpoint's writes overlap, traced: host or device?
+                (state, m), host_s, busy_s, _ = traced(
+                    lambda: step_fn(state, pf.get(step)))
+                log(f"{name}: the step after the save, traced: host "
+                    f"{host_s * 1e3:.2f} ms, device busy "
+                    f"{busy_s * 1e3:.2f} ms")
+            else:
+                state, m = step_fn(state, pf.get(step))
+            losses.append(float(m["loss"]))             # waits for the step
+            times.append(time.perf_counter() - t0)
+            if step + 1 == tr["ckpt_at"]:
+                t0 = time.perf_counter()
+                mgr.save(state, step + 1, wait=False)
+                t_snap = time.perf_counter() - t0
+        got = launches()
+        sync()
+        t0 = time.perf_counter()
+        mgr.wait()
+        t_wait = time.perf_counter() - t0
+        host = rt.stats()
+        straight = [t.to("cpu") for t in tree_leaves(state["params"])]
+        template = tree_map(lambda t: torch.empty(
+            t.shape, dtype=t.dtype, device="meta"), state)
+        del state, m
+        gc.collect()
+        if card:
+            torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        state, rstep = mgr.restore(template, device=device)
+        t_restore = time.perf_counter() - t0
+        if rstep != tr["ckpt_at"] or int(state["step"]) != rstep:
+            raise AssertionError(f"{name}: restored step {rstep} / "
+                                 f"{int(state['step'])}")
+        clean = times[2:rstep]      # no checkpoint write in flight
+        for step in range(rstep, n - 1):
+            t0 = time.perf_counter()
+            state, m = step_fn(state, pf.get(step))
+            m["loss"].item()
+            clean.append(time.perf_counter() - t0)
+        if card:                    # the last step traced: where time goes
+            (state, m), host_s, busy_s, top = traced(
+                lambda: step_fn(state, pf.get(n - 1)))
+            log(f"{name}: one step traced: host {host_s * 1e3:.2f} ms, "
+                f"device busy {busy_s * 1e3:.2f} ms (idle share "
+                f"{1 - busy_s / host_s:.3f}); largest kernels: "
+                + ", ".join(f"{k} {v:.2f}" for k, v in top[:8]))
+        else:
+            state, m = step_fn(state, pf.get(n - 1))
+        worst = 0.0
+        for i, (a, b) in enumerate(zip(straight,
+                                       tree_leaves(state["params"]))):
+            a = a.to(device)
+            if not torch.allclose(b, a, rtol=1e-5, atol=1e-6):
+                raise AssertionError(
+                    f"{name}: (f) {names[i]} after restore + "
+                    f"{n - rstep} steps differs from the uninterrupted "
+                    f"run by {(b - a).abs().max().item():.3e}")
+            worst = max(worst, (b - a).abs().max().item())
+    shutil.rmtree(ckpt, ignore_errors=True)
+    log(f"{name}: (f) saved at step {tr['ckpt_at']} (host snapshot "
+        f"{t_snap:.2f} s, writes done {t_wait:.2f} s after the last "
+        f"step), restored in {t_restore:.2f} s, {n - rstep} steps on: "
+        f"params equal the uninterrupted run's (max |diff| {worst:.3e}; "
+        "rtol 1e-5 / atol 1e-6)")
+    log(f"{name}: launch identities ({n} steps): "
+        + identities(got, n * accum, f"{n} train steps"))
+    log(f"{name}: losses " + " ".join(f"{x:.4f}" for x in losses))
+    if not (losses[0] == losses[0] and abs(losses[0]) < float("inf")) \
+            or losses[-1] > losses[0] - LOSS_DROP:
+        raise AssertionError(f"{name}: (a) loss {losses[0]:.4f} -> "
+                             f"{losses[-1]:.4f}, not down by {LOSS_DROP}")
+    peak = torch.cuda.max_memory_allocated() if card else 0
+    if peak >= 80e9:
+        raise AssertionError(f"{name}: (h) peak memory {peak / 1e9:.2f} GB")
+    # the steady step: after warm-up, with no checkpoint write in flight
+    # (steps 3-5 and the restored run's untraced steps); the steps the
+    # writes overlap are printed as they came
+    s_step = statistics.median(clean)
+    flops = 6 * n_params * tokens + 2 * n_blocks * tokens
+    log(f"{name} ({smi}): s/step {s_step:.4f} (median of {len(clean)} "
+        f"steps with no checkpoint write in flight: "
+        f"{' '.join(f'{t:.3f}' for t in clean)}; the first run's steps: "
+        f"{' '.join(f'{t:.3f}' for t in times)}), trained tokens/s "
+        f"{tokens / s_step:.1f}, model FLOP rate {flops / s_step / 1e12:.1f} "
+        f"TFLOP/s = {flops / s_step / BF16_FLOPS:.4f} of 989 (6 x "
+        f"{n_params / 1e9:.3f} B params x {tokens} tokens + remat 2 x "
+        f"{n_blocks / 1e9:.3f} B x {tokens} = {flops / 1e12:.1f} TFLOP a "
+        f"step; attention's products not counted), peak device memory "
+        f"{peak / 1e9:.2f} GB (under 80), host runtime: cpu_util "
+        f"{host['cpu_util']:.3f}, wakes {host['wakes']}, oversub "
+        f"{host['oversub_frac']:.4f}, prefetches reissued {pf.reissued}; "
+        f"phase {time.perf_counter() - t_phase:.1f} s")
+    del state, m, straight, template
+    return got
+
+
+def check_train_cli(smi, device="cuda"):
+    """The port's train CLI (``repro_torch.launch.train``) on the card with
+    ``examples/train_100m.py``'s arguments (``TRAIN_CLI``): 30 steps with
+    checkpoints every 10 (UMT on); the run resumed from its step-10
+    checkpoint; and 30 steps with ``--umt-off``.  Bars: the resumed run's
+    losses are the first run's from step 10 on, and UMT on and off give
+    the same losses (the host runtime must not change the numbers); both
+    under deterministic algorithms.  Each leg's kernels launch; each
+    leg's median s/step and host stats are printed.  ``device="cpu"``
+    rehearses it (no launches there)."""
+    import io
+    import shutil
+    import statistics
+
+    from repro_torch import kernels
+    from repro_torch.launch import train as cli
+
+    ckpt = ROOT / "build" / "train_cli_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+
+    def run(leg, extra):
+        for k in ("rms_norm", "rms_norm_bwd"):
+            getattr(kernels, k).launches.reset()
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            cli.train(TRAIN_CLI + ["--device", device] + extra)
+        lines = [json.loads(ln) for ln in out.getvalue().splitlines()
+                 if ln.startswith("{")]
+        steps = {ln["step"]: ln for ln in lines if "step" in ln}
+        got = {k: getattr(kernels, k).launches.value
+               for k in ("rms_norm", "rms_norm_bwd")}
+        if device == "cuda" and min(got.values()) <= 0:
+            raise AssertionError(f"train CLI {leg}: launches {got}")
+        end = lines[-1]
+        first, last = min(steps), max(steps)
+        s_step = statistics.median(steps[s]["s_per_step"]
+                                   for s in steps if s > first)
+        log(f"train CLI {leg} ({smi}): steps {first}-{last}, losses "
+            f"{steps[first]['loss']} -> {steps[last]['loss']}, median "
+            f"s_per_step {s_step:.4f}, "
+            f"wall_s {end['wall_s']}, host_cpu_util {end['host_cpu_util']}, "
+            f"host_wakes {end['host_wakes']}, host_oversub "
+            f"{end['host_oversub']}; launches {got}")
+        return {s: ln["loss"] for s, ln in steps.items()}
+
+    with deterministic():
+        on = run("UMT on", ["--ckpt-dir", str(ckpt), "--ckpt-every", "10"])
+        for s in (20, 30):                # resume from the step-10 save
+            shutil.rmtree(ckpt / f"step_{s:06d}")
+        resumed = run("resumed at step 10", ["--ckpt-dir", str(ckpt),
+                                              "--resume"])
+        off = run("UMT off", ["--umt-off"])
+    shutil.rmtree(ckpt, ignore_errors=True)
+    if sorted(resumed) != list(range(10, 30)) or any(
+            resumed[s] != on[s] for s in resumed):
+        raise AssertionError(f"train CLI: the resumed losses {resumed} do "
+                             f"not continue the run's {on}")
+    if off != on:
+        raise AssertionError(f"train CLI: UMT off gives {off}, on {on}")
+    log("train CLI: the resumed run's 20 losses are the first run's; UMT "
+        "on and off give the same 30 losses")
+
+
 def check_launches(cfg, launches, stats, calls, name=None, kernels=None):
     """The phase's launch identities: each kernel once per layer of each
     decode tick (paged attention) or one-shot prefill (SSD scan, flash
@@ -3061,7 +3658,8 @@ def main(argv=None):
     t_start = time.perf_counter()
 
     build_all()
-    rows = [check_paged_decode(), check_rms_norm(), check_paged_mla(),
+    rows = [check_paged_decode(), check_rms_norm(), check_rms_norm_bwd(),
+            check_paged_mla(),
             check_ssd(), *check_flash()]
     log(f"clocks after the kernel timings (sm, power, temp): {clocks()}")
     from repro_torch.configs import get
@@ -3072,22 +3670,28 @@ def main(argv=None):
         arch = phase.get("arch", name)
         cfg = get(arch)
         layers = args.layers or phase.get("layers", cfg.n_layers)
+        if phase.get("train"):        # the train state bounds its depth
+            layers = min(layers, phase["layers"])
         if layers != cfg.n_layers:
             log(f"depth cut: {layers} of {cfg.n_layers} layers ({name})")
             cfg = cfg.replace(n_layers=layers)
         cfg = cfg.replace(moe_impl=phase.get("moe_impl", cfg.moe_impl))
-        if "spec_k" in phase:
+        if phase.get("train"):
+            runs = [({}, train_phase(cfg, smi, name=name), None, None)]
+        elif "spec_k" in phase:
             runs = serve_spec(cfg, smi, name=name)
         else:
             runs = [(None, *serve(cfg, smi, name=name))]
         for kernels, got, stats, calls in runs:
-            check_launches(cfg, got, stats, calls, name=name,
-                           kernels=kernels)
+            if calls is not None:           # the train phase checks its own
+                check_launches(cfg, got, stats, calls, name=name,
+                               kernels=kernels)
             for k, n in got.items():        # every phase's sum
                 launches[k] = launches.get(k, 0) + n
         gc.collect()                        # the phase's engine, if a cycle
         torch.cuda.empty_cache()            # the next phase's weights
     check_cli(smi)
+    check_train_cli(smi)
     for row in rows:
         row["launches"] = launches.get(row["name"], 0)
     log(f"total {time.perf_counter() - t_start:.1f} s")

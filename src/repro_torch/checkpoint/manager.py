@@ -1,0 +1,256 @@
+"""Fault-tolerant checkpointing with UMT-overlapped writes (PyTorch port
+of ``repro/checkpoint/manager.py``, same on-disk format).
+
+Layout per step::
+
+    <dir>/step_000123.tmp/           (written, fsync'd)
+        manifest.json                (leaf shapes, dtypes, crc32s)
+        leaf_00000.npy ...           (one file per tree leaf, raw bytes)
+    <dir>/step_000123/               (atomic rename = commit)
+
+Leaves are numbered in the reference's order (``jax.tree_util``: dict
+keys sorted, tuples in order; ``models.layers.tree_leaves``), each file
+holds the leaf's raw bytes and the manifest names its dtype as numpy
+does (``"float32"``, ``"bfloat16"``, ``"int32"``), so a checkpoint that
+either package writes loads in the other.
+
+Guarantees:
+  * atomic commit — a crash mid-save never corrupts the latest checkpoint
+    (uncommitted ``.tmp`` dirs are ignored and garbage-collected);
+  * integrity — crc32 per leaf, verified on load;
+  * async — each leaf write is a UMT task (monitored write and fsync),
+    so training compute overlaps checkpoint I/O; ``wait()`` fences
+    durability;
+  * keep-N retention;
+  * snapshot at save — every leaf is copied to the host before ``save``
+    returns, because the port's train step updates the state in place;
+  * bf16 leaves go over by their bits (no ``ml_dtypes`` needed).
+
+On load, leaves are placed on ``device`` (default: each template leaf's
+own device); placing them onto a mesh waits for tensor parallelism
+(ROADMAP.md queue 1, item 18).
+"""
+from __future__ import annotations
+
+import json
+import os
+import shutil
+import threading
+import zlib
+
+import numpy as np
+import torch
+
+from ..core import UMTRuntime, io
+from ..models.layers import tree_leaves
+
+
+def _structure(tree):
+    if isinstance(tree, dict):
+        return {k: _structure(tree[k]) for k in sorted(tree)}
+    if isinstance(tree, (tuple, list)):
+        return [_structure(t) for t in tree]
+    return "*"
+
+
+def _unflatten(template, leaves):
+    """``leaves`` (in ``tree_leaves`` order) in ``template``'s structure."""
+    it = iter(leaves)
+
+    def build(t):
+        if isinstance(t, dict):
+            out = {k: build(t[k]) for k in sorted(t)}
+            return {k: out[k] for k in t}
+        if isinstance(t, (tuple, list)):
+            return type(t)(build(x) for x in t)
+        return next(it)
+
+    return build(template)
+
+
+def _host_bytes(leaf):
+    """A host snapshot of ``leaf``: (raw bytes as a uint8 numpy array,
+    shape, dtype name).  Always a copy, taken now."""
+    host = torch.as_tensor(leaf).detach().to("cpu", copy=True)
+    raw = host.contiguous().reshape(-1).view(torch.uint8).numpy()
+    return raw, list(host.shape), str(host.dtype).replace("torch.", "")
+
+
+def _fsync_write(path: str, data):
+    """Write and fsync, both monitored: a leaf of gigabytes blocks in
+    ``write`` for seconds (the kernel throttles dirty pages), and the UMT
+    runtime gives the core to other tasks (the next batch's prefetch)
+    only for a block it is told of.  The reference monitors the fsync
+    alone."""
+    with open(path, "wb") as f:
+        io.write(f, data)
+        io.fsync(f)
+
+
+def save_checkpoint(state, step: int, dirpath: str,
+                    rt: UMTRuntime | None = None, wait: bool = True):
+    """Write checkpoint for `step`; returns a `wait()` callable."""
+    os.makedirs(dirpath, exist_ok=True)
+    tmp = os.path.join(dirpath, f"step_{step:06d}.tmp")
+    final = os.path.join(dirpath, f"step_{step:06d}")
+    os.makedirs(tmp, exist_ok=True)
+    # host snapshot NOW: the caller's next train step updates these
+    # tensors in place while the file writes proceed asynchronously
+    hosts = [_host_bytes(leaf) for leaf in tree_leaves(state)]
+    manifest = {"step": step, "treedef": json.dumps(_structure(state)),
+                "leaves": []}
+
+    def write_leaf(i, host):
+        raw, shape, dtype = host
+        name = f"leaf_{i:05d}.npy"
+        _fsync_write(os.path.join(tmp, name), raw.data)
+        return {"name": name, "shape": shape, "dtype": dtype,
+                "crc": zlib.crc32(raw.data)}
+
+    results: list = [None] * len(hosts)
+    if rt is None:
+        for i, host in enumerate(hosts):
+            results[i] = write_leaf(i, host)
+        _commit(tmp, final, manifest, results)
+        return lambda: None
+
+    done = threading.Event()
+    remaining = [len(hosts)]
+    errors: list = []
+    lock = threading.Lock()
+
+    def task(i, host):
+        try:
+            results[i] = write_leaf(i, host)
+        except BaseException as e:  # noqa: BLE001
+            errors.append(e)
+        finally:
+            with lock:
+                remaining[0] -= 1
+                if remaining[0] == 0:
+                    if not errors:
+                        _commit(tmp, final, manifest, results)
+                    done.set()
+
+    for i, host in enumerate(hosts):
+        rt.submit(task, i, host, name=f"ckpt{step}.{i}")
+
+    def waiter():
+        io.wait(done)
+        if errors:
+            raise errors[0]
+
+    if wait:
+        waiter()
+    return waiter
+
+
+def _commit(tmp, final, manifest, leaf_entries):
+    manifest["leaves"] = leaf_entries
+    with open(os.path.join(tmp, "manifest.json"), "w") as f:
+        json.dump(manifest, f)
+        io.fsync(f)
+    os.rename(tmp, final)           # atomic commit
+
+
+def _committed_steps(dirpath: str) -> list[int]:
+    steps = []
+    if not os.path.isdir(dirpath):
+        return steps
+    for name in os.listdir(dirpath):
+        if name.startswith("step_") and not name.endswith(".tmp") and \
+                os.path.exists(os.path.join(dirpath, name,
+                                            "manifest.json")):
+            steps.append(int(name[5:]))
+    return sorted(steps)
+
+
+def _read_leaf(path, entry):
+    payload = bytearray(os.path.getsize(path))   # read once, in place
+    with open(path, "rb") as f:
+        f.readinto(payload)
+    if zlib.crc32(payload) != entry["crc"]:
+        raise IOError(f"checksum mismatch in {entry['name']}")
+    dtype = getattr(torch, entry["dtype"])
+    if not payload:
+        return torch.empty(entry["shape"], dtype=dtype)
+    return torch.frombuffer(payload, dtype=dtype).reshape(entry["shape"])
+
+
+def load_checkpoint(dirpath: str, template, step: int | None = None,
+                    device=None):
+    """Load latest (or given) committed step into `template`'s structure.
+
+    Each leaf must match its template leaf's shape; it is placed on
+    ``device``, or on the template leaf's own device when None (a
+    template on the ``meta`` device costs no memory)."""
+    steps = _committed_steps(dirpath)
+    if not steps:
+        return None, None
+    step = steps[-1] if step is None else step
+    path = os.path.join(dirpath, f"step_{step:06d}")
+    with open(os.path.join(path, "manifest.json")) as f:
+        manifest = json.load(f)
+    leaves_t = tree_leaves(template)
+    assert len(leaves_t) == len(manifest["leaves"]), "tree mismatch"
+    out = []
+    for entry, tleaf in zip(manifest["leaves"], leaves_t):
+        t = _read_leaf(os.path.join(path, entry["name"]), entry)
+        shape = tuple(np.shape(tleaf))
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{entry['name']}: shape {tuple(t.shape)} != "
+                             f"the template's {shape}")
+        dev = device if device is not None else getattr(tleaf, "device",
+                                                        "cpu")
+        out.append(t.to(dev))
+    return _unflatten(template, out), step
+
+
+class CheckpointManager:
+    """keep-N retention + preemption-aware autosave + auto-resume."""
+
+    def __init__(self, dirpath: str, rt: UMTRuntime | None = None,
+                 keep: int = 3):
+        self.dir = dirpath
+        self.rt = rt
+        self.keep = keep
+        self.preempted = threading.Event()
+        self._pending = []
+
+    def request_preemption(self, *_args):
+        """Hook for SIGTERM: checkpoint at the next step boundary."""
+        self.preempted.set()
+
+    def save(self, state, step: int, wait: bool = False):
+        w = save_checkpoint(state, step, self.dir, rt=self.rt, wait=wait)
+        self._pending.append(w)
+        self._gc()
+        return w
+
+    def wait(self):
+        for w in self._pending:
+            w()
+        self._pending.clear()
+
+    def restore(self, template, device=None):
+        return load_checkpoint(self.dir, template, device=device)
+
+    def latest_step(self):
+        steps = _committed_steps(self.dir)
+        return steps[-1] if steps else None
+
+    def _gc(self):
+        steps = _committed_steps(self.dir)
+        for s in steps[:-self.keep]:
+            shutil.rmtree(os.path.join(self.dir, f"step_{s:06d}"),
+                          ignore_errors=True)
+        # drop stale uncommitted dirs
+        for name in os.listdir(self.dir):
+            if name.endswith(".tmp"):
+                full = os.path.join(self.dir, name)
+                try:
+                    s = int(name[5:-4])
+                except ValueError:
+                    continue
+                if steps and s < steps[-1]:
+                    shutil.rmtree(full, ignore_errors=True)

@@ -24,3 +24,18 @@ class LaunchCounter:
     def value(self) -> int:
         with self._lock:
             return self._n
+
+
+def forward_only(name, *tensors) -> None:
+    """Raise where autograd would record a kernel that has no backward:
+    its output would carry no gradient to its inputs, and everything
+    below it would silently get none.  Called on the CUDA branch of a
+    wrapper; the CPU branch takes the plain version, which autograd
+    differentiates."""
+    import torch
+
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            f"{name}: the CUDA kernel has no backward yet, so it cannot run "
+            "under autograd (ROADMAP.md queue 1, item 17); train this "
+            "family on the CPU, or call it under torch.no_grad()")

@@ -15,7 +15,7 @@ import ctypes
 import torch
 
 from ..build import load_library
-from ..counter import LaunchCounter
+from ..counter import LaunchCounter, forward_only
 from .ref import flash_attention_ref
 
 SOURCES = ["flash_attention.cu"]
@@ -74,6 +74,7 @@ def flash_attention(q, k, v, *, causal=True, window=None, scale=None):
     if q.device.type != "cuda":
         raise RuntimeError(f"flash_attention: no kernel for device "
                            f"{q.device}")
+    forward_only("flash_attention", q, k, v)
     _check(q, k, v, window)
     b, sq, h, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]

@@ -16,7 +16,7 @@ import ctypes
 import torch
 
 from ..build import load_library
-from ..counter import LaunchCounter
+from ..counter import LaunchCounter, forward_only
 from .ref import paged_decode_attention_ref, paged_mla_decode_attention_ref
 
 SOURCES = ["paged_decode.cu"]
@@ -116,6 +116,7 @@ def paged_decode_attention(q, k_pool, v_pool, table, pos, *, page_size,
     if q.device.type != "cuda":
         raise RuntimeError(f"paged_decode_attention: no kernel for "
                            f"device {q.device}")
+    forward_only("paged_decode_attention", q, k_pool, v_pool)
     _check(q, k_pool, v_pool, table, pos, page_size)
     b, _, h, dh = q.shape
     hkv, pps = k_pool.shape[2], table.shape[1]
@@ -279,6 +280,8 @@ def paged_mla_decode_attention(q_lat, q_rope, ckv_pool, krope_pool, table,
     if q_lat.device.type != "cuda":
         raise RuntimeError(f"paged_mla_decode_attention: no kernel for "
                            f"device {q_lat.device}")
+    forward_only("paged_mla_decode_attention", q_lat, q_rope, ckv_pool,
+                 krope_pool)
     _check_mla(q_lat, q_rope, ckv_pool, krope_pool, table, pos, page_size)
     b, _, h, rkv = q_lat.shape
     n_split, split_len = split_plan(table.shape[1] * page_size, page_size)

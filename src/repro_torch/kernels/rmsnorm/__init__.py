@@ -1,4 +1,5 @@
-from .ops import rms_norm
-from .ref import rms_norm_ref
+from .ops import RMSNormFn, rms_norm, rms_norm_bwd
+from .ref import rms_norm_bwd_ref, rms_norm_ref
 
-__all__ = ["rms_norm", "rms_norm_ref"]
+__all__ = ["RMSNormFn", "rms_norm", "rms_norm_bwd", "rms_norm_bwd_ref",
+           "rms_norm_ref"]

@@ -1,21 +1,23 @@
-"""Wrapper of the Triton RMSNorm kernel: any ``(..., D)`` shape.
+"""Wrappers of the Triton RMSNorm kernels: any ``(..., D)`` shape.
 
-A CPU tensor goes to the plain version (``ref.py``); a CUDA tensor
+``rms_norm`` is the forward; where autograd records it (grad mode on and
+x or w requiring grad) it runs as ``RMSNormFn``, whose forward is the
+same kernel storing each row's ``rstd`` and whose backward is
+``rms_norm_bwd``, the backward kernel.  A CPU tensor goes to the plain
+version (``ref.py``), which autograd differentiates; a CUDA tensor
 launches the kernel or raises — there is no fallback."""
 from __future__ import annotations
 
 import torch
 
 from ..counter import LaunchCounter
-from .kernel import MAX_D, launch
+from .kernel import MAX_D, launch, launch_bwd, programs
 from .ref import rms_norm_ref
 
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
-def rms_norm(x, w, eps=1e-5):
-    if x.device.type == "cpu":
-        return rms_norm_ref(x, w, eps)
+def _check(x, w):
     if x.device.type != "cuda":
         raise RuntimeError(f"rms_norm: no kernel for device {x.device}")
     d = x.shape[-1]
@@ -29,11 +31,69 @@ def rms_norm(x, w, eps=1e-5):
     x2 = x.reshape(-1, d)
     if x2.stride(-1) != 1:
         raise ValueError("rms_norm kernel: rows must be contiguous")
-    out = torch.empty(x2.shape, dtype=x.dtype, device=x.device)
+    return x2
+
+
+def _forward(x2, w, eps, rstd=None):
+    out = torch.empty(x2.shape, dtype=x2.dtype, device=x2.device)
     if x2.shape[0]:
-        launch(x2, w.contiguous(), out, eps)
+        launch(x2, w.contiguous(), out, eps, rstd)
         rms_norm.launches.add()
-    return out.reshape(x.shape)
+    return out
+
+
+def rms_norm(x, w, eps=1e-5):
+    if x.device.type == "cpu":
+        return rms_norm_ref(x, w, eps)
+    x2 = _check(x, w)
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        return RMSNormFn.apply(x2, w, eps).reshape(x.shape)
+    return _forward(x2, w, eps).reshape(x.shape)
+
+
+def rms_norm_bwd(x, w, dy, rstd):
+    """The backward kernel: ``(dx, dw)`` of ``rms_norm(x, w)`` for the
+    output gradient ``dy``, with ``rstd`` (f32, one per row of x) from the
+    forward.  x, dy: (..., D) on the card; dx in x's dtype, dw in w's."""
+    x2 = _check(x, w).contiguous()
+    d = x2.shape[1]
+    dy2 = dy.reshape(-1, d).to(x2.dtype).contiguous()
+    if dy2.shape != x2.shape or rstd.shape != (x2.shape[0],) \
+            or rstd.dtype != torch.float32:
+        raise ValueError(f"rms_norm_bwd: dy {tuple(dy.shape)} / rstd "
+                         f"{tuple(rstd.shape)} {rstd.dtype} do not match x "
+                         f"{tuple(x.shape)}")
+    dx = torch.empty_like(x2)
+    dw = torch.empty(d, dtype=w.dtype, device=w.device)
+    r = x2.shape[0]
+    if r == 0:
+        return dx.reshape(x.shape), dw.zero_()
+    partials = torch.empty((programs(r, x2.device), d), dtype=torch.float32,
+                           device=x2.device)
+    launch_bwd(x2, w.contiguous(), dy2, rstd.contiguous(), dx, dw, partials)
+    rms_norm_bwd.launches.add()
+    return dx.reshape(x.shape), dw
+
+
+class RMSNormFn(torch.autograd.Function):
+    """RMSNorm under autograd on the card: the forward kernel (saving
+    ``rstd``), the backward kernel for its gradient."""
+
+    @staticmethod
+    def forward(ctx, x2, w, eps):
+        rstd = torch.empty(x2.shape[0], dtype=torch.float32,
+                           device=x2.device)
+        out = _forward(x2, w, eps, rstd)
+        ctx.save_for_backward(x2, w, rstd)
+        return out
+
+    @staticmethod
+    def backward(ctx, dy):
+        x2, w, rstd = ctx.saved_tensors
+        dx, dw = rms_norm_bwd(x2, w, dy, rstd)
+        return (dx if ctx.needs_input_grad[0] else None,
+                dw if ctx.needs_input_grad[1] else None, None)
 
 
 rms_norm.launches = LaunchCounter()
+rms_norm_bwd.launches = LaunchCounter()

@@ -1,5 +1,6 @@
 """Plain PyTorch RMSNorm — the math of ``repro/models/layers.py::rms_norm``
-(the Pallas kernel's oracle): statistics in f32, output in x's dtype."""
+(the Pallas kernel's oracle): statistics in f32, output in x's dtype —
+and its gradient written out, the backward kernel's plain version."""
 from __future__ import annotations
 
 import torch
@@ -10,3 +11,17 @@ def rms_norm_ref(x, w, eps=1e-5):
     var = x32.square().mean(dim=-1, keepdim=True)
     y = x32 * torch.rsqrt(var + eps)
     return (y * w.float()).to(x.dtype)
+
+
+def rms_norm_bwd_ref(x, w, dy, eps=1e-5):
+    """``(dx, dw)`` of ``rms_norm_ref(x, w, eps)`` for the output gradient
+    ``dy``, in f32: with ``xh = x * rstd``, ``dx = rstd * (w*dy - xh *
+    mean(xh*w*dy))`` per row and ``dw`` the sum of ``dy*xh`` over rows;
+    dx in x's dtype, dw in w's."""
+    x32 = x.float()
+    rstd = torch.rsqrt(x32.square().mean(dim=-1, keepdim=True) + eps)
+    xh = x32 * rstd
+    wdy = w.float() * dy.float()
+    dx = rstd * (wdy - xh * (xh * wdy).mean(dim=-1, keepdim=True))
+    dw = (dy.float() * xh).reshape(-1, x.shape[-1]).sum(dim=0)
+    return dx.to(x.dtype), dw.to(w.dtype)

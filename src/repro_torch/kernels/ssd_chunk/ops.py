@@ -16,7 +16,7 @@ import ctypes
 import torch
 
 from ..build import load_library
-from ..counter import LaunchCounter
+from ..counter import LaunchCounter, forward_only
 from .ref import ssd_scan_ref
 
 SOURCES = ["ssd_chunk.cu"]
@@ -118,6 +118,7 @@ def ssd_scan(x, dt, a, bmat, cmat, *, chunk=256):
         return ssd_scan_ref(x, dt, a, bmat, cmat, chunk=chunk)
     if x.device.type != "cuda":
         raise RuntimeError(f"ssd_scan: no kernel for device {x.device}")
+    forward_only("ssd_scan", x, dt, a, bmat, cmat)
     dt, a, dims = _prepare(x, dt, a, bmat, cmat, chunk)
     b, s, h, p, n = dims
     y = torch.empty((b, s, h, p), dtype=x.dtype, device=x.device)

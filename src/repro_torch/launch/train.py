@@ -1,0 +1,166 @@
+"""Training CLI (PyTorch port of ``repro/launch/train.py``).
+
+The host side runs ON the UMT runtime: data prefetch (``UMTPrefetcher``),
+async checkpoint writes (``CheckpointManager``, one task per leaf, its
+write and fsync monitored) and heartbeats are UMT tasks whose blocking
+I/O releases cores to other host work, so the step never waits on a
+blocked host thread.
+
+    PYTHONPATH=src python -m repro_torch.launch.train --tiny --device cpu \
+        --steps 50 --ckpt-dir <dir> [--resume] [--umt-off]
+
+The reference CLI's flags and JSON lines (one per logged step, then the
+closing ``wall_s`` / ``host_cpu_util`` / ``host_wakes`` line), plus
+``--device {cuda,cpu}`` (default ``cuda``; ``cuda`` without a card
+raises).  One device, no mesh: sharding the train state waits for tensor
+parallelism (ROADMAP.md queue 1, item 18).  The frontend families raise
+(item 7).  Weights are a seeded ``torch.Generator`` init (seed 0) on the
+device; batches come from ``SyntheticTokenSource`` (seed 1234), as in
+the reference.  Heartbeats go to a temporary directory.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import signal
+import tempfile
+import time
+
+import torch
+
+from ..checkpoint import CheckpointManager
+from ..configs import get
+from ..core import UMTRuntime
+from ..data import SyntheticTokenSource, UMTPrefetcher
+from ..device import resolve_device
+from ..ft import HeartbeatMonitor, StragglerDetector
+from ..models.layers import tree_leaves
+from ..optim import OptHParams
+from ..steps import init_train_state, make_train_step
+
+
+def build(cfg, hp, device):
+    state = init_train_state(cfg, torch.Generator(device).manual_seed(0),
+                             hp, device)
+    return make_train_step(cfg, hp), state
+
+
+def train(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="qwen2.5-14b")
+    ap.add_argument("--tiny", action="store_true",
+                    help="reduced config of the same family (CPU-sized)")
+    ap.add_argument("--d-model", type=int, default=0,
+                    help="override tiny d_model (e.g. 512 for ~100M)")
+    ap.add_argument("--n-layers", type=int, default=0)
+    ap.add_argument("--vocab", type=int, default=0)
+    ap.add_argument("--steps", type=int, default=50)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--accum", type=int, default=1)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=20)
+    ap.add_argument("--resume", action="store_true")
+    ap.add_argument("--umt-off", action="store_true",
+                    help="baseline host runtime (no UMT events)")
+    ap.add_argument("--cores", type=int, default=2)
+    ap.add_argument("--log-every", type=int, default=5)
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default) or cpu")
+    args = ap.parse_args(argv)
+
+    cfg = get(args.arch)
+    if cfg.frontend != "none":
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.frontend!r} frontend is not ported yet "
+            "(ROADMAP.md queue 1, item 7)")
+    if args.tiny:
+        over = {}
+        if args.d_model:
+            over.update(d_model=args.d_model,
+                        head_dim=max(32, args.d_model // 8),
+                        d_ff=args.d_model * 4)
+        if args.n_layers:
+            over["n_layers"] = args.n_layers * len(cfg.pattern)
+        if args.vocab:
+            over["vocab"] = args.vocab
+        cfg = cfg.tiny(**over)
+    device = resolve_device(args.device)
+
+    hp = OptHParams(lr=args.lr, warmup=max(args.steps // 20, 5),
+                    total_steps=args.steps)
+    step_fn, state = build(cfg, hp, device)
+    n_params = sum(x.numel() for x in tree_leaves(state["params"]))
+    print(f"arch={cfg.name} params={n_params / 1e6:.1f}M "
+          f"umt={'off' if args.umt_off else 'on'}")
+
+    src = SyntheticTokenSource(
+        seed=1234, batch=args.batch, seq=args.seq, vocab=cfg.vocab,
+        accum=args.accum)
+
+    t_start = time.time()
+    losses = []
+    old_handler = None
+    # the runtime shuts down (its heartbeat tasks done) before the
+    # heartbeat directory goes
+    with tempfile.TemporaryDirectory(prefix="repro_torch_hb") as hb_dir, \
+            UMTRuntime(n_cores=args.cores, umt=not args.umt_off) as rt:
+        mgr = CheckpointManager(args.ckpt_dir, rt=rt) if args.ckpt_dir \
+            else None
+        hb = HeartbeatMonitor(hb_dir, n_hosts=1)
+        straggle = StragglerDetector(n_hosts=1)
+        start_step = 0
+        if mgr and args.resume:
+            restored, rstep = mgr.restore(state)
+            if restored is not None:
+                state = restored
+                start_step = int(rstep)
+                print(f"resumed from step {start_step}")
+        if mgr:
+            old_handler = signal.signal(signal.SIGTERM,
+                                        mgr.request_preemption)
+        try:
+            pf = UMTPrefetcher(src, rt, depth=2, start_step=start_step)
+            for step in range(start_step, args.steps):
+                t0 = time.time()
+                batch = pf.get(step)
+                state, metrics = step_fn(state, batch)
+                loss = float(metrics["loss"])
+                losses.append(loss)
+                dt = time.time() - t0
+                straggle.record(0, dt)
+                hb.beat_task(rt, 0)
+                if step % args.log_every == 0 or step == args.steps - 1:
+                    print(json.dumps({
+                        "step": step, "loss": round(loss, 4),
+                        "gnorm": round(float(metrics["grad_norm"]), 3),
+                        "lr": float(metrics["lr"]),
+                        "s_per_step": round(dt, 3)}))
+                if mgr and ((step + 1) % args.ckpt_every == 0 or
+                            mgr.preempted.is_set()):
+                    mgr.save(state, step + 1, wait=False)  # async
+                    if mgr.preempted.is_set():
+                        print("preempted: checkpointed, exiting")
+                        break
+            if mgr:
+                mgr.wait()
+        finally:
+            if old_handler is not None:
+                signal.signal(signal.SIGTERM, old_handler)
+        host_stats = rt.stats()
+
+    wall = time.time() - t_start
+    print(json.dumps({
+        "wall_s": round(wall, 2),
+        "first_loss": round(losses[0], 4) if losses else None,
+        "last_loss": round(losses[-1], 4) if losses else None,
+        "host_cpu_util": round(host_stats["cpu_util"], 3),
+        "host_oversub": round(host_stats["oversub_frac"], 4),
+        "host_wakes": host_stats["wakes"],
+    }))
+    return losses
+
+
+if __name__ == "__main__":
+    train()

@@ -47,11 +47,12 @@ def block_cache_shapes(cfg, spec, batch, seq):
 
 def block_apply(x, p, cfg, spec, *, mode, pos, cache=None, cache_len=None,
                 pages=None, attn_extent=None, n_tok=None):
-    """Returns the new residual stream and the block's new cache.  The
-    MoE load-balance term is dropped: it only matters to training.
-    ``n_tok`` (verify mode) is passed to the mixer only when set, so the
-    SSD mixer, which never verifies (``steps.speculatable``), keeps its
-    signature."""
+    """Returns ``(x, new_cache, aux)``: the new residual stream, the
+    block's new cache and its MoE load-balance term — a 0-d f32 tensor
+    from a MoE block in train mode, else 0.0 (the serve modes never ask
+    for it).  ``n_tok`` (verify mode) is passed to the mixer only when
+    set, so the SSD mixer, which never verifies (``steps.speculatable``),
+    keeps its signature."""
     _, _, apply_fn = _mixer(spec)
     kw = {} if n_tok is None else {"n_tok": n_tok}
     out, new_cache = apply_fn(x, p["mixer"], cfg, spec, mode=mode, pos=pos,
@@ -60,12 +61,14 @@ def block_apply(x, p, cfg, spec, *, mode, pos, cache=None, cache_len=None,
     if mode in ("decode", "prefill_chunk", "verify"):
         check_cache_invariant(cache, new_cache, f"{spec.kind}/{spec.attn}")
     x = x + out
+    aux = 0.0
     if spec.mlp != "none":
         xn = rms_norm(x, p["mlp"]["ln"], cfg.norm_eps)
         if spec.mlp == "dense":
             y = mlp_dense(xn, p["mlp"], cfg)
         else:
             fn = moe_mlp_ragged if cfg.moe_impl == "ragged" else moe_mlp
-            y, _ = fn(xn, p["mlp"], cfg, aux=False)
+            y, lb = fn(xn, p["mlp"], cfg, aux=mode == "train")
+            aux = 0.0 if lb is None else lb
         x = x + y
-    return x, new_cache
+    return x, new_cache, aux

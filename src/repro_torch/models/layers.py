@@ -1,5 +1,5 @@
-"""Shared layers: norms, rope, MLP, embeddings, paging (PyTorch port of
-``repro/models/layers.py``).
+"""Shared layers: norms, rope, MLP, embeddings, paging, the loss (PyTorch
+port of ``repro/models/layers.py``).
 
 ``rms_norm`` is the kernel wrapper: the Triton kernel for CUDA tensors,
 the plain version for CPU ones; ``gated_rms_norm`` goes through it too.
@@ -18,7 +18,7 @@ from ..kernels import rms_norm
 __all__ = ["rms_norm", "gated_rms_norm", "check_cache_invariant",
            "page_gather", "page_scatter", "page_scatter_window",
            "rope_freqs", "apply_rope", "mlp_dense", "embed_tokens",
-           "lm_logits", "tree_leaves", "tree_map"]
+           "lm_logits", "softmax_xent", "tree_leaves", "tree_map"]
 
 
 def _frontend_unported(cfg):
@@ -34,15 +34,18 @@ def gated_rms_norm(x, z, w, eps=1e-5):
 
 
 # --------------------------------------------------------- cache invariance
-def tree_map(fn, tree, is_leaf=None):
-    """Map ``fn`` over the leaves of a dict/tuple tree."""
+def tree_map(fn, tree, *rest, is_leaf=None):
+    """Map ``fn`` over the leaves of a dict/tuple tree (and of ``rest``,
+    trees of the same structure, leaf for leaf)."""
     if is_leaf is not None and is_leaf(tree):
-        return fn(tree)
+        return fn(tree, *rest)
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v, is_leaf) for k, v in tree.items()}
+        return {k: tree_map(fn, v, *(t[k] for t in rest), is_leaf=is_leaf)
+                for k, v in tree.items()}
     if isinstance(tree, tuple):
-        return tuple(tree_map(fn, v, is_leaf) for v in tree)
-    return fn(tree)
+        return tuple(tree_map(fn, v, *(t[i] for t in rest), is_leaf=is_leaf)
+                     for i, v in enumerate(tree))
+    return fn(tree, *rest)
 
 
 def tree_leaves(tree):
@@ -181,3 +184,16 @@ def lm_logits(x, params, cfg):
     else:
         w = params["lm_head"].to(dt)                      # (D, V)
     return x @ w
+
+
+def softmax_xent(logits, labels, z_loss=0.0):
+    """Per-token cross entropy in f32 with the z-loss folded in: ``lse -
+    gold + z_loss * lse^2``.  labels: int ids; a negative (masked) label
+    gathers column 0 and its loss is the caller's to mask."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels.long().clamp_min(0)[..., None])[..., 0]
+    loss = lse - gold
+    if z_loss:
+        loss = loss + z_loss * lse.square()
+    return loss

@@ -4,19 +4,25 @@
 Parameters and caches are plain dict/tuple trees in the reference's
 layout: per-pattern-position leaves stacked on a leading ``n_repeats``
 axis, flat ``(d, H*dh)`` projection weights.  A Python loop over the
-repeats takes the place of ``lax.scan``; there is no remat (the port
-serves, it does not train yet).
+repeats takes the place of ``lax.scan``.  In train mode under autograd,
+``cfg.remat == "full"`` checkpoints each repeat of the pattern
+(``torch.utils.checkpoint``, non-reentrant): the reference's
+``jax.checkpoint`` of its scan body with nothing saveable.  The serve
+modes run under ``torch.no_grad()``.
 """
 from __future__ import annotations
 
+import contextlib
+import functools
 from typing import NamedTuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 from .blocks import block_apply, block_cache_shapes, block_param_shapes
-from .layers import embed_tokens, lm_logits, rms_norm, tree_map
+from .layers import embed_tokens, lm_logits, rms_norm, tree_leaves, tree_map
 
 
 class LeafMeta(NamedTuple):
@@ -121,12 +127,14 @@ def _layer(tree, r):
 
 
 # ---------------------------------------------------------------- forward
-@torch.no_grad()
 def forward(params, cfg, tokens, *, mode="train", pos=0, cache=None,
             cache_len=None, pages=None, attn_extent=None, want_logits=True,
             n_tok=None):
-    """tokens: (B, S) int.  Returns {"logits", "cache"} (the reference's
-    MoE "aux" term belongs to the training slice).
+    """tokens: (B, S) int.  Returns {"logits", "cache", "aux"}: ``aux``
+    is the MoE load-balance term summed over the layers (a 0-d f32
+    tensor) in train mode, None in the serve modes, whose callers never
+    read it.  Train mode records autograd when the caller's grad mode is
+    on; the serve modes run under ``torch.no_grad()``.
 
     mode: "train" (all-position logits, no cache) | "prefill" (cache
     padded to ``cache_len`` + last-position logits) | "decode" (S == 1;
@@ -148,6 +156,29 @@ def forward(params, cfg, tokens, *, mode="train", pos=0, cache=None,
     if mode not in ("train", "prefill", "decode", "prefill_chunk",
                     "verify"):
         raise ValueError(f"unknown forward mode {mode!r}")
+    with contextlib.nullcontext() if mode == "train" else torch.no_grad():
+        return _forward(params, cfg, tokens, mode=mode, pos=pos, cache=cache,
+                        cache_len=cache_len, pages=pages,
+                        attn_extent=attn_extent, want_logits=want_logits,
+                        n_tok=n_tok)
+
+
+def _remat(params, cfg):
+    """Whether train mode checkpoints each repeat: autograd records (grad
+    mode on, a weight requires grad) and ``cfg.remat`` asks for it."""
+    if cfg.remat == "none" or not torch.is_grad_enabled() or not any(
+            t.requires_grad for t in tree_leaves(params)):
+        return False
+    if cfg.remat != "full":
+        raise NotImplementedError(
+            f"{cfg.name}: remat={cfg.remat!r} is not ported (the port "
+            "checkpoints whole repeats, remat='full'; ROADMAP.md queue 1, "
+            "item 10)")
+    return True
+
+
+def _forward(params, cfg, tokens, *, mode, pos, cache, cache_len, pages,
+             attn_extent, want_logits, n_tok):
     if mode == "verify" and n_tok is None:
         raise ValueError("verify mode needs n_tok")
     if cfg.pos_emb != "rope":
@@ -157,6 +188,7 @@ def forward(params, cfg, tokens, *, mode="train", pos=0, cache=None,
     dt = getattr(torch, cfg.dtype)
     x = embed_tokens(tokens, params["embed"], cfg, dt)
     s = x.shape[1]
+    train = mode == "train"
     cache_in = mode in ("decode", "prefill_chunk", "verify")
     if cache_in:
         cache_blocks = cache["blocks"]
@@ -164,14 +196,35 @@ def forward(params, cfg, tokens, *, mode="train", pos=0, cache=None,
     else:
         new_blocks = [None] * len(cfg.pattern)
 
-    for r in range(cfg.n_repeats):
+    def repeat(x, aux, r):
+        """One repeat of the pattern: the scan body of the reference."""
+        ncs = []
         for i, spec in enumerate(cfg.pattern):
             bc = _layer(cache_blocks[i], r) if cache_in else None
-            x, nc = block_apply(x, _layer(params["blocks"][i], r), cfg, spec,
-                                mode=mode, pos=pos, cache=bc,
-                                cache_len=cache_len, pages=pages,
-                                attn_extent=attn_extent, n_tok=n_tok)
-            if mode == "prefill":
+            x, nc, a = block_apply(x, _layer(params["blocks"][i], r), cfg,
+                                   spec, mode=mode, pos=pos, cache=bc,
+                                   cache_len=cache_len, pages=pages,
+                                   attn_extent=attn_extent, n_tok=n_tok)
+            ncs.append(nc)
+            if not isinstance(a, float):
+                aux = aux + a
+        return x, aux, ncs
+
+    def train_repeat(x, aux, r):
+        return repeat(x, aux, r)[:2]
+
+    aux = torch.zeros((), dtype=torch.float32, device=x.device) \
+        if train else None
+    remat = train and _remat(params, cfg)
+    for r in range(cfg.n_repeats):
+        if remat:
+            # ``r`` bound now: the backward recomputes after the loop ends
+            x, aux = checkpoint(functools.partial(train_repeat, r=r), x, aux,
+                                use_reentrant=False)
+            continue
+        x, aux, ncs = repeat(x, aux, r)
+        if mode == "prefill":
+            for i, nc in enumerate(ncs):
                 if new_blocks[i] is None:
                     new_blocks[i] = {
                         k: v.new_empty((cfg.n_repeats,) + tuple(v.shape))
@@ -195,6 +248,7 @@ def forward(params, cfg, tokens, *, mode="train", pos=0, cache=None,
                      "blocks": tuple(new_blocks)}
         x = x[:, -1:]
     if not want_logits:                 # non-final chunk: cache only
-        return {"logits": None, "cache": new_cache}
+        return {"logits": None, "cache": new_cache, "aux": aux}
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return {"logits": lm_logits(x, params, cfg), "cache": new_cache}
+    return {"logits": lm_logits(x, params, cfg), "cache": new_cache,
+            "aux": aux}

@@ -15,7 +15,9 @@ The expert products are plain matrix products, outside any kernel in the
 reference too, so they go to ``torch.bmm`` / ``torch.matmul`` here.  Both
 return ``(y, lb)`` as the reference does; the Switch-style load-balance
 term ``lb`` is computed only when asked for (training; the serve path
-never asks).
+never asks).  Both are differentiable: the capacity dispatch's scatter
+goes into a fresh zero buffer, and the gate product runs out of place
+where autograd records it.
 """
 from __future__ import annotations
 
@@ -89,7 +91,11 @@ def moe_mlp(xn, p, cfg, aux=True):
     buf[brow, eid, slot_w] = xn.repeat_interleave(k, dim=1)
     xin = buf[:, :, :c].transpose(0, 1).reshape(e, b * c, d)
     h = F.silu(torch.bmm(xin, p["w_gate"].to(dt)))
-    h.mul_(torch.bmm(xin, p["w_up"].to(dt)))
+    u = torch.bmm(xin, p["w_up"].to(dt))
+    # in place only where autograd records nothing: the product's
+    # backward needs the gate's value as it was
+    h = h.mul_(u) if not torch.is_grad_enabled() else h * u
+    del u
     out_e = torch.bmm(h, p["w_down"].to(dt)).view(e, b, c, d)
     del h
     got = out_e[eid, brow, slot.clamp(0, c - 1)]          # gather back

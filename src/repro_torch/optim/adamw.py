@@ -1,0 +1,89 @@
+"""AdamW with decoupled weight decay, global-norm clipping and a
+warmup+cosine schedule (PyTorch port of ``repro/optim/adamw.py``).
+
+Trees are the port's dict/tuple trees of tensors.  The math is the
+reference's, in f32, with m and v stored in ``opt_dtype``; the schedule
+and the bias corrections are 0-d f32 tensors on the step's device, so a
+step never waits for the host.  Unlike the reference, ``adamw_update``
+updates params, m and v in place (the master weights and both moments
+are the bulk of a training card's memory; a second copy would not fit at
+full width) and returns the same trees.
+"""
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import torch
+
+from ..models.layers import tree_leaves, tree_map
+
+
+class OptHParams(NamedTuple):
+    lr: float = 3e-4
+    warmup: int = 100
+    total_steps: int = 10_000
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    clip_norm: float = 1.0
+    min_lr_frac: float = 0.1
+
+
+def lr_schedule(step, hp: OptHParams):
+    """Linear warmup to ``hp.lr``, then cosine down to ``min_lr_frac``;
+    a 0-d f32 tensor (on ``step``'s device when it is a tensor)."""
+    step = torch.as_tensor(step).float()
+    warm = hp.lr * (step + 1) / max(hp.warmup, 1)
+    t = ((step - hp.warmup) / max(hp.total_steps - hp.warmup, 1)).clamp(
+        0.0, 1.0)
+    cos = hp.lr * (hp.min_lr_frac + (1 - hp.min_lr_frac) * 0.5 *
+                   (1 + torch.cos(math.pi * t)))
+    return torch.where(step < hp.warmup, warm, cos)
+
+
+def adamw_init(params, opt_dtype="float32"):
+    dt = getattr(torch, opt_dtype) if isinstance(opt_dtype, str) \
+        else opt_dtype
+    zeros = lambda p: torch.zeros(p.shape, dtype=dt,  # noqa: E731
+                                  device=p.device)
+    return {"m": tree_map(zeros, params), "v": tree_map(zeros, params)}
+
+
+def global_norm(tree):
+    """sqrt of the sum of squares of every leaf, in f32 (0-d tensor)."""
+    norms = [torch.linalg.vector_norm(x, dtype=torch.float32)
+             for x in tree_leaves(tree)]
+    return torch.stack(norms).square().sum().sqrt()
+
+
+@torch.no_grad()
+def adamw_update(grads, opt_state, params, step, hp: OptHParams):
+    """One AdamW step, in place: params, ``opt_state["m"]`` and ``["v"]``
+    are updated where they lie; ``grads`` are read, not written.  Returns
+    (params, opt_state, metrics) with metrics ``grad_norm`` (before
+    clipping) and ``lr``, 0-d f32 tensors."""
+    gnorm = global_norm(grads)
+    scale = torch.clamp(hp.clip_norm / (gnorm + 1e-9), max=1.0)
+    step = torch.as_tensor(step, device=gnorm.device)
+    lr = lr_schedule(step, hp)
+    b1, b2 = hp.b1, hp.b2
+    sf = (step + 1).float()
+    bc1 = 1 - torch.pow(b1, sf)
+    bc2 = 1 - torch.pow(b2, sf)
+    for p, g, m, v in zip(tree_leaves(params), tree_leaves(grads),
+                          tree_leaves(opt_state["m"]),
+                          tree_leaves(opt_state["v"])):
+        g = g.float() * scale
+        m32, v32 = m.float(), v.float()      # the leaves themselves in f32
+        m32.mul_(b1).add_(g, alpha=1 - b1)
+        v32.mul_(b2).addcmul_(g, g, value=1 - b2)
+        del g
+        delta = (m32 / bc1).div_((v32 / bc2).sqrt_().add_(hp.eps))
+        p32 = p.float()
+        p32.sub_(delta.add_(p32, alpha=hp.weight_decay).mul_(lr))
+        for dst, src in ((p, p32), (m, m32), (v, v32)):
+            if dst is not src:
+                dst.copy_(src)
+    return params, opt_state, {"grad_norm": gnorm, "lr": lr}

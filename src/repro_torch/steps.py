@@ -1,19 +1,21 @@
-"""Serving steps (PyTorch port of the serving subset of
-``repro/steps.py``).
+"""Step builders (PyTorch port of ``repro/steps.py``): the train step
+(gradient accumulation + AdamW) and the serving steps.
 
 The reference jits each step and donates the cache argument so XLA
 aliases it in place.  Here the steps run eagerly and update the pool in
 place themselves, under the same contract: every cache leaf keeps its
 shape and dtype (``models.layers.check_cache_invariant``), so the caller
-simply rebinds the returned cache.  The train step belongs to a later
-slice.
+simply rebinds the returned cache.  The train step likewise updates the
+train state in place (params, m, v and ``step``) and returns it.
 """
 from __future__ import annotations
 
 import torch
 
-from .models.layers import tree_map
-from .models.lm import cache_meta, forward, init_cache
+from .device import resolve_device
+from .models.layers import softmax_xent, tree_leaves, tree_map
+from .models.lm import cache_meta, forward, init_cache, init_params
+from .optim import OptHParams, adamw_init, adamw_update
 
 
 def cast_tree(tree, dtype):
@@ -22,6 +24,82 @@ def cast_tree(tree, dtype):
     dt = getattr(torch, dtype) if isinstance(dtype, str) else dtype
     return tree_map(lambda x: x.to(dt) if x.is_floating_point() else x,
                     tree)
+
+
+def init_train_state(cfg, generator: torch.Generator,
+                     hp: OptHParams = OptHParams(), device="cuda"):
+    """Seeded master params in ``cfg.param_dtype``, zero AdamW moments in
+    ``cfg.opt_dtype`` and a 0-d int32 ``step``, made on ``device``."""
+    del hp
+    device = resolve_device(device)
+    params = init_params(cfg, generator, device, dtype=cfg.param_dtype)
+    return {"params": params, "opt": adamw_init(params, cfg.opt_dtype),
+            "step": torch.zeros((), dtype=torch.int32, device=device)}
+
+
+def _token_loss(out, labels, cfg):
+    losses = softmax_xent(out["logits"], labels, cfg.z_loss)
+    mask = (labels >= 0).float()
+    return (losses * mask).sum() / mask.sum().clamp_min(1.0)
+
+
+def _on(batch, device):
+    """Batch leaves (numpy or tensors) as tensors on ``device``."""
+    return {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
+
+
+def make_grad_step(cfg):
+    """(params, batch) -> (grads, loss): the gradient half of the train
+    step.  Batch leaves are (accum, micro, ...); each microbatch's
+    ``loss + 0.01 * aux / n_layers`` is differentiated on
+    ``cast_tree(params, cfg.dtype)``, and the gradients of the master
+    params are summed in their own dtype (f32) and divided by ``accum``.
+    ``loss`` is the microbatches' mean token loss (a 0-d f32 tensor)."""
+
+    def grad_step(params, batch):
+        if "patches" in batch:
+            raise NotImplementedError(
+                "vision patches are not ported yet (ROADMAP.md queue 1, "
+                "item 7)")
+        live = tree_map(lambda p: p.detach().requires_grad_(
+            p.is_floating_point()), params)
+        device = tree_leaves(params)[0].device
+        batch = _on(batch, device)
+        accum = batch["tokens"].shape[0]
+        lsum = torch.zeros((), dtype=torch.float32, device=device)
+        with torch.enable_grad():
+            for a in range(accum):
+                out = forward(cast_tree(live, cfg.dtype), cfg,
+                              batch["tokens"][a], mode="train")
+                loss = _token_loss(out, batch["labels"][a], cfg)
+                total = loss + 0.01 * out["aux"] / max(cfg.n_layers, 1)
+                del out
+                total.backward()
+                lsum += loss.detach()
+        grads = tree_map(lambda p: p.grad.div_(accum) if p.grad is not None
+                         else torch.zeros_like(p, dtype=torch.float32), live)
+        return grads, lsum / accum
+
+    return grad_step
+
+
+def make_train_step(cfg, hp: OptHParams = OptHParams()):
+    """(state, batch) -> (state, metrics): one optimizer step over the
+    batch's ``accum`` microbatches (``make_grad_step``) and AdamW, the
+    state updated in place (``step`` too).  Metrics: ``loss``,
+    ``grad_norm`` and ``lr``, 0-d f32 tensors on the state's device."""
+    grad_step = make_grad_step(cfg)
+
+    def train_step(state, batch):
+        grads, loss = grad_step(state["params"], batch)
+        _, _, metrics = adamw_update(grads, state["opt"], state["params"],
+                                     state["step"], hp)
+        del grads
+        metrics["loss"] = loss
+        state["step"].add_(1)
+        return state, metrics
+
+    return train_step
 
 
 def make_prefill_step(cfg, cache_len=None):

@@ -16,6 +16,8 @@ REF = ROOT / "src" / "repro"
 COPIES = sorted(
     [p.relative_to(REF) for p in (REF / "configs").glob("*.py")]
     + [p.relative_to(REF) for p in (REF / "core").glob("*.py")]
+    + [p.relative_to(REF) for d in ("data", "ft")
+       for p in (REF / d).glob("*.py")]
     + [Path("serve/pager.py"), Path("serve/policy.py"),
        Path("serve/prefix.py"), Path("serve/request.py"),
        Path("serve/spec.py")])
