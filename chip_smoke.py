@@ -15,7 +15,10 @@ Phases (each raises on failure, so the script exits non-zero):
    then the Triton kernel; prints the seconds and ``ptxas``' register and
    spill lines.
 3. kernels — each kernel's wrapper against its plain PyTorch version on
-   the card: paged GQA decode at qwen2.5-14b decode shapes and paged MLA
+   the card: paged GQA decode at qwen2.5-14b decode shapes (and at the
+   frontends': musicgen-large's 32 / 32 heads of 64, group 1, and
+   internvl2-2b's 16 / 8 heads of 128 behind 256 patch positions, each
+   with the last tile left out and rows mixed up planted) and paged MLA
    decode at minicpm3-4b's (each: its split boundaries, its combine
    kernel against the plain combine on the split kernel's own partials,
    bf16 held row by row, and two planted faults the row check must
@@ -23,17 +26,19 @@ Phases (each raises on failure, so the script exits non-zero):
    B and C also in the model's own layout, one group read in place; bf16
    y held row by row against the plain version in f32, and a planted
    fault between its phases the row check must reject), flash attention
-   at qwen2.5-14b's (1 x 2048, 16 x 512) and mixtral-8x7b's prefill
-   shapes, RMSNorm, each with the edge cases of the reference's kernel
+   at qwen2.5-14b's (1 x 2048, 16 x 512), mixtral-8x7b's, musicgen-large's
+   (1 x 2048, MHA, D 64) and internvl2-2b's (1 x 2304) prefill shapes (at
+   the frontends' with each head reading the next KV head planted),
+   RMSNorm, each with the edge cases of the reference's kernel
    tests, and RMSNorm's backward (through autograd, at qwen2.5-14b's
    training shape 4096 x 5120 and the forward's grid, f32 and bf16: dx
    row by row, dw by its relative error, with the mean term dropped and
    one row block left out of dw planted); then CUDA-event times of
    kernel, plain version and one PyTorch library call where there is
    one, beside the least time the card could take (``bound_ms``); for
-   the paged decodes, the SSD scan and RMSNorm's backward, also the
-   device time alone (``torch.profiler``), where the trace holds every
-   launch.
+   the paged decodes, flash attention, the SSD scan and RMSNorm's
+   backward, also the device time alone (``torch.profiler``), where the
+   trace holds every launch.
 4. serve  — the port's main paths at full width, one after the other,
    each behind ``repro_torch.serve.ServeEngine`` on the UMT runtime with
    seeded bf16 weights made on the card by the engine's weights task:
@@ -43,7 +48,15 @@ Phases (each raises on failure, so the script exits non-zero):
    lengths from {256, 512, 1024, 2048} and 16 slots; then mixtral-8x7b
    (MoE, sliding-window rings, flash prefill) at 16 of its 32 layers (the
    whole model does not fit one card), 16 requests, each prompt length of
-   {1024, 2048, 6144, 8192} four times, 8 slots; then chunked prefill and
+   {1024, 2048, 6144, 8192} four times, 8 slots; then the two frontends
+   at full width and depth with the prefix trie on: internvl2-2b (32
+   requests of {256, 512, 1024, 2048} text tokens, each behind 256 patch
+   embeddings drawn on the card at ``PATCH_STD``, 16 slots, cache_len
+   2336; no vision request may look up or enter the trie) and
+   musicgen-large (qwen's traffic as (P, 4) codebook prompts; its
+   embedding and heads scaled by ``AUDIO_EMBED_GAIN`` and
+   ``AUDIO_HEAD_GAIN``, the reasons beside them; every check per
+   codebook); then chunked prefill and
    the shared-prefix cache, qwen2.5-14b (``qwen2.5-14b-prefix``, 24 of
    its 48 layers) and minicpm3-4b (``minicpm3-4b-prefix``, full depth): 4
    prefixes of 1001 tokens, each heading 8 prompts with tails of 24-1000
@@ -116,7 +129,8 @@ Phases (each raises on failure, so the script exits non-zero):
 5. cli    — ``repro_torch.launch.serve`` on the card at full width, as
    an engine (paged kernel, ``--chunk 512 --prefix-cache on``) and one
    shot: each run's kernels launched, and both token sets held by the
-   teacher-forced token check.  Then ``repro_torch.launch.train`` with
+   teacher-forced token check; qwen2.5-14b, then musicgen-large's
+   codebook prompts (``CLI_AUDIO``).  Then ``repro_torch.launch.train`` with
    ``examples/train_100m.py``'s model (``check_train_cli``): a run with
    checkpoints, the run resumed from its step-10 save, and ``--umt-off``,
    each with the same losses where they overlap.
@@ -171,6 +185,9 @@ LOSS_DROP = 1.0
 # 1 (dw zeroed: the norm weights' gradients vanish) or 0.5 (a microbatch
 # dropped: every gradient is about halved).
 TRAIN_TOL = dict(loss=1e-3, grad_norm=1e-2, leaf=5e-2)
+# the serve CLI's second run on the card: musicgen-large at full width and
+# depth, 4 prompts of 256 codes on each of its 4 codebooks
+CLI_AUDIO = dict(arch="musicgen-large", prompt_len=256)
 # the train CLI on the card: examples/train_100m.py's model (qwen2.5-14b
 # family, d_model 512, 16 layers, vocab 32000, about 92 M params)
 TRAIN_CLI = ["--arch", "qwen2.5-14b", "--tiny", "--d-model", "512",
@@ -251,6 +268,16 @@ PLANTED = {
     "mamba2-780m": ("state_not_handed", "dt_one_late", "conv_tail_rolled"),
     "mixtral-8x7b": ("flash_kv_group_order", "moe_second_pick_dropped",
                      "ring_not_rolled"),
+    # the frontends: the vision prefill without its patches while the
+    # positions still count them (the text at positions 256 onwards, the
+    # patch rows of the cache never written), and decode positions that
+    # lose the 256-patch offset (RoPE, the cache write and the mask at the
+    # text's own index: what a slot position that left out the patches
+    # would do); the audio embedding summing K - 1 codebooks, decode adding
+    # the sinusoid of pos + 1, and head k emitting codebook k + 1's logits
+    "internvl2-2b": ("patches_dropped", "text_pos_restarts"),
+    "musicgen-large": ("codebook_dropped", "sinusoid_pos_plus_1",
+                       "codebook_heads_rolled"),
     # the prefix phases' hit path: the gather reads the table one page
     # on; the COW fork's page is not copied (its positions of the
     # gathered row zeroed, and the slot's own page for it left empty:
@@ -289,7 +316,8 @@ ROUTE_MARGIN = 0.3
 ROUTE_MARGIN_FIRST = 0.03
 ROUTE_FAULTS = ("moe_ids_permuted",)
 PREFILL_FAULTS = ("state_not_handed", "dt_one_late", "flash_kv_group_order",
-                  "moe_second_pick_dropped", "ring_not_rolled")
+                  "moe_second_pick_dropped", "ring_not_rolled",
+                  "patches_dropped")
 HIT_FAULTS = ("gather_table_shifted", "fork_not_copied", "tail_q_off_plus_1")
 # A serve phase's requests must all finish within this many seconds of
 # the last submission (``repro_torch.serve.drain``), or the phase fails
@@ -308,6 +336,23 @@ VERIFY_S = 5
 # logits no more than bf16 noise does.  Every other leaf keeps the repo's
 # init.
 SSM_CONV_W_GAIN = 50.0
+# The audio phase's codebook tables are scaled by ``AUDIO_EMBED_GAIN``
+# from the repo's normal 0.02 to std 0.24, so that the checks can see a
+# fault of the embedding.  musicgen adds the sinusoid unscaled, as the
+# reference does: its norm is sqrt(d_model / 2) = 32, while four codebook
+# rows at std 0.02 sum to a norm of about 0.02 sqrt(4 d_model) = 1.8, so at
+# the repo's init a prompt's codes hardly move the logits (a codebook left
+# out moved them by 0.03 of their spread, rehearsed on the CPU at full
+# width and 4 layers).  At std 0.24 the codes' sum has a norm of about 22,
+# and a codebook left out and a sinusoid one position late change a
+# position's input by about 28 % and 19 % (at std 0.5, 41 % and 13 %: the
+# late sinusoid fell under the bounds at 24 layers).  Its K heads are
+# scaled by ``AUDIO_HEAD_GAIN`` from std 0.02 to 0.032, so that its logits
+# spread as qwen2.5-14b's do (std about 1.4, where ``LOGIT_TOL`` was set;
+# 0.9 at the repo's init, d_model 2048 against 5120).  Every other leaf
+# keeps the repo's init.
+AUDIO_EMBED_GAIN = 12.0
+AUDIO_HEAD_GAIN = 1.6
 # Traffic of a phase: slots, cache_len, prompt lengths (drawn at random,
 # or ``each`` length n_req / len(lens) times in a seeded order), requests,
 # tokens per request.
@@ -341,6 +386,18 @@ ONDEMAND_PAGES = 521
 # turns speculation on for its decode-bound streams.
 SPEC_TRAFFIC = dict(slots=16, cache_len=2080, lens=(256, 512, 1024, 2048),
                     each=True, n_req=16, gen=32)
+# The vision phase (internvl2-2b): qwen's traffic of text tokens, each
+# prompt behind 256 precomputed patch embeddings; cache_len 2048 + 256 +
+# 32.  The patches are drawn from a seeded torch.Generator at the std of
+# the embedding table (``PATCH_STD``, the repo's normal init of 0.02), so
+# that after the first norm they weigh as much as text positions do.
+VISION_TRAFFIC = dict(TRAFFIC, cache_len=2336)
+PATCH_STD = 0.02
+# The frontends' decode shapes on the card (phase 3): (B, H, Hkv, Dh,
+# cache_len, page size) and the patch positions in front of each prompt
+# (the slots' positions as their serve phases give them: ``frontend_pos``)
+FRONTEND_DECODE = {"musicgen": ((16, 32, 32, 64, 2080, 8), 0),
+                   "internvl2": ((16, 16, 8, 128, 2336, 8), 256)}
 # Per phase: decode attention through its paged kernel?  For each kernel
 # of the phase, the engine step whose calls its launches follow once per
 # layer (the decode tick or the one-shot prefill, counted by wrapping the
@@ -375,6 +432,15 @@ PHASES = {
                          layers=16, moe_impl="ragged",
                          kernels={"flash_attention": "prefill",
                                   "paged_decode_attention": None}),
+    # the frontends at full width and depth, behind the prefix trie
+    # (``prefix_cache="auto"``): a vision request never looks up or enters
+    # it (asserted), musicgen's random code prompts never hit
+    "internvl2-2b": dict(paged_kernel=True, norms=2, traffic=VISION_TRAFFIC,
+                         kernels={"paged_decode_attention": "decode",
+                                  "flash_attention": "prefill"}),
+    "musicgen-large": dict(paged_kernel=True, norms=2, traffic=TRAFFIC,
+                           kernels={"paged_decode_attention": "decode",
+                                    "flash_attention": "prefill"}),
     # chunked prefill and the shared-prefix cache: every prompt is longer
     # than the chunk, so no one-shot prefill (and no flash launch) is due.
     # qwen2.5-14b's at half depth since PR 17, to keep the script's time
@@ -483,14 +549,15 @@ def time_ms(fn, iters=20, warmup=5, reps=5):
     return statistics.median(times)
 
 
-def device_ms(fn, iters=20, per_call=None):
+def device_ms(fn, iters=20, per_call=None, lead=1):
     """Device time per call: the kernels' time in a ``torch.profiler``
     trace of ``iters`` calls after warm-up, summed over every kernel the
     call launches.  Unlike ``time_ms`` it leaves out the host's time to
     enqueue, which on a slow host exceeds a short kernel's.  The trace
-    must hold every launch, or the sum would read low: one more call runs
-    first inside the trace (the profiler can miss a window's first
-    launch), and of each kernel name, launched k times a call, the last
+    must hold every launch, or the sum would read low: ``lead`` more
+    calls run first inside the trace (the profiler can miss a window's
+    first launches: of 21 and of 9 flash calls of 0.1-1.3 ms it held 16
+    and 5), and of each kernel name, launched k times a call, the last
     k * ``iters`` launches are summed, which the trace must hold — each
     with a duration, and ``per_call`` kernels a call where the caller
     knows the number.  Otherwise it returns None (no device time)."""
@@ -504,7 +571,7 @@ def device_ms(fn, iters=20, per_call=None):
         fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters + 1):
+        for _ in range(iters + lead):
             fn()
         torch.cuda.synchronize()
     by_name = collections.defaultdict(list)
@@ -513,8 +580,8 @@ def device_ms(fn, iters=20, per_call=None):
             by_name[e.name].append(e)
     kernels, whole = [], bool(by_name)
     for evs in by_name.values():
-        k = -(-len(evs) // (iters + 1))          # launches of it per call
-        whole &= len(evs) >= k * (iters + 1) - 1
+        k = -(-len(evs) // (iters + lead))       # launches of it per call
+        whole &= len(evs) >= k * (iters + lead) - lead
         kernels += sorted(evs, key=lambda e: e.time_range.start)[
             -k * iters:]
     whole = (whole and all(e.time_range.elapsed_us() > 0 for e in kernels)
@@ -522,7 +589,7 @@ def device_ms(fn, iters=20, per_call=None):
     if not whole:
         counts = {k: len(v) for k, v in by_name.items()}
         log(f"device_ms: the trace does not hold every launch of the last "
-            f"{iters} of {iters + 1} calls ({counts}); no device time")
+            f"{iters} of {iters + lead} calls ({counts}); no device time")
         return None
     by_kernel = collections.Counter()
     for e in kernels:      # "void (anonymous namespace)::f<T>(args)" -> f<T>
@@ -781,40 +848,99 @@ def check_paged_decode():
         want, TOL["bfloat16"])
     del acc, m, l
 
-    # times at the qwen decode shapes, bf16
-    args, kw = paged_case(16, 40, 8, 128, 2080, 8, bf16, seed=1, pos=qpos)
+    rows = [paged_decode_row("qwen", (16, 40, 8, 128, 2080, 8), qpos,
+                             errs[bf16])]
+    # the frontends' decode shapes (``FRONTEND_DECODE``), each held row by
+    # row in both dtypes, with two planted faults the row check must
+    # reject: every slot's last 64-position tile left out, and each output
+    # row computed from the next head's query (rows mixed up: at group 1,
+    # musicgen's, 15 of the 16 rows of a KV head's mma.sync tile are
+    # padding, and a padding row that leaked into a real one would show
+    # here as well)
+    for name, (shape, n_patches) in FRONTEND_DECODE.items():
+        fpos = frontend_pos(n_patches, shape[4])
+        ferr = {}
+        for dt in (f32, bf16):
+            args, kw = paged_case(*shape, dt, seed=2, pos=fpos)
+            want = plain(*args, **kw)
+            ferr[dt] = held(kern(*args, **kw), want, dt, f"{name} {dt}")
+            n += 1
+        q, kp, vp, table, pos = args
+        planted_rows("paged_decode", f"{name} shapes", {
+            "last tile of each slot left out":
+            (kern(q, kp, vp, table, pos - 64, **kw), ROW_TOL),
+            "rows mixed up (each row from the next head's query)":
+            (kern(q.roll(-1, dims=2).contiguous(), kp, vp, table, pos,
+                  **kw), ROW_TOL)}, want, TOL["bfloat16"])
+        log(f"paged_decode {name} shapes {shape}: max|err| f32 "
+            f"{ferr[f32]:.3e} bf16 {ferr[bf16]:.3e}; bf16 row error RMS / "
+            f"worst {rows_err[f'{name} {bf16}'][0]:.3e} / "
+            f"{rows_err[f'{name} {bf16}'][1]:.3e}")
+        del args, q, kp, vp, want
+        rows.append(paged_decode_row(name, shape, fpos, ferr[bf16]))
+    return rows
+
+
+def frontend_pos(n_patches, cache_len, seed=3):
+    """Ragged positions of 16 decode slots of a frontend's serve phase:
+    prompts of ``TRAFFIC`` lengths behind ``n_patches`` patch positions,
+    up to 31 generated tokens, slot 0 full."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    pos = (rng.choice([256, 512, 1024, 2048], 16) + n_patches
+           + rng.integers(0, 32, 16) - 1)
+    pos[0] = cache_len - 1
+    return pos
+
+
+def paged_decode_row(name, shape, pos, max_err):
+    """The paged GQA decode timed at one serve shape in bf16 (kernel,
+    plain version, SDPA over pre-gathered K/V, the device time alone of
+    the kernel and of SDPA) beside its bound; the ``kernels`` row."""
+    import torch
+
+    from repro_torch.kernels.paged_attention import (
+        paged_decode_attention as kern, paged_decode_attention_ref as plain)
+
+    b, h, hkv, dh, cache_len, ps = shape
+    args, kw = paged_case(*shape, torch.bfloat16, seed=1 if name == "qwen"
+                          else 2, pos=pos)
     q, kp, vp, table, pos = args
     k_ms = time_ms(lambda: kern(*args, **kw))
     p_ms = time_ms(lambda: plain(*args, **kw), iters=5)
     # library yardstick: SDPA (GQA) over K/V gathered dense beforehand —
     # the gather is not timed; the port never calls SDPA
-    kd = kp[table.long()].reshape(16, -1, 8, 128).transpose(1, 2)
-    vd = vp[table.long()].reshape(16, -1, 8, 128).transpose(1, 2)
+    kd = kp[table.long()].reshape(b, -1, hkv, dh).transpose(1, 2)
+    vd = vp[table.long()].reshape(b, -1, hkv, dh).transpose(1, 2)
     mask = (torch.arange(kd.shape[2], device="cuda")[None, :]
             <= pos.long()[:, None])[:, None, None, :]
     qh = q.transpose(1, 2)
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    l_ms = time_ms(lambda: sdpa(qh, kd, vd, attn_mask=mask, enable_gqa=True))
+    l_ms = time_ms(lambda: sdpa(qh, kd, vd, attn_mask=mask,
+                                enable_gqa=hkv != h))
     k_dev = device_ms(lambda: kern(*args, **kw), per_call=2)  # + combine
     l_dev = device_ms(lambda: sdpa(qh, kd, vd, attn_mask=mask,
-                                   enable_gqa=True))
+                                   enable_gqa=hkv != h))
     live = int((pos.long() + 1).sum().item())
-    nbytes = (live * 8 * 128 * 2 * 2 + 2 * q.numel() * 2
+    nbytes = (live * hkv * dh * 2 * 2 + 2 * q.numel() * 2
               + table.numel() * 4 + pos.numel() * 4)
-    flops = live * 40 * 128 * 2 * 2
+    flops = live * h * dh * 2 * 2
     bound = max(nbytes / HBM_BPS, flops / BF16_FLOPS) * 1e3
     bound_by = "bytes" if nbytes / HBM_BPS >= flops / BF16_FLOPS \
         else "operations"
-    log(f"paged_decode qwen bf16 (B 16, H 40/8, Dh 128, ps 8, "
-        f"live positions {live}): max_err {errs[bf16]:.3e} kernel_ms "
+    log(f"paged_decode {name} bf16 (B {b}, H {h}/{hkv}, Dh {dh}, ps {ps}, "
+        f"live positions {live}): max_err {max_err:.3e} kernel_ms "
         f"{k_ms:.4f} plain_ms {p_ms:.4f} library_ms {l_ms:.4f} bound_ms "
         f"{bound:.4f} ({bound_by}: {nbytes} B); device time alone "
         f"(profiler): kernel {ms_text(k_dev)} library {ms_text(l_dev)}")
-    return {"name": "paged_decode_attention", "route": "cuda",
+    del args, q, kp, vp, kd, vd
+    torch.cuda.empty_cache()
+    return {"name": "paged_decode_attention", "shape": name, "route": "cuda",
             "device_ms": k_dev, "library_device_ms": l_dev,
             "source": "src/repro_torch/csrc/paged_decode.cu",
             "replaces": "src/repro/kernels/paged_attention/kernel.py:121",
-            "max_abs_err": errs[bf16], "ms": k_ms, "plain_ms": p_ms,
+            "max_abs_err": max_err, "ms": k_ms, "plain_ms": p_ms,
             "bound_ms": bound, "bound_by": bound_by, "library_ms": l_ms}
 
 
@@ -1122,7 +1248,7 @@ def check_paged_mla():
                     enable_gqa=True)
     l_ms = time_ms(library)
     k_dev = device_ms(lambda: kern(*args, **kw), per_call=2)  # + combine
-    l_dev = device_ms(library)
+    l_dev = device_ms(library, lead=8)
     live = int((pos.long() + 1).sum().item())
     nbytes = (live * (256 + 32) * 2 + (ql.numel() + qr.numel()) * 2
               + ql.numel() * 2 + table.numel() * 4 + pos.numel() * 4)
@@ -1269,7 +1395,8 @@ def check_ssd():
     for b in (1, 16):
         args = ssd_model_layout(b, 2048, 48, 64, 128, bf16, seed=1)
         k_ms = time_ms(lambda: kern(*args, chunk=256))
-        k_dev = device_ms(lambda: kern(*args, chunk=256), per_call=3)
+        k_dev = device_ms(lambda: kern(*args, chunk=256), per_call=3,
+                          lead=8)
         p_ms = time_ms(lambda: plain(*args, chunk=256), iters=2, warmup=1)
         h, s, p, nn, q = 48, 2048, 64, 128, 256
         # x, dt and a read once, y and h_final written once; B and C once
@@ -1394,10 +1521,15 @@ def check_flash():
             raise AssertionError("flash: rows with no valid key are not 0")
         n += 1
     # the serve paths' prefill shapes: qwen2.5-14b (1 x 2048 and 16 x 512,
-    # causal, 40 / 8 heads) and mixtral-8x7b (1 x 8192, window 4096, 32 / 8)
+    # causal, 40 / 8 heads), mixtral-8x7b (1 x 8192, window 4096, 32 / 8),
+    # musicgen-large (1 x 2048, MHA 32 / 32 heads of 64: the cp.async
+    # mma.sync path) and internvl2-2b (1 x 2304: 256 patches + 2048 text
+    # tokens, 16 / 8 heads of 128)
     serve = {"qwen 1x2048": ((1, 2048, 2048, 40, 8, 128), None),
              "qwen 16x512": ((16, 512, 512, 40, 8, 128), None),
-             "mixtral 1x8192": ((1, 8192, 8192, 32, 8, 128), 4096)}
+             "mixtral 1x8192": ((1, 8192, 8192, 32, 8, 128), 4096),
+             "musicgen 1x2048": ((1, 2048, 2048, 32, 32, 64), None),
+             "internvl2 1x2304": ((1, 2304, 2304, 16, 8, 128), None)}
     errs = {}
     for name, (shape, w) in serve.items():
         for dt in (f32, bf16):
@@ -1431,6 +1563,16 @@ def check_flash():
         raise AssertionError("flash: the row check does not reject the "
                              "planted fault (window one tile short)")
     del q, k, v, got, want
+    # planted at the frontends' shapes: every query head reads the next KV
+    # head (rows mixed up); the row check must reject it
+    for name in ("musicgen 1x2048", "internvl2 1x2304"):
+        q, k, v = flash_case(*serve[name][0], bf16, 0)
+        planted_rows("flash_attention", name, {
+            "rows mixed up (each head reads the next KV head)":
+            (kern(q, k.roll(1, dims=2).contiguous(),
+                  v.roll(1, dims=2).contiguous()), ROW_TOL)},
+            plain(q, k, v), TOL["bfloat16"])
+        del q, k, v
     torch.cuda.empty_cache()
 
     rows = []
@@ -1447,16 +1589,22 @@ def check_flash():
         # calls SDPA)
         qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
         if w is None:
-            l_ms = time_ms(lambda: sdpa(qh, kh, vh, is_causal=True,
-                                        enable_gqa=True))
-
+            def library():
+                return sdpa(qh, kh, vh, is_causal=True, enable_gqa=hkv != h)
         else:
             i = torch.arange(sq, device="cuda")[:, None]
             j = torch.arange(sk, device="cuda")[None, :]
             mask = (j <= i) & (j > i - w)
-            l_ms = time_ms(lambda: sdpa(qh, kh, vh, attn_mask=mask,
-                                        enable_gqa=True))
-            del mask
+
+            def library():
+                return sdpa(qh, kh, vh, attn_mask=mask, enable_gqa=True)
+        l_ms = time_ms(library)
+        # the device time alone, of the kernel and of SDPA (profiler; 8
+        # calls after 8 inside the trace, which may miss the first few)
+        k_dev = device_ms(lambda: kern(q, k, v, window=w), iters=8,
+                          per_call=1, lead=8)
+        l_dev = device_ms(library, iters=8, lead=8)
+        del library
         pairs = flash_pairs(sq, sk, True, w)
         flops = 4 * b * h * pairs * d
         nbytes = 2 * (2 * b * sq * h * d + 2 * b * sk * hkv * d)
@@ -1469,9 +1617,11 @@ def check_flash():
             f"{bound:.4f} ({bound_by}: {flops} FLOP over {pairs} pairs per "
             f"head, {nbytes} B; f32 CUDA-core floor "
             f"{flops / F32_FLOPS * 1e3:.4f} ms); {flops / k_ms / 1e9:.1f} "
-            "TFLOP/s")
+            f"TFLOP/s; device time alone (profiler): kernel "
+            f"{ms_text(k_dev)} library {ms_text(l_dev)}")
         rows.append({"name": "flash_attention", "shape": name,
-                     "route": "cuda",
+                     "route": "cuda", "device_ms": k_dev,
+                     "library_device_ms": l_dev,
                      "source": "src/repro_torch/csrc/flash_attention.cu",
                      "replaces":
                          "src/repro/kernels/flash_attention/kernel.py:106",
@@ -1490,13 +1640,36 @@ def arch_of(cfg):
     return cfg.name.removesuffix("-tiny")
 
 
+def frontend_shape(cfg):
+    """(the codebook dim of a step's token, () unless audio; the patch
+    positions in front of each prompt, 0 unless vision)."""
+    extra = ((cfg.n_codebooks,) if cfg.frontend == "audio_codebooks"
+             else ())
+    return extra, (cfg.n_patches if cfg.frontend == "vision_patches" else 0)
+
+
+def request_patches(cfg, n, device, seed):
+    """``n`` requests' patch embeddings (n, n_patches, d_model) in the
+    compute dtype, drawn on ``device`` from a seeded ``torch.Generator``
+    at ``PATCH_STD``; None unless the config is vision's."""
+    import torch
+
+    if cfg.frontend != "vision_patches":
+        return None
+    g = torch.Generator(device).manual_seed(seed)
+    return torch.randn((n, cfg.n_patches, cfg.d_model), generator=g,
+                       device=device).mul_(PATCH_STD).to(
+                           getattr(torch, cfg.dtype))
+
+
 def steps_alone(cfg, params, smi, paged_kernel, traffic, ps=8,
                 verify_k=None):
     """Where a tick's time goes: one decode tick of the phase's shapes
     (``traffic``'s slots, cache_len and prompt lengths) and one prefill of
-    its longest prompt, run alone (no engine, no other thread), host-timed
-    around a synchronize, and the decode tick once more under
-    torch.profiler for the device's busy time by kernel.  With
+    its longest prompt (behind the patches of a vision config), run alone
+    (no engine, no other thread), host-timed around a synchronize, and
+    each once more under torch.profiler for the device's busy time (the
+    tick's by kernel).  With
     ``verify_k``: the same for one verify dispatch over the same live
     slots at S=1 and at S=verify_k+1 ("verify alone")."""
     import numpy as np
@@ -1506,18 +1679,20 @@ def steps_alone(cfg, params, smi, paged_kernel, traffic, ps=8,
                                    make_prefill_step, make_verify_step)
 
     slots, cache_len = traffic["slots"], traffic["cache_len"]
+    extra, n_patches = frontend_shape(cfg)
     rng = np.random.default_rng(5)
     pps = cache_len // ps
     num_pages = 1 + slots * pps
     cache = init_paged_slot_cache(cfg, slots, cache_len, torch.bfloat16, ps,
                                   num_pages, "cuda")
-    pos = rng.choice(traffic["lens"], slots) + rng.integers(0, 31, slots)
+    pos = (rng.choice(traffic["lens"], slots) + n_patches
+           + rng.integers(0, 31, slots))
     pos_dev = torch.tensor(pos.astype(np.int32), device="cuda")
     cache["pos"] = pos_dev.clone()
     table = torch.tensor(rng.permutation(np.arange(1, num_pages))
                          .reshape(slots, pps).astype(np.int32),
                          device="cuda")
-    toks = torch.tensor(rng.integers(0, cfg.vocab, (slots, 1))
+    toks = torch.tensor(rng.integers(0, cfg.vocab, (slots, 1) + extra)
                         .astype(np.int32), device="cuda")
     active = torch.ones(slots, dtype=torch.bool, device="cuda")
     decode = make_decode_step(cfg, cache_len=cache_len, page_size=ps,
@@ -1577,14 +1752,17 @@ def steps_alone(cfg, params, smi, paged_kernel, traffic, ps=8,
     del cache
     prefill = make_prefill_step(cfg, cache_len=cache_len)
     plen = max(traffic["lens"])
-    ptoks = torch.tensor(rng.integers(0, cfg.vocab, (1, plen))
+    ptoks = torch.tensor(rng.integers(0, cfg.vocab, (1, plen) + extra)
                          .astype(np.int32), device="cuda")
-    pre_ms = host_ms(lambda: prefill(params, ptoks), 2)
+    patches = request_patches(cfg, 1, "cuda", seed=5)
+    pre_ms, pre_busy, _ = measured(lambda: prefill(params, ptoks, patches))
     log(f"steps alone ({cfg.name}, {smi}): decode tick ({slots} slots"
         f"{', paged kernel' if paged_kernel else ''}) {tick_ms:.2f} ms "
         f"host; device busy {busy:.2f} ms in one profiled tick (idle "
-        f"{max(0.0, 1 - busy / tick_ms) * 100:.0f} %); prefill (1 x {plen}) "
-        f"{pre_ms:.2f} ms host")
+        f"{max(0.0, 1 - busy / tick_ms) * 100:.0f} %); prefill (1 x "
+        f"{n_patches + plen}{' with the patches' if n_patches else ''}) "
+        f"{pre_ms:.2f} ms host; device busy {pre_busy:.2f} ms (idle "
+        f"{max(0.0, 1 - pre_busy / pre_ms) * 100:.0f} %)")
     for key, ms, n in rows[:8]:
         log(f"  tick kernel {ms:8.3f} ms x{n:5d}  {key[:90]}")
     if lane0:
@@ -1763,13 +1941,15 @@ def swapped(*swaps):
             setattr(m, k, v)
 
 
-def planted(fault):
+def planted(fault, cfg=None):
     """The path with one fault of ``PLANTED`` swapped into its module
-    (``None``: as it is)."""
+    (``None``: as it is); ``cfg`` gives the frontends' faults their
+    patch count."""
     import torch
 
+    from repro_torch import steps
     from repro_torch.models import attention as att
-    from repro_torch.models import blocks, moe, ssm
+    from repro_torch.models import blocks, lm, moe, ssm
 
     rope, kern, mla = (att.apply_rope, att.paged_decode_attention,
                        att.paged_mla_decode_attention)
@@ -1843,6 +2023,38 @@ def planted(fault):
     def commits_drafts(draft, argmax):
         return len(draft), list(draft) + [int(argmax[len(draft)])]
 
+    gqa, fwd = att.gqa_apply, steps.forward
+    embed, sinusoid, logits = lm.embed_tokens, lm.sinusoidal_pos, \
+        lm.lm_logits
+
+    def patches_dropped(params, cfg_, tokens, *, mode="train", patches=None,
+                        **kw):
+        # the prefill step's forward: the text alone, at positions past
+        # the patches, into a row cache whose patch rows stay empty
+        if mode != "prefill" or patches is None:
+            return fwd(params, cfg_, tokens, mode=mode, patches=patches, **kw)
+        rows = lm.init_cache(cfg_, tokens.shape[0], kw["cache_len"],
+                             getattr(torch, cfg_.dtype), tokens.device)
+        return fwd(params, cfg_, tokens, mode="prefill_chunk",
+                   pos=patches.shape[1], cache=rows,
+                   cache_len=kw["cache_len"])
+
+    def text_pos_restarts(x, p, cfg_, spec, *, mode, pos, **kw):
+        if mode == "decode":
+            # (a padding slot's position 0 stays in the table)
+            pos = (pos - cfg.n_patches).clamp_min(0)
+        return gqa(x, p, cfg_, spec, mode=mode, pos=pos, **kw)
+
+    def codebook_dropped(tokens, p_embed, cfg_, dtype):
+        return embed(tokens, p_embed,
+                     cfg_.replace(n_codebooks=cfg_.n_codebooks - 1), dtype)
+
+    def sinusoid_pos_plus_1(pos, dim, device=None):
+        return sinusoid(torch.as_tensor(pos, device=device) + 1, dim)
+
+    def codebook_heads_rolled(x, params, cfg_):
+        return logits(x, params, cfg_).roll(-1, dims=2)
+
     def roll(pos):
         return pos.roll(1)
 
@@ -1874,13 +2086,20 @@ def planted(fault):
         "window_late": ((att, "page_scatter_window", window_late),),
         "mask_dropped": ((att, "verify_attention", mask_dropped),),
         "commits_drafts": ((engine, "accept_window", commits_drafts),),
+        "patches_dropped": ((steps, "forward", patches_dropped),),
+        "text_pos_restarts": ((att, "gqa_apply", text_pos_restarts),),
+        "codebook_dropped": ((lm, "embed_tokens", codebook_dropped),),
+        "sinusoid_pos_plus_1": ((lm, "sinusoidal_pos",
+                                 sinusoid_pos_plus_1),),
+        "codebook_heads_rolled": ((lm, "lm_logits", codebook_heads_rolled),),
     }
     return swapped(*swaps[fault])
 
 
 def path_check(cfg, params, prompts, toks, ref, device, paged_kernel,
                slots=16, cache_len=2080, ps=8, names=None, phase=None,
-               plan=None, chunk=512, evictions=None, replay=False):
+               plan=None, chunk=512, evictions=None, replay=False,
+               patches=None):
     """The engine's step path teacher-forced with its emitted tokens: each
     prompt through the prefill step and the paged insert, then the tokens
     one tick at a time through the decode forward (paged kernel where the
@@ -1907,7 +2126,12 @@ def path_check(cfg, params, prompts, toks, ref, device, paged_kernel,
     ``chunk``-token chunks, or (``replay``) the prompt's prefill and the
     emitted tokens through the serve step one at a time.  (The engine's
     restore may re-hit the trie and chunk its tail only; here it is
-    computed whole.)"""
+    computed whole.)
+
+    The frontends (cold phases only): ``patches`` (vision), per request
+    its (n_patches, d_model) embeddings, ride its prefill, and its decode
+    positions start past them; an audio step is fed (K,) codes and its
+    logits are (K, V) a position, each codebook a row of the checks."""
     import numpy as np
     import torch
 
@@ -1951,6 +2175,7 @@ def path_check(cfg, params, prompts, toks, ref, device, paged_kernel,
         names = [None, *PLANTED[phase or arch_of(cfg)]]
     acc = {n: new_tally() for n in names}
     gen = len(toks[0])
+    extra, n_patches = frontend_shape(cfg)
 
     def zero_page(rows, k):
         for blk in rows["blocks"]:
@@ -2060,11 +2285,11 @@ def path_check(cfg, params, prompts, toks, ref, device, paged_kernel,
     for r0 in range(0, len(prompts), slots):
         idx = list(range(r0, min(r0 + slots, len(prompts))))
         pad = slots - len(idx)
-        pos0 = torch.tensor([len(prompts[i]) for i in idx] + [0] * pad,
-                            dtype=torch.int32, device=device)
+        pos0 = torch.tensor([len(prompts[i]) + n_patches for i in idx]
+                            + [0] * pad, dtype=torch.int32, device=device)
         feed = torch.tensor(np.stack([toks[i] for i in idx]
-                                     + [np.zeros(gen, np.int32)] * pad),
-                            device=device)
+                                     + [np.zeros((gen,) + extra, np.int32)]
+                                     * pad), device=device)
         trows = ([rows_of[s] for s in range(len(idx))] if plan is None
                  else [rows_of[i] for i in idx])
         table = torch.stack(trows + [torch.zeros(pps, dtype=torch.int32)]
@@ -2073,7 +2298,8 @@ def path_check(cfg, params, prompts, toks, ref, device, paged_kernel,
                  "kernel": paged_kernel}
 
         def prefill_round():
-            return [prefill(p, torch.tensor(prompts[i][None], device=device))
+            return [prefill(p, torch.tensor(prompts[i][None], device=device),
+                            None if patches is None else patches[i][None])
                     for i in idx]
 
         clean = prefill_round() if plan is None else None
@@ -2082,7 +2308,8 @@ def path_check(cfg, params, prompts, toks, ref, device, paged_kernel,
                 od.update(own=list(rows_of[:slots]),
                           spare=list(rows_of[slots:]), pub=[0] * slots,
                           pos=[len(prompts[i]) for i in idx])
-            with planted(None if n in HIT_FAULTS + RESTORE_FAULTS else n):
+            with planted(None if n in HIT_FAULTS + RESTORE_FAULTS else n,
+                         cfg):
                 if plan is not None:
                     rows = [torch.stack(chunked_round(idx, n))]
                 else:
@@ -2121,23 +2348,27 @@ def new_tally():
 
 
 def tally(a, lg, built, ref, toks, idx):
-    """Adds one round of a step path's logits ``lg`` (round, gen, V) to
-    ``a``: against the forward's ``ref`` of requests ``idx`` and against
-    the path as built (``built``)."""
+    """Adds one round of a step path's logits ``lg`` (round, gen, V), or
+    (round, gen, K, V) for audio, to ``a``: against the forward's ``ref``
+    of requests ``idx`` and against the path as built (``built``).  Each
+    (position, codebook) is a row: its own relative error and gap."""
     import torch
 
+    v = lg.shape[-1]
     for s, i in enumerate(idx):
-        d = lg[s] - ref[i]
-        c = ref[i] - ref[i].mean(dim=-1, keepdim=True)
+        got, want = lg[s].reshape(-1, v), ref[i].reshape(-1, v)
+        d = got - want
+        c = want - want.mean(dim=-1, keepdim=True)
         d2, r2 = d.square().sum(-1), c.square().sum(-1)
         a["d2"] += d2.sum().item()
         a["r2"] += r2.sum().item()
-        a["e2"] += (lg[s] - built[s]).square().sum().item()
+        a["e2"] += (got - built[s].reshape(-1, v)).square().sum().item()
         a["rel_max"] = max(a["rel_max"], (d2 / r2).sqrt().max().item())
-        am = lg[s].argmax(-1)
-        gap = ref[i].max(-1).values - ref[i].gather(1, am[:, None])[:, 0]
+        am = got.argmax(-1)
+        gap = want.max(-1).values - want.gather(1, am[:, None])[:, 0]
         a["gap"] = max(a["gap"], gap.max().item())
-        a["same"] += int((am.cpu() == torch.as_tensor(toks[i]).long()).sum())
+        a["same"] += int((am.cpu() == torch.as_tensor(toks[i]).reshape(-1)
+                          .long()).sum())
 
 
 def summary(acc):
@@ -2455,6 +2686,9 @@ def weights_task(cfg, seed, device, box):
         for blk in box["params"]["blocks"]:
             if "conv_w" in blk["mixer"]:
                 blk["mixer"]["conv_w"].mul_(SSM_CONV_W_GAIN)
+        if cfg.frontend == "audio_codebooks":
+            box["params"]["embed"]["tok"].mul_(AUDIO_EMBED_GAIN)
+            box["params"]["lm_head"].mul_(AUDIO_HEAD_GAIN)
         if device == "cuda":
             torch.cuda.synchronize()
         box["weights_s"] = time.perf_counter() - t
@@ -2462,9 +2696,10 @@ def weights_task(cfg, seed, device, box):
     return weights
 
 
-def forced_logits(cfg, params, prompt, toks, device):
-    """The forward of the checks over prompt + toks[:-1], f32 logits
-    (len(toks), V) at the positions that predict each of ``toks``."""
+def forced_logits(cfg, params, prompt, toks, device, patches=None):
+    """The forward of the checks over [patches +] prompt + toks[:-1], f32
+    logits (len(toks), V) — (len(toks), K, V) for audio — at the
+    positions that predict each of ``toks``."""
     import numpy as np
     import torch
 
@@ -2473,8 +2708,21 @@ def forced_logits(cfg, params, prompt, toks, device):
     seq = np.concatenate([prompt, toks[:-1]])
     with reference_forward():
         lg = forward(params, cfg, torch.tensor(seq[None], device=device),
-                     mode="train")["logits"][0, len(prompt) - 1:]
+                     mode="train",
+                     patches=None if patches is None else patches[None])[
+                         "logits"][0, len(prompt) - 1:]
     return lg.float()
+
+
+def token_gaps(lg, toks):
+    """How far each emitted token's logit trails the row's max: per
+    position, and per codebook for audio (rows of (…, V) logits)."""
+    import torch
+
+    v = lg.shape[-1]
+    lg = lg.reshape(-1, v)
+    t = torch.as_tensor(toks, device=lg.device).reshape(-1).long()
+    return lg.max(dim=-1).values - lg.gather(1, t[:, None])[:, 0]
 
 
 def log_checks(what, name, res, total):
@@ -2512,6 +2760,8 @@ def serve(cfg, smi, device="cuda", seed=0, name=None):
     moe = any(spec.mlp == "moe" for spec in cfg.pattern)
     slots, cache_len, n_req, gen = (traffic[k] for k in (
         "slots", "cache_len", "n_req", "gen"))
+    extra, n_patches = frontend_shape(cfg)
+    n_rows = n_req * gen * int(np.prod(extra))      # token rows checked
     rng = np.random.default_rng(seed)
     prefix = "prefix_len" in traffic
     plan = None
@@ -2525,8 +2775,10 @@ def serve(cfg, smi, device="cuda", seed=0, name=None):
     else:
         lens = rng.choice(traffic["lens"], n_req)
     if not prefix:
-        prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32)
+        prompts = [rng.integers(0, cfg.vocab, (n,) + extra).astype(np.int32)
                    for n in lens]
+    # vision: each request's patch embeddings, made on the device
+    patches = request_patches(cfg, n_req, device, seed + 1)
     gaps = rng.exponential(0.03, n_req)
     box = {}
     weights = weights_task(cfg, seed, device, box)
@@ -2574,7 +2826,8 @@ def serve(cfg, smi, device="cuda", seed=0, name=None):
     for k in counted:
         getattr(kernels, k).launches.reset()
     t0 = time.perf_counter()
-    reqs = [Request(i, prompts[i], max_new_tokens=gen)
+    reqs = [Request(i, prompts[i], max_new_tokens=gen,
+                    patches=None if patches is None else patches[i])
             for i in range(n_req)]
     eng.start()
     for i, (r, g) in enumerate(zip(reqs, gaps)):
@@ -2631,7 +2884,9 @@ def serve(cfg, smi, device="cuda", seed=0, name=None):
     log(f"prefix and chunks [{name}]: prefix_hits {stats['prefix_hits']} "
         f"prefix_tokens_saved {stats['prefix_tokens_saved']} cow_forks "
         f"{stats['cow_forks']} prefill_chunks {stats['prefill_chunks']} "
-        f"prefill_chunk_tasks {stats['prefill_chunk_tasks']}; pager after "
+        f"prefill_chunk_tasks {stats['prefill_chunk_tasks']} trie lookups "
+        f"{stats.get('prefix_lookups')} inserted pages "
+        f"{stats.get('prefix_inserted_pages')}; pager after "
         f"shutdown: live_refs {pager.live_refs} used_pages "
         f"{pager.used_pages} cached_pages {pager.cached_pages}")
     waves = ""
@@ -2664,6 +2919,12 @@ def serve(cfg, smi, device="cuda", seed=0, name=None):
         raise AssertionError(f"{name}: {stats['prefix_hits']} prefix hits "
                              f"on random prompts, {stats['restores']} "
                              "restores")
+    if n_patches and stats["prefix_cache"] and (
+            stats["prefix_lookups"] or stats["prefix_inserted_pages"]):
+        raise AssertionError(
+            f"{name}: vision requests touched the prefix trie: "
+            f"{stats['prefix_lookups']} lookups, "
+            f"{stats['prefix_inserted_pages']} pages inserted")
     if pager.live_refs or pager.used_pages != pager.cached_pages:
         raise AssertionError(f"{name}: pages leaked: live_refs "
                              f"{pager.live_refs}, used {pager.used_pages} "
@@ -2708,25 +2969,27 @@ def serve(cfg, smi, device="cuda", seed=0, name=None):
     for k, (r, toks) in enumerate(zip(reqs, toks_all)):
         with routes_forced(routes[k], flips) if moe \
                 else contextlib.nullcontext():
-            lg = forced_logits(cfg, params, prompts[r.rid], toks, device)
-        if tuple(lg.shape) != (gen, cfg.vocab) or \
+            lg = forced_logits(cfg, params, prompts[r.rid], toks, device,
+                               None if patches is None else patches[r.rid])
+        if tuple(lg.shape) != (gen,) + extra + (cfg.vocab,) or \
                 not torch.isfinite(lg).all():
             raise AssertionError(f"request {r.rid}: bad logits "
                                  f"{tuple(lg.shape)}")
         ref.append(lg)
         t = torch.tensor(toks, device=device).long()
-        gap = lg.max(dim=-1).values - lg.gather(1, t[:, None])[:, 0]
         exact += int((lg.argmax(dim=-1) == t).sum().item())
-        gaps_all.append(gap.cpu())
-        v2 = lg.topk(2, dim=-1).values
+        gaps_all.append(token_gaps(lg, toks).cpu())
+        rows = lg.reshape(-1, cfg.vocab)
+        v2 = rows.topk(2, dim=-1).values
         top2.append((v2[:, 0] - v2[:, 1]).cpu())
-        spread.append(lg.std(dim=-1).cpu())
+        spread.append(rows.std(dim=-1).cpu())
     gaps_all = torch.cat(gaps_all)
     top2, spread = torch.cat(top2), torch.cat(spread)
     worst = gaps_all.max().item()
     q = torch.quantile(gaps_all, torch.tensor([0.5, 0.99])).tolist()
-    log(f"teacher-forced ({name}): {exact}/{n_req * gen} emitted tokens "
-        f"are the forward's argmax; gap p50 {q[0]:.4f} p99 {q[1]:.4f} max "
+    log(f"teacher-forced ({name}): {exact}/{n_rows} emitted tokens "
+        f"{'(each codebook a token) ' if extra else ''}are the forward's "
+        f"argmax; gap p50 {q[0]:.4f} p99 {q[1]:.4f} max "
         f"{worst:.4f} (tolerance {LOGIT_TOL}); forward's top-2 margin p50 "
         f"{top2.median().item():.4f}, logit std p50 "
         f"{spread.median().item():.4f}")
@@ -2776,8 +3039,8 @@ def serve(cfg, smi, device="cuda", seed=0, name=None):
                      chunk=phase.get("prefill_chunk") or 512,
                      evictions=([set(evicted[r.rid]) for r in reqs]
                                 if ondemand else None),
-                     replay=ondemand and not eng_chunkable)
-    log_checks("logit check", name, res, n_req * gen)
+                     replay=ondemand and not eng_chunkable, patches=patches)
+    log_checks("logit check", name, res, n_rows)
     # the verify mode over the same paged pools, where the phase asks
     vres = {}
     if phase.get("verify_faults"):
@@ -2795,13 +3058,13 @@ def serve(cfg, smi, device="cuda", seed=0, name=None):
         idx = [i for i in range(n_req) if lens[i] == n]
         ps = torch.tensor(np.stack([prompts[i] for i in idx]),
                           device=device)
-        ref = greedy_oneshot(prefill, step, params, ps, None, gen).cpu()
+        pt = None if patches is None else patches[idx]
+        ref = greedy_oneshot(prefill, step, params, ps, pt, gen).cpu()
         for j, i in enumerate(idx):
             same += int((ref[j].numpy()
                          == np.asarray(reqs[i].out_tokens)).sum())
     log(f"one-shot agreement (information, {name}): {same}/"
-        f"{n_req * gen} engine tokens equal the port's greedy_oneshot "
-        "tokens")
+        f"{n_rows} engine tokens equal the port's greedy_oneshot tokens")
     if worst > LOGIT_TOL:
         raise AssertionError(f"{name}: an emitted token trails the "
                              f"forward's argmax by {worst:.4f} > {LOGIT_TOL}")
@@ -3531,55 +3794,54 @@ def check_launches(cfg, launches, stats, calls, name=None, kernels=None):
         "gathers")
 
 
-def check_cli(smi, arch="qwen2.5-14b", seed=1):
+def check_cli(smi, arch="qwen2.5-14b", seed=1, prompt_len=1000):
     """The port's CLI (``repro_torch.launch.serve``) on the card at full
-    width: the engine (paged kernel, chunked prefill, prefix cache on) and
-    the one-shot path, same weights (seed 0) and prompts (``seed``).  Each
-    run's launches of its kernels must be above zero, and each token set
-    is held by the teacher-forced token check (``LOGIT_TOL``), so the two
-    are equal within that tolerance; how many tokens agree exactly is
-    printed."""
+    width and depth: the engine (paged kernel, chunked prefill, prefix
+    cache on) and the one-shot path, same weights (seed 0) and prompts
+    (``seed``; (P, K) codebook ids for musicgen-large).  Each run's
+    launches of its kernels must be above zero, and each token set is
+    held by the teacher-forced token check (``LOGIT_TOL``, each codebook
+    a token for audio), so the two are equal within that tolerance; how
+    many tokens agree exactly is printed."""
     import numpy as np
     import torch
 
     from repro_torch import kernels
     from repro_torch.configs import get
     from repro_torch.launch import serve as cli
-    from repro_torch.models.lm import forward, init_params
+    from repro_torch.models.lm import init_params
 
     cfg = get(arch)
+    extra, _ = frontend_shape(cfg)
     argv = ["--arch", arch, "--batch", "4", "--requests", "4",
-            "--prompt-len", "1000", "--gen", "16", "--seed", str(seed)]
+            "--prompt-len", str(prompt_len), "--gen", "16", "--seed",
+            str(seed)]
     legs = {"engine": (["--paged-kernel", "--chunk", "512",
                         "--prefix-cache", "on"],
                        ("paged_decode_attention", "rms_norm")),
             "oneshot": (["--mode", "oneshot"],
                         ("flash_attention", "rms_norm"))}
     out = {}
-    for leg, (extra, used) in legs.items():
+    for leg, (more, used) in legs.items():
         for k in used:
             getattr(kernels, k).launches.reset()
-        toks = np.asarray(cli.serve(argv + extra), np.int32)
+        toks = np.asarray(cli.serve(argv + more), np.int32)
         got = {k: getattr(kernels, k).launches.value for k in used}
-        if tuple(toks.shape) != (4, 16) or min(got.values()) <= 0:
+        if tuple(toks.shape) != (4, 16) + extra or min(got.values()) <= 0:
             raise AssertionError(f"CLI {leg}: tokens {toks.shape}, "
                                  f"launches {got}")
         out[leg] = toks
         log(f"CLI {leg} ({arch}, {smi}): launches {got}")
         torch.cuda.empty_cache()
     params = init_params(cfg, torch.Generator("cuda").manual_seed(0), "cuda")
-    prompts = cli._prompts(cfg, 4, 1000, seed)
+    prompts, patches = cli._prompts(cfg, 4, prompt_len, seed)
     worst = {}
     for leg, toks in out.items():
-        gaps = []
-        for p, t in zip(prompts, toks):
-            seq = torch.tensor(np.concatenate([p, t[:-1]])[None],
-                               device="cuda")
-            lg = forward(params, cfg, seq, mode="train")["logits"][
-                0, len(p) - 1:].float()
-            tt = torch.tensor(t, device="cuda").long()
-            gaps.append((lg.max(-1).values - lg.gather(1, tt[:, None])[:, 0])
-                        .max().item())
+        gaps = [token_gaps(forced_logits(
+            cfg, params, p, t, "cuda",
+            None if patches is None else torch.tensor(patches[i],
+                                                      device="cuda")),
+            t).max().item() for i, (p, t) in enumerate(zip(prompts, toks))]
         worst[leg] = max(gaps)
     same = int((out["engine"] == out["oneshot"]).sum())
     log(f"CLI token sets ({arch}): {same}/{out['engine'].size} equal; "
@@ -3658,7 +3920,7 @@ def main(argv=None):
     t_start = time.perf_counter()
 
     build_all()
-    rows = [check_paged_decode(), check_rms_norm(), check_rms_norm_bwd(),
+    rows = [*check_paged_decode(), check_rms_norm(), check_rms_norm_bwd(),
             check_paged_mla(),
             check_ssd(), *check_flash()]
     log(f"clocks after the kernel timings (sm, power, temp): {clocks()}")
@@ -3691,6 +3953,8 @@ def main(argv=None):
         gc.collect()                        # the phase's engine, if a cycle
         torch.cuda.empty_cache()            # the next phase's weights
     check_cli(smi)
+    # musicgen-large's codebook prompts through the CLI (CLI_AUDIO)
+    check_cli(smi, **CLI_AUDIO)
     check_train_cli(smi)
     for row in rows:
         row["launches"] = launches.get(row["name"], 0)

@@ -6,9 +6,12 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --tiny --device cpu \
         --spec ngram
 
-``--arch`` picks a config of the registry whose families the port
-serves: GQA (qwen2.5-14b, the default), MLA (minicpm3-4b), SSD
-(mamba2-780m) and MoE with sliding-window attention (mixtral-8x7b).
+``--arch`` picks a config of the registry: GQA (qwen2.5-14b, the
+default), MLA (minicpm3-4b), SSD (mamba2-780m), MoE with sliding-window
+attention (mixtral-8x7b), and the two frontends: vision patches
+(internvl2-2b: zero patch embeddings in front of each prompt, as the
+reference serves them) and audio codebooks (musicgen-large: prompts of
+(P, K) codebook ids, K ids a step).
 
 The flags and the one JSON line (same keys) of ``repro.launch.serve``,
 plus ``--device {cuda,cpu}`` (default ``cuda``; ``cuda`` without a card
@@ -40,23 +43,37 @@ from ..steps import make_prefill_step, make_serve_step
 
 
 def _prompts(cfg, n, prompt_len, seed=1):
-    if cfg.frontend != "none":
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.frontend!r} frontend is not ported yet "
-            "(ROADMAP.md queue 1, item 7)")
+    """``n`` prompts of ``prompt_len`` ids drawn with numpy from ``seed``
+    ((n, P, K) codebook ids for audio), and vision's zero patch
+    embeddings (n, n_patches, d_model) as the reference's CLI makes them
+    (None for the other frontends)."""
+    shp = (n, prompt_len)
+    if cfg.frontend == "audio_codebooks":
+        shp = shp + (cfg.n_codebooks,)
     rng = np.random.default_rng(seed)
-    return rng.integers(0, cfg.vocab, (n, prompt_len)).astype(np.int32)
+    prompts = rng.integers(0, cfg.vocab, shp).astype(np.int32)
+    patches = None
+    if cfg.frontend == "vision_patches":
+        patches = np.zeros((n, cfg.n_patches, cfg.d_model), np.float32)
+    return prompts, patches
+
+
+def _cache_len(cfg, prompt_len, gen):
+    return prompt_len + gen + (
+        cfg.n_patches if cfg.frontend == "vision_patches" else 0)
 
 
 def serve_oneshot(cfg, params, device, args):
     """Prefill one batch, decode greedily to the end."""
-    cache_len = args.prompt_len + args.gen
+    cache_len = _cache_len(cfg, args.prompt_len, args.gen)
     prefill = make_prefill_step(cfg, cache_len=cache_len)
     decode = make_serve_step(cfg)
-    prompts = torch.tensor(_prompts(cfg, args.batch, args.prompt_len,
-                                    args.seed), device=device)
+    prompts, patches = _prompts(cfg, args.batch, args.prompt_len, args.seed)
+    prompts = torch.tensor(prompts, device=device)
+    if patches is not None:
+        patches = torch.tensor(patches, device=device)
     t0 = time.time()
-    cache, last_logits = prefill(params, prompts)
+    cache, last_logits = prefill(params, prompts, patches)
     tok = last_logits.argmax(dim=-1).int()
     tok.cpu()
     t_prefill = time.time() - t0
@@ -82,8 +99,9 @@ def serve_engine(cfg, params, device, args):
     """Continuous batching: a slot pool fed by a monitored request queue."""
     from ..serve import Request, ServeEngine
 
-    cache_len = args.prompt_len + args.gen
-    prompts = _prompts(cfg, args.requests, args.prompt_len, args.seed)
+    cache_len = _cache_len(cfg, args.prompt_len, args.gen)
+    prompts, patches = _prompts(cfg, args.requests, args.prompt_len,
+                                args.seed)
     page_size = ("auto" if args.page_size == 0
                  else None if args.page_size < 0 else args.page_size)
     t0 = time.time()
@@ -99,7 +117,10 @@ def serve_engine(cfg, params, device, args):
                      spec_k=args.spec_k, device=device) as eng:
         reqs = []
         for i in range(args.requests):
-            reqs.append(Request(i, prompts[i], max_new_tokens=args.gen))
+            reqs.append(Request(
+                i, prompts[i],
+                patches=None if patches is None else patches[i],
+                max_new_tokens=args.gen))
             eng.submit(reqs[-1])
             if args.arrival_ms:
                 time.sleep(args.arrival_ms / 1e3)

@@ -13,10 +13,13 @@ The reference CLI's flags and JSON lines (one per logged step, then the
 closing ``wall_s`` / ``host_cpu_util`` / ``host_wakes`` line), plus
 ``--device {cuda,cpu}`` (default ``cuda``; ``cuda`` without a card
 raises).  One device, no mesh: sharding the train state waits for tensor
-parallelism (ROADMAP.md queue 1, item 18).  The frontend families raise
-(item 7).  Weights are a seeded ``torch.Generator`` init (seed 0) on the
-device; batches come from ``SyntheticTokenSource`` (seed 1234), as in
-the reference.  Heartbeats go to a temporary directory.
+parallelism (ROADMAP.md queue 1, item 18).  Weights are a seeded
+``torch.Generator`` init (seed 0) on the device; batches come from
+``SyntheticTokenSource`` (seed 1234), as in the reference, with (…, K)
+codebook ids for the audio frontend.  The vision frontend is refused
+with ``ValueError``: the reference's CLI feeds it no patch embeddings,
+and its forward asserts them in train mode.  Heartbeats go to a
+temporary directory.
 """
 from __future__ import annotations
 
@@ -71,10 +74,12 @@ def train(argv=None):
     args = ap.parse_args(argv)
 
     cfg = get(args.arch)
-    if cfg.frontend != "none":
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.frontend!r} frontend is not ported yet "
-            "(ROADMAP.md queue 1, item 7)")
+    if cfg.frontend == "vision_patches":
+        raise ValueError(
+            f"{cfg.name}: the train CLI has no patch embeddings to feed the "
+            "vision frontend (the reference's CLI feeds none either, and "
+            "its forward asserts them in train mode); train it through "
+            "steps.make_train_step with batch['patches']")
     if args.tiny:
         over = {}
         if args.d_model:
@@ -97,7 +102,9 @@ def train(argv=None):
 
     src = SyntheticTokenSource(
         seed=1234, batch=args.batch, seq=args.seq, vocab=cfg.vocab,
-        accum=args.accum)
+        accum=args.accum,
+        extra_dim=cfg.n_codebooks if cfg.frontend == "audio_codebooks"
+        else 0)
 
     t_start = time.time()
     losses = []

@@ -3,7 +3,11 @@ port of ``repro/models/layers.py``).
 
 ``rms_norm`` is the kernel wrapper: the Triton kernel for CUDA tensors,
 the plain version for CPU ones; ``gated_rms_norm`` goes through it too.
-Audio and vision frontends belong to later slices and raise.
+The modality frontends are the reference's stubs: ``audio_codebooks``
+sums K codebook embeddings into one stream and emits K heads'
+logits; ``vision_patches`` embeds text as the token LMs do (its
+precomputed patch embeddings are prepended in ``lm.forward``); both
+take ``sinusoidal_pos`` where the config says so.
 """
 from __future__ import annotations
 
@@ -17,15 +21,9 @@ from ..kernels import rms_norm
 
 __all__ = ["rms_norm", "gated_rms_norm", "check_cache_invariant",
            "page_gather", "page_scatter", "page_scatter_window",
-           "rope_freqs", "apply_rope", "mlp_dense", "embed_tokens",
-           "lm_logits", "softmax_xent", "tree_leaves", "tree_map"]
-
-
-def _frontend_unported(cfg):
-    if cfg.frontend != "none":
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.frontend!r} frontend is not ported yet "
-            "(ROADMAP.md queue 1, item 7)")
+           "rope_freqs", "apply_rope", "sinusoidal_pos", "mlp_dense",
+           "embed_tokens", "lm_logits", "softmax_xent", "tree_leaves",
+           "tree_map"]
 
 
 def gated_rms_norm(x, z, w, eps=1e-5):
@@ -159,6 +157,19 @@ def apply_rope(x, pos, theta=10_000.0):
     return out.to(x.dtype)
 
 
+def sinusoidal_pos(pos, dim: int, device=None):
+    """(...,) positions -> (..., dim) classic transformer sinusoidal
+    embedding in f32 (the caller casts): sines of the first half of the
+    frequencies, then cosines."""
+    half = dim // 2
+    pos = torch.as_tensor(pos, device=device)
+    freqs = torch.exp(-np.log(10_000.0)
+                      * torch.arange(half, dtype=torch.float32,
+                                     device=pos.device) / half)
+    ang = pos.float()[..., None] * freqs
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
 # ----------------------------------------------------------------------- MLP
 def mlp_dense(x, p, cfg):
     """SwiGLU MLP. x: (B, S, D); weights cast to x's dtype per use."""
@@ -170,15 +181,25 @@ def mlp_dense(x, p, cfg):
 
 
 def embed_tokens(tokens, p_embed, cfg, dtype):
-    """tokens: (B, S) int -> (B, S, D)."""
-    _frontend_unported(cfg)
-    return p_embed["tok"].to(dtype)[tokens.long()]
+    """tokens: (B, S) int -> (B, S, D); audio codebooks: (B, S, K) ->
+    the sum over k of codebook k's embedding of ``tokens[..., k]``, in
+    ``dtype`` and in the reference's order (MusicGen-style)."""
+    tokens = tokens.long()
+    if cfg.frontend == "audio_codebooks":
+        emb = p_embed["tok"].to(dtype)                    # (K, V, D)
+        out = emb[0][tokens[..., 0]]
+        for k in range(1, cfg.n_codebooks):
+            out = out + emb[k][tokens[..., k]]
+        return out
+    return p_embed["tok"].to(dtype)[tokens]
 
 
 def lm_logits(x, params, cfg):
-    """x: (B, S, D) -> (B, S, V)."""
-    _frontend_unported(cfg)
+    """x: (B, S, D) -> (B, S, V); audio codebooks: (B, S, K, V), head k
+    from ``lm_head[k]`` (K, D, V)."""
     dt = x.dtype
+    if cfg.frontend == "audio_codebooks":
+        return torch.einsum("bsd,kdv->bskv", x, params["lm_head"].to(dt))
     if cfg.tie_embeddings:
         w = params["embed"]["tok"].to(dt).T               # (D, V)
     else:

@@ -22,7 +22,8 @@ from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 from .blocks import block_apply, block_cache_shapes, block_param_shapes
-from .layers import embed_tokens, lm_logits, rms_norm, tree_leaves, tree_map
+from .layers import (embed_tokens, lm_logits, rms_norm, sinusoidal_pos,
+                     tree_leaves, tree_map)
 
 
 class LeafMeta(NamedTuple):
@@ -49,19 +50,20 @@ def _stack_meta(tree, repeats):
 # ------------------------------------------------------------------- meta
 def param_meta(cfg):
     d, v = cfg.d_model, cfg.vocab
-    if cfg.frontend == "audio_codebooks":
-        raise NotImplementedError(
-            f"{cfg.name}: the audio frontend is not ported yet "
-            "(ROADMAP.md queue 1, item 7)")
+    if cfg.frontend == "audio_codebooks":       # one table and head per
+        k = cfg.n_codebooks                     # codebook
+        embed, head = LeafMeta((k, v, d)), LeafMeta((k, d, v))
+    else:
+        embed, head = LeafMeta((v, d)), LeafMeta((d, v))
     out = {
-        "embed": {"tok": LeafMeta((v, d))},
+        "embed": {"tok": embed},
         "blocks": tuple(_stack_meta(block_param_shapes(cfg, spec),
                                     cfg.n_repeats)
                         for spec in cfg.pattern),
         "final_norm": LeafMeta((d,), "ones"),
     }
     if not cfg.tie_embeddings:
-        out["lm_head"] = LeafMeta((d, v))
+        out["lm_head"] = head
     return out
 
 
@@ -128,9 +130,17 @@ def _layer(tree, r):
 
 # ---------------------------------------------------------------- forward
 def forward(params, cfg, tokens, *, mode="train", pos=0, cache=None,
-            cache_len=None, pages=None, attn_extent=None, want_logits=True,
-            n_tok=None):
-    """tokens: (B, S) int.  Returns {"logits", "cache", "aux"}: ``aux``
+            patches=None, cache_len=None, pages=None, attn_extent=None,
+            want_logits=True, n_tok=None):
+    """tokens: (B, S) int, or (B, S, K) codebook ids for the audio
+    frontend, whose logits are then (B, S, K, V).  ``patches`` (vision):
+    (B, n_patches, d_model) embeddings put in front of the text, always
+    in "train" and "prefill", on the first chunk only in "prefill_chunk"
+    (later chunks continue at ``pos`` past them); "train" drops their
+    positions before the final norm.  Sinusoidal positions (audio) are
+    added to the embedding in every mode.
+
+    Returns {"logits", "cache", "aux"}: ``aux``
     is the MoE load-balance term summed over the layers (a 0-d f32
     tensor) in train mode, None in the serve modes, whose callers never
     read it.  Train mode records autograd when the caller's grad mode is
@@ -158,7 +168,7 @@ def forward(params, cfg, tokens, *, mode="train", pos=0, cache=None,
         raise ValueError(f"unknown forward mode {mode!r}")
     with contextlib.nullcontext() if mode == "train" else torch.no_grad():
         return _forward(params, cfg, tokens, mode=mode, pos=pos, cache=cache,
-                        cache_len=cache_len, pages=pages,
+                        patches=patches, cache_len=cache_len, pages=pages,
                         attn_extent=attn_extent, want_logits=want_logits,
                         n_tok=n_tok)
 
@@ -177,17 +187,39 @@ def _remat(params, cfg):
     return True
 
 
-def _forward(params, cfg, tokens, *, mode, pos, cache, cache_len, pages,
-             attn_extent, want_logits, n_tok):
+def _positions(mode, pos, s, device):
+    """The positions of the S rows of x, shaped to broadcast against (B,
+    S): decode's per-slot (B,) positions as (B, 1), verify's windows (B,
+    S), the other modes' ``pos + arange(S)``."""
+    if mode == "decode":
+        pos = torch.as_tensor(pos, device=device)
+        return pos[:, None] if pos.dim() == 1 else pos.reshape(1)
+    if mode == "verify":
+        return torch.as_tensor(pos, device=device)[:, None] + torch.arange(
+            s, device=device)
+    return pos + torch.arange(s, device=device)
+
+
+def _forward(params, cfg, tokens, *, mode, pos, cache, patches, cache_len,
+             pages, attn_extent, want_logits, n_tok):
     if mode == "verify" and n_tok is None:
         raise ValueError("verify mode needs n_tok")
-    if cfg.pos_emb != "rope":
-        raise NotImplementedError(
-            f"{cfg.name}: {cfg.pos_emb!r} positions are not ported yet "
-            "(ROADMAP.md queue 1, item 7)")
     dt = getattr(torch, cfg.dtype)
     x = embed_tokens(tokens, params["embed"], cfg, dt)
+    vision = cfg.frontend == "vision_patches"
+    if vision and mode in ("train", "prefill"):
+        if patches is None:
+            raise ValueError(f"{cfg.name}: mode {mode!r} needs the "
+                             f"{cfg.n_patches} patch embeddings (patches=)")
+    elif mode != "prefill_chunk":
+        patches = None
+    if patches is not None:
+        x = torch.cat([torch.as_tensor(patches, device=x.device).to(dt), x],
+                      dim=1)
     s = x.shape[1]
+    if cfg.pos_emb == "sinusoidal":
+        x = x + sinusoidal_pos(_positions(mode, pos, s, x.device),
+                               cfg.d_model).to(dt)
     train = mode == "train"
     cache_in = mode in ("decode", "prefill_chunk", "verify")
     if cache_in:
@@ -233,6 +265,8 @@ def _forward(params, cfg, tokens, *, mode, pos, cache, cache_len, pages,
                     new_blocks[i][k][r] = v
 
     new_cache = None
+    if train and vision:
+        x = x[:, cfg.n_patches:]
     if mode == "decode":
         new_cache = {"pos": cache["pos"] + 1, "blocks": new_blocks}
     elif mode == "verify":

@@ -67,6 +67,14 @@ step's argmaxes, never drafts.  Positions are the host's
 (``_slot_pos``), tokens are host ints from admission on, and the tick
 reads its argmaxes to the host once.
 
+Frontends (the reference's stubs): a vision request carries its
+``patches`` (n_patches, d_model), which count toward its length, ride
+its prefill (the first chunk of a chunked one or of a restore) and keep
+it out of the prefix trie, since its token key lacks them; an audio
+request's prompt is (P, K) codebook ids, each step emits (K,) ids (the
+token buffers are (slots, 1, K)), and eos/stop and speculation are
+refused, as in the reference.
+
 Tensor parallelism (``tp``/``mesh``) belongs to a later slice and raises
 ``NotImplementedError`` naming its ROADMAP item.
 """
@@ -292,7 +300,11 @@ class ServeEngine:
         # orders every read (gather) and write (insert, tick) of the pool
         # on the stream
         self._pool_lock = threading.Lock()
-        self._tokens = self.kv.to_dev(np.zeros((slots, 1), np.int32))
+        # a step's token per slot: one id, or K codebook ids for audio
+        self._extra = ((cfg.n_codebooks,)
+                       if cfg.frontend == "audio_codebooks" else ())
+        self._tokens = self.kv.to_dev(np.zeros((slots, 1) + self._extra,
+                                               np.int32))
         self._active = np.zeros((slots,), bool)
         self._active_dev = self.kv.to_dev(self._active)
         self._slot_req: list[Request | None] = [None] * slots
@@ -414,12 +426,11 @@ class ServeEngine:
         self._work.set()
 
     def _validate(self, req: Request):
-        """Admission-impossible geometry fails loudly at prefill time."""
-        if req.patches is not None:
-            return NotImplementedError(
-                f"request {req.rid}: vision patches are not ported yet "
-                "(ROADMAP.md queue 1, item 7)")
-        req.total_len = int(np.asarray(req.prefill_tokens).shape[0])
+        """Admission-impossible geometry fails loudly at prefill time; a
+        vision request's patches count toward its length."""
+        p = self.cfg.n_patches \
+            if self.cfg.frontend == "vision_patches" else 0
+        req.total_len = int(np.asarray(req.prefill_tokens).shape[0]) + p
         ticks = req.max_new - max(len(req.out_tokens), 1)
         if req.total_len + ticks + 1 > self.cache_len:
             return ValueError(
@@ -433,6 +444,11 @@ class ServeEngine:
                     f"request {req.rid}: needs {need} KV pages but the "
                     f"pool only has {self.pager.capacity} — it can never "
                     "be admitted")
+        if req.needs_host_tokens and \
+                self.cfg.frontend == "audio_codebooks":
+            return ValueError(
+                f"request {req.rid}: eos_id/stop are not supported for "
+                "audio-codebook frontends")
         return None
 
     def _drop_prefix_hold(self, req: Request):
@@ -469,7 +485,8 @@ class ServeEngine:
                     remaining.remove(req)
                     self._finish_failed(req, err)
                 else:
-                    key = np.asarray(req.prefill_tokens).shape
+                    key = (np.asarray(req.prefill_tokens).shape,
+                           req.patches is not None)
                     groups.setdefault(key, []).append(req)
             exc0 = None
             for grp in groups.values():
@@ -495,12 +512,14 @@ class ServeEngine:
     def _prefill_group(self, grp, remaining):
         """Batched prefill of same-shape prompts, the batch padded to the
         next power of two (repeating the last row; rows are independent,
-        so padding cannot perturb the real ones).  Prefix-cache hits leave
-        the group first, each for its own tail-only chunk chain; a group
-        the policy chunks is handed to a chunk chain (one task per chunk,
-        :meth:`_prefill_chunk_task`), which owns its accounting from then
-        on."""
-        if self.prefix is not None:
+        so padding cannot perturb the real ones); a vision group's patches
+        are stacked and padded alongside.  Prefix-cache hits leave the
+        group first, each for its own tail-only chunk chain (a vision
+        group never: its patches make the prompt an incomplete key); a
+        group the policy chunks is handed to a chunk chain (one task per
+        chunk, :meth:`_prefill_chunk_task`, the patches on its first
+        chunk), which owns its accounting from then on."""
+        if self.prefix is not None and grp[0].patches is None:
             grp = [r for r in grp
                    if not self._try_prefix_prefill(r, remaining)]
             if not grp:
@@ -512,6 +531,16 @@ class ServeEngine:
             toks = np.concatenate(
                 [toks, np.repeat(toks[-1:], bpad - bg, axis=0)])
         tj = self.kv.to_dev(toks)
+        pj = None
+        if grp[0].patches is not None:   # host arrays or device tensors
+            if isinstance(grp[0].patches, torch.Tensor):
+                pj = torch.stack([r.patches.to(self.device) for r in grp])
+            else:
+                pj = self.kv.to_dev(np.stack([np.asarray(r.patches)
+                                              for r in grp]))
+            if bpad > bg:
+                pj = torch.cat([pj, pj[-1:].expand(bpad - bg,
+                                                   *pj.shape[1:])])
         if self.chunk is not None and grp[0].resume \
                 and grp[0].restore_tokens is not None:
             # prefill-replay restore (ref engine.py:930-938): through the
@@ -526,14 +555,17 @@ class ServeEngine:
             for r in grp:
                 remaining.remove(r)
             self._start_chain(grp, tj, rows, 0, int(chunk),
-                              f"serve.prefill.chunk:{grp[0].rid}@0")
+                              f"serve.prefill.chunk:{grp[0].rid}@0", pj)
             return
-        rows_cache, logits = self.prefill(self._params, tj)
+        rows_cache, logits = self.prefill(self._params, tj, pj)
         self._account_prefilled(grp, remaining, rows_cache, logits)
 
-    def _start_chain(self, grp, tj, rows_cache, c0, chunk, name):
-        st = {"rows_cache": rows_cache, "c0": c0, "chunks": 0,
-              "chunk": chunk, "unaccounted": list(grp)}
+    def _start_chain(self, grp, tj, rows_cache, c0, chunk, name, pj=None):
+        """``c0``: the first prompt token the chain prefills, at cache
+        position ``c0`` (after a prefix hit's matched tokens); ``pj``: the
+        group's patches, which ride its first chunk."""
+        st = {"rows_cache": rows_cache, "c0": c0, "off": c0, "pj": pj,
+              "chunks": 0, "chunk": chunk, "unaccounted": list(grp)}
         try:
             self.rt.submit(self._prefill_chunk_task, grp, tj, st, name=name)
         except BaseException as e:          # noqa: BLE001
@@ -595,15 +627,19 @@ class ServeEngine:
         group's failure accounting."""
         try:
             plen = tj.shape[1]
-            c, c0 = st["chunk"], st["c0"]
+            c, c0, off, pj = st["chunk"], st["c0"], st["off"], st["pj"]
             c1 = min(c0 + c, plen)
+            # cache positions written through this chunk: the patches
+            # (first chunk only) come before the prompt's tokens
+            covered = off + (c1 - c0) + (0 if pj is None else pj.shape[1])
             # extent bucket, a multiple of the chunk: attention work stays
             # at the one-shot level; non-final chunks skip the LM head
-            ext = min(self.cache_len, -(-c1 // c) * c)
+            ext = min(self.cache_len, -(-covered // c) * c)
             rows_cache, logits = self.chunk(
-                self._params, st["rows_cache"], tj[:, c0:c1], c0,
+                self._params, st["rows_cache"], tj[:, c0:c1], off, pj,
                 attn_extent=ext, want_logits=c1 >= plen)
-            st.update(rows_cache=rows_cache, c0=c1, chunks=st["chunks"] + 1)
+            st.update(rows_cache=rows_cache, c0=c1, off=covered, pj=None,
+                      chunks=st["chunks"] + 1)
             # the chunk completes before the next one is queued: chunks
             # queued back to back would hold the device like one long
             # prefill, and the gap is where decode ticks interleave
@@ -690,8 +726,8 @@ class ServeEngine:
             self._check_restore(r, len(r.out_tokens) - 1, t0)
         # the next tick is fed the emitted token (equal to the re-derived
         # one unless a divergence was recorded)
-        tok = self.kv.to_dev(
-            np.asarray(r.out_tokens[-1], np.int32).reshape(1, 1))
+        tok = self.kv.to_dev(np.asarray(r.out_tokens[-1], np.int32).reshape(
+            (1, 1) + self._extra))
         r.resume = False
         with self._lock:
             self.stats_restores += 1
@@ -702,30 +738,33 @@ class ServeEngine:
         """Token ``k`` re-derived by a restore against the emitted one:
         the reference's assertion under ``strict_restore``, else a
         recorded divergence (see the class docstring)."""
-        want = int(np.asarray(r.out_tokens[k]))
-        if int(got) == want:
+        want, got = np.asarray(r.out_tokens[k]), np.asarray(got)
+        if np.array_equal(got, want):
             return
         if self.strict_restore:
             raise AssertionError(f"request {r.rid}: restore diverged from "
                                  f"the emitted stream at token {k}")
         with self._lock:
-            self.restore_divergences.append((r.rid, k, want, int(got)))
+            self.restore_divergences.append((r.rid, k, want.tolist(),
+                                             got.tolist()))
 
     def _replay_generated(self, req: Request, rows_cache):
         """Decode-replay (ref engine.py:1169-1201): re-feed the emitted
         tokens one at a time through the serve step on the freshly
         prefilled row cache, advancing it to prompt + generated[:-1] —
-        the computation the ticks ran, one row wide.  One host read for
-        the whole chain, then every re-derived token is checked."""
+        the computation the ticks ran, one row wide (an audio step is fed
+        its (1, 1, K) codes).  One host read for the whole chain, then
+        every re-derived token is checked."""
         toks = req.out_tokens
         if len(toks) <= 1:
             return rows_cache
         cache, nxts = rows_cache, []
         for k in range(len(toks) - 1):
-            fed = self.kv.to_dev(np.asarray(toks[k], np.int32).reshape(1, 1))
+            fed = self.kv.to_dev(np.asarray(toks[k], np.int32).reshape(
+                (1, 1) + self._extra))
             nxt, cache = self.replay(self._params, cache, fed)
             nxts.append(nxt)
-        got = torch.cat(nxts).reshape(-1).cpu().numpy()
+        got = torch.cat(nxts).reshape((-1,) + self._extra).cpu().numpy()
         for k, g in enumerate(got):
             self._check_restore(req, k + 1, g)
         return cache
@@ -842,8 +881,10 @@ class ServeEngine:
             self._admit_seq += 1
             self._slot_seq[s] = self._admit_seq
             # the prompt's full pages become reusable: their insert is
-            # queued above, before any gather a later match enqueues
-            if self.prefix is not None and req.total_len >= self.page_size:
+            # queued above, before any gather a later match enqueues (a
+            # vision prompt's key lacks its patches: never cached)
+            if self.prefix is not None and req.patches is None \
+                    and req.total_len >= self.page_size:
                 key = (req.restore_tokens
                        if req.restore_tokens is not None else req.tokens)
                 self.prefix.insert(key, req.pages, req.total_len)
@@ -960,8 +1001,9 @@ class ServeEngine:
     def _prefix_insert_slot(self, req: Request):
         """Adopt a finished slot's complete pages into the trie, keyed on
         prompt + generated minus the last token: exactly the written
-        cache extent."""
-        if self.prefix is None or not req.pages:
+        cache extent.  Never a vision request's (its key lacks the
+        patches)."""
+        if self.prefix is None or req.patches is not None or not req.pages:
             return
         toks = np.asarray(req.tokens)
         gen = req.out_tokens[:-1]

@@ -54,13 +54,11 @@ def make_grad_step(cfg):
     ``loss + 0.01 * aux / n_layers`` is differentiated on
     ``cast_tree(params, cfg.dtype)``, and the gradients of the master
     params are summed in their own dtype (f32) and divided by ``accum``.
-    ``loss`` is the microbatches' mean token loss (a 0-d f32 tensor)."""
+    ``loss`` is the microbatches' mean token loss (a 0-d f32 tensor).
+    ``batch["patches"]`` (vision), when present, rides each microbatch;
+    audio labels are (…, K), one per codebook, as the tokens."""
 
     def grad_step(params, batch):
-        if "patches" in batch:
-            raise NotImplementedError(
-                "vision patches are not ported yet (ROADMAP.md queue 1, "
-                "item 7)")
         live = tree_map(lambda p: p.detach().requires_grad_(
             p.is_floating_point()), params)
         device = tree_leaves(params)[0].device
@@ -70,7 +68,9 @@ def make_grad_step(cfg):
         with torch.enable_grad():
             for a in range(accum):
                 out = forward(cast_tree(live, cfg.dtype), cfg,
-                              batch["tokens"][a], mode="train")
+                              batch["tokens"][a], mode="train",
+                              patches=(batch["patches"][a]
+                                       if "patches" in batch else None))
                 loss = _token_loss(out, batch["labels"][a], cfg)
                 total = loss + 0.01 * out["aux"] / max(cfg.n_layers, 1)
                 del out
@@ -106,12 +106,8 @@ def make_prefill_step(cfg, cache_len=None):
     """(params, tokens, patches=None) -> (row cache, last logits)."""
 
     def prefill_step(params, tokens, patches=None):
-        if patches is not None:
-            raise NotImplementedError(
-                "vision patches are not ported yet (ROADMAP.md queue 1, "
-                "item 7)")
         out = forward(cast_tree(params, cfg.dtype), cfg, tokens,
-                      mode="prefill", cache_len=cache_len)
+                      mode="prefill", patches=patches, cache_len=cache_len)
         return out["cache"], out["logits"]
 
     return prefill_step
@@ -285,7 +281,9 @@ def make_prefill_chunk_step(cfg, cache_len: int | None = None):
 
     ``row_cache`` is a dense (B, cache_len) cache (start from
     ``init_cache``), updated in place; ``tokens`` is the (B, C) chunk
-    written at positions ``[q_off, q_off + C)`` (``q_off`` a host int).
+    written at positions ``[q_off, q_off + C)`` (``q_off`` a host int);
+    a vision prompt's first chunk carries its ``patches`` in front, so it
+    covers ``n_patches + C`` positions from ``q_off``.
     Keywords ``attn_extent`` (the key extent each chunk attends over) and
     ``want_logits`` (False: a non-final chunk skips the LM head, and the
     logits come back None).  The last chunk's logits equal the one-shot
@@ -298,14 +296,10 @@ def make_prefill_chunk_step(cfg, cache_len: int | None = None):
 
     def chunk_step(params, row_cache, tokens, q_off, patches=None, *,
                    attn_extent=None, want_logits=True):
-        if patches is not None:
-            raise NotImplementedError(
-                "vision patches are not ported yet (ROADMAP.md queue 1, "
-                "item 7)")
         out = forward(cast_tree(params, cfg.dtype), cfg, tokens,
                       mode="prefill_chunk", pos=int(q_off), cache=row_cache,
-                      cache_len=cache_len, attn_extent=attn_extent,
-                      want_logits=want_logits)
+                      patches=patches, cache_len=cache_len,
+                      attn_extent=attn_extent, want_logits=want_logits)
         return out["cache"], out["logits"]
 
     return chunk_step

@@ -1,5 +1,7 @@
 """The port's ServeEngine on the UMT runtime (CPU, f32, the tiny configs
-of qwen2.5-14b, minicpm3-4b, mamba2-780m and mixtral-8x7b): engine tokens equal the
+of qwen2.5-14b, minicpm3-4b, mamba2-780m, mixtral-8x7b and the two
+frontends, internvl2-2b with its patch embeddings and musicgen-large
+with its codebook prompts): engine tokens equal the
 port's one-shot tokens exactly under
 seeded random arrivals and slot churn (the ``tests/test_serve_engine.py``
 pattern), on UMT and on the baseline runtime; they equal the reference
@@ -35,7 +37,35 @@ CACHE_LEN = 16
 TIMEOUT_S = 120
 
 
-ARCHS = ["qwen2.5-14b", "minicpm3-4b", "mamba2-780m", "mixtral-8x7b"]
+ARCHS = ["qwen2.5-14b", "minicpm3-4b", "mamba2-780m", "mixtral-8x7b",
+         "internvl2-2b", "musicgen-large"]
+
+
+def frontend_inputs(cfg, n, plen, seed=1):
+    """``n`` prompts of ``plen`` positions from a numpy seed: (P, K)
+    codebook ids for audio; for vision ``plen - n_patches`` text tokens
+    behind (n_patches, d_model) patch embeddings, so every family's
+    prompt fills the same cache extent.  Returns (prompts, patches or
+    None)."""
+    rng = np.random.default_rng(seed)
+    vision = cfg.frontend == "vision_patches"
+    shp = (n, plen - (cfg.n_patches if vision else 0))
+    if cfg.frontend == "audio_codebooks":
+        shp = shp + (cfg.n_codebooks,)
+    prompts = rng.integers(0, cfg.vocab, shp).astype(np.int32)
+    patches = None
+    if vision:
+        patches = rng.standard_normal(
+            (n, cfg.n_patches, cfg.d_model)).astype(np.float32)
+    return prompts, patches
+
+
+def oneshot(cfg, params, prompts, patches, gen, cache_len):
+    """The port's one-shot tokens of a prompt batch."""
+    return greedy_oneshot(
+        make_prefill_step(cfg, cache_len=cache_len), make_serve_step(cfg),
+        params, torch.tensor(prompts),
+        None if patches is None else torch.tensor(patches), gen).numpy()
 
 
 @pytest.fixture(scope="module", params=ARCHS)
@@ -43,12 +73,17 @@ def built(request):
     cfg = get(request.param).tiny()
     jp = jax_init_params(cfg, jax.random.PRNGKey(0))
     params = params_from_numpy(jax.tree.map(np.asarray, jp), cfg, "cpu")
-    prompts = np.random.default_rng(1).integers(
-        0, cfg.vocab, (N_REQ, PLEN)).astype(np.int32)
-    ref = greedy_oneshot(make_prefill_step(cfg, cache_len=CACHE_LEN),
-                         make_serve_step(cfg), params,
-                         torch.tensor(prompts), None, GEN_MAX).numpy()
-    return dict(cfg=cfg, jp=jp, params=params, prompts=prompts, ref=ref)
+    prompts, patches = frontend_inputs(cfg, N_REQ, PLEN)
+    ref = oneshot(cfg, params, prompts, patches, GEN_MAX, CACHE_LEN)
+    return dict(cfg=cfg, jp=jp, params=params, prompts=prompts,
+                patches=patches, ref=ref)
+
+
+def _req(b, i, cls=Request, **kw):
+    """Request ``i`` of the built set, its patches included."""
+    return cls(int(i), b["prompts"][i],
+               patches=None if b["patches"] is None else b["patches"][i],
+               **kw)
 
 
 def _run(b, reqs, gaps=None, **kw):
@@ -74,8 +109,7 @@ def test_engine_matches_oneshot_under_random_arrivals(built, seed, umt,
     order = rng.permutation(N_REQ)
     gens = rng.integers(1, GEN_MAX + 1, N_REQ)        # incl. gen == 1
     gaps = rng.exponential(0.004, N_REQ)
-    reqs = [Request(int(i), built["prompts"][i], max_new_tokens=int(gens[i]))
-            for i in order]
+    reqs = [_req(built, i, max_new_tokens=int(gens[i])) for i in order]
     stats, pager = _run(built, reqs, gaps, umt=umt, page_size=page_size,
                         paged_kernel=paged_kernel)
     for r in reqs:
@@ -92,8 +126,7 @@ def test_engine_matches_oneshot_under_random_arrivals(built, seed, umt,
 def test_tight_pool_blocks_admission_but_stays_exact(built):
     """Room for one worst-case request: admission blocks on free pages
     and every stream still equals its one-shot row."""
-    reqs = [Request(i, built["prompts"][i], max_new_tokens=GEN_MAX)
-            for i in range(N_REQ)]
+    reqs = [_req(built, i, max_new_tokens=GEN_MAX) for i in range(N_REQ)]
     need = -(-(PLEN + GEN_MAX - 1) // 4)
     stats, _ = _run(built, reqs, page_size=4, num_pages=need + 1,
                     paged_kernel=True)
@@ -103,13 +136,24 @@ def test_tight_pool_blocks_admission_but_stays_exact(built):
 
 
 def test_eos_and_stop_give_prefixes(built):
+    """A stream that meets its eos or stop ends there; the audio
+    frontend emits a codebook vector a step and refuses both, with the
+    reference's error, while a plain request beside them is served."""
     ref = built["ref"]
-    reqs = [Request(0, built["prompts"][0], max_new_tokens=GEN_MAX,
-                    eos_id=int(ref[0, 2])),
-            Request(1, built["prompts"][1], max_new_tokens=GEN_MAX,
-                    stop=[[int(ref[1, 1]), int(ref[1, 2])]]),
-            Request(2, built["prompts"][2], max_new_tokens=GEN_MAX)]
+    audio = built["cfg"].frontend == "audio_codebooks"
+    reqs = [_req(built, 0, max_new_tokens=GEN_MAX,
+                 eos_id=1 if audio else int(ref[0, 2])),
+            _req(built, 1, max_new_tokens=GEN_MAX,
+                 stop=[[1]] if audio else [[int(ref[1, 1]), int(ref[1, 2])]]),
+            _req(built, 2, max_new_tokens=GEN_MAX)]
     stats, _ = _run(built, reqs, paged_kernel=True, page_size=4)
+    if audio:
+        for r in reqs[:2]:
+            with pytest.raises(ValueError, match="eos_id/stop are not "
+                               "supported for audio-codebook frontends"):
+                r.wait()
+        assert np.array_equal(reqs[2].wait(), ref[2])
+        return
     for r in reqs:
         got = list(r.wait())
         assert got == list(ref[r.rid, :len(got)])
@@ -119,8 +163,7 @@ def test_eos_and_stop_give_prefixes(built):
 
 def test_weights_task_and_response_sink(built):
     seen = []
-    reqs = [Request(i, built["prompts"][i], max_new_tokens=3)
-            for i in range(2)]
+    reqs = [_req(built, i, max_new_tokens=3) for i in range(2)]
     eng = ServeEngine(built["cfg"], lambda: built["params"], slots=2,
                       cache_len=CACHE_LEN, n_cores=4, device="cpu",
                       response_sink=seen.append, paged_kernel=True).start()
@@ -139,8 +182,7 @@ def test_a_shut_down_engine_is_freed_when_dropped(built):
     import gc
     import weakref
 
-    reqs = [Request(i, built["prompts"][i], max_new_tokens=3)
-            for i in range(2)]
+    reqs = [_req(built, i, max_new_tokens=3) for i in range(2)]
     eng = ServeEngine(built["cfg"], built["params"], slots=2,
                       cache_len=CACHE_LEN, n_cores=4, device="cpu").start()
     for r in reqs:
@@ -164,7 +206,7 @@ def test_port_engine_equals_reference_engine(built):
     from repro.serve import ServeEngine as JServeEngine
 
     gens = [GEN_MAX, 3, 5, 1, GEN_MAX, 2]
-    jreqs = [JRequest(i, built["prompts"][i], max_new_tokens=gens[i])
+    jreqs = [_req(built, i, JRequest, max_new_tokens=gens[i])
              for i in range(N_REQ)]
     eng = JServeEngine(built["cfg"], built["jp"], slots=3,
                        cache_len=CACHE_LEN, n_cores=4, page_size=4,
@@ -172,11 +214,11 @@ def test_port_engine_equals_reference_engine(built):
     for r in jreqs:
         eng.submit(r)
     jstats = drain(eng, jreqs, TIMEOUT_S)
-    treqs = [Request(i, built["prompts"][i], max_new_tokens=gens[i])
-             for i in range(N_REQ)]
+    treqs = [_req(built, i, max_new_tokens=gens[i]) for i in range(N_REQ)]
     tstats, _ = _run(built, treqs, page_size=4, paged_kernel=True)
     for jr, tr in zip(jreqs, treqs):
-        assert list(np.asarray(tr.wait())) == list(np.asarray(jr.wait()))
+        assert np.asarray(tr.wait()).tolist() == \
+            np.asarray(jr.wait()).tolist()
     assert set(tstats) - set(PORT_ONLY_STATS) == set(jstats)
     assert tstats["prefix_cache"] == jstats["prefix_cache"]
 
@@ -229,12 +271,38 @@ def test_cli_prints_the_reference_json_line(arch, extra):
     assert len(lines) == 1
     row = json.loads(lines[0])
     assert list(row) == _reference_json_keys()
-    assert row["paged_kernel"] is True and row["generated_shape"] == [3, 4]
+    cfg = get(arch)
+    assert row["paged_kernel"] is True and row["generated_shape"] == [3, 4] \
+        + ([cfg.n_codebooks] if cfg.frontend == "audio_codebooks" else [])
     assert row["arch"] == f"{arch}-tiny"
     if "--chunk" in extra:              # 8-token prompts in c-token chunks
         c = int(extra[extra.index("--chunk") + 1])
         assert row["prefill_chunks"] == -(-8 // c) * row["prefill_calls"] > 0
-    assert row["prefix_cache"] is (arch in ("qwen2.5-14b", "minicpm3-4b"))
+    assert row["prefix_cache"] is (arch not in ("mamba2-780m",
+                                                "mixtral-8x7b"))
     if "--policy" in extra:     # prompts of 4 full pages: every slot grows
         assert row["policy"] == "ondemand" and row["pages_grown"] > 0
         assert row["restores"] == row["evictions"]
+
+
+@pytest.mark.parametrize("arch", ["internvl2-2b", "musicgen-large"])
+def test_cli_frontends_engine_and_oneshot_agree(arch, capsys):
+    """The serve CLI on the frontends, as the engine and one-shot: the
+    reference's zero patches in front of each vision prompt (the cache
+    length adds them), (P, K) codebook prompts for audio; both legs emit
+    the same tokens, of shape (requests, gen[, K])."""
+    from repro_torch.launch.serve import serve
+
+    argv = ["--tiny", "--arch", arch, "--device", "cpu", "--batch", "3",
+            "--requests", "3", "--prompt-len", "6", "--gen", "4",
+            "--cores", "3", "--chunk", "4"]
+    legs = {}
+    for mode in ("engine", "oneshot"):
+        legs[mode] = np.asarray(serve(argv + ["--mode", mode]))
+        row = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+        assert row["mode"] == mode
+    cfg = get(arch)
+    k = [cfg.n_codebooks] if cfg.frontend == "audio_codebooks" else []
+    assert list(legs["engine"].shape) == [3, 4] + k == row[
+        "generated_shape"]
+    np.testing.assert_array_equal(legs["engine"], legs["oneshot"])

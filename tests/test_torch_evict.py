@@ -13,9 +13,11 @@ the reference's assertion does).  Every engine drains under a deadline
 (``repro_torch.serve.drain``).
 
 Restore shapes: prefill-replay through the chunk step on the
-chunk-exact configs (qwen2.5-14b, minicpm3-4b), decode-replay through the
-serve step on SSD (mamba2-780m) and MoE + sliding-window rings
-(mixtral-8x7b).
+chunk-exact configs (qwen2.5-14b, minicpm3-4b, and the frontends:
+internvl2-2b, whose patches ride the replay's first chunk and which never
+re-hits the trie, and musicgen-large over (P, K) codebook ids),
+decode-replay through the serve step on SSD (mamba2-780m) and MoE +
+sliding-window rings (mixtral-8x7b).
 """
 import jax
 import numpy as np
@@ -28,10 +30,10 @@ from repro_torch.params import params_from_numpy
 from repro_torch.serve import (KVState, OnDemandPolicy, Request,
                                SchedulerPolicy, ServeEngine, SlotView, drain,
                                make_policy)
-from repro_torch.steps import (greedy_oneshot, make_prefill_step,
-                               make_serve_step)
+from test_torch_engine import frontend_inputs, oneshot
 
-ARCHS = ["qwen2.5-14b", "minicpm3-4b", "mamba2-780m", "mixtral-8x7b"]
+ARCHS = ["qwen2.5-14b", "minicpm3-4b", "mamba2-780m", "mixtral-8x7b",
+         "internvl2-2b", "musicgen-large"]
 N_REQ, PLEN, GEN, PS = 6, 8, 6, 2      # small pages: growth fires
 CACHE_LEN = PLEN + GEN
 TIMEOUT_S = 120
@@ -49,18 +51,16 @@ def _build(arch, built):
         cfg = get(arch).tiny()
         jp = jax_init_params(cfg, jax.random.PRNGKey(0))
         params = params_from_numpy(jax.tree.map(np.asarray, jp), cfg, "cpu")
-        prompts = np.random.default_rng(1).integers(
-            0, cfg.vocab, (N_REQ, PLEN)).astype(np.int32)
-        ref = greedy_oneshot(make_prefill_step(cfg, cache_len=CACHE_LEN),
-                             make_serve_step(cfg), params,
-                             torch.tensor(prompts), None, GEN).numpy()
+        prompts, patches = frontend_inputs(cfg, N_REQ, PLEN)
+        ref = oneshot(cfg, params, prompts, patches, GEN, CACHE_LEN)
         built[arch] = dict(cfg=cfg, jp=jp, params=params, prompts=prompts,
-                           ref=ref)
+                           patches=patches, ref=ref)
     return built[arch]
 
 
 def _requests(b, cls=Request, gens=None, eos=None, stop=None):
     return [cls(i, b["prompts"][i],
+                patches=None if b["patches"] is None else b["patches"][i],
                 max_new_tokens=GEN if gens is None else int(gens[i]),
                 eos_id=None if eos is None else eos[i],
                 stop=None if stop is None else stop[i])
@@ -172,10 +172,10 @@ def test_evict_restore_under_a_tight_pool_equals_oneshot_and_reference(
         arch, built):
     """On-demand paging into a pool two requests can enter but cannot
     both finish in: growth collides, the youngest slot is evicted and
-    restored (prefill-replay on qwen2.5-14b and minicpm3-4b,
-    decode-replay on mamba2-780m and mixtral-8x7b).  The tokens equal
-    the never-evicted one-shot run and the reference engine's on the
-    same inputs and pool."""
+    restored (prefill-replay on qwen2.5-14b, minicpm3-4b and the two
+    frontends, decode-replay on mamba2-780m and mixtral-8x7b).  The
+    tokens equal the never-evicted one-shot run, bit for bit, and the
+    reference engine's on the same inputs and pool."""
     from repro.serve import Request as JRequest
     from repro.serve import ServeEngine as JServeEngine
 
@@ -268,6 +268,24 @@ def test_restore_rehits_the_trie(built):
         "a restore replayed its prefill cold instead of re-hitting the "
         "trie")
     assert stats["prefix_tokens_saved"] > 0
+
+
+@pytest.mark.parametrize("arch", ["internvl2-2b", "musicgen-large"])
+def test_frontend_restores_under_fuzz_evictions(arch, built):
+    """Forced evictions on both frontends: every restore re-derives the
+    emitted stream bit for bit (prefill-replay with the patches on the
+    replay's first chunk; over (P, K) codebook ids).  The evicted pages
+    enter the trie, so a restore of an audio request re-hits them; a
+    vision request's key lacks its patches, so nothing of it is cached
+    and nothing hits."""
+    b = _build(arch, built)
+    stats, _ = _port(b, OnDemandFuzzEvict(seed=11))
+    assert stats["evictions"] > 0
+    assert stats["restores"] == stats["evictions"]
+    if b["patches"] is not None:
+        assert stats["prefix_lookups"] == 0 == stats["prefix_inserted_pages"]
+    else:
+        assert stats["prefix_hits"] >= stats["restores"]
 
 
 def test_reserve_policy_never_faults_or_evicts(built):

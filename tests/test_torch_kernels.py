@@ -86,16 +86,22 @@ def _close(a, b, dtype):
                                np.asarray(b, np.float32), **TOL[dtype])
 
 
+def _row_err(got, want):
+    """(RMS over rows, worst row) of ||got - want|| / ||want|| per output
+    row (the last axis)."""
+    g, w = got.float().cpu(), want.float().cpu()
+    n2 = w.square().sum(-1)
+    r = (g - w).square().sum(-1)[n2 > 0] / n2[n2 > 0]
+    return r.mean().sqrt().item(), r.max().sqrt().item()
+
+
 def _decode_close(got, want, dtype):
     """Elementwise tolerance, and in bf16 the row bound (ROW_TOL) over
     each (slot, head) output row."""
-    g, w = got.float().cpu(), want.float().cpu()
-    _close(g, w, dtype)
+    _close(got.float().cpu(), want.float().cpu(), dtype)
     if dtype == "bfloat16":
-        n2 = w.square().sum(-1)
-        r = (g - w).square().sum(-1)[n2 > 0] / n2[n2 > 0]
-        assert r.mean().sqrt().item() <= ROW_TOL["rms"]
-        assert r.max().sqrt().item() <= ROW_TOL["worst"]
+        rms, worst = _row_err(got, want)
+        assert rms <= ROW_TOL["rms"] and worst <= ROW_TOL["worst"]
 
 
 def _to_torch(x, dtype, device="cpu"):
@@ -366,6 +372,42 @@ def test_paged_decode_kernel_matches_plain(shape, dtype, cuda):
     assert paged_decode_attention.launches.value == before + 1
     want = paged_decode_attention_ref(*args, page_size=ps)
     _decode_close(got, want, dtype)
+
+
+# the frontends' decode shapes: 16 slots, page size 8; musicgen-large
+# MHA (32 / 32 heads of 64: group 1, so 15 of the 16 rows of a KV head's
+# mma.sync tile are padding), internvl2-2b 16 / 8 heads of 128 behind
+# 256 patch positions
+FRONTEND_DECODE = {"musicgen-large": ((16, 32, 32, 64, 2080, 8), 0),
+                   "internvl2-2b": ((16, 16, 8, 128, 2336, 8), 256)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", list(FRONTEND_DECODE))
+def test_paged_decode_kernel_at_the_frontends_shapes(arch, dtype, cuda):
+    """Serve positions (prompts of 256-2048 tokens, + the patches, + up to
+    31 generated), held row by row; two planted faults must break the row
+    bound: every slot's last 64-position tile left out, and each output
+    row computed from the next head's query (rows mixed up)."""
+    shape, n_patches = FRONTEND_DECODE[arch]
+    rng = np.random.default_rng(3)
+    pos = (rng.choice([256, 512, 1024, 2048], 16) + n_patches
+           + rng.integers(0, 32, 16) - 1)
+    pos[0] = shape[4] - 1
+    args = _paged_case_cuda(shape, dtype, cuda, seed=2, pos=pos)
+    got = paged_decode_attention(*args, page_size=8)
+    want = paged_decode_attention_ref(*args, page_size=8)
+    _decode_close(got, want, dtype)
+    q, kp, vp, table, pos_t = args
+    faults = {"last tile left out": paged_decode_attention(
+                  q, kp, vp, table, pos_t - 64, page_size=8),
+              "rows mixed up": paged_decode_attention(
+                  q.roll(-1, dims=2).contiguous(), kp, vp, table, pos_t,
+                  page_size=8)}
+    for name, bad in faults.items():
+        rms, worst = _row_err(bad, want)
+        assert rms > ROW_TOL["rms"] or worst > ROW_TOL["worst"], name
 
 
 @pytest.mark.gpu

@@ -91,14 +91,6 @@ def test_embed_and_logits_match_jax():
            atol=1e-4)
 
 
-def test_frontends_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.embed_tokens(torch.zeros(1, 2, 4, dtype=torch.int32), {},
-                       get("musicgen-large").tiny(), torch.float32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.lm_logits(torch.zeros(1, 1, 64), {}, get("internvl2-2b").tiny())
-
-
 def _pool_and_table():
     r = _rng(4)
     pool = r.standard_normal((7, 4, 2, 16), np.float32)

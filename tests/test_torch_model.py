@@ -137,14 +137,6 @@ def test_modes_outside_the_slice_raise(model):
         tlm.forward(tp, cfg, torch.tensor(toks), mode="verify")
     with pytest.raises(ValueError, match="unknown forward mode"):
         tlm.forward(tp, cfg, torch.tensor(toks), mode="bogus")
-    # families still unported: the audio and vision frontends (MoE and the
-    # attention + SSD + MoE hybrid are ported: see the jamba test below)
-    for arch in ("musicgen-large", "internvl2-2b"):
-        c = get(arch).tiny()
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tlm.forward(tlm.init_params(c, torch.Generator().manual_seed(0),
-                                        "cpu"),
-                        c, torch.zeros((1, 4), dtype=torch.int32))
 
 
 @pytest.fixture(scope="module")

@@ -3,11 +3,14 @@
 shared pages, and the engine's hit path (gather + tail chunks + COW fork
 + shared-page admission) against the reference engine.
 
-CPU, f32, the tiny configs of qwen2.5-14b (GQA) and minicpm3-4b (MLA);
-weights from the reference's ``init_params`` through
-``repro_torch.params``.  Every request shares its first ``N_SHARED``
-tokens with request 0 (a system prompt), which is served to completion
-first so its pages are in the trie when the rest arrive.  Tokens are
+CPU, f32, the tiny configs of qwen2.5-14b (GQA) and minicpm3-4b (MLA),
+and of the two frontends: musicgen-large's (P, K) codebook prompts hit
+as text prompts do, and an internvl2-2b request never looks up or enters
+the trie (its token key lacks its patches); weights from the
+reference's ``init_params`` through ``repro_torch.params``.  Every
+request shares its first ``N_SHARED`` positions with request 0 (a
+system prompt), which is served to completion first so its pages are in
+the trie when the rest arrive.  Tokens are
 held exactly: to the port's one-shot tokens (the cold leg) and to the
 reference engine's; the prefix and chunk counters equal the reference
 engine's.  Every engine drains under a deadline
@@ -27,6 +30,7 @@ from repro_torch.serve import PORT_ONLY_STATS, Request, ServeEngine, drain
 from repro_torch.serve.watchdog import abandon
 from repro_torch.steps import (greedy_oneshot, make_prefill_step,
                                make_serve_step)
+from test_torch_engine import frontend_inputs, oneshot
 
 N_REQ, PLEN, GEN, N_SHARED, PS = 6, 12, 4, 9, 4
 CACHE_LEN = PLEN + GEN
@@ -63,9 +67,15 @@ def _serve(eng, reqs, gaps=0.0):
     return drain(eng, reqs, TIMEOUT_S), eng.pager
 
 
-def _port(b, rt=None, **kw):
-    reqs = [Request(i, b["prompts"][i], max_new_tokens=GEN)
+def _requests(b, cls=Request):
+    pt = b.get("patches")
+    return [cls(i, b["prompts"][i], max_new_tokens=GEN,
+                patches=None if pt is None else pt[i])
             for i in range(N_REQ)]
+
+
+def _port(b, rt=None, **kw):
+    reqs = _requests(b)
     eng = ServeEngine(b["cfg"], b["params"], slots=3, cache_len=CACHE_LEN,
                       n_cores=4, rt=rt, page_size=PS, paged_kernel=True,
                       device="cpu", **kw)
@@ -77,8 +87,7 @@ def _reference(b, **kw):
     from repro.serve import Request as JRequest
     from repro.serve import ServeEngine as JServeEngine
 
-    reqs = [JRequest(i, b["prompts"][i], max_new_tokens=GEN)
-            for i in range(N_REQ)]
+    reqs = _requests(b, JRequest)
     eng = JServeEngine(b["cfg"], b["jp"], slots=3, cache_len=CACHE_LEN,
                        n_cores=4, page_size=PS, paged_kernel=True, **kw)
     stats, _ = _serve(eng, reqs, 0.002)
@@ -106,6 +115,55 @@ def test_prefix_hit_equals_cold_leg_and_reference_engine(built, chunk):
     assert set(stats) - set(PORT_ONLY_STATS) == set(jstats)
     assert pager.live_refs == 0
     assert pager.used_pages == pager.cached_pages > 0
+
+
+@pytest.fixture(scope="module", params=["internvl2-2b", "musicgen-large"])
+def frontend(request):
+    """Requests sharing their first ``N_SHARED`` positions with request 0:
+    the same patches and 5 text tokens for vision, 9 (K,) code vectors
+    for audio."""
+    cfg = get(request.param).tiny()
+    jp = jax_init_params(cfg, jax.random.PRNGKey(0))
+    params = params_from_numpy(jax.tree.map(np.asarray, jp), cfg, "cpu")
+    prompts, patches = frontend_inputs(cfg, N_REQ, PLEN)
+    n_text = N_SHARED
+    if patches is not None:
+        patches[1:] = patches[0]
+        n_text -= cfg.n_patches
+    prompts[1:, :n_text] = prompts[0, :n_text]
+    ref = oneshot(cfg, params, prompts, patches, GEN, CACHE_LEN)
+    return dict(cfg=cfg, jp=jp, params=params, prompts=prompts,
+                patches=patches, ref=ref)
+
+
+@pytest.mark.parametrize("chunk", [None, 5])
+def test_frontends_on_the_prefix_path(frontend, chunk):
+    """Audio: the hits gather request 0's pages and chunk their tails, and
+    the tokens are the cold one-shot tokens.  Vision: the same patches and
+    shared text still never look up or enter the trie, every prompt is
+    prefilled cold with its patches (on the first chunk when chunked).
+    Tokens and counters equal the reference engine's: for vision the
+    prefix counters only, since its cold requests coalesce into prefill
+    rounds as they happen to arrive (a hit always takes a chain of its
+    own), so its prefill and chunk counts vary from run to run."""
+    b = frontend
+    toks, stats, pager = _port(b, prefix_cache="on", prefill_chunk=chunk)
+    jtoks, jstats = _reference(b, prefix_cache="on", prefill_chunk=chunk)
+    for i in range(N_REQ):
+        assert np.array_equal(toks[i], b["ref"][i]), f"request {i}"
+        assert np.array_equal(toks[i], jtoks[i]), f"request {i}"
+    keys = COUNTERS if b["patches"] is None else (
+        "prefix_hits", "prefix_tokens_saved", "cow_forks", "prefix_cache")
+    assert {k: stats[k] for k in keys} == {k: jstats[k] for k in keys}
+    assert stats["prefill_reqs"] == N_REQ
+    if b["patches"] is not None:
+        assert stats["prefix_hits"] == 0
+        assert stats["prefix_lookups"] == 0 == stats["prefix_inserted_pages"]
+        assert pager.used_pages == 0
+    else:
+        assert stats["prefix_hits"] == N_REQ - 1
+        assert stats["prefix_tokens_saved"] == (N_REQ - 1) * N_SHARED
+    assert pager.live_refs == 0
 
 
 def test_auto_resolves_as_the_reference_and_off_misses(built):

@@ -4,9 +4,14 @@ reference (``tests/test_serve_steps.py`` and the spec tests of
 ``tests/test_serve_engine.py`` / ``tests/test_serve_evict.py``) and
 against the port's own spec-off leg.
 
-CPU, f32, the tiny configs of qwen2.5-14b (GQA) and minicpm3-4b (MLA);
-weights from the reference's ``init_params`` through
-``repro_torch.params``, prompts from a numpy seed.  Tokens are held
+CPU, f32, the tiny configs of qwen2.5-14b (GQA) and minicpm3-4b (MLA),
+and of internvl2-2b (GQA behind patch embeddings, on the engine's paths:
+its spec-on tokens are held to its own spec-off leg, as the reference's
+``test_spec_decode_bit_exact_under_eviction_churn[internvl2-2b]`` fails
+in this environment); musicgen-large's audio frontend is refused spec
+and eos/stop with the reference's errors.  Weights from the reference's
+``init_params`` through ``repro_torch.params``, prompts from a numpy
+seed.  Tokens are held
 exactly.  Logits and cache leaves are held to the reference's within
 ``TOL`` (rtol 1e-4, atol 1e-5, the model tests' f32 bound): the port
 scores a GQA window with each KV head's query heads grouped into one
@@ -41,9 +46,11 @@ from repro_torch.steps import (greedy_oneshot, init_paged_slot_cache,
                                make_decode_step, make_prefill_step,
                                make_serve_step, make_verify_step,
                                speculatable)
+from test_torch_engine import frontend_inputs
 from test_torch_evict import OnDemandFuzzEvict
 
 ARCHS = ["qwen2.5-14b", "minicpm3-4b"]
+ENGINE_ARCHS = ARCHS + ["internvl2-2b"]
 SLOTS, N_REQ, PLEN, GEN = 3, 6, 8, 16
 CACHE_LEN = PLEN + GEN
 TOL = dict(rtol=1e-4, atol=1e-5)
@@ -60,20 +67,29 @@ def _build(arch, built):
         cfg = get(arch).tiny()
         jp = jax_init_params(cfg, jax.random.PRNGKey(0))
         params = params_from_numpy(jax.tree.map(np.asarray, jp), cfg, "cpu")
-        rng = np.random.default_rng(1)
-        prompts = rng.integers(0, cfg.vocab, (N_REQ, PLEN)).astype(np.int32)
+        # a vision prompt: fewer text tokens behind its patches, the same
+        # cache extent
+        prompts, patches = frontend_inputs(cfg, N_REQ, PLEN)
         # templated prompts: a 2-token motif tiled, so prompt lookup drafts
         # from the first tick (the reference engine test's workload)
-        motif = np.tile(prompts[:, :2], (1, PLEN // 2))
+        motif = np.tile(prompts[:, :2], (1, prompts.shape[1] // 2))
         prefill = make_prefill_step(cfg, cache_len=CACHE_LEN)
+        pt = None if patches is None else torch.tensor(patches)
 
         def oneshot(p):
             return greedy_oneshot(prefill, make_serve_step(cfg), params,
-                                  torch.tensor(p), None, GEN).numpy()
+                                  torch.tensor(p), pt, GEN).numpy()
         built[arch] = dict(cfg=cfg, jp=jp, params=params, prompts=prompts,
-                           ref=oneshot(prompts), motif=motif,
+                           patches=patches, ref=oneshot(prompts), motif=motif,
                            motif_ref=oneshot(motif), prefill=prefill)
     return built[arch]
+
+
+def _reqs(b, prompts, **kw):
+    """One request per prompt, each with its patches where it has them."""
+    return [Request(i, p, max_new_tokens=GEN,
+                    patches=None if b["patches"] is None else b["patches"][i],
+                    **kw) for i, p in enumerate(prompts)]
 
 
 def _to_jax(cache):
@@ -392,31 +408,30 @@ def test_spec_on_equals_spec_off_and_the_reference_engine(arch, built):
         assert on[key] == jstats[key], key
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ENGINE_ARCHS)
 def test_dense_spec_engine_equals_the_oneshot_tokens(arch, built):
     """A dense engine (``page_size=None``): the windows go through
     ``_cache_update_window``, masked lanes included, and the tokens are
     the one-shot tokens."""
     b = _build(arch, built)
-    stats, toks = _engine(b, [Request(i, b["motif"][i], max_new_tokens=GEN)
-                              for i in range(N_REQ)],
-                          page_size=None, spec="ngram", spec_k=3)
+    stats, toks = _engine(b, _reqs(b, b["motif"]), page_size=None,
+                          spec="ngram", spec_k=3)
     assert toks == [list(r) for r in b["motif_ref"]]
     assert stats["spec_drafted"] > stats["spec_accepted"] > 0
     assert stats["page_size"] is None
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ENGINE_ARCHS)
 def test_spec_stays_exact_under_fuzz_evictions(arch, built):
     """Forced evictions on top of on-demand growth (page size 2 < the
     window): spec-on tokens equal the port's spec-off leg under the same
-    policy and the one-shot tokens; restores = evictions > 0."""
+    policy and the one-shot tokens; restores = evictions > 0 (a vision
+    restore replays its patches on the replay's first chunk)."""
     b = _build(arch, built)
     legs = {}
     for spec in ("off", "ngram"):
-        reqs = [Request(i, b["motif"][i], max_new_tokens=GEN)
-                for i in range(N_REQ)]
-        legs[spec] = _engine(b, reqs, page_size=2, paged_kernel=True,
+        legs[spec] = _engine(b, _reqs(b, b["motif"]), page_size=2,
+                             paged_kernel=True,
                              policy=OnDemandFuzzEvict(seed=7), spec=spec,
                              spec_k=3)
     stats, toks = legs["ngram"]
@@ -426,6 +441,63 @@ def test_spec_stays_exact_under_fuzz_evictions(arch, built):
     assert stats["restores"] == stats["evictions"]
     assert stats["spec_drafted"] > 0
     assert stats["restore_divergences"] == 0
+
+
+def test_vision_spec_on_equals_spec_off_and_skips_the_trie(built):
+    """internvl2-2b with the paged kernel and the prefix cache on: spec-on
+    tokens equal the spec-off leg's and the one-shot tokens, spec drafts
+    and spends fewer dispatches per token, and no vision request looks up
+    or enters the trie (its key lacks the patches).  One slot, as in the
+    text families' test."""
+    b = _build("internvl2-2b", built)
+    kw = dict(slots=1, page_size=4, paged_kernel=True, prefix_cache="on",
+              spec_k=3)
+    off, toks_off = _engine(b, _reqs(b, b["motif"]), **kw)
+    on, toks_on = _engine(b, _reqs(b, b["motif"]), spec="ngram", **kw)
+    assert toks_on == toks_off == [list(r) for r in b["motif_ref"]]
+    assert on["spec_drafted"] > 0 and on["spec_accepted"] > 0
+    assert on["dispatches_per_token"] < off["dispatches_per_token"]
+    for st in (off, on):
+        assert st["prefix_cache"] is True
+        assert st["prefix_lookups"] == 0 == st["prefix_inserted_pages"]
+
+
+def test_audio_refuses_spec_and_eos_stop_as_the_reference():
+    """musicgen-large emits a codebook vector a step: both engines refuse
+    speculation at construction and eos/stop per request, with the same
+    errors, and serve the plain request beside them alike."""
+    from repro.serve import Request as JRequest
+    from repro.serve import ServeEngine as JServeEngine
+
+    cfg = get("musicgen-large").tiny()
+    jp = jax_init_params(cfg, jax.random.PRNGKey(0))
+    legs = {"port": (ServeEngine, Request, dict(device="cpu"),
+                     params_from_numpy(jax.tree.map(np.asarray, jp), cfg,
+                                       "cpu")),
+            "reference": (JServeEngine, JRequest, {}, jp)}
+    prompts, _ = frontend_inputs(cfg, 3, PLEN)
+    got = {}
+    for leg, (eng_cls, req_cls, kw, params) in legs.items():
+        with pytest.raises(ValueError, match="speculative decoding") as e:
+            eng_cls(cfg, lambda: None, cache_len=CACHE_LEN, spec="ngram",
+                    **kw)
+        out = [str(e.value)]
+        reqs = [req_cls(0, prompts[0], max_new_tokens=4, eos_id=3),
+                req_cls(1, prompts[1], max_new_tokens=4, stop=[[3, 4]]),
+                req_cls(2, prompts[2], max_new_tokens=4)]
+        eng = eng_cls(cfg, params, slots=2, cache_len=CACHE_LEN, n_cores=4,
+                      **kw).start()
+        for r in reqs:
+            eng.submit(r)
+        drain(eng, reqs, TIMEOUT_S)
+        for r in reqs[:2]:
+            with pytest.raises(ValueError, match="eos_id/stop are not "
+                               "supported for audio-codebook frontends"):
+                r.wait()
+            out.append(str(r.error))
+        out.append(np.asarray(reqs[2].wait()).tolist())
+        got[leg] = out
+    assert got["port"] == got["reference"]
 
 
 class OracleDrafter(Drafter):

@@ -62,14 +62,17 @@ def test_train_step_matches_reference(arch):
     check_step_against_reference(arch)
 
 
-def check_step_against_reference(arch):
+def check_step_against_reference(arch, batch=None):
+    """``batch``: the step's batch (default ``batch_for_step(0, ...)`` of
+    4 x 16 tokens in 2 microbatches)."""
     cfg = get(arch).tiny()
     jstate = jsteps.init_train_state(cfg, jax.random.PRNGKey(0), JHP(**HP))
     tstate = train_state_from_numpy(jax.tree.map(np.asarray, jstate), cfg,
                                     "cpu")
     assert tstate["params"]["final_norm"].dtype == torch.float32
-    batch = batch_for_step(0, seed=11, batch=4, seq=16, vocab=cfg.vocab,
-                           accum=2)
+    if batch is None:
+        batch = batch_for_step(0, seed=11, batch=4, seq=16, vocab=cfg.vocab,
+                               accum=2)
     jnew, jm = jax.jit(jsteps.make_train_step(cfg, None, JHP(**HP)))(
         jstate, batch)
     tnew, tm = tsteps.make_train_step(cfg, OptHParams(**HP))(tstate, batch)

@@ -4,9 +4,11 @@ falls, a checkpoint restart is equivalent to the straight run,
 preemption checkpoints and resumes, and prefetch and checkpoint writes
 run as UMT tasks — plus jamba-v0.1-52b's train step against the
 reference's, remat against none, ``softmax_xent`` and
-``_token_loss`` against the reference's, the frontend families raising,
-and the CLI (``repro_torch.launch.train``): a resumed run continues the
-straight run's losses, and UMT on and off give the same losses.
+``_token_loss`` against the reference's, and the CLI
+(``repro_torch.launch.train``): a resumed run continues the straight
+run's losses, UMT on and off give the same losses, the audio frontend
+trains, and the vision frontend is refused (the reference's CLI has no
+patches to feed it).
 
 Tolerances: params after a restart rtol 1e-5 / atol 1e-6, the
 reference's bar (``tests/test_system.py:71-75``; the port's CPU step is
@@ -177,18 +179,6 @@ def test_softmax_xent_and_token_loss_match_reference():
     assert softmax_xent(lb, torch.tensor(labels)).dtype == torch.float32
 
 
-@pytest.mark.parametrize("arch", ["internvl2-2b", "musicgen-large"])
-def test_frontend_families_raise(arch):
-    cfg = get(arch).tiny()
-    with pytest.raises(NotImplementedError, match="item 7"):
-        state = init_train_state(cfg, torch.Generator().manual_seed(0), HP,
-                                 "cpu")         # audio raises here
-        make_train_step(cfg, HP)(state, _batch(0, cfg))   # vision here
-    with pytest.raises(NotImplementedError, match="item 7"):
-        cli.train(["--arch", arch, "--tiny", "--device", "cpu",
-                   "--steps", "1"])
-
-
 def _cli(argv):
     """The CLI's JSON lines (per-step lines and the closing line)."""
     out = io.StringIO()
@@ -196,6 +186,41 @@ def _cli(argv):
         cli.train(argv)
     return [json.loads(ln) for ln in out.getvalue().splitlines()
             if ln.startswith("{")]
+
+
+def test_cli_trains_the_audio_frontend():
+    """musicgen-large trains a tiny run through the CLI on (…, K) codebook
+    batches (``SyntheticTokenSource(extra_dim=n_codebooks)``, as the
+    reference's CLI): its losses are those of ``make_train_step`` driven
+    by hand from the same seeded state over the same batches, to the
+    printed 4 decimals, and finite."""
+    steps = 4
+    run = _cli(["--arch", "musicgen-large", "--tiny", "--device", "cpu",
+                "--steps", str(steps), "--batch", "4", "--seq", "16",
+                "--log-every", "1"])
+    got = [ln["loss"] for ln in run if "step" in ln]
+    cfg = get("musicgen-large").tiny()
+    hp = OptHParams(lr=3e-4, warmup=5, total_steps=steps)
+    state = init_train_state(cfg, torch.Generator("cpu").manual_seed(0), hp,
+                             "cpu")
+    src = SyntheticTokenSource(seed=1234, batch=4, seq=16, vocab=cfg.vocab,
+                               extra_dim=cfg.n_codebooks)
+    step_fn, want = make_train_step(cfg, hp), []
+    for step in range(steps):
+        batch = src.fetch(step)
+        assert batch["tokens"].shape == (1, 4, 16, cfg.n_codebooks)
+        state, m = step_fn(state, batch)
+        want.append(round(float(m["loss"]), 4))
+    assert got == want and all(np.isfinite(got))
+
+
+def test_cli_refuses_the_vision_frontend():
+    """The reference's CLI feeds internvl2-2b no patch embeddings and its
+    forward asserts them; the port refuses with the reason, and invents
+    no patches."""
+    with pytest.raises(ValueError, match="no patch embeddings"):
+        cli.train(["--arch", "internvl2-2b", "--tiny", "--device", "cpu",
+                   "--steps", "1"])
 
 
 def test_cli_resumes_and_umt_does_not_change_the_losses(tmp_path):
