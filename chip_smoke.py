@@ -10,7 +10,7 @@ Phases (each raises on failure, so the script exits non-zero):
 
 1. card   — requires ``torch.cuda.is_available()``; prints
    ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``.
-2. build  — builds the four CUDA libraries from ``src/repro_torch/csrc``
+2. build  — builds the five CUDA libraries from ``src/repro_torch/csrc``
    with ``nvcc`` (sm_90a), one ``nvcc`` per source, all started together,
    then the Triton kernel; prints the seconds and ``ptxas``' register and
    spill lines.
@@ -22,10 +22,16 @@ Phases (each raises on failure, so the script exits non-zero):
    decode at minicpm3-4b's (each: its split boundaries, its combine
    kernel against the plain combine on the split kernel's own partials,
    bf16 held row by row, and two planted faults the row check must
-   reject), the SSD scan at mamba2-780m's prefill shapes (batch 1 and 16;
-   B and C also in the model's own layout, one group read in place; bf16
-   y held row by row against the plain version in f32, and a planted
-   fault between its phases the row check must reject), flash attention
+   reject), the SSD scan at mamba2-780m's prefill shapes (batch 1 and 16)
+   and jamba-v0.1-52b's (128 heads, N 16; B and C also in the model's own
+   layout, one group read in place; bf16 y held row by row against the
+   plain version in f32, and a planted fault between its phases the row
+   check must reject), the SSD backward (``check_ssd_bwd``: through
+   autograd in the model's layout against the plain backward, f32 and
+   bf16 row by row, at the reference's grid, a short last chunk,
+   mamba2-780m's train microbatch and jamba's shape; three planted
+   faults: the carried state's gradient dropped, one chunk's dB zeroed,
+   dB times the group's head count), flash attention
    at qwen2.5-14b's (1 x 2048, 16 x 512), mixtral-8x7b's, musicgen-large's
    (1 x 2048, MHA, D 64) and internvl2-2b's (1 x 2304) prefill shapes (at
    the frontends' with each head reading the next KV head planted),
@@ -73,7 +79,11 @@ Phases (each raises on failure, so the script exits non-zero):
    on one set of weights with the same prompts and arrivals, (a) spec
    off, (b) a drafter that never drafts (every window one token), (c)
    an oracle drafter of leg (b)'s continuation with one rejected lane
-   every third window (``serve_spec``).
+   every third window (``serve_spec``; 24 of 48 layers); then
+   jamba-v0.1-52b at full width and 16 of its 32 layers (2 attention,
+   14 SSM, 8 MoE layers; qwen's traffic, the dropless MoE, paged-kernel
+   decode; mixtral's route check; planted faults in its first SSM layer
+   and its first attention layer).
    32 tokens each, staggered arrivals; each phase's requests must finish
    within ``DRAIN_S`` (``repro_torch.serve.drain``).  Launch counters are zeroed right
    before each phase and read right after; the engine's steps are counted
@@ -125,7 +135,10 @@ Phases (each raises on failure, so the script exits non-zero):
    bars (a)-(h) in its docstring, among them one step through the
    kernels against the plain norm, accumulation against one large
    microbatch, two planted faults, and a save, restore and continuation
-   that ends at the uninterrupted run's params.
+   that ends at the uninterrupted run's params; then ``mamba2-780m-train``,
+   the same bars at full width and all 48 layers with the SSD scan's
+   forward and backward kernels on the path (and an SSD-backward fault
+   planted).
 5. cli    — ``repro_torch.launch.serve`` on the card at full width, as
    an engine (paged kernel, ``--chunk 512 --prefix-cache on``) and one
    shot: each run's kernels launched, and both token sets held by the
@@ -133,7 +146,8 @@ Phases (each raises on failure, so the script exits non-zero):
    codebook prompts (``CLI_AUDIO``).  Then ``repro_torch.launch.train`` with
    ``examples/train_100m.py``'s model (``check_train_cli``): a run with
    checkpoints, the run resumed from its step-10 save, and ``--umt-off``,
-   each with the same losses where they overlap.
+   each with the same losses where they overlap; then mamba2-780m's tiny
+   shape through the same CLI, launching the SSD kernels.
 6. summary — one ``kernels`` JSON line, then the ``ok`` line.
 
 Nothing of JAX or of the ``repro`` package is imported.
@@ -157,16 +171,19 @@ HBM_BPS = 3.35e12
 BF16_FLOPS = 989e12
 F32_FLOPS = 67e12
 
-# the train phase (``train_phase``): qwen2.5-14b at full width, 4 of its
-# 48 layers.  Memory, from configs/archs.py: embedding + untied head
-# 2 x 152064 x 5120 = 1.557 B params, each layer 275.3 M; at 4 layers
-# 2.658 B params x 16 B (f32 param, grad, m, v) = 42.5 GB, plus 5.3 GB of
-# bf16 compute copies, the f32 logits (2.5 GB a copy at 4096 tokens) and
-# one layer's f32 scores under remat (0.67 GB): about 60 GB.  6 layers
-# would be about 70 GB, and full depth about 235 GB.  Microbatches of 4 x
-# 1024 tokens, accum 2; AdamW at lr 1e-3 after 2 warmup steps over the
-# phase's 10 steps, on one fixed batch.
-TRAIN = dict(layers=4, micro=4, seq=1024, accum=2, steps=10, ckpt_at=5,
+# the train phases (``train_phase``), each at full width with its depth in
+# ``PHASES``.  qwen2.5-14b at 4 of its 48 layers.  Memory, from
+# configs/archs.py: embedding + untied head 2 x 152064 x 5120 = 1.557 B
+# params, each layer 275.3 M; at 4 layers 2.658 B params x 16 B (f32
+# param, grad, m, v) = 42.5 GB, plus 5.3 GB of bf16 compute copies, the
+# f32 logits (2.5 GB a copy at 4096 tokens) and one layer's f32 scores
+# under remat (0.67 GB): about 60 GB.  6 layers would be about 70 GB, and
+# full depth about 235 GB.  mamba2-780m at all 48 layers: 0.86 B params x
+# 16 B = 13.7 GB, plus the f32 logits (0.82 GB a copy at 4096 tokens of
+# its 50280 vocab) and one layer's scan under remat.  Both: microbatches
+# of 4 x 1024 tokens, accum 2; AdamW at lr 1e-3 after 2 warmup steps over
+# the phase's 10 steps, on one fixed batch.
+TRAIN = dict(micro=4, seq=1024, accum=2, steps=10, ckpt_at=5,
              hp=dict(lr=1e-3, warmup=2, total_steps=10))
 TRAIN_CUT = ("the train state at full depth, about 235 GB, does not fit "
              "one 80 GB card; 4 layers take about 60 GB")
@@ -183,11 +200,38 @@ LOSS_DROP = 1.0
 # relative, the global grad norm 1e-2, each parameter leaf's gradient
 # within 5e-2 of its L2 norm.  The planted faults move a leaf by about
 # 1 (dw zeroed: the norm weights' gradients vanish) or 0.5 (a microbatch
-# dropped: every gradient is about halved).
+# dropped: every gradient is about halved).  On mamba2-780m (c) also
+# swaps the SSD kernels for the plain scan (``ssd_scan_ref``, autograd
+# through it); the kernel's forward rounds x w, the state entering a
+# chunk and the weighted C B^T to bf16 where the plain scan rounds C B^T
+# o L and its einsums' outputs, the same 2^-8 at other places.  Its
+# planted SSD-backward fault is dB times the group's 48 heads (what a
+# group sum handed back through the stride-0 view would do).
 TRAIN_TOL = dict(loss=1e-3, grad_norm=1e-2, leaf=5e-2)
+# (c) on mamba2-780m at all 48 layers, whose conv weights the phase
+# scales by ``SSM_CONV_W_GAIN`` as the serve phases do: at the repo's init
+# the scan adds about 1e-5 of each mixer's output, so little flows through
+# its backward (on an H100, without the gain, dB times 48 moved the
+# leaves by 6.7 % against 5.8 % as built).  In bf16 the kernels' step and
+# the plain step round apart layer after layer: on an H100 each leaf
+# differs by up to 11.4 %, while the same two steps in f32 compute agree
+# within 6.7e-5 a leaf and accum 2 x 4 against 1 x 8 (one computation at
+# two shapes) differs by 0.9 % — bf16 rounding carried through 48
+# layers, not a kernel's error.  So at 48 layers (c) holds the bf16 step
+# by a leaf bound of 0.25 and the f32 step by ``TRAIN_TOL``.  The planted
+# faults stay far outside: dw zeroed moves the norm weights' leaves by
+# 1.0, and dB times 48 compounds through the 48 layers' backward until
+# the gradients overflow.
+TRAIN_TOL_DEEP = dict(TRAIN_TOL, leaf=0.25)
 # the serve CLI's second run on the card: musicgen-large at full width and
 # depth, 4 prompts of 256 codes on each of its 4 codebooks
 CLI_AUDIO = dict(arch="musicgen-large", prompt_len=256)
+# the train CLI with an SSD family on the card (``check_train_cli``):
+# mamba2-780m's tiny shape at d_model 512, 8 layers, 10 steps — the SSD
+# kernels forward and backward through the CLI
+TRAIN_CLI_SSM = ["--arch", "mamba2-780m", "--tiny", "--d-model", "512",
+                 "--n-layers", "8", "--vocab", "32000", "--batch", "8",
+                 "--seq", "256", "--steps", "10", "--log-every", "1"]
 # the train CLI on the card: examples/train_100m.py's model (qwen2.5-14b
 # family, d_model 512, 16 layers, vocab 32000, about 92 M params)
 TRAIN_CLI = ["--arch", "qwen2.5-14b", "--tiny", "--d-model", "512",
@@ -234,6 +278,21 @@ DW_TOL = {"float32": 1e-5, "bfloat16": 2e-3}
 # whole norm in the first ~30 rows of the chunk, RMS over rows above
 # 0.05.
 SSD_ROW_TOL = dict(rms=1e-2, worst=5e-2)
+# The SSD backward (``check_ssd_bwd``), through autograd in the model's
+# layout against autograd through the plain scan in f32 from the same
+# inputs.  f32: each gradient elementwise within 1e-4 of itself plus 1e-4
+# of its largest value — sums over up to 256 positions and 128 states in
+# another order; ddt and da come out of a reverse cumsum whose terms
+# cancel, so each is held against its own scale.  bf16, row by row (dx's
+# (b, s, h) rows, the group's dB and dC rows (b, s), ddt's rows (b, s)
+# over the heads, da one row): the kernel sums in f32 from the bf16
+# inputs and rounds dx, dB and dC once to bf16 (RMS about 1.1e-3 of a
+# row), and autograd sums a group's per-head dB and dC in bf16; so the
+# bounds of SSD_ROW_TOL leave a factor of about 10 at the RMS.  The
+# planted faults (the gradient of the carried state dropped, one chunk's
+# dB zeroed, dB times the group's head count) move whole rows: relative
+# errors near 1, or the head count less one.
+SSD_BWD_TOL = dict(rtol=1e-4, atol_of_max=1e-4)
 # Token check: an emitted token may trail the teacher-forced forward's
 # argmax by at most this many logit units.  The engine's tokens come from
 # a qchunk prefill plus paged-kernel decode ticks (f32 softmax inside the
@@ -296,6 +355,12 @@ PLANTED = {
     "qwen2.5-14b-ondemand": ("restore_drops_last_token",
                              "grown_page_not_published"),
     "mamba2-780m-ondemand": ("restore_state_dropped",),
+    # jamba: one layer of each kind — the first SSM layer's prefill hands
+    # decode a zero state, and the first attention layer's decode tick
+    # reads KV head h % Hkv for query head h (the other 13 SSM and 1
+    # attention layers as built)
+    "jamba-v0.1-52b": ("ssm_layer_state_not_handed",
+                       "attn_layer_kv_group_order"),
 }
 # mixtral's teacher-forced forward takes the expert ids of the step path
 # (the reason is in ``serve``), so a wrong top-k on the card would sit on
@@ -317,7 +382,7 @@ ROUTE_MARGIN_FIRST = 0.03
 ROUTE_FAULTS = ("moe_ids_permuted",)
 PREFILL_FAULTS = ("state_not_handed", "dt_one_late", "flash_kv_group_order",
                   "moe_second_pick_dropped", "ring_not_rolled",
-                  "patches_dropped")
+                  "patches_dropped", "ssm_layer_state_not_handed")
 HIT_FAULTS = ("gather_table_shifted", "fork_not_copied", "tail_q_off_plus_1")
 # A serve phase's requests must all finish within this many seconds of
 # the last submission (``repro_torch.serve.drain``), or the phase fails
@@ -328,9 +393,9 @@ RESTORE_FAULTS = ("restore_drops_last_token", "grown_page_not_published",
 # The verify check's window: the spec phase's spec_k drafts + the last
 # committed token (``verify_check``).
 VERIFY_S = 5
-# The SSM phase's conv weights are scaled by this gain from the repo's
-# normal 0.02 to std 1.0, so that the checks can see a fault of the scan
-# or of the state.  At 0.02 the depthwise conv (fan-in 4) outputs x, B
+# The SSM phases' conv weights (serving and training) are scaled by this
+# gain from the repo's normal 0.02 to std 1.0, so that the checks can see
+# a fault of the scan, of its backward or of the state.  At 0.02 the depthwise conv (fan-in 4) outputs x, B
 # and C of about 0.016, so C.B is about 0.003 and the SSD scan adds about
 # 1e-5 of D*x to each mixer's output: the state faults then move the
 # logits no more than bf16 noise does.  Every other leaf keeps the repo's
@@ -400,25 +465,27 @@ FRONTEND_DECODE = {"musicgen": ((16, 32, 32, 64, 2080, 8), 0),
                    "internvl2": ((16, 16, 8, 128, 2336, 8), 256)}
 # Per phase: decode attention through its paged kernel?  For each kernel
 # of the phase, the engine step whose calls its launches follow once per
-# layer (the decode tick or the one-shot prefill, counted by wrapping the
+# layer of the kind that launches it (attention or SSD: ``kind_layers``;
+# the decode tick or the one-shot prefill, counted by wrapping the
 # engine's steps; None: no launch at all — mixtral's attention leaves are
 # rings, which decode reads without the paged kernel, as the reference
-# does); RMSNorm launches per layer of each tick, one-shot prefill and
-# prefill chunk (+ the final norm, which a chunk that skips the LM head
-# skips too); the traffic; the depth cut; the engine's options.  Chunks
+# does); RMSNorm at every norm site of the blocks (``norm_sites``) in each
+# tick, one-shot prefill and prefill chunk (+ the final norm, which a
+# chunk that skips the LM head skips too); the traffic; the depth cut;
+# the engine's options.  Chunks
 # attend in plain ``full_attention`` and gathers launch nothing, as in the
 # reference.  qwen2.5-14b and minicpm3-4b run with the prefix cache on
 # (``prefix_cache="auto"``); their random prompts must never hit.
 PHASES = {
-    "qwen2.5-14b": dict(paged_kernel=True, norms=2, traffic=TRAFFIC,
+    "qwen2.5-14b": dict(paged_kernel=True, traffic=TRAFFIC,
                         kernels={"paged_decode_attention": "decode",
                                  "flash_attention": "prefill"}),
     # minicpm3-4b also holds the MLA verify mode over its paged latent
     # pools (``verify_check``), with the window-late fault planted
-    "minicpm3-4b": dict(paged_kernel=True, norms=4, traffic=TRAFFIC,
+    "minicpm3-4b": dict(paged_kernel=True, traffic=TRAFFIC,
                         kernels={"paged_mla_decode_attention": "decode"},
                         verify_faults=("window_late",)),
-    "mamba2-780m": dict(paged_kernel=False, norms=2, traffic=TRAFFIC,
+    "mamba2-780m": dict(paged_kernel=False, traffic=TRAFFIC,
                         kernels={"ssd_scan": "prefill"}),
     # 16 of 32 layers: full depth is 93.4 GB of bf16 weights, more than
     # the card holds; 16 layers are 46.4 GB + 0.5 GB of embedding and head.
@@ -428,17 +495,17 @@ PHASES = {
     # length — so prefill + decode and the checks' one forward over prompt
     # + tokens would differ by construction (``check_capacity_dispatch``
     # holds that dispatch on the card).
-    "mixtral-8x7b": dict(paged_kernel=True, norms=2, traffic=MIXTRAL_TRAFFIC,
+    "mixtral-8x7b": dict(paged_kernel=True, traffic=MIXTRAL_TRAFFIC,
                          layers=16, moe_impl="ragged",
                          kernels={"flash_attention": "prefill",
                                   "paged_decode_attention": None}),
     # the frontends at full width and depth, behind the prefix trie
     # (``prefix_cache="auto"``): a vision request never looks up or enters
     # it (asserted), musicgen's random code prompts never hit
-    "internvl2-2b": dict(paged_kernel=True, norms=2, traffic=VISION_TRAFFIC,
+    "internvl2-2b": dict(paged_kernel=True, traffic=VISION_TRAFFIC,
                          kernels={"paged_decode_attention": "decode",
                                   "flash_attention": "prefill"}),
-    "musicgen-large": dict(paged_kernel=True, norms=2, traffic=TRAFFIC,
+    "musicgen-large": dict(paged_kernel=True, traffic=TRAFFIC,
                            kernels={"paged_decode_attention": "decode",
                                     "flash_attention": "prefill"}),
     # chunked prefill and the shared-prefix cache: every prompt is longer
@@ -450,12 +517,12 @@ PHASES = {
     # minicpm3-4b's stays at full depth: at 31 layers two of its planted
     # faults were no longer rejected.
     "qwen2.5-14b-prefix": dict(
-        arch="qwen2.5-14b", paged_kernel=True, norms=2,
+        arch="qwen2.5-14b", paged_kernel=True,
         traffic=PREFIX_TRAFFIC, prefill_chunk=512, prefix_cache="on",
         layers=24, kernels={"paged_decode_attention": "decode",
                             "flash_attention": None}),
     "minicpm3-4b-prefix": dict(
-        arch="minicpm3-4b", paged_kernel=True, norms=4,
+        arch="minicpm3-4b", paged_kernel=True,
         traffic=PREFIX_TRAFFIC, prefill_chunk=512, prefix_cache="on",
         kernels={"paged_mla_decode_attention": "decode"}),
     # on-demand paging, eviction and restore: prefill-replay through 512-
@@ -468,13 +535,13 @@ PHASES = {
     # within the script's time: growth, eviction and restore are the same
     # in every layer
     "qwen2.5-14b-ondemand": dict(
-        arch="qwen2.5-14b", paged_kernel=True, norms=2, traffic=TRAFFIC,
+        arch="qwen2.5-14b", paged_kernel=True, traffic=TRAFFIC,
         prefill_chunk=512, policy="ondemand", num_pages=ONDEMAND_PAGES,
         layers=24,
         kernels={"paged_decode_attention": "decode",
                  "flash_attention": "prefill"}),
     "mamba2-780m-ondemand": dict(
-        arch="mamba2-780m", paged_kernel=False, norms=2, traffic=TRAFFIC,
+        arch="mamba2-780m", paged_kernel=False, traffic=TRAFFIC,
         policy="ondemand", num_pages=ONDEMAND_PAGES,
         kernels={"ssd_scan": "prefill"}),
     # speculative decoding, full width and depth, three legs on one set of
@@ -489,18 +556,40 @@ PHASES = {
     # its drafts instead of the verify step's argmaxes, in a rerun of leg
     # (c) that must fail the token check (its corrupted lanes land in the
     # stream)
+    # qwen2.5-14b-spec at half depth since the SSD train and jamba phases
+    # joined, to keep the script's time: drafting, verifying and rolling
+    # back are the same in every layer
     "qwen2.5-14b-spec": dict(
-        arch="qwen2.5-14b", paged_kernel=True, norms=2, traffic=SPEC_TRAFFIC,
-        spec_k=4, verify_faults=("window_late", "mask_dropped"),
+        arch="qwen2.5-14b", paged_kernel=True, traffic=SPEC_TRAFFIC,
+        spec_k=4, verify_faults=("window_late", "mask_dropped"), layers=24,
         kernels={"paged_decode_attention": "decode",
                  "flash_attention": "prefill"},
         spec_kernels={"paged_decode_attention": None,
                       "flash_attention": "prefill"}),
     # the training path (``train_phase``, ``TRAIN``): RMSNorm forward and
-    # backward are its kernels; attention runs plain (the reference's
-    # train mode), and the other kernels raise under autograd
-    "qwen2.5-14b-train": dict(arch="qwen2.5-14b", train=True,
-                              layers=TRAIN["layers"]),
+    # backward are its kernels, and on the SSD family the scan forward and
+    # backward; attention runs plain (the reference's train mode), and the
+    # other kernels raise under autograd.  ``cut``: why the depth is cut
+    "qwen2.5-14b-train": dict(arch="qwen2.5-14b", train=TRAIN, layers=4,
+                              cut=TRAIN_CUT),
+    "mamba2-780m-train": dict(arch="mamba2-780m", train=TRAIN,
+                              tol=TRAIN_TOL_DEEP),
+    # jamba at full width and 16 of its 32 layers (2 attention, 14 SSM, 8
+    # MoE): full depth is 102.9 GB of bf16 weights, 16 layers 52.0 GB.
+    # Served as mixtral is (the dropless MoE, paged-kernel decode), with
+    # qwen's traffic; flash and the paged decode run in its attention
+    # layers only, the SSD scan in its SSM layers only.  One prompt per
+    # prefill: two equal-length prompts prefilled together run the
+    # expert GEMMs at other row counts, whose bf16 sums round apart, and
+    # at its 16-expert router's near-ties that flips routes the checks'
+    # one-prompt prefills do not take (on an H100, one such batched
+    # prefill left 28 of 1024 engine tokens unreproduced by the step path
+    # and one trailing the forward's argmax by 1.56)
+    "jamba-v0.1-52b": dict(paged_kernel=True, traffic=TRAFFIC, layers=16,
+                           moe_impl="ragged", max_prefill_batch=1,
+                           kernels={"paged_decode_attention": "decode",
+                                    "flash_attention": "prefill",
+                                    "ssd_scan": "prefill"}),
 }
 
 
@@ -978,6 +1067,8 @@ def check_rms_norm():
         k_ms = time_ms(lambda: kern(x, w))
         p_ms = time_ms(lambda: plain(x, w))
         l_ms = time_ms(lambda: lib(x, (shape[-1],), w, 1e-5))
+        k_dev = device_ms(lambda: kern(x, w), per_call=1)
+        l_dev = device_ms(lambda: lib(x, (shape[-1],), w, 1e-5))
         nbytes = 2 * x.numel() * 2 + w.numel() * 2
         flops = 4 * x.numel()
         bound = max(nbytes / HBM_BPS, flops / F32_FLOPS) * 1e3
@@ -985,8 +1076,11 @@ def check_rms_norm():
             else "operations"
         log(f"rms_norm {shape} bf16: max_err {err:.3e} kernel_ms "
             f"{k_ms:.4f} plain_ms {p_ms:.4f} library_ms {l_ms:.4f} "
-            f"bound_ms {bound:.4f} ({bound_by}: {nbytes} B)")
+            f"bound_ms {bound:.4f} ({bound_by}: {nbytes} B); device time "
+            f"alone (profiler): kernel {ms_text(k_dev)}, F.rms_norm "
+            f"{ms_text(l_dev)}")
         rows.append({"name": "rms_norm", "route": "triton",
+                     "device_ms": k_dev, "library_device_ms": l_dev,
                      "source": "src/repro_torch/kernels/rmsnorm/kernel.py",
                      "replaces": "src/repro/kernels/rmsnorm/kernel.py:27",
                      "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
@@ -1080,7 +1174,10 @@ def check_rms_norm_bwd():
     y = torch.nn.functional.rms_norm(xg, (5120,), wg, 1e-5)
     l_ms = time_ms(lambda: torch.autograd.grad(y, (xg, wg), dy,
                                                retain_graph=True))
-    k_dev = device_ms(lambda: rms_norm_bwd(x, w, dy, rstd), per_call=2)
+    k_dev = device_ms(lambda: rms_norm_bwd(x, w, dy, rstd), per_call=2,
+                      lead=8)
+    l_dev = device_ms(lambda: torch.autograd.grad(y, (xg, wg), dy,
+                                                  retain_graph=True))
     nbytes = 3 * x.numel() * 2 + w.numel() * 2      # x, dy, w in; dx out
     flops = 9 * x.numel()
     bound = max(nbytes / HBM_BPS, flops / F32_FLOPS) * 1e3
@@ -1090,11 +1187,13 @@ def check_rms_norm_bwd():
     log(f"rms_norm_bwd {shape} bf16: max_err {err:.3e} (dw rel {rel:.3e}) "
         f"kernel_ms {k_ms:.4f} plain_ms {p_ms:.4f} library_ms {l_ms:.4f} "
         f"bound_ms {bound:.4f} ({bound_by}: {nbytes} B); device time "
-        f"alone (profiler, both launches) {ms_text(k_dev)}")
+        f"alone (profiler): kernel (both launches) {ms_text(k_dev)}, "
+        f"autograd through F.rms_norm {ms_text(l_dev)}")
     return {"name": "rms_norm_bwd", "route": "triton",
             "source": "src/repro_torch/kernels/rmsnorm/kernel.py",
             "replaces": "src/repro/models/layers.py:11",
             "shape": "4096 x 5120 bf16", "device_ms": k_dev,
+            "library_device_ms": l_dev,
             "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
             "bound_ms": bound, "bound_by": bound_by, "library_ms": l_ms}
 
@@ -1271,6 +1370,12 @@ def check_paged_mla():
 
 
 # ----------------------------------------------------------------- SSD scan
+# the SSD forward's model shapes on the card (batch, heads, state; S 2048,
+# P 64, chunk 256): mamba2-780m's prefill at batch 1 and 16, jamba-v0.1-
+# 52b's at batch 1
+SSD_SHAPES = ((1, 48, 128), (16, 48, 128), (1, 128, 16))
+
+
 def ssd_case(b, s, h, p, n, dtype, seed):
     """tests/test_kernels.py:211-216, drawn with numpy on the card."""
     import numpy as np
@@ -1348,16 +1453,17 @@ def check_ssd():
             both(ssd_case(2, s, 3, 64, 128, dt, seed=6), chunk, dt,
                  f"ssd partial last chunk S {s} {dt}", plain_chunk=s)
         n += 4
-    # mamba2-780m prefill shapes: 48 heads, P 64, N 128, chunk 256, S 2048,
+    # mamba2-780m prefill shapes (48 heads, P 64, N 128, chunk 256, S
+    # 2048, batch 1 and 16) and jamba-v0.1-52b's (128 heads, P 64, N 16):
     # per-head B and C, then B and C in the model's own layout (one group
     # broadcast to every head, read in place): the same numbers bit for bit
     errs = {}
-    for b in (1, 16):
+    for b, h, nn in SSD_SHAPES:
         for dt in (f32, bf16):
-            args = ssd_model_layout(b, 2048, 48, 64, 128, dt, seed=1)
+            args = ssd_model_layout(b, 2048, h, 64, nn, dt, seed=1)
             per_head = [t.contiguous() for t in args]
-            what = f"mamba2 shapes B {b} {dt}"
-            errs[(b, dt)] = both(per_head, 256, dt, what)
+            what = f"{ssd_name(b, h)} {dt}"
+            errs[(b, h, dt)] = both(per_head, 256, dt, what)
             y, hf = kern(*args, chunk=256)
             y2, hf2 = kern(*per_head, chunk=256)
             if not (torch.equal(y, y2) and torch.equal(hf, hf2)):
@@ -1365,15 +1471,15 @@ def check_ssd():
                                      "stride 0) differ from per-head copies")
             n += 2
     worst = max(rows_err, key=lambda k: rows_err[k][1])
+    b1 = rows_err[f"{ssd_name(1, 48)} {bf16}"]
     log(f"ssd_scan: {n} cases match the plain version (f32 rtol/atol 1e-4, "
         f"bf16 4e-2, and bf16 y row by row against the plain version in f32 "
-        f"{SSD_ROW_TOL}); mamba2 shapes max|err| "
-        + ", ".join(f"B {b} {str(dt)[6:]} {e:.3e}"
-                    for (b, dt), e in errs.items())
-        + f"; bf16 row error RMS / worst at B 1: "
-        f"{rows_err[f'mamba2 shapes B 1 {bf16}'][0]:.3e} / "
-        f"{rows_err[f'mamba2 shapes B 1 {bf16}'][1]:.3e}; worst row of all "
-        f"bf16 cases {rows_err[worst][1]:.3e} ({worst})")
+        f"{SSD_ROW_TOL}); model shapes max|err| "
+        + ", ".join(f"{ssd_name(b, h)} {str(dt)[6:]} {e:.3e}"
+                    for (b, h, dt), e in errs.items())
+        + f"; bf16 row error RMS / worst at mamba2 B 1: {b1[0]:.3e} / "
+        f"{b1[1]:.3e}; worst row of all bf16 cases {rows_err[worst][1]:.3e} "
+        f"({worst})")
 
     # the bf16 phases one by one, and a planted fault between them: the
     # state entering chunk 4 of 8 not handed on (zeroed).  The row check
@@ -1392,13 +1498,13 @@ def check_ssd():
     del states, decay, h_prev
 
     rows = []
-    for b in (1, 16):
-        args = ssd_model_layout(b, 2048, 48, 64, 128, bf16, seed=1)
+    for b, h, nn in SSD_SHAPES:
+        args = ssd_model_layout(b, 2048, h, 64, nn, bf16, seed=1)
         k_ms = time_ms(lambda: kern(*args, chunk=256))
         k_dev = device_ms(lambda: kern(*args, chunk=256), per_call=3,
                           lead=8)
         p_ms = time_ms(lambda: plain(*args, chunk=256), iters=2, warmup=1)
-        h, s, p, nn, q = 48, 2048, 64, 128, 256
+        s, p, q = 2048, 64, 256
         # x, dt and a read once, y and h_final written once; B and C once
         # per group (ngroups 1): the kernel reads the model's broadcast
         # view in place, so the 48 heads share one copy in device memory.
@@ -1414,9 +1520,9 @@ def check_ssd():
         bound_head = max(nbytes_head / HBM_BPS, flops / BF16_FLOPS) * 1e3
         bound_by = "bytes" if nbytes / HBM_BPS >= flops / BF16_FLOPS \
             else "operations"
-        log(f"ssd_scan mamba2 bf16 (B {b}, S 2048, H 48, P 64, N 128, "
+        log(f"ssd_scan {ssd_name(b, h)} bf16 (S 2048, H {h}, P 64, N {nn}, "
             f"chunk 256, B and C in the model's layout): max_err "
-            f"{errs[(b, bf16)]:.3e} kernel_ms {k_ms:.4f} plain_ms "
+            f"{errs[(b, h, bf16)]:.3e} kernel_ms {k_ms:.4f} plain_ms "
             f"{p_ms:.4f} library_ms none (no single PyTorch call computes "
             f"it) bound_ms {bound:.4f} ({bound_by}: {nbytes} B with B and "
             f"C once per group, {flops} FLOP) [B and C once per head: "
@@ -1426,10 +1532,217 @@ def check_ssd():
                      "device_ms": k_dev,
                      "source": "src/repro_torch/csrc/ssd_chunk.cu",
                      "replaces": "src/repro/kernels/ssd_chunk/kernel.py:80",
-                     "max_abs_err": errs[(b, bf16)], "ms": k_ms,
+                     "max_abs_err": errs[(b, h, bf16)], "ms": k_ms,
                      "plain_ms": p_ms, "bound_ms": bound,
                      "bound_by": bound_by, "library_ms": None})
-    return rows[0]          # batch 1: the serve phase's prefill shape
+    return rows[0]          # mamba2 batch 1: the serve phase's prefill
+
+
+def ssd_name(b, h):
+    return f"{'jamba' if h == 128 else 'mamba2'} B {b}"
+
+
+# --------------------------------------------------------- SSD backward
+# the SSD backward's cases on the card (B, S, H, P, N, chunk): the
+# reference's grid (tests/test_kernels.py:205-209), a short last chunk,
+# mamba2-780m's train microbatch and jamba-v0.1-52b's prefill
+SSD_BWD_SHAPES = [(1, 128, 2, 64, 32, 32), (2, 256, 4, 32, 64, 64),
+                  (1, 64, 1, 16, 16, 64), (2, 300, 3, 64, 128, 256),
+                  (4, 1024, 48, 64, 128, 256), (1, 2048, 128, 64, 16, 256)]
+SSD_TRAIN_SHAPE = (4, 1024, 48, 64, 128, 256)
+
+
+def ssd_grad_case(b, s, h, p, n, dtype, seed):
+    """The scan's inputs in the model's layout as autograd leaves — the
+    conv output (B, S, H*P + 2N) whose views are x and the one group's B
+    and C, dt and a (``ssd_views``) — and an output gradient dy (B, S, H,
+    P) and dh_final (B, H, P, N)."""
+    import numpy as np
+    import torch
+
+    x, dt, a, bmat, cmat = ssd_case(b, s, h, p, n, dtype, seed)
+    conv = torch.cat([x.flatten(2), bmat[:, :, 0], cmat[:, :, 0]], -1)
+    rng = np.random.default_rng(seed + 100)
+    dy = torch.tensor(rng.standard_normal((b, s, h, p), np.float32),
+                      device="cuda").to(dtype)
+    dhf = torch.tensor(rng.standard_normal((b, h, p, n), np.float32),
+                       device="cuda")
+    return [conv, dt, a], dy, dhf
+
+
+def ssd_views(conv, dt, a, h, p, n):
+    """x, dt, a, B, C as ``models/ssm.py`` hands them to the scan."""
+    b, s = conv.shape[:2]
+    bc = conv[..., h * p:].unflatten(-1, (2, 1, n))
+    return (conv[..., :h * p].unflatten(-1, (h, p)), dt, a,
+            bc[:, :, 0].expand(b, s, h, n), bc[:, :, 1].expand(b, s, h, n))
+
+
+def ssd_grads(scan, leaves, dy, dhf, shape):
+    """{dx, dB, dC (the group's), ddt, da} through autograd from
+    ``scan(*ssd_views(leaves))``."""
+    import torch
+
+    _, _, h, p, n, chunk = shape
+    leaves = [t.detach().requires_grad_() for t in leaves]
+    y, hf = scan(*ssd_views(*leaves, h, p, n), chunk=chunk)
+    dconv, ddt, da = torch.autograd.grad((y, hf), leaves,
+                                         (dy.to(y.dtype), dhf))
+    return {"dx": dconv[..., :h * p].unflatten(-1, (h, p)),
+            "dB": dconv[..., h * p:h * p + n],
+            "dC": dconv[..., h * p + n:], "ddt": ddt, "da": da}
+
+
+def grads_rows(got, want):
+    """Each gradient's (row error RMS, worst row) against ``want``."""
+    return {k: row_rel(got[k], want[k]) for k in want}
+
+
+def rows_rejected(rows, tol=SSD_ROW_TOL):
+    return [k for k, (rms, worst) in rows.items()
+            if rms > tol["rms"] or worst > tol["worst"]]
+
+
+def check_ssd_bwd():
+    """The SSD backward kernel (``ssd_scan_bwd``, through autograd's
+    ``SSDScanFn`` as training calls it, in the model's layout: B and C
+    one group's view of stride 0 over the heads) against autograd through
+    the plain scan in f32 from the same inputs, at ``SSD_BWD_SHAPES`` in
+    f32 (``SSD_BWD_TOL``) and bf16 (row by row, ``SSD_ROW_TOL``): dx,
+    the group's dB and dC, ddt and da.  Then the backward's two phases one
+    at a time at mamba2's train shape, and three planted faults the row
+    check must reject: the gradient of the carried state dropped (the
+    reverse pass does not propagate), one chunk's dB zeroed, and dB
+    times the group's head count.  Then the times at mamba2's train
+    shape and jamba's, in bf16: kernel, plain backward, device time
+    alone."""
+    import torch
+
+    from repro_torch.kernels import ssd_scan, ssd_scan_bwd, ssd_scan_bwd_ref
+    from repro_torch.kernels import ssd_scan_ref
+    from repro_torch.kernels.ssd_chunk import ops as ssd_ops
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    worst_rows, abs_err, worst_f32 = {}, {}, 0.0
+    for dt in (f32, bf16):
+        for shape in SSD_BWD_SHAPES:
+            leaves, dy, dhf = ssd_grad_case(*shape[:5], dt, seed=3)
+            got = ssd_grads(ssd_scan, leaves, dy, dhf, shape)
+            want = ssd_grads(ssd_scan_ref, [t.float() for t in leaves],
+                             dy.float(), dhf, shape)
+            what = f"ssd_scan_bwd {shape} {dt}"
+            for k, g in got.items():
+                if not torch.isfinite(g.float()).all():
+                    raise AssertionError(f"{what}: non-finite {k}")
+            if dt == f32:
+                for k, w in want.items():
+                    err = (got[k] - w).abs()
+                    tol = (SSD_BWD_TOL["rtol"] * w.abs()
+                           + SSD_BWD_TOL["atol_of_max"] * w.abs().max())
+                    if (err > tol).any():
+                        raise AssertionError(
+                            f"{what}: {k} max |err| {err.max().item():.3e} "
+                            f"outside {SSD_BWD_TOL}")
+                    worst_f32 = max(worst_f32, (err.max()
+                                                / w.abs().max()).item())
+                continue
+            rows = grads_rows(got, want)
+            bad = rows_rejected(rows)
+            if bad:
+                raise AssertionError(f"{what}: rows of {bad} outside "
+                                     f"{SSD_ROW_TOL}: {rows}")
+            worst_rows[shape] = rows
+            abs_err[shape] = max((got[k].float() - want[k]).abs().max().item()
+                                 for k in want)
+    log(f"ssd_scan_bwd: {2 * len(SSD_BWD_SHAPES)} cases match the plain "
+        f"backward in the model's layout (f32 {SSD_BWD_TOL}: worst error "
+        f"{worst_f32:.3e} of a gradient's largest value; bf16 row by row "
+        f"{SSD_ROW_TOL})")
+    for shape in (SSD_TRAIN_SHAPE, SSD_BWD_SHAPES[-1]):
+        log(f"  bf16 {shape} rows (RMS / worst): " + ", ".join(
+            f"{k} {r[0]:.3e} / {r[1]:.3e}"
+            for k, r in worst_rows[shape].items()))
+
+    # the two phases one at a time at mamba2's train shape, bf16, and the
+    # planted faults between and after them
+    shape = SSD_TRAIN_SHAPE
+    b, s, h, p, n, chunk = shape
+    leaves, dy, dhf = ssd_grad_case(b, s, h, p, n, bf16, seed=3)
+    views = ssd_views(*leaves, h, p, n)
+    want = ssd_grads(ssd_scan_ref, [t.float() for t in leaves], dy.float(),
+                     dhf, shape)
+
+    def parts(grads):
+        dx, ddt, da, db, dc = grads
+        return {"dx": dx, "dB": db.float().sum(2), "dC": dc.float().sum(2),
+                "ddt": ddt, "da": da}
+    scratch = ssd_ops.ssd_bwd_states(*views, dy, dhf, chunk=chunk)
+    clean = parts(ssd_ops.ssd_bwd_grads(*views, dy, scratch, chunk=chunk))
+    rows = grads_rows(clean, want)
+    if rows_rejected(rows):
+        raise AssertionError(f"ssd_scan_bwd phases one by one: {rows}")
+    scratch["dstate"][:, :, :-1] = 0
+    dropped = parts(ssd_ops.ssd_bwd_grads(*views, dy, scratch, chunk=chunk))
+    zeroed = dict(clean, dB=clean["dB"].clone())
+    zeroed["dB"][:, chunk:2 * chunk] = 0
+    faults = {"the carried state's gradient dropped": dropped,
+              "chunk 1's dB zeroed": zeroed,
+              f"dB times the group's {h} heads": dict(clean,
+                                                      dB=clean["dB"] * h)}
+    for fault, grads in faults.items():
+        frows = grads_rows(grads, want)
+        log(f"ssd_scan_bwd planted fault ({fault}, {shape} bf16): rows "
+            + ", ".join(f"{k} {r[0]:.3e} / {r[1]:.3e}"
+                        for k, r in frows.items())
+            + f"; rejected by {rows_rejected(frows)}")
+        if not rows_rejected(frows):
+            raise AssertionError(f"ssd_scan_bwd: the row check does not "
+                                 f"reject the planted fault ({fault})")
+    del scratch, clean, dropped, zeroed, faults, want
+
+    # times, bf16, in the model's layout as training calls it (no
+    # dh_final: the train step does not use h_final)
+    out = []
+    for shape in (SSD_TRAIN_SHAPE, SSD_BWD_SHAPES[-1]):
+        b, s, h, p, n, chunk = shape
+        leaves, dy, _ = ssd_grad_case(b, s, h, p, n, bf16, seed=3)
+        args = ssd_views(*leaves, h, p, n)
+        k_ms = time_ms(lambda: ssd_scan_bwd(*args, dy, chunk=chunk), iters=5)
+        k_dev = device_ms(lambda: ssd_scan_bwd(*args, dy, chunk=chunk),
+                          iters=5, per_call=6, lead=4)
+        p_ms = time_ms(lambda: ssd_scan_bwd_ref(*args, dy, chunk=chunk),
+                       iters=2, warmup=1, reps=3)
+        # read once: x, dy (bf16), dt, a, B and C once per group; written
+        # once: dx, ddt, da and the group's dB and dC (this version writes
+        # them per head, logged beside).  Products on the lower triangle
+        # where masked: C B^T, dY X^T (P), Z B, Z^T C (N), M^T dY (P); whole:
+        # dY h_prev, X D, B D^T and the chunk states S_c, E_c (P N each)
+        nbytes = (2 * b * s * h * p * 2 + b * s * h * 4 + h * 4
+                  + 2 * b * s * n * 2 + b * s * h * p * 2 + b * s * h * 4
+                  + h * 4 + 2 * b * s * n * 2)
+        head_bytes = 2 * b * s * (h - 1) * n * 2
+        flops = 0
+        for c0 in range(0, s, chunk):
+            q = min(chunk, s - c0)
+            flops += 2 * b * h * (q * (q + 1) // 2 * (3 * n + 2 * p)
+                                  + 5 * q * p * n)
+        bound = max(nbytes / HBM_BPS, flops / BF16_FLOPS) * 1e3
+        bound_by = "bytes" if nbytes / HBM_BPS >= flops / BF16_FLOPS \
+            else "operations"
+        log(f"ssd_scan_bwd {shape} bf16 (model layout, no dh_final): "
+            f"kernel_ms {k_ms:.4f} plain_ms {p_ms:.4f} (autograd through "
+            f"the plain scan) library_ms none (no single PyTorch call "
+            f"computes it) bound_ms {bound:.4f} ({bound_by}: {nbytes} B, "
+            f"{flops} FLOP; per-head dB and dC add {head_bytes} B); device "
+            f"time alone (profiler, six launches) {ms_text(k_dev)}")
+        out.append({"name": "ssd_scan_bwd", "route": "cuda",
+                    "source": "src/repro_torch/csrc/ssd_chunk_bwd.cu",
+                    "replaces": "src/repro/models/ssm.py:60",
+                    "shape": f"{shape} bf16", "device_ms": k_dev,
+                    "max_abs_err": abs_err[shape],
+                    "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound,
+                    "bound_by": bound_by, "library_ms": None})
+    return out[0]           # mamba2's train microbatch: the train phase's
 
 
 # ---------------------------------------------------------- flash attention
@@ -1638,6 +1951,27 @@ def arch_of(cfg):
     """The phase's arch name (a ``tiny()`` config for a CPU rehearsal
     carries a suffix)."""
     return cfg.name.removesuffix("-tiny")
+
+
+# the kind of layer each kernel runs in
+KERNEL_KIND = {"paged_decode_attention": "attn", "flash_attention": "attn",
+               "paged_mla_decode_attention": "attn", "ssd_scan": "ssm",
+               "ssd_scan_bwd": "ssm"}
+
+
+def kind_layers(cfg, kind):
+    """Layers of ``kind`` ("attn" or "ssm") in the config's depth."""
+    return cfg.n_repeats * sum(spec.kind == kind for spec in cfg.pattern)
+
+
+def norm_sites(cfg):
+    """RMSNorm launches of one pass through the blocks: per layer its
+    mixer's norm (an MLA mixer also norms its q and kv latents, an SSD
+    mixer its gated output) and its MLP's, if it has one."""
+    return cfg.n_repeats * sum(
+        1 + 2 * (spec.kind == "attn" and spec.attn == "mla")
+        + (spec.kind == "ssm") + (spec.mlp != "none")
+        for spec in cfg.pattern)
 
 
 def frontend_shape(cfg):
@@ -2055,6 +2389,17 @@ def planted(fault, cfg=None):
     def codebook_heads_rolled(x, params, cfg_):
         return logits(x, params, cfg_).roll(-1, dims=2)
 
+    def in_one_layer(fault, orig, kind):
+        """``fault`` in the first layer of ``kind`` of every pass through
+        the blocks (its first of each n calls), ``orig`` in the others."""
+        every, calls = max(1, kind_layers(cfg, kind)) if cfg else 1, [0]
+
+        def run(*args, **kw):
+            k = calls[0] % every
+            calls[0] += 1
+            return (fault if k == 0 else orig)(*args, **kw)
+        return run
+
     def roll(pos):
         return pos.roll(1)
 
@@ -2076,6 +2421,11 @@ def planted(fault, cfg=None):
         "q_rope_next_head": ((att, "paged_mla_decode_attention",
                               q_rope_next_head),),
         "state_not_handed": ((ssm, "ssd_scan", state_not_handed),),
+        "ssm_layer_state_not_handed": ((ssm, "ssd_scan", in_one_layer(
+            state_not_handed, scan, "ssm")),),
+        "attn_layer_kv_group_order": ((att, "paged_decode_attention",
+                                       in_one_layer(kv_group_order, kern,
+                                                    "attn")),),
         "dt_one_late": ((ssm, "ssd_scan", dt_one_late),),
         "conv_tail_rolled": ((blocks, "ssm_apply", conv_tail_rolled),),
         "flash_kv_group_order": ((att, "flash_attention",
@@ -2589,7 +2939,9 @@ def check_capacity_dispatch(cfg, params, device, seed=0):
 
     from repro_torch.models import moe
 
-    p = {k: v[0] for k, v in params["blocks"][0]["mlp"].items()}
+    first = next(i for i, spec in enumerate(cfg.pattern)
+                 if spec.mlp == "moe")
+    p = {k: v[0] for k, v in params["blocks"][first]["mlp"].items()}
     g = torch.Generator(device).manual_seed(seed)
     xn = torch.randn((2, 4096, cfg.d_model), generator=g, device=device,
                      dtype=getattr(torch, cfg.dtype))
@@ -2672,6 +3024,14 @@ def prefix_prompts(cfg, traffic, rng):
     return plist, plan
 
 
+def ssm_gain(params):
+    """Every SSD mixer's conv weights times ``SSM_CONV_W_GAIN`` (the
+    reason beside it), in place."""
+    for blk in params["blocks"]:
+        if "conv_w" in blk["mixer"]:
+            blk["mixer"]["conv_w"].mul_(SSM_CONV_W_GAIN)
+
+
 def weights_task(cfg, seed, device, box):
     """The engine's weights task: seeded weights made on ``device`` into
     ``box["params"]``, the seconds it took into ``box["weights_s"]``."""
@@ -2683,9 +3043,7 @@ def weights_task(cfg, seed, device, box):
         t = time.perf_counter()
         box["params"] = init_params(
             cfg, torch.Generator(device).manual_seed(seed), device)
-        for blk in box["params"]["blocks"]:
-            if "conv_w" in blk["mixer"]:
-                blk["mixer"]["conv_w"].mul_(SSM_CONV_W_GAIN)
+        ssm_gain(box["params"])
         if cfg.frontend == "audio_codebooks":
             box["params"]["embed"]["tok"].mul_(AUDIO_EMBED_GAIN)
             box["params"]["lm_head"].mul_(AUDIO_HEAD_GAIN)
@@ -2748,8 +3106,6 @@ def serve(cfg, smi, device="cuda", seed=0, name=None):
     from repro_torch.models.lm import forward
     from repro_torch.serve import Request, ServeEngine, drain
     from repro_torch.serve.watchdog import abandon
-    from repro_torch.steps import (greedy_oneshot, make_prefill_step,
-                                   make_serve_step)
 
     name = name or arch_of(cfg)
     phase = PHASES[name]
@@ -2793,7 +3149,8 @@ def serve(cfg, smi, device="cuda", seed=0, name=None):
                       prefill_chunk=phase.get("prefill_chunk"),
                       prefix_cache=phase.get("prefix_cache"),
                       policy=phase.get("policy"),
-                      num_pages=phase.get("num_pages"))
+                      num_pages=phase.get("num_pages"),
+                      max_prefill_batch=phase.get("max_prefill_batch"))
     # the engine's steps, counted: one-shot prefills, chunks with and
     # without the LM head, gathers, decode ticks
     calls, calls_lock = collections.Counter(), threading.Lock()
@@ -3050,21 +3407,6 @@ def serve(cfg, smi, device="cuda", seed=0, name=None):
         log_checks(f"verify check (S={VERIFY_S})", name, vres, n_req * gen)
     del ref
 
-    # for information: engine tokens against the port's one-shot path
-    prefill = make_prefill_step(cfg, cache_len=cache_len)
-    step = make_serve_step(cfg)
-    same = 0
-    for n in sorted(set(lens.tolist())):      # one batch per length
-        idx = [i for i in range(n_req) if lens[i] == n]
-        ps = torch.tensor(np.stack([prompts[i] for i in idx]),
-                          device=device)
-        pt = None if patches is None else patches[idx]
-        ref = greedy_oneshot(prefill, step, params, ps, pt, gen).cpu()
-        for j, i in enumerate(idx):
-            same += int((ref[j].numpy()
-                         == np.asarray(reqs[i].out_tokens)).sum())
-    log(f"one-shot agreement (information, {name}): {same}/"
-        f"{n_rows} engine tokens equal the port's greedy_oneshot tokens")
     if worst > LOGIT_TOL:
         raise AssertionError(f"{name}: an emitted token trails the "
                              f"forward's argmax by {worst:.4f} > {LOGIT_TOL}")
@@ -3417,25 +3759,30 @@ class FixedBatch:
 
 
 def train_phase(cfg, smi, name="qwen2.5-14b-train", seed=0, device="cuda"):
-    """The port's training path at full width (``TRAIN`` and the depth
-    cut are stated there): seeded f32 master weights on the card, bf16
-    compute, remat "full", f32 AdamW state, microbatches of
-    ``TRAIN["micro"]`` x ``TRAIN["seq"]`` tokens, ``accum`` 2, through
-    ``steps.make_train_step`` on the UMT runtime with ``UMTPrefetcher``
-    and an async ``CheckpointManager``.  Bars (each raises):
-    (a) the first loss is finite and ``TRAIN["steps"]`` steps on one batch
+    """The port's training path at full width (the phase's settings in
+    ``PHASES[name]``: its ``TRAIN``, depth and the reason for a cut):
+    seeded f32 master weights on the card, bf16 compute, remat "full",
+    f32 AdamW state, microbatches of ``micro`` x ``seq`` tokens, ``accum``
+    2, through ``steps.make_train_step`` on the UMT runtime with
+    ``UMTPrefetcher`` and an async ``CheckpointManager``.  Bars (each
+    raises): (a) the first loss is finite and ``steps`` steps on one batch
     lower it by ``LOSS_DROP``; (b) every parameter leaf gets a finite,
     nonzero gradient; (c) one step's gradients through the kernels agree
-    with the same step through the plain norm (``TRAIN_TOL``); (d) accum 2
-    of ``micro`` rows agrees with accum 1 of 2 x ``micro`` rows; (e) the
-    planted faults (the backward's dw zeroed; the second microbatch's
-    gradient dropped) fail (c) and (d); (f) a save at step ``ckpt_at``,
-    restored into a fresh state and continued, ends at the uninterrupted
-    run's params (rtol 1e-5 / atol 1e-6, the reference's bar); (g) the
-    RMSNorm forward and backward launch identities; (h) peak device
-    memory under 80 GB.  Returns the main path's launches (the timed
-    run).  ``device="cpu"`` rehearses it on a tiny config (no memory bar,
-    no launches)."""
+    with the same step through the plain norm, and on an SSD family the
+    plain scan (``TRAIN_TOL``; at mamba2's 48 layers ``TRAIN_TOL_DEEP``,
+    and the same step in f32 compute by ``TRAIN_TOL``, the reason beside
+    them); (d) accum 2 of ``micro`` rows agrees with
+    accum 1 of 2 x ``micro`` rows; (e) the planted faults (the backward's
+    dw zeroed; on an SSD family the scan backward's dB times the group's
+    head count; the second microbatch's gradient dropped) fail (c) and
+    (d); (f) a save at step ``ckpt_at``, restored into a fresh state and
+    continued, ends at the uninterrupted run's params (rtol 1e-5 / atol
+    1e-6, the reference's bar); (g) the launch identities of RMSNorm
+    forward and backward and, on an SSD family, of the scan forward (its
+    remat recompute included) and backward; (h) peak device memory under
+    80 GB.  Returns the main path's launches (the timed run).
+    ``device="cpu"`` rehearses it on a tiny config (no memory bar, no
+    launches)."""
     import shutil
     import statistics
 
@@ -3443,36 +3790,45 @@ def train_phase(cfg, smi, name="qwen2.5-14b-train", seed=0, device="cuda"):
 
     from repro_torch import kernels
     from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get
     from repro_torch.core import UMTRuntime
     from repro_torch.data import UMTPrefetcher
     from repro_torch.kernels.rmsnorm import ops as rms_ops
+    from repro_torch.kernels.ssd_chunk import ops as ssd_ops
     from repro_torch.models import attention, blocks, layers, lm, ssm
     from repro_torch.models.layers import tree_leaves, tree_map
     from repro_torch.optim import OptHParams, adamw_init
     from repro_torch.steps import make_grad_step, make_train_step
 
     t_phase = time.perf_counter()
-    tr = TRAIN
+    phase = PHASES[name]
+    tr = phase["train"]
     accum, micro, seq, n = tr["accum"], tr["micro"], tr["seq"], tr["steps"]
     tokens = accum * micro * seq
-    counted = ("rms_norm", "rms_norm_bwd")
+    n_ssm = kind_layers(cfg, "ssm")
+    counted = ("rms_norm", "rms_norm_bwd") + (
+        ("ssd_scan", "ssd_scan_bwd") if n_ssm else ())
     card = device == "cuda"
     sync = torch.cuda.synchronize if card else (lambda: None)
     if card:
         torch.cuda.reset_peak_memory_stats()
     params = lm.init_params(cfg, torch.Generator(device).manual_seed(seed),
                             device, dtype=cfg.param_dtype)
+    ssm_gain(params)
     names = leaf_names(params, "params")
     n_params = sum(t.numel() for t in tree_leaves(params))
     n_blocks = sum(t.numel() for t in tree_leaves(params["blocks"]))
-    log(f"{name} ({smi}): {cfg.n_layers} of 48 layers ({TRAIN_CUT}); "
+    full = get(arch_of(cfg)).n_layers
+    cut = (f" ({phase.get('cut', 'cut for this run')})"
+           if cfg.n_layers < full else "")
+    log(f"{name} ({smi}): {cfg.n_layers} of {full} layers{cut}; "
         f"{n_params / 1e9:.3f} B params ({cfg.param_dtype} masters, "
         f"{cfg.dtype} compute, {cfg.opt_dtype} AdamW state, remat "
         f"{cfg.remat}); microbatches {micro} x {seq}, accum {accum}")
     src = FixedBatch(cfg.vocab, accum, micro, seq, seed + 1, device)
     batch = src.batch
     grad_step = make_grad_step(cfg)
-    norms = 2 * cfg.n_layers                       # in the blocks
+    norms = norm_sites(cfg)                        # in the blocks
 
     def launches():
         return {k: getattr(kernels, k).launches.value for k in counted}
@@ -3480,13 +3836,20 @@ def train_phase(cfg, smi, name="qwen2.5-14b-train", seed=0, device="cuda"):
     def identities(got, micro_steps, what):
         want = {"rms_norm": micro_steps * (2 * norms + 1),
                 "rms_norm_bwd": micro_steps * (norms + 1)}
+        if n_ssm:
+            want.update(ssd_scan=micro_steps * 2 * n_ssm,
+                        ssd_scan_bwd=micro_steps * n_ssm)
         if card and got != want:
             raise AssertionError(f"{name}: launches {got} != {want} "
                                  f"({what}; identity of the train path)")
         return (f"rms_norm {got['rms_norm']} = {micro_steps} x (2 x "
                 f"{norms} + 1: forward, remat recompute, final norm); "
                 f"rms_norm_bwd {got['rms_norm_bwd']} = {micro_steps} x "
-                f"({norms} + 1)")
+                f"({norms} + 1)" + (
+                    f"; ssd_scan {got['ssd_scan']} = {micro_steps} x 2 x "
+                    f"{n_ssm} (forward, remat recompute); ssd_scan_bwd "
+                    f"{got['ssd_scan_bwd']} = {micro_steps} x {n_ssm}"
+                    if n_ssm else ""))
 
     # (b), (c), (e): one step's gradients, kernels against the plain norm
     for k in counted:
@@ -3504,6 +3867,8 @@ def train_phase(cfg, smi, name="qwen2.5-14b-train", seed=0, device="cuda"):
         "finite, nonzero gradient")
     plain = [(m, "rms_norm", kernels.rms_norm_ref)
              for m in (attention, blocks, layers, lm, ssm)]
+    if n_ssm:
+        plain.append((ssm, "ssd_scan", kernels.ssd_scan_ref))
 
     def dw_zeroed(x, w, dy, rstd):
         dx, dw = kernels.rms_norm_bwd(x, w, dy, rstd)
@@ -3511,7 +3876,17 @@ def train_phase(cfg, smi, name="qwen2.5-14b-train", seed=0, device="cuda"):
     # the wrapper counts through its module's name, which the swap takes
     dw_zeroed.launches = kernels.rms_norm_bwd.launches
 
-    def compare(g_a, l_a, g_b, l_b, what):
+    def db_times_heads(*args, **kw):
+        dx, ddt, da, db, dc = kernels.ssd_scan_bwd(*args, **kw)
+        return dx, ddt, da, db * (cfg.ssm_nheads // cfg.ssm_ngroups), dc
+    db_times_heads.launches = kernels.ssd_scan_bwd.launches
+    faults = [("dw zeroed", (rms_ops, "rms_norm_bwd", dw_zeroed))]
+    if n_ssm:
+        faults.append((f"the scan backward's dB times the group's "
+                       f"{cfg.ssm_nheads // cfg.ssm_ngroups} heads",
+                       (ssd_ops, "ssd_scan_bwd", db_times_heads)))
+
+    def compare(g_a, l_a, g_b, l_b, what, tol=TRAIN_TOL):
         gaps = grad_gaps(g_a, g_b)
         n_a = torch.stack([g.float().norm() for g in tree_leaves(g_a)]
                           ).norm().item()
@@ -3520,28 +3895,41 @@ def train_phase(cfg, smi, name="qwen2.5-14b-train", seed=0, device="cuda"):
         dl = abs(float(l_a) - float(l_b)) / abs(float(l_b))
         dn = abs(n_a - n_b) / n_b
         gap, where = worst_gap(gaps, names)
-        ok = dl <= TRAIN_TOL["loss"] and dn <= TRAIN_TOL["grad_norm"] \
-            and gap <= TRAIN_TOL["leaf"]
+        ok = dl <= tol["loss"] and dn <= tol["grad_norm"] \
+            and gap <= tol["leaf"]
         log(f"{name}: {what}: loss {float(l_a):.6f} vs {float(l_b):.6f} "
             f"(rel {dl:.3e}), grad norm {n_a:.6f} vs {n_b:.6f} (rel "
             f"{dn:.3e}), worst leaf {where} rel {gap:.3e}, median leaf "
             f"{statistics.median(gaps):.3e} -> "
-            f"{'within' if ok else 'outside'} {TRAIN_TOL}")
+            f"{'within' if ok else 'outside'} {tol}")
         return ok
 
+    plain_what = "plain norm" + (" and scan" if n_ssm else "")
+    tol = phase.get("tol", TRAIN_TOL)
     with swapped(*plain):
         g_p, loss_p = grad_step(params, batch)
-    if not compare(g_k, loss_k, g_p, loss_p, "(c) kernels vs plain norm"):
+    if not compare(g_k, loss_k, g_p, loss_p,
+                   f"(c) kernels vs {plain_what}", tol):
         raise AssertionError(f"{name}: (c) the kernels' step disagrees "
-                             "with the plain norm's")
-    if card:                        # the CPU has no backward kernel
-        with swapped((rms_ops, "rms_norm_bwd", dw_zeroed)):
+                             f"with the {plain_what}'s")
+    for what, swap in faults if card else ():   # the CPU has no backward
+        with swapped(swap):                        # kernels
             g_f, loss_f = grad_step(params, batch)
-        if compare(g_f, loss_f, g_p, loss_p, "(e) planted: dw zeroed"):
+        if compare(g_f, loss_f, g_p, loss_p, f"(e) planted: {what}", tol):
             raise AssertionError(f"{name}: (c) does not reject the "
-                                 "backward with dw zeroed")
+                                 f"backward with {what}")
         del g_f
     del g_p
+    if tol is not TRAIN_TOL:    # (c) again in f32 compute, by TRAIN_TOL
+        step32 = make_grad_step(cfg.replace(dtype="float32"))
+        g_a, loss_a = step32(params, batch)
+        with swapped(*plain):
+            g_b, loss_b = step32(params, batch)
+        if not compare(g_a, loss_a, g_b, loss_b,
+                       f"(c) in f32 compute: kernels vs {plain_what}"):
+            raise AssertionError(f"{name}: (c) the kernels' f32 step "
+                                 f"disagrees with the {plain_what}'s")
+        del g_a, g_b
 
     # (d), (e): accum 2 of micro rows against accum 1 of 2 * micro rows
     whole = {k: v.reshape(1, accum * micro, seq) for k, v in batch.items()}
@@ -3677,7 +4065,7 @@ def train_phase(cfg, smi, name="qwen2.5-14b-train", seed=0, device="cuda"):
         f"TFLOP/s = {flops / s_step / BF16_FLOPS:.4f} of 989 (6 x "
         f"{n_params / 1e9:.3f} B params x {tokens} tokens + remat 2 x "
         f"{n_blocks / 1e9:.3f} B x {tokens} = {flops / 1e12:.1f} TFLOP a "
-        f"step; attention's products not counted), peak device memory "
+        f"step; attention's and the scan's products not counted), peak device memory "
         f"{peak / 1e9:.2f} GB (under 80), host runtime: cpu_util "
         f"{host['cpu_util']:.3f}, wakes {host['wakes']}, oversub "
         f"{host['oversub_frac']:.4f}, prefetches reissued {pf.reissued}; "
@@ -3690,7 +4078,8 @@ def check_train_cli(smi, device="cuda"):
     """The port's train CLI (``repro_torch.launch.train``) on the card with
     ``examples/train_100m.py``'s arguments (``TRAIN_CLI``): 30 steps with
     checkpoints every 10 (UMT on); the run resumed from its step-10
-    checkpoint; and 30 steps with ``--umt-off``.  Bars: the resumed run's
+    checkpoint; and 30 steps with ``--umt-off``; then mamba2-780m's tiny
+    shape (``TRAIN_CLI_SSM``), which must launch the SSD kernels.  Bars: the resumed run's
     losses are the first run's from step 10 on, and UMT on and off give
     the same losses (the host runtime must not change the numbers); both
     under deterministic algorithms.  Each leg's kernels launch; each
@@ -3700,23 +4089,24 @@ def check_train_cli(smi, device="cuda"):
     import shutil
     import statistics
 
+    import numpy as np
+
     from repro_torch import kernels
     from repro_torch.launch import train as cli
 
     ckpt = ROOT / "build" / "train_cli_ckpt"
     shutil.rmtree(ckpt, ignore_errors=True)
 
-    def run(leg, extra):
-        for k in ("rms_norm", "rms_norm_bwd"):
+    def run(leg, extra, argv=TRAIN_CLI, used=("rms_norm", "rms_norm_bwd")):
+        for k in used:
             getattr(kernels, k).launches.reset()
         out = io.StringIO()
         with contextlib.redirect_stdout(out):
-            cli.train(TRAIN_CLI + ["--device", device] + extra)
+            cli.train(argv + ["--device", device] + extra)
         lines = [json.loads(ln) for ln in out.getvalue().splitlines()
                  if ln.startswith("{")]
         steps = {ln["step"]: ln for ln in lines if "step" in ln}
-        got = {k: getattr(kernels, k).launches.value
-               for k in ("rms_norm", "rms_norm_bwd")}
+        got = {k: getattr(kernels, k).launches.value for k in used}
         if device == "cuda" and min(got.values()) <= 0:
             raise AssertionError(f"train CLI {leg}: launches {got}")
         end = lines[-1]
@@ -3747,13 +4137,20 @@ def check_train_cli(smi, device="cuda"):
         raise AssertionError(f"train CLI: UMT off gives {off}, on {on}")
     log("train CLI: the resumed run's 20 losses are the first run's; UMT "
         "on and off give the same 30 losses")
+    # an SSD family through the CLI: the scan's kernels, forward and
+    # backward, and finite losses
+    ssm = run("mamba2-780m", [], TRAIN_CLI_SSM,
+              ("rms_norm", "rms_norm_bwd", "ssd_scan", "ssd_scan_bwd"))
+    if not all(np.isfinite(v) for v in ssm.values()):
+        raise AssertionError(f"train CLI mamba2-780m: losses {ssm}")
 
 
 def check_launches(cfg, launches, stats, calls, name=None, kernels=None):
-    """The phase's launch identities: each kernel once per layer of each
-    decode tick (paged attention) or one-shot prefill (SSD scan, flash
-    attention), or never (a kernel the phase's path must not take);
-    RMSNorm at every norm site of every tick, one-shot prefill and chunk
+    """The phase's launch identities: each kernel once per layer of the
+    kind that launches it (``kind_layers``) in each decode tick (paged
+    attention) or one-shot prefill (SSD scan, flash attention), or never
+    (a kernel the phase's path must not take); RMSNorm at every norm site
+    (``norm_sites``) of every tick, one-shot prefill and chunk
     (a chunk that skips the LM head skips the final norm too); gathers
     launch none.  The engine's step calls (``calls``) are first held to
     its own counters.  ``kernels`` (a spec leg): the leg's own kernel
@@ -3772,8 +4169,9 @@ def check_launches(cfg, launches, stats, calls, name=None, kernels=None):
         if got != want:
             raise AssertionError(f"{name}: step calls give {k} {got}, the "
                                  f"engine counted {want}")
-    norms = phase["norms"] * cfg.n_layers
-    want = {k: cfg.n_layers * calls[per] if per else 0
+    norms = norm_sites(cfg)
+    per_kind = {k: kind_layers(cfg, KERNEL_KIND[k]) for k in kernels}
+    want = {k: per_kind[k] * calls[per] if per else 0
             for k, per in kernels.items()}
     want["rms_norm"] = (norms + 1) * (ticks + calls["prefill"]
                                       + calls["chunk"] + calls["replay"]) \
@@ -3783,8 +4181,8 @@ def check_launches(cfg, launches, stats, calls, name=None, kernels=None):
             raise AssertionError(f"{name}: {k} launches {launches[k]} != "
                                  f"{n} (identity of the main path)")
     parts = [f"{k} {launches[k]} = " + (
-        f"{cfg.n_layers} x {calls[per]} {per}" if per else "0 (not on "
-        "this path)") for k, per in kernels.items()]
+        f"{per_kind[k]} {KERNEL_KIND[k]} layers x {calls[per]} {per}"
+        if per else "0 (not on this path)") for k, per in kernels.items()]
     log(f"launch identities ({name}): " + "; ".join(parts)
         + f"; rms_norm {launches['rms_norm']} = {norms + 1} x "
         f"({calls['decode']} decode + {calls['verify']} verify + "
@@ -3875,7 +4273,7 @@ def build_all():
             errors.append(e)
     threads = [threading.Thread(target=run, args=(fn,)) for fn in (
         paged_ops.library, paged_ops.mla_library, ssd_ops.library,
-        flash_ops.library)]
+        ssd_ops.bwd_library, flash_ops.library)]
     for t in threads:
         t.start()
     for t in threads:
@@ -3886,7 +4284,7 @@ def build_all():
     x = torch.ones(2, 64, device="cuda")
     rms_norm(x, torch.ones(64, device="cuda"))          # Triton compiles
     torch.cuda.synchronize()
-    log(f"build: four nvcc builds in parallel, all ready in {t_nvcc:.2f} s; "
+    log(f"build: five nvcc builds in parallel, all ready in {t_nvcc:.2f} s; "
         f"triton first call {time.perf_counter() - t0 - t_nvcc:.2f} s")
     for name, info in build.build_log.items():
         log(f"  {name}: nvcc {info['seconds']:.2f} s")
@@ -3922,7 +4320,7 @@ def main(argv=None):
     build_all()
     rows = [*check_paged_decode(), check_rms_norm(), check_rms_norm_bwd(),
             check_paged_mla(),
-            check_ssd(), *check_flash()]
+            check_ssd(), check_ssd_bwd(), *check_flash()]
     log(f"clocks after the kernel timings (sm, power, temp): {clocks()}")
     from repro_torch.configs import get
 
@@ -3933,7 +4331,7 @@ def main(argv=None):
         cfg = get(arch)
         layers = args.layers or phase.get("layers", cfg.n_layers)
         if phase.get("train"):        # the train state bounds its depth
-            layers = min(layers, phase["layers"])
+            layers = min(layers, phase.get("layers", cfg.n_layers))
         if layers != cfg.n_layers:
             log(f"depth cut: {layers} of {cfg.n_layers} layers ({name})")
             cfg = cfg.replace(n_layers=layers)

@@ -7,11 +7,14 @@ counter on its wrapper:
   * paged_attention — paged GQA decode (``csrc/paged_decode.cu``) and
     paged absorbed-MLA decode (``csrc/paged_mla_decode.cu``), CUDA C++
   * rmsnorm         — RMSNorm and its backward, Triton
-  * ssd_chunk       — Mamba2 SSD chunk scan, CUDA C++ (``csrc/ssd_chunk.cu``)
+  * ssd_chunk       — Mamba2 SSD chunk scan and its backward, CUDA C++
+    (``csrc/ssd_chunk.cu``, ``csrc/ssd_chunk_bwd.cu``)
 
 Every TPU kernel of the reference now has its Hopper counterpart here.
-Only RMSNorm has a backward on the card; the others raise under autograd
-(``counter.forward_only``).
+RMSNorm and the SSD scan have a backward on the card; flash attention and
+the paged decodes raise under autograd (``counter.forward_only``): train
+mode attends through plain ``full_attention``, as the reference does, and
+the decodes never train.
 """
 from .flash_attention import flash_attention, flash_attention_ref
 from .paged_attention import (paged_decode_attention,
@@ -20,10 +23,10 @@ from .paged_attention import (paged_decode_attention,
                               paged_mla_decode_attention_ref)
 from .rmsnorm import (rms_norm, rms_norm_bwd, rms_norm_bwd_ref,
                       rms_norm_ref)
-from .ssd_chunk import ssd_scan, ssd_scan_ref
+from .ssd_chunk import ssd_scan, ssd_scan_bwd, ssd_scan_bwd_ref, ssd_scan_ref
 
 __all__ = ["flash_attention", "flash_attention_ref",
            "paged_decode_attention", "paged_decode_attention_ref",
            "paged_mla_decode_attention", "paged_mla_decode_attention_ref",
            "rms_norm", "rms_norm_bwd", "rms_norm_bwd_ref", "rms_norm_ref",
-           "ssd_scan", "ssd_scan_ref"]
+           "ssd_scan", "ssd_scan_bwd", "ssd_scan_bwd_ref", "ssd_scan_ref"]

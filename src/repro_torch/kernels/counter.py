@@ -36,6 +36,7 @@ def forward_only(name, *tensors) -> None:
 
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise NotImplementedError(
-            f"{name}: the CUDA kernel has no backward yet, so it cannot run "
-            "under autograd (ROADMAP.md queue 1, item 17); train this "
-            "family on the CPU, or call it under torch.no_grad()")
+            f"{name}: the CUDA kernel has no backward, so it cannot run "
+            "under autograd: train mode attends through plain "
+            "full_attention, as the reference does, and the paged decodes "
+            "never train; call it under torch.no_grad()")

@@ -1,5 +1,6 @@
-"""Wrapper of the SSD chunk-scan kernel (``csrc/ssd_chunk.cu``), in the
-(B, S, H, ...) layout of ``repro/kernels/ssd_chunk/ops.py::ssd_scan``.
+"""Wrappers of the SSD chunk-scan kernels (``csrc/ssd_chunk.cu``, and its
+backward ``csrc/ssd_chunk_bwd.cu``), in the (B, S, H, ...) layout of
+``repro/kernels/ssd_chunk/ops.py::ssd_scan``.
 
 A CPU tensor goes to the plain version (``ref.py``); a CUDA tensor
 launches the kernel on the current stream or raises — there is no
@@ -8,6 +9,12 @@ may be a head-broadcast view of stride 0: read once per group) and writes
 y in (B, S, H, P), so the wrapper copies nothing.  In bf16 the scan is
 three launches (chunk states, state pass, chunk output) on one f32
 scratch; its design note is at the top of its source.
+
+Under autograd on the card (grad mode on, an input requiring grad) the
+scan runs as ``SSDScanFn``: the same forward launch, and ``ssd_scan_bwd``,
+the backward kernel, for its gradient.  dB and dC come back per head, so
+that where B and C are one group's stride-0 view (``models/ssm.py``)
+autograd's expand backward sums the group's heads once.
 """
 from __future__ import annotations
 
@@ -16,16 +23,21 @@ import ctypes
 import torch
 
 from ..build import load_library
-from ..counter import LaunchCounter, forward_only
-from .ref import ssd_scan_ref
+from ..counter import LaunchCounter
+from .ref import ssd_scan_bwd_ref, ssd_scan_ref
 
 SOURCES = ["ssd_chunk.cu"]
+BWD_SOURCES = ["ssd_chunk_bwd.cu"]
 MAX_HEAD_DIM = 64
 MAX_STATE = 128
 MAX_CHUNK = 256
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # phases of the bf16 scan (a bit mask of the C entry)
 STATES, PASS, OUTPUT = 1, 2, 4
+# phases of the backward: the states, the forward's state pass and the
+# reverse pass (h_prev, h_final, the state gradients); then the
+# within-chunk gradients from them
+BWD_STATES, BWD_GRADS = 1, 2
 
 
 def library() -> ctypes.CDLL:
@@ -113,12 +125,20 @@ def _prepare(x, dt, a, bmat, cmat, chunk):
 def ssd_scan(x, dt, a, bmat, cmat, *, chunk=256):
     """x: (B, S, H, P); dt: (B, S, H) step sizes; a: (H,) negative decay
     rates; b/c: (B, S, H, N).  Returns (y: (B, S, H, P) in x's dtype,
-    h_final: (B, H, P, N) f32) — the chunked SSD scan from a zero state."""
+    h_final: (B, H, P, N) f32) — the chunked SSD scan from a zero state.
+    Under autograd on the card it runs as ``SSDScanFn``."""
     if x.device.type == "cpu":
         return ssd_scan_ref(x, dt, a, bmat, cmat, chunk=chunk)
     if x.device.type != "cuda":
         raise RuntimeError(f"ssd_scan: no kernel for device {x.device}")
-    forward_only("ssd_scan", x, dt, a, bmat, cmat)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, dt, a, bmat, cmat)):
+        return SSDScanFn.apply(x, dt, a, bmat, cmat, chunk)
+    return _scan(x, dt, a, bmat, cmat, chunk)
+
+
+def _scan(x, dt, a, bmat, cmat, chunk):
+    """The forward launch (all three phases), counted."""
     dt, a, dims = _prepare(x, dt, a, bmat, cmat, chunk)
     b, s, h, p, n = dims
     y = torch.empty((b, s, h, p), dtype=x.dtype, device=x.device)
@@ -177,3 +197,156 @@ def ssd_chunk_output(x, dt, a, bmat, cmat, h_prev, *, chunk):
     _launch(OUTPUT, x.dtype, dims, chunk, x=x, dt=dt, a=a, bmat=bmat,
             cmat=cmat, y=y, states=h_prev)
     return y
+
+
+# ------------------------------------------------------------------ backward
+def bwd_library() -> ctypes.CDLL:
+    """The built backward library (``nvcc`` at first use)."""
+    lib = load_library("ssd_chunk_bwd", BWD_SOURCES)
+    fn = lib.repro_ssd_chunk_bwd
+    if fn.argtypes is None:
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        fn.argtypes = [i, i] + [p] * 17 + [i] * 6 + [ll] * 15 + [p]
+        fn.restype = i
+    return lib
+
+
+def _bwd_scratch(b, h, s, nc, p, n, device):
+    """f32 scratch of the backward: hprev and dstate (B, H, nc, P, N), hf
+    (B, H, P, N), decay (B, H, nc), dcum (B, H, S)."""
+    def f(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=device)
+    return dict(hprev=f(b, h, nc, p, n), dstate=f(b, h, nc, p, n),
+                hf=f(b, h, p, n), decay=f(b, h, nc), dcum=f(b, h, s))
+
+
+def _launch_bwd(phases, x, dt, a, bmat, cmat, dy, dims, chunk, scratch, *,
+                dh_final=None, grads=None):
+    """One call of the backward's C entry; ``grads``: (dx, ddt, da, dB,
+    dC), absent for the states phase alone."""
+    def ptr(t):
+        return 0 if t is None else t.data_ptr()
+    dx, ddt, da, db, dc = grads or (None,) * 5
+    err = bwd_library().repro_ssd_chunk_bwd(
+        _DTYPES[x.dtype], phases, ptr(x), ptr(dt), ptr(a), ptr(bmat),
+        ptr(cmat), ptr(dy), ptr(dh_final), ptr(dx), ptr(ddt), ptr(da),
+        ptr(db), ptr(dc), *(ptr(scratch[k]) for k in (
+            "hprev", "hf", "dstate", "decay", "dcum")), *dims, int(chunk),
+        *(st for t in (x, dt, bmat, cmat, dy) for st in t.stride()[:3]),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"ssd_chunk_bwd kernel launch failed: CUDA error "
+                           f"{err}")
+
+
+def _bwd_prepare(x, dt, a, bmat, cmat, dy, dh_final, chunk):
+    if x.device.type != "cuda":
+        raise RuntimeError(f"ssd_scan_bwd: no kernel for device {x.device}")
+    dt, a, dims = _prepare(x, dt, a, bmat, cmat, chunk)
+    b, s, h, p, n = dims
+    if dy.shape != x.shape or dy.device != x.device:
+        raise ValueError(f"dy {tuple(dy.shape)} on {dy.device} does not "
+                         f"match x {tuple(x.shape)} on {x.device}")
+    dy = dy.to(x.dtype).contiguous()
+    if dh_final is not None:
+        if dh_final.shape != (b, h, p, n) or dh_final.device != x.device:
+            raise ValueError(f"dh_final {tuple(dh_final.shape)} does not "
+                             f"match ({b}, {h}, {p}, {n})")
+        dh_final = dh_final.float().contiguous()
+    return dt, a, dy, dh_final, dims
+
+
+def _bwd_grads(x, dims):
+    b, s, h, p, n = dims
+    return (torch.empty((b, s, h, p), dtype=x.dtype, device=x.device),
+            torch.empty((b, s, h), dtype=torch.float32, device=x.device),
+            torch.empty((h,), dtype=torch.float32, device=x.device),
+            torch.empty((b, s, h, n), dtype=x.dtype, device=x.device),
+            torch.empty((b, s, h, n), dtype=x.dtype, device=x.device))
+
+
+def ssd_scan_bwd(x, dt, a, bmat, cmat, dy, dh_final=None, *, chunk=256):
+    """The backward kernel: (dx, ddt, da, dB, dC) of ``ssd_scan`` for the
+    output gradient ``dy`` (B, S, H, P) and ``dh_final`` (B, H, P, N) of
+    h_final (None: zero).  dx, dB and dC in x's dtype, dB and dC per head
+    (B, S, H, N); ddt and da in f32.  Recomputes the forward's chunk
+    states from the inputs; its design note is at the top of
+    ``csrc/ssd_chunk_bwd.cu``.  A CPU tensor takes the plain backward."""
+    if x.device.type == "cpu":
+        return ssd_scan_bwd_ref(x, dt, a, bmat, cmat, dy, dh_final,
+                                chunk=chunk)
+    dt, a, dy, dh_final, dims = _bwd_prepare(x, dt, a, bmat, cmat, dy,
+                                             dh_final, chunk)
+    b, s, h, p, n = dims
+    scratch = _bwd_scratch(b, h, s, -(-s // chunk), p, n, x.device)
+    grads = _bwd_grads(x, dims)
+    _launch_bwd(BWD_STATES | BWD_GRADS, x, dt, a, bmat, cmat, dy, dims,
+                chunk, scratch, dh_final=dh_final, grads=grads)
+    ssd_scan_bwd.launches.add()     # one per call: every launch of it
+    return grads
+
+
+ssd_scan_bwd.launches = LaunchCounter()
+
+
+class SSDScanFn(torch.autograd.Function):
+    """The SSD scan under autograd on the card: the forward kernel (it
+    saves only its inputs: the backward recomputes the chunk states,
+    which under remat "full" keeps nothing of the scan between the two
+    passes), the backward kernel for its gradient."""
+
+    @staticmethod
+    def forward(ctx, x, dt, a, bmat, cmat, chunk):
+        y, hf = _scan(x, dt, a, bmat, cmat, chunk)
+        ctx.save_for_backward(x, dt, a, bmat, cmat)
+        ctx.chunk = chunk
+        ctx.set_materialize_grads(False)
+        return y, hf
+
+    @staticmethod
+    def backward(ctx, dy, dhf):
+        x, dt, a, bmat, cmat = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros_like(x)
+        dx, ddt, da, db, dc = ssd_scan_bwd(x, dt, a, bmat, cmat, dy, dhf,
+                                           chunk=ctx.chunk)
+        need = ctx.needs_input_grad
+        return tuple(g if need[k] else None
+                     for k, g in enumerate((dx, ddt, da, db, dc))) + (None,)
+
+
+# The backward's two phases one at a time (CUDA tensors), for holding each
+# to its plain version in ``ref.py`` and for planting faults between
+# them; these launches are not counted.
+def ssd_bwd_states(x, dt, a, bmat, cmat, dy, dh_final=None, *, chunk):
+    """Phase 1: the forward's chunk states and state pass, and the reverse
+    pass.  Returns the scratch: ``hprev`` (B, H, nc, P, N) the state
+    entering each chunk, ``hf`` h_final, ``decay`` (B, H, nc) each chunk's
+    cum_last, ``dstate`` (B, H, nc, P, N) the gradient of the state
+    leaving each chunk (and ``dcum``, not yet written)."""
+    dt, a, dy, dh_final, dims = _bwd_prepare(x, dt, a, bmat, cmat, dy,
+                                             dh_final, chunk)
+    b, s, h, p, n = dims
+    scratch = _bwd_scratch(b, h, s, -(-s // chunk), p, n, x.device)
+    _launch_bwd(BWD_STATES, x, dt, a, bmat, cmat, dy, dims, chunk, scratch,
+                dh_final=dh_final)
+    return scratch
+
+
+def ssd_bwd_grads(x, dt, a, bmat, cmat, dy, scratch, *, chunk):
+    """Phase 2: (dx, ddt, da, dB, dC) from phase 1's ``scratch`` (its
+    tensors contiguous f32, as ``ssd_bwd_states`` returns them)."""
+    dt, a, dy, _, dims = _bwd_prepare(x, dt, a, bmat, cmat, dy, None, chunk)
+    b, s, h, p, n = dims
+    nc = -(-s // chunk)
+    want = dict(hprev=(b, h, nc, p, n), dstate=(b, h, nc, p, n),
+                hf=(b, h, p, n), decay=(b, h, nc), dcum=(b, h, s))
+    for k, shape in want.items():
+        t = scratch[k]
+        if t.shape != shape or t.dtype != torch.float32 \
+                or not t.is_contiguous() or t.device != x.device:
+            raise ValueError(f"scratch {k} {tuple(t.shape)} does not match")
+    grads = _bwd_grads(x, dims)
+    _launch_bwd(BWD_GRADS, x, dt, a, bmat, cmat, dy, dims, chunk, scratch,
+                grads=grads)
+    return grads

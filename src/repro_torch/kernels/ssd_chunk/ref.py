@@ -7,6 +7,16 @@ on the card.  The three ``*_ref`` phase functions below are the kernel's
 chunk-parallel decomposition in f32 — chunk states, state pass, chunk
 output — over chunks of exactly ``chunk`` positions (the last one
 shorter), the oracles of the kernel's phases.
+
+The backward: ``ssd_scan_bwd_ref`` is autograd through ``ssd_scan_ref``,
+the backward kernel's oracle.  Its own decomposition, the plain version of
+each launch of ``csrc/ssd_chunk_bwd.cu`` (the formulas are derived in
+that file's note): the forward's chunk states and state pass again
+(``h_prev``), each chunk's pull on the state entering it
+(``ssd_dstates_ref``), the reverse state pass (``ssd_state_pass_bwd_ref``:
+the gradient of the state leaving each chunk), and the within-chunk
+gradients (``ssd_chunk_grads_ref``); ``ssd_scan_bwd_phases_ref`` chains
+them.
 """
 from __future__ import annotations
 
@@ -84,3 +94,112 @@ def ssd_chunk_output_ref(x, dt, a, bmat, cmat, h_prev, *, chunk):
     y = y + torch.einsum("bcihn,bhcpn->bcihp", cs, h_prev.float()) \
         * torch.exp(cum)[..., None]
     return y.reshape(b, -1, h, p)[:, :s].to(x.dtype)
+
+
+# ---------------------------------------------------------------- backward
+def ssd_scan_bwd_ref(x, dt, a, bmat, cmat, dy, dh_final=None, *, chunk):
+    """Autograd through ``ssd_scan_ref``: (dx, ddt, da, dB, dC) for the
+    output gradient ``dy`` (B, S, H, P) and, if given, ``dh_final``
+    (B, H, P, N) of h_final.  dB and dC are per head (B, S, H, N), as the
+    scan reads them; computed in the inputs' dtypes."""
+    leaves = [t.detach().requires_grad_() for t in (x, dt, a, bmat, cmat)]
+    with torch.enable_grad():
+        y, hf = ssd_scan_ref(*leaves, chunk=chunk)
+        outs, grads = [y], [dy.to(y.dtype)]
+        if dh_final is not None:
+            outs.append(hf)
+            grads.append(dh_final.to(hf.dtype))
+        return torch.autograd.grad(outs, leaves, grads)
+
+
+def ssd_dstates_ref(dy, dt, a, cmat, *, chunk):
+    """Each chunk's pull on the state entering it: E_c = sum_i exp(cum_i)
+    dy_i C_i^T, as (B, H, nc, P, N) f32 (the forward's chunk states with
+    dy for x, C for B and exp(cum_i) for the weight)."""
+    _, cum = _cum(dt, a, chunk)
+    return torch.einsum("bcih,bcihp,bcihn->bhcpn", torch.exp(cum),
+                        _chunks(dy, chunk), _chunks(cmat, chunk))
+
+
+def ssd_state_pass_bwd_ref(dstates, decay, dh_final=None):
+    """The reverse state pass: D_c, the gradient of the state leaving
+    chunk c, from D_{nc-1} = dh_final (or 0) and D_{c-1} = exp(cum_last_c)
+    D_c + E_c.  Returns (D (B, H, nc, P, N), the gradient of the zero
+    initial state (B, H, P, N))."""
+    d = (torch.zeros_like(dstates[:, :, 0]) if dh_final is None
+         else dh_final.float())
+    outs = [None] * dstates.shape[2]
+    for c in reversed(range(dstates.shape[2])):
+        outs[c] = d
+        d = torch.exp(decay[:, :, c])[..., None, None] * d + dstates[:, :, c]
+    return torch.stack(outs, 2), d
+
+
+def ssd_chunk_grads_ref(x, dt, a, bmat, cmat, dy, h_prev, h_final, dstate,
+                        *, chunk):
+    """The within-chunk gradients, in f32, from the state entering each
+    chunk (``h_prev`` (B, H, nc, P, N)), h_final and the gradient of the
+    state leaving each chunk (``dstate``).  With L_ij = exp(cum_i - cum_j)
+    for j <= i in a chunk, M = (C B^T) o L, Z = (dY X^T) o L o dt_j and
+    w_j = exp(cum_last - cum_j):
+      dC = Z B + exp(cum_i) dY h_prev;  dB = Z^T C + w_j dt_j X D;
+      W = M^T dY + w_j B D^T;  dx = dt_j W;  ddt_j = x_j . W_j + a r_j;
+      dcum_i = dy_i . y_i - dt_i (x_i . W_i), plus <D, state leaving the
+      chunk> at its last position; r is dcum's reverse cumsum within the
+      chunk and da = sum_j dt_j r_j.
+    Returns (dx, ddt, da, dB, dC): dx, dB and dC in x's dtype (dB and dC
+    per head), ddt and da in f32."""
+    b, s, h, p = x.shape
+    dts, cum = _cum(dt, a, chunk)                      # (B, nc, Q, H)
+    xs, bs, cs, dys = (_chunks(t, chunk) for t in (x, bmat, cmat, dy))
+    cum_t = cum.permute(0, 1, 3, 2)                    # (B, nc, H, Q)
+    mask = torch.ones((chunk, chunk), dtype=torch.bool,
+                      device=x.device).tril()
+    ell = torch.where(mask, torch.exp(cum_t[..., :, None]
+                                      - cum_t[..., None, :]), 0.0)
+    g = torch.einsum("bcihn,bcjhn->bchij", cs, bs)
+    m = g * ell
+    z = torch.einsum("bcihp,bcjhp->bchij", dys, xs) * ell \
+        * dts.permute(0, 1, 3, 2)[..., None, :]
+    hp = h_prev.float().permute(0, 2, 1, 3, 4)          # (B, nc, H, P, N)
+    dd = dstate.float().permute(0, 2, 1, 3, 4)
+    w = torch.exp(cum[:, :, -1:] - cum)                # (B, nc, Q, H)
+    # rows: dC, and dy_i . y_i as its diagonal part (sum_j M_ij dt_j
+    # dy_i . x_j) and off-diagonal part (C_i . dC's off-diagonal term)
+    off = torch.einsum("bcihp,bchpn->bcihn", dys, hp) \
+        * torch.exp(cum)[..., None]
+    dc = torch.einsum("bchij,bcjhn->bcihn", z, bs) + off
+    dy_y = (g * z).sum(-1).permute(0, 1, 3, 2) + (off * cs).sum(-1)
+    # columns: dB and W
+    db = torch.einsum("bchij,bcihn->bcjhn", z, cs) \
+        + torch.einsum("bcjhp,bchpn->bcjhn", xs, dd) * (w * dts)[..., None]
+    wv = torch.einsum("bchij,bcihp->bcjhp", m, dys) \
+        + torch.einsum("bcjhn,bchpn->bcjhp", bs, dd) * w[..., None]
+    direct = (xs * wv).sum(-1)                         # (B, nc, Q, H)
+    # the state leaving chunk c is the state entering c + 1 (h_final for
+    # the last); a padded position has dt 0, so its term may sit at the
+    # padded end of a short last chunk
+    leaving = torch.cat([h_prev.float()[:, :, 1:],
+                         h_final.float()[:, :, None]], 2)
+    dcum = dy_y - dts * direct
+    dcum[:, :, -1] += (dstate.float() * leaving).sum((-1, -2)).transpose(1, 2)
+    r = dcum.flip(2).cumsum(2).flip(2)
+    ddt = direct + a.float() * r
+    da = (dts * r).sum((0, 1, 2))
+
+    def back(t):
+        return t.reshape(b, -1, *t.shape[3:])[:, :s]
+    return (back(wv * dts[..., None]).to(x.dtype), back(ddt), da,
+            back(db).to(x.dtype), back(dc).to(x.dtype))
+
+
+def ssd_scan_bwd_phases_ref(x, dt, a, bmat, cmat, dy, dh_final=None, *,
+                            chunk):
+    """The backward kernel's decomposition in plain PyTorch, phase by
+    phase: the same (dx, ddt, da, dB, dC) as ``ssd_scan_bwd_ref``."""
+    states, decay = ssd_chunk_states_ref(x, dt, a, bmat, cmat, chunk=chunk)
+    h_prev, h_final = ssd_state_pass_ref(states, decay)
+    dstate, _ = ssd_state_pass_bwd_ref(
+        ssd_dstates_ref(dy, dt, a, cmat, chunk=chunk), decay, dh_final)
+    return ssd_chunk_grads_ref(x, dt, a, bmat, cmat, dy, h_prev, h_final,
+                               dstate, chunk=chunk)

@@ -4,7 +4,9 @@
 Train and prefill run the chunked SSD form; decode is the O(1) recurrent
 update.  The scan goes through the SSD kernel's wrapper
 (``repro_torch.kernels.ssd_scan``: the hand-written CUDA kernel on the
-card, its plain version ``ssd_chunked`` on the CPU).  The reference model
+card, its plain version ``ssd_chunked`` on the CPU); in train mode on the
+card it runs as ``SSDScanFn``, whose backward is the CUDA backward kernel
+(``csrc/ssd_chunk_bwd.cu``).  The reference model
 calls ``ssd_chunked`` itself, with the state carried in the activation
 dtype; the kernel carries it in f32 and its ``h_final`` is cast to the
 activation dtype — the same numbers in f32, within bf16 rounding in bf16.
@@ -94,10 +96,13 @@ def ssd_chunked(xs, dt, a_coef, b_in, c_in, chunk, init_state):
     cum = torch.cumsum(a, dim=2)                           # inclusive
     cum_t = cum.permute(0, 1, 3, 2)                        # (B,nc,H,Q)
 
-    # within-chunk (diag) term
+    # within-chunk (diag) term.  Masked before the exp: above the diagonal
+    # diff > 0 overflows to inf at real step sizes, and the reference's
+    # where(mask, exp(diff), 0) then carries 0 * inf = nan into diff's
+    # gradient; the values are the same
     diff = cum_t[..., :, None] - cum_t[..., None, :]       # (B,nc,H,Q,Q)
     mask = torch.ones((q, q), dtype=torch.bool, device=xs.device).tril()
-    decay = torch.where(mask, torch.exp(diff), 0.0)
+    decay = torch.exp(diff.masked_fill(~mask, float("-inf")))
     cb = torch.einsum("bcihn,bcjhn->bchij", c_in, b_in).float()
     m = (cb * decay).to(xs.dtype)
     y_diag = torch.einsum("bchij,bcjhp->bcihp", m, xdt)

@@ -1,18 +1,25 @@
 """Gradients through the port's kernels.
 
-RMSNorm is the one kernel on the training path, and the only one with a
-backward on the card (``kernels/rmsnorm``: ``RMSNormFn``, whose forward
-is the Triton forward saving ``rstd`` and whose backward is the Triton
-backward).  On the CPU its plain backward (``rms_norm_bwd_ref``) is held
-to ``jax.grad`` of the reference's ``rms_norm``
-(``src/repro/models/layers.py:11``) and to autograd through the plain
-forward.  The other four CUDA wrappers have no backward: under autograd
-they raise rather than hand back an output that carries no gradient
+RMSNorm and the SSD scan are the kernels on the training path, and the
+two with a backward on the card: ``kernels/rmsnorm`` (``RMSNormFn``, whose
+forward is the Triton forward saving ``rstd`` and whose backward is the
+Triton backward) and ``kernels/ssd_chunk`` (``SSDScanFn``: the scan's
+forward kernel, and ``ssd_scan_bwd``, the CUDA backward).  On the CPU the
+norm's plain backward (``rms_norm_bwd_ref``) is held to ``jax.grad`` of
+the reference's ``rms_norm`` (``src/repro/models/layers.py:11``) and to
+autograd through the plain forward; the scan's plain backward is held in
+``test_torch_ssd_grad.py``.  The other three CUDA wrappers (flash
+attention, the paged decodes) have no backward: under autograd they raise
+rather than hand back an output that carries no gradient
 (``kernels.counter.forward_only``); on the CPU they take their plain
 versions, which autograd differentiates.
 
-The ``gpu`` cases hold the backward kernel to the plain backward on the
-card and check that each guarded wrapper raises there; they skip here.
+The ``gpu`` cases hold both backward kernels to their plain backwards on
+the card — the scan's through autograd in the model's layout (B and C one
+group's view of stride 0 over the heads, as ``models/ssm.py`` hands them
+over), at the reference's grid and at mamba2-780m's and jamba-v0.1-52b's
+shapes — and check that each guarded wrapper raises there; they skip
+here.
 
 Tolerances.  CPU, f32: dx rtol 1e-5 / atol 1e-6 — XLA and PyTorch take
 the row mean in another order.  Card: dx elementwise as the forward
@@ -20,7 +27,17 @@ kernel's (2e-5 in f32, 2e-2 in bf16; bf16 rows also held by
 ``ROW_TOL``), dw by its relative L2 error, 1e-5 in f32 (a sum over up
 to 4096 rows in another order) and 2e-3 in bf16 (both round the same
 f32 sums to bf16; an entry that rounds the other way is 2^-8 off, and
-2e-3 allows some 6 % of entries to: ``chip_smoke.DW_TOL``).
+2e-3 allows some 6 % of entries to: ``chip_smoke.DW_TOL``).  The SSD
+backward (``SSD_BWD_TOL``; ``chip_smoke.SSD_BWD_TOL``, ``SSD_ROW_TOL``): in f32 each
+gradient elementwise within 1e-4 of itself plus 1e-4 of its largest value
+(sums over up to 256 positions and 128 states in another order; ddt and
+da come out of a reverse cumsum whose terms cancel, so their error is
+held against the gradient's scale); in bf16 row by row against the plain
+backward in f32 from the same bf16 inputs, RMS 1e-2 and worst row 5e-2:
+the kernel sums in f32 and rounds dx, dB and dC once to bf16 (RMS about
+1.1e-3 of a row), and autograd sums the per-head dB and dC of a group in
+bf16; a chunk's dB zeroed or dB times the head count is off by a whole
+row.
 """
 import numpy as np
 import pytest
@@ -29,7 +46,7 @@ import torch
 from repro_torch.kernels import (flash_attention, paged_decode_attention,
                                  paged_mla_decode_attention, rms_norm,
                                  rms_norm_bwd, rms_norm_bwd_ref, rms_norm_ref,
-                                 ssd_scan)
+                                 ssd_scan, ssd_scan_bwd, ssd_scan_ref)
 from repro_torch.kernels.counter import forward_only
 
 SHAPES = [(128, 256), (4, 32, 512), (1, 64), (7, 5120)]
@@ -37,6 +54,12 @@ TOL = {"float32": dict(rtol=2e-5, atol=2e-5),
        "bfloat16": dict(rtol=2e-2, atol=2e-2)}
 DW_TOL = {"float32": 1e-5, "bfloat16": 2e-3}
 ROW_TOL = dict(rms=1e-2, worst=5e-2)
+SSD_BWD_TOL = dict(rtol=1e-4, atol_of_max=1e-4)
+# (B, S, H, P, N, chunk): the reference's grid (tests/test_kernels.py:
+# 205-209), mamba2-780m's train microbatch and jamba-v0.1-52b's prefill
+SSD_BWD_SHAPES = [(1, 128, 2, 64, 32, 32), (2, 256, 4, 32, 64, 64),
+                  (1, 64, 1, 16, 16, 64), (4, 1024, 48, 64, 128, 256),
+                  (1, 2048, 128, 64, 16, 256)]
 
 
 @pytest.fixture
@@ -89,7 +112,7 @@ def test_cpu_wrapper_is_differentiated_by_autograd(shape):
 
 def test_forward_only_raises_under_autograd_only():
     t = torch.ones(3, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="item 17"):
+    with pytest.raises(NotImplementedError, match="no backward"):
         forward_only("k", torch.ones(3), t)
     with torch.no_grad():
         forward_only("k", t)
@@ -188,12 +211,103 @@ def test_guarded_wrappers_raise_under_grad_on_the_card(cuda):
         "paged_mla_decode_attention": lambda g: paged_mla_decode_attention(
             g, t(1, 1, 4, 32), t(4, 16, 64), t(4, 16, 32), table, pos,
             page_size=16, scale=0.1),
-        "ssd_scan": lambda g: ssd_scan(g, torch.rand(1, 64, 4, device=cuda),
-                                       -torch.rand(4, device=cuda),
-                                       t(1, 64, 4, 16), t(1, 64, 4, 16),
-                                       chunk=64),
     }
     for name, call in calls.items():
-        with pytest.raises(NotImplementedError, match=f"{name}.*item 17"):
+        with pytest.raises(NotImplementedError, match=f"{name}.*no backward"):
             call(t(1, 1 if "decode" in name else 64, 4, 64)
                  .requires_grad_())
+    # the SSD scan has its backward: under grad it runs as SSDScanFn
+    x = t(1, 64, 4, 64).requires_grad_()
+    y, _ = ssd_scan(x, torch.rand(1, 64, 4, device=cuda),
+                    -torch.rand(4, device=cuda), t(1, 64, 4, 16),
+                    t(1, 64, 4, 16), chunk=64)
+    assert y.grad_fn is not None
+    y.float().sum().backward()
+    assert x.grad is not None and torch.isfinite(x.grad.float()).all()
+
+
+def _ssd_model_case(shape, dtype, device, seed=4):
+    """Inputs in the model's layout (``models/ssm.py`` at ssm_ngroups 1):
+    x, B and C views of one conv output (B, S, H*P + 2N), B and C its one
+    group expanded to every head (head stride 0); dt, a and that output
+    are the leaves.  Returns (leaves, views(leaves), dy, dh_final)."""
+    b, s, h, p, n, _ = shape
+    rng = np.random.default_rng(seed)
+    conv = rng.standard_normal((b, s, h * p + 2 * n), np.float32)
+    conv[..., h * p:] *= 0.5
+    dt = np.log1p(np.exp(rng.standard_normal((b, s, h)))) * 0.1
+    a = -np.exp(rng.standard_normal(h) * 0.3)
+    dy = rng.standard_normal((b, s, h, p), np.float32)
+    dhf = rng.standard_normal((b, h, p, n), np.float32)
+    leaves = [torch.tensor(conv, device=device).to(dtype).requires_grad_(),
+              torch.tensor(dt.astype(np.float32), device=device,
+                           requires_grad=True),
+              torch.tensor(a.astype(np.float32), device=device,
+                           requires_grad=True)]
+
+    def views(conv_t, dt_t, a_t):
+        bc = conv_t[..., h * p:].unflatten(-1, (2, 1, n))
+        return (conv_t[..., :h * p].unflatten(-1, (h, p)), dt_t, a_t,
+                bc[:, :, 0].expand(b, s, h, n), bc[:, :, 1].expand(b, s, h, n))
+    return (leaves, views, torch.tensor(dy, device=device).to(dtype),
+            torch.tensor(dhf, device=device))
+
+
+def _ssd_grads(scan, leaves, views, dy, dhf, chunk):
+    y, hf = scan(*views(*leaves), chunk=chunk)
+    return torch.autograd.grad((y, hf), leaves, (dy.to(y.dtype), dhf))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", SSD_BWD_SHAPES)
+def test_ssd_backward_kernel_matches_plain(shape, dtype, cuda):
+    """The scan's gradients through ``SSDScanFn`` (the backward kernel) in
+    the model's layout against autograd through the plain scan in f32
+    from the same inputs: d(conv) (so dx and the group's dB and dC), ddt
+    and da; the launch counters move by one each."""
+    dt = getattr(torch, dtype)
+    leaves, views, dy, dhf = _ssd_model_case(shape, dt, cuda)
+    f0, b0 = ssd_scan.launches.value, ssd_scan_bwd.launches.value
+    got = _ssd_grads(ssd_scan, leaves, views, dy, dhf, shape[-1])
+    torch.cuda.synchronize()
+    assert ssd_scan.launches.value == f0 + 1
+    assert ssd_scan_bwd.launches.value == b0 + 1
+    plain = [t.detach().float().requires_grad_() for t in leaves]
+    want = _ssd_grads(ssd_scan_ref, plain, views, dy.float(), dhf,
+                      shape[-1])
+    b, s, h, p, n, _ = shape
+    for name, g, w in zip(("conv", "dt", "a"), got, want):
+        assert g.dtype == leaves[("conv", "dt", "a").index(name)].dtype
+        assert torch.isfinite(g.float()).all(), name
+        if dtype == "float32":
+            tol = SSD_BWD_TOL["rtol"] * w.abs() \
+                + SSD_BWD_TOL["atol_of_max"] * w.abs().max()
+            bad = (g - w).abs() > tol
+            assert not bad.any(), (name, (g - w).abs().max().item())
+            continue
+        if name == "conv":      # dx rows (b, s, h), dB and dC rows (b, s)
+            rows = [(g[..., :h * p].unflatten(-1, (h, p)),
+                     w[..., :h * p].unflatten(-1, (h, p))),
+                    (g[..., h * p:h * p + n], w[..., h * p:h * p + n]),
+                    (g[..., h * p + n:], w[..., h * p + n:])]
+        else:                   # ddt rows (b, s) over heads; da one row
+            rows = [(g, w)]
+        for gr, wr in rows:
+            rms, worst = _row_rel(gr, wr)
+            assert rms <= ROW_TOL["rms"] and worst <= ROW_TOL["worst"], (
+                name, rms, worst)
+
+
+@pytest.mark.gpu
+def test_ssd_without_grad_takes_the_plain_launch(cuda):
+    """Serving (no grad) never records the Function: one forward launch,
+    no backward."""
+    leaves, views, _, _ = _ssd_model_case((1, 128, 2, 64, 32, 32),
+                                          torch.bfloat16, cuda)
+    f0, b0 = ssd_scan.launches.value, ssd_scan_bwd.launches.value
+    with torch.no_grad():
+        y, _ = ssd_scan(*views(*leaves), chunk=32)
+    assert y.grad_fn is None
+    assert ssd_scan.launches.value == f0 + 1
+    assert ssd_scan_bwd.launches.value == b0

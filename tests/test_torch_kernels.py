@@ -48,6 +48,9 @@ MLA_SHAPE = (16, 40, 256, 32, 2080, 8)   # minicpm3-4b decode
 SSD_GRID = [(1, 128, 2, 64, 32, 32),  # tests/test_kernels.py:205-209
             (2, 256, 4, 32, 64, 64),
             (1, 64, 1, 16, 16, 64)]   # single chunk
+# the main paths' SSD shapes: mamba2-780m's prefill (48 heads, N 128) and
+# jamba-v0.1-52b's (128 heads, N 16)
+SSD_MODEL_SHAPES = [(1, 2048, 48, 64, 128, 256), (1, 2048, 128, 64, 16, 256)]
 SSD_TOL = {"float32": dict(rtol=1e-4, atol=1e-4),
            "bfloat16": dict(rtol=4e-2, atol=4e-2)}
 ROW_TOL = dict(rms=1e-2, worst=5e-2)
@@ -483,7 +486,7 @@ def test_paged_mla_kernel_garbage_and_future_pages(cuda):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("shape", SSD_GRID + [(1, 2048, 48, 64, 128, 256)])
+@pytest.mark.parametrize("shape", SSD_GRID + SSD_MODEL_SHAPES)
 def test_ssd_kernel_matches_plain(shape, dtype, cuda):
     *dims, chunk = shape
     args = _ssd_torch(_ssd_inputs(*dims, seed=4), dtype, cuda)
