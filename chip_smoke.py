@@ -29,9 +29,13 @@ Phases (each raises on failure, so the script exits non-zero):
    check must reject), the SSD backward (``check_ssd_bwd``: through
    autograd in the model's layout against the plain backward, f32 and
    bf16 row by row, at the reference's grid, a short last chunk,
-   mamba2-780m's train microbatch and jamba's shape; three planted
-   faults: the carried state's gradient dropped, one chunk's dB zeroed,
-   dB times the group's head count), flash attention
+   mamba2-780m's train microbatch and jamba's shape; in bf16 also with
+   per-head B and C (one C B^T per head), equal bit for bit to the group
+   view's; the phases one at a time with C B^T held to its plain version;
+   four planted faults: the carried state's gradient dropped, one chunk's
+   dB zeroed, dB times the group's head count, one tile pair of the C B^T
+   scratch zeroed; the launches' blocks, shared memory and blocks an SM
+   holds), flash attention
    at qwen2.5-14b's (1 x 2048, 16 x 512), mixtral-8x7b's, musicgen-large's
    (1 x 2048, MHA, D 64) and internvl2-2b's (1 x 2304) prefill shapes (at
    the frontends' with each head reading the next KV head planted),
@@ -47,15 +51,18 @@ Phases (each raises on failure, so the script exits non-zero):
    trace holds every launch.
 4. serve  — the port's main paths at full width, one after the other,
    each behind ``repro_torch.serve.ServeEngine`` on the UMT runtime with
-   seeded bf16 weights made on the card by the engine's weights task:
-   qwen2.5-14b (paged, ``paged_kernel=True``, flash prefill), minicpm3-4b
-   (MLA, paged, ``paged_kernel=True``), mamba2-780m (SSD,
-   ``page_size="auto"``) at full depth, each with 32 requests with prompt
-   lengths from {256, 512, 1024, 2048} and 16 slots; then mixtral-8x7b
-   (MoE, sliding-window rings, flash prefill) at 16 of its 32 layers (the
-   whole model does not fit one card), 16 requests, each prompt length of
-   {1024, 2048, 6144, 8192} four times, 8 slots; then the two frontends
-   at full width and depth with the prefix trie on: internvl2-2b (32
+   seeded bf16 weights made on the card by the engine's weights task, at
+   the depth ``PHASES`` gives each (the cuts and their reason beside
+   it): qwen2.5-14b (paged, ``paged_kernel=True``, flash prefill; 24 of
+   48 layers), minicpm3-4b (MLA, paged, ``paged_kernel=True``; 48 of 62
+   layers), mamba2-780m (SSD, ``page_size="auto"``; 24 of 48), each with
+   32 requests with prompt lengths from {256, 512, 1024, 2048} and 16
+   slots; then mixtral-8x7b (MoE, sliding-window rings, flash prefill) at
+   8 of its 32 layers (the whole model does not fit one card), 16
+   requests, each prompt length of {1024, 2048, 6144, 8192} four times,
+   8 slots; then the two frontends at full width with the prefix trie
+   on (internvl2-2b at 12 of 24 layers, musicgen-large at 24 of 48):
+   internvl2-2b (32
    requests of {256, 512, 1024, 2048} text tokens, each behind 256 patch
    embeddings drawn on the card at ``PATCH_STD``, 16 slots, cache_len
    2336; no vision request may look up or enter the trie) and
@@ -63,25 +70,26 @@ Phases (each raises on failure, so the script exits non-zero):
    embedding and heads scaled by ``AUDIO_EMBED_GAIN`` and
    ``AUDIO_HEAD_GAIN``, the reasons beside them; every check per
    codebook); then chunked prefill and
-   the shared-prefix cache, qwen2.5-14b (``qwen2.5-14b-prefix``, 24 of
+   the shared-prefix cache, qwen2.5-14b (``qwen2.5-14b-prefix``, 12 of
    its 48 layers) and minicpm3-4b (``minicpm3-4b-prefix``, full depth): 4
    prefixes of 1001 tokens, each heading 8 prompts with tails of 24-1000
    tokens, chunks of 512, one prompt per prefix first and the other 28
    once those have 2 tokens out (28 hits, each forking a partial page);
    then on-demand paging with eviction and restore (``policy="ondemand"``,
-   ``qwen2.5-14b-ondemand`` and ``mamba2-780m-ondemand``): the cold
+   ``qwen2.5-14b-ondemand`` at 12 and ``mamba2-780m-ondemand`` at 24
+   layers): the cold
    phases' traffic into a pool of two worst cases (``ONDEMAND_PAGES``),
    so that slots grow page by page and the youngest is evicted and
    restored — by prefill-replay through 512-token chunks on qwen2.5-14b,
    by decode-replay through the serve step on mamba2-780m; then
-   speculative decoding (``qwen2.5-14b-spec``, full width and depth,
+   speculative decoding (``qwen2.5-14b-spec``, full width,
    ``spec_k=4``, 16 requests, each prompt length four times): three legs
    on one set of weights with the same prompts and arrivals, (a) spec
    off, (b) a drafter that never drafts (every window one token), (c)
    an oracle drafter of leg (b)'s continuation with one rejected lane
-   every third window (``serve_spec``; 24 of 48 layers); then
-   jamba-v0.1-52b at full width and 16 of its 32 layers (2 attention,
-   14 SSM, 8 MoE layers; qwen's traffic, the dropless MoE, paged-kernel
+   every third window (``serve_spec``; 12 of 48 layers); then
+   jamba-v0.1-52b at full width and 8 of its 32 layers, one block (1
+   attention, 7 SSM, 4 MoE layers; qwen's traffic, the dropless MoE, paged-kernel
    decode; mixtral's route check; planted faults in its first SSM layer
    and its first attention layer).
    32 tokens each, staggered arrivals; each phase's requests must finish
@@ -285,13 +293,17 @@ SSD_ROW_TOL = dict(rms=1e-2, worst=5e-2)
 # another order; ddt and da come out of a reverse cumsum whose terms
 # cancel, so each is held against its own scale.  bf16, row by row (dx's
 # (b, s, h) rows, the group's dB and dC rows (b, s), ddt's rows (b, s)
-# over the heads, da one row): the kernel sums in f32 from the bf16
-# inputs and rounds dx, dB and dC once to bf16 (RMS about 1.1e-3 of a
-# row), and autograd sums a group's per-head dB and dC in bf16; so the
-# bounds of SSD_ROW_TOL leave a factor of about 10 at the RMS.  The
-# planted faults (the gradient of the carried state dropped, one chunk's
-# dB zeroed, dB times the group's head count) move whole rows: relative
-# errors near 1, or the head count less one.
+# over the heads, da one row): the kernel's products take bf16 operands
+# (the inputs as read; h_prev, D and the masked Z and M tiles rounded
+# once) with f32 sums, it rounds dx, dB and dC to bf16, and autograd sums
+# a group's per-head dB and dC in bf16.  On an H100 the rows of
+# dx, dB and dC read an RMS of 2.4-3.1e-3 (worst row 1.6e-2), those of
+# ddt and da 1.6-4.0e-4 (the kernel keeps the sums that dcum cancels to
+# about 16 bits); so the bounds of SSD_ROW_TOL leave a factor of 3 at
+# the RMS.  The planted faults (the gradient of the carried state
+# dropped, one chunk's dB zeroed, dB times the group's head count, one
+# tile pair of the C B^T scratch zeroed) move whole rows: relative errors
+# near 1, or the head count less one.
 SSD_BWD_TOL = dict(rtol=1e-4, atol_of_max=1e-4)
 # Token check: an emitted token may trail the teacher-forced forward's
 # argmax by at most this many logit units.  The engine's tokens come from
@@ -476,19 +488,31 @@ FRONTEND_DECODE = {"musicgen": ((16, 32, 32, 64, 2080, 8), 0),
 # attend in plain ``full_attention`` and gathers launch nothing, as in the
 # reference.  qwen2.5-14b and minicpm3-4b run with the prefix cache on
 # (``prefix_cache="auto"``); their random prompts must never hit.
+# Depth cuts, to keep the script well inside its time limit (ROADMAP,
+# "The time budget of the chip script"): the cold phases of qwen2.5-14b,
+# mamba2-780m and musicgen-large and the on-demand mamba2-780m at half
+# depth; internvl2-2b and qwen2.5-14b's prefix, on-demand and spec
+# phases at 12 layers; mixtral-8x7b and jamba at 8; minicpm3-4b's cold
+# phase at 48 of 62.  Every layer of a family runs the same kernels at
+# the same widths.  At their deeper depth these phases' planted faults
+# trailed the forward by 0.48 or more in relative logit error and by 1.8
+# or more in its argmax, against bars of 0.3 and 1.0 (PERF.md section
+# 6).  minicpm3-4b's prefix phase keeps all 62 layers: at 31 two of its
+# faults were no longer rejected, and at 62 one trails by 1.08.
 PHASES = {
-    "qwen2.5-14b": dict(paged_kernel=True, traffic=TRAFFIC,
+    "qwen2.5-14b": dict(paged_kernel=True, traffic=TRAFFIC, layers=24,
                         kernels={"paged_decode_attention": "decode",
                                  "flash_attention": "prefill"}),
     # minicpm3-4b also holds the MLA verify mode over its paged latent
     # pools (``verify_check``), with the window-late fault planted
-    "minicpm3-4b": dict(paged_kernel=True, traffic=TRAFFIC,
+    "minicpm3-4b": dict(paged_kernel=True, traffic=TRAFFIC, layers=48,
                         kernels={"paged_mla_decode_attention": "decode"},
                         verify_faults=("window_late",)),
-    "mamba2-780m": dict(paged_kernel=False, traffic=TRAFFIC,
+    "mamba2-780m": dict(paged_kernel=False, traffic=TRAFFIC, layers=24,
                         kernels={"ssd_scan": "prefill"}),
-    # 16 of 32 layers: full depth is 93.4 GB of bf16 weights, more than
-    # the card holds; 16 layers are 46.4 GB + 0.5 GB of embedding and head.
+    # 8 of 32 layers: full depth is 93.4 GB of bf16 weights, more than
+    # the card holds; 16 layers would be 46.4 GB + 0.5 GB of embedding and
+    # head, 8 keep the script's time.
     # The dropless MoE dispatch, as Mixtral is served: at this init the
     # capacity dispatch (the registry's default) drops some (token, pick)
     # pairs of every long prompt, and which ones depends on the sequence
@@ -496,30 +520,30 @@ PHASES = {
     # + tokens would differ by construction (``check_capacity_dispatch``
     # holds that dispatch on the card).
     "mixtral-8x7b": dict(paged_kernel=True, traffic=MIXTRAL_TRAFFIC,
-                         layers=16, moe_impl="ragged",
+                         layers=8, moe_impl="ragged",
                          kernels={"flash_attention": "prefill",
                                   "paged_decode_attention": None}),
-    # the frontends at full width and depth, behind the prefix trie
+    # the frontends at full width (internvl2-2b at 12 of its 24 layers,
+    # musicgen-large at 24 of 48), behind the prefix trie
     # (``prefix_cache="auto"``): a vision request never looks up or enters
     # it (asserted), musicgen's random code prompts never hit
     "internvl2-2b": dict(paged_kernel=True, traffic=VISION_TRAFFIC,
+                         layers=12,
                          kernels={"paged_decode_attention": "decode",
                                   "flash_attention": "prefill"}),
-    "musicgen-large": dict(paged_kernel=True, traffic=TRAFFIC,
+    "musicgen-large": dict(paged_kernel=True, traffic=TRAFFIC, layers=24,
                            kernels={"paged_decode_attention": "decode",
                                     "flash_attention": "prefill"}),
     # chunked prefill and the shared-prefix cache: every prompt is longer
     # than the chunk, so no one-shot prefill (and no flash launch) is due.
-    # qwen2.5-14b's at half depth since PR 17, to keep the script's time
-    # with the on-demand phases: what it holds (the gather, the tail's
-    # chunks at an offset, shared-page admission) is the same in every
-    # layer, and its planted faults still trail by 3.5 logits or more.
-    # minicpm3-4b's stays at full depth: at 31 layers two of its planted
-    # faults were no longer rejected.
+    # qwen2.5-14b's at 12 layers, for the script's time: what it holds
+    # (the gather, the tail's chunks at an offset, shared-page admission)
+    # is the same in every layer.  minicpm3-4b's stays at full depth: at
+    # 31 layers two of its planted faults were no longer rejected.
     "qwen2.5-14b-prefix": dict(
         arch="qwen2.5-14b", paged_kernel=True,
         traffic=PREFIX_TRAFFIC, prefill_chunk=512, prefix_cache="on",
-        layers=24, kernels={"paged_decode_attention": "decode",
+        layers=12, kernels={"paged_decode_attention": "decode",
                             "flash_attention": None}),
     "minicpm3-4b-prefix": dict(
         arch="minicpm3-4b", paged_kernel=True,
@@ -531,20 +555,19 @@ PHASES = {
     # with the pages its eviction handed over), decode-replay through the
     # serve step (mamba2-780m: the prompt's one-shot prefill with the SSD
     # kernel, then one batch-1 serve step per emitted token)
-    # qwen2.5-14b's at half depth, to make room for the train phase
-    # within the script's time: growth, eviction and restore are the same
-    # in every layer
+    # qwen2.5-14b's at 12 layers, for the script's time: growth,
+    # eviction and restore are the same in every layer
     "qwen2.5-14b-ondemand": dict(
         arch="qwen2.5-14b", paged_kernel=True, traffic=TRAFFIC,
         prefill_chunk=512, policy="ondemand", num_pages=ONDEMAND_PAGES,
-        layers=24,
+        layers=12,
         kernels={"paged_decode_attention": "decode",
                  "flash_attention": "prefill"}),
     "mamba2-780m-ondemand": dict(
         arch="mamba2-780m", paged_kernel=False, traffic=TRAFFIC,
-        policy="ondemand", num_pages=ONDEMAND_PAGES,
+        policy="ondemand", num_pages=ONDEMAND_PAGES, layers=24,
         kernels={"ssd_scan": "prefill"}),
-    # speculative decoding, full width and depth, three legs on one set of
+    # speculative decoding, full width, three legs on one set of
     # weights (``serve_spec``): (a) spec off, paged-kernel decode ticks;
     # (b) and (c) every tick a verify dispatch spec_k + 1 lanes wide
     # (gather path, no paged kernel: ``spec_kernels``), (b) drafting
@@ -556,12 +579,11 @@ PHASES = {
     # its drafts instead of the verify step's argmaxes, in a rerun of leg
     # (c) that must fail the token check (its corrupted lanes land in the
     # stream)
-    # qwen2.5-14b-spec at half depth since the SSD train and jamba phases
-    # joined, to keep the script's time: drafting, verifying and rolling
-    # back are the same in every layer
+    # qwen2.5-14b-spec at 12 layers, for the script's time: drafting,
+    # verifying and rolling back are the same in every layer
     "qwen2.5-14b-spec": dict(
         arch="qwen2.5-14b", paged_kernel=True, traffic=SPEC_TRAFFIC,
-        spec_k=4, verify_faults=("window_late", "mask_dropped"), layers=24,
+        spec_k=4, verify_faults=("window_late", "mask_dropped"), layers=12,
         kernels={"paged_decode_attention": "decode",
                  "flash_attention": "prefill"},
         spec_kernels={"paged_decode_attention": None,
@@ -574,8 +596,9 @@ PHASES = {
                               cut=TRAIN_CUT),
     "mamba2-780m-train": dict(arch="mamba2-780m", train=TRAIN,
                               tol=TRAIN_TOL_DEEP),
-    # jamba at full width and 16 of its 32 layers (2 attention, 14 SSM, 8
-    # MoE): full depth is 102.9 GB of bf16 weights, 16 layers 52.0 GB.
+    # jamba at full width and 8 of its 32 layers, one whole block (1
+    # attention, 7 SSM, 4 MoE): full depth is 102.9 GB of bf16 weights,
+    # 16 layers 52.0 GB, 8 keep the script's time.
     # Served as mixtral is (the dropless MoE, paged-kernel decode), with
     # qwen's traffic; flash and the paged decode run in its attention
     # layers only, the SSD scan in its SSM layers only.  One prompt per
@@ -585,7 +608,7 @@ PHASES = {
     # one-prompt prefills do not take (on an H100, one such batched
     # prefill left 28 of 1024 engine tokens unreproduced by the step path
     # and one trailing the forward's argmax by 1.56)
-    "jamba-v0.1-52b": dict(paged_kernel=True, traffic=TRAFFIC, layers=16,
+    "jamba-v0.1-52b": dict(paged_kernel=True, traffic=TRAFFIC, layers=8,
                            moe_impl="ragged", max_prefill_batch=1,
                            kernels={"paged_decode_attention": "decode",
                                     "flash_attention": "prefill",
@@ -1578,14 +1601,18 @@ def ssd_views(conv, dt, a, h, p, n):
             bc[:, :, 0].expand(b, s, h, n), bc[:, :, 1].expand(b, s, h, n))
 
 
-def ssd_grads(scan, leaves, dy, dhf, shape):
+def ssd_grads(scan, leaves, dy, dhf, shape, per_head=False):
     """{dx, dB, dC (the group's), ddt, da} through autograd from
-    ``scan(*ssd_views(leaves))``."""
+    ``scan(*ssd_views(leaves))``; ``per_head``: B and C copied to every
+    head first (head stride N: the backward's per-head C B^T route)."""
     import torch
 
     _, _, h, p, n, chunk = shape
     leaves = [t.detach().requires_grad_() for t in leaves]
-    y, hf = scan(*ssd_views(*leaves, h, p, n), chunk=chunk)
+    views = ssd_views(*leaves, h, p, n)
+    if per_head:
+        views = views[:3] + tuple(t.contiguous() for t in views[3:])
+    y, hf = scan(*views, chunk=chunk)
     dconv, ddt, da = torch.autograd.grad((y, hf), leaves,
                                          (dy.to(y.dtype), dhf))
     return {"dx": dconv[..., :h * p].unflatten(-1, (h, p)),
@@ -1603,67 +1630,103 @@ def rows_rejected(rows, tol=SSD_ROW_TOL):
             if rms > tol["rms"] or worst > tol["worst"]]
 
 
+def ssd_bwd_plan_text(plan):
+    """The backward's launches: blocks, shared memory a block and blocks
+    an SM holds (the CUDA runtime's occupancy calculator)."""
+    return ", ".join(f"{k} {v['blocks']} x {v['threads']} ({v['smem']} B, "
+                     f"{v['per_sm']}/SM)" for k, v in plan.items())
+
+
 def check_ssd_bwd():
     """The SSD backward kernel (``ssd_scan_bwd``, through autograd's
     ``SSDScanFn`` as training calls it, in the model's layout: B and C
     one group's view of stride 0 over the heads) against autograd through
     the plain scan in f32 from the same inputs, at ``SSD_BWD_SHAPES`` in
     f32 (``SSD_BWD_TOL``) and bf16 (row by row, ``SSD_ROW_TOL``): dx,
-    the group's dB and dC, ddt and da.  Then the backward's two phases one
-    at a time at mamba2's train shape, and three planted faults the row
-    check must reject: the gradient of the carried state dropped (the
-    reverse pass does not propagate), one chunk's dB zeroed, and dB
-    times the group's head count.  Then the times at mamba2's train
-    shape and jamba's, in bf16: kernel, plain backward, device time
+    the group's dB and dC, ddt and da; in bf16 also with B and C copied
+    to every head (the per-head C B^T route, G = H), whose five raw
+    gradients must equal the group route's (G = 1) bit for bit.  Then
+    the bf16 backward's phases one at a time at mamba2's train shape
+    (states and passes, C B^T held to ``ssd_cb_ref``, the within-chunk
+    gradients), and four planted faults the row check must reject: the
+    gradient of the carried state dropped (the reverse pass does not
+    propagate), one chunk's dB zeroed, dB times the group's head count,
+    and one tile pair of the C B^T scratch zeroed.  Then the launches'
+    blocks, shared memory and occupancy (rows and columns must hold two
+    blocks an SM at P 64 and N 128; states, rows and columns launch at
+    least 132 blocks at the timed shapes), and the times at mamba2's
+    train shape and jamba's, in bf16: kernel, plain backward, device time
     alone."""
     import torch
 
     from repro_torch.kernels import ssd_scan, ssd_scan_bwd, ssd_scan_bwd_ref
     from repro_torch.kernels import ssd_scan_ref
     from repro_torch.kernels.ssd_chunk import ops as ssd_ops
+    from repro_torch.kernels.ssd_chunk import ssd_cb_ref
 
     f32, bf16 = torch.float32, torch.bfloat16
     worst_rows, abs_err, worst_f32 = {}, {}, 0.0
+    n_cases = 0
     for dt in (f32, bf16):
         for shape in SSD_BWD_SHAPES:
             leaves, dy, dhf = ssd_grad_case(*shape[:5], dt, seed=3)
-            got = ssd_grads(ssd_scan, leaves, dy, dhf, shape)
             want = ssd_grads(ssd_scan_ref, [t.float() for t in leaves],
                              dy.float(), dhf, shape)
-            what = f"ssd_scan_bwd {shape} {dt}"
-            for k, g in got.items():
-                if not torch.isfinite(g.float()).all():
-                    raise AssertionError(f"{what}: non-finite {k}")
-            if dt == f32:
-                for k, w in want.items():
-                    err = (got[k] - w).abs()
-                    tol = (SSD_BWD_TOL["rtol"] * w.abs()
-                           + SSD_BWD_TOL["atol_of_max"] * w.abs().max())
-                    if (err > tol).any():
+            for per_head in ((False,) if dt == f32 else (False, True)):
+                got = ssd_grads(ssd_scan, leaves, dy, dhf, shape, per_head)
+                n_cases += 1
+                what = (f"ssd_scan_bwd {shape} {dt}"
+                        f"{' per-head B and C' if per_head else ''}")
+                for k, g in got.items():
+                    if not torch.isfinite(g.float()).all():
+                        raise AssertionError(f"{what}: non-finite {k}")
+                if dt == f32:
+                    for k, w in want.items():
+                        err = (got[k] - w).abs()
+                        tol = (SSD_BWD_TOL["rtol"] * w.abs()
+                               + SSD_BWD_TOL["atol_of_max"] * w.abs().max())
+                        if (err > tol).any():
+                            raise AssertionError(
+                                f"{what}: {k} max |err| "
+                                f"{err.max().item():.3e} outside "
+                                f"{SSD_BWD_TOL}")
+                        worst_f32 = max(worst_f32, (err.max()
+                                                    / w.abs().max()).item())
+                    continue
+                rows = grads_rows(got, want)
+                bad = rows_rejected(rows)
+                if bad:
+                    raise AssertionError(f"{what}: rows of {bad} outside "
+                                         f"{SSD_ROW_TOL}: {rows}")
+                worst_rows[shape, per_head] = rows
+                abs_err[shape, per_head] = max(
+                    (got[k].float() - want[k]).abs().max().item()
+                    for k in want)
+            if dt == bf16:      # the two C B^T routes give the same bits
+                _, _, h, p, n, chunk = shape
+                views = ssd_views(*leaves, h, p, n)
+                heads = views[:3] + tuple(t.contiguous() for t in views[3:])
+                one = ssd_scan_bwd(*views, dy, dhf, chunk=chunk)
+                many = ssd_scan_bwd(*heads, dy, dhf, chunk=chunk)
+                for k, g1, gh in zip(("dx", "ddt", "da", "dB", "dC"), one,
+                                     many):
+                    if not torch.equal(g1, gh):
                         raise AssertionError(
-                            f"{what}: {k} max |err| {err.max().item():.3e} "
-                            f"outside {SSD_BWD_TOL}")
-                    worst_f32 = max(worst_f32, (err.max()
-                                                / w.abs().max()).item())
-                continue
-            rows = grads_rows(got, want)
-            bad = rows_rejected(rows)
-            if bad:
-                raise AssertionError(f"{what}: rows of {bad} outside "
-                                     f"{SSD_ROW_TOL}: {rows}")
-            worst_rows[shape] = rows
-            abs_err[shape] = max((got[k].float() - want[k]).abs().max().item()
-                                 for k in want)
-    log(f"ssd_scan_bwd: {2 * len(SSD_BWD_SHAPES)} cases match the plain "
-        f"backward in the model's layout (f32 {SSD_BWD_TOL}: worst error "
-        f"{worst_f32:.3e} of a gradient's largest value; bf16 row by row "
-        f"{SSD_ROW_TOL})")
-    for shape in (SSD_TRAIN_SHAPE, SSD_BWD_SHAPES[-1]):
-        log(f"  bf16 {shape} rows (RMS / worst): " + ", ".join(
-            f"{k} {r[0]:.3e} / {r[1]:.3e}"
-            for k, r in worst_rows[shape].items()))
+                            f"ssd_scan_bwd {shape}: per-head B and C (G = "
+                            f"H) give another {k} than the group's view")
+    log(f"ssd_scan_bwd: {n_cases} cases match the plain backward in the "
+        f"model's layout (f32 {SSD_BWD_TOL}: worst error {worst_f32:.3e} "
+        f"of a gradient's largest value; bf16 row by row {SSD_ROW_TOL}, "
+        f"B and C as one group's view and per head, the two routes equal "
+        f"bit for bit)")
+    for shape in (SSD_TRAIN_SHAPE, SSD_BWD_SHAPES[-1], SSD_BWD_SHAPES[3]):
+        for per_head in (False, True):
+            log(f"  bf16 {shape}{' per head' if per_head else ''} rows "
+                f"(RMS / worst): " + ", ".join(
+                    f"{k} {r[0]:.3e} / {r[1]:.3e}"
+                    for k, r in worst_rows[shape, per_head].items()))
 
-    # the two phases one at a time at mamba2's train shape, bf16, and the
+    # the phases one at a time at mamba2's train shape, bf16, and the
     # planted faults between and after them
     shape = SSD_TRAIN_SHAPE
     b, s, h, p, n, chunk = shape
@@ -1677,10 +1740,25 @@ def check_ssd_bwd():
         return {"dx": dx, "dB": db.float().sum(2), "dC": dc.float().sum(2),
                 "ddt": ddt, "da": da}
     scratch = ssd_ops.ssd_bwd_states(*views, dy, dhf, chunk=chunk)
+    cb = ssd_ops.ssd_bwd_cb(*views, dy, scratch, chunk=chunk)
+    cb_want = ssd_cb_ref(*views[3:], chunk=chunk)
+    cb_err = (cb.tril() - cb_want).abs().max().item()
+    if cb.shape != cb_want.shape or \
+            cb_err > 1e-4 * cb_want.abs().max().item():
+        raise AssertionError(f"ssd_bwd_cb {tuple(cb.shape)}: max |err| "
+                             f"{cb_err:.3e} against the plain C B^T")
     clean = parts(ssd_ops.ssd_bwd_grads(*views, dy, scratch, chunk=chunk))
     rows = grads_rows(clean, want)
     if rows_rejected(rows):
         raise AssertionError(f"ssd_scan_bwd phases one by one: {rows}")
+    log(f"ssd_scan_bwd phases one by one ({shape} bf16): C B^T "
+        f"{tuple(cb.shape)} max |err| {cb_err:.3e} against ssd_cb_ref; "
+        f"rows " + ", ".join(f"{k} {r[0]:.3e} / {r[1]:.3e}"
+                             for k, r in rows.items()))
+    kept = cb[:, 1, :, 64:128, 64:128].clone()  # chunk 1's 2nd diagonal tile
+    cb[:, 1, :, 64:128, 64:128] = 0
+    tile = parts(ssd_ops.ssd_bwd_grads(*views, dy, scratch, chunk=chunk))
+    cb[:, 1, :, 64:128, 64:128] = kept
     scratch["dstate"][:, :, :-1] = 0
     dropped = parts(ssd_ops.ssd_bwd_grads(*views, dy, scratch, chunk=chunk))
     zeroed = dict(clean, dB=clean["dB"].clone())
@@ -1688,7 +1766,8 @@ def check_ssd_bwd():
     faults = {"the carried state's gradient dropped": dropped,
               "chunk 1's dB zeroed": zeroed,
               f"dB times the group's {h} heads": dict(clean,
-                                                      dB=clean["dB"] * h)}
+                                                      dB=clean["dB"] * h),
+              "one tile pair of the C B^T scratch zeroed": tile}
     for fault, grads in faults.items():
         frows = grads_rows(grads, want)
         log(f"ssd_scan_bwd planted fault ({fault}, {shape} bf16): rows "
@@ -1698,7 +1777,7 @@ def check_ssd_bwd():
         if not rows_rejected(frows):
             raise AssertionError(f"ssd_scan_bwd: the row check does not "
                                  f"reject the planted fault ({fault})")
-    del scratch, clean, dropped, zeroed, faults, want
+    del scratch, clean, dropped, zeroed, tile, faults, want, cb, cb_want, kept
 
     # times, bf16, in the model's layout as training calls it (no
     # dh_final: the train step does not use h_final)
@@ -1707,16 +1786,24 @@ def check_ssd_bwd():
         b, s, h, p, n, chunk = shape
         leaves, dy, _ = ssd_grad_case(b, s, h, p, n, bf16, seed=3)
         args = ssd_views(*leaves, h, p, n)
+        plan = ssd_ops.bwd_plan(*args[:1], *args[3:], chunk=chunk)
+        few = [k for k in ("states", "rows", "cols")
+               if plan[k]["blocks"] < 132]
+        if few or (p, n) == (64, 128) and min(
+                plan["rows"]["per_sm"], plan["cols"]["per_sm"]) < 2:
+            raise AssertionError(f"ssd_scan_bwd {shape}: launches "
+                                 f"{ssd_bwd_plan_text(plan)}")
         k_ms = time_ms(lambda: ssd_scan_bwd(*args, dy, chunk=chunk), iters=5)
         k_dev = device_ms(lambda: ssd_scan_bwd(*args, dy, chunk=chunk),
                           iters=5, per_call=6, lead=4)
         p_ms = time_ms(lambda: ssd_scan_bwd_ref(*args, dy, chunk=chunk),
                        iters=2, warmup=1, reps=3)
         # read once: x, dy (bf16), dt, a, B and C once per group; written
-        # once: dx, ddt, da and the group's dB and dC (this version writes
+        # once: dx, ddt, da and the group's dB and dC (the kernel writes
         # them per head, logged beside).  Products on the lower triangle
-        # where masked: C B^T, dY X^T (P), Z B, Z^T C (N), M^T dY (P); whole:
-        # dY h_prev, X D, B D^T and the chunk states S_c, E_c (P N each)
+        # where masked: dY X^T (P), Z B, Z^T C (N), M^T dY (P) per head and
+        # C B^T (N) once per group (one here); whole: dY h_prev, X D,
+        # B D^T and the chunk states S_c, E_c (P N each)
         nbytes = (2 * b * s * h * p * 2 + b * s * h * 4 + h * 4
                   + 2 * b * s * n * 2 + b * s * h * p * 2 + b * s * h * 4
                   + h * 4 + 2 * b * s * n * 2)
@@ -1724,8 +1811,9 @@ def check_ssd_bwd():
         flops = 0
         for c0 in range(0, s, chunk):
             q = min(chunk, s - c0)
-            flops += 2 * b * h * (q * (q + 1) // 2 * (3 * n + 2 * p)
-                                  + 5 * q * p * n)
+            tri = q * (q + 1) // 2
+            flops += 2 * b * (h * (tri * (2 * n + 2 * p) + 5 * q * p * n)
+                              + tri * n)
         bound = max(nbytes / HBM_BPS, flops / BF16_FLOPS) * 1e3
         bound_by = "bytes" if nbytes / HBM_BPS >= flops / BF16_FLOPS \
             else "operations"
@@ -1734,12 +1822,13 @@ def check_ssd_bwd():
             f"the plain scan) library_ms none (no single PyTorch call "
             f"computes it) bound_ms {bound:.4f} ({bound_by}: {nbytes} B, "
             f"{flops} FLOP; per-head dB and dC add {head_bytes} B); device "
-            f"time alone (profiler, six launches) {ms_text(k_dev)}")
+            f"time alone (profiler, six launches) {ms_text(k_dev)}; "
+            f"launches: {ssd_bwd_plan_text(plan)}")
         out.append({"name": "ssd_scan_bwd", "route": "cuda",
                     "source": "src/repro_torch/csrc/ssd_chunk_bwd.cu",
                     "replaces": "src/repro/models/ssm.py:60",
                     "shape": f"{shape} bf16", "device_ms": k_dev,
-                    "max_abs_err": abs_err[shape],
+                    "max_abs_err": abs_err[shape, False],
                     "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound,
                     "bound_by": bound_by, "library_ms": None})
     return out[0]           # mamba2's train microbatch: the train phase's
@@ -4317,10 +4406,16 @@ def main(argv=None):
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
 
-    build_all()
-    rows = [*check_paged_decode(), check_rms_norm(), check_rms_norm_bwd(),
-            check_paged_mla(),
-            check_ssd(), check_ssd_bwd(), *check_flash()]
+    def timed(fn, *a, **kw):
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        log(f"{fn.__name__}: {time.perf_counter() - t0:.1f} s")
+        return out
+
+    timed(build_all)
+    rows = [*timed(check_paged_decode), timed(check_rms_norm),
+            timed(check_rms_norm_bwd), timed(check_paged_mla),
+            timed(check_ssd), timed(check_ssd_bwd), *timed(check_flash)]
     log(f"clocks after the kernel timings (sm, power, temp): {clocks()}")
     from repro_torch.configs import get
 
@@ -4350,10 +4445,10 @@ def main(argv=None):
                 launches[k] = launches.get(k, 0) + n
         gc.collect()                        # the phase's engine, if a cycle
         torch.cuda.empty_cache()            # the next phase's weights
-    check_cli(smi)
+    timed(check_cli, smi)
     # musicgen-large's codebook prompts through the CLI (CLI_AUDIO)
-    check_cli(smi, **CLI_AUDIO)
-    check_train_cli(smi)
+    timed(check_cli, smi, **CLI_AUDIO)
+    timed(check_train_cli, smi)
     for row in rows:
         row["launches"] = launches.get(row["name"], 0)
     log(f"total {time.perf_counter() - t_start:.1f} s")

@@ -24,7 +24,7 @@ import torch
 
 from ..build import load_library
 from ..counter import LaunchCounter
-from .ref import ssd_scan_bwd_ref, ssd_scan_ref
+from .ref import bwd_groups, ssd_scan_bwd_ref, ssd_scan_ref
 
 SOURCES = ["ssd_chunk.cu"]
 BWD_SOURCES = ["ssd_chunk_bwd.cu"]
@@ -35,9 +35,12 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # phases of the bf16 scan (a bit mask of the C entry)
 STATES, PASS, OUTPUT = 1, 2, 4
 # phases of the backward: the states, the forward's state pass and the
-# reverse pass (h_prev, h_final, the state gradients); then the
-# within-chunk gradients from them
-BWD_STATES, BWD_GRADS = 1, 2
+# reverse pass (h_prev, h_final, the state gradients); the within-chunk
+# gradients from them; and, in bf16, C B^T once per (batch, chunk, group),
+# which the within-chunk gradients read
+BWD_STATES, BWD_GRADS, BWD_CB = 1, 2, 4
+# the bf16 backward's launches, in order (``bwd_plan``)
+BWD_LAUNCHES = ("states", "pass", "cb", "rows", "cols", "dcum")
 
 
 def library() -> ctypes.CDLL:
@@ -206,24 +209,36 @@ def bwd_library() -> ctypes.CDLL:
     fn = lib.repro_ssd_chunk_bwd
     if fn.argtypes is None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [i, i] + [p] * 17 + [i] * 6 + [ll] * 15 + [p]
+        fn.argtypes = [i, i] + [p] * 18 + [i] * 7 + [ll] * 15 + [p]
         fn.restype = i
+        plan = lib.repro_ssd_chunk_bwd_plan
+        plan.argtypes = [i] * 7 + [p]
+        plan.restype = i
     return lib
 
 
-def _bwd_scratch(b, h, s, nc, p, n, device):
-    """f32 scratch of the backward: hprev and dstate (B, H, nc, P, N), hf
-    (B, H, P, N), decay (B, H, nc), dcum (B, H, S)."""
-    def f(*shape):
-        return torch.empty(shape, dtype=torch.float32, device=device)
-    return dict(hprev=f(b, h, nc, p, n), dstate=f(b, h, nc, p, n),
-                hf=f(b, h, p, n), decay=f(b, h, nc), dcum=f(b, h, s))
+def _scratch_shapes(x, bmat, cmat, chunk):
+    """The backward's f32 scratch: hprev and dstate (B, H, nc, P, N), hf
+    (B, H, P, N), decay (B, H, nc), dcum (B, H, S); in bf16 also cb (B, nc,
+    G, T, T), C B^T once per group, T the chunk rounded up to 64."""
+    b, s, h, p = x.shape
+    n, nc, t = bmat.shape[3], -(-s // chunk), -(-chunk // 64) * 64
+    return dict(hprev=(b, h, nc, p, n), dstate=(b, h, nc, p, n),
+                hf=(b, h, p, n), decay=(b, h, nc), dcum=(b, h, s),
+                cb=((b, nc, bwd_groups(bmat, cmat), t, t)
+                    if x.dtype == torch.bfloat16 else None))
+
+
+def _bwd_scratch(x, bmat, cmat, chunk):
+    return {k: None if shape is None else
+            torch.empty(shape, dtype=torch.float32, device=x.device)
+            for k, shape in _scratch_shapes(x, bmat, cmat, chunk).items()}
 
 
 def _launch_bwd(phases, x, dt, a, bmat, cmat, dy, dims, chunk, scratch, *,
                 dh_final=None, grads=None):
     """One call of the backward's C entry; ``grads``: (dx, ddt, da, dB,
-    dC), absent for the states phase alone."""
+    dC), absent without the within-chunk phase."""
     def ptr(t):
         return 0 if t is None else t.data_ptr()
     dx, ddt, da, db, dc = grads or (None,) * 5
@@ -231,7 +246,8 @@ def _launch_bwd(phases, x, dt, a, bmat, cmat, dy, dims, chunk, scratch, *,
         _DTYPES[x.dtype], phases, ptr(x), ptr(dt), ptr(a), ptr(bmat),
         ptr(cmat), ptr(dy), ptr(dh_final), ptr(dx), ptr(ddt), ptr(da),
         ptr(db), ptr(dc), *(ptr(scratch[k]) for k in (
-            "hprev", "hf", "dstate", "decay", "dcum")), *dims, int(chunk),
+            "hprev", "hf", "dstate", "decay", "dcum", "cb")), *dims,
+        int(chunk), bwd_groups(bmat, cmat),
         *(st for t in (x, dt, bmat, cmat, dy) for st in t.stride()[:3]),
         torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
@@ -248,6 +264,8 @@ def _bwd_prepare(x, dt, a, bmat, cmat, dy, dh_final, chunk):
         raise ValueError(f"dy {tuple(dy.shape)} on {dy.device} does not "
                          f"match x {tuple(x.shape)} on {x.device}")
     dy = dy.to(x.dtype).contiguous()
+    if dy.data_ptr() % 16:          # bf16 rows arrive by 16-byte copies
+        dy = dy.clone()
     if dh_final is not None:
         if dh_final.shape != (b, h, p, n) or dh_final.device != x.device:
             raise ValueError(f"dh_final {tuple(dh_final.shape)} does not "
@@ -270,18 +288,22 @@ def ssd_scan_bwd(x, dt, a, bmat, cmat, dy, dh_final=None, *, chunk=256):
     output gradient ``dy`` (B, S, H, P) and ``dh_final`` (B, H, P, N) of
     h_final (None: zero).  dx, dB and dC in x's dtype, dB and dC per head
     (B, S, H, N); ddt and da in f32.  Recomputes the forward's chunk
-    states from the inputs; its design note is at the top of
-    ``csrc/ssd_chunk_bwd.cu``.  A CPU tensor takes the plain backward."""
+    states from the inputs and, in bf16, C B^T once per (batch, chunk,
+    group) (``bwd_groups``: one for B and C of head stride 0); its design
+    note is at the top of ``csrc/ssd_chunk_bwd.cu``.  A CPU tensor takes
+    the plain backward."""
     if x.device.type == "cpu":
         return ssd_scan_bwd_ref(x, dt, a, bmat, cmat, dy, dh_final,
                                 chunk=chunk)
     dt, a, dy, dh_final, dims = _bwd_prepare(x, dt, a, bmat, cmat, dy,
                                              dh_final, chunk)
-    b, s, h, p, n = dims
-    scratch = _bwd_scratch(b, h, s, -(-s // chunk), p, n, x.device)
+    scratch = _bwd_scratch(x, bmat, cmat, chunk)
     grads = _bwd_grads(x, dims)
-    _launch_bwd(BWD_STATES | BWD_GRADS, x, dt, a, bmat, cmat, dy, dims,
-                chunk, scratch, dh_final=dh_final, grads=grads)
+    phases = BWD_STATES | BWD_GRADS
+    if x.dtype == torch.bfloat16:
+        phases |= BWD_CB
+    _launch_bwd(phases, x, dt, a, bmat, cmat, dy, dims, chunk, scratch,
+                dh_final=dh_final, grads=grads)
     ssd_scan_bwd.launches.add()     # one per call: every launch of it
     return grads
 
@@ -315,38 +337,74 @@ class SSDScanFn(torch.autograd.Function):
                      for k, g in enumerate((dx, ddt, da, db, dc))) + (None,)
 
 
-# The backward's two phases one at a time (CUDA tensors), for holding each
-# to its plain version in ``ref.py`` and for planting faults between
-# them; these launches are not counted.
+# The backward's phases one at a time (CUDA tensors), for holding each to
+# its plain version in ``ref.py`` and for planting faults between them;
+# these launches are not counted.
 def ssd_bwd_states(x, dt, a, bmat, cmat, dy, dh_final=None, *, chunk):
     """Phase 1: the forward's chunk states and state pass, and the reverse
     pass.  Returns the scratch: ``hprev`` (B, H, nc, P, N) the state
     entering each chunk, ``hf`` h_final, ``decay`` (B, H, nc) each chunk's
     cum_last, ``dstate`` (B, H, nc, P, N) the gradient of the state
-    leaving each chunk (and ``dcum``, not yet written)."""
+    leaving each chunk (and ``dcum`` and, in bf16, ``cb``, not yet
+    written)."""
     dt, a, dy, dh_final, dims = _bwd_prepare(x, dt, a, bmat, cmat, dy,
                                              dh_final, chunk)
-    b, s, h, p, n = dims
-    scratch = _bwd_scratch(b, h, s, -(-s // chunk), p, n, x.device)
+    scratch = _bwd_scratch(x, bmat, cmat, chunk)
     _launch_bwd(BWD_STATES, x, dt, a, bmat, cmat, dy, dims, chunk, scratch,
                 dh_final=dh_final)
     return scratch
 
 
+def _check_scratch(x, bmat, cmat, scratch, chunk):
+    for k, shape in _scratch_shapes(x, bmat, cmat, chunk).items():
+        t = scratch.get(k)
+        if shape is not None and (
+                t is None or tuple(t.shape) != shape
+                or t.dtype != torch.float32 or not t.is_contiguous()
+                or t.device != x.device):
+            raise ValueError(f"scratch {k} "
+                             f"{None if t is None else tuple(t.shape)} does "
+                             f"not match {shape}")
+
+
+def ssd_bwd_cb(x, dt, a, bmat, cmat, dy, scratch, *, chunk):
+    """The C B^T phase (bf16): ``scratch["cb"]`` (B, nc, G, T, T) f32
+    becomes each chunk's C B^T, once per group (``bwd_groups``), on the
+    64 x 64 tile pairs J <= I: the lower triangle, zero above the diagonal
+    and past S (the pairs above the diagonal are not written).  Returns
+    it."""
+    if x.dtype != torch.bfloat16:
+        raise TypeError("the C B^T phase is the bf16 backward's")
+    dt, a, dy, _, dims = _bwd_prepare(x, dt, a, bmat, cmat, dy, None, chunk)
+    _check_scratch(x, bmat, cmat, scratch, chunk)
+    _launch_bwd(BWD_CB, x, dt, a, bmat, cmat, dy, dims, chunk, scratch)
+    return scratch["cb"]
+
+
 def ssd_bwd_grads(x, dt, a, bmat, cmat, dy, scratch, *, chunk):
     """Phase 2: (dx, ddt, da, dB, dC) from phase 1's ``scratch`` (its
-    tensors contiguous f32, as ``ssd_bwd_states`` returns them)."""
+    tensors contiguous f32, as ``ssd_bwd_states`` returns them; in bf16
+    ``cb`` written by ``ssd_bwd_cb``)."""
     dt, a, dy, _, dims = _bwd_prepare(x, dt, a, bmat, cmat, dy, None, chunk)
-    b, s, h, p, n = dims
-    nc = -(-s // chunk)
-    want = dict(hprev=(b, h, nc, p, n), dstate=(b, h, nc, p, n),
-                hf=(b, h, p, n), decay=(b, h, nc), dcum=(b, h, s))
-    for k, shape in want.items():
-        t = scratch[k]
-        if t.shape != shape or t.dtype != torch.float32 \
-                or not t.is_contiguous() or t.device != x.device:
-            raise ValueError(f"scratch {k} {tuple(t.shape)} does not match")
+    _check_scratch(x, bmat, cmat, scratch, chunk)
     grads = _bwd_grads(x, dims)
     _launch_bwd(BWD_GRADS, x, dt, a, bmat, cmat, dy, dims, chunk, scratch,
                 grads=grads)
     return grads
+
+
+def bwd_plan(x, bmat, cmat, *, chunk):
+    """The bf16 backward's launches at these inputs' sizes, by name
+    (``BWD_LAUNCHES``, launch order): blocks, threads a block, dynamic
+    shared memory bytes a block, and blocks an SM holds at once as the
+    CUDA runtime's occupancy calculator reports it."""
+    b, s, h, p = x.shape
+    out = (ctypes.c_longlong * (4 * len(BWD_LAUNCHES)))()
+    err = bwd_library().repro_ssd_chunk_bwd_plan(
+        b, s, h, p, bmat.shape[3], int(chunk), bwd_groups(bmat, cmat),
+        ctypes.cast(out, ctypes.c_void_p))
+    if err != 0:
+        raise RuntimeError(f"ssd_chunk_bwd plan failed: CUDA error {err}")
+    return {name: dict(zip(("blocks", "threads", "smem", "per_sm"),
+                           out[4 * k:4 * k + 4]))
+            for k, name in enumerate(BWD_LAUNCHES)}

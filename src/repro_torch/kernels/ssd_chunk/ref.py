@@ -14,9 +14,9 @@ each launch of ``csrc/ssd_chunk_bwd.cu`` (the formulas are derived in
 that file's note): the forward's chunk states and state pass again
 (``h_prev``), each chunk's pull on the state entering it
 (``ssd_dstates_ref``), the reverse state pass (``ssd_state_pass_bwd_ref``:
-the gradient of the state leaving each chunk), and the within-chunk
-gradients (``ssd_chunk_grads_ref``); ``ssd_scan_bwd_phases_ref`` chains
-them.
+the gradient of the state leaving each chunk), C B^T once per (batch,
+chunk, group) (``ssd_cb_ref``), and the within-chunk gradients from them
+(``ssd_chunk_grads_ref``); ``ssd_scan_bwd_phases_ref`` chains them.
 """
 from __future__ import annotations
 
@@ -135,13 +135,34 @@ def ssd_state_pass_bwd_ref(dstates, decay, dh_final=None):
     return torch.stack(outs, 2), d
 
 
+def bwd_groups(bmat, cmat):
+    """G, the number of distinct C B^T the backward computes a chunk: 1
+    when B and C are one group's view of head stride 0 (``models/ssm.py``
+    for mamba2 and jamba), else one per head."""
+    return 1 if bmat.stride(2) == 0 and cmat.stride(2) == 0 \
+        else bmat.shape[2]
+
+
+def ssd_cb_ref(bmat, cmat, *, chunk):
+    """C B^T once per (batch, chunk, group), as the backward's C B^T launch
+    writes it: (B, nc, G, T, T) f32, G = ``bwd_groups`` (group g reads
+    head g), T the chunk rounded up to 64; each chunk's lower triangle
+    (C B^T)_ij for j <= i, zero above it and past S."""
+    g = bwd_groups(bmat, cmat)
+    cb = torch.einsum("bcign,bcjgn->bcgij", _chunks(cmat[:, :, :g], chunk),
+                      _chunks(bmat[:, :, :g], chunk)).tril()
+    pad = -(-chunk // 64) * 64 - chunk
+    return torch.nn.functional.pad(cb, (0, pad, 0, pad))
+
+
 def ssd_chunk_grads_ref(x, dt, a, bmat, cmat, dy, h_prev, h_final, dstate,
-                        *, chunk):
+                        cb, *, chunk):
     """The within-chunk gradients, in f32, from the state entering each
-    chunk (``h_prev`` (B, H, nc, P, N)), h_final and the gradient of the
-    state leaving each chunk (``dstate``).  With L_ij = exp(cum_i - cum_j)
-    for j <= i in a chunk, M = (C B^T) o L, Z = (dY X^T) o L o dt_j and
-    w_j = exp(cum_last - cum_j):
+    chunk (``h_prev`` (B, H, nc, P, N)), h_final, the gradient of the
+    state leaving each chunk (``dstate``) and each chunk's C B^T once per
+    group (``cb``, as ``ssd_cb_ref`` returns it).  With L_ij =
+    exp(cum_i - cum_j) for j <= i in a chunk, M = (C B^T) o L,
+    Z = (dY X^T) o L o dt_j and w_j = exp(cum_last - cum_j):
       dC = Z B + exp(cum_i) dY h_prev;  dB = Z^T C + w_j dt_j X D;
       W = M^T dY + w_j B D^T;  dx = dt_j W;  ddt_j = x_j . W_j + a r_j;
       dcum_i = dy_i . y_i - dt_i (x_i . W_i), plus <D, state leaving the
@@ -157,7 +178,7 @@ def ssd_chunk_grads_ref(x, dt, a, bmat, cmat, dy, h_prev, h_final, dstate,
                       device=x.device).tril()
     ell = torch.where(mask, torch.exp(cum_t[..., :, None]
                                       - cum_t[..., None, :]), 0.0)
-    g = torch.einsum("bcihn,bcjhn->bchij", cs, bs)
+    g = cb[..., :chunk, :chunk].expand(-1, -1, h, -1, -1)  # (B, nc, H, Q, Q)
     m = g * ell
     z = torch.einsum("bcihp,bcjhp->bchij", dys, xs) * ell \
         * dts.permute(0, 1, 3, 2)[..., None, :]
@@ -202,4 +223,5 @@ def ssd_scan_bwd_phases_ref(x, dt, a, bmat, cmat, dy, dh_final=None, *,
     dstate, _ = ssd_state_pass_bwd_ref(
         ssd_dstates_ref(dy, dt, a, cmat, chunk=chunk), decay, dh_final)
     return ssd_chunk_grads_ref(x, dt, a, bmat, cmat, dy, h_prev, h_final,
-                               dstate, chunk=chunk)
+                               dstate, ssd_cb_ref(bmat, cmat, chunk=chunk),
+                               chunk=chunk)

@@ -34,10 +34,12 @@ gradient elementwise within 1e-4 of itself plus 1e-4 of its largest value
 da come out of a reverse cumsum whose terms cancel, so their error is
 held against the gradient's scale); in bf16 row by row against the plain
 backward in f32 from the same bf16 inputs, RMS 1e-2 and worst row 5e-2:
-the kernel sums in f32 and rounds dx, dB and dC once to bf16 (RMS about
-1.1e-3 of a row), and autograd sums the per-head dB and dC of a group in
-bf16; a chunk's dB zeroed or dB times the head count is off by a whole
-row.
+the kernel's products take bf16 operands with f32 sums and it rounds dx,
+dB and dC to bf16 (an H100 reads rows at an RMS of 2.4-3.1e-3), and
+autograd sums the per-head dB and dC of a group in bf16; a chunk's dB
+zeroed or dB times the head count is off by a whole row.  Its C B^T
+launch against the plain phase: 1e-4 of the largest value (one f32 sum
+of N exact products in another order).
 """
 import numpy as np
 import pytest
@@ -311,3 +313,36 @@ def test_ssd_without_grad_takes_the_plain_launch(cuda):
     assert y.grad_fn is None
     assert ssd_scan.launches.value == f0 + 1
     assert ssd_scan_bwd.launches.value == b0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(2, 300, 3, 64, 128, 256),
+                                   (1, 128, 2, 64, 32, 32),
+                                   (4, 1024, 48, 64, 128, 256)])
+def test_ssd_backward_cb_routes(shape, cuda):
+    """bf16: the C B^T launch once per group against the plain phase
+    (``ssd_cb_ref`` in f32 from the same bf16 inputs, its lower triangle
+    within 1e-4 of its largest value: one f32 sum of N products in
+    another order), and the per-head route (B and C each head's own copy,
+    G = H) giving the group route's (stride-0 view, G = 1) five gradients
+    bit for bit."""
+    from repro_torch.kernels.ssd_chunk import (bwd_groups, ssd_bwd_cb,
+                                               ssd_bwd_states, ssd_cb_ref)
+
+    leaves, views, dy, dhf = _ssd_model_case(shape, torch.bfloat16, cuda)
+    args = [t.detach() for t in views(*leaves)]
+    per_head = args[:3] + [t.contiguous() for t in args[3:]]
+    assert bwd_groups(*args[3:]) == 1
+    assert bwd_groups(*per_head[3:]) == shape[2]
+    chunk = shape[-1]
+    for inputs in (args, per_head):
+        scratch = ssd_bwd_states(*inputs, dy, dhf, chunk=chunk)
+        got = ssd_bwd_cb(*inputs, dy, scratch, chunk=chunk).tril()
+        want = ssd_cb_ref(*inputs[3:], chunk=chunk)     # f32 sums
+        assert got.shape == want.shape
+        err = (got - want).abs().max().item()
+        assert err <= 1e-4 * want.abs().max().item(), err
+    group = ssd_scan_bwd(*args, dy, dhf, chunk=chunk)
+    heads = ssd_scan_bwd(*per_head, dy, dhf, chunk=chunk)
+    for name, g, w in zip(("dx", "ddt", "da", "dB", "dC"), heads, group):
+        assert torch.equal(g, w), name
