@@ -240,11 +240,10 @@ CLI_AUDIO = dict(arch="musicgen-large", prompt_len=256)
 TRAIN_CLI_SSM = ["--arch", "mamba2-780m", "--tiny", "--d-model", "512",
                  "--n-layers", "8", "--vocab", "32000", "--batch", "8",
                  "--seq", "256", "--steps", "10", "--log-every", "1"]
-# the train CLI on the card: examples/train_100m.py's model (qwen2.5-14b
-# family, d_model 512, 16 layers, vocab 32000, about 92 M params)
-TRAIN_CLI = ["--arch", "qwen2.5-14b", "--tiny", "--d-model", "512",
-             "--n-layers", "16", "--vocab", "32000", "--batch", "8",
-             "--seq", "128", "--steps", "30", "--log-every", "1"]
+# the train CLI on the card through the train_100m example
+# (``repro_torch.examples.train_100m``: qwen2.5-14b family, d_model 512,
+# 16 layers, vocab 32000, about 92 M params, batch 8 x 128), 30 steps
+TRAIN_100M = ["--steps", "30", "--log-every", "1"]
 
 # the reference's kernel-test tolerances (tests/test_kernels.py:15-17;
 # the SSD scan's :220-221: its plain version rounds its intermediates to
@@ -555,8 +554,10 @@ PHASES = {
     # with the pages its eviction handed over), decode-replay through the
     # serve step (mamba2-780m: the prompt's one-shot prefill with the SSD
     # kernel, then one batch-1 serve step per emitted token)
-    # qwen2.5-14b's at 12 layers, for the script's time: growth,
-    # eviction and restore are the same in every layer
+    # both at 12 layers, for the script's time: growth, eviction and
+    # restore are the same in every layer (at mamba2-780m's 24 layers its
+    # planted fault was rejected at 1.3550 / 4.4102 against 0.3 / 1.0,
+    # at 12 at 1.3288 / 5.2734)
     "qwen2.5-14b-ondemand": dict(
         arch="qwen2.5-14b", paged_kernel=True, traffic=TRAFFIC,
         prefill_chunk=512, policy="ondemand", num_pages=ONDEMAND_PAGES,
@@ -565,7 +566,7 @@ PHASES = {
                  "flash_attention": "prefill"}),
     "mamba2-780m-ondemand": dict(
         arch="mamba2-780m", paged_kernel=False, traffic=TRAFFIC,
-        policy="ondemand", num_pages=ONDEMAND_PAGES, layers=24,
+        policy="ondemand", num_pages=ONDEMAND_PAGES, layers=12,
         kernels={"ssd_scan": "prefill"}),
     # speculative decoding, full width, three legs on one set of
     # weights (``serve_spec``): (a) spec off, paged-kernel decode ticks;
@@ -1921,6 +1922,12 @@ def check_flash():
         dead = kern(*args, window=16)[:, 40 + 16 - 1:]
         if not torch.equal(dead, torch.zeros_like(dead)):
             raise AssertionError("flash: rows with no valid key are not 0")
+        n += 1
+    # f32 at the tiny configs' head dim 16 (the examples' and the CLIs'
+    # --tiny prefill on the card): 4 / 4 heads, odd lengths, a window
+    for shape, w in (((2, 24, 24, 4, 4, 16), None),
+                     ((1, 300, 300, 4, 2, 16), 40)):
+        both(shape, f32, f"flash tiny D 16 {shape} w {w}", window=w)
         n += 1
     # the serve paths' prefill shapes: qwen2.5-14b (1 x 2048 and 16 x 512,
     # causal, 40 / 8 heads), mixtral-8x7b (1 x 8192, window 4096, 32 / 8),
@@ -4164,11 +4171,13 @@ def train_phase(cfg, smi, name="qwen2.5-14b-train", seed=0, device="cuda"):
 
 
 def check_train_cli(smi, device="cuda"):
-    """The port's train CLI (``repro_torch.launch.train``) on the card with
-    ``examples/train_100m.py``'s arguments (``TRAIN_CLI``): 30 steps with
-    checkpoints every 10 (UMT on); the run resumed from its step-10
-    checkpoint; and 30 steps with ``--umt-off``; then mamba2-780m's tiny
-    shape (``TRAIN_CLI_SSM``), which must launch the SSD kernels.  Bars: the resumed run's
+    """The port's train CLI (``repro_torch.launch.train``) on the card
+    through the train_100m example (``repro_torch.examples.train_100m``,
+    ``TRAIN_100M``): 30 steps with checkpoints every 10 (UMT on); the run
+    resumed from its step-10 checkpoint; and 30 steps with ``--umt-off``
+    (into a directory of its own: the example always resumes); then
+    mamba2-780m's tiny shape (``TRAIN_CLI_SSM``) through the CLI itself,
+    which must launch the SSD kernels.  Bars: the resumed run's
     losses are the first run's from step 10 on, and UMT on and off give
     the same losses (the host runtime must not change the numbers); both
     under deterministic algorithms.  Each leg's kernels launch; each
@@ -4181,17 +4190,23 @@ def check_train_cli(smi, device="cuda"):
     import numpy as np
 
     from repro_torch import kernels
+    from repro_torch.examples import train_100m
     from repro_torch.launch import train as cli
 
     ckpt = ROOT / "build" / "train_cli_ckpt"
-    shutil.rmtree(ckpt, ignore_errors=True)
+    ckpt_off = ROOT / "build" / "train_cli_ckpt_off"
+    for d in (ckpt, ckpt_off):
+        shutil.rmtree(d, ignore_errors=True)
 
-    def run(leg, extra, argv=TRAIN_CLI, used=("rms_norm", "rms_norm_bwd")):
+    def run(leg, extra, main=None, used=("rms_norm", "rms_norm_bwd")):
         for k in used:
             getattr(kernels, k).launches.reset()
         out = io.StringIO()
         with contextlib.redirect_stdout(out):
-            cli.train(argv + ["--device", device] + extra)
+            if main is None:
+                train_100m.main(TRAIN_100M + ["--device", device] + extra)
+            else:
+                main(extra + ["--device", device])
         lines = [json.loads(ln) for ln in out.getvalue().splitlines()
                  if ln.startswith("{")]
         steps = {ln["step"]: ln for ln in lines if "step" in ln}
@@ -4216,8 +4231,9 @@ def check_train_cli(smi, device="cuda"):
             shutil.rmtree(ckpt / f"step_{s:06d}")
         resumed = run("resumed at step 10", ["--ckpt-dir", str(ckpt),
                                               "--resume"])
-        off = run("UMT off", ["--umt-off"])
-    shutil.rmtree(ckpt, ignore_errors=True)
+        off = run("UMT off", ["--ckpt-dir", str(ckpt_off), "--umt-off"])
+    for d in (ckpt, ckpt_off):
+        shutil.rmtree(d, ignore_errors=True)
     if sorted(resumed) != list(range(10, 30)) or any(
             resumed[s] != on[s] for s in resumed):
         raise AssertionError(f"train CLI: the resumed losses {resumed} do "
@@ -4228,10 +4244,158 @@ def check_train_cli(smi, device="cuda"):
         "on and off give the same 30 losses")
     # an SSD family through the CLI: the scan's kernels, forward and
     # backward, and finite losses
-    ssm = run("mamba2-780m", [], TRAIN_CLI_SSM,
+    ssm = run("mamba2-780m", TRAIN_CLI_SSM, cli.train,
               ("rms_norm", "rms_norm_bwd", "ssd_scan", "ssd_scan_bwd"))
     if not all(np.isfinite(v) for v in ssm.values()):
         raise AssertionError(f"train CLI mamba2-780m: losses {ssm}")
+
+
+# ------------------------------------------------------------------ tools
+# The launch tools (``repro_torch.launch``), remat "dots" and the examples,
+# after the CLIs.  The dry run (``launch.dryrun``) runs on meta, on the
+# host alone: the CPU tests drive it (``tests/test_torch_launch.py``),
+# not this script, whose phases it would share the host with (or, after
+# them, lengthen by 45.1 s).
+# ``launch.profile_cell`` on the card, each cell cut to fit the section's
+# time: qwen2.5-14b's 32k prefill at batch 1 and 8 of 48 layers (flash and
+# RMSNorm), mamba2-780m's train step at the train phase's microbatch of 4
+# x 1024, accum 1, all 48 layers (RMSNorm and the SSD scan, forward and
+# backward); each with the kernels its call must launch
+PROFILE_CELLS = (
+    (dict(arch="qwen2.5-14b", shape_name="prefill_32k", layers=8, batch=1),
+     ("flash_attention", "rms_norm")),
+    (dict(arch="mamba2-780m", shape_name="train_4k", batch=4, seq=1024,
+          accum=1),
+     ("rms_norm", "rms_norm_bwd", "ssd_scan", "ssd_scan_bwd")),
+)
+# remat "dots" against "full": one grad step of the qwen2.5-14b-train
+# phase (full width, 4 of 48 layers, its ``TRAIN`` batch).  Both run the
+# same kernels on the same inputs: "full" recomputes every product and
+# kernel of a repeat in the backward, "dots" keeps the products' outputs
+# and recomputes the kernels (launched through ctypes, out of the
+# policy's sight).  The loss is held by ``TRAIN_TOL``, each gradient
+# leaf row by row by ``ROW_TOL``.
+REMAT_LAYERS = 4
+
+
+def check_remat_dots(smi, seed=0):
+    """Remat "dots" against "full" on the card (``REMAT_LAYERS``): loss
+    and gradients, and each one's peak memory and seconds."""
+    import torch
+
+    from repro_torch.configs import get
+    from repro_torch.models import lm
+    from repro_torch.models.layers import tree_leaves
+    from repro_torch.steps import make_grad_step
+
+    cfg = get("qwen2.5-14b").replace(n_layers=REMAT_LAYERS)
+    params = lm.init_params(cfg, torch.Generator("cuda").manual_seed(seed),
+                            "cuda", dtype=cfg.param_dtype)
+    names = leaf_names(params, "params")
+    batch = FixedBatch(cfg.vocab, TRAIN["accum"], TRAIN["micro"],
+                       TRAIN["seq"], seed + 1).batch
+    res = {}
+    for remat in ("full", "dots"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        g, loss = make_grad_step(cfg.replace(remat=remat))(params, batch)
+        loss = float(loss)
+        res[remat] = (g, loss, torch.cuda.max_memory_allocated(),
+                      time.perf_counter() - t0)
+    (g_f, l_f, p_f, t_f), (g_d, l_d, p_d, t_d) = res["full"], res["dots"]
+    dl = abs(l_d - l_f) / abs(l_f)
+    rows = [(row_rel(d.reshape(-1, d.shape[-1]), f.reshape(-1, f.shape[-1])),
+             nm) for nm, d, f in zip(names, tree_leaves(g_d),
+                                     tree_leaves(g_f))]
+    (rms, worst), where = max(rows, key=lambda r: r[0][1])
+    log(f"remat dots vs full (qwen2.5-14b-train, {REMAT_LAYERS} layers, "
+        f"{smi}): loss {l_d:.6f} vs {l_f:.6f} (rel {dl:.3e}); worst leaf "
+        f"{where}: row error RMS {rms:.3e} / worst {worst:.3e}; peak "
+        f"memory dots {p_d / 1e9:.2f} GB, full {p_f / 1e9:.2f} GB; grad "
+        f"step {t_d:.2f} s vs {t_f:.2f} s")
+    if dl > TRAIN_TOL["loss"] or any(
+            r > ROW_TOL["rms"] or w > ROW_TOL["worst"]
+            for (r, w), _ in rows):
+        raise AssertionError(f"remat dots: gradients differ from full's "
+                             f"(loss rel {dl:.3e}, worst leaf {where} "
+                             f"{rms:.3e} / {worst:.3e}; {TRAIN_TOL['loss']}"
+                             f", {ROW_TOL})")
+    del params, res, g_f, g_d
+
+
+def check_examples(smi):
+    """The examples on the card (``repro_torch.examples``; train_100m runs
+    in ``check_train_cli``): quickstart, whose UMT leg must beat its
+    baseline leg on this host; serve_batch (tiny jamba, one shot and
+    engine: f32 flash at head dim 16); io_overlap_demo, both walls
+    printed."""
+    import numpy as np
+
+    from repro_torch.examples import io_overlap_demo, quickstart, serve_batch
+
+    q = quickstart.main(["--device", "cuda"])
+    log(f"quickstart ({smi}): 4 x 0.2 s blocking ops on one core: umt off "
+        f"{q['umt_off_s']:.3f} s, umt on {q['umt_on_s']:.3f} s; tiny "
+        f"mixtral losses {q['losses'][0]:.4f} -> {q['losses'][-1]:.4f}")
+    if not q["umt_on_s"] < q["umt_off_s"]:
+        raise AssertionError(f"quickstart: UMT {q['umt_on_s']:.3f} s is not "
+                             f"faster than without {q['umt_off_s']:.3f} s")
+    oneshot, engine = serve_batch.main(["--device", "cuda"])
+    if np.asarray(oneshot).shape != (4, 12) \
+            or np.asarray(engine).shape != (8, 12):
+        raise AssertionError(f"serve_batch: tokens {np.asarray(oneshot).shape}"
+                             f" / {np.asarray(engine).shape}")
+    io_ = io_overlap_demo.main(["--device", "cuda"])
+    log(f"io_overlap_demo ({smi}): 14 steps with a fsync'd checkpoint each: "
+        f"synchronous {io_['sync_s']:.2f} s, UMT {io_['umt_s']:.2f} s")
+
+
+def check_tools(smi):
+    """The tools section on the card: ``profile_cell`` for
+    ``PROFILE_CELLS``, remat "dots" and the examples.  The counters are
+    zeroed before and read after, like a phase's; returns the launches."""
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.launch import profile_cell
+
+    t0 = time.perf_counter()
+    for k in profile_cell.COUNTED:
+        getattr(kernels, k).launches.reset()
+    for cell, used in PROFILE_CELLS:
+        t1 = time.perf_counter()
+        r = profile_cell.profile(**cell)
+        sys.stdout.flush()
+        # one stream: the kernels of a call cannot outlast the call
+        if not (r["share"] and r["share"] > 0) \
+                or r["device_ms"] > r["host_ms"] \
+                or min(r["launches"][k] for k in used) <= 0:
+            raise AssertionError(f"profile_cell {cell}: share {r['share']}, "
+                                 f"device {r['device_ms']} ms, host "
+                                 f"{r['host_ms']} ms, launches "
+                                 f"{r['launches']}")
+        log(f"profile_cell {cell['arch']} {cell['shape_name']} ({smi}): "
+            f"device {r['device_ms']:.2f} ms, host {r['host_ms']:.2f} ms, "
+            f"bound {r['bound_ms']:.2f} ms ({r['bottleneck']}), share "
+            f"{r['share']:.4f}; peak {r['peak'] / 1e9:.2f} GB against the "
+            f"meta estimate {r['peak_meta'] / 1e9:.2f}; "
+            f"{time.perf_counter() - t1:.1f} s")
+        del r
+        gc.collect()
+        torch.cuda.empty_cache()
+    for part in (check_remat_dots, check_examples):
+        t1 = time.perf_counter()
+        part(smi)
+        log(f"{part.__name__}: {time.perf_counter() - t1:.1f} s")
+        gc.collect()
+        torch.cuda.empty_cache()
+    got = {k: getattr(kernels, k).launches.value
+           for k in profile_cell.COUNTED}
+    log(f"tools section: launches {got}; {time.perf_counter() - t0:.1f} s")
+    return got
 
 
 def check_launches(cfg, launches, stats, calls, name=None, kernels=None):
@@ -4425,30 +4589,34 @@ def main(argv=None):
         arch = phase.get("arch", name)
         cfg = get(arch)
         layers = args.layers or phase.get("layers", cfg.n_layers)
-        if phase.get("train"):        # the train state bounds its depth
+        if phase.get("train"):    # the train state bounds its depth
             layers = min(layers, phase.get("layers", cfg.n_layers))
         if layers != cfg.n_layers:
-            log(f"depth cut: {layers} of {cfg.n_layers} layers ({name})")
+            log(f"depth cut: {layers} of {cfg.n_layers} layers "
+                f"({name})")
             cfg = cfg.replace(n_layers=layers)
         cfg = cfg.replace(moe_impl=phase.get("moe_impl", cfg.moe_impl))
         if phase.get("train"):
-            runs = [({}, train_phase(cfg, smi, name=name), None, None)]
+            runs = [({}, train_phase(cfg, smi, name=name), None,
+                     None)]
         elif "spec_k" in phase:
             runs = serve_spec(cfg, smi, name=name)
         else:
             runs = [(None, *serve(cfg, smi, name=name))]
         for kernels, got, stats, calls in runs:
-            if calls is not None:           # the train phase checks its own
+            if calls is not None:   # the train phase checks its own
                 check_launches(cfg, got, stats, calls, name=name,
                                kernels=kernels)
-            for k, n in got.items():        # every phase's sum
+            for k, n in got.items():    # every phase's sum
                 launches[k] = launches.get(k, 0) + n
-        gc.collect()                        # the phase's engine, if a cycle
-        torch.cuda.empty_cache()            # the next phase's weights
+        gc.collect()                # the phase's engine, if a cycle
+        torch.cuda.empty_cache()    # the next phase's weights
     timed(check_cli, smi)
     # musicgen-large's codebook prompts through the CLI (CLI_AUDIO)
     timed(check_cli, smi, **CLI_AUDIO)
     timed(check_train_cli, smi)
+    for k, n in timed(check_tools, smi).items():
+        launches[k] = launches.get(k, 0) + n
     for row in rows:
         row["launches"] = launches.get(row["name"], 0)
     log(f"total {time.perf_counter() - t_start:.1f} s")
@@ -4456,8 +4624,8 @@ def main(argv=None):
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms"]
     extra = ["shape", "device_ms", "library_device_ms"]
-    log(json.dumps({"kernels": [{k: row[k] for k in keys + extra if k in row}
-                                for row in rows]}))
+    log(json.dumps({"kernels": [
+        {k: row[k] for k in keys + extra if k in row} for row in rows]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

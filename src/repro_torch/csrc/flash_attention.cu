@@ -37,7 +37,8 @@
 //     also the first, pipelined stage of the D 128 kernel.
 //   * f32 (the reference grid's f32 cases): flash_simt_kernel, the same
 //     tiling on the CUDA cores at 32 x 32 tiles: lane j scores key j of the
-//     tile for the warp's 8 rows, then owns D / 32 output columns.
+//     tile for the warp's 8 rows, then owns D / 32 output columns (at the
+//     tiny configs' D 16, lanes 0-15 one each).
 //   * All three loop over exactly the key tiles that the causal and window
 //     bounds leave for the query tile, so a fully masked tile is never
 //     loaded and a windowed prefill costs O(S * W), not O(S^2); query
@@ -134,7 +135,8 @@ flash_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
                   int Sq, int Sk, int H, int Hkv, int causal, int window,
                   float scale) {
   constexpr int R = kSimtRowsPerWarp;
-  constexpr int C = D / 32;
+  constexpr int C = (D + 31) / 32;     // output columns a lane owns; at
+                                       // D 16 lanes 16-31 own none
   extern __shared__ float sm[];
   float* q_s = sm;                              // (32, D)
   float* k_s = q_s + kSimtRows * D;             // (32, D + 1)
@@ -193,7 +195,8 @@ flash_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int t = 0; t < kSimtKeys; ++t) {
       float vv[C];
 #pragma unroll
-      for (int c = 0; c < C; ++c) vv[c] = v_s[t * D + lane + 32 * c];
+      for (int c = 0; c < C; ++c)
+        vv[c] = lane + 32 * c < D ? v_s[t * D + lane + 32 * c] : 0.f;
 #pragma unroll
       for (int r = 0; r < R; ++r) {
         const float p = p_s[(warp * R + r) * kSimtKeys + t];
@@ -209,7 +212,8 @@ flash_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const float inv = l[r] > 0.f ? 1.f / l[r] : 0.f;
     float* ob = out + (((size_t)b * Sq + row) * H + h) * D;
 #pragma unroll
-    for (int c = 0; c < C; ++c) ob[lane + 32 * c] = acc[r][c] * inv;
+    for (int c = 0; c < C; ++c)
+      if (lane + 32 * c < D) ob[lane + 32 * c] = acc[r][c] * inv;
   }
 }
 
@@ -1038,7 +1042,8 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
 
 // dtype: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores).
 // q, out (B, Sq, H, D); k, v (B, Sk, Hkv, D); contiguous, 16-byte aligned.
-// D in {32, 64, 128}; H % Hkv == 0; window <= 0: no window; causal 0/1.
+// D in {32, 64, 128}, and 16 in float32 (the tiny configs' heads);
+// H % Hkv == 0; window <= 0: no window; causal 0/1.
 // Returns cudaGetLastError() after the launch (0 = launched).
 extern "C" int repro_flash_attention(int dtype, const void* q, const void* k,
                                      const void* v, void* out, int B, int Sq,
@@ -1051,6 +1056,8 @@ extern "C" int repro_flash_attention(int dtype, const void* q, const void* k,
   auto st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
     switch (D) {
+      case 16: return (int)launch_simt<16>(q, k, v, out, B, Sq, Sk, H, Hkv,
+                                          causal, window, scale, st);
       case 32: return (int)launch_simt<32>(q, k, v, out, B, Sq, Sk, H, Hkv,
                                           causal, window, scale, st);
       case 64: return (int)launch_simt<64>(q, k, v, out, B, Sq, Sk, H, Hkv,

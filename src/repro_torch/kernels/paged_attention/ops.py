@@ -5,9 +5,11 @@ positions (``split_plan``) and merged by one combine kernel
 
 Engine-layout arguments, as ``repro/kernels/paged_attention/ops.py``
 takes them: one decode token per slot, pools as the paged KV cache
-stores them.  A CPU tensor goes to the plain version (``ref.py``); a
+stores them.  A CPU or meta tensor goes to the plain version (``ref.py``); a
 CUDA tensor launches the kernel on the current stream or raises — there
-is no fallback.  Each kernel's design note is at the top of its source.
+is no fallback.  Under a cost model (``counter.kernel_site``) a call is
+charged its kernel's own work (``work``, ``mla_work``).  Each kernel's
+design note is at the top of its source.
 """
 from __future__ import annotations
 
@@ -16,7 +18,8 @@ import ctypes
 import torch
 
 from ..build import load_library
-from ..counter import LaunchCounter, forward_only
+from ..counter import (PLAIN_DEVICES, LaunchCounter, forward_only,
+                       kernel_site)
 from .ref import paged_decode_attention_ref, paged_mla_decode_attention_ref
 
 SOURCES = ["paged_decode.cu"]
@@ -103,13 +106,42 @@ def _check(q, k_pool, v_pool, table, pos, page_size):
             raise ValueError(f"{name} must be 16-byte aligned")
 
 
+def _live(table, pos, page_size, window=None) -> int:
+    """The cached positions the slots' decodes read: pos + 1 a slot, at
+    most ``window``.  On meta pos holds no value: every slot counts its
+    table's capacity (a dry run's decode cell is full to its last
+    position)."""
+    cap = table.shape[1] * page_size
+    if pos.device.type == "meta":
+        per = torch.full(pos.shape, cap)
+    else:
+        per = pos.long().cpu() + 1
+    if window:
+        per = per.clamp(max=window)
+    return int(per.sum())
+
+
+def work(q, k_pool, v_pool, table, pos, *, page_size, window=None,
+         scale=None):
+    """(FLOPs, bytes) of one call: two products over the live positions
+    (``_live``); their K and V rows read once, q read and the output
+    written once, the table and pos read."""
+    h, dh = q.shape[2], q.shape[3]
+    live = _live(table, pos, page_size, window)
+    return 4 * live * h * dh, (
+        2 * live * k_pool.shape[2] * dh * k_pool.element_size()
+        + 2 * q.numel() * q.element_size() + table.numel() * 4
+        + pos.numel() * 4)
+
+
+@kernel_site(work)
 def paged_decode_attention(q, k_pool, v_pool, table, pos, *, page_size,
                            window=None, scale=None):
     """q: (B, 1, H, Dh) — one decode token per slot; k/v pools:
     (P, page_size, Hkv, Dh); table: (B, pages_per_slot) int32 block
     table (page 0 = garbage page); pos: (B,) int32 per-slot positions.
     Returns (B, 1, H, Dh) in q's dtype."""
-    if q.device.type == "cpu":
+    if q.device.type in PLAIN_DEVICES:
         return paged_decode_attention_ref(q, k_pool, v_pool, table, pos,
                                           page_size=page_size,
                                           window=window, scale=scale)
@@ -266,6 +298,21 @@ def _check_mla(q_lat, q_rope, ckv_pool, krope_pool, table, pos, page_size):
             raise ValueError(f"{name} must be 16-byte aligned")
 
 
+def mla_work(q_lat, q_rope, ckv_pool, krope_pool, table, pos, *,
+             page_size, scale):
+    """(FLOPs, bytes) of one call: per live position (``_live``) and head
+    the score over latent and rope and the latent sum; each position's
+    latent and rope rows read once, q read and the output written once,
+    the table and pos read."""
+    h, rkv, dr = q_lat.shape[2], q_lat.shape[3], q_rope.shape[3]
+    live = _live(table, pos, page_size)
+    e = q_lat.element_size()
+    return 2 * live * h * (2 * rkv + dr), (
+        live * (rkv + dr) * e + (2 * q_lat.numel() + q_rope.numel()) * e
+        + table.numel() * 4 + pos.numel() * 4)
+
+
+@kernel_site(mla_work)
 def paged_mla_decode_attention(q_lat, q_rope, ckv_pool, krope_pool, table,
                                pos, *, page_size, scale):
     """Absorbed MLA decode over paged latent pools.  q_lat: (B, 1, H, Rkv)
@@ -273,7 +320,7 @@ def paged_mla_decode_attention(q_lat, q_rope, ckv_pool, krope_pool, table,
     (P, page_size, Rkv) / (P, page_size, Dr); table: (B, pages_per_slot)
     int32 (page 0 = garbage page); pos: (B,) int32.  Returns the attended
     latent (B, 1, H, Rkv) in q_lat's dtype; the caller applies wv_b."""
-    if q_lat.device.type == "cpu":
+    if q_lat.device.type in PLAIN_DEVICES:
         return paged_mla_decode_attention_ref(
             q_lat, q_rope, ckv_pool, krope_pool, table, pos,
             page_size=page_size, scale=scale)

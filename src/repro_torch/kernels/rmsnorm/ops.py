@@ -3,16 +3,20 @@
 ``rms_norm`` is the forward; where autograd records it (grad mode on and
 x or w requiring grad) it runs as ``RMSNormFn``, whose forward is the
 same kernel storing each row's ``rstd`` and whose backward is
-``rms_norm_bwd``, the backward kernel.  A CPU tensor goes to the plain
-version (``ref.py``), which autograd differentiates; a CUDA tensor
-launches the kernel or raises — there is no fallback."""
+``rms_norm_bwd``, the backward kernel.  A CPU or meta tensor goes to
+the plain version (``ref.py``), which autograd differentiates; a CUDA
+tensor launches the kernel or raises — there is no fallback.  Under a
+cost model (``counter.kernel_site``) each call is charged its kernel's
+own work, and on the CPU or meta the plain versions run as
+``RMSNormFn`` too, so that the backward is charged as the backward
+kernel."""
 from __future__ import annotations
 
 import torch
 
-from ..counter import LaunchCounter
+from ..counter import PLAIN_DEVICES, LaunchCounter, cost_model, kernel_site
 from .kernel import MAX_D, launch, launch_bwd, programs
-from .ref import rms_norm_ref
+from .ref import rms_norm_bwd_ref, rms_norm_ref
 
 _DTYPES = (torch.float32, torch.bfloat16)
 
@@ -42,19 +46,41 @@ def _forward(x2, w, eps, rstd=None):
     return out
 
 
+def work(x, w, eps=1e-5):
+    """(FLOPs, bytes) of a forward call: x read and the output written
+    once, w read once."""
+    return (4 * x.numel(), 2 * x.numel() * x.element_size()
+            + w.numel() * w.element_size())
+
+
+def bwd_work(x, w, dy, rstd, eps=1e-5):
+    """(FLOPs, bytes) of a backward call: x, dy and w read, dx written."""
+    return (9 * x.numel(), 3 * x.numel() * x.element_size()
+            + w.numel() * w.element_size())
+
+
+@kernel_site(work)
 def rms_norm(x, w, eps=1e-5):
-    if x.device.type == "cpu":
+    grad = torch.is_grad_enabled() and (x.requires_grad or w.requires_grad)
+    if x.device.type in PLAIN_DEVICES:
+        if grad and cost_model() is not None:
+            return RMSNormFn.apply(x, w, eps)
         return rms_norm_ref(x, w, eps)
     x2 = _check(x, w)
-    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+    if grad:
         return RMSNormFn.apply(x2, w, eps).reshape(x.shape)
     return _forward(x2, w, eps).reshape(x.shape)
 
 
-def rms_norm_bwd(x, w, dy, rstd):
+@kernel_site(bwd_work)
+def rms_norm_bwd(x, w, dy, rstd, eps=1e-5):
     """The backward kernel: ``(dx, dw)`` of ``rms_norm(x, w)`` for the
     output gradient ``dy``, with ``rstd`` (f32, one per row of x) from the
-    forward.  x, dy: (..., D) on the card; dx in x's dtype, dw in w's."""
+    forward.  x, dy: (..., D) on the card; dx in x's dtype, dw in w's.  A
+    CPU or meta tensor takes the plain backward, which recomputes rstd
+    from ``eps``."""
+    if x.device.type in PLAIN_DEVICES:
+        return rms_norm_bwd_ref(x, w, dy, eps)
     x2 = _check(x, w).contiguous()
     d = x2.shape[1]
     dy2 = dy.reshape(-1, d).to(x2.dtype).contiguous()
@@ -77,20 +103,28 @@ def rms_norm_bwd(x, w, dy, rstd):
 
 class RMSNormFn(torch.autograd.Function):
     """RMSNorm under autograd on the card: the forward kernel (saving
-    ``rstd``), the backward kernel for its gradient."""
+    ``rstd``), the backward kernel for its gradient.  Under a cost model
+    on the CPU or meta, the plain forward and backward in their place."""
 
     @staticmethod
     def forward(ctx, x2, w, eps):
-        rstd = torch.empty(x2.shape[0], dtype=torch.float32,
-                           device=x2.device)
-        out = _forward(x2, w, eps, rstd)
+        if x2.device.type in PLAIN_DEVICES:
+            out, rstd = rms_norm_ref(x2, w, eps), None
+        else:
+            rstd = torch.empty(x2.shape[0], dtype=torch.float32,
+                               device=x2.device)
+            out = _forward(x2, w, eps, rstd)
         ctx.save_for_backward(x2, w, rstd)
+        ctx.eps = eps
         return out
 
     @staticmethod
     def backward(ctx, dy):
         x2, w, rstd = ctx.saved_tensors
-        dx, dw = rms_norm_bwd(x2, w, dy, rstd)
+        if rstd is None:        # the plain forward: rstd from eps
+            dx, dw = rms_norm_bwd(x2, w, dy, None, eps=ctx.eps)
+        else:
+            dx, dw = rms_norm_bwd(x2, w, dy, rstd)
         return (dx if ctx.needs_input_grad[0] else None,
                 dw if ctx.needs_input_grad[1] else None, None)
 

@@ -2,7 +2,7 @@
 backward ``csrc/ssd_chunk_bwd.cu``), in the (B, S, H, ...) layout of
 ``repro/kernels/ssd_chunk/ops.py::ssd_scan``.
 
-A CPU tensor goes to the plain version (``ref.py``); a CUDA tensor
+A CPU or meta tensor goes to the plain version (``ref.py``); a CUDA tensor
 launches the kernel on the current stream or raises — there is no
 fallback.  The kernel reads x, dt, B and C through their strides (B and C
 may be a head-broadcast view of stride 0: read once per group) and writes
@@ -15,6 +15,11 @@ scan runs as ``SSDScanFn``: the same forward launch, and ``ssd_scan_bwd``,
 the backward kernel, for its gradient.  dB and dC come back per head, so
 that where B and C are one group's stride-0 view (``models/ssm.py``)
 autograd's expand backward sums the group's heads once.
+
+Under a cost model (``counter.kernel_site``) each call is charged its
+kernel's own work (``work``, ``bwd_work``), and on the CPU or meta the
+plain versions run as ``SSDScanFn`` too, so that the backward is charged
+as the backward kernel.
 """
 from __future__ import annotations
 
@@ -23,7 +28,7 @@ import ctypes
 import torch
 
 from ..build import load_library
-from ..counter import LaunchCounter
+from ..counter import PLAIN_DEVICES, LaunchCounter, cost_model, kernel_site
 from .ref import bwd_groups, ssd_scan_bwd_ref, ssd_scan_ref
 
 SOURCES = ["ssd_chunk.cu"]
@@ -125,17 +130,63 @@ def _prepare(x, dt, a, bmat, cmat, chunk):
     return dt.float(), a.float().contiguous(), dims
 
 
+def _chunk_sizes(s, chunk):
+    return [min(chunk, s - c0) for c0 in range(0, s, chunk)]
+
+
+def _in_bytes(x, dt, a, bmat, cmat):
+    """x, dt and a, and B and C once per group (``bwd_groups``)."""
+    b, s, h, p = x.shape
+    g, n = bwd_groups(bmat, cmat), bmat.shape[3]
+    return (x.numel() * x.element_size() + dt.numel() * dt.element_size()
+            + a.numel() * a.element_size() + 2 * b * s * g * n
+            * bmat.element_size())
+
+
+def work(x, dt, a, bmat, cmat, *, chunk=256):
+    """(FLOPs, bytes) of a forward call: per chunk of q positions and per
+    head, the masked products C B^T and M X on the lower triangle and
+    the chunk state and its output (P N each, twice); the inputs read
+    once, y and h_final written once."""
+    b, s, h, p = x.shape
+    n = bmat.shape[3]
+    flops = sum(2 * b * h * (q * (q + 1) // 2 * (n + p) + 2 * q * p * n)
+                for q in _chunk_sizes(s, chunk))
+    return flops, (_in_bytes(x, dt, a, bmat, cmat) + x.numel()
+                   * x.element_size() + b * h * p * n * 4)
+
+
+def bwd_work(x, dt, a, bmat, cmat, dy, dh_final=None, *, chunk=256):
+    """(FLOPs, bytes) of a backward call: per chunk and head dY X^T, Z B,
+    Z^T C and M^T dY on the lower triangle, five whole P N products, and
+    C B^T once per group; x, dt, a, B, C and dy read once, dx, ddt, da
+    and the group's dB and dC written once."""
+    b, s, h, p = x.shape
+    g, n = bwd_groups(bmat, cmat), bmat.shape[3]
+    flops = 0
+    for q in _chunk_sizes(s, chunk):
+        tri = q * (q + 1) // 2
+        flops += 2 * b * (h * (tri * (2 * n + 2 * p) + 5 * q * p * n)
+                          + g * tri * n)
+    return flops, 2 * _in_bytes(x, dt, a, bmat, cmat) + dy.numel() \
+        * dy.element_size()
+
+
+@kernel_site(work)
 def ssd_scan(x, dt, a, bmat, cmat, *, chunk=256):
     """x: (B, S, H, P); dt: (B, S, H) step sizes; a: (H,) negative decay
     rates; b/c: (B, S, H, N).  Returns (y: (B, S, H, P) in x's dtype,
     h_final: (B, H, P, N) f32) — the chunked SSD scan from a zero state.
     Under autograd on the card it runs as ``SSDScanFn``."""
-    if x.device.type == "cpu":
+    grad = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (x, dt, a, bmat, cmat))
+    if x.device.type in PLAIN_DEVICES:
+        if grad and cost_model() is not None:
+            return SSDScanFn.apply(x, dt, a, bmat, cmat, chunk)
         return ssd_scan_ref(x, dt, a, bmat, cmat, chunk=chunk)
     if x.device.type != "cuda":
         raise RuntimeError(f"ssd_scan: no kernel for device {x.device}")
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (x, dt, a, bmat, cmat)):
+    if grad:
         return SSDScanFn.apply(x, dt, a, bmat, cmat, chunk)
     return _scan(x, dt, a, bmat, cmat, chunk)
 
@@ -283,6 +334,7 @@ def _bwd_grads(x, dims):
             torch.empty((b, s, h, n), dtype=x.dtype, device=x.device))
 
 
+@kernel_site(bwd_work)
 def ssd_scan_bwd(x, dt, a, bmat, cmat, dy, dh_final=None, *, chunk=256):
     """The backward kernel: (dx, ddt, da, dB, dC) of ``ssd_scan`` for the
     output gradient ``dy`` (B, S, H, P) and ``dh_final`` (B, H, P, N) of
@@ -290,9 +342,9 @@ def ssd_scan_bwd(x, dt, a, bmat, cmat, dy, dh_final=None, *, chunk=256):
     (B, S, H, N); ddt and da in f32.  Recomputes the forward's chunk
     states from the inputs and, in bf16, C B^T once per (batch, chunk,
     group) (``bwd_groups``: one for B and C of head stride 0); its design
-    note is at the top of ``csrc/ssd_chunk_bwd.cu``.  A CPU tensor takes
-    the plain backward."""
-    if x.device.type == "cpu":
+    note is at the top of ``csrc/ssd_chunk_bwd.cu``.  A CPU or meta
+    tensor takes the plain backward."""
+    if x.device.type in PLAIN_DEVICES:
         return ssd_scan_bwd_ref(x, dt, a, bmat, cmat, dy, dh_final,
                                 chunk=chunk)
     dt, a, dy, dh_final, dims = _bwd_prepare(x, dt, a, bmat, cmat, dy,
@@ -315,11 +367,15 @@ class SSDScanFn(torch.autograd.Function):
     """The SSD scan under autograd on the card: the forward kernel (it
     saves only its inputs: the backward recomputes the chunk states,
     which under remat "full" keeps nothing of the scan between the two
-    passes), the backward kernel for its gradient."""
+    passes), the backward kernel for its gradient.  Under a cost model on
+    the CPU or meta, the plain forward and backward in their place."""
 
     @staticmethod
     def forward(ctx, x, dt, a, bmat, cmat, chunk):
-        y, hf = _scan(x, dt, a, bmat, cmat, chunk)
+        if x.device.type in PLAIN_DEVICES:
+            y, hf = ssd_scan_ref(x, dt, a, bmat, cmat, chunk=chunk)
+        else:
+            y, hf = _scan(x, dt, a, bmat, cmat, chunk)
         ctx.save_for_backward(x, dt, a, bmat, cmat)
         ctx.chunk = chunk
         ctx.set_materialize_grads(False)

@@ -5,10 +5,14 @@ Parameters and caches are plain dict/tuple trees in the reference's
 layout: per-pattern-position leaves stacked on a leading ``n_repeats``
 axis, flat ``(d, H*dh)`` projection weights.  A Python loop over the
 repeats takes the place of ``lax.scan``.  In train mode under autograd,
-``cfg.remat == "full"`` checkpoints each repeat of the pattern
-(``torch.utils.checkpoint``, non-reentrant): the reference's
-``jax.checkpoint`` of its scan body with nothing saveable.  The serve
-modes run under ``torch.no_grad()``.
+``cfg.remat`` checkpoints each repeat of the pattern
+(``torch.utils.checkpoint``, non-reentrant): ``"full"`` saves nothing
+inside it, the reference's ``jax.checkpoint`` of its scan body under
+``nothing_saveable``; ``"dots"`` saves the outputs of the matrix products
+(``mm``, ``addmm``, ``bmm``, ``baddbmm``) and recomputes everything else,
+its ``checkpoint_dots``.  The CUDA kernels launch through ``ctypes``
+below the policy's sight, so under ``"dots"`` they are recomputed.  The
+serve modes run under ``torch.no_grad()``.
 """
 from __future__ import annotations
 
@@ -18,7 +22,8 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..device import resolve_device
 from .blocks import block_apply, block_cache_shapes, block_param_shapes
@@ -173,18 +178,31 @@ def forward(params, cfg, tokens, *, mode="train", pos=0, cache=None,
                         n_tok=n_tok)
 
 
+_DOTS = (torch.ops.aten.mm, torch.ops.aten.addmm, torch.ops.aten.bmm,
+         torch.ops.aten.baddbmm)
+
+
+def _save_dots(ctx, func, *args, **kwargs):
+    """``checkpoint_dots``: keep the products' outputs, recompute the
+    rest."""
+    return (CheckpointPolicy.MUST_SAVE if func.overloadpacket in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
 def _remat(params, cfg):
-    """Whether train mode checkpoints each repeat: autograd records (grad
-    mode on, a weight requires grad) and ``cfg.remat`` asks for it."""
+    """The ``checkpoint`` keywords of each repeat in train mode, or None
+    when it is not checkpointed: autograd records nothing (grad mode off,
+    no weight requiring grad) or ``cfg.remat`` is ``"none"``."""
     if cfg.remat == "none" or not torch.is_grad_enabled() or not any(
             t.requires_grad for t in tree_leaves(params)):
-        return False
-    if cfg.remat != "full":
-        raise NotImplementedError(
-            f"{cfg.name}: remat={cfg.remat!r} is not ported (the port "
-            "checkpoints whole repeats, remat='full'; ROADMAP.md queue 1, "
-            "item 10)")
-    return True
+        return None
+    if cfg.remat == "full":
+        return {"use_reentrant": False}
+    if cfg.remat == "dots":
+        return {"use_reentrant": False, "context_fn": functools.partial(
+            create_selective_checkpoint_contexts, _save_dots)}
+    raise ValueError(f"{cfg.name}: remat={cfg.remat!r}; pick 'none', "
+                     "'dots' or 'full'")
 
 
 def _positions(mode, pos, s, device):
@@ -247,12 +265,12 @@ def _forward(params, cfg, tokens, *, mode, pos, cache, patches, cache_len,
 
     aux = torch.zeros((), dtype=torch.float32, device=x.device) \
         if train else None
-    remat = train and _remat(params, cfg)
+    remat = _remat(params, cfg) if train else None
     for r in range(cfg.n_repeats):
-        if remat:
+        if remat is not None:
             # ``r`` bound now: the backward recomputes after the loop ends
             x, aux = checkpoint(functools.partial(train_repeat, r=r), x, aux,
-                                use_reentrant=False)
+                                **remat)
             continue
         x, aux, ncs = repeat(x, aux, r)
         if mode == "prefill":

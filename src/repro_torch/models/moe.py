@@ -105,10 +105,20 @@ def moe_mlp(xn, p, cfg, aux=True):
     return y, lb
 
 
+class DroplessOnMeta(RuntimeError):
+    """The dropless MoE on meta tensors: its segment bounds are data that
+    a meta tensor does not hold, and no routing is made up for it."""
+
+
 def moe_mlp_ragged(xn, p, cfg, aux=True):
     """Dropless variant: (token, pick) rows sorted by expert, one matmul
     per expert's contiguous segment.  The segment bounds are read on the
-    host.  Returns (y, lb)."""
+    host (``DroplessOnMeta`` on meta tensors).  Returns (y, lb)."""
+    if xn.device.type == "meta":
+        raise DroplessOnMeta(
+            f"{cfg.name}: moe_impl='ragged' reads each expert's segment "
+            "bounds on the host, and a meta tensor holds no routing; dry-run "
+            "it with moe_impl='onehot'")
     b, s, d = xn.shape
     e, k = cfg.n_experts, cfg.top_k
     dt = xn.dtype

@@ -33,7 +33,18 @@ def _port_modules():
     return mods
 
 
+# modules the check must cover by name: the launch tools and the
+# examples (entry points whose bodies run only under ``__main__``)
+NAMED = {"repro_torch.launch.analysis", "repro_torch.launch.op_cost",
+         "repro_torch.launch.specs", "repro_torch.launch.dryrun",
+         "repro_torch.launch.profile_cell", "repro_torch.examples",
+         "repro_torch.examples.quickstart", "repro_torch.examples.serve_batch",
+         "repro_torch.examples.train_100m",
+         "repro_torch.examples.io_overlap_demo"}
+
+
 def test_port_imports_no_jax_and_no_reference_module():
+    assert NAMED <= set(_port_modules()), NAMED - set(_port_modules())
     code = (
         "import importlib, sys\n"
         f"for m in {_port_modules()!r}:\n"

@@ -140,20 +140,23 @@ def test_host_runtime_carries_prefetch_and_checkpoint(tmp_path):
 @pytest.mark.parametrize("arch", ["qwen2.5-14b", "mixtral-8x7b",
                                   "mamba2-780m"])
 def test_remat_full_equals_none(arch):
-    """``remat="full"`` (every registry config's) checkpoints each repeat;
-    the recomputed forward gives the same loss and gradients."""
+    """``remat="full"`` (every registry config's) checkpoints each repeat,
+    and ``"dots"`` each repeat saving its products' outputs; the
+    recomputed forward gives the same loss and gradients.  A remat name
+    of neither kind raises."""
     cfg = get(arch).tiny()
     state = _state(cfg=cfg)
     batch = _batch(0, cfg)
     g0, l0 = make_grad_step(cfg)(state["params"], batch)
-    g1, l1 = make_grad_step(cfg.replace(remat="full"))(state["params"],
-                                                       batch)
-    np.testing.assert_allclose(float(l1), float(l0), rtol=1e-6)
-    for a, b in zip(tree_leaves(g0), tree_leaves(g1)):
-        np.testing.assert_allclose(b.numpy(), a.numpy(), rtol=1e-6,
-                                   atol=1e-9)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        make_grad_step(cfg.replace(remat="dots"))(state["params"], batch)
+    for remat in ("full", "dots"):
+        g1, l1 = make_grad_step(cfg.replace(remat=remat))(state["params"],
+                                                          batch)
+        np.testing.assert_allclose(float(l1), float(l0), rtol=1e-6)
+        for a, b in zip(tree_leaves(g0), tree_leaves(g1)):
+            np.testing.assert_allclose(b.numpy(), a.numpy(), rtol=1e-6,
+                                       atol=1e-9)
+    with pytest.raises(ValueError, match="remat='offload'"):
+        make_grad_step(cfg.replace(remat="offload"))(state["params"], batch)
 
 
 def test_softmax_xent_and_token_loss_match_reference():
