@@ -53,15 +53,15 @@ Phases (each raises on failure, so the script exits non-zero):
    each behind ``repro_torch.serve.ServeEngine`` on the UMT runtime with
    seeded bf16 weights made on the card by the engine's weights task, at
    the depth ``PHASES`` gives each (the cuts and their reason beside
-   it): qwen2.5-14b (paged, ``paged_kernel=True``, flash prefill; 24 of
+   it): qwen2.5-14b (paged, ``paged_kernel=True``, flash prefill; 12 of
    48 layers), minicpm3-4b (MLA, paged, ``paged_kernel=True``; 48 of 62
-   layers), mamba2-780m (SSD, ``page_size="auto"``; 24 of 48), each with
+   layers), mamba2-780m (SSD, ``page_size="auto"``; 12 of 48), each with
    32 requests with prompt lengths from {256, 512, 1024, 2048} and 16
    slots; then mixtral-8x7b (MoE, sliding-window rings, flash prefill) at
    8 of its 32 layers (the whole model does not fit one card), 16
    requests, each prompt length of {1024, 2048, 6144, 8192} four times,
    8 slots; then the two frontends at full width with the prefix trie
-   on (internvl2-2b at 12 of 24 layers, musicgen-large at 24 of 48):
+   on (internvl2-2b at 12 of 24 layers, musicgen-large at 12 of 48):
    internvl2-2b (32
    requests of {256, 512, 1024, 2048} text tokens, each behind 256 patch
    embeddings drawn on the card at ``PATCH_STD``, 16 slots, cache_len
@@ -70,14 +70,14 @@ Phases (each raises on failure, so the script exits non-zero):
    embedding and heads scaled by ``AUDIO_EMBED_GAIN`` and
    ``AUDIO_HEAD_GAIN``, the reasons beside them; every check per
    codebook); then chunked prefill and
-   the shared-prefix cache, qwen2.5-14b (``qwen2.5-14b-prefix``, 12 of
+   the shared-prefix cache, qwen2.5-14b (``qwen2.5-14b-prefix``, 6 of
    its 48 layers) and minicpm3-4b (``minicpm3-4b-prefix``, full depth): 4
    prefixes of 1001 tokens, each heading 8 prompts with tails of 24-1000
    tokens, chunks of 512, one prompt per prefix first and the other 28
    once those have 2 tokens out (28 hits, each forking a partial page);
    then on-demand paging with eviction and restore (``policy="ondemand"``,
-   ``qwen2.5-14b-ondemand`` at 12 and ``mamba2-780m-ondemand`` at 24
-   layers): the cold
+   ``qwen2.5-14b-ondemand`` and ``mamba2-780m-ondemand`` at 6 layers):
+   the cold
    phases' traffic into a pool of two worst cases (``ONDEMAND_PAGES``),
    so that slots grow page by page and the youngest is evicted and
    restored — by prefill-replay through 512-token chunks on qwen2.5-14b,
@@ -156,6 +156,24 @@ Phases (each raises on failure, so the script exits non-zero):
    checkpoints, the run resumed from its step-10 save, and ``--umt-off``,
    each with the same losses where they overlap; then mamba2-780m's tiny
    shape through the same CLI, launching the SSD kernels.
+5b. tp     — tensor-parallel serving (``tp_section``; ``--phases tp``):
+   a mesh of two ranks, this process and one follower process
+   (``repro_torch.launch.mesh``, started on a thread right after the
+   build so the follower's start overlaps the kernel checks), both on
+   the one card over gloo when the machine has one card, on two cards
+   over nccl when it has more (printed); qwen2.5-14b (12 of 48 layers,
+   qwen's mix of 16 requests), minicpm3-4b and mamba2-780m (4 layers, 8
+   requests) in turn at full
+   width through ``ServeEngine(mesh=...)``; each leg's bars on rank 0
+   against the single-device forward from the same full weights (the
+   teacher-forced token check, the TP step path's logits within
+   ``REL_TOL``), planted TP faults on every rank that must fail them
+   (``TP_LEGS``), and per rank the launch identities, the collectives
+   per tick, the pool bytes against the single-device pool and the last
+   tick's tokens, mask and block table (the same bytes on every rank).
+   Phase 3
+   also holds every serve kernel at the two ranks' local shapes
+   (``check_tp_kernels``).
 6. summary — one ``kernels`` JSON line, then the ``ok`` line.
 
 Nothing of JAX or of the ``repro`` package is imported.
@@ -489,17 +507,18 @@ FRONTEND_DECODE = {"musicgen": ((16, 32, 32, 64, 2080, 8), 0),
 # (``prefix_cache="auto"``); their random prompts must never hit.
 # Depth cuts, to keep the script well inside its time limit (ROADMAP,
 # "The time budget of the chip script"): the cold phases of qwen2.5-14b,
-# mamba2-780m and musicgen-large and the on-demand mamba2-780m at half
-# depth; internvl2-2b and qwen2.5-14b's prefix, on-demand and spec
-# phases at 12 layers; mixtral-8x7b and jamba at 8; minicpm3-4b's cold
-# phase at 48 of 62.  Every layer of a family runs the same kernels at
+# mamba2-780m and musicgen-large (each from 24 to 12, to make room for
+# the TP section), internvl2-2b and qwen2.5-14b's spec phase at 12
+# layers; qwen2.5-14b's prefix and on-demand phases and the on-demand
+# mamba2-780m at 6 (from 12);
+# mixtral-8x7b and jamba at 8; minicpm3-4b's cold phase at 48 of 62.  Every layer of a family runs the same kernels at
 # the same widths.  At their deeper depth these phases' planted faults
 # trailed the forward by 0.48 or more in relative logit error and by 1.8
 # or more in its argmax, against bars of 0.3 and 1.0 (PERF.md section
 # 6).  minicpm3-4b's prefix phase keeps all 62 layers: at 31 two of its
 # faults were no longer rejected, and at 62 one trails by 1.08.
 PHASES = {
-    "qwen2.5-14b": dict(paged_kernel=True, traffic=TRAFFIC, layers=24,
+    "qwen2.5-14b": dict(paged_kernel=True, traffic=TRAFFIC, layers=12,
                         kernels={"paged_decode_attention": "decode",
                                  "flash_attention": "prefill"}),
     # minicpm3-4b also holds the MLA verify mode over its paged latent
@@ -507,7 +526,7 @@ PHASES = {
     "minicpm3-4b": dict(paged_kernel=True, traffic=TRAFFIC, layers=48,
                         kernels={"paged_mla_decode_attention": "decode"},
                         verify_faults=("window_late",)),
-    "mamba2-780m": dict(paged_kernel=False, traffic=TRAFFIC, layers=24,
+    "mamba2-780m": dict(paged_kernel=False, traffic=TRAFFIC, layers=12,
                         kernels={"ssd_scan": "prefill"}),
     # 8 of 32 layers: full depth is 93.4 GB of bf16 weights, more than
     # the card holds; 16 layers would be 46.4 GB + 0.5 GB of embedding and
@@ -523,27 +542,29 @@ PHASES = {
                          kernels={"flash_attention": "prefill",
                                   "paged_decode_attention": None}),
     # the frontends at full width (internvl2-2b at 12 of its 24 layers,
-    # musicgen-large at 24 of 48), behind the prefix trie
+    # musicgen-large at 12 of 48), behind the prefix trie
     # (``prefix_cache="auto"``): a vision request never looks up or enters
     # it (asserted), musicgen's random code prompts never hit
     "internvl2-2b": dict(paged_kernel=True, traffic=VISION_TRAFFIC,
                          layers=12,
                          kernels={"paged_decode_attention": "decode",
                                   "flash_attention": "prefill"}),
-    "musicgen-large": dict(paged_kernel=True, traffic=TRAFFIC, layers=24,
+    "musicgen-large": dict(paged_kernel=True, traffic=TRAFFIC, layers=12,
                            kernels={"paged_decode_attention": "decode",
                                     "flash_attention": "prefill"}),
     # chunked prefill and the shared-prefix cache: every prompt is longer
     # than the chunk, so no one-shot prefill (and no flash launch) is due.
-    # qwen2.5-14b's at 12 layers, for the script's time: what it holds
+    # qwen2.5-14b's at 6 layers, for the script's time: what it holds
     # (the gather, the tail's chunks at an offset, shared-page admission)
-    # is the same in every layer.  minicpm3-4b's stays at full depth: at
-    # 31 layers two of its planted faults were no longer rejected.
+    # is the same in every layer (at 12, its narrowest fault was rejected
+    # at 1.0549 / 4.5859 against 0.3 / 1.0).  minicpm3-4b's stays at full
+    # depth: at 31 layers two of its planted faults were no longer
+    # rejected.
     "qwen2.5-14b-prefix": dict(
         arch="qwen2.5-14b", paged_kernel=True,
         traffic=PREFIX_TRAFFIC, prefill_chunk=512, prefix_cache="on",
-        layers=12, kernels={"paged_decode_attention": "decode",
-                            "flash_attention": None}),
+        layers=6, kernels={"paged_decode_attention": "decode",
+                           "flash_attention": None}),
     "minicpm3-4b-prefix": dict(
         arch="minicpm3-4b", paged_kernel=True,
         traffic=PREFIX_TRAFFIC, prefill_chunk=512, prefix_cache="on",
@@ -554,19 +575,20 @@ PHASES = {
     # with the pages its eviction handed over), decode-replay through the
     # serve step (mamba2-780m: the prompt's one-shot prefill with the SSD
     # kernel, then one batch-1 serve step per emitted token)
-    # both at 12 layers, for the script's time: growth, eviction and
-    # restore are the same in every layer (at mamba2-780m's 24 layers its
-    # planted fault was rejected at 1.3550 / 4.4102 against 0.3 / 1.0,
-    # at 12 at 1.3288 / 5.2734)
+    # both at 6 layers, for the script's time: growth, eviction and
+    # restore are the same in every layer (mamba2-780m's planted fault
+    # was rejected at 1.3550 / 4.4102 against 0.3 / 1.0 at 24 layers, at
+    # 1.3615 / 5.2734 at 12; qwen2.5-14b's narrowest at 1.2475 / 7.9141 at
+    # 12)
     "qwen2.5-14b-ondemand": dict(
         arch="qwen2.5-14b", paged_kernel=True, traffic=TRAFFIC,
         prefill_chunk=512, policy="ondemand", num_pages=ONDEMAND_PAGES,
-        layers=12,
+        layers=6,
         kernels={"paged_decode_attention": "decode",
                  "flash_attention": "prefill"}),
     "mamba2-780m-ondemand": dict(
         arch="mamba2-780m", paged_kernel=False, traffic=TRAFFIC,
-        policy="ondemand", num_pages=ONDEMAND_PAGES, layers=12,
+        policy="ondemand", num_pages=ONDEMAND_PAGES, layers=6,
         kernels={"ssd_scan": "prefill"}),
     # speculative decoding, full width, three legs on one set of
     # weights (``serve_spec``): (a) spec off, paged-kernel decode ticks;
@@ -2040,6 +2062,178 @@ def check_flash():
         del q, k, v
         torch.cuda.empty_cache()
     return rows             # one row per serve shape
+
+
+def check_tp_kernels():
+    """Each serve kernel at the local shapes a rank of the TP section's
+    two-rank legs hands it, held against its plain version in bf16 row by
+    row (``ROW_TOL``; the SSD scan ``SSD_ROW_TOL`` against the plain
+    version in f32) and timed beside its bound: the paged GQA decode at
+    qwen2.5-14b's 20 / 4 heads, the paged MLA decode at minicpm3-4b's 20
+    heads (a partial head tile of 16 + 4), flash attention at qwen's 20 /
+    4 heads (1 x 2048), the SSD scan at mamba2-780m's 24 of 48 heads (B
+    and C one group, stride 0), and RMSNorm's given-statistic entry at
+    mamba2's gated norm (d_inner / 2 = 1536 of 3072 per rank, 2048
+    rows).  The three attention kernels are also timed against SDPA on
+    the same inputs, as at their single-device shapes; the SSD scan and
+    a norm given its statistic have no PyTorch call of their own.  Rows
+    of the ``kernels`` line with a ``shape`` key."""
+    import torch
+
+    from repro_torch.kernels import (flash_attention, flash_attention_ref,
+                                     paged_decode_attention,
+                                     paged_decode_attention_ref,
+                                     paged_mla_decode_attention,
+                                     paged_mla_decode_attention_ref,
+                                     rms_norm_rstd, rms_norm_rstd_ref,
+                                     ssd_scan, ssd_scan_ref)
+
+    bf16 = torch.bfloat16
+    rows = []
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def row(name, shape, source, replaces, err, k_ms, p_ms, k_dev, nbytes,
+            flops, peak, library=None):
+        """``library``: one PyTorch call computing the same function on
+        the same inputs (timed here, used nowhere in the port), or None
+        where there is none."""
+        l_ms = l_dev = None
+        if library is not None:
+            l_ms = time_ms(library)
+            l_dev = device_ms(library, iters=8, lead=8)
+        bound = max(nbytes / HBM_BPS, flops / peak) * 1e3
+        bound_by = "bytes" if nbytes / HBM_BPS >= flops / peak \
+            else "operations"
+        lib_text = ("none" if l_ms is None else
+                    f"{l_ms:.4f} (device alone {ms_text(l_dev)})")
+        log(f"{name} [{shape}] bf16: max_err {err:.3e} kernel_ms "
+            f"{k_ms:.4f} plain_ms {p_ms:.4f} library_ms {lib_text} "
+            f"bound_ms {bound:.4f} ({bound_by}: {nbytes} B, {flops} FLOP); "
+            f"device time alone (profiler) {ms_text(k_dev)}")
+        rows.append({"name": name, "shape": shape, "route": (
+            "triton" if name == "rms_norm" else "cuda"), "device_ms": k_dev,
+            "library_device_ms": l_dev,
+            "source": source, "replaces": replaces, "max_abs_err": err,
+            "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound,
+            "bound_by": bound_by, "library_ms": l_ms})
+
+    # paged GQA decode, qwen2.5-14b's 16 slots at 20 / 4 heads per rank
+    shape = (16, 20, 4, 128, 2080, 8)
+    args, kw = paged_case(*shape, bf16, seed=1, pos=decode_pos())
+    got, want = paged_decode_attention(*args, **kw), \
+        paged_decode_attention_ref(*args, **kw)
+    err = close(got, want, bf16, "paged_decode 2 ranks")
+    rows_close(got, want, "paged_decode 2 ranks")
+    q, kp, vp, table, pos = args
+    live = int((pos.long() + 1).sum().item())
+    # library yardstick, as ``paged_decode_row``'s: SDPA (GQA) over K/V
+    # gathered dense beforehand (the gather is not timed)
+    kd = kp[table.long()].reshape(16, -1, 4, 128).transpose(1, 2)
+    vd = vp[table.long()].reshape(16, -1, 4, 128).transpose(1, 2)
+    mask = (torch.arange(kd.shape[2], device="cuda")[None, :]
+            <= pos.long()[:, None])[:, None, None, :]
+    qh = q.transpose(1, 2)
+    row("paged_decode_attention", "qwen 2 ranks (16 slots, 20/4 heads)",
+        "src/repro_torch/csrc/paged_decode.cu",
+        "src/repro/kernels/paged_attention/kernel.py:121", err,
+        time_ms(lambda: paged_decode_attention(*args, **kw)),
+        time_ms(lambda: paged_decode_attention_ref(*args, **kw), iters=5),
+        device_ms(lambda: paged_decode_attention(*args, **kw), lead=8),
+        live * 4 * 128 * 2 * 2 + 2 * q.numel() * 2 + table.numel() * 4
+        + pos.numel() * 4, live * 20 * 128 * 2 * 2, BF16_FLOPS,
+        lambda: sdpa(qh, kd, vd, attn_mask=mask, enable_gqa=True))
+    del args, q, kp, vp, kd, vd, qh, got, want
+    # paged MLA decode, minicpm3-4b's 20 of 40 query heads per rank
+    args = mla_case(16, 20, 256, 32, 2080, 8, bf16, seed=12,
+                    pos=decode_pos())
+    kw = dict(page_size=8, scale=(64 + 32) ** -0.5)
+    got, want = paged_mla_decode_attention(*args, **kw), \
+        paged_mla_decode_attention_ref(*args, **kw)
+    err = close(got, want, bf16, "paged_mla_decode 2 ranks")
+    rows_close(got, want, "paged_mla_decode 2 ranks")
+    ql, qr, cp, kp, table, pos = args
+    live = int((pos.long() + 1).sum().item())
+    # library yardstick, as ``check_paged_mla``'s: SDPA over [ckv || krope]
+    # keys and ckv values gathered dense beforehand, one kv head broadcast
+    # to the 20 query heads (the gather is not timed)
+    cd = cp[table.long()].reshape(16, 1, -1, 256)
+    kd = torch.cat([cd, kp[table.long()].reshape(16, 1, -1, 32)], dim=-1)
+    qh = torch.cat([ql, qr], dim=-1).transpose(1, 2)       # (16, 20, 1, 288)
+    mask = (torch.arange(kd.shape[2], device="cuda")[None, :]
+            <= pos.long()[:, None])[:, None, None, :]
+    row("paged_mla_decode_attention", "minicpm3 2 ranks (16 slots, 20 "
+        "heads: tiles of 16 + 4)", "src/repro_torch/csrc/paged_mla_decode.cu",
+        "src/repro/kernels/paged_attention/kernel.py:200", err,
+        time_ms(lambda: paged_mla_decode_attention(*args, **kw)),
+        time_ms(lambda: paged_mla_decode_attention_ref(*args, **kw),
+                iters=5),
+        device_ms(lambda: paged_mla_decode_attention(*args, **kw), lead=8),
+        live * (256 + 32) * 2 + (ql.numel() + qr.numel()) * 2
+        + ql.numel() * 2 + table.numel() * 4 + pos.numel() * 4,
+        live * 20 * (256 + 32 + 256) * 2, BF16_FLOPS,
+        lambda: sdpa(qh, kd, cd, attn_mask=mask, scale=kw["scale"],
+                     enable_gqa=True))
+    del args, ql, qr, cp, kp, cd, kd, qh, got, want
+    # flash attention, qwen2.5-14b's prefill at 20 / 4 heads per rank
+    q, k, v = flash_case(1, 2048, 2048, 20, 4, 128, bf16, seed=0)
+    got, want = flash_attention(q, k, v), flash_attention_ref(q, k, v)
+    err = close(got, want, bf16, "flash 2 ranks")
+    rows_close(got, want, "flash 2 ranks")
+    pairs = flash_pairs(2048, 2048, True, None)
+    row("flash_attention", "qwen 2 ranks 1 x 2048 (20/4 heads)",
+        "src/repro_torch/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention/kernel.py:106", err,
+        time_ms(lambda: flash_attention(q, k, v)),
+        time_ms(lambda: flash_attention_ref(q, k, v), iters=2, warmup=1,
+                reps=3),
+        device_ms(lambda: flash_attention(q, k, v), iters=8, per_call=1,
+                  lead=8),
+        2 * (2 * 2048 * 20 * 128 + 2 * 2048 * 4 * 128),
+        4 * 20 * pairs * 128, BF16_FLOPS,
+        # library yardstick, as ``check_flash``'s: SDPA on (B, H, S, D)
+        # views, causal, GQA expanded by the call
+        lambda: sdpa(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                     is_causal=True, enable_gqa=True))
+    del q, k, v, got, want
+    # the SSD scan, mamba2-780m's prefill at 24 of 48 heads per rank
+    args = ssd_model_layout(1, 2048, 24, 64, 128, bf16, seed=1)
+    y, hf = ssd_scan(*args, chunk=256)
+    x, dt, a, bmat, cmat = args
+    yw, _ = ssd_scan_ref(x.float(), dt, a, bmat.float(), cmat.float(),
+                         chunk=256)
+    rows_close(y, yw, "ssd_scan 2 ranks", SSD_ROW_TOL)
+    err = (y.float() - yw).abs().max().item()
+    b, s, h, p, nn, qq = 1, 2048, 24, 64, 128, 256
+    per_chunk = qq * (qq + 1) // 2 * (nn + p) + 2 * qq * p * nn
+    row("ssd_scan", "mamba2 2 ranks 1 x 2048 (24 of 48 heads, B and C "
+        "stride 0)", "src/repro_torch/csrc/ssd_chunk.cu",
+        "src/repro/kernels/ssd_chunk/kernel.py:80", err,
+        time_ms(lambda: ssd_scan(*args, chunk=256)),
+        time_ms(lambda: ssd_scan_ref(*args, chunk=256), iters=2, warmup=1),
+        device_ms(lambda: ssd_scan(*args, chunk=256), per_call=3, lead=8),
+        (b * s * h * p * 2 + b * s * h * 4 + h * 4 + b * s * h * p * 2
+         + b * h * p * nn * 4 + b * s * 2 * nn * 2),
+        2 * b * h * (s // qq) * per_chunk, BF16_FLOPS)
+    del args, x, y, yw
+    # RMSNorm given each row's statistic: mamba2's gated norm per rank
+    g = torch.Generator("cuda").manual_seed(4)
+    x = torch.randn((2048, 1536), generator=g, device="cuda").to(bf16)
+    w = (torch.randn(1536, generator=g, device="cuda") * 0.1 + 1).to(bf16)
+    r = torch.rand(2048, generator=g, device="cuda") + 0.5
+    got, want = rms_norm_rstd(x, w, r), rms_norm_rstd_ref(x, w, r)
+    err = close(got, want, bf16, "rms_norm_rstd 2 ranks")
+    rows_close(got, want, "rms_norm_rstd 2 ranks")
+    row("rms_norm", "mamba2 2 ranks gated norm (2048, 1536), given rstd",
+        "src/repro_torch/kernels/rmsnorm/kernel.py",
+        "src/repro/kernels/rmsnorm/kernel.py:27", err,
+        time_ms(lambda: rms_norm_rstd(x, w, r)),
+        time_ms(lambda: rms_norm_rstd_ref(x, w, r)),
+        device_ms(lambda: rms_norm_rstd(x, w, r), per_call=1, lead=8),
+        2 * x.numel() * 2 + w.numel() * 2 + r.numel() * 4, 2 * x.numel(),
+        F32_FLOPS)
+    torch.cuda.empty_cache()
+    return rows
 
 
 # ------------------------------------------------------------- main path
@@ -3790,6 +3984,36 @@ def worst_gap(gaps, names):
     return gaps[i], names[i]
 
 
+@contextlib.contextmanager
+def host_rise(every_s=0.01):
+    """Yields a dict whose ``gb`` is, after the block, how far this
+    process's resident memory rose above its level at the block's start,
+    at its highest (``/proc/self/statm`` read every ``every_s`` s on a
+    thread)."""
+    import resource
+    import threading
+
+    page = resource.getpagesize()
+
+    def rss():
+        with open("/proc/self/statm") as f:
+            return int(f.read().split()[1]) * page
+    box, start, stop = {}, rss(), threading.Event()
+    top = [start]
+
+    def watch():
+        while not stop.wait(every_s):
+            top[0] = max(top[0], rss())
+    th = threading.Thread(target=watch, daemon=True, name="host-rise")
+    th.start()
+    try:
+        yield box
+    finally:
+        stop.set()
+        th.join()
+        box["gb"] = (max(top[0], rss()) - start) / 1e9
+
+
 def traced(fn):
     """One call of ``fn`` under ``torch.profiler``: (its result, host s,
     device busy s, [(kernel, ms)] largest first).  The port runs on one
@@ -4102,7 +4326,8 @@ def train_phase(cfg, smi, name="qwen2.5-14b-train", seed=0, device="cuda"):
         if card:
             torch.cuda.empty_cache()
         t0 = time.perf_counter()
-        state, rstep = mgr.restore(template, device=device)
+        with host_rise() as rise:
+            state, rstep = mgr.restore(template, device=device)
         t_restore = time.perf_counter() - t0
         if rstep != tr["ckpt_at"] or int(state["step"]) != rstep:
             raise AssertionError(f"{name}: restored step {rstep} / "
@@ -4135,7 +4360,8 @@ def train_phase(cfg, smi, name="qwen2.5-14b-train", seed=0, device="cuda"):
     shutil.rmtree(ckpt, ignore_errors=True)
     log(f"{name}: (f) saved at step {tr['ckpt_at']} (host snapshot "
         f"{t_snap:.2f} s, writes done {t_wait:.2f} s after the last "
-        f"step), restored in {t_restore:.2f} s, {n - rstep} steps on: "
+        f"step), restored in {t_restore:.2f} s (host memory up by at "
+        f"most {rise['gb']:.2f} GB meanwhile), {n - rstep} steps on: "
         f"params equal the uninterrupted run's (max |diff| {worst:.3e}; "
         "rtol 1e-5 / atol 1e-6)")
     log(f"{name}: launch identities ({n} steps): "
@@ -4326,6 +4552,11 @@ def check_remat_dots(smi, seed=0):
     del params, res, g_f, g_d
 
 
+# io_overlap_demo's timed steps in the script (its default is 14): both
+# legs took 17.9 s of the tools section at 14 on an H100 machine
+IO_DEMO_STEPS = 7
+
+
 def check_examples(smi):
     """The examples on the card (``repro_torch.examples``; train_100m runs
     in ``check_train_cli``): quickstart, whose UMT leg must beat its
@@ -4348,9 +4579,11 @@ def check_examples(smi):
             or np.asarray(engine).shape != (8, 12):
         raise AssertionError(f"serve_batch: tokens {np.asarray(oneshot).shape}"
                              f" / {np.asarray(engine).shape}")
-    io_ = io_overlap_demo.main(["--device", "cuda"])
-    log(f"io_overlap_demo ({smi}): 14 steps with a fsync'd checkpoint each: "
-        f"synchronous {io_['sync_s']:.2f} s, UMT {io_['umt_s']:.2f} s")
+    io_ = io_overlap_demo.main(["--device", "cuda", "--steps",
+                                str(IO_DEMO_STEPS + 1)])
+    log(f"io_overlap_demo ({smi}): {IO_DEMO_STEPS} steps with a fsync'd "
+        f"checkpoint each: synchronous {io_['sync_s']:.2f} s, UMT "
+        f"{io_['umt_s']:.2f} s")
 
 
 def check_tools(smi):
@@ -4396,6 +4629,499 @@ def check_tools(smi):
            for k in profile_cell.COUNTED}
     log(f"tools section: launches {got}; {time.perf_counter() - t0:.1f} s")
     return got
+
+
+# ------------------------------------------------------ tensor parallelism
+# The TP section (``tp_section``): one pair of ranks (this process and one
+# follower, ``repro_torch.launch.mesh``) serves three families in turn at
+# full width: two ranks on the one card over gloo when the machine has
+# one card, on two cards over nccl when it has two or more.  qwen2.5-14b
+# is the main path (flash prefill and the paged insert, paged-kernel
+# decode) at 12 of 48 layers with qwen's mix, 16 requests of {256, 512,
+# 1024, 2048} tokens, each length four times, 16 slots, cache_len 2080,
+# page 8; minicpm3-4b (the paged MLA decode) and mamba2-780m (the SSD scan
+# in prefill, conv weights times ``SSM_CONV_W_GAIN``), 8 requests each:
+# minicpm3-4b at 2 layers (4 before, cut for the script's time),
+# mamba2-780m at 4.  Planted TP faults, each on every rank: the all-reduce
+# after the attention output projection left out (each rank adds only
+# its own heads' share); each rank's query heads taken from the next
+# rank's columns of wq (minicpm3: of wq_b), so they attend with KV groups
+# not theirs; mamba2's gated norm with per-rank statistics.
+TP_TRAFFIC = dict(slots=16, cache_len=2080, lens=(256, 512, 1024, 2048),
+                  each=True, gen=32)
+TP_LEGS = {
+    "qwen2.5-14b": dict(layers=12, n_req=16, paged_kernel=True,
+                        faults=("wo_all_reduce_left_out", "wq_next_rank"),
+                        kernels={"paged_decode_attention": "decode",
+                                 "flash_attention": "prefill"}),
+    "minicpm3-4b": dict(layers=2, n_req=8, paged_kernel=True,
+                        faults=("wo_all_reduce_left_out", "wq_next_rank"),
+                        kernels={"paged_mla_decode_attention": "decode"}),
+    # the per-rank statistic moves each rank's half of the gated norm by
+    # the ratio of its own sum of squares to the half of the whole: at 4
+    # layers over 4 requests x 8 positions (an H100 run) 0.5360 relative
+    # but a worst gap of 0.7969, so its check runs every request and
+    # position; at 2 layers even that is too little (0.4424 relative, a
+    # gap of 0.7031 in a full-width rehearsal on the CPU), so the leg
+    # keeps 4
+    "mamba2-780m": dict(layers=4, n_req=8, paged_kernel=False,
+                        faults=("gated_norm_per_rank",), fault_req=8,
+                        fault_pos=32, kernels={"ssd_scan": "prefill"}),
+}
+# the planted faults' path check runs over this many of a leg's requests,
+# the shortest prompts first, and their first this many positions (the
+# as-built path over every request and position), unless the leg says
+# otherwise (``fault_req``, ``fault_pos``)
+TP_FAULT_REQ = 4
+TP_FAULT_POS = 8
+
+
+class TPWeights:
+    """The TP legs' weights on every rank: the seeded init of the serve
+    phases (``weights_task``'s, conv weights times ``SSM_CONV_W_GAIN``),
+    made whole on the rank's device and cut to its shard."""
+    per_rank = True
+
+    def __init__(self, seed=0):
+        self.seed = seed
+
+    def __call__(self, cfg, mesh, device):
+        import torch
+
+        from repro_torch.models.lm import init_params
+        from repro_torch.params import shard_params
+
+        full = init_params(cfg, torch.Generator(device).manual_seed(
+            self.seed), device)
+        ssm_gain(full)
+        return shard_params(full, cfg, mesh)
+
+
+def make_forced_decode(cfg, *, cache_len, page_size=None, paged_kernel=False,
+                       mesh=None):
+    """The path check's decode: the engine's decode forward fed given
+    tokens at given per-slot positions, returning the tick's f32 logits
+    (B, V) and the cache (updated in place), under the TP serve rules on
+    ``mesh``."""
+    import contextlib
+
+    from repro_torch.models.lm import forward
+    from repro_torch.sharding import sharding_ctx
+    from repro_torch.steps import TP_SERVE_RULES, cast_tree
+
+    def step(params, cache, tokens, pos, table=None):
+        pages = None if page_size is None else {
+            "table": table, "page_size": page_size, "cache_len": cache_len,
+            "kernel": paged_kernel}
+        ctx = (sharding_ctx(mesh, TP_SERVE_RULES) if mesh is not None
+               else contextlib.nullcontext())
+        with ctx:
+            out = forward(cast_tree(params, cfg.dtype), cfg, tokens,
+                          mode="decode", pos=pos, cache=cache, pages=pages)
+        return out["logits"][:, 0].float(), out["cache"]
+
+    return step
+
+
+def _wo_all_reduce_left_out(x):
+    return x
+
+
+def _per_rank_gated_norm(x, z, w, eps=1e-5, width=None):
+    from repro_torch.models.layers import gated_rms_norm
+
+    return gated_rms_norm(x, z, w, eps)
+
+
+def tp_fault_on(state, name):
+    """``Session.run``: plant TP fault ``name`` on this rank (kept in
+    ``state.extra`` until ``tp_fault_off``)."""
+    from repro_torch.models import attention as att
+    from repro_torch.models import ssm
+
+    if name == "wo_all_reduce_left_out":
+        ctx = swapped((att, "tp_all_reduce", _wo_all_reduce_left_out))
+    elif name == "gated_norm_per_rank":
+        ctx = swapped((ssm, "gated_rms_norm", _per_rank_gated_norm))
+    elif name == "wq_next_rank":
+        ctx = _next_rank_wq(state)
+    else:
+        raise ValueError(name)
+    ctx.__enter__()
+    state.extra[name] = ctx
+    return state.mesh.rank
+
+
+def tp_fault_off(state, name):
+    state.extra.pop(name).__exit__(None, None, None)
+
+
+@contextlib.contextmanager
+def _next_rank_wq(state):
+    """Each rank's query columns (``wq``, ``bq``; MLA ``wq_b``) replaced by
+    the next rank's, gathered over the data plane; restored after."""
+    import torch
+
+    mesh, n = state.mesh, state.mesh.size
+    saved = []
+    for blk in state.params["blocks"]:
+        mix = blk["mixer"]
+        for key in ("wq", "bq", "wq_b"):
+            if key in mix:
+                parts = mesh.all_gather(mix[key].float())
+                saved.append((mix, key, mix[key]))
+                mix[key] = parts[(mesh.rank + 1) % n].to(mix[key].dtype)
+                del parts
+    if state.device.type == "cuda":
+        torch.cuda.empty_cache()
+    try:
+        yield
+    finally:
+        for mix, key, t in saved:
+            mix[key] = t
+
+
+def tp_peak(state, reset=False):
+    """``Session.run``: this rank's peak device memory (bytes), zeroed
+    after reading when ``reset``; 0 on the CPU."""
+    import torch
+
+    if state.device.type != "cuda":
+        return 0
+    peak = torch.cuda.max_memory_allocated(state.device)
+    if reset:
+        torch.cuda.reset_peak_memory_stats(state.device)
+    return peak
+
+
+def tp_path_check(sess, cfg, prompts, toks, ref, idx, faults,
+                  paged_kernel, device, fault_req=TP_FAULT_REQ,
+                  fault_pos=TP_FAULT_POS):
+    """The TP step path teacher-forced with the engine's tokens, on every
+    rank: each prompt of ``idx`` through the prefill step and the insert
+    into a pool of 16 slots, then the tokens one tick at a time through
+    the decode forward (paged kernel where the leg has one), as built
+    (``None``) and under each planted fault of ``faults`` (on every
+    rank).  Returns (name -> the ``summary`` of ``tally``, the as-built
+    logits)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.steps import (make_batched_insert_step,
+                                   make_pool_step, make_prefill_step)
+
+    t = TP_TRAFFIC
+    slots, cache_len = t["slots"], t["cache_len"]
+    ps = 8 if paged_kernel else None
+    sp = sess.params
+    prefill = sess.step("fprefill", make_prefill_step, cache_len=cache_len)
+    insert = sess.step("finsert", make_batched_insert_step,
+                       cache_len=cache_len, page_size=ps)
+    pool_step = sess.step("fpool", make_pool_step, slots=slots,
+                          cache_len=cache_len, dtype=cfg.dtype,
+                          page_size=ps, device=device)
+    decode = sess.step("fdecode", make_forced_decode, cache_len=cache_len,
+                       page_size=ps, paged_kernel=paged_kernel)
+    gen = len(toks[0])
+    pps = cache_len // 8
+    acc, built = {}, None
+    for name in (None, *faults):
+        if name is not None:
+            sess.run(tp_fault_on, name)
+        sel = idx if name is None else idx[:fault_req]
+        pad = slots - len(sel)
+        pool = pool_step(1 + slots * pps if ps else None)
+        table = torch.arange(1, 1 + slots * pps, dtype=torch.int32,
+                             device=device).view(slots, pps)
+        firsts = []
+        for s, i in enumerate(sel):
+            rows, lg = prefill(sp, torch.tensor(prompts[i][None],
+                                                device=device))
+            firsts.append(lg[0, -1].float())
+            args = (pool, rows, 0, s) + ((table[s],) if ps else ())
+            pool = insert(*args)
+            del rows
+        out = [torch.stack(firsts)]
+        pos0 = torch.tensor([len(prompts[i]) for i in sel] + [0] * pad,
+                            dtype=torch.int32, device=device)
+        feed = torch.tensor(np.stack([toks[i] for i in sel]
+                                     + [np.zeros(gen, np.int32)] * pad),
+                            device=device)
+        n_pos = gen if name is None else min(gen, fault_pos)
+        for j in range(n_pos - 1):
+            args = (sp, pool, feed[:, j:j + 1], pos0 + j) + (
+                (table,) if ps else ())
+            lg, pool = decode(*args)
+            out.append(lg[:len(sel)])
+        lg = torch.stack(out, dim=1)                  # (round, gen, V)
+        if name is None:
+            built = lg
+        acc[name] = new_tally()
+        tally(acc[name], lg, built[:len(sel), :n_pos],
+              [r[:n_pos] for r in ref], [t[:n_pos] for t in toks], sel)
+        del pool, out
+        if name is not None:
+            sess.run(tp_fault_off, name)
+    return summary(acc), built
+
+
+def tp_leg(mesh, arch, smi, device="cuda", seed=0, layers=None):
+    """One TP leg: the engine on both ranks, the checks on rank 0; returns
+    the per-rank launch counts (summed) for the ``kernels`` line."""
+    import collections
+    import threading
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get
+    from repro_torch.serve import Request, ServeEngine
+    from repro_torch.serve.tp import counters, seen, tree_bytes
+    from repro_torch.serve.watchdog import abandon
+    from repro_torch.steps import init_paged_slot_cache, init_slot_cache
+
+    leg = TP_LEGS[arch]
+    t_leg = time.perf_counter()
+    cfg = get(arch)
+    n_layers = layers or leg["layers"]
+    if n_layers != cfg.n_layers:
+        cfg = cfg.replace(n_layers=n_layers)
+    t = TP_TRAFFIC
+    slots, cache_len, gen, n_req = (t["slots"], t["cache_len"], t["gen"],
+                                    leg["n_req"])
+    rng = np.random.default_rng(seed)
+    lens = rng.permutation(np.repeat(t["lens"], n_req // len(t["lens"])))
+    prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32) for n in lens]
+    gaps = rng.exponential(0.03, n_req)
+    paged = leg["paged_kernel"]
+    cuda = device == "cuda"
+    eng = ServeEngine(cfg, TPWeights(seed), slots=slots, cache_len=cache_len,
+                      mesh=mesh, page_size=8 if paged else "auto",
+                      paged_kernel=paged, sync_ticks=True, device=device)
+    sess = eng._tp
+    sess.run(counters, True)
+    sess.run(tp_peak, True)
+    calls, lock = collections.Counter(), threading.Lock()
+
+    def counting(fn, key):
+        def run(*a, **kw):
+            with lock:
+                calls[key(kw) if callable(key) else key] += 1
+            return fn(*a, **kw)
+        return run
+    eng.prefill = counting(eng.prefill, "prefill")
+    eng.decode = counting(eng.decode, "decode")
+    eng.replay = counting(eng.replay, "replay")
+    if eng.chunk is not None:
+        eng.chunk = counting(eng.chunk, lambda kw: "chunk"
+                             if kw["want_logits"] else "chunk_mid")
+    if eng.gather is not None:
+        eng.gather = counting(eng.gather, "gather")
+    reqs = [Request(i, prompts[i], max_new_tokens=gen) for i in range(n_req)]
+    t0 = time.perf_counter()
+    eng.start()
+    for r, g in zip(reqs, gaps):
+        eng.submit(r)
+        time.sleep(float(g))
+    eng.close()
+    for r in reqs:
+        if not r.done.wait(max(0.0, DRAIN_S - (time.perf_counter() - t0))):
+            abandon(eng, f"tp {arch}: request {r.rid} not done")
+    eng.join()
+    if cuda:
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    stats = eng.stats()
+    per_rank = sess.run(counters)
+    peaks = sess.run(tp_peak)
+    pools = sess.run(tree_bytes, eng.kv.cache)
+    handed = sess.run(seen, "decode")   # the last tick's tensor arguments
+    num_pages = eng.kv.pager.capacity + 1 if eng.paged else None
+    toks = [np.asarray(r.wait(), np.int32) for r in reqs]
+    for r, tk in zip(reqs, toks):
+        if len(tk) != gen:
+            raise AssertionError(f"tp {arch}: request {r.rid}: {len(tk)} "
+                                 "tokens")
+    shared = mesh.backend == "gloo"
+    label = ("two ranks sharing one card (gloo)" if shared
+             else f"two cards ({mesh.backend})")
+    log(f"tp [{arch}] {label}, {smi}: d {cfg.d_model} layers "
+        f"{cfg.n_layers} {cfg.dtype}, {n_req} requests x {gen} tokens, "
+        f"{slots} slots; tokens_s {stats['tokens_out'] / wall:.2f} wall_s "
+        f"{wall:.3f} p50_ttft_s {stats['p50_ttft_s']:.4f} p50_tick_s "
+        f"{stats['p50_tick_s']:.4f} p99_tick_s {stats['p99_tick_s']:.4f}; "
+        f"peak device memory per rank "
+        f"{[round(p / 1e9, 2) for p in peaks]} GB"
+        + (" (not a TP throughput: the ranks share the card)" if shared
+           else ""))
+    # launch identities on every rank (each rank launches per layer per
+    # tick and prefill; a CPU rehearsal's plain versions launch nothing)
+    for rank, got in enumerate(per_rank):
+        if cuda:
+            check_launches(cfg, got, stats, calls, name=arch,
+                           kernels=leg["kernels"])
+        log(f"  rank {rank} launches: " + ", ".join(
+            f"{k} {got[k]}" for k in (*leg["kernels"], "rms_norm")))
+    # collectives: per pass through the model (a decode tick, a prefill,
+    # a chunk, a replay step) 2 all-reduces a layer (after the mixer's
+    # output projection — or the SSD's gated-norm statistic and its
+    # output projection — and after the MLP's) and one for the
+    # vocab-parallel embedding; one all-gather of the logits where the
+    # pass makes logits (not a chunk that skips the LM head)
+    per_pass = 2 * cfg.n_layers + 1
+    heads = (calls["decode"] + calls["prefill"] + calls["chunk"]
+             + calls["replay"])
+    passes = heads + calls["chunk_mid"]
+    for rank, got in enumerate(per_rank):
+        if got["tp_all_reduce"] != per_pass * passes or \
+                got["tp_all_gather"] != heads:
+            raise AssertionError(
+                f"tp {arch} rank {rank}: {got['tp_all_reduce']} all-reduces"
+                f" (want {per_pass} x {passes}), {got['tp_all_gather']} "
+                f"all-gathers (want {heads})")
+    log(f"  collectives per decode tick on each rank: {per_pass} "
+        f"all-reduces (2 x {cfg.n_layers} layers + the embedding) + 1 "
+        f"all-gather (the logits); on each rank {calls['decode']} ticks, "
+        f"{calls['prefill']} prefills, {calls['chunk']} + "
+        f"{calls['chunk_mid']} chunks (with and without the LM head), "
+        f"{calls['gather']} gathers, {stats['prefix_hits']} prefix hits")
+    # per-rank pool bytes against the single-device pool, leaf by leaf
+    dt = getattr(torch, cfg.dtype)
+    whole = (init_paged_slot_cache(cfg, slots, cache_len, dt, 8, num_pages,
+                                   "meta") if paged else
+             init_slot_cache(cfg, slots, cache_len, dt, "meta"))
+    want = {k: b for k, (b, _) in tree_bytes(None, whole).items()}
+    conv_share = None
+    if arch == "mamba2-780m":
+        tail = 2 * cfg.ssm_ngroups * cfg.ssm_state
+        conv_share = (cfg.d_inner // 2 + tail) / (cfg.d_inner + tail)
+    for rank, pool in enumerate(pools):
+        for path, full_b in want.items():
+            name, got = path.rsplit("/", 1)[-1], pool[path][0]
+            share = (0.5 if name in ("k", "v", "state") else conv_share
+                     if name == "conv" else 1.0)
+            if got != full_b * share:
+                raise AssertionError(f"tp {arch} rank {rank}: {path} holds "
+                                     f"{got} B, want {share} x {full_b}")
+    # the last tick's tokens, mask and block table: whole on every rank,
+    # the same bytes (shape, dtype, crc32)
+    tabled = len(handed[0]) == 3            # a paged engine's tick
+    if any(h != handed[0] for h in handed) or (
+            tabled and handed[0][-1][0] != (slots, cache_len // 8)):
+        raise AssertionError(f"tp {arch}: the ranks were handed other "
+                             f"tensors for the last tick: {handed}")
+    log(f"  the last tick's tensors, the same on every rank: "
+        + ", ".join(f"{shape} {dtype} crc {crc:08x}"
+                    for shape, dtype, crc in handed[0])
+        + (" (tokens, active mask, block table)" if tabled
+           else " (tokens, active mask)"))
+    log(f"  pool bytes per rank / single-device pool: " + ", ".join(
+        f"{p} {pools[0][p][0]} / {b}" for p, b in want.items())
+        + (f" (conv: (d_inner/2 + 2 N G) / conv_dim = {conv_share:.4f})"
+           if conv_share else ""))
+    del whole
+
+    # the checks: the single-device forward on rank 0 from the same full
+    # weights, then the TP step path on every rank (as built and under each
+    # fault) in the engine's session, its pool still held
+    full = TPWeights(seed)(cfg, None, device)
+    ref, gaps_all = [], []
+    for p, tk in zip(prompts, toks):
+        lg = forced_logits(cfg, full, p, tk, device)
+        ref.append(lg)
+        gaps_all.append(token_gaps(lg, tk).max().item())
+    del full
+    worst = max(gaps_all)
+    order = sorted(range(n_req), key=lambda i: len(prompts[i]))
+    try:
+        res, _ = tp_path_check(sess, cfg, prompts, toks, ref, order,
+                               leg["faults"], paged, device,
+                               leg.get("fault_req", TP_FAULT_REQ),
+                               leg.get("fault_pos", TP_FAULT_POS))
+    finally:
+        eng.shutdown()
+    del eng, sess, ref
+    log_checks("tp logit check", arch, {None: res[None]}, n_req * gen)
+    log_checks("tp logit check", arch, {n: res[n] for n in leg["faults"]},
+               min(leg.get("fault_req", TP_FAULT_REQ), n_req)
+               * min(gen, leg.get("fault_pos", TP_FAULT_POS)))
+    log(f"  tp token check ({arch}): emitted tokens trail the single-device "
+        f"forward's argmax by at most {worst:.4f} (tolerance {LOGIT_TOL})")
+    if worst > LOGIT_TOL:
+        raise AssertionError(f"tp {arch}: an emitted token trails the "
+                             f"forward's argmax by {worst:.4f}")
+    if res[None]["rel_max"] > REL_TOL:
+        raise AssertionError(f"tp {arch}: step-path logits off the "
+                             f"forward's by {res[None]['rel_max']:.4f}")
+    missed = [n for n in leg["faults"] if res[n]["rel_max"] <= REL_TOL
+              or res[n]["gap"] <= LOGIT_TOL]
+    if missed:
+        raise AssertionError(f"tp {arch}: the checks do not reject the "
+                             f"planted TP faults {missed}")
+    log(f"phase tp {arch}: {time.perf_counter() - t_leg:.1f} s")
+    total = collections.Counter()
+    for got in per_rank:
+        total.update({k: v for k, v in got.items() if not k.startswith("tp")})
+    return dict(total)
+
+
+def start_tp_mesh(device="cuda"):
+    """The TP section's mesh of two ranks (gloo on one card, nccl on two),
+    made on a thread: the follower starts (its imports, the rendezvous)
+    while the kernel checks run.  ``tp_section`` takes what it returns."""
+    import threading
+
+    import torch
+
+    from repro_torch.launch.mesh import make_mesh_from_devices
+
+    box = {"t0": time.perf_counter()}
+
+    def make():
+        try:
+            if device == "cuda":
+                backend = ("gloo" if torch.cuda.device_count() == 1
+                           else "nccl")
+                box["mesh"] = make_mesh_from_devices("1,2", backend=backend)
+            else:
+                box["mesh"] = make_mesh_from_devices("1,2",
+                                                     device_type="cpu")
+        except BaseException as e:      # noqa: BLE001 — raised by the join
+            box["error"] = e
+        box["s"] = time.perf_counter() - box["t0"]
+    box["thread"] = threading.Thread(target=make, daemon=True,
+                                     name="tp-mesh")
+    box["thread"].start()
+    return box
+
+
+def tp_section(smi, device="cuda", layers=None, started=None):
+    """The TP section: the mesh ``start_tp_mesh`` started (or one made
+    now), the three legs in turn, the mesh closed; returns the launches
+    of every rank, summed."""
+    import torch
+
+    t0 = time.perf_counter()
+    started = started or start_tp_mesh(device)
+    started["thread"].join()
+    if "error" in started:
+        raise started["error"]
+    mesh = started["mesh"]
+    log(f"tp: {mesh.describe()} (started in {started['s']:.1f} s, waited "
+        f"{time.perf_counter() - t0:.1f} s for it)")
+    launches = {}
+    try:
+        for arch in TP_LEGS:
+            for k, n in tp_leg(mesh, arch, smi, device, layers=layers
+                               ).items():
+                launches[k] = launches.get(k, 0) + n
+            gc.collect()
+            if device == "cuda":
+                torch.cuda.empty_cache()
+    finally:
+        mesh.close()
+    log(f"tp section: {time.perf_counter() - t0:.1f} s")
+    return launches
 
 
 def check_launches(cfg, launches, stats, calls, name=None, kernels=None):
@@ -4551,13 +5277,13 @@ def main(argv=None):
     ap.add_argument("--layers", type=int, default=0,
                     help="cut every serve phase to this depth (0: full "
                          "depth; width is never cut)")
-    ap.add_argument("--phases", default=",".join(PHASES),
-                    help="comma-separated serve phases to run (default: "
-                         "all, in order)")
+    ap.add_argument("--phases", default=",".join((*PHASES, "tp")),
+                    help="comma-separated phases to run (default: all, in "
+                         "order; \"tp\" is the tensor-parallel section)")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
-    if not set(phases) <= set(PHASES):
-        ap.error(f"--phases: pick from {', '.join(PHASES)}")
+    if not set(phases) <= {*PHASES, "tp"}:
+        ap.error(f"--phases: pick from {', '.join(PHASES)}, tp")
 
     smi = card()
     import torch
@@ -4577,14 +5303,21 @@ def main(argv=None):
         return out
 
     timed(build_all)
+    tp_mesh = start_tp_mesh() if "tp" in phases else None
     rows = [*timed(check_paged_decode), timed(check_rms_norm),
             timed(check_rms_norm_bwd), timed(check_paged_mla),
-            timed(check_ssd), timed(check_ssd_bwd), *timed(check_flash)]
+            timed(check_ssd), timed(check_ssd_bwd), *timed(check_flash),
+            *timed(check_tp_kernels)]
     log(f"clocks after the kernel timings (sm, power, temp): {clocks()}")
     from repro_torch.configs import get
 
     launches = {}
     for name in phases:
+        if name == "tp":            # every rank's launches, summed
+            for k, n in timed(tp_section, smi, layers=args.layers or None,
+                              started=tp_mesh).items():
+                launches[k] = launches.get(k, 0) + n
+            continue
         phase = PHASES[name]
         arch = phase.get("arch", name)
         cfg = get(arch)

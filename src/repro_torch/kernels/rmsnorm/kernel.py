@@ -4,7 +4,10 @@ Forward — replaces the Pallas TPU kernel ``src/repro/kernels/rmsnorm/
 kernel.py::_kernel`` (launched by ``rms_norm_2d``, wrapped by
 ``ops.py::rms_norm``).  Per row, ``x * rsqrt(mean(x^2) + eps) * w`` with
 the statistics in f32 and the output in x's dtype; under autograd it also
-stores each row's ``rstd`` (f32) for the backward.
+stores each row's ``rstd`` (f32) for the backward.  A second entry
+(``LOAD_RSTD``) takes each row's ``rstd`` as an input instead of
+computing it: tensor parallelism's gated norm, whose rows are split
+across ranks and whose statistic is all-reduced first.
 
 Backward — replaces the reference's gradient of ``src/repro/models/
 layers.py:11`` ``rms_norm`` (``jax.grad`` of the jnp function; no Pallas
@@ -43,14 +46,18 @@ def kernel():
 
     @triton.jit
     def rms_norm_rows(x_ptr, w_ptr, o_ptr, rstd_ptr, stride_x, stride_o, d,
-                      eps, BLOCK: tl.constexpr, STORE_RSTD: tl.constexpr):
+                      eps, BLOCK: tl.constexpr, STORE_RSTD: tl.constexpr,
+                      LOAD_RSTD: tl.constexpr):
         row = tl.program_id(0).to(tl.int64)
         cols = tl.arange(0, BLOCK)
         mask = cols < d
         x = tl.load(x_ptr + row * stride_x + cols, mask=mask,
                     other=0.0).to(tl.float32)
-        var = tl.sum(x * x, axis=0) / d
-        rstd = tl.math.rsqrt(var + eps)
+        if LOAD_RSTD:
+            rstd = tl.load(rstd_ptr + row)
+        else:
+            var = tl.sum(x * x, axis=0) / d
+            rstd = tl.math.rsqrt(var + eps)
         y = x * rstd
         w = tl.load(w_ptr + cols, mask=mask, other=0.0).to(tl.float32)
         tl.store(o_ptr + row * stride_o + cols,
@@ -115,17 +122,18 @@ def _warps(block):
     return 8 if block >= 2048 else 4
 
 
-def launch(x2, w, out, eps, rstd=None):
+def launch(x2, w, out, eps, rstd=None, load_rstd=False):
     """x2, out: (R, D) with unit column stride; w: (D,) contiguous;
     ``rstd``: an (R,) f32 buffer to store each row's ``rstd`` in, or
-    None."""
+    None; with ``load_rstd`` the rows' given ``rstd`` (``eps`` unused)."""
     import triton
 
     r, d = x2.shape
     block = triton.next_power_of_2(d)
     kernel()[(r,)](x2, w, out, out if rstd is None else rstd, x2.stride(0),
                    out.stride(0), d, float(eps), BLOCK=block,
-                   STORE_RSTD=rstd is not None, num_warps=_warps(block))
+                   STORE_RSTD=rstd is not None and not load_rstd,
+                   LOAD_RSTD=load_rstd, num_warps=_warps(block))
 
 
 def programs(r, device):

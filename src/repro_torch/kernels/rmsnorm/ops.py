@@ -14,9 +14,10 @@ from __future__ import annotations
 
 import torch
 
-from ..counter import PLAIN_DEVICES, LaunchCounter, cost_model, kernel_site
+from ..counter import (PLAIN_DEVICES, LaunchCounter, cost_model,
+                       forward_only, kernel_site)
 from .kernel import MAX_D, launch, launch_bwd, programs
-from .ref import rms_norm_bwd_ref, rms_norm_ref
+from .ref import rms_norm_bwd_ref, rms_norm_ref, rms_norm_rstd_ref
 
 _DTYPES = (torch.float32, torch.bfloat16)
 
@@ -70,6 +71,36 @@ def rms_norm(x, w, eps=1e-5):
     if grad:
         return RMSNormFn.apply(x2, w, eps).reshape(x.shape)
     return _forward(x2, w, eps).reshape(x.shape)
+
+
+def rstd_work(x, w, rstd):
+    """(FLOPs, bytes) of an ``rms_norm_rstd`` call: x and the rows'
+    ``rstd`` read, the output written once, w read once."""
+    return (2 * x.numel(), 2 * x.numel() * x.element_size()
+            + w.numel() * w.element_size() + rstd.numel() * 4)
+
+
+@kernel_site(rstd_work)
+def rms_norm_rstd(x, w, rstd):
+    """The forward kernel's second entry: ``x * rstd * w`` per row with
+    each row's statistic given (``rstd``: f32, x's shape without its last
+    dim), where the row's sum of squares was all-reduced across
+    tensor-parallel ranks first.  Counted as an ``rms_norm`` launch.  A
+    CPU or meta tensor takes the plain version; the serve path only, no
+    autograd."""
+    if x.device.type in PLAIN_DEVICES:
+        return rms_norm_rstd_ref(x, w, rstd)
+    forward_only("rms_norm_rstd", x, w)
+    x2 = _check(x, w)
+    r2 = rstd.reshape(-1).float().contiguous()
+    if r2.shape != (x2.shape[0],) or r2.device != x2.device:
+        raise ValueError(f"rms_norm_rstd: rstd {tuple(rstd.shape)} does "
+                         f"not match x {tuple(x.shape)}")
+    out = torch.empty(x2.shape, dtype=x2.dtype, device=x2.device)
+    if x2.shape[0]:
+        launch(x2, w.contiguous(), out, 0.0, r2, load_rstd=True)
+        rms_norm.launches.add()
+    return out.reshape(x.shape)
 
 
 @kernel_site(bwd_work)

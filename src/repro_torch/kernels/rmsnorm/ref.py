@@ -13,6 +13,14 @@ def rms_norm_ref(x, w, eps=1e-5):
     return (y * w.float()).to(x.dtype)
 
 
+def rms_norm_rstd_ref(x, w, rstd):
+    """``rms_norm_ref`` with each row's ``rstd`` given (f32, x's shape
+    without its last dim) instead of computed: ``x * rstd * w`` in f32,
+    the output in x's dtype."""
+    y = x.float() * rstd.float()[..., None]
+    return (y * w.float()).to(x.dtype)
+
+
 def rms_norm_bwd_ref(x, w, dy, eps=1e-5):
     """``(dx, dw)`` of ``rms_norm_ref(x, w, eps)`` for the output gradient
     ``dy``, in f32: with ``xh = x * rstd``, ``dx = rstd * (w*dy - xh *

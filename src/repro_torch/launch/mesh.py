@@ -1,0 +1,312 @@
+"""Meshes over ``torch.distributed`` (counterpart of
+``repro/launch/mesh.py``).
+
+The reference's mesh is one process holding every device, and GSPMD
+inserts the collectives.  Here a mesh is one process per rank: rank 0 is
+the caller's process, ranks 1..n-1 are followers started by
+:func:`spawn_followers` (the ``spawn`` start method), which loop in
+``repro_torch.serve.tp`` running what rank 0 dispatches.  The ranks meet
+through a ``FileStore`` in a temporary directory (no fixed TCP port) and
+talk on two planes:
+
+  * the data plane, one process group over the ranks (``nccl`` when each
+    rank has a card of its own, ``gloo`` otherwise), carrying the model's
+    collectives (``models.layers.tp_all_reduce`` / ``tp_all_gather``);
+  * the control plane, a pipe from rank 0 to each follower, carrying the
+    step dispatches in one total order (``serve.tp``).
+
+The backend and each rank's device are chosen explicitly and printed;
+no backend gives way to another.  On ``gloo`` only ``all_reduce``,
+``broadcast`` and ``all_gather`` are used (gloo has no CUDA
+``reduce_scatter``, ``all_to_all`` or ``send``/``recv``).  Every collective
+times out (``TIMEOUT_S``) rather than hangs, and a follower that dies
+makes rank 0's next collective raise at once.
+
+Only the ``model`` axis may exceed 1: ``TP_SERVE_RULES`` maps ``batch`` to
+nothing, so serving never splits ``data``; a sharded train state is
+ROADMAP item 18, and so are the production meshes (16x16, 2x16x16) of
+the reference's dry run.
+"""
+from __future__ import annotations
+
+import datetime
+import os
+import shutil
+import tempfile
+
+import torch
+
+from ..device import rank_device
+
+# the data plane's collective timeout: a rank that stops answering fails
+# its peers' collectives after this long, never hangs them
+TIMEOUT_S = 120.0
+
+
+class Mesh:
+    """Axis sizes (``{"data": 1, "model": n}``), this process's rank and
+    its coordinates on each axis, the data plane's process group, the
+    backend and this rank's device.  Rank 0's mesh also owns the
+    follower processes and their pipes (``conns``); :meth:`close` stops
+    and joins them."""
+
+    def __init__(self, shape, rank=0, *, backend=None, group=None,
+                 device_type="cuda", procs=(), conns=(), tmpdir=None):
+        self.shape = dict(shape)
+        self.size = self.shape["data"] * self.shape["model"]
+        self.rank = rank
+        self.coords = {"data": rank // self.shape["model"],
+                       "model": rank % self.shape["model"]}
+        self.backend = backend
+        self.group = group
+        self.device_type = device_type
+        self.procs = list(procs)
+        self.conns = list(conns)
+        self._tmpdir = tmpdir
+        self.closed = False
+
+    def device(self, device_type=None) -> torch.device:
+        """This rank's device for ``device_type`` (default the mesh's):
+        the CPU, ``cuda:rank`` under nccl, one shared card under gloo."""
+        return rank_device(device_type or self.device_type, self.rank,
+                           self.backend)
+
+    def for_rank(self, rank: int) -> "Mesh":
+        """A view of the mesh at another rank (its shape and coordinates
+        only): what ``sharding.local_shard`` needs to cut that rank's
+        shard."""
+        return Mesh(self.shape, rank, backend=self.backend,
+                    device_type=self.device_type)
+
+    def describe(self) -> str:
+        return (f"mesh data={self.shape['data']} model={self.shape['model']}"
+                f" backend={self.backend} ranks on "
+                + ", ".join(str(self.for_rank(r).device())
+                            for r in range(self.size)))
+
+    # ------------------------------------------------------------ data plane
+    def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
+        """Sum ``t`` over the ranks, in place; returns it."""
+        self.group.allreduce([t]).wait()
+        return t
+
+    def all_gather(self, t: torch.Tensor) -> list[torch.Tensor]:
+        """Every rank's ``t``, in rank order."""
+        t = t.contiguous()
+        outs = [torch.empty_like(t) for _ in range(self.size)]
+        self.group.allgather([outs], [t]).wait()
+        return outs
+
+    # ------------------------------------------------------------- lifetime
+    def close(self, timeout_s: float = 30.0) -> None:
+        """Rank 0: tell every follower to exit, join it (terminating one
+        that does not leave within ``timeout_s``), remove the rendezvous
+        directory.  Idempotent."""
+        if self.closed:
+            return
+        self.closed = True
+        for c in self.conns:
+            try:
+                c.send(("exit",))
+            except (BrokenPipeError, OSError):
+                pass                    # already gone
+        for p in self.procs:
+            p.join(timeout_s)
+            if p.is_alive():
+                p.terminate()
+                p.join(timeout_s)
+        for c in self.conns:
+            c.close()
+        if self._tmpdir is not None:
+            shutil.rmtree(self._tmpdir, ignore_errors=True)
+
+    def abort(self) -> None:
+        """Rank 0, after a failure: terminate the followers now (a
+        follower may sit in a collective that will never complete)."""
+        for p in self.procs:
+            if p.is_alive():
+                p.terminate()
+        self.close(timeout_s=5.0)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+    def __repr__(self):
+        return f"<Mesh rank {self.rank} of {self.shape} {self.backend}>"
+
+
+def make_host_mesh(device_type="cuda") -> Mesh:
+    """The (1, 1) mesh: one rank, no process group (the axes are present,
+    so sharding annotations need no no-mesh special case)."""
+    return Mesh({"data": 1, "model": 1}, 0, device_type=device_type)
+
+
+def _visible_devices() -> int:
+    return torch.cuda.device_count() if torch.cuda.is_available() else 1
+
+
+def _parse(spec: str):
+    try:
+        shape = tuple(int(p) for p in spec.split(","))
+    except ValueError:
+        shape = ()
+    if len(shape) != 2 or any(p < 1 for p in shape):
+        raise ValueError(f"mesh spec {spec!r}: want 'DATA,MODEL' positive "
+                         "sizes")
+    return shape
+
+
+def make_mesh_from_devices(spec: str | None = None, backend: str | None = None,
+                           device_type: str | None = None) -> Mesh:
+    """The (data, model) mesh over the visible devices, by the reference's
+    rules: by default every device on the model axis (``(1, n)``); a single
+    visible device is the (1, 1) host mesh; ``spec`` ("DATA,MODEL")
+    overrides the shape, and its sizes must multiply to the visible device
+    count.  Tensor-parallel ranks then run one per card on ``nccl``.
+
+    ``backend="gloo"`` is the explicit opt-in to ranks that share a
+    card: any model size, every rank on the one card there is
+    (``cuda:0``), or rank r on card r mod count.  ``backend="nccl"`` asks
+    for one card per rank and raises without them.  On the CPU
+    (``device_type="cpu"``, the tests) every rank computes on the host,
+    no card is counted, and the backend is gloo.  A ``data`` axis above 1
+    raises (serving never splits it; a sharded train state is ROADMAP
+    item 18).
+
+    ``device_type`` (default: ``cuda`` when a card is visible, else
+    ``cpu``) is where the followers compute; the engine on rank 0 is
+    given its own ``device``."""
+    if backend not in (None, "gloo", "nccl"):
+        raise ValueError(f"backend {backend!r}: pick 'gloo' or 'nccl'")
+    if device_type is None:
+        device_type = "cuda" if torch.cuda.is_available() else "cpu"
+    n = _visible_devices()
+    shape = (1, n) if spec is None else _parse(spec)
+    if device_type == "cpu":
+        if backend == "nccl":
+            raise ValueError("backend nccl needs cards; the CPU ranks use "
+                             "gloo")
+        backend = "gloo"
+    elif backend != "gloo" and shape[0] * shape[1] != n:
+        raise ValueError(f"mesh spec {spec!r}: {shape[0]}x{shape[1]} != "
+                         f"{n} visible devices")
+    if shape[0] > 1:
+        raise NotImplementedError(
+            f"mesh {shape[0]}x{shape[1]}: a data axis above 1 is not "
+            "ported (serving maps batch to no mesh axis; a sharded train "
+            "state is ROADMAP.md queue 1, item 18)")
+    if shape[1] == 1:
+        return make_host_mesh(device_type)
+    if backend is None:
+        backend = "nccl"
+    if backend == "nccl" and torch.cuda.device_count() < shape[1]:
+        raise RuntimeError(
+            f"backend nccl needs {shape[1]} cards, "
+            f"{torch.cuda.device_count()} visible (backend='gloo' shares "
+            "one)")
+    return spawn_followers(shape, backend, device_type)
+
+
+def _group(store, rank, size, backend, device):
+    """The data plane's process group, built directly (no global default
+    group, so one process can hold meshes one after another)."""
+    import torch.distributed as dist
+
+    timeout = datetime.timedelta(seconds=TIMEOUT_S)
+    store = dist.PrefixStore("data", store)
+    if backend == "gloo":
+        opts = dist.ProcessGroupGloo._Options()
+        opts._timeout = timeout
+        # loopback: every rank is on this host
+        opts._devices = [dist.ProcessGroupGloo.create_device(
+            hostname="127.0.0.1")]
+        return dist.ProcessGroupGloo(store, rank, size, opts)
+    if backend == "nccl":
+        opts = dist.ProcessGroupNCCL.Options()
+        opts._timeout = timeout
+        torch.cuda.set_device(device)
+        return dist.ProcessGroupNCCL(store, rank, size, opts)
+    raise ValueError(f"backend {backend!r}")
+
+
+def _store(path, size):
+    import torch.distributed as dist
+
+    store = dist.FileStore(path, size)
+    store.set_timeout(datetime.timedelta(seconds=TIMEOUT_S))
+    return store
+
+
+def _follower_main(rank, shape, backend, device_type, path, conn):
+    """A follower's process: join the data plane, then serve dispatches
+    until rank 0 says exit (or its pipe closes)."""
+    from ..serve import tp
+
+    if device_type == "cpu":
+        torch.set_num_threads(1)        # ranks share the host's cores
+    conn.send(("up", rank))             # imported: rank 0 may rendezvous
+    mesh = Mesh(shape, rank, backend=backend, device_type=device_type)
+    mesh.group = _group(_store(path, mesh.size), rank, mesh.size, backend,
+                        mesh.device())
+    tp.follower_loop(mesh, conn)
+
+
+def _await_up(rank, proc, conn):
+    """Wait for follower ``rank`` to report that it started; raise at
+    once if its process died first, or after ``TIMEOUT_S``."""
+    import time
+
+    deadline = time.monotonic() + TIMEOUT_S
+    while not conn.poll(0.1):
+        if not proc.is_alive():
+            raise RuntimeError(f"mesh rank {rank} exited with code "
+                               f"{proc.exitcode} while starting")
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"mesh rank {rank} did not start within "
+                               f"{TIMEOUT_S} s")
+    msg = conn.recv()
+    if msg != ("up", rank):
+        raise RuntimeError(f"mesh rank {rank}: unexpected {msg!r}")
+
+
+def spawn_followers(shape, backend: str, device_type: str) -> Mesh:
+    """Start ranks 1..n-1 of a ``shape`` mesh (``spawn``), join rank 0 to
+    the data plane, and return rank 0's mesh, which owns the followers."""
+    import multiprocessing as mp
+
+    shape = {"data": shape[0], "model": shape[1]}
+    size = shape["data"] * shape["model"]
+    tmpdir = tempfile.mkdtemp(prefix="repro_torch_mesh_")
+    path = os.path.join(tmpdir, "store")
+    ctx = mp.get_context("spawn")
+    procs, conns = [], []
+    try:
+        for r in range(1, size):
+            here, there = ctx.Pipe()
+            p = ctx.Process(target=_follower_main, daemon=True,
+                            args=(r, shape, backend, device_type, path,
+                                  there),
+                            name=f"repro_torch-rank{r}")
+            p.start()
+            there.close()
+            procs.append(p)
+            conns.append(here)
+        for r, (p, c) in enumerate(zip(procs, conns), start=1):
+            _await_up(r, p, c)
+        mesh = Mesh(shape, 0, backend=backend, device_type=device_type,
+                    procs=procs, conns=conns, tmpdir=tmpdir)
+        mesh.group = _group(_store(path, size), 0, size, backend,
+                            mesh.device())
+    except BaseException:
+        for p in procs:
+            p.terminate()
+        shutil.rmtree(tmpdir, ignore_errors=True)
+        raise
+    return mesh
+
+
+__all__ = ["Mesh", "TIMEOUT_S", "make_host_mesh", "make_mesh_from_devices",
+           "spawn_followers"]

@@ -22,15 +22,25 @@ for a paged engine on a chunk-exact config), ``--policy ondemand``
 on-demand paging with eviction and restore (set ``--pages`` below the
 dense-equivalent pool to make it evict), and ``--spec ngram`` speculative
 decoding with windows of up to ``--spec-k`` drafted tokens, as in the
-reference.  ``--mesh`` (tensor parallelism, a later slice) raises
-``NotImplementedError``.
-Weights are a seeded ``torch.Generator`` init on the device (seed 0);
-prompts are drawn with numpy from ``--seed``.
+reference.  ``--mesh DATA,MODEL`` meshes over the visible cards as the
+reference's does (default ``1,N`` over all of them; one card is the
+``1,1`` host mesh), and a model axis above 1 serves tensor-parallel, one
+process per rank on ``nccl``; ``--tp-backend gloo`` is the explicit
+opt-in to ranks that share one card (or the CPU, with ``--device cpu``).
+The mesh (backend and each rank's device) is printed on stderr; under
+tensor parallelism the JSON line adds ``mesh`` and ``tp_backend``.
+Weights are a seeded ``torch.Generator`` init on the device (seed 0;
+under a mesh each rank draws it and keeps its shard); prompts are drawn
+with numpy from ``--seed``.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --tiny --device cpu \
+        --mesh 1,2 --tp-backend gloo
 """
 from __future__ import annotations
 
 import argparse
 import json
+import sys
 import time
 
 import numpy as np
@@ -39,7 +49,9 @@ import torch
 from ..configs import get
 from ..device import resolve_device
 from ..models.lm import init_params
+from ..serve.tp import SeededParams, Session
 from ..steps import make_prefill_step, make_serve_step
+from .mesh import make_mesh_from_devices
 
 
 def _prompts(cfg, n, prompt_len, seed=1):
@@ -63,11 +75,20 @@ def _cache_len(cfg, prompt_len, gen):
         cfg.n_patches if cfg.frontend == "vision_patches" else 0)
 
 
-def serve_oneshot(cfg, params, device, args):
-    """Prefill one batch, decode greedily to the end."""
+def serve_oneshot(cfg, params, device, args, mesh=None):
+    """Prefill one batch, decode greedily to the end (on every rank of a
+    tensor-parallel ``mesh``)."""
     cache_len = _cache_len(cfg, args.prompt_len, args.gen)
-    prefill = make_prefill_step(cfg, cache_len=cache_len)
-    decode = make_serve_step(cfg)
+    sess = None
+    if mesh is not None and mesh.shape["model"] > 1:
+        sess = Session(mesh, cfg, device)
+        params = sess.load(params)
+        prefill = sess.step("prefill", make_prefill_step,
+                            cache_len=cache_len)
+        decode = sess.step("serve", make_serve_step)
+    else:
+        prefill = make_prefill_step(cfg, cache_len=cache_len)
+        decode = make_serve_step(cfg)
     prompts, patches = _prompts(cfg, args.batch, args.prompt_len, args.seed)
     prompts = torch.tensor(prompts, device=device)
     if patches is not None:
@@ -84,6 +105,8 @@ def serve_oneshot(cfg, params, device, args):
         out.append(tok)
     gen = torch.cat(out, dim=1).cpu()
     t_decode = time.time() - t0
+    if sess is not None:
+        sess.close()
     print(json.dumps({
         "mode": "oneshot",
         "arch": cfg.name,
@@ -95,7 +118,7 @@ def serve_oneshot(cfg, params, device, args):
     return gen
 
 
-def serve_engine(cfg, params, device, args):
+def serve_engine(cfg, params, device, args, mesh=None):
     """Continuous batching: a slot pool fed by a monitored request queue."""
     from ..serve import Request, ServeEngine
 
@@ -106,7 +129,7 @@ def serve_engine(cfg, params, device, args):
                  else None if args.page_size < 0 else args.page_size)
     t0 = time.time()
     with ServeEngine(cfg, params, slots=args.batch, cache_len=cache_len,
-                     mesh=args.mesh, umt=not args.no_umt,
+                     mesh=mesh, umt=not args.no_umt,
                      n_cores=args.cores, page_size=page_size,
                      num_pages=args.pages if args.pages > 0 else None,
                      prefill_chunk=args.chunk if args.chunk > 0 else None,
@@ -131,6 +154,10 @@ def serve_engine(cfg, params, device, args):
     for r in reqs:
         r.wait()                        # re-raises an engine-side failure
     gen = np.stack([np.asarray(r.out_tokens, np.int32) for r in reqs])
+    tp = {}
+    if stats["tp"]:
+        tp = {"mesh": f"{mesh.shape['data']},{mesh.shape['model']}",
+              "tp_backend": mesh.backend}
     print(json.dumps({
         "mode": "engine",
         "arch": cfg.name,
@@ -168,6 +195,7 @@ def serve_engine(cfg, params, device, args):
         "p99_latency_s": round(stats["p99_latency_s"], 4),
         "generated_shape": list(gen.shape),
         "sample": [int(x) for x in gen.reshape(-1)[:8]],
+        **tp,
     }))
     return gen
 
@@ -223,7 +251,14 @@ def serve(argv=None):
                     help="engine: drafted tokens per verify window "
                          "(--spec only)")
     ap.add_argument("--mesh", default=None, metavar="DATA,MODEL",
-                    help="tensor-parallel mesh (not ported yet)")
+                    help="mesh over the visible cards (default 1,N: every "
+                         "card on the model axis; the sizes must multiply "
+                         "to the card count unless --tp-backend gloo); a "
+                         "model axis above 1 serves tensor-parallel")
+    ap.add_argument("--tp-backend", choices=("gloo", "nccl"), default=None,
+                    help="tensor parallelism's collectives: nccl (one card "
+                         "a rank, the default) or gloo (the explicit "
+                         "opt-in to ranks sharing one card, or the CPU)")
     ap.add_argument("--prefix-cache", choices=("auto", "on", "off"),
                     default="auto",
                     help="engine: shared-prefix KV reuse (auto = on for "
@@ -236,11 +271,20 @@ def serve(argv=None):
     cfg = get(args.arch)
     if args.tiny:
         cfg = cfg.tiny()
-    gen = torch.Generator(device=device).manual_seed(0)
-    params = init_params(cfg, gen, device)
-    if args.mode == "oneshot":
-        return serve_oneshot(cfg, params, device, args)
-    return serve_engine(cfg, params, device, args)
+    mesh = make_mesh_from_devices(args.mesh, backend=args.tp_backend,
+                                  device_type=device.type)
+    print(mesh.describe(), file=sys.stderr)
+    try:
+        if mesh.shape["model"] > 1:     # every rank draws its own shard
+            params = SeededParams(0)
+        else:
+            gen = torch.Generator(device=device).manual_seed(0)
+            params = init_params(cfg, gen, device)
+        if args.mode == "oneshot":
+            return serve_oneshot(cfg, params, device, args, mesh)
+        return serve_engine(cfg, params, device, args, mesh)
+    finally:
+        mesh.close()
 
 
 if __name__ == "__main__":

@@ -27,6 +27,18 @@ as the reference does.  "verify" (speculative decoding) appends a window
 of S tokens per slot and scores every lane against the cache, causally
 within the window; a paged leaf takes the gather path there, as in the
 reference (scatter the window, ``page_gather``, plain attention).
+
+Tensor parallelism (under a mesh: ``models.layers.tp_heads``): each rank
+holds ``H/n`` query heads and ``Hkv/n`` KV heads — their columns of
+``wq``/``wk``/``wv``, their rows of ``wo`` — and runs every path above
+on its local heads as they are (the flash prefill, the paged decode
+kernel, verify), then one all-reduce after ``wo``.  Heads are
+kv-head-major, so an even split keeps each query head on the rank that
+holds its KV group (the reference's reasoning,
+``repro/models/attention.py:355-371``).  MLA splits its query heads the
+same way and keeps its latents (``wq_a``, ``wkv_a``, ``ckv``, ``krope``)
+whole on every rank.  Head counts that do not split raise (ROADMAP item
+9).
 """
 from __future__ import annotations
 
@@ -35,7 +47,7 @@ import torch
 from ..kernels import (flash_attention, paged_decode_attention,
                        paged_mla_decode_attention)
 from .layers import (apply_rope, page_gather, page_scatter,
-                     page_scatter_window, rms_norm)
+                     page_scatter_window, rms_norm, tp_all_reduce, tp_heads)
 
 NEG_INF = -1e30
 
@@ -176,27 +188,30 @@ def verify_attention(q, k_cache, v_cache, pos, *, scale=None):
 
 # ====================================================================== GQA
 def gqa_param_shapes(cfg):
-    """Flat (d, H*dh) weights, as the reference stores them:
-    name -> (shape, init kind)."""
+    """Flat (d, H*dh) weights, as the reference stores them: name ->
+    (shape, logical axes, init kind), the reference's table
+    (``repro/models/attention.py::gqa_param_shapes``)."""
     d, h, hkv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     shapes = {
-        "ln": ((d,), "ones"),
-        "wq": ((d, h * dh), "normal"),
-        "wk": ((d, hkv * dh), "normal"),
-        "wv": ((d, hkv * dh), "normal"),
-        "wo": ((h * dh, d), "normal"),
+        "ln": ((d,), (None,), "ones"),
+        "wq": ((d, h * dh), ("fsdp", "tp"), "normal"),
+        "wk": ((d, hkv * dh), ("fsdp", "tp"), "normal"),
+        "wv": ((d, hkv * dh), ("fsdp", "tp"), "normal"),
+        "wo": ((h * dh, d), ("tp", "fsdp"), "normal"),
     }
     if cfg.qkv_bias:
-        shapes["bq"] = ((h * dh,), "zeros")
-        shapes["bk"] = ((hkv * dh,), "zeros")
-        shapes["bv"] = ((hkv * dh,), "zeros")
+        shapes["bq"] = ((h * dh,), ("tp",), "zeros")
+        shapes["bk"] = ((hkv * dh,), ("tp",), "zeros")
+        shapes["bv"] = ((hkv * dh,), ("tp",), "zeros")
     return shapes
 
 
 def gqa_cache_shapes(cfg, spec, batch, seq):
+    """name -> (shape, logical axes)."""
     sc = min(seq, spec.window) if spec.window else seq
     kv = (batch, sc, cfg.n_kv_heads, cfg.head_dim)
-    return {"k": kv, "v": kv}
+    ax = ("batch", "seq_shard", "kv_heads", None)
+    return {"k": (kv, ax), "v": (kv, ax)}
 
 
 def _cache_update(c, u, idx):
@@ -275,7 +290,8 @@ def gqa_apply(x, p, cfg, spec, *, mode, pos, cache=None, cache_len=None,
     at per-slot positions ``pos`` (B,), lanes ``>= n_tok`` masked, and
     scores every lane (:func:`verify_attention`)."""
     b, s, _ = x.shape
-    h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    n = tp_heads(cfg.n_heads, cfg.n_kv_heads)      # 1 off a mesh
+    h, hkv, dh = cfg.n_heads // n, cfg.n_kv_heads // n, cfg.head_dim
     dt = x.dtype
     xn = rms_norm(x, p["ln"], cfg.norm_eps)
 
@@ -375,37 +391,40 @@ def gqa_apply(x, p, cfg, spec, *, mode, pos, cache=None, cache_len=None,
             raise ValueError(f"unknown mode {mode!r}")
 
     out = out.reshape(b, s, h * dh) @ p["wo"].to(dt)
-    return out, new_cache
+    return (tp_all_reduce(out) if n > 1 else out), new_cache
 
 
 # ====================================================================== MLA
 def mla_param_shapes(cfg):
-    """name -> (shape, init kind), the reference's layout."""
+    """name -> (shape, logical axes, init kind), the reference's table."""
     d, h = cfg.d_model, cfg.n_heads
     rq, rkv = cfg.q_lora_rank, cfg.kv_lora_rank
     dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
     return {
-        "ln": ((d,), "ones"),
-        "wq_a": ((d, rq), "normal"),
-        "q_ln": ((rq,), "ones"),
-        "wq_b": ((rq, h * (dn + dr)), "normal"),
-        "wkv_a": ((d, rkv + dr), "normal"),
-        "kv_ln": ((rkv,), "ones"),
-        "wk_b": ((rkv, h * dn), "normal"),
-        "wv_b": ((rkv, h * dv), "normal"),
-        "wo": ((h * dv, d), "normal"),
+        "ln": ((d,), (None,), "ones"),
+        "wq_a": ((d, rq), ("fsdp", None), "normal"),
+        "q_ln": ((rq,), (None,), "ones"),
+        "wq_b": ((rq, h * (dn + dr)), (None, "tp"), "normal"),
+        "wkv_a": ((d, rkv + dr), ("fsdp", None), "normal"),
+        "kv_ln": ((rkv,), (None,), "ones"),
+        "wk_b": ((rkv, h * dn), (None, "tp"), "normal"),
+        "wv_b": ((rkv, h * dv), (None, "tp"), "normal"),
+        "wo": ((h * dv, d), ("tp", "fsdp"), "normal"),
     }
 
 
 def mla_cache_shapes(cfg, spec, batch, seq):
+    """name -> (shape, logical axes): the latents carry no head dim."""
     del spec
-    return {"ckv": (batch, seq, cfg.kv_lora_rank),
-            "krope": (batch, seq, cfg.qk_rope_dim)}
+    return {"ckv": ((batch, seq, cfg.kv_lora_rank),
+                    ("batch", "seq_shard", None)),
+            "krope": ((batch, seq, cfg.qk_rope_dim),
+                      ("batch", "seq_shard", None))}
 
 
-def _mla_q(xn, p, cfg, dt):
+def _mla_q(xn, p, cfg, dt, h):
     b, s, _ = xn.shape
-    h, dn, dr = cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim
+    dn, dr = cfg.qk_nope_dim, cfg.qk_rope_dim
     qa = rms_norm(xn @ p["wq_a"].to(dt), p["q_ln"], cfg.norm_eps)
     q = (qa @ p["wq_b"].to(dt)).view(b, s, h, dn + dr)
     return q[..., :dn], q[..., dn:]          # q_nope, q_rope
@@ -423,14 +442,15 @@ def mla_apply(x, p, cfg, spec, *, mode, pos, cache=None, cache_len=None,
     the absorbed decode form over the window's S lanes (positions ``pos_b
     + j``, lanes ``>= n_tok`` not written), as the reference does."""
     b, s, _ = x.shape
-    h = cfg.n_heads
+    n = tp_heads(cfg.n_heads)                      # 1 off a mesh
+    h = cfg.n_heads // n
     rkv, dn, dr, dv = (cfg.kv_lora_rank, cfg.qk_nope_dim, cfg.qk_rope_dim,
                        cfg.v_head_dim)
     dt = x.dtype
     scale = (dn + dr) ** -0.5
     xn = rms_norm(x, p["ln"], cfg.norm_eps)
 
-    q_nope, q_rope = _mla_q(xn, p, cfg, dt)
+    q_nope, q_rope = _mla_q(xn, p, cfg, dt, h)
     kva = xn @ p["wkv_a"].to(dt)
     ckv = rms_norm(kva[..., :rkv], p["kv_ln"], cfg.norm_eps)   # (B,S,rkv)
     k_rope = kva[..., rkv:]                                    # (B,S,dr)
@@ -545,4 +565,4 @@ def mla_apply(x, p, cfg, spec, *, mode, pos, cache=None, cache_len=None,
         raise ValueError(f"unknown mode {mode!r}")
 
     out = out.reshape(b, s, h * dv) @ p["wo"].to(dt)
-    return out, new_cache
+    return (tp_all_reduce(out) if n > 1 else out), new_cache

@@ -23,10 +23,10 @@ def _mixer(spec):
 def dense_mlp_shapes(cfg):
     d, f = cfg.d_model, cfg.d_ff
     return {
-        "ln": ((d,), "ones"),
-        "w_gate": ((d, f), "normal"),
-        "w_up": ((d, f), "normal"),
-        "w_down": ((f, d), "normal"),
+        "ln": ((d,), (None,), "ones"),
+        "w_gate": ((d, f), ("fsdp", "tp"), "normal"),
+        "w_up": ((d, f), ("fsdp", "tp"), "normal"),
+        "w_down": ((f, d), ("tp", "fsdp"), "normal"),
     }
 
 

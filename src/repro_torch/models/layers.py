@@ -3,6 +3,18 @@ port of ``repro/models/layers.py``).
 
 ``rms_norm`` is the kernel wrapper: the Triton kernel for CUDA tensors,
 the plain version for CPU ones; ``gated_rms_norm`` goes through it too.
+
+Tensor parallelism (``repro_torch.launch.mesh``, under the serve steps'
+``sharding_ctx``): each rank holds its shard of the weights and computes
+on it, and the collectives the reference's GSPMD inserts are written out
+here, each counted (``tp_all_reduce.calls``, ``tp_all_gather.calls``).
+The SwiGLU MLP is row-parallel (local ``w_gate``/``w_up`` columns, local
+``w_down`` rows, one all-reduce), the embedding vocab-parallel (a masked
+local lookup, one all-reduce), the LM head column-parallel (local vocab
+columns, one all-gather), so every rank ends with the whole logits and
+greedy argmaxes agree across ranks.  A dim the rules cannot split evenly
+stays whole (:func:`tp_shards` is 1) and takes no collective.
+
 The modality frontends are the reference's stubs: ``audio_codebooks``
 sums K codebook embeddings into one stream and emits K heads'
 logits; ``vision_patches`` embeds text as the token LMs do (its
@@ -17,18 +29,106 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..kernels import rms_norm
+from ..kernels import rms_norm, rms_norm_rstd
+from ..kernels.counter import LaunchCounter
+from ..sharding import (current_mesh, current_rules, logical_spec,
+                        resolved_axes)
 
 __all__ = ["rms_norm", "gated_rms_norm", "check_cache_invariant",
+           "tp_shards", "tp_size", "tp_coord", "tp_heads", "tp_all_reduce",
+           "tp_all_gather",
            "page_gather", "page_scatter", "page_scatter_window",
            "rope_freqs", "apply_rope", "sinusoidal_pos", "mlp_dense",
            "embed_tokens", "lm_logits", "softmax_xent", "tree_leaves",
            "tree_map"]
 
 
-def gated_rms_norm(x, z, w, eps=1e-5):
-    """Mamba2-style norm: ``rms_norm(x * silu(z))``, the gate in f32."""
-    return rms_norm(x * F.silu(z.float()).to(x.dtype), w, eps)
+# ------------------------------------------------------ tensor parallelism
+def tp_shards(dim: int, logical: str = "tp") -> int:
+    """How many ways the active mesh splits a dim of size ``dim`` with
+    logical axis ``logical`` under the active rules, strictly (1 where it
+    does not divide): the layout ``params.shard_params`` cut the weights
+    to.  1 without a mesh."""
+    mesh = current_mesh()
+    if mesh is None:
+        return 1
+    part = logical_spec((dim,), (logical,), mesh, current_rules(),
+                        strict=True)[0]
+    if part is None:
+        return 1
+    n = 1
+    for a in (part,) if isinstance(part, str) else part:
+        n *= mesh.shape[a]
+    return n
+
+
+def tp_coord(logical: str = "tp") -> int:
+    """This rank's block index on the mesh axes ``logical`` resolves to
+    (row-major over them; 0 without a mesh)."""
+    mesh, k = current_mesh(), 0
+    for a in resolved_axes(logical):
+        k = k * mesh.shape[a] + mesh.coords[a]
+    return k
+
+
+def tp_size(logical: str = "tp") -> int:
+    """The size of the mesh axes ``logical`` resolves to under the active
+    context (1 without a mesh)."""
+    mesh, n = current_mesh(), 1
+    for a in resolved_axes(logical):
+        n *= mesh.shape[a]
+    return n
+
+
+def tp_heads(*counts: int, logical: str = "heads") -> int:
+    """The split of a head axis: the mesh size ``logical`` resolves to,
+    when every head count in ``counts`` divides it.  A count that does not
+    raises: the reference replicates such heads (strict resolution drops
+    the axis), which the port has not ported (ROADMAP.md queue 1, item
+    9)."""
+    n = tp_size(logical)
+    if n > 1 and any(c % n for c in counts):
+        raise NotImplementedError(
+            f"head counts {counts} do not split {n} ways: replicated heads "
+            "under tensor parallelism are not ported (ROADMAP.md queue 1, "
+            "item 9)")
+    return n
+
+
+def tp_all_reduce(x):
+    """Sum ``x`` over the model axis (one collective, counted), rounded
+    once to x's dtype: a row-parallel product's partials (each in x's
+    dtype) are summed in f32 on every mesh size, then rounded."""
+    mesh = current_mesh()
+    tp_all_reduce.calls.add()
+    buf = x.float().contiguous()
+    mesh.all_reduce(buf)
+    return buf.to(x.dtype)
+
+
+def tp_all_gather(x, dim: int = -1):
+    """Every rank's ``x`` concatenated along ``dim`` in rank order (one
+    collective, counted)."""
+    mesh = current_mesh()
+    tp_all_gather.calls.add()
+    return torch.cat(mesh.all_gather(x), dim=dim)
+
+
+tp_all_reduce.calls = LaunchCounter()
+tp_all_gather.calls = LaunchCounter()
+
+
+def gated_rms_norm(x, z, w, eps=1e-5, width=None):
+    """Mamba2-style norm: ``rms_norm(x * silu(z))``, the gate in f32.
+    ``width`` (tensor parallelism): the whole row's width when x holds
+    only this rank's columns of it; the f32 sum of squares of the local
+    columns is all-reduced and the kernel applies the row's statistic
+    (``rms_norm_rstd``), since a per-rank statistic would be wrong."""
+    g = x * F.silu(z.float()).to(x.dtype)
+    if width is None or width == x.shape[-1]:
+        return rms_norm(g, w, eps)
+    ss = tp_all_reduce(g.float().square().sum(dim=-1))
+    return rms_norm_rstd(g, w, torch.rsqrt(ss / width + eps))
 
 
 # --------------------------------------------------------- cache invariance
@@ -172,12 +272,14 @@ def sinusoidal_pos(pos, dim: int, device=None):
 
 # ----------------------------------------------------------------------- MLP
 def mlp_dense(x, p, cfg):
-    """SwiGLU MLP. x: (B, S, D); weights cast to x's dtype per use."""
-    del cfg
+    """SwiGLU MLP. x: (B, S, D); weights cast to x's dtype per use.  Under
+    tensor parallelism the weights are this rank's d_ff shard and the
+    partial products are all-reduced."""
     dt = x.dtype
     h = x @ p["w_gate"].to(dt)
     u = x @ p["w_up"].to(dt)
-    return (F.silu(h) * u) @ p["w_down"].to(dt)
+    out = (F.silu(h) * u) @ p["w_down"].to(dt)
+    return tp_all_reduce(out) if tp_shards(cfg.d_ff, "tp") > 1 else out
 
 
 def embed_tokens(tokens, p_embed, cfg, dtype):
@@ -185,13 +287,32 @@ def embed_tokens(tokens, p_embed, cfg, dtype):
     the sum over k of codebook k's embedding of ``tokens[..., k]``, in
     ``dtype`` and in the reference's order (MusicGen-style)."""
     tokens = tokens.long()
-    if cfg.frontend == "audio_codebooks":
-        emb = p_embed["tok"].to(dtype)                    # (K, V, D)
+    emb = p_embed["tok"].to(dtype)                  # (V, D) | (K, V, D)
+    n = tp_shards(cfg.vocab, "vocab")
+    if n > 1:
+        # vocab-parallel: this rank's rows, zeros for ids it does not
+        # hold; every id has exactly one owner, so the all-reduce's sum is
+        # the row itself, bit for bit (codebooks reduced apart, summed after)
+        rows = cfg.vocab // n
+        loc = tokens - tp_coord("vocab") * rows
+        own = (loc >= 0) & (loc < rows)
+        loc = loc.clamp(0, rows - 1)
+        if cfg.frontend == "audio_codebooks":
+            parts = torch.stack([
+                torch.where(own[..., k, None], emb[k][loc[..., k]], 0)
+                for k in range(cfg.n_codebooks)])
+            parts = tp_all_reduce(parts)
+            out = parts[0]
+            for k in range(1, cfg.n_codebooks):
+                out = out + parts[k]
+            return out
+        return tp_all_reduce(torch.where(own[..., None], emb[loc], 0))
+    if cfg.frontend == "audio_codebooks":               # emb: (K, V, D)
         out = emb[0][tokens[..., 0]]
         for k in range(1, cfg.n_codebooks):
             out = out + emb[k][tokens[..., k]]
         return out
-    return p_embed["tok"].to(dtype)[tokens]
+    return emb[tokens]
 
 
 def lm_logits(x, params, cfg):
@@ -199,12 +320,15 @@ def lm_logits(x, params, cfg):
     from ``lm_head[k]`` (K, D, V)."""
     dt = x.dtype
     if cfg.frontend == "audio_codebooks":
-        return torch.einsum("bsd,kdv->bskv", x, params["lm_head"].to(dt))
-    if cfg.tie_embeddings:
-        w = params["embed"]["tok"].to(dt).T               # (D, V)
+        out = torch.einsum("bsd,kdv->bskv", x, params["lm_head"].to(dt))
     else:
-        w = params["lm_head"].to(dt)                      # (D, V)
-    return x @ w
+        if cfg.tie_embeddings:
+            w = params["embed"]["tok"].to(dt).T           # (D, V)
+        else:
+            w = params["lm_head"].to(dt)                  # (D, V)
+        out = x @ w
+    # column-parallel: this rank's vocab columns, gathered whole
+    return tp_all_gather(out) if tp_shards(cfg.vocab, "vocab") > 1 else out
 
 
 def softmax_xent(logits, labels, z_loss=0.0):

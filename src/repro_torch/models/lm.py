@@ -32,7 +32,11 @@ from .layers import (embed_tokens, lm_logits, rms_norm, sinusoidal_pos,
 
 
 class LeafMeta(NamedTuple):
+    """A leaf of the meta tree: its shape, its logical axes (one name or
+    None per dim, the reference's ``repro.sharding`` vocabulary) and its
+    init kind."""
     shape: tuple
+    axes: tuple
     init: str = "normal"
 
 
@@ -40,15 +44,17 @@ def _is_meta(x):
     return isinstance(x, LeafMeta)
 
 
-def _stack_meta(tree, repeats):
-    """{name: (shape, init)} trees -> LeafMeta trees stacked on repeats."""
+def _stack_meta(tree, repeats, init=None):
+    """{name: (shape, axes[, init])} trees -> LeafMeta trees stacked on
+    ``repeats`` (the leading "stack" axis); ``init`` overrides the kind."""
     out = {}
     for k, v in tree.items():
         if isinstance(v, dict):
-            out[k] = _stack_meta(v, repeats)
+            out[k] = _stack_meta(v, repeats, init)
         else:
-            shape, init = v
-            out[k] = LeafMeta((repeats,) + tuple(shape), init)
+            shape, axes, kind = (tuple(v) + ("normal",))[:3]
+            out[k] = LeafMeta((repeats,) + tuple(shape), ("stack",)
+                              + tuple(axes), init or kind)
     return out
 
 
@@ -57,15 +63,17 @@ def param_meta(cfg):
     d, v = cfg.d_model, cfg.vocab
     if cfg.frontend == "audio_codebooks":       # one table and head per
         k = cfg.n_codebooks                     # codebook
-        embed, head = LeafMeta((k, v, d)), LeafMeta((k, d, v))
+        embed = LeafMeta((k, v, d), (None, "vocab", "fsdp"))
+        head = LeafMeta((k, d, v), (None, "fsdp", "vocab"))
     else:
-        embed, head = LeafMeta((v, d)), LeafMeta((d, v))
+        embed = LeafMeta((v, d), ("vocab", "fsdp"))
+        head = LeafMeta((d, v), ("fsdp", "vocab"))
     out = {
         "embed": {"tok": embed},
         "blocks": tuple(_stack_meta(block_param_shapes(cfg, spec),
                                     cfg.n_repeats)
                         for spec in cfg.pattern),
-        "final_norm": LeafMeta((d,), "ones"),
+        "final_norm": LeafMeta((d,), (None,), "ones"),
     }
     if not cfg.tie_embeddings:
         out["lm_head"] = head
@@ -73,12 +81,20 @@ def param_meta(cfg):
 
 
 def cache_meta(cfg, batch: int, seq: int):
-    blocks = tuple(
-        {name: LeafMeta((cfg.n_repeats,) + tuple(shape), "zeros")
-         for name, shape in block_cache_shapes(cfg, spec, batch,
-                                               seq).items()}
-        for spec in cfg.pattern)
-    return {"pos": LeafMeta((), "zeros"), "blocks": blocks}
+    blocks = tuple(_stack_meta(block_cache_shapes(cfg, spec, batch, seq),
+                               cfg.n_repeats, "zeros")
+                   for spec in cfg.pattern)
+    return {"pos": LeafMeta((), (), "zeros"), "blocks": blocks}
+
+
+def meta_axes(meta):
+    """The logical axes of every leaf of a meta tree (the reference's
+    ``meta_axes``)."""
+    return tree_map(lambda m: m.axes, meta, is_leaf=_is_meta)
+
+
+def param_logical_axes(cfg):
+    return meta_axes(param_meta(cfg))
 
 
 # ------------------------------------------------------------------- init

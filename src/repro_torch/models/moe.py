@@ -24,17 +24,29 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from .layers import tp_size
+
+
+def no_tp(cfg):
+    """Raise under a tensor-parallel mesh: the experts' FFN width on
+    "tp" (``repro/models/moe.py:22-25``), the dropless dispatch's host
+    read and mixtral's rings under a mesh are ROADMAP item 9b."""
+    if tp_size("tp") > 1:
+        raise NotImplementedError(
+            f"{cfg.name}: MoE layers under tensor parallelism are not "
+            "ported (ROADMAP.md queue 1, item 9b)")
+
 
 def moe_param_shapes(cfg):
-    """name -> (shape, init kind), the reference's layout: experts
-    stacked on the leading axis of each 3-D weight."""
+    """name -> (shape, logical axes, init kind), the reference's layout:
+    experts stacked on the leading axis of each 3-D weight."""
     d, f, e = cfg.d_model, cfg.d_ff, cfg.n_experts
     return {
-        "ln": ((d,), "ones"),
-        "router": ((d, e), "normal"),
-        "w_gate": ((e, d, f), "normal"),
-        "w_up": ((e, d, f), "normal"),
-        "w_down": ((e, f, d), "normal"),
+        "ln": ((d,), (None,), "ones"),
+        "router": ((d, e), ("fsdp", None), "normal"),
+        "w_gate": ((e, d, f), ("experts", "fsdp", "tp"), "normal"),
+        "w_up": ((e, d, f), ("experts", "fsdp", "tp"), "normal"),
+        "w_down": ((e, f, d), ("experts", "tp", "fsdp"), "normal"),
     }
 
 
@@ -78,6 +90,7 @@ def dispatch_slots(topi, cfg, c):
 
 def moe_mlp(xn, p, cfg, aux=True):
     """xn: (B, S, D) pre-normed.  Returns (y, lb)."""
+    no_tp(cfg)
     b, s, d = xn.shape
     e, k = cfg.n_experts, cfg.top_k
     dt = xn.dtype
@@ -119,6 +132,7 @@ def moe_mlp_ragged(xn, p, cfg, aux=True):
             f"{cfg.name}: moe_impl='ragged' reads each expert's segment "
             "bounds on the host, and a meta tensor holds no routing; dry-run "
             "it with moe_impl='onehot'")
+    no_tp(cfg)
     b, s, d = xn.shape
     e, k = cfg.n_experts, cfg.top_k
     dt = xn.dtype

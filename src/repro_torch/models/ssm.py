@@ -14,6 +14,22 @@ activation dtype — the same numbers in f32, within bf16 rounding in bf16.
 The SSM cache (conv tail + recurrent state) is O(1) per slot and never
 paged.  Decode writes both leaves in place (the port's forward keeps the
 same cache tensors); chunked prefill raises, as in the reference.
+
+Tensor parallelism (under a mesh: ``models.layers.tp_heads`` on
+``ssm_heads``): each rank holds ``H/n`` heads — their ``d_inner/n``
+channels of ``z`` and ``x``, their ``dt``, ``A_log``, ``Dskip`` and
+``norm_w`` entries, their rows of ``out_proj`` and their state — and all
+of B and C.  Layout deviation from the reference, which shards
+``wxBC``'s whole ``conv_dim`` column-wise (``repro/models/ssm.py:26-27``)
+and so would split mamba2's one group of B and C across ranks: here each
+rank keeps its heads' x channels and every B and C channel, replicated
+(:data:`TP_LOCAL`, :func:`tp_local`), and the scan reads them with its
+group stride 0 as it does on one device.  The same numbers; the ``conv``
+leaf's bytes per rank are ``(d_inner/n + 2 N G) / conv_dim`` of the
+whole, not 1/n.  The gated norm normalises over the whole ``d_inner``:
+the f32 sum of squares of the local channels is all-reduced and the
+kernel applies that statistic (``layers.gated_rms_norm(width=)``).  One
+all-reduce after ``out_proj``.
 """
 from __future__ import annotations
 
@@ -21,37 +37,72 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels import ssd_scan
-from .layers import gated_rms_norm, rms_norm
+from .layers import (gated_rms_norm, rms_norm, tp_all_reduce, tp_coord,
+                     tp_heads)
 
 
 def conv_dim(cfg) -> int:
     return cfg.d_inner + 2 * cfg.ssm_ngroups * cfg.ssm_state
 
 
+# The port's tensor-parallel layout of the mixer's leaves that the
+# reference's logical axes do not give (params and the ``conv`` cache
+# leaf): leaf name -> what its last dim holds.  "conv": conv_dim channels
+# (a rank keeps its heads' x channels and all of B and C); "heads": one
+# entry per head; "inner": d_inner channels.  The other leaves follow
+# their logical axes (``wz`` and ``out_proj`` on "tp", ``state`` on
+# "ssm_heads"), which cut the same heads' channels.
+TP_LOCAL = {"wxBC": "conv", "conv_w": "conv", "conv_b": "conv",
+            "conv": "conv", "wdt": "heads", "dt_bias": "heads",
+            "A_log": "heads", "Dskip": "heads", "norm_w": "inner"}
+
+
+def tp_local(name, t, cfg, k: int, n: int):
+    """Rank ``k`` of ``n``'s slice of the full leaf ``t`` (its last dim)
+    by :data:`TP_LOCAL`."""
+    kind = TP_LOCAL[name]
+    di, h = cfg.d_inner, cfg.ssm_nheads
+    if kind == "heads":
+        return t[..., k * h // n:(k + 1) * h // n]
+    if kind == "inner":
+        return t[..., k * di // n:(k + 1) * di // n]
+    return torch.cat([t[..., k * di // n:(k + 1) * di // n], t[..., di:]],
+                     dim=-1)
+
+
+def tp_local_width(name, cfg, n: int) -> int:
+    """The last dim of a rank's ``name`` leaf under :data:`TP_LOCAL`."""
+    kind = TP_LOCAL[name]
+    return {"heads": cfg.ssm_nheads // n, "inner": cfg.d_inner // n,
+            "conv": conv_dim(cfg) - cfg.d_inner + cfg.d_inner // n}[kind]
+
+
 def ssm_param_shapes(cfg):
-    """name -> (shape, init kind), the reference's layout."""
+    """name -> (shape, logical axes, init kind), the reference's table."""
     d, di, h = cfg.d_model, cfg.d_inner, cfg.ssm_nheads
     cd = conv_dim(cfg)
     return {
-        "ln": ((d,), "ones"),
-        "wz": ((d, di), "normal"),
-        "wxBC": ((d, cd), "normal"),
-        "wdt": ((d, h), "normal"),
-        "dt_bias": ((h,), "dt_bias"),
-        "A_log": ((h,), "A_log"),
-        "Dskip": ((h,), "ones"),
-        "conv_w": ((cfg.ssm_conv, cd), "normal"),
-        "conv_b": ((cd,), "zeros"),
-        "norm_w": ((di,), "ones"),
-        "out_proj": ((di, d), "normal"),
+        "ln": ((d,), (None,), "ones"),
+        "wz": ((d, di), ("fsdp", "tp"), "normal"),
+        "wxBC": ((d, cd), ("fsdp", "tp"), "normal"),
+        "wdt": ((d, h), ("fsdp", None), "normal"),
+        "dt_bias": ((h,), (None,), "dt_bias"),
+        "A_log": ((h,), (None,), "A_log"),
+        "Dskip": ((h,), (None,), "ones"),
+        "conv_w": ((cfg.ssm_conv, cd), (None, "conv_dim"), "normal"),
+        "conv_b": ((cd,), ("conv_dim",), "zeros"),
+        "norm_w": ((di,), (None,), "ones"),
+        "out_proj": ((di, d), ("tp", "fsdp"), "normal"),
     }
 
 
 def ssm_cache_shapes(cfg, spec, batch, seq):
+    """name -> (shape, logical axes)."""
     del spec, seq
     h, p, n = cfg.ssm_nheads, cfg.ssm_headdim, cfg.ssm_state
-    return {"conv": (batch, cfg.ssm_conv - 1, conv_dim(cfg)),
-            "state": (batch, h, p, n)}
+    return {"conv": ((batch, cfg.ssm_conv - 1, conv_dim(cfg)),
+                     ("batch", None, "conv_dim")),
+            "state": ((batch, h, p, n), ("batch", "ssm_heads", None, None))}
 
 
 def _causal_conv(xbc, w, bias):
@@ -139,9 +190,11 @@ def ssm_apply(x, p, cfg, spec, *, mode, pos, cache=None, cache_len=None,
         raise NotImplementedError(
             "chunked prefill is not supported for SSM blocks")
     b, s, _ = x.shape
-    h, pd, n, g = (cfg.ssm_nheads, cfg.ssm_headdim, cfg.ssm_state,
+    k_tp = tp_heads(cfg.ssm_nheads, logical="ssm_heads")   # 1 off a mesh
+    h, pd, n, g = (cfg.ssm_nheads // k_tp, cfg.ssm_headdim, cfg.ssm_state,
                    cfg.ssm_ngroups)
-    di, cw = cfg.d_inner, cfg.ssm_conv
+    di, cw = cfg.d_inner // k_tp, cfg.ssm_conv
+    h0 = tp_coord("ssm_heads") * h          # this rank's first head
     dt_ = x.dtype
     xn = rms_norm(x, p["ln"], cfg.norm_eps)
 
@@ -166,9 +219,13 @@ def ssm_apply(x, p, cfg, spec, *, mode, pos, cache=None, cache_len=None,
 
     xs = conv[..., :di].reshape(b, s, h, pd)
     bc = conv[..., di:].reshape(b, s, 2, g, n)
-    rep = h // g
-    b_in = bc[:, :, 0, :, None].expand(b, s, g, rep, n).reshape(b, s, h, n)
-    c_in = bc[:, :, 1, :, None].expand(b, s, g, rep, n).reshape(b, s, h, n)
+    # every head's group (all of them: B and C are whole on every rank),
+    # then this rank's heads; one group stays a stride-0 view
+    hh, rep = cfg.ssm_nheads, cfg.ssm_nheads // g
+    b_in = bc[:, :, 0, :, None].expand(b, s, g, rep, n).reshape(
+        b, s, hh, n)[:, :, h0:h0 + h]
+    c_in = bc[:, :, 1, :, None].expand(b, s, g, rep, n).reshape(
+        b, s, hh, n)[:, :, h0:h0 + h]
 
     if mode == "decode":
         hst = cache["state"]                               # (B,H,P,N)
@@ -186,5 +243,6 @@ def ssm_apply(x, p, cfg, spec, *, mode, pos, cache=None, cache_len=None,
 
     y = y + xs * p["Dskip"].to(dt_)[:, None]
     y = y.reshape(b, s, di)
-    y = gated_rms_norm(y, z, p["norm_w"], cfg.norm_eps)
-    return y @ p["out_proj"].to(dt_), new_cache
+    y = gated_rms_norm(y, z, p["norm_w"], cfg.norm_eps, width=cfg.d_inner)
+    out = y @ p["out_proj"].to(dt_)
+    return (tp_all_reduce(out) if k_tp > 1 else out), new_cache

@@ -6,6 +6,12 @@ by the caller) carries flat ``(d, H*dh)`` projections stacked on a
 leading ``n_repeats`` axis — exactly the layout ``repro_torch.models.lm``
 consumes, so nothing is reshaped here; every leaf is checked against
 ``param_meta``.
+
+Under a tensor-parallel mesh (``launch.mesh``) a rank holds only its
+shard: :func:`shard_params` cuts each leaf by its logical axes under
+``steps.TP_SERVE_RULES`` (strictly: a dim that does not split evenly
+stays whole), and the SSD mixer's leaves by the port's own layout
+(``models.ssm.TP_LOCAL``).
 """
 from __future__ import annotations
 
@@ -14,6 +20,9 @@ import torch
 
 from .device import resolve_device
 from .models.lm import LeafMeta, param_meta
+from .models.ssm import TP_LOCAL, tp_local
+from .sharding import local_shard, logical_spec
+from .steps import TP_SERVE_RULES, check_tp, model_size
 
 
 def _tensor(arr):
@@ -27,10 +36,52 @@ def _tensor(arr):
     return torch.tensor(arr)
 
 
-def params_from_numpy(tree, cfg, device="cuda", dtype=None):
+def shard_params(tree, cfg, mesh):
+    """This rank's shard of the full parameter tree ``tree`` (torch
+    tensors in the reference layout) on ``mesh`` (``mesh.coords`` names
+    the rank): every leaf cut to its block, copied, so that the full
+    tree can be freed.  The tree itself without a mesh or on a model axis
+    of 1.  Raises where ``steps.check_tp`` refuses the config."""
+    check_tp(cfg, mesh)
+    n = model_size(mesh)
+    if n == 1:
+        return tree
+    ssm_blocks = {i for i, spec in enumerate(cfg.pattern)
+                  if spec.kind == "ssm"}
+
+    def cut(meta, t, name, ssm):
+        if ssm and name in TP_LOCAL:
+            out = tp_local(name, t, cfg, mesh.coords["model"], n)
+        else:
+            spec = logical_spec(meta.shape, meta.axes, mesh, TP_SERVE_RULES,
+                                strict=True)
+            out = local_shard(t, spec, mesh)
+        return out.clone(memory_format=torch.contiguous_format)
+
+    def walk(meta, t, name="", ssm=False):
+        if isinstance(meta, LeafMeta):
+            return cut(meta, t, name, ssm)
+        if isinstance(meta, dict):
+            return {k: walk(meta[k], t[k], k, ssm) for k in meta}
+        return tuple(walk(m, x) for m, x in zip(meta, t))
+
+    meta = param_meta(cfg)
+    out = {k: walk(meta[k], tree[k], k) for k in meta if k != "blocks"}
+    out["blocks"] = tuple(
+        {part: {k: walk(bm[part][k], tree["blocks"][i][part][k], k,
+                        part == "mixer" and i in ssm_blocks)
+                for k in bm[part]}
+         for part in bm}
+        for i, bm in enumerate(meta["blocks"]))
+    return out
+
+
+def params_from_numpy(tree, cfg, device="cuda", dtype=None, mesh=None):
     """``tree``: dict/tuple tree of numpy arrays (the reference layout).
     Returns the same tree of torch tensors on ``device``; floating leaves
-    become ``dtype`` (default ``cfg.dtype``)."""
+    become ``dtype`` (default ``cfg.dtype``).  With ``mesh``, each leaf
+    is this rank's shard (:func:`shard_params`), cut on the host before
+    it moves to ``device``."""
     device = resolve_device(device)
     dtype = getattr(torch, dtype or cfg.dtype)
 
@@ -42,7 +93,7 @@ def params_from_numpy(tree, cfg, device="cuda", dtype=None):
                                  f"{meta.shape}")
             if t.is_floating_point():
                 t = t.to(dtype)
-            return t.to(device)
+            return t
         if isinstance(meta, dict):
             if set(meta) != set(leaf):
                 raise ValueError(f"{path}: keys {sorted(leaf)} != "
@@ -53,7 +104,16 @@ def params_from_numpy(tree, cfg, device="cuda", dtype=None):
         return tuple(conv(m, x, f"{path}[{i}]")
                      for i, (m, x) in enumerate(zip(meta, leaf)))
 
-    return conv(param_meta(cfg), tree, "params")
+    host = shard_params(conv(param_meta(cfg), tree, "params"), cfg, mesh)
+    return _to(host, device)
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(_to(v, device) for v in tree)
+    return tree.to(device)
 
 
 def train_state_from_numpy(tree, cfg, device="cuda"):

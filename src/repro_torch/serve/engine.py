@@ -75,8 +75,16 @@ request's prompt is (P, K) codebook ids, each step emits (K,) ids (the
 token buffers are (slots, 1, K)), and eos/stop and speculation are
 refused, as in the reference.
 
-Tensor parallelism (``tp``/``mesh``) belongs to a later slice and raises
-``NotImplementedError`` naming its ROADMAP item.
+Tensor parallelism (``mesh=``, a ``launch.mesh.Mesh`` whose model axis
+is above 1; ``tp=None`` turns it on exactly then): weights and pool are
+sharded on heads and feed-forward width (``steps.TP_SERVE_RULES``), this
+process is rank 0 and every step the engine issues — prefill, batched
+insert, decode (gather path and paged kernel), prefill chunk, prefix
+gather, verify, restore replay, the pool and row caches themselves —
+runs on every rank through one :class:`.tp.Session`, in one order under
+its lock.  Block tables, positions, tokens and logits stay whole; every
+host-side decision stays here.  ``shutdown`` ends the followers' session
+and waits for them; the mesh (its processes) is the caller's.
 """
 from __future__ import annotations
 
@@ -89,16 +97,17 @@ import torch
 
 from ..core import UMTRuntime, io
 from ..device import resolve_device
-from ..models.lm import init_cache
-from ..steps import (chunkable, make_batched_insert_step, make_decode_step,
+from ..steps import (check_tp, chunkable, make_batched_insert_step,
+                     make_decode_step, make_pool_step,
                      make_prefill_chunk_step, make_prefill_step,
-                     make_prefix_gather_step, make_serve_step,
-                     make_verify_step, speculatable)
+                     make_prefix_gather_step, make_row_cache_step,
+                     make_serve_step, make_verify_step, speculatable)
 from .kvstate import KVState
 from .pager import GARBAGE_PAGE
 from .policy import SchedulerPolicy, SlotView, make_policy
 from .prefix import PrefixCache
 from .request import Request, RequestQueue
+from .tp import Session
 
 
 # keys of ``ServeEngine.stats()`` that the reference's engine does not have
@@ -130,12 +139,6 @@ def accept_window(draft, argmax):
     return m, [int(argmax[j]) for j in range(m + 1)]
 
 
-def _unported(option, item):
-    raise NotImplementedError(
-        f"ServeEngine {option} is not ported yet (ROADMAP.md queue 1, "
-        f"item {item})")
-
-
 class ServeEngine:
     """Continuous-batching engine over one model + one slot pool.
 
@@ -161,6 +164,15 @@ class ServeEngine:
     (rid, token index, emitted, re-derived) and counted in ``stats()``,
     and the restore feeds the *emitted* token on, so the stream stays the
     one the caller saw.
+
+    Tensor parallelism: ``mesh`` with a model axis above 1 (``tp=None``
+    turns it on exactly then; ``tp=True`` without a mesh raises, and so
+    does ``tp=False`` on such a mesh, whose ranks would sit idle).
+    ``params`` is then the full tree (cut here, each follower's shard sent
+    over its pipe), a zero-arg callable returning it (the weights task),
+    or a per-rank factory such as ``serve.tp.SeededParams`` (each rank
+    makes its own shard).  Raises ``NotImplementedError`` where the config
+    is not ported under a mesh (``steps.check_tp``).
     """
 
     def __init__(self, cfg, params, *, slots: int = 4, cache_len: int = 64,
@@ -177,10 +189,23 @@ class ServeEngine:
                  prefix_cache: bool | str | None = None,
                  spec: str | None = None, spec_k: int = 4,
                  device="cuda"):
-        if mesh is not None or tp:
-            _unported("tensor parallelism (tp/mesh)", 9)
+        # tensor-parallel serving turns on exactly when the mesh has a
+        # model axis to shard over (the reference's rule)
+        model = 1 if mesh is None else mesh.shape.get("model", 1)
+        if tp is None:
+            tp = model > 1
+        self.tp = bool(tp)
+        if self.tp and mesh is None:
+            raise ValueError("tp=True needs a (data, model) mesh")
+        if not self.tp and model > 1:
+            raise ValueError(f"tp=False on a mesh whose model axis is "
+                             f"{model}: its follower ranks would sit idle")
+        self.mesh = mesh
+        check_tp(cfg, mesh)
         self.policy = make_policy(policy)
         self.device = resolve_device(device)
+        # every step below is built, and later run, on every rank
+        self._tp = Session(mesh, cfg, self.device) if self.tp else None
         self.cfg = cfg
         self.slots = slots
         self.cache_len = cache_len
@@ -226,16 +251,21 @@ class ServeEngine:
         self.max_prefill_batch = max_prefill_batch or slots
 
         self.queue = RequestQueue()
-        self.prefill = make_prefill_step(cfg, cache_len=cache_len)
+        self.prefill = self._make("prefill", make_prefill_step,
+                                  cache_len=cache_len)
         # the chunk step serves chunked prefill and the prefix hit's tail
-        self.chunk = (make_prefill_chunk_step(cfg, cache_len)
+        self.chunk = (self._make("chunk", make_prefill_chunk_step,
+                                 cache_len=cache_len)
                       if self._chunkable else None)
+        self.rows = self._make("rows", make_row_cache_step,
+                               cache_len=cache_len, dtype=cfg.dtype,
+                               device=self.device)
         # the restore after an eviction: prefill-replay of prompt +
         # generated[:-1] through the chunk step where prefill chunks
         # exactly, decode-replay of the emitted tokens through the serve
         # step otherwise (MoE capacity, SSD chunking, SWA rings)
         self._restore_prefill = self._chunkable
-        self.replay = make_serve_step(cfg)
+        self.replay = self._make("replay", make_serve_step)
         # chunk width of a prefix hit's tail and of a prefill-replay when
         # the engine has no prefill_chunk of its own
         self.restore_chunk = prefill_chunk or (
@@ -258,11 +288,11 @@ class ServeEngine:
         else:
             raise ValueError(f"prefix_cache={prefix_cache!r}: pick "
                              "True/'on', False/'off' or None/'auto'")
-        self.insert = make_batched_insert_step(cfg, cache_len=cache_len,
-                                               page_size=page_size)
-        self.decode = make_decode_step(cfg, cache_len=cache_len,
-                                       page_size=page_size,
-                                       paged_kernel=self.paged_kernel)
+        self.insert = self._make("insert", make_batched_insert_step,
+                                 cache_len=cache_len, page_size=page_size)
+        self.decode = self._make("decode", make_decode_step,
+                                 cache_len=cache_len, page_size=page_size,
+                                 paged_kernel=self.paged_kernel)
         # speculative decoding: the drafter is the policy's choice, the
         # verify step runs every tick, spec_k + 1 lanes wide
         self.spec_mode = None if spec in (None, "off") else str(spec)
@@ -276,8 +306,9 @@ class ServeEngine:
                     f"{cfg.name}: speculative decoding needs a chunk-exact "
                     "config (no MoE, no SSM, no SWA ring shorter than "
                     "cache_len) and a scalar greedy-token frontend")
-            self.verify = make_verify_step(cfg, cache_len=cache_len,
-                                           page_size=page_size)
+            self.verify = self._make("verify", make_verify_step,
+                                     cache_len=cache_len,
+                                     page_size=page_size)
             self.drafter = self.policy.spec_drafter(self, self.spec_mode)
 
         self._params = None if callable(params) else params
@@ -285,17 +316,23 @@ class ServeEngine:
         self._params_ready = threading.Event()
         self._load_exc: BaseException | None = None
         if self._params_fn is None:
+            if self._tp is not None:
+                self._params = self._tp.load(params)
             self._params_ready.set()
 
         self.kv = KVState(cfg, slots, cache_len, getattr(torch, cfg.dtype),
                           page_size=page_size, num_pages=num_pages,
-                          device=self.device)
+                          device=self.device,
+                          pool=None if self._tp is None else self._make(
+                              "pool", make_pool_step, slots=slots,
+                              cache_len=cache_len, dtype=cfg.dtype,
+                              page_size=page_size, device=self.device))
         self.pager = self.kv.pager
         self.pages_per_slot = self.kv.pages_per_slot
         self.prefix = (PrefixCache(self.pager, page_size)
                        if self._use_prefix else None)
-        self.gather = (make_prefix_gather_step(cfg, cache_len=cache_len,
-                                               page_size=page_size)
+        self.gather = (self._make("gather", make_prefix_gather_step,
+                                  cache_len=cache_len, page_size=page_size)
                        if self.prefix is not None else None)
         # orders every read (gather) and write (insert, tick) of the pool
         # on the stream
@@ -355,6 +392,13 @@ class ServeEngine:
         self.stats_spec_accepted = 0
         self.stats_spec_rollbacks = 0
 
+    def _make(self, key, maker, **kw):
+        """Step ``key`` from ``maker``: built here, or on every rank (and
+        dispatched to every rank) under tensor parallelism."""
+        if self._tp is None:
+            return maker(self.cfg, **kw)
+        return self._tp.step(key, maker, **kw)
+
     # ------------------------------------------------------------ lifecycle
     def start(self):
         if self._started:
@@ -392,6 +436,8 @@ class ServeEngine:
             self._h_intake = self._h_decode = None
         if self._own_rt:
             self.rt.shutdown()
+        if self._tp is not None:
+            self._tp.close()            # the followers drop their state
 
     def __enter__(self):
         return self.start()
@@ -402,7 +448,15 @@ class ServeEngine:
     # ------------------------------------------------------------ the tasks
     def _load_params(self):
         try:
-            self._params = self._params_fn()
+            if getattr(self._params_fn, "per_rank", False) \
+                    and self._tp is None:       # one rank: the whole tree
+                self._params = self._params_fn(self.cfg, None, self.device)
+            elif self._tp is None:
+                self._params = self._params_fn()
+            elif getattr(self._params_fn, "per_rank", False):
+                self._params = self._tp.load(self._params_fn)
+            else:
+                self._params = self._tp.load(self._params_fn())
         except BaseException as e:     # noqa: BLE001 — re-raised by prefill
             self._load_exc = e
             raise
@@ -550,8 +604,7 @@ class ServeEngine:
             chunk = (self.policy.chunk_len(self, grp[0].total_len)
                      if self.chunk is not None else None)
         if chunk is not None:
-            rows = init_cache(self.cfg, bpad, self.cache_len,
-                              getattr(torch, self.cfg.dtype), self.device)
+            rows = self.rows(bpad)
             for r in grp:
                 remaining.remove(r)
             self._start_chain(grp, tj, rows, 0, int(chunk),
@@ -833,7 +886,8 @@ class ServeEngine:
             with self._lock:
                 if not self._inserts:
                     return
-                req, rows_cache, row, t0 = self._inserts[0]
+                head = self._inserts[0]
+            req, rows_cache, row, t0 = head
             ids = None
             shared: list[int] = []
             if self.paged:
@@ -852,7 +906,15 @@ class ServeEngine:
                     return
             self._blocked_head = None
             with self._lock:
-                self._inserts.popleft()
+                # the entry admitted, not whatever heads the queue now: a
+                # restore's prefill round may have put itself in front
+                # (``appendleft``) since the peek; popping the head would
+                # drop that restore, its request never to finish, and
+                # leave this one queued, to be admitted a second time
+                # into another slot whose table then outgrows its pages
+                k = next(i for i, e in enumerate(self._inserts)
+                         if e is head)
+                del self._inserts[k]
             s = int(self.policy.select_slot(self, free))
             if self._active[s]:
                 raise RuntimeError(f"policy picked live slot {s}")
@@ -1258,8 +1320,7 @@ class ServeEngine:
 
     # ------------------------------------------------------------ reporting
     def stats(self) -> dict:
-        """The reference's key set; tensor parallelism, not ported, reports
-        as off."""
+        """The reference's key set."""
         with self._lock:
             n = self._n_completed
             tokens_out = self._tokens_out
@@ -1304,7 +1365,7 @@ class ServeEngine:
             "policy": self.policy.name,
             "donate": self.donate,
             "paged_kernel": self.paged_kernel,
-            "tp": False,
+            "tp": self.tp,
             "p50_latency_s": percentile(lats, 0.50),
             "p99_latency_s": percentile(lats, 0.99),
             "p50_ttft_s": percentile(ttfts, 0.50),

@@ -37,7 +37,10 @@ class KVState:
 
     def __init__(self, cfg, slots: int, cache_len: int, dtype, *,
                  page_size: int | None = None, num_pages: int | None = None,
-                 device="cuda"):
+                 device="cuda", pool=None):
+        """``pool``: a callable ``(num_pages) -> cache`` that makes the
+        pool (a tensor-parallel engine's dispatched ``make_pool_step``);
+        by default the whole pool is made here on ``device``."""
         self.cfg = cfg
         self.slots = slots
         self.cache_len = cache_len
@@ -52,16 +55,18 @@ class KVState:
             if num_pages is None:
                 num_pages = slots * self.pages_per_slot + 1
             self.pager = PagePool(num_pages, page_size)
-            self.cache = init_paged_slot_cache(cfg, slots, cache_len, dtype,
-                                               page_size, num_pages,
-                                               self.device)
+            self.cache = (pool(num_pages) if pool is not None else
+                          init_paged_slot_cache(cfg, slots, cache_len, dtype,
+                                                page_size, num_pages,
+                                                self.device))
             self._table = np.zeros((slots, self.pages_per_slot), np.int32)
             self.table_dev = self.to_dev(self._table)
         else:
             self.pages_per_slot = 0
             self.pager = None
-            self.cache = init_slot_cache(cfg, slots, cache_len, dtype,
-                                         self.device)
+            self.cache = (pool() if pool is not None else
+                          init_slot_cache(cfg, slots, cache_len, dtype,
+                                          self.device))
             self._table = None
             self.table_dev = None
         self.version = 0

@@ -7,15 +7,139 @@ place themselves, under the same contract: every cache leaf keeps its
 shape and dtype (``models.layers.check_cache_invariant``), so the caller
 simply rebinds the returned cache.  The train step likewise updates the
 train state in place (params, m, v and ``step``) and returns it.
+
+Tensor-parallel serving: each serve-step maker takes ``mesh=`` (a
+``launch.mesh.Mesh``).  Its step then runs the forward under
+``sharding_ctx(mesh, TP_SERVE_RULES)`` on this rank's shard of the
+weights (``params.shard_params``) and of the caches, whose local shapes
+the cache makers give (:func:`local_cache_meta`).  Tokens, positions,
+block tables and logits are whole on every rank.  One rank's step is
+only part of the computation: ``serve.tp`` runs the same step on every
+rank, in one order.
 """
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
 from .device import resolve_device
+from .models import lm
 from .models.layers import softmax_xent, tree_leaves, tree_map
-from .models.lm import cache_meta, forward, init_cache, init_params
+from .models.lm import LeafMeta, cache_meta, forward, init_params
+from .models.ssm import TP_LOCAL, tp_local_width
 from .optim import OptHParams, adamw_init, adamw_update
+from .sharding import logical_spec, shard_shape, sharding_ctx
+
+DECODE_RULES = {"heads": ()}  # decode shards cache-seq, not heads
+
+# Tensor-parallel serving: the KV pool shards on *heads* (kv_heads /
+# ssm_heads / conv_dim -> model, straight from LOGICAL_RULES) and the
+# sequence/page and slot axes stay replicated — the exact inverse of the
+# legacy DECODE_RULES layout.  batch -> () keeps tokens, logits, block
+# tables and per-slot pos replicated so the engine's host-side mirrors
+# read them without a gather.
+TP_SERVE_RULES = {"seq_shard": (), "batch": ()}
+
+# Serve-cache leaf name -> logical axes (dense slot pools, paged pools
+# and batch=1/bpad prefill row caches all share leaf names and ranks, so
+# one table covers every cache the engine moves between steps).  Leaves
+# without a head-like dim (MLA latents, pos) resolve to fully replicated
+# under TP_SERVE_RULES.
+SERVE_CACHE_AXES: dict[str, tuple[str | None, ...]] = {
+    "k": (None, "batch", "seq_shard", "kv_heads", None),
+    "v": (None, "batch", "seq_shard", "kv_heads", None),
+    "ckv": (None, "batch", "seq_shard", None),
+    "krope": (None, "batch", "seq_shard", None),
+    "conv": (None, "batch", None, "conv_dim"),
+    "state": (None, "batch", "ssm_heads", None, None),
+}
+
+
+def serve_cache_axes(name: str, ndim: int) -> tuple[str | None, ...]:
+    """Logical axes for one serve-cache leaf (replicated fallback for
+    unknown names or rank mismatches — e.g. ``pos``)."""
+    axes = SERVE_CACHE_AXES.get(name)
+    if axes is None or len(axes) != ndim:
+        return (None,) * ndim
+    return axes
+
+
+def model_size(mesh) -> int:
+    """The mesh's model axis (1 without a mesh)."""
+    return 1 if mesh is None else mesh.shape["model"]
+
+
+def check_tp(cfg, mesh) -> None:
+    """Raise where tensor-parallel serving of ``cfg`` on ``mesh`` is not
+    ported: a data axis above 1, MoE layers (ROADMAP item 9b), head counts
+    the model axis does not divide (item 9: the reference replicates
+    them).  A no-op without a mesh or with a model axis of 1."""
+    n = model_size(mesh)
+    if mesh is not None and mesh.shape.get("data", 1) > 1:
+        raise NotImplementedError(
+            f"mesh {mesh.shape}: a data axis above 1 is not ported "
+            "(ROADMAP.md queue 1, item 18)")
+    if n == 1:
+        return
+    if any(spec.mlp == "moe" for spec in cfg.pattern):
+        raise NotImplementedError(
+            f"{cfg.name}: MoE layers under tensor parallelism are not "
+            "ported (ROADMAP.md queue 1, item 9b)")
+    counts = set()
+    for spec in cfg.pattern:
+        if spec.kind == "ssm":
+            counts.add(cfg.ssm_nheads)
+        else:
+            counts.update((cfg.n_heads,) if spec.attn == "mla"
+                          else (cfg.n_heads, cfg.n_kv_heads))
+    if any(c % n for c in counts):
+        raise NotImplementedError(
+            f"{cfg.name}: head counts {sorted(counts)} do not split {n} "
+            "ways; replicated heads under tensor parallelism are not "
+            "ported (ROADMAP.md queue 1, item 9)")
+
+
+def _tp(mesh):
+    """The context a step's forward runs in: the TP serve rules on
+    ``mesh``, or nothing without one."""
+    if model_size(mesh) == 1:
+        return contextlib.nullcontext()
+    return sharding_ctx(mesh, TP_SERVE_RULES)
+
+
+def local_cache_meta(cfg, batch: int, seq: int, mesh=None):
+    """``cache_meta`` with each leaf at this rank's shape under
+    ``TP_SERVE_RULES`` (strict): K/V on their KV heads, the SSM state on
+    its heads, the conv tail by the port's layout (``models.ssm.
+    TP_LOCAL``), MLA latents and ``pos`` whole."""
+    meta = cache_meta(cfg, batch, seq)
+    n = model_size(mesh)
+    if n == 1:
+        return meta
+
+    def loc(name, m):
+        if name in TP_LOCAL:
+            return LeafMeta(m.shape[:-1] + (tp_local_width(name, cfg, n),),
+                            m.axes, m.init)
+        spec = logical_spec(m.shape, serve_cache_axes(name, len(m.shape)),
+                            mesh, TP_SERVE_RULES, strict=True)
+        return LeafMeta(shard_shape(m.shape, spec, mesh), m.axes, m.init)
+
+    return {"pos": meta["pos"],
+            "blocks": tuple({k: loc(k, m) for k, m in blk.items()}
+                            for blk in meta["blocks"])}
+
+
+def init_cache(cfg, batch: int, seq: int, dtype, device="cuda", mesh=None):
+    """``models.lm.init_cache`` at this rank's shapes under ``mesh``."""
+    if model_size(mesh) == 1:
+        return lm.init_cache(cfg, batch, seq, dtype, device)
+    device = resolve_device(device)
+    return tree_map(
+        lambda m: torch.zeros(m.shape, device=device,
+                              dtype=torch.int32 if m.shape == () else dtype),
+        local_cache_meta(cfg, batch, seq, mesh), is_leaf=lm._is_meta)
 
 
 def cast_tree(tree, dtype):
@@ -102,24 +226,29 @@ def make_train_step(cfg, hp: OptHParams = OptHParams()):
     return train_step
 
 
-def make_prefill_step(cfg, cache_len=None):
+def make_prefill_step(cfg, cache_len=None, mesh=None):
     """(params, tokens, patches=None) -> (row cache, last logits)."""
+    check_tp(cfg, mesh)
 
     def prefill_step(params, tokens, patches=None):
-        out = forward(cast_tree(params, cfg.dtype), cfg, tokens,
-                      mode="prefill", patches=patches, cache_len=cache_len)
+        with _tp(mesh):
+            out = forward(cast_tree(params, cfg.dtype), cfg, tokens,
+                          mode="prefill", patches=patches,
+                          cache_len=cache_len)
         return out["cache"], out["logits"]
 
     return prefill_step
 
 
-def make_serve_step(cfg):
+def make_serve_step(cfg, mesh=None):
     """One decode step at the cache's scalar ``pos``:
     (params, cache, tokens) -> (next_tokens, cache)."""
+    check_tp(cfg, mesh)
 
     def serve_step(params, cache, tokens):
-        out = forward(cast_tree(params, cfg.dtype), cfg, tokens,
-                      mode="decode", pos=cache["pos"], cache=cache)
+        with _tp(mesh):
+            out = forward(cast_tree(params, cfg.dtype), cfg, tokens,
+                          mode="decode", pos=cache["pos"], cache=cache)
         return out["logits"].argmax(dim=-1).int(), out["cache"]
 
     return serve_step
@@ -127,7 +256,9 @@ def make_serve_step(cfg):
 
 def greedy_oneshot(prefill, serve_step, params, prompts, patches, gen):
     """Batched prefill, then ``gen - 1`` decode ticks; (B, gen) tokens —
-    the reference the engine's tokens are held to."""
+    the reference the engine's tokens are held to.  Under a mesh, pass
+    the steps and params of a ``serve.tp.Session``: each call then runs
+    on every rank."""
     cache, logits = prefill(params, prompts, patches)
     tok = logits.argmax(dim=-1).int()
     out = [tok]
@@ -138,9 +269,11 @@ def greedy_oneshot(prefill, serve_step, params, prompts, patches, gen):
 
 
 # ------------------------------------------------- continuous-batching steps
-def init_slot_cache(cfg, slots: int, cache_len: int, dtype, device="cuda"):
-    """Batched cache for ``slots`` serve slots with a (slots,) ``pos``."""
-    cache = init_cache(cfg, slots, cache_len, dtype, device)
+def init_slot_cache(cfg, slots: int, cache_len: int, dtype, device="cuda",
+                    mesh=None):
+    """Batched cache for ``slots`` serve slots with a (slots,) ``pos``
+    (this rank's shapes under ``mesh``)."""
+    cache = init_cache(cfg, slots, cache_len, dtype, device, mesh)
     cache["pos"] = torch.zeros((slots,), dtype=torch.int32,
                                device=cache["pos"].device)
     return cache
@@ -178,16 +311,19 @@ def speculatable(cfg, cache_len: int) -> bool:
 
 
 def init_paged_slot_cache(cfg, slots: int, cache_len: int, dtype,
-                          page_size: int, num_pages: int, device="cuda"):
+                          page_size: int, num_pages: int, device="cuda",
+                          mesh=None):
     """Slot cache whose linear attention leaves are paged pools of shape
     (n_repeats, num_pages, page_size, *tail).  Page 0 is the garbage
-    page: dead slots and unallocated logical pages point there."""
+    page: dead slots and unallocated logical pages point there.  Under
+    ``mesh`` the tails are this rank's (its KV heads); every rank holds
+    every page."""
     if cache_len % page_size:
         raise ValueError(f"page_size {page_size} must divide cache_len "
                          f"{cache_len}")
     if num_pages < 2:
         raise ValueError("need at least one usable page + garbage page 0")
-    meta = cache_meta(cfg, slots, cache_len)
+    meta = local_cache_meta(cfg, slots, cache_len, mesh)
     dev = torch.device(device)
     blocks = []
     for spec, bm in zip(cfg.pattern, meta["blocks"]):
@@ -203,8 +339,38 @@ def init_paged_slot_cache(cfg, slots: int, cache_len: int, dtype,
             "blocks": tuple(blocks)}
 
 
+def make_pool_step(cfg, *, slots: int, cache_len: int, dtype: str,
+                   page_size: int | None = None, device="cuda", mesh=None):
+    """(num_pages) -> a fresh slot pool on ``device`` (paged with
+    ``page_size`` and ``num_pages`` pages, dense without), at this rank's
+    shapes under ``mesh``: how a tensor-parallel engine makes its pool on
+    every rank."""
+    dt = getattr(torch, dtype)
+
+    def pool_step(num_pages=None):
+        if page_size is None:
+            return init_slot_cache(cfg, slots, cache_len, dt, device, mesh)
+        return init_paged_slot_cache(cfg, slots, cache_len, dt, page_size,
+                                     num_pages, device, mesh)
+
+    return pool_step
+
+
+def make_row_cache_step(cfg, *, cache_len: int, dtype: str, device="cuda",
+                        mesh=None):
+    """(batch) -> a zeroed dense row cache of ``batch`` rows (the first
+    chunk of a chunked prefill writes into it), at this rank's shapes
+    under ``mesh``."""
+    dt = getattr(torch, dtype)
+
+    def rows_step(batch):
+        return init_cache(cfg, int(batch), cache_len, dt, device, mesh)
+
+    return rows_step
+
+
 def make_batched_insert_step(cfg, *, cache_len: int,
-                             page_size: int | None = None):
+                             page_size: int | None = None, mesh=None):
     """Insert row ``row`` of a batched prefill cache into slot ``slot`` of
     the shared cache, in place.
 
@@ -212,7 +378,10 @@ def make_batched_insert_step(cfg, *, cache_len: int,
     Paged: (cache, rows_cache, row, slot, table_row) -> cache, where
     ``table_row`` holds the slot's physical page ids; unreserved logical
     pages point at garbage page 0, where their writes collide (which one
-    lands is unspecified — page 0 is never read at a valid position)."""
+    lands is unspecified — page 0 is never read at a valid position).
+    ``mesh``: accepted for the tensor-parallel dispatch; the rows and the
+    pool are this rank's already."""
+    del mesh
 
     @torch.no_grad()
     def insert_step(cache, rows_cache, row, slot, table_row=None):
@@ -235,7 +404,8 @@ def make_batched_insert_step(cfg, *, cache_len: int,
     return insert_step
 
 
-def make_prefix_gather_step(cfg, *, cache_len: int, page_size: int):
+def make_prefix_gather_step(cfg, *, cache_len: int, page_size: int,
+                            mesh=None):
     """The read half of a prefix-cache hit: a fresh batch-1 dense row
     cache gathered from shared KV pages,
 
@@ -247,7 +417,9 @@ def make_prefix_gather_step(cfg, *, cache_len: int, page_size: int):
     int) is the number of valid prefix tokens.  Positions past ``pos``
     hold garbage-page content, which the tail's chunks overwrite or the
     position mask excludes.  A pure read of the pool: the caller enqueues
-    it before any later step that writes those pages."""
+    it before any later step that writes those pages.  ``mesh``: accepted
+    for the tensor-parallel dispatch (the pool is this rank's)."""
+    del mesh
     if cache_len % page_size:
         raise ValueError(f"page_size {page_size} must divide cache_len "
                          f"{cache_len}")
@@ -274,7 +446,7 @@ def make_prefix_gather_step(cfg, *, cache_len: int, page_size: int):
     return gather_step
 
 
-def make_prefill_chunk_step(cfg, cache_len: int | None = None):
+def make_prefill_chunk_step(cfg, cache_len: int | None = None, mesh=None):
     """Cache-append prefill continuation (chunked prefill):
 
         (params, row_cache, tokens, q_off) -> (row_cache, last logits)
@@ -293,13 +465,16 @@ def make_prefill_chunk_step(cfg, cache_len: int | None = None):
     assert chunkable(cfg, cache_len), (
         f"{cfg.name}: chunked prefill needs linear-cache attention blocks "
         "(no MoE, no SSM, no SWA ring shorter than cache_len)")
+    check_tp(cfg, mesh)
 
     def chunk_step(params, row_cache, tokens, q_off, patches=None, *,
                    attn_extent=None, want_logits=True):
-        out = forward(cast_tree(params, cfg.dtype), cfg, tokens,
-                      mode="prefill_chunk", pos=int(q_off), cache=row_cache,
-                      patches=patches, cache_len=cache_len,
-                      attn_extent=attn_extent, want_logits=want_logits)
+        with _tp(mesh):
+            out = forward(cast_tree(params, cfg.dtype), cfg, tokens,
+                          mode="prefill_chunk", pos=int(q_off),
+                          cache=row_cache, patches=patches,
+                          cache_len=cache_len, attn_extent=attn_extent,
+                          want_logits=want_logits)
         return out["cache"], out["logits"]
 
     return chunk_step
@@ -307,7 +482,7 @@ def make_prefill_chunk_step(cfg, cache_len: int | None = None):
 
 def make_decode_step(cfg, *, cache_len: int | None = None,
                      page_size: int | None = None,
-                     paged_kernel: bool = False):
+                     paged_kernel: bool = False, mesh=None):
     """Masked continuous-batching decode over the slot pool:
     (params, cache, tokens, active[, table]) -> (next_tokens, cache).
 
@@ -324,14 +499,16 @@ def make_decode_step(cfg, *, cache_len: int | None = None,
                          "page_size")
     if paged_kernel and not paged:
         raise ValueError("paged_kernel needs a paged cache (page_size set)")
+    check_tp(cfg, mesh)
 
     def decode_step(params, cache, tokens, active, table=None):
         pages = ({"table": table, "page_size": page_size,
                   "cache_len": cache_len, "kernel": paged_kernel}
                  if paged else None)
-        out = forward(cast_tree(params, cfg.dtype), cfg, tokens,
-                      mode="decode", pos=cache["pos"], cache=cache,
-                      pages=pages)
+        with _tp(mesh):
+            out = forward(cast_tree(params, cfg.dtype), cfg, tokens,
+                          mode="decode", pos=cache["pos"], cache=cache,
+                          pages=pages)
         nxt = out["logits"].argmax(dim=-1).int()
         amask = active.reshape((-1,) + (1,) * (nxt.dim() - 1))
         nxt = torch.where(amask, nxt, 0).int()
@@ -347,7 +524,8 @@ def make_decode_step(cfg, *, cache_len: int | None = None,
     return decode_step
 
 
-def make_verify_step(cfg, *, cache_len: int, page_size: int | None = None):
+def make_verify_step(cfg, *, cache_len: int, page_size: int | None = None,
+                     mesh=None):
     """Draft-and-verify speculative decode over the slot pool:
 
         (params, cache, tokens, pos, n_tok[, table]) -> (argmax, cache)
@@ -375,14 +553,16 @@ def make_verify_step(cfg, *, cache_len: int, page_size: int | None = None):
             f"{cfg.name}: speculative decoding needs a chunk-exact config "
             "(no MoE, no SSM, no SWA ring shorter than cache_len) and a "
             "scalar greedy-token frontend")
+    check_tp(cfg, mesh)
 
     def verify_step(params, cache, tokens, pos, n_tok, table=None):
         pages = ({"table": table, "page_size": page_size,
                   "cache_len": cache_len, "kernel": False}
                  if paged else None)
-        out = forward(cast_tree(params, cfg.dtype), cfg, tokens,
-                      mode="verify", pos=pos, cache=cache,
-                      cache_len=cache_len, pages=pages, n_tok=n_tok)
+        with _tp(mesh):
+            out = forward(cast_tree(params, cfg.dtype), cfg, tokens,
+                          mode="verify", pos=pos, cache=cache,
+                          cache_len=cache_len, pages=pages, n_tok=n_tok)
         return out["logits"].argmax(dim=-1).int(), out["cache"]
 
     if not paged:
@@ -397,4 +577,7 @@ __all__ = ["cast_tree", "make_prefill_step", "make_serve_step",
            "paged_names", "chunkable", "speculatable",
            "make_batched_insert_step", "make_prefix_gather_step",
            "make_prefill_chunk_step", "make_decode_step",
-           "make_verify_step", "init_cache"]
+           "make_verify_step", "make_pool_step", "make_row_cache_step",
+           "init_cache", "TP_SERVE_RULES", "DECODE_RULES",
+           "SERVE_CACHE_AXES", "serve_cache_axes", "local_cache_meta",
+           "check_tp"]

@@ -52,6 +52,22 @@ def test_checkpoint_roundtrip(tmp_path):
     assert isinstance(loaded["blocks"], tuple)
 
 
+@pytest.mark.parametrize("read_bytes", [1, 300, 8 << 30])
+def test_restore_reads_ahead_within_its_byte_bound(read_bytes, tmp_path,
+                                                   monkeypatch):
+    """The restore's read-ahead (threads, at most ``READ_BYTES`` held, or
+    one larger leaf) gives back every leaf in order: one leaf at a time,
+    a few at a time, all at once."""
+    from repro_torch.checkpoint import manager
+
+    monkeypatch.setattr(manager, "READ_BYTES", read_bytes)
+    state = _tiny_state()
+    save_checkpoint(state, 5, str(tmp_path))
+    loaded, step = load_checkpoint(str(tmp_path), state)
+    assert step == 5
+    _same(loaded, state)
+
+
 def test_checkpoint_async_via_umt(tmp_path):
     state = _tiny_state()
     with UMTRuntime(n_cores=2) as rt:

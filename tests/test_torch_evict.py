@@ -348,3 +348,36 @@ def test_a_restore_that_rederives_another_token_is_caught(arch, strict,
         rid, pos, want, got = eng.restore_divergences[0]
         assert (rid, pos, want) == (0, k, (was + 1) % b["cfg"].vocab)
         assert got == was
+
+
+class JumpTheQueue(SchedulerPolicy):
+    """Once, between an admission's look at the head of the insert queue
+    and its removal of that entry, the queue's last row moves to its head:
+    what a restore's prefill round does from its own thread
+    (``appendleft``, the restore outranking new arrivals)."""
+
+    def __init__(self):
+        self.jumped = False
+
+    def admission_tokens(self, eng, req):
+        if not self.jumped and len(eng._inserts) >= 2:
+            with eng._lock:
+                eng._inserts.rotate(1)
+            self.jumped = True
+        return super().admission_tokens(eng, req)
+
+
+def test_a_row_that_jumps_the_queue_mid_admission_is_not_lost(built):
+    """The port's repair of ``_do_inserts`` (ROADMAP queue 3): the entry
+    admitted is the one taken off the queue.  Popping the head instead
+    dropped the row that had moved there, whose request never finished,
+    and left the admitted one queued to be admitted again into a second
+    slot, whose table then outgrew its pages ("growing over live table
+    entries"): under load, in about one run in ten of the tight-pool
+    test."""
+    b = _build("qwen2.5-14b", built)
+    pol = JumpTheQueue()
+    _, toks = _port(b, pol)
+    assert pol.jumped, "the queue never held two rows at an admission"
+    for i, got in enumerate(toks):
+        assert np.array_equal(got, b["ref"][i])

@@ -1,6 +1,7 @@
 """Boundaries of the port: ``repro_torch`` imports neither ``jax`` nor any
-``repro.`` module, asks for the card by default and raises without one,
-and its copies of the reference's JAX-free modules have not drifted."""
+``repro.`` module (nor does a tensor-parallel follower process), asks for
+the card by default and raises without one, and its copies of the
+reference's JAX-free modules have not drifted."""
 import re
 import subprocess
 import sys
@@ -34,13 +35,16 @@ def _port_modules():
 
 
 # modules the check must cover by name: the launch tools and the
-# examples (entry points whose bodies run only under ``__main__``)
+# examples (entry points whose bodies run only under ``__main__``), and
+# tensor parallelism's rules, mesh and dispatch
 NAMED = {"repro_torch.launch.analysis", "repro_torch.launch.op_cost",
          "repro_torch.launch.specs", "repro_torch.launch.dryrun",
          "repro_torch.launch.profile_cell", "repro_torch.examples",
          "repro_torch.examples.quickstart", "repro_torch.examples.serve_batch",
          "repro_torch.examples.train_100m",
-         "repro_torch.examples.io_overlap_demo"}
+         "repro_torch.examples.io_overlap_demo", "repro_torch.sharding",
+         "repro_torch.sharding.rules", "repro_torch.launch.mesh",
+         "repro_torch.serve.tp"}
 
 
 def test_port_imports_no_jax_and_no_reference_module():
@@ -59,6 +63,33 @@ def test_port_imports_no_jax_and_no_reference_module():
                               "PATH": "/usr/bin:/bin"})
     assert out.returncode == 0, out.stderr + out.stdout
     assert len(_port_modules()) > 20
+
+
+def test_a_follower_process_imports_no_jax_and_no_reference_module():
+    """A tensor-parallel follower (a process of its own, started by
+    ``spawn``) after serving a session: neither ``jax`` nor ``repro.``."""
+    import numpy as np
+
+    import tp_faults
+    from repro_torch.configs import get
+    from repro_torch.launch.mesh import make_mesh_from_devices
+    from repro_torch.serve import Request, ServeEngine, drain
+    from repro_torch.serve.tp import SeededParams
+
+    cfg = get("mamba2-780m").tiny()
+    with make_mesh_from_devices("1,2", device_type="cpu") as mesh:
+        eng = ServeEngine(cfg, SeededParams(0), slots=2, cache_len=16,
+                          mesh=mesh, n_cores=3, device="cpu").start()
+        reqs = [Request(i, np.arange(4 + i, dtype=np.int32),
+                        max_new_tokens=3) for i in range(2)]
+        for r in reqs:
+            eng.submit(r)
+        drain(eng, reqs, 60)
+        eng = ServeEngine(cfg, SeededParams(0), slots=2, cache_len=16,
+                          mesh=mesh, n_cores=3, device="cpu")
+        mods = eng._tp.run(tp_faults.modules)
+        eng.shutdown()
+    assert mods[1] == [], mods[1]
 
 
 def test_cuda_is_the_default_and_raises_without_a_card():
