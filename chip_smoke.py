@@ -136,7 +136,7 @@ Phases (each raises on failure, so the script exits non-zero):
    identities hold per leg: the paged decode only in leg (a), a verify
    call as a tick for RMSNorm.  Then the training path
    (``qwen2.5-14b-train``, ``train_phase``): qwen2.5-14b at full width
-   and 4 of its 48 layers (``TRAIN``: the train state bounds the depth),
+   and 2 of its 48 layers (``TRAIN``: the train state bounds the depth),
    f32 masters and AdamW state, bf16 compute, remat "full", microbatches
    of 4 x 1024 tokens, accum 2, through ``steps.make_train_step`` on the
    UMT runtime with ``UMTPrefetcher`` and an async ``CheckpointManager``;
@@ -161,7 +161,7 @@ Phases (each raises on failure, so the script exits non-zero):
    (``repro_torch.launch.mesh``, started on a thread right after the
    build so the follower's start overlaps the kernel checks), both on
    the one card over gloo when the machine has one card, on two cards
-   over nccl when it has more (printed); qwen2.5-14b (12 of 48 layers,
+   over nccl when it has more (printed); qwen2.5-14b (4 of 48 layers,
    qwen's mix of 16 requests), minicpm3-4b and mamba2-780m (4 layers, 8
    requests) in turn at full
    width through ``ServeEngine(mesh=...)``; each leg's bars on rank 0
@@ -174,6 +174,18 @@ Phases (each raises on failure, so the script exits non-zero):
    Phase 3
    also holds every serve kernel at the two ranks' local shapes
    (``check_tp_kernels``).
+5c. fsdp  — the sharded train state (``fsdp_section``; ``--phases
+   fsdp``): a 2,1 mesh of this process and one follower (started right
+   after the build, as the TP section's), both on the one card over gloo
+   (two cards: nccl); qwen2.5-14b (1 of 48 layers) and mamba2-780m (4 of
+   48) at full width through ``launch.train.MeshTrain``, f32 masters,
+   bf16 compute, remat "full", f32 AdamW (``FSDP_LEGS``); bars (a)-(e)
+   in ``fsdp_section``: the sharded gradient step against this
+   process's single-rank step, per-rank state bytes, a checkpoint
+   restored onto the mesh and onto one device, planted FSDP faults
+   (``FSDP_FAULTS``), gathers and sums by formula and the RMSNorm and
+   SSD launch identities on both ranks, whose launches the kernel table
+   counts.
 6. summary — one ``kernels`` JSON line, then the ``ok`` line.
 
 Nothing of JAX or of the ``repro`` package is imported.
@@ -198,13 +210,14 @@ BF16_FLOPS = 989e12
 F32_FLOPS = 67e12
 
 # the train phases (``train_phase``), each at full width with its depth in
-# ``PHASES``.  qwen2.5-14b at 4 of its 48 layers.  Memory, from
+# ``PHASES``.  qwen2.5-14b at 2 of its 48 layers (4 before, cut for the
+# script's time when the FSDP section came).  Memory, from
 # configs/archs.py: embedding + untied head 2 x 152064 x 5120 = 1.557 B
-# params, each layer 275.3 M; at 4 layers 2.658 B params x 16 B (f32
-# param, grad, m, v) = 42.5 GB, plus 5.3 GB of bf16 compute copies, the
+# params, each layer 275.3 M; at 2 layers 2.108 B params x 16 B (f32
+# param, grad, m, v) = 33.7 GB, plus 4.2 GB of bf16 compute copies, the
 # f32 logits (2.5 GB a copy at 4096 tokens) and one layer's f32 scores
-# under remat (0.67 GB): about 60 GB.  6 layers would be about 70 GB, and
-# full depth about 235 GB.  mamba2-780m at all 48 layers: 0.86 B params x
+# under remat (0.67 GB): about 45 GB (4 layers about 60 GB).  Full depth
+# is about 235 GB.  mamba2-780m at all 48 layers: 0.86 B params x
 # 16 B = 13.7 GB, plus the f32 logits (0.82 GB a copy at 4096 tokens of
 # its 50280 vocab) and one layer's scan under remat.  Both: microbatches
 # of 4 x 1024 tokens, accum 2; AdamW at lr 1e-3 after 2 warmup steps over
@@ -212,7 +225,7 @@ F32_FLOPS = 67e12
 TRAIN = dict(micro=4, seq=1024, accum=2, steps=10, ckpt_at=5,
              hp=dict(lr=1e-3, warmup=2, total_steps=10))
 TRAIN_CUT = ("the train state at full depth, about 235 GB, does not fit "
-             "one 80 GB card; 4 layers take about 60 GB")
+             "one 80 GB card; 2 layers take about 45 GB")
 # (a): the synthetic labels are the tokens themselves (the reference's
 # SyntheticTokenSource), which the embedding and head learn to copy in a
 # few AdamW steps; 10 steps on one batch must take the loss down by at
@@ -615,7 +628,7 @@ PHASES = {
     # backward are its kernels, and on the SSD family the scan forward and
     # backward; attention runs plain (the reference's train mode), and the
     # other kernels raise under autograd.  ``cut``: why the depth is cut
-    "qwen2.5-14b-train": dict(arch="qwen2.5-14b", train=TRAIN, layers=4,
+    "qwen2.5-14b-train": dict(arch="qwen2.5-14b", train=TRAIN, layers=2,
                               cut=TRAIN_CUT),
     "mamba2-780m-train": dict(arch="mamba2-780m", train=TRAIN,
                               tol=TRAIN_TOL_DEEP),
@@ -4078,6 +4091,29 @@ class FixedBatch:
         return self.batch
 
 
+def train_identities(cfg, got, micro_steps):
+    """The train path's launch identities on one process over
+    ``micro_steps`` microbatches: RMSNorm forward at every norm site,
+    twice under remat "full", and the final norm; its backward once a
+    site and the final norm; the SSD scan forward twice and its backward
+    once an SSM layer.  Returns (want, the identities as text, with
+    ``got``'s counts)."""
+    norms, n_ssm = norm_sites(cfg), kind_layers(cfg, "ssm")
+    want = {"rms_norm": micro_steps * (2 * norms + 1),
+            "rms_norm_bwd": micro_steps * (norms + 1)}
+    if n_ssm:
+        want.update(ssd_scan=micro_steps * 2 * n_ssm,
+                    ssd_scan_bwd=micro_steps * n_ssm)
+    text = (f"rms_norm {got['rms_norm']} = {micro_steps} x (2 x {norms} + "
+            f"1: forward, remat recompute, final norm); rms_norm_bwd "
+            f"{got['rms_norm_bwd']} = {micro_steps} x ({norms} + 1)" + (
+                f"; ssd_scan {got['ssd_scan']} = {micro_steps} x 2 x "
+                f"{n_ssm} (forward, remat recompute); ssd_scan_bwd "
+                f"{got['ssd_scan_bwd']} = {micro_steps} x {n_ssm}"
+                if n_ssm else ""))
+    return want, text
+
+
 def train_phase(cfg, smi, name="qwen2.5-14b-train", seed=0, device="cuda"):
     """The port's training path at full width (the phase's settings in
     ``PHASES[name]``: its ``TRAIN``, depth and the reason for a cut):
@@ -4148,28 +4184,16 @@ def train_phase(cfg, smi, name="qwen2.5-14b-train", seed=0, device="cuda"):
     src = FixedBatch(cfg.vocab, accum, micro, seq, seed + 1, device)
     batch = src.batch
     grad_step = make_grad_step(cfg)
-    norms = norm_sites(cfg)                        # in the blocks
 
     def launches():
         return {k: getattr(kernels, k).launches.value for k in counted}
 
     def identities(got, micro_steps, what):
-        want = {"rms_norm": micro_steps * (2 * norms + 1),
-                "rms_norm_bwd": micro_steps * (norms + 1)}
-        if n_ssm:
-            want.update(ssd_scan=micro_steps * 2 * n_ssm,
-                        ssd_scan_bwd=micro_steps * n_ssm)
+        want, text = train_identities(cfg, got, micro_steps)
         if card and got != want:
             raise AssertionError(f"{name}: launches {got} != {want} "
                                  f"({what}; identity of the train path)")
-        return (f"rms_norm {got['rms_norm']} = {micro_steps} x (2 x "
-                f"{norms} + 1: forward, remat recompute, final norm); "
-                f"rms_norm_bwd {got['rms_norm_bwd']} = {micro_steps} x "
-                f"({norms} + 1)" + (
-                    f"; ssd_scan {got['ssd_scan']} = {micro_steps} x 2 x "
-                    f"{n_ssm} (forward, remat recompute); ssd_scan_bwd "
-                    f"{got['ssd_scan_bwd']} = {micro_steps} x {n_ssm}"
-                    if n_ssm else ""))
+        return text
 
     # (b), (c), (e): one step's gradients, kernels against the plain norm
     for k in counted:
@@ -4494,8 +4518,9 @@ PROFILE_CELLS = (
           accum=1),
      ("rms_norm", "rms_norm_bwd", "ssd_scan", "ssd_scan_bwd")),
 )
-# remat "dots" against "full": one grad step of the qwen2.5-14b-train
-# phase (full width, 4 of 48 layers, its ``TRAIN`` batch).  Both run the
+# remat "dots" against "full": one grad step of qwen2.5-14b at full
+# width and ``REMAT_LAYERS`` of 48 layers on the train phases' ``TRAIN``
+# batch.  Both run the
 # same kernels on the same inputs: "full" recomputes every product and
 # kernel of a repeat in the backward, "dots" keeps the products' outputs
 # and recomputes the kernels (launched through ctypes, out of the
@@ -4637,7 +4662,11 @@ def check_tools(smi):
 # full width: two ranks on the one card over gloo when the machine has
 # one card, on two cards over nccl when it has two or more.  qwen2.5-14b
 # is the main path (flash prefill and the paged insert, paged-kernel
-# decode) at 12 of 48 layers with qwen's mix, 16 requests of {256, 512,
+# decode) at 4 of 48 layers (12 before, cut for the script's time when
+# the FSDP section came: its planted faults trailed by 1.3405 / 8.5938
+# and 1.4377 / 9.5469 at 12, by 1.3090 / 8.8750 and 1.4297 / 9.1719 at
+# 6, against bars of 0.3 / 1.0) with qwen's mix,
+# 16 requests of {256, 512,
 # 1024, 2048} tokens, each length four times, 16 slots, cache_len 2080,
 # page 8; minicpm3-4b (the paged MLA decode) and mamba2-780m (the SSD scan
 # in prefill, conv weights times ``SSM_CONV_W_GAIN``), 8 requests each:
@@ -4650,7 +4679,7 @@ def check_tools(smi):
 TP_TRAFFIC = dict(slots=16, cache_len=2080, lens=(256, 512, 1024, 2048),
                   each=True, gen=32)
 TP_LEGS = {
-    "qwen2.5-14b": dict(layers=12, n_req=16, paged_kernel=True,
+    "qwen2.5-14b": dict(layers=4, n_req=16, paged_kernel=True,
                         faults=("wo_all_reduce_left_out", "wq_next_rank"),
                         kernels={"paged_decode_attention": "decode",
                                  "flash_attention": "prefill"}),
@@ -5065,10 +5094,514 @@ def tp_leg(mesh, arch, smi, device="cuda", seed=0, layers=None):
     return dict(total)
 
 
-def start_tp_mesh(device="cuda"):
-    """The TP section's mesh of two ranks (gloo on one card, nccl on two),
-    made on a thread: the follower starts (its imports, the rendezvous)
-    while the kernel checks run.  ``tp_section`` takes what it returns."""
+def tp_section(smi, device="cuda", layers=None, started=None):
+    """The TP section: the mesh ``start_mesh("1,2")`` started (or one
+    made now), the three legs in turn, the mesh closed; returns the
+    launches of every rank, summed."""
+    import torch
+
+    t0 = time.perf_counter()
+    mesh = take_mesh(started or start_mesh("1,2", device), "tp")
+    launches = {}
+    try:
+        for arch in TP_LEGS:
+            for k, n in tp_leg(mesh, arch, smi, device, layers=layers
+                               ).items():
+                launches[k] = launches.get(k, 0) + n
+            gc.collect()
+            if device == "cuda":
+                torch.cuda.empty_cache()
+    finally:
+        mesh.close()
+    log(f"tp section: {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+# ------------------------------------------------------------------- fsdp
+# The FSDP section (``fsdp_section``; ``--phases fsdp``): the sharded train
+# state on a 2,1 mesh, this process and one follower on the one card over
+# gloo (two cards: nccl), each leg at full width through
+# ``launch.train.MeshTrain`` with seeded f32 masters, bf16 compute, remat
+# "full" and f32 AdamW, on one fixed batch of ``FSDP_BATCH`` (each rank
+# 2 rows) whose first row keeps half its labels, so the global count of
+# labelled tokens is all-reduced.  qwen2.5-14b at 1 of its 48 layers,
+# the fewest that run a whole repeat: its embedding and untied head are
+# 1.557 B params at any depth, a layer 275.3 M, so a step gathers 4.2 GB
+# of bf16 weights and all-reduces 7.3 GB of f32 gradients on each rank,
+# all through the host under gloo: 13.2-19.7 s a step on an H100 80GB
+# HBM3 (700 W) shared by the two ranks, so its leg takes one step.
+# mamba2-780m at 4 of 48 layers, the SSD scan's kernels forward and
+# backward under FSDP, 1.5-3.2 s a step: the planted faults (d) and the
+# checkpoint (c) run there, since on that card qwen's leg took 34.4 s to
+# snapshot its 22 GB state, 61.7 s to restore it onto the mesh (each
+# rank reads every file) and 24.2 s onto one device.
+FSDP_LEGS = {
+    "qwen2.5-14b": dict(layers=1, steps=1, faults=False, ckpt=False),
+    "mamba2-780m": dict(layers=4, steps=2, faults=True, ckpt=True),
+}
+FSDP_BATCH = dict(micro=4, seq=1024, accum=1)
+FSDP_HP = dict(lr=1e-3, warmup=2, total_steps=10)
+# (d): the gather's backward keeping this rank's gradient unsummed, the
+# blocks gathered in reversed rank order, the clip norm taken from the
+# rank's own shards; each on every rank, each must fail bar (a)
+FSDP_FAULTS = ("sum_dropped", "blocks_reversed", "clip_norm_local")
+
+
+class FSDPState:
+    """The FSDP legs' train state on every rank: the seeded f32 masters of
+    ``train_phase`` (conv weights times ``SSM_CONV_W_GAIN``) made whole
+    on the rank's device and cut to its blocks, m and v zeros of their
+    shapes."""
+    per_rank = True
+
+    def __init__(self, seed=0):
+        self.seed = seed
+
+    def params(self, cfg, device):
+        import torch
+
+        from repro_torch.models.lm import init_params
+
+        params = init_params(cfg, torch.Generator(device).manual_seed(
+            self.seed), device, dtype=cfg.param_dtype)
+        ssm_gain(params)
+        return params
+
+    def __call__(self, cfg, mesh, device):
+        import torch
+
+        from repro_torch.optim import adamw_init
+        from repro_torch.params import fsdp_shard
+
+        params = fsdp_shard(self.params(cfg, device), cfg, mesh)
+        return {"params": params, "opt": adamw_init(params, cfg.opt_dtype),
+                "step": torch.zeros((), dtype=torch.int32, device=device)}
+
+
+def _batch(rs, tokens, labels):
+    return {"tokens": tokens.to(rs.device), "labels": labels.to(rs.device)}
+
+
+def fsdp_single(rs, seed, tokens, labels, turn):
+    """``Session.run``, bar (a)'s single rank: on rank ``turn`` only (the
+    ranks take turns, so that one whole step's memory is on the card at a
+    time), the whole seeded params (``FSDPState``'s) through
+    ``steps.make_grad_step(cfg)`` without a mesh on the whole batch; the
+    rank keeps its blocks of the gradients (``extra["single"]``).
+    Returns (loss, clip norm) there, None on the other ranks."""
+    import gc
+
+    import torch
+
+    from repro_torch.models.layers import tree_leaves
+    from repro_torch.optim import adamw
+    from repro_torch.sharding.fsdp import block
+    from repro_torch.steps import make_grad_step, train_plan
+
+    if rs.mesh.rank != turn:
+        return None
+    params = FSDPState(seed).params(rs.cfg, rs.device)
+    grads, loss = make_grad_step(rs.cfg)(params, _batch(rs, tokens, labels))
+    del params
+    dims = tree_leaves(train_plan(rs.cfg, rs.mesh).dims)
+    rs.extra["single"] = [g if d is None else block(g, d, rs.mesh).clone()
+                          for g, d in zip(tree_leaves(grads), dims)]
+    out = float(loss), float(adamw.global_norm(grads))
+    del grads
+    gc.collect()
+    if rs.device.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def _gaps(rs, got, factor=1.0):
+    """Per leaf ||got - factor x single|| / ||factor x single|| over the
+    whole leaf: this rank's blocks ``got`` against its blocks of the
+    single rank's gradients, the squares summed over the ranks (a whole
+    leaf counted once), uncounted: a check's collective, not the
+    path's."""
+    import torch
+
+    from repro_torch.models.layers import tree_leaves
+    from repro_torch.steps import train_plan
+
+    dims = tree_leaves(train_plan(rs.cfg, rs.mesh).dims)
+    sq = torch.zeros((2, len(got)), dtype=torch.float32, device=rs.device)
+    for i, (a, b, d) in enumerate(zip(got, rs.extra["single"], dims)):
+        if d is None and rs.mesh.coords["data"]:
+            continue
+        w = b.float() * factor
+        sq[0, i] = (a.float() - w).square().sum()
+        sq[1, i] = w.square().sum()
+    rs.mesh.all_reduce(sq)
+    return (sq[0] / sq[1].clamp_min(1e-30)).sqrt().tolist()
+
+
+def fsdp_probe(rs, state, tokens, labels):
+    """``Session.run``: one sharded gradient step
+    (``steps.make_grad_step(cfg, mesh)``) on this rank's params, held to
+    the single rank's: (loss, clip norm as AdamW takes it, the leaves'
+    gaps)."""
+    from repro_torch.models.layers import tree_leaves
+    from repro_torch.optim import adamw
+    from repro_torch.steps import make_grad_step
+
+    grad_step = make_grad_step(rs.cfg, rs.mesh)
+    grads, loss = grad_step(state["params"], _batch(rs, tokens, labels))
+    norm = adamw.global_norm(grads, grad_step.plan)
+    return float(loss), float(norm), _gaps(rs, tree_leaves(grads))
+
+
+def fsdp_moments(rs, state, factor):
+    """``Session.run``, after the first AdamW step from zero moments, when
+    m is ``(1 - b1)`` times the clipped gradient: this rank's blocks of m
+    against ``factor`` (``(1 - b1) x`` the single rank's clip scale) times
+    the single rank's gradients; the leaves' gaps."""
+    from repro_torch.models.layers import tree_leaves
+
+    return _gaps(rs, tree_leaves(state["opt"]["m"]), factor)
+
+
+def _fsdp_faults():
+    import torch
+
+    from repro_torch.optim import adamw
+    from repro_torch.sharding import fsdp
+
+    norm = adamw.global_norm
+
+    def sum_dropped(grad, dim, mesh):
+        return fsdp.block(grad.float(), dim, mesh)
+
+    def blocks_reversed(local, dim, mesh):
+        fsdp.gather.calls.add()
+        return torch.cat(mesh.all_gather(local)[::-1], dim=dim)
+
+    def clip_norm_local(tree, plan=None):
+        return norm(tree)
+
+    return {"sum_dropped": (fsdp, "sum_blocks", sum_dropped),
+            "blocks_reversed": (fsdp, "gather_blocks", blocks_reversed),
+            "clip_norm_local": (adamw, "global_norm", clip_norm_local)}
+
+
+def fsdp_on(rs, name):
+    """``Session.run``: plant FSDP fault ``name`` (``FSDP_FAULTS``) on
+    this rank, or ``"deterministic"`` (``deterministic()``), until
+    ``fsdp_off``."""
+    ctx = (deterministic() if name == "deterministic"
+           else swapped(_fsdp_faults()[name]))
+    ctx.__enter__()
+    rs.extra[name] = ctx
+    return rs.mesh.rank
+
+
+def fsdp_off(rs, name):
+    rs.extra.pop(name).__exit__(None, None, None)
+
+
+def fsdp_keep(rs, state):
+    """``Session.run``: a host copy of this rank's params, kept for
+    ``fsdp_same``."""
+    from repro_torch.models.layers import tree_leaves
+
+    rs.extra["kept"] = [t.to("cpu", copy=True)
+                        for t in tree_leaves(state["params"])]
+
+
+def fsdp_same(rs, state):
+    """``Session.run``: this rank's params against the kept copy: (every
+    leaf within rtol 1e-5 / atol 1e-6, the largest |diff|)."""
+    import torch
+
+    from repro_torch.models.layers import tree_leaves
+
+    ok, worst = True, 0.0
+    for a, b in zip(rs.extra.pop("kept"), tree_leaves(state["params"])):
+        b = b.to("cpu")
+        ok = ok and torch.allclose(b, a, rtol=1e-5, atol=1e-6)
+        worst = max(worst, (b - a).abs().max().item())
+    return ok, worst
+
+
+def fsdp_verdict(name, what, got, one, names, tol=TRAIN_TOL):
+    """Bar (a)'s verdict: ``got`` (loss, clip norm, the leaves' gaps)
+    against the single rank's ``one`` (loss, clip norm) by ``tol``;
+    prints the margins, returns whether all hold."""
+    import statistics
+
+    loss, norm, gaps = got
+    dl = abs(loss - one[0]) / abs(one[0])
+    dn = abs(norm - one[1]) / one[1]
+    i = max(range(len(gaps)), key=gaps.__getitem__)
+    ok = dl <= tol["loss"] and dn <= tol["grad_norm"] and \
+        gaps[i] <= tol["leaf"]
+    log(f"{name}: {what}: loss {loss:.6f} vs {one[0]:.6f} (rel {dl:.3e}), "
+        f"clip norm {norm:.6f} vs {one[1]:.6f} (rel {dn:.3e}), worst leaf "
+        f"{names[i]} rel {gaps[i]:.3e}, median leaf "
+        f"{statistics.median(gaps):.3e} -> "
+        f"{'within' if ok else 'outside'} {tol}")
+    return ok
+
+
+def state_meta(cfg):
+    """A whole train state of ``cfg`` on the meta device (shapes and
+    dtypes, no memory): a checkpoint's template."""
+    import torch
+
+    from repro_torch.models.layers import tree_map
+    from repro_torch.models.lm import _is_meta, param_meta
+
+    def tree(dtype):
+        return tree_map(lambda m: torch.empty(m.shape, device="meta",
+                                              dtype=getattr(torch, dtype)),
+                        param_meta(cfg), is_leaf=_is_meta)
+    return {"params": tree(cfg.param_dtype),
+            "opt": {"m": tree(cfg.opt_dtype), "v": tree(cfg.opt_dtype)},
+            "step": torch.empty((), device="meta", dtype=torch.int32)}
+
+
+def fsdp_checkpoint(tr, cfg, hp, batch, n, name, device):
+    """Bar (c) on a leg's trainer after ``n`` steps: a save on the mesh
+    (rank 0's UMT writes); one step on (the uninterrupted run); restored
+    onto the mesh and one step on, equal to it; restored onto one device
+    and one step on, equal to the same step from the save's snapshot
+    handed to one device in memory; each rtol 1e-5 / atol 1e-6 under
+    ``deterministic()`` on every rank.  Closes ``tr``."""
+    import shutil
+
+    import torch
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.checkpoint.manager import _unflatten as unflatten
+    from repro_torch.core import UMTRuntime
+    from repro_torch.models.layers import tree_leaves
+    from repro_torch.steps import make_train_step
+
+    ckpt = ROOT / "build" / "fsdp_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    tr.sess.run(fsdp_on, "deterministic")
+    try:
+        with deterministic(), UMTRuntime(n_cores=2, umt=True) as rt:
+            mgr = CheckpointManager(str(ckpt), rt=rt, keep=1)
+            t0 = time.perf_counter()
+            hosts = tr._snapshot(tr.state)
+            t_snap = time.perf_counter() - t0
+            mgr.save(tr.state, n, hosts=hosts)
+            tr.state, m = tr.step(tr.state, batch)  # the uninterrupted step
+            l_mesh = float(m["loss"])
+            tr.sess.run(fsdp_keep, tr.state)
+            t0 = time.perf_counter()
+            mgr.wait()
+            t_wait = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            tr.state, rstep = tr.restore(str(ckpt), tr.state)
+            t_mesh = time.perf_counter() - t0
+            if rstep != n:
+                raise AssertionError(f"{name}: (c) restored step {rstep}")
+            tr.state, m = tr.step(tr.state, batch)
+            same = tr.sess.run(fsdp_same, tr.state)
+            tr.close()
+            if not all(ok for ok, _ in same):
+                raise AssertionError(f"{name}: (c) restored onto the mesh, "
+                                     f"one step on: {same}")
+            step1 = make_train_step(cfg, hp)
+            template = state_meta(cfg)
+            whole = unflatten(template, [
+                torch.from_numpy(raw).view(getattr(torch, dt)).reshape(
+                    shape).to(device) for raw, shape, dt in hosts])
+            del hosts
+            whole, _ = step1(whole, batch)
+            mem = [t.clone() for t in tree_leaves(whole["params"])]
+            del whole
+            t0 = time.perf_counter()
+            whole, _ = mgr.restore(template, device=device)
+            t_one = time.perf_counter() - t0
+            whole, m1 = step1(whole, batch)
+            worst = 0.0
+            for a, b in zip(mem, tree_leaves(whole["params"])):
+                worst = max(worst, (b - a).abs().max().item())
+                if not torch.allclose(b, a, rtol=1e-5, atol=1e-6):
+                    raise AssertionError(f"{name}: (c) restored onto one "
+                                         "device, one step on: params off "
+                                         f"by {worst}")
+            del whole, mem
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    dl = abs(float(m1["loss"]) - l_mesh) / abs(l_mesh)
+    log(f"{name}: (c) saved at step {n} (the whole state's snapshot on "
+        f"rank 0 {t_snap:.2f} s, writes done {t_wait:.2f} s after the "
+        f"next step), restored onto the mesh in {t_mesh:.2f} s and one "
+        f"step on: params equal the uninterrupted step's (max |diff| per "
+        f"rank {[f'{w:.3e}' for _, w in same]}); restored onto one device "
+        f"in {t_one:.2f} s and one step on: equal to the snapshot's own "
+        f"step (max |diff| {worst:.3e}; rtol 1e-5 / atol 1e-6); its loss "
+        f"{float(m1['loss']):.6f} vs the mesh's {l_mesh:.6f} (rel "
+        f"{dl:.3e})")
+    if dl > TRAIN_TOL["loss"]:
+        raise AssertionError(f"{name}: (c) one device's loss after the "
+                             "restore is off the mesh's")
+
+
+def fsdp_leg(mesh, arch, smi, device="cuda", seed=0):
+    """One FSDP leg (``FSDP_LEGS[arch]``; the bars in ``fsdp_section``);
+    returns the main path's launches, every rank's summed.
+    ``device="cpu"``: a rehearsal at the tiny config."""
+    import collections
+
+    import torch
+
+    from repro_torch.configs import get
+    from repro_torch.launch.train import MeshTrain
+    from repro_torch.models.layers import tree_leaves
+    from repro_torch.optim import OptHParams
+    from repro_torch.serve.tp import counters, tree_bytes
+    from repro_torch.steps import train_plan
+
+    t_leg = time.perf_counter()
+    leg = FSDP_LEGS[arch]
+    micro, seq, accum = (FSDP_BATCH[k] for k in ("micro", "seq", "accum"))
+    card = device == "cuda"
+    cfg = get(arch)
+    if card:
+        cfg = cfg.replace(n_layers=leg["layers"])
+    else:                               # the rehearsal's tiny shapes
+        cfg, seq = cfg.tiny(remat="full"), 16
+    assert cfg.remat == "full"
+    n, name = leg["steps"], f"fsdp {arch}"
+    hp = OptHParams(**FSDP_HP)
+    plan = train_plan(cfg, mesh)
+    split = [d is not None for d in tree_leaves(plan.dims)]
+    names = leaf_names(plan.dims)
+    template = state_meta(cfg)
+    n_params = sum(t.numel() for t in tree_leaves(template["params"]))
+    g = torch.Generator(device).manual_seed(seed + 1)
+    tokens = torch.randint(0, cfg.vocab, (accum, micro, seq), generator=g,
+                           device=device, dtype=torch.int32).cpu()
+    labels = tokens.clone()
+    labels[0, 0, :seq // 2] = -1     # rank 0's rows: fewer labels
+    batch = {"tokens": tokens, "labels": labels}
+    data = mesh.shape["data"]
+    log(f"{name} ({smi}): {cfg.n_layers} of {get(arch).n_layers} layers, "
+        f"d {cfg.d_model}, {n_params / 1e6:.1f} M params ({cfg.param_dtype}"
+        f" masters, {cfg.dtype} compute, {cfg.opt_dtype} AdamW, remat "
+        f"{cfg.remat}); microbatches {micro} x {seq} (each rank "
+        f"{micro // data} rows), accum {accum}; {mesh.describe()}")
+    tr = MeshTrain(cfg, hp, mesh, device, FSDPState(seed))
+    try:
+        tr.sess.run(tp_peak, True)
+        # (b) each rank's params, m and v: half of every split leaf
+        whole_b = {p: b for p, (b, _) in tree_bytes(None,
+                                                      template).items()}
+        per_rank = tr.sess.run(tree_bytes, tr.state)
+        for rank, held in enumerate(per_rank):
+            for path, b in whole_b.items():
+                leaf = next((path[len(pre):] for pre in (
+                    "/params", "/opt/m", "/opt/v") if path.startswith(pre)),
+                    path)
+                s = leaf in names and split[names.index(leaf)]
+                if held[path][0] * (data if s else 1) != b:
+                    raise AssertionError(
+                        f"{name}: (b) rank {rank} holds {held[path][0]} B "
+                        f"of {path}, {b} B whole (split: {s})")
+        held = [sum(b for p, (b, _) in h.items() if p != "/step")
+                for h in per_rank]
+        log(f"{name}: (b) params, m and v per rank "
+            f"{[round(h / 1e9, 3) for h in held]} GB of "
+            f"{sum(whole_b.values()) / 1e9:.3f}: every split leaf exactly "
+            f"1/{data}; whole on every rank: "
+            + ", ".join(p for p, s in zip(names, split) if not s))
+
+        # (a)'s single rank, each rank's blocks of it kept
+        t0 = time.perf_counter()
+        one = [r for turn in range(mesh.size) for r in tr.sess.run(
+            fsdp_single, seed, tokens, labels, turn) if r is not None][0]
+        log(f"{name}: the single rank's gradient step (each rank in turn "
+            f"keeps its blocks): loss {one[0]:.6f}, clip norm {one[1]:.6f} "
+            f"({time.perf_counter() - t0:.1f} s)")
+        # (d) the planted faults, each through a sharded gradient step
+        if leg["faults"]:
+            got = tr.sess.run(fsdp_probe, tr.state, tokens, labels)[0]
+            if not fsdp_verdict(name, "(a) a sharded gradient step", got,
+                                one, names):
+                raise AssertionError(f"{name}: (a) the sharded gradient "
+                                     "step disagrees with the single rank's")
+            for fault in FSDP_FAULTS:
+                tr.sess.run(fsdp_on, fault)
+                got = tr.sess.run(fsdp_probe, tr.state, tokens, labels)[0]
+                tr.sess.run(fsdp_off, fault)
+                if fsdp_verdict(name, f"(d) planted: {fault}", got, one,
+                                names):
+                    raise AssertionError(f"{name}: (a) does not reject the "
+                                         f"planted fault {fault}")
+
+        # the main path: ``n`` train steps on every rank, counted; (a) on
+        # its first step: loss, grad norm and m against the single rank
+        tr.sess.run(counters, True)
+        losses, times = [], []
+        for step in range(n):
+            t0 = time.perf_counter()
+            tr.state, m = tr.step(tr.state, batch)
+            losses.append(float(m["loss"]))
+            times.append(time.perf_counter() - t0)
+            if step == 0:
+                norm0 = float(m["grad_norm"])
+                scale = min(1.0, hp.clip_norm / (one[1] + 1e-9))
+                gaps = tr.sess.run(fsdp_moments, tr.state,
+                                   (1 - hp.b1) * scale)[0]
+        per_rank = tr.sess.run(counters)
+        if not fsdp_verdict(name, "(a) the first train step (its m is (1 - "
+                            "b1) x the clipped gradient)",
+                            (losses[0], norm0, gaps), one, names):
+            raise AssertionError(f"{name}: (a) the sharded train step "
+                                 "disagrees with the single rank's")
+        # (e) gathers and sums a step, and the kernels' identities
+        in_blocks = cfg.n_repeats * sum(
+            s for s, p in zip(split, names) if p.startswith("/blocks"))
+        outside = sum(split) - in_blocks // cfg.n_repeats
+        want = {"fsdp_gather": n * accum * (2 * in_blocks + outside),
+                "fsdp_sum": n * (accum * (in_blocks + outside) + 4)}
+        ids, text = train_identities(cfg, per_rank[0], n * accum)
+        for rank, c in enumerate(per_rank):
+            bad = {k: (c[k], w) for k, w in want.items() if c[k] != w}
+            if card:
+                bad.update({k: (c[k], w) for k, w in ids.items()
+                            if c[k] != w})
+            if bad:
+                raise AssertionError(f"{name}: (e) rank {rank}: got / want "
+                                     f"{bad}")
+        gb = per_rank[0]["fsdp_gather_bytes"] / n / 1e9
+        sb = per_rank[0]["fsdp_sum_bytes"] / n / 1e9
+        log(f"{name}: (e) per rank and step {want['fsdp_gather'] // n} "
+            f"gathers ({accum} x (2 x {in_blocks} repeat leaves + {outside}"
+            f" embedding / head)), {want['fsdp_sum'] // n} sums ({accum} x "
+            f"{in_blocks + outside} + 4: whole leaves, label counts, loss, "
+            f"clip norm); {gb:.3f} GB gathered and {sb:.3f} GB summed a step"
+            f"; launches on each rank: {text}")
+        log(f"{name}: losses {' '.join(f'{x:.4f}' for x in losses)}; "
+            f"s/step {' '.join(f'{t:.3f}' for t in times)}"
+            + (" (two ranks sharing one device over gloo: not an FSDP "
+               "throughput)" if mesh.backend == "gloo" else ""))
+        peaks = tr.sess.run(tp_peak)
+        if leg["ckpt"]:
+            fsdp_checkpoint(tr, cfg, hp, batch, n, name, device)
+    finally:
+        tr.close()
+    total = collections.Counter()
+    for c in per_rank:
+        total.update({k: v for k, v in c.items()
+                      if not k.startswith(("tp", "fsdp"))})
+    log(f"{name}: peak device memory per rank "
+        f"{[round(p / 1e9, 2) for p in peaks]} GB; leg "
+        f"{time.perf_counter() - t_leg:.1f} s")
+    return dict(total)
+
+
+def start_mesh(spec, device="cuda"):
+    """A mesh of two ranks (``spec``: "1,2" for the TP section, "2,1" for
+    the FSDP section; gloo on one card, nccl on two) made on a thread:
+    the follower starts (its imports, the rendezvous) while the kernel
+    checks run.  ``take_mesh`` joins it."""
     import threading
 
     import torch
@@ -5082,45 +5615,65 @@ def start_tp_mesh(device="cuda"):
             if device == "cuda":
                 backend = ("gloo" if torch.cuda.device_count() == 1
                            else "nccl")
-                box["mesh"] = make_mesh_from_devices("1,2", backend=backend)
+                box["mesh"] = make_mesh_from_devices(spec, backend=backend)
             else:
-                box["mesh"] = make_mesh_from_devices("1,2",
+                box["mesh"] = make_mesh_from_devices(spec,
                                                      device_type="cpu")
         except BaseException as e:      # noqa: BLE001 — raised by the join
             box["error"] = e
         box["s"] = time.perf_counter() - box["t0"]
     box["thread"] = threading.Thread(target=make, daemon=True,
-                                     name="tp-mesh")
+                                     name=f"mesh-{spec}")
     box["thread"].start()
     return box
 
 
-def tp_section(smi, device="cuda", layers=None, started=None):
-    """The TP section: the mesh ``start_tp_mesh`` started (or one made
-    now), the three legs in turn, the mesh closed; returns the launches
-    of every rank, summed."""
-    import torch
-
+def take_mesh(started, what):
+    """The mesh ``start_mesh`` started, once up (its error raised)."""
     t0 = time.perf_counter()
-    started = started or start_tp_mesh(device)
     started["thread"].join()
     if "error" in started:
         raise started["error"]
     mesh = started["mesh"]
-    log(f"tp: {mesh.describe()} (started in {started['s']:.1f} s, waited "
-        f"{time.perf_counter() - t0:.1f} s for it)")
+    log(f"{what}: {mesh.describe()} (started in {started['s']:.1f} s, "
+        f"waited {time.perf_counter() - t0:.1f} s for it)")
+    return mesh
+
+
+def fsdp_section(smi, device="cuda", started=None):
+    """The FSDP section: the mesh ``start_mesh("2,1")`` started (or one
+    made now), the legs of ``FSDP_LEGS`` in turn, the mesh closed; returns
+    the main paths' launches, every rank's summed.  Bars, each raising and
+    printing its margin: (a) the first sharded train step against the
+    single-rank gradient step on the same batch and state: loss, grad
+    norm, and every leaf of m (then ``(1 - b1)`` times the clipped
+    gradient) against the single rank's gradient, within ``TRAIN_TOL``:
+    each rank's bf16 products over its half of the rows, summed in f32,
+    against one bf16 product over all of them, rounded at other places
+    as accum 2 x 4 against 1 x 8 is in ``train_phase``; (b) each rank's
+    params, m and v bytes exactly half the whole tree's for every split
+    leaf, the whole leaves listed; (c) on the legs with ``ckpt``:
+    ``fsdp_checkpoint``; (d) on the legs with ``faults``: a sharded
+    gradient step as built passes (a)'s comparison and each planted
+    fault of ``FSDP_FAULTS`` fails it; (e) gathers and sums per step by
+    their formula, the RMSNorm and SSD launch identities on both ranks.
+    Each leg prints s/step and the bytes gathered and summed a step.
+    ``device="cpu"``: a rehearsal at the tiny configs."""
+    import torch
+
+    t0 = time.perf_counter()
+    mesh = take_mesh(started or start_mesh("2,1", device), "fsdp")
     launches = {}
     try:
-        for arch in TP_LEGS:
-            for k, n in tp_leg(mesh, arch, smi, device, layers=layers
-                               ).items():
+        for arch in FSDP_LEGS:
+            for k, n in fsdp_leg(mesh, arch, smi, device).items():
                 launches[k] = launches.get(k, 0) + n
             gc.collect()
             if device == "cuda":
                 torch.cuda.empty_cache()
     finally:
         mesh.close()
-    log(f"tp section: {time.perf_counter() - t0:.1f} s")
+    log(f"fsdp section: {time.perf_counter() - t0:.1f} s")
     return launches
 
 
@@ -5230,6 +5783,10 @@ def check_cli(smi, arch="qwen2.5-14b", seed=1, prompt_len=1000):
     del params
 
 
+# the sections on a mesh of two ranks, by their mesh spec ("DATA,MODEL")
+SECTIONS = {"tp": "1,2", "fsdp": "2,1"}
+
+
 def build_all():
     """Every kernel library built at once: one ``nvcc`` per source, started
     together, then the Triton kernel compiled by a first call."""
@@ -5277,13 +5834,14 @@ def main(argv=None):
     ap.add_argument("--layers", type=int, default=0,
                     help="cut every serve phase to this depth (0: full "
                          "depth; width is never cut)")
-    ap.add_argument("--phases", default=",".join((*PHASES, "tp")),
+    ap.add_argument("--phases", default=",".join((*PHASES, *SECTIONS)),
                     help="comma-separated phases to run (default: all, in "
-                         "order; \"tp\" is the tensor-parallel section)")
+                         "order; \"tp\" is the tensor-parallel section, "
+                         "\"fsdp\" the sharded train state's)")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
-    if not set(phases) <= {*PHASES, "tp"}:
-        ap.error(f"--phases: pick from {', '.join(PHASES)}, tp")
+    if not set(phases) <= {*PHASES, *SECTIONS}:
+        ap.error(f"--phases: pick from {', '.join((*PHASES, *SECTIONS))}")
 
     smi = card()
     import torch
@@ -5303,7 +5861,8 @@ def main(argv=None):
         return out
 
     timed(build_all)
-    tp_mesh = start_tp_mesh() if "tp" in phases else None
+    meshes = {name: start_mesh(spec) for name, spec in SECTIONS.items()
+              if name in phases}
     rows = [*timed(check_paged_decode), timed(check_rms_norm),
             timed(check_rms_norm_bwd), timed(check_paged_mla),
             timed(check_ssd), timed(check_ssd_bwd), *timed(check_flash),
@@ -5313,9 +5872,11 @@ def main(argv=None):
 
     launches = {}
     for name in phases:
-        if name == "tp":            # every rank's launches, summed
-            for k, n in timed(tp_section, smi, layers=args.layers or None,
-                              started=tp_mesh).items():
+        if name in SECTIONS:        # every rank's launches, summed
+            got = (timed(tp_section, smi, layers=args.layers or None,
+                         started=meshes[name]) if name == "tp" else
+                   timed(fsdp_section, smi, started=meshes[name]))
+            for k, n in got.items():
                 launches[k] = launches.get(k, 0) + n
             continue
         phase = PHASES[name]

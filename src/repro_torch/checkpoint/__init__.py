@@ -1,3 +1,5 @@
-from .manager import CheckpointManager, load_checkpoint, save_checkpoint
+from .manager import (CheckpointManager, load_checkpoint, save_checkpoint,
+                      snapshot)
 
-__all__ = ["CheckpointManager", "load_checkpoint", "save_checkpoint"]
+__all__ = ["CheckpointManager", "load_checkpoint", "save_checkpoint",
+           "snapshot"]

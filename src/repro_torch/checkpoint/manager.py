@@ -27,8 +27,18 @@ Guarantees:
   * bf16 leaves go over by their bits (no ``ml_dtypes`` needed).
 
 On load, leaves are placed on ``device`` (default: each template leaf's
-own device); placing them onto a mesh waits for tensor parallelism
-(ROADMAP.md queue 1, item 18).
+own device).
+
+Mesh-portable, as the reference's checkpoints are: leaves are stored
+whole whatever the mesh.  On a data mesh (FSDP, ``sharding.fsdp``) the
+save's snapshot (:func:`snapshot`) assembles each split leaf on rank 0's
+host from every rank's block, the other ranks taking part only in the
+gathers, and rank 0 writes the files; a restore onto a mesh
+(``load_checkpoint(..., mesh=)``, the counterpart of the reference's
+``shardings=``) has every rank read the files itself and keep its block
+of each leaf whose template is a ``1/data`` block of it.  So a
+checkpoint saved on one mesh loads on another, on one device and in the
+reference.
 """
 from __future__ import annotations
 
@@ -45,6 +55,7 @@ import torch
 
 from ..core import UMTRuntime, io
 from ..models.layers import tree_leaves
+from ..sharding.fsdp import block, whole_on_host
 
 # a restore reads and checks leaves on this many threads (``readinto`` and
 # ``zlib.crc32`` release the GIL), holding at most READ_BYTES of leaves
@@ -78,12 +89,28 @@ def _unflatten(template, leaves):
     return build(template)
 
 
-def _host_bytes(leaf):
+def _host_bytes(leaf, copy=True):
     """A host snapshot of ``leaf``: (raw bytes as a uint8 numpy array,
-    shape, dtype name).  Always a copy, taken now."""
-    host = torch.as_tensor(leaf).detach().to("cpu", copy=True)
+    shape, dtype name).  A copy, taken now, unless ``copy`` is False (a
+    host tensor nothing else holds)."""
+    host = torch.as_tensor(leaf).detach().to("cpu", copy=copy)
     raw = host.contiguous().reshape(-1).view(torch.uint8).numpy()
     return raw, list(host.shape), str(host.dtype).replace("torch.", "")
+
+
+def snapshot(state, mesh=None, dims=None):
+    """Every leaf of ``state`` copied to the host now, in ``tree_leaves``
+    order, as ``save_checkpoint`` writes it.  On a data mesh, ``dims`` (a
+    tree like ``state``: the dim each leaf is split along over ``data``,
+    or None) says which leaves are blocks: each is assembled whole on rank
+    0 (``sharding.fsdp.whole_on_host``).  Every rank of the mesh calls it,
+    in the same order; rank 0 gets the snapshot, the others None."""
+    if mesh is None:
+        return [_host_bytes(leaf) for leaf in tree_leaves(state)]
+    hosts = [whole_on_host(leaf, d, mesh) for leaf, d in
+             zip(tree_leaves(state), tree_leaves(dims))]
+    return None if mesh.rank else [_host_bytes(h, copy=False)
+                                   for h in hosts]
 
 
 def _fsync_write(path: str, data):
@@ -98,15 +125,22 @@ def _fsync_write(path: str, data):
 
 
 def save_checkpoint(state, step: int, dirpath: str,
-                    rt: UMTRuntime | None = None, wait: bool = True):
-    """Write checkpoint for `step`; returns a `wait()` callable."""
+                    rt: UMTRuntime | None = None, wait: bool = True,
+                    hosts=None):
+    """Write checkpoint for `step`; returns a `wait()` callable.
+    ``hosts``: the leaves' :func:`snapshot`, taken already (on a mesh,
+    rank 0's); by default it is taken here."""
     os.makedirs(dirpath, exist_ok=True)
     tmp = os.path.join(dirpath, f"step_{step:06d}.tmp")
     final = os.path.join(dirpath, f"step_{step:06d}")
     os.makedirs(tmp, exist_ok=True)
     # host snapshot NOW: the caller's next train step updates these
     # tensors in place while the file writes proceed asynchronously
-    hosts = [_host_bytes(leaf) for leaf in tree_leaves(state)]
+    if hosts is None:
+        hosts = snapshot(state)
+    if len(hosts) != len(tree_leaves(state)):
+        raise ValueError(f"{len(hosts)} host leaves for a tree of "
+                         f"{len(tree_leaves(state))}")
     manifest = {"step": step, "treedef": json.dumps(_structure(state)),
                 "leaves": []}
 
@@ -187,15 +221,37 @@ def _read_leaf(path, entry):
     return torch.frombuffer(payload, dtype=dtype).reshape(entry["shape"])
 
 
+def _fit(t, shape, mesh, name):
+    """The stored leaf ``t`` cut to its template's ``shape``: itself where
+    they match; on a data mesh, this rank's block where the template is a
+    ``1/data`` block of it along one dim."""
+    if tuple(t.shape) == shape:
+        return t
+    dims = [d for d, (a, b) in enumerate(zip(t.shape, shape)) if a != b]
+    n = 1 if mesh is None else mesh.shape["data"]
+    if (n == 1 or len(t.shape) != len(shape) or len(dims) != 1
+            or t.shape[dims[0]] != shape[dims[0]] * n):
+        raise ValueError(f"{name}: shape {tuple(t.shape)} != the "
+                         f"template's {shape}" + (
+                             f" nor a 1/{n} block of it" if n > 1 else ""))
+    return block(t, dims[0], mesh).clone(
+        memory_format=torch.contiguous_format)
+
+
 def load_checkpoint(dirpath: str, template, step: int | None = None,
-                    device=None):
+                    device=None, mesh=None, in_place=False):
     """Load latest (or given) committed step into `template`'s structure.
 
     Each leaf must match its template leaf's shape; it is placed on
     ``device``, or on the template leaf's own device when None (a
-    template on the ``meta`` device costs no memory).  Leaves are read
-    and checked ahead on ``READ_THREADS`` threads, at most ``READ_BYTES``
-    of them (or one larger leaf) held on the host at once."""
+    template on the ``meta`` device costs no memory).  ``mesh`` (a data
+    mesh; this rank reads the files itself): a template leaf that is a
+    ``1/data`` block of the stored one along one dim gets this rank's
+    block of it (``mesh.coords["data"]``), the others the whole leaf.
+    ``in_place``: each leaf is copied into its template leaf, which is
+    returned.  Leaves are read and checked ahead on ``READ_THREADS``
+    threads, at most ``READ_BYTES`` of them (or one larger leaf) held on
+    the host at once."""
     steps = _committed_steps(dirpath)
     if not steps:
         return None, None
@@ -217,14 +273,14 @@ def load_checkpoint(dirpath: str, template, step: int | None = None,
                                            manifest["leaves"][nxt]))
                 held += sizes[nxt]
                 nxt += 1
-            t = pending.popleft().result()
-            shape = tuple(np.shape(tleaf))
-            if tuple(t.shape) != shape:
-                raise ValueError(f"{entry['name']}: shape {tuple(t.shape)} "
-                                 f"!= the template's {shape}")
-            dev = device if device is not None else getattr(
-                tleaf, "device", "cpu")
-            out.append(t.to(dev))
+            t = _fit(pending.popleft().result(), tuple(np.shape(tleaf)),
+                     mesh, entry["name"])
+            if in_place:
+                out.append(tleaf.copy_(t))
+            else:
+                dev = device if device is not None else getattr(
+                    tleaf, "device", "cpu")
+                out.append(t.to(dev))
             del t
             held -= sizes[i]
     return _unflatten(template, out), step
@@ -245,8 +301,11 @@ class CheckpointManager:
         """Hook for SIGTERM: checkpoint at the next step boundary."""
         self.preempted.set()
 
-    def save(self, state, step: int, wait: bool = False):
-        w = save_checkpoint(state, step, self.dir, rt=self.rt, wait=wait)
+    def save(self, state, step: int, wait: bool = False, hosts=None):
+        """``hosts``: the leaves' snapshot, taken already (on a data mesh,
+        rank 0's from :func:`snapshot`)."""
+        w = save_checkpoint(state, step, self.dir, rt=self.rt, wait=wait,
+                            hosts=hosts)
         self._pending.append(w)
         self._gc()
         return w
@@ -256,8 +315,11 @@ class CheckpointManager:
             w()
         self._pending.clear()
 
-    def restore(self, template, device=None):
-        return load_checkpoint(self.dir, template, device=device)
+    def restore(self, template, device=None, mesh=None):
+        """The latest checkpoint in ``template``'s structure
+        (:func:`load_checkpoint`; ``mesh``: this rank's blocks on a data
+        mesh)."""
+        return load_checkpoint(self.dir, template, device=device, mesh=mesh)
 
     def latest_step(self):
         steps = _committed_steps(self.dir)

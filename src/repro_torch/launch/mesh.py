@@ -11,7 +11,8 @@ talk on two planes:
 
   * the data plane, one process group over the ranks (``nccl`` when each
     rank has a card of its own, ``gloo`` otherwise), carrying the model's
-    collectives (``models.layers.tp_all_reduce`` / ``tp_all_gather``);
+    collectives (``models.layers.tp_all_reduce`` / ``tp_all_gather``, and
+    FSDP's gathers and gradient sums, ``sharding.fsdp``);
   * the control plane, a pipe from rank 0 to each follower, carrying the
     step dispatches in one total order (``serve.tp``).
 
@@ -22,10 +23,13 @@ no backend gives way to another.  On ``gloo`` only ``all_reduce``,
 times out (``TIMEOUT_S``) rather than hangs, and a follower that dies
 makes rank 0's next collective raise at once.
 
-Only the ``model`` axis may exceed 1: ``TP_SERVE_RULES`` maps ``batch`` to
-nothing, so serving never splits ``data``; a sharded train state is
-ROADMAP item 18, and so are the production meshes (16x16, 2x16x16) of
-the reference's dry run.
+Either axis may exceed 1.  Serving splits only ``model``
+(``TP_SERVE_RULES`` maps ``batch`` to nothing, and ``steps.check_tp``
+refuses a data axis above 1); training splits only ``data`` (FSDP:
+``sharding.fsdp``; ``steps.check_train_mesh`` refuses a model axis above
+1, ROADMAP item 18b).  So one mesh's collectives run over all its ranks,
+and no axis needs a process group of its own yet.  The production meshes
+(16x16, 2x16x16) of the reference's dry run are not built here.
 """
 from __future__ import annotations
 
@@ -44,7 +48,7 @@ TIMEOUT_S = 120.0
 
 
 class Mesh:
-    """Axis sizes (``{"data": 1, "model": n}``), this process's rank and
+    """Axis sizes (``{"data": d, "model": m}``), this process's rank and
     its coordinates on each axis, the data plane's process group, the
     backend and this rank's device.  Rank 0's mesh also owns the
     follower processes and their pipes (``conns``); :meth:`close` stops
@@ -165,16 +169,15 @@ def make_mesh_from_devices(spec: str | None = None, backend: str | None = None,
     rules: by default every device on the model axis (``(1, n)``); a single
     visible device is the (1, 1) host mesh; ``spec`` ("DATA,MODEL")
     overrides the shape, and its sizes must multiply to the visible device
-    count.  Tensor-parallel ranks then run one per card on ``nccl``.
+    count.  Its ranks then run one per card on ``nccl``.
 
     ``backend="gloo"`` is the explicit opt-in to ranks that share a
-    card: any model size, every rank on the one card there is
+    card: any mesh size, every rank on the one card there is
     (``cuda:0``), or rank r on card r mod count.  ``backend="nccl"`` asks
     for one card per rank and raises without them.  On the CPU
     (``device_type="cpu"``, the tests) every rank computes on the host,
     no card is counted, and the backend is gloo.  A ``data`` axis above 1
-    raises (serving never splits it; a sharded train state is ROADMAP
-    item 18).
+    is a training mesh (FSDP); serving refuses it (``steps.check_tp``).
 
     ``device_type`` (default: ``cuda`` when a card is visible, else
     ``cpu``) is where the followers compute; the engine on rank 0 is
@@ -193,18 +196,14 @@ def make_mesh_from_devices(spec: str | None = None, backend: str | None = None,
     elif backend != "gloo" and shape[0] * shape[1] != n:
         raise ValueError(f"mesh spec {spec!r}: {shape[0]}x{shape[1]} != "
                          f"{n} visible devices")
-    if shape[0] > 1:
-        raise NotImplementedError(
-            f"mesh {shape[0]}x{shape[1]}: a data axis above 1 is not "
-            "ported (serving maps batch to no mesh axis; a sharded train "
-            "state is ROADMAP.md queue 1, item 18)")
-    if shape[1] == 1:
+    size = shape[0] * shape[1]
+    if size == 1:
         return make_host_mesh(device_type)
     if backend is None:
         backend = "nccl"
-    if backend == "nccl" and torch.cuda.device_count() < shape[1]:
+    if backend == "nccl" and torch.cuda.device_count() < size:
         raise RuntimeError(
-            f"backend nccl needs {shape[1]} cards, "
+            f"backend nccl needs {size} cards, "
             f"{torch.cuda.device_count()} visible (backend='gloo' shares "
             "one)")
     return spawn_followers(shape, backend, device_type)

@@ -12,8 +12,11 @@ blocked host thread.
 The reference CLI's flags and JSON lines (one per logged step, then the
 closing ``wall_s`` / ``host_cpu_util`` / ``host_wakes`` line), plus
 ``--device {cuda,cpu}`` (default ``cuda``; ``cuda`` without a card
-raises).  One device, no mesh: sharding the train state waits for tensor
-parallelism (ROADMAP.md queue 1, item 18).  Weights are a seeded
+raises).  The CLI trains on one device, as the reference's does (its
+``train`` builds no mesh but the host's); the sharded train state (FSDP
+over a data mesh) is reached through :func:`build` with ``mesh=``, the
+reference's ``build(cfg, mesh, hp)``, which drives the mesh's ranks from
+this process (:class:`MeshTrain`).  Weights are a seeded
 ``torch.Generator`` init (seed 0) on the device; batches come from
 ``SyntheticTokenSource`` (seed 1234), as in the reference, with (…, K)
 codebook ids for the audio frontend.  The vision frontend is refused
@@ -31,21 +34,136 @@ import time
 
 import torch
 
-from ..checkpoint import CheckpointManager
+from ..checkpoint import CheckpointManager, load_checkpoint, snapshot
 from ..configs import get
 from ..core import UMTRuntime
 from ..data import SyntheticTokenSource, UMTPrefetcher
 from ..device import resolve_device
 from ..ft import HeartbeatMonitor, StragglerDetector
 from ..models.layers import tree_leaves
-from ..optim import OptHParams
-from ..steps import init_train_state, make_train_step
+from ..models.lm import init_params
+from ..optim import OptHParams, adamw_init
+from ..params import fsdp_shard, shard_train_state
+from ..steps import (check_train_mesh, init_train_state, make_train_step,
+                     train_plan)
 
 
-def build(cfg, hp, device):
-    state = init_train_state(cfg, torch.Generator(device).manual_seed(0),
-                             hp, device)
-    return make_train_step(cfg, hp), state
+def build(cfg, hp, device, mesh=None):
+    """(step_fn, state) for ``cfg``: the seeded train state (seed 0) and
+    its train step, as the reference's ``build(cfg, mesh, hp)``.  On a
+    mesh of more than one rank, ``step_fn`` is a :class:`MeshTrain`'s
+    ``step`` (``step_fn.__self__`` saves, restores and closes it) and
+    ``state`` rank 0's shard."""
+    if mesh is None or mesh.size == 1:
+        state = init_train_state(cfg, torch.Generator(device).manual_seed(0),
+                                 hp, device)
+        return make_train_step(cfg, hp), state
+    trainer = MeshTrain(cfg, hp, mesh, device, SeededTrainState(0))
+    return trainer.step, trainer.state
+
+
+class SeededTrainState:
+    """A per-rank train state factory: every rank draws the whole seeded
+    master params of ``init_train_state`` on its own device and keeps its
+    blocks (``params.fsdp_shard``), m and v zeros of their shapes, so no
+    weight crosses a pipe and no rank holds whole moments.  Picklable, so
+    a follower can run it."""
+    per_rank = True
+
+    def __init__(self, seed: int = 0):
+        self.seed = seed
+
+    def __call__(self, cfg, mesh, device):
+        check_train_mesh(cfg, mesh)
+        params = fsdp_shard(init_params(
+            cfg, torch.Generator(device).manual_seed(self.seed), device,
+            dtype=cfg.param_dtype), cfg, mesh)
+        return {"params": params, "opt": adamw_init(params, cfg.opt_dtype),
+                "step": torch.zeros((), dtype=torch.int32, device=device)}
+
+
+def make_mesh_train_step(cfg, mesh, hp=OptHParams()):
+    """A data mesh rank's train step, ``(state, tokens, labels,
+    patches=None) -> (state, metrics)``: the batch's leaves come apart,
+    since a ``serve.tp.Session`` hands tensors to the ranks as host
+    copies, not trees."""
+    step = make_train_step(cfg, hp, mesh)
+
+    def train_step(state, tokens, labels, patches=None):
+        batch = {"tokens": tokens, "labels": labels}
+        if patches is not None:
+            batch["patches"] = patches
+        return step(state, batch)
+
+    return train_step
+
+
+def make_snapshot_step(cfg, mesh):
+    """``(state) -> snapshot``: a checkpoint's host snapshot of a train
+    state on a data mesh (``checkpoint.snapshot``): every rank gathers,
+    rank 0 gets the whole leaves, the others None."""
+    dims = train_plan(cfg, mesh).state_dims()
+    return lambda state: snapshot(state, mesh, dims)
+
+
+def make_restore_step(cfg, mesh):
+    """``(state, dirpath, step=None) -> (state, step)``: a data mesh
+    rank reads the checkpoint itself and copies its blocks into its state
+    in place (``checkpoint.load_checkpoint(..., mesh=, in_place=True)``);
+    ``step`` None when ``dirpath`` holds none."""
+    del cfg
+
+    def restore_step(state, dirpath, step=None):
+        _, got = load_checkpoint(dirpath, state, step, mesh=mesh,
+                                 in_place=True)
+        return state, got
+
+    return restore_step
+
+
+class MeshTrain:
+    """Training on a data mesh (FSDP), driven from rank 0, this process,
+    which runs the loop, the prefetcher and the ``CheckpointManager`` on
+    its UMT runtime: each train step, checkpoint snapshot and restore goes
+    to every rank in one order through a ``serve.tp.Session``, the batch
+    as a host copy.  A follower that raises fails the call with
+    ``TPError``.  ``state``: the whole train state as torch tensors (cut
+    on rank 0, each follower's shard sent as host tensors) or a per-rank
+    factory (:class:`SeededTrainState`)."""
+
+    def __init__(self, cfg, hp, mesh, device, state):
+        from ..serve.tp import Session
+
+        check_train_mesh(cfg, mesh)
+        self.sess = Session(mesh, cfg, resolve_device(device))
+        try:
+            self.state = self.sess.load(state, cut=shard_train_state)
+            self._train = self.sess.step("train", make_mesh_train_step,
+                                         hp=hp)
+            self._snapshot = self.sess.step("snapshot", make_snapshot_step)
+            self._restore = self.sess.step("restore", make_restore_step)
+        except BaseException:
+            self.sess.close()
+            raise
+
+    def step(self, state, batch):
+        """One train step on every rank: (state, metrics), rank 0's."""
+        return self._train(state, batch["tokens"], batch["labels"],
+                           batch.get("patches"))
+
+    def save(self, mgr, state, step, wait=False):
+        """Checkpoint ``state`` at ``step`` through ``mgr`` (rank 0's
+        ``CheckpointManager``): the ranks' snapshot, then rank 0's UMT
+        writes; returns the manager's ``wait()`` callable."""
+        return mgr.save(state, step, wait=wait, hosts=self._snapshot(state))
+
+    def restore(self, dirpath, state, step=None):
+        """The latest (or ``step``'s) checkpoint under ``dirpath`` into
+        ``state`` on every rank, in place; returns (state, step)."""
+        return self._restore(state, dirpath, step)
+
+    def close(self):
+        self.sess.close()
 
 
 def train(argv=None):

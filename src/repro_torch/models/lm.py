@@ -26,6 +26,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from ..device import resolve_device
+from ..sharding.fsdp import take
 from .blocks import block_apply, block_cache_shapes, block_param_shapes
 from .layers import (embed_tokens, lm_logits, rms_norm, sinusoidal_pos,
                      tree_leaves, tree_map)
@@ -149,10 +150,24 @@ def _layer(tree, r):
     return tree_map(lambda t: t[r], tree)
 
 
+def _gathered(fsdp, params, *path, r=None):
+    """The subtree of ``params`` at ``path`` (repeat ``r`` of a stacked
+    block) whole on this rank: under FSDP (``fsdp``, a
+    ``sharding.fsdp.Plan``) each split leaf is gathered here, where it is
+    used, so a repeat's gathers run inside its ``checkpoint`` and its
+    backward's recompute gathers again."""
+    tree, dims = params, None if fsdp is None else fsdp.dims
+    for k in path:
+        tree, dims = tree[k], None if dims is None else dims[k]
+    if fsdp is None:
+        return tree if r is None else _layer(tree, r)
+    return take(tree, dims, fsdp.mesh, r)
+
+
 # ---------------------------------------------------------------- forward
 def forward(params, cfg, tokens, *, mode="train", pos=0, cache=None,
             patches=None, cache_len=None, pages=None, attn_extent=None,
-            want_logits=True, n_tok=None):
+            want_logits=True, n_tok=None, fsdp=None):
     """tokens: (B, S) int, or (B, S, K) codebook ids for the audio
     frontend, whose logits are then (B, S, K, V).  ``patches`` (vision):
     (B, n_patches, d_model) embeddings put in front of the text, always
@@ -183,7 +198,10 @@ def forward(params, cfg, tokens, *, mode="train", pos=0, cache=None,
     ``attn_extent`` (prefill_chunk): the chunk attends over the first
     ``attn_extent`` cache positions (must cover pos + S);
     ``want_logits=False`` (prefill_chunk) skips the final norm and the LM
-    head of a non-final chunk."""
+    head of a non-final chunk.  ``fsdp`` (train mode on a data mesh: a
+    ``sharding.fsdp.Plan``): ``params`` are this rank's blocks, each split
+    leaf gathered where it is used (the embedding, each repeat's weights,
+    the final norm, the head)."""
     if mode not in ("train", "prefill", "decode", "prefill_chunk",
                     "verify"):
         raise ValueError(f"unknown forward mode {mode!r}")
@@ -191,7 +209,7 @@ def forward(params, cfg, tokens, *, mode="train", pos=0, cache=None,
         return _forward(params, cfg, tokens, mode=mode, pos=pos, cache=cache,
                         patches=patches, cache_len=cache_len, pages=pages,
                         attn_extent=attn_extent, want_logits=want_logits,
-                        n_tok=n_tok)
+                        n_tok=n_tok, fsdp=fsdp)
 
 
 _DOTS = (torch.ops.aten.mm, torch.ops.aten.addmm, torch.ops.aten.bmm,
@@ -235,11 +253,13 @@ def _positions(mode, pos, s, device):
 
 
 def _forward(params, cfg, tokens, *, mode, pos, cache, patches, cache_len,
-             pages, attn_extent, want_logits, n_tok):
+             pages, attn_extent, want_logits, n_tok, fsdp):
     if mode == "verify" and n_tok is None:
         raise ValueError("verify mode needs n_tok")
+    if fsdp is not None and mode != "train":
+        raise ValueError(f"mode {mode!r}: FSDP gathers train mode only")
     dt = getattr(torch, cfg.dtype)
-    x = embed_tokens(tokens, params["embed"], cfg, dt)
+    x = embed_tokens(tokens, _gathered(fsdp, params, "embed"), cfg, dt)
     vision = cfg.frontend == "vision_patches"
     if vision and mode in ("train", "prefill"):
         if patches is None:
@@ -267,10 +287,11 @@ def _forward(params, cfg, tokens, *, mode, pos, cache, patches, cache_len,
         ncs = []
         for i, spec in enumerate(cfg.pattern):
             bc = _layer(cache_blocks[i], r) if cache_in else None
-            x, nc, a = block_apply(x, _layer(params["blocks"][i], r), cfg,
-                                   spec, mode=mode, pos=pos, cache=bc,
-                                   cache_len=cache_len, pages=pages,
-                                   attn_extent=attn_extent, n_tok=n_tok)
+            w = _gathered(fsdp, params, "blocks", i, r=r)
+            x, nc, a = block_apply(x, w, cfg, spec, mode=mode, pos=pos,
+                                   cache=bc, cache_len=cache_len,
+                                   pages=pages, attn_extent=attn_extent,
+                                   n_tok=n_tok)
             ncs.append(nc)
             if not isinstance(a, float):
                 aux = aux + a
@@ -317,6 +338,8 @@ def _forward(params, cfg, tokens, *, mode, pos, cache, patches, cache_len,
         x = x[:, -1:]
     if not want_logits:                 # non-final chunk: cache only
         return {"logits": None, "cache": new_cache, "aux": aux}
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return {"logits": lm_logits(x, params, cfg), "cache": new_cache,
-            "aux": aux}
+    x = rms_norm(x, _gathered(fsdp, params, "final_norm"), cfg.norm_eps)
+    head = "lm_head" if "lm_head" in params else "embed"
+    return {"logits": lm_logits(x, {head: _gathered(fsdp, params, head)},
+                                cfg),
+            "cache": new_cache, "aux": aux}

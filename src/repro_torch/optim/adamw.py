@@ -8,6 +8,12 @@ step never waits for the host.  Unlike the reference, ``adamw_update``
 updates params, m and v in place (the master weights and both moments
 are the bulk of a training card's memory; a second copy would not fit at
 full width) and returns the same trees.
+
+On a data mesh (FSDP, ``sharding.fsdp``) each rank holds its blocks of
+params, grads, m and v: the update stays elementwise on them, and the
+clip norm is the whole gradient's (the reference's, whose leaves are
+whole): the split leaves' squares summed over ``data``, each whole
+leaf's counted once.
 """
 from __future__ import annotations
 
@@ -17,6 +23,7 @@ from typing import NamedTuple
 import torch
 
 from ..models.layers import tree_leaves, tree_map
+from ..sharding.fsdp import data_sum
 
 
 class OptHParams(NamedTuple):
@@ -51,20 +58,30 @@ def adamw_init(params, opt_dtype="float32"):
     return {"m": tree_map(zeros, params), "v": tree_map(zeros, params)}
 
 
-def global_norm(tree):
-    """sqrt of the sum of squares of every leaf, in f32 (0-d tensor)."""
-    norms = [torch.linalg.vector_norm(x, dtype=torch.float32)
-             for x in tree_leaves(tree)]
-    return torch.stack(norms).square().sum().sqrt()
+def global_norm(tree, plan=None):
+    """sqrt of the sum of squares of every leaf, in f32 (0-d tensor).
+    ``plan`` (a ``sharding.fsdp.Plan``): ``tree`` holds this rank's blocks
+    of the split leaves, whose squares are summed over ``data``, and whole
+    leaves, counted once."""
+    sq = torch.stack([torch.linalg.vector_norm(x, dtype=torch.float32)
+                      for x in tree_leaves(tree)]).square()
+    if plan is None:
+        return sq.sum().sqrt()
+    split = torch.tensor([d is not None for d in tree_leaves(plan.dims)],
+                         device=sq.device)
+    part = data_sum(sq[split].sum().reshape(1), plan.mesh)[0]
+    return (part + sq[~split].sum()).sqrt()
 
 
 @torch.no_grad()
-def adamw_update(grads, opt_state, params, step, hp: OptHParams):
+def adamw_update(grads, opt_state, params, step, hp: OptHParams,
+                 plan=None):
     """One AdamW step, in place: params, ``opt_state["m"]`` and ``["v"]``
     are updated where they lie; ``grads`` are read, not written.  Returns
     (params, opt_state, metrics) with metrics ``grad_norm`` (before
-    clipping) and ``lr``, 0-d f32 tensors."""
-    gnorm = global_norm(grads)
+    clipping) and ``lr``, 0-d f32 tensors.  ``plan``: the trees are this
+    rank's FSDP shards (:func:`global_norm`)."""
+    gnorm = global_norm(grads, plan)
     scale = torch.clamp(hp.clip_norm / (gnorm + 1e-9), max=1.0)
     step = torch.as_tensor(step, device=gnorm.device)
     lr = lr_schedule(step, hp)

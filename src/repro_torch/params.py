@@ -11,7 +11,9 @@ Under a tensor-parallel mesh (``launch.mesh``) a rank holds only its
 shard: :func:`shard_params` cuts each leaf by its logical axes under
 ``steps.TP_SERVE_RULES`` (strictly: a dim that does not split evenly
 stays whole), and the SSD mixer's leaves by the port's own layout
-(``models.ssm.TP_LOCAL``).
+(``models.ssm.TP_LOCAL``).  A train state on a data mesh (FSDP) is cut
+by :func:`shard_train_state` under the reference's ``LOGICAL_RULES``
+(``"fsdp"`` -> ``data``).
 """
 from __future__ import annotations
 
@@ -19,10 +21,12 @@ import numpy as np
 import torch
 
 from .device import resolve_device
-from .models.lm import LeafMeta, param_meta
+from .models.layers import tree_map
+from .models.lm import LeafMeta, _is_meta, param_meta
 from .models.ssm import TP_LOCAL, tp_local
 from .sharding import local_shard, logical_spec
-from .steps import TP_SERVE_RULES, check_tp, model_size
+from .steps import (TP_SERVE_RULES, check_tp, check_train_mesh, data_size,
+                    model_size)
 
 
 def _tensor(arr):
@@ -116,17 +120,50 @@ def _to(tree, device):
     return tree.to(device)
 
 
-def train_state_from_numpy(tree, cfg, device="cuda"):
+def fsdp_shard(tree, cfg, mesh):
+    """This rank's blocks of a whole parameter-shaped tree (params, m or v)
+    on a data mesh: each leaf cut by its logical axes under the
+    reference's ``LOGICAL_RULES`` (``"fsdp"`` -> ``data``) strictly, so a
+    dim that ``data`` does not divide stays whole; each block copied, so
+    that the whole tree can be freed."""
+    def cut(m, t):
+        spec = logical_spec(m.shape, m.axes, mesh, strict=True)
+        return local_shard(t, spec, mesh).clone(
+            memory_format=torch.contiguous_format)
+
+    return tree_map(cut, param_meta(cfg), tree, is_leaf=_is_meta)
+
+
+def shard_train_state(tree, cfg, mesh):
+    """This rank's shard of the whole train state ``tree`` (``{"params",
+    "opt": {"m", "v"}, "step"}``, torch tensors) on a data mesh: params, m
+    and v cut alike (:func:`fsdp_shard`), ``step`` copied whole.  The tree
+    itself without a mesh or on a data axis of 1; raises where
+    ``steps.check_train_mesh`` refuses."""
+    check_train_mesh(cfg, mesh)
+    if data_size(mesh) == 1:
+        return tree
+    return {"params": fsdp_shard(tree["params"], cfg, mesh),
+            "opt": {k: fsdp_shard(tree["opt"][k], cfg, mesh)
+                    for k in ("m", "v")},
+            "step": tree["step"].clone()}
+
+
+def train_state_from_numpy(tree, cfg, device="cuda", mesh=None):
     """The reference's ``init_train_state`` tree (``{"params", "opt":
     {"m", "v"}, "step"}``, as numpy) as the port's train state: master
     params in ``cfg.param_dtype`` (not ``cfg.dtype``, which is the compute
-    copy's), m and v in ``cfg.opt_dtype``, ``step`` a 0-d int32 tensor."""
+    copy's), m and v in ``cfg.opt_dtype``, ``step`` a 0-d int32 tensor.
+    With ``mesh`` (a data mesh), this rank's shard
+    (:func:`shard_train_state`), cut on the host before it moves to
+    ``device``."""
     device = resolve_device(device)
-    return {
-        "params": params_from_numpy(tree["params"], cfg, device,
+    host = {
+        "params": params_from_numpy(tree["params"], cfg, "cpu",
                                     cfg.param_dtype),
-        "opt": {k: params_from_numpy(tree["opt"][k], cfg, device,
+        "opt": {k: params_from_numpy(tree["opt"][k], cfg, "cpu",
                                      cfg.opt_dtype) for k in ("m", "v")},
         "step": torch.tensor(int(np.asarray(tree["step"])),
-                             dtype=torch.int32, device=device),
+                             dtype=torch.int32),
     }
+    return _to(shard_train_state(host, cfg, mesh), device)

@@ -35,6 +35,11 @@ That needs what this module provides, and the reference needs none of:
   followers down (``mesh.abort``: one may sit in a collective that will
   never complete) and refuses every later call.  The engine fails its
   live requests, as its ``_fail_live`` does.
+
+The same dispatch drives training on a data mesh (FSDP):
+``launch.train.MeshTrain`` loads a train state's shards on every rank
+and sends each train step, checkpoint snapshot and restore through a
+:class:`Session`.
 """
 from __future__ import annotations
 
@@ -335,11 +340,13 @@ class Session:
         return out
 
     # ------------------------------------------------------------------ api
-    def load(self, source) -> Shard:
-        """The weights on every rank; returns rank 0's :class:`Shard`.
-        ``source``: a per-rank factory (``per_rank = True``, called as
-        ``source(cfg, mesh, device)`` on each rank: :class:`SeededParams`),
-        or the full tree on rank 0, which is cut here and each follower's
+    def load(self, source, cut=shard_params) -> Shard:
+        """The weights (or a train state) on every rank; returns rank 0's
+        :class:`Shard`.  ``source``: a per-rank factory (``per_rank =
+        True``, called as ``source(cfg, mesh, device)`` on each rank:
+        :class:`SeededParams`), or the full tree on rank 0, which is cut
+        here by ``cut(tree, cfg, mesh)`` (default ``shard_params``; a
+        train state: ``params.shard_train_state``) and each follower's
         shard sent over its pipe as host tensors."""
         with self._lock:
             if getattr(source, "per_rank", False):
@@ -347,15 +354,14 @@ class Session:
             else:
                 for r, c in enumerate(self.mesh.conns, start=1):
                     self._check()
-                    part = shard_params(source, self.cfg,
-                                        self.mesh.for_rank(r))
+                    part = cut(source, self.cfg, self.mesh.for_rank(r))
                     c.send(("params", _map(part, lambda t: t.cpu())))
             try:
                 if getattr(source, "per_rank", False):
                     _load(self.local, source)
                 else:
                     _install(self.local, _map(
-                        shard_params(source, self.cfg, self.mesh),
+                        cut(source, self.cfg, self.mesh),
                         lambda t: t.to(self.local.device)))
             except BaseException as e:          # noqa: BLE001
                 raise self._fail(e) from e
@@ -436,21 +442,26 @@ def seen(state, key):
 
 
 def counters(state, reset=False):
-    """``Session.run`` probe: this rank's kernel launch counts and
-    tensor-parallel collective counts (zeroed after reading when
-    ``reset``)."""
+    """``Session.run`` probe: this rank's kernel launch counts, its
+    tensor-parallel collective counts and its FSDP gathers and sums with
+    their bytes (zeroed after reading when ``reset``)."""
     from .. import kernels
     from ..models import layers
 
+    from ..sharding import fsdp
+
     out = {}
-    for name in ("flash_attention", "paged_decode_attention",
-                 "paged_mla_decode_attention", "rms_norm", "ssd_scan"):
-        c = getattr(kernels, name).launches
-        out[name] = c.value
-        if reset:
-            c.reset()
-    for name in ("tp_all_reduce", "tp_all_gather"):
-        c = getattr(layers, name).calls
+    counts = {name: getattr(kernels, name).launches for name in (
+        "flash_attention", "paged_decode_attention",
+        "paged_mla_decode_attention", "rms_norm", "rms_norm_bwd",
+        "ssd_scan", "ssd_scan_bwd")}
+    counts.update({name: getattr(layers, name).calls
+                   for name in ("tp_all_reduce", "tp_all_gather")})
+    counts.update(fsdp_gather=fsdp.gather.calls,
+                  fsdp_gather_bytes=fsdp.gather.bytes,
+                  fsdp_sum=fsdp.data_sum.calls,
+                  fsdp_sum_bytes=fsdp.data_sum.bytes)
+    for name, c in counts.items():
         out[name] = c.value
         if reset:
             c.reset()

@@ -16,6 +16,16 @@ the cache makers give (:func:`local_cache_meta`).  Tokens, positions,
 block tables and logits are whole on every rank.  One rank's step is
 only part of the computation: ``serve.tp`` runs the same step on every
 rank, in one order.
+
+Sharded training (FSDP): ``make_train_step(cfg, hp, mesh=)`` on a mesh
+whose ``data`` axis is above 1 runs on this rank's blocks of params, m
+and v (``params.shard_train_state``), each split leaf gathered where the
+model uses it and its gradient summed back to the blocks
+(``sharding.fsdp``), and on this rank's ``micro / data`` rows of every
+microbatch.  The loss divides by the global count of labelled tokens,
+whole leaves' gradients are summed over ``data``, and the clip norm is
+the whole gradient's.  The model axis must be 1 in training
+(:func:`check_train_mesh`).
 """
 from __future__ import annotations
 
@@ -30,6 +40,7 @@ from .models.lm import LeafMeta, cache_meta, forward, init_params
 from .models.ssm import TP_LOCAL, tp_local_width
 from .optim import OptHParams, adamw_init, adamw_update
 from .sharding import logical_spec, shard_shape, sharding_ctx
+from .sharding.fsdp import Plan, data_dims, data_sum
 
 DECODE_RULES = {"heads": ()}  # decode shards cache-seq, not heads
 
@@ -70,16 +81,23 @@ def model_size(mesh) -> int:
     return 1 if mesh is None else mesh.shape["model"]
 
 
+def data_size(mesh) -> int:
+    """The mesh's data axis (1 without a mesh)."""
+    return 1 if mesh is None else mesh.shape.get("data", 1)
+
+
 def check_tp(cfg, mesh) -> None:
     """Raise where tensor-parallel serving of ``cfg`` on ``mesh`` is not
-    ported: a data axis above 1, MoE layers (ROADMAP item 9b), head counts
-    the model axis does not divide (item 9: the reference replicates
-    them).  A no-op without a mesh or with a model axis of 1."""
+    ported: a data axis above 1 (a training mesh: serving maps ``batch``
+    to no mesh axis), MoE layers (ROADMAP item 9b), head counts the model
+    axis does not divide (item 9: the reference replicates them).  A
+    no-op without a mesh or with a model axis of 1."""
     n = model_size(mesh)
-    if mesh is not None and mesh.shape.get("data", 1) > 1:
+    if data_size(mesh) > 1:
         raise NotImplementedError(
-            f"mesh {mesh.shape}: a data axis above 1 is not ported "
-            "(ROADMAP.md queue 1, item 18)")
+            f"mesh {mesh.shape}: serving splits no data axis "
+            "(TP_SERVE_RULES maps batch to no mesh axis); a data axis "
+            "above 1 is a training mesh (FSDP)")
     if n == 1:
         return
     if any(spec.mlp == "moe" for spec in cfg.pattern):
@@ -161,10 +179,49 @@ def init_train_state(cfg, generator: torch.Generator,
             "step": torch.zeros((), dtype=torch.int32, device=device)}
 
 
-def _token_loss(out, labels, cfg):
+def _token_loss(out, labels, cfg, count=None):
+    """The masked token mean: over ``count`` labelled tokens (under FSDP
+    the global count, all-reduced: what GSPMD computes for the
+    reference's ``jnp.sum(mask)``), by default the labels' own."""
     losses = softmax_xent(out["logits"], labels, cfg.z_loss)
     mask = (labels >= 0).float()
-    return (losses * mask).sum() / mask.sum().clamp_min(1.0)
+    count = mask.sum() if count is None else count
+    return (losses * mask).sum() / count.clamp_min(1.0)
+
+
+def check_train_mesh(cfg, mesh, micro: int | None = None) -> None:
+    """Raise where training ``cfg`` on ``mesh`` is not ported: MoE layers
+    under a mesh (ROADMAP item 9b), a model axis above 1 (item 18b: the
+    tensor-parallel collectives have no backward), a microbatch of
+    ``micro`` rows that the data axis does not divide (deviation: the
+    reference's strict rule would replicate such a batch).  A no-op
+    without a mesh or on a (1, 1) mesh."""
+    if mesh is None or mesh.shape["data"] * mesh.shape["model"] == 1:
+        return
+    if any(spec.mlp == "moe" for spec in cfg.pattern):
+        raise NotImplementedError(
+            f"{cfg.name}: MoE layers under a mesh are not ported "
+            "(ROADMAP.md queue 1, item 9b)")
+    if model_size(mesh) > 1:
+        raise NotImplementedError(
+            f"mesh {mesh.shape}: training with a model axis above 1 is not "
+            "ported (ROADMAP.md queue 1, item 18b: tensor parallelism in "
+            "training)")
+    if micro is not None and micro % data_size(mesh):
+        raise NotImplementedError(
+            f"a microbatch of {micro} rows does not split "
+            f"{data_size(mesh)} ways over data (the reference would "
+            "replicate it; the port needs micro divisible by data)")
+
+
+def train_plan(cfg, mesh):
+    """The FSDP layout of ``cfg``'s parameters on ``mesh``
+    (``sharding.fsdp.Plan``), or None where nothing is split: no mesh, or
+    a data axis of 1.  Raises where :func:`check_train_mesh` does."""
+    check_train_mesh(cfg, mesh)
+    if data_size(mesh) == 1:
+        return None
+    return Plan(mesh, data_dims(lm.param_meta(cfg), mesh))
 
 
 def _on(batch, device):
@@ -172,7 +229,7 @@ def _on(batch, device):
     return {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
 
 
-def make_grad_step(cfg):
+def make_grad_step(cfg, mesh=None):
     """(params, batch) -> (grads, loss): the gradient half of the train
     step.  Batch leaves are (accum, micro, ...); each microbatch's
     ``loss + 0.01 * aux / n_layers`` is differentiated on
@@ -180,44 +237,82 @@ def make_grad_step(cfg):
     params are summed in their own dtype (f32) and divided by ``accum``.
     ``loss`` is the microbatches' mean token loss (a 0-d f32 tensor).
     ``batch["patches"]`` (vision), when present, rides each microbatch;
-    audio labels are (…, K), one per codebook, as the tokens."""
+    audio labels are (…, K), one per codebook, as the tokens.
+
+    On a data mesh (``mesh``; the layout is the step's ``plan``),
+    ``params`` are this rank's blocks and so are the gradients; the rank
+    computes on rows ``[c m / D, (c + 1) m / D)`` of each microbatch of
+    ``m`` rows (``c`` its data coordinate, ``D`` the axis), divides by the
+    microbatch's global count of labelled tokens, and sums the whole
+    leaves' gradients and the loss over ``data``.  ``aux`` is summed as
+    the rest; it is 0 here, since MoE under a mesh raises."""
+    plan = train_plan(cfg, mesh)
 
     def grad_step(params, batch):
         live = tree_map(lambda p: p.detach().requires_grad_(
             p.is_floating_point()), params)
         device = tree_leaves(params)[0].device
         batch = _on(batch, device)
-        accum = batch["tokens"].shape[0]
+        accum, micro = batch["tokens"].shape[:2]
+        counts = None
+        if plan is not None:
+            check_train_mesh(cfg, mesh, micro)
+            rows = micro // data_size(mesh)
+            first = mesh.coords["data"] * rows
+            batch = {k: v[:, first:first + rows] for k, v in batch.items()}
+            counts = data_sum((batch["labels"] >= 0).reshape(
+                accum, -1).sum(1).float(), mesh)
         lsum = torch.zeros((), dtype=torch.float32, device=device)
         with torch.enable_grad():
             for a in range(accum):
                 out = forward(cast_tree(live, cfg.dtype), cfg,
                               batch["tokens"][a], mode="train",
                               patches=(batch["patches"][a]
-                                       if "patches" in batch else None))
-                loss = _token_loss(out, batch["labels"][a], cfg)
+                                       if "patches" in batch else None),
+                              fsdp=plan)
+                loss = _token_loss(out, batch["labels"][a], cfg,
+                                   None if counts is None else counts[a])
                 total = loss + 0.01 * out["aux"] / max(cfg.n_layers, 1)
                 del out
                 total.backward()
                 lsum += loss.detach()
         grads = tree_map(lambda p: p.grad.div_(accum) if p.grad is not None
                          else torch.zeros_like(p, dtype=torch.float32), live)
+        if plan is not None:
+            _sum_whole(grads, plan)
+            lsum = data_sum(lsum.reshape(1), mesh)[0]
         return grads, lsum / accum
 
+    grad_step.plan = plan
     return grad_step
 
 
-def make_train_step(cfg, hp: OptHParams = OptHParams()):
+def _sum_whole(grads, plan):
+    """The whole leaves' gradients summed over ``data`` in place, in one
+    all-reduce of their concatenation."""
+    whole = [g for g, d in zip(tree_leaves(grads), tree_leaves(plan.dims))
+             if d is None]
+    if not whole:
+        return
+    flat = data_sum(torch.cat([g.reshape(-1) for g in whole]), plan.mesh)
+    for g, part in zip(whole, flat.split([g.numel() for g in whole])):
+        g.copy_(part.view_as(g))
+
+
+def make_train_step(cfg, hp: OptHParams = OptHParams(), mesh=None):
     """(state, batch) -> (state, metrics): one optimizer step over the
     batch's ``accum`` microbatches (``make_grad_step``) and AdamW, the
     state updated in place (``step`` too).  Metrics: ``loss``,
-    ``grad_norm`` and ``lr``, 0-d f32 tensors on the state's device."""
-    grad_step = make_grad_step(cfg)
+    ``grad_norm`` and ``lr``, 0-d f32 tensors on the state's device.  On
+    a data mesh the state is this rank's shard (``params.
+    shard_train_state``), the batch whole, and every rank of the mesh
+    runs the step (``serve.tp.Session``)."""
+    grad_step = make_grad_step(cfg, mesh)
 
     def train_step(state, batch):
         grads, loss = grad_step(state["params"], batch)
         _, _, metrics = adamw_update(grads, state["opt"], state["params"],
-                                     state["step"], hp)
+                                     state["step"], hp, grad_step.plan)
         del grads
         metrics["loss"] = loss
         state["step"].add_(1)
@@ -580,4 +675,5 @@ __all__ = ["cast_tree", "make_prefill_step", "make_serve_step",
            "make_verify_step", "make_pool_step", "make_row_cache_step",
            "init_cache", "TP_SERVE_RULES", "DECODE_RULES",
            "SERVE_CACHE_AXES", "serve_cache_axes", "local_cache_meta",
-           "check_tp"]
+           "check_tp", "check_train_mesh", "train_plan", "data_size",
+           "make_grad_step", "make_train_step", "init_train_state"]

@@ -227,10 +227,13 @@ def test_port_engine_equals_reference_engine(built):
 @pytest.mark.parametrize("kw", [dict(mesh=Mesh({"data": 2, "model": 1})),
                                 dict(mesh=Mesh({"data": 2, "model": 2}))])
 def test_options_of_later_slices_raise(built, kw):
-    """A mesh with a data axis above 1 (the sharded train state's, ROADMAP
-    item 18); tensor-parallel serving itself is ported
+    """A mesh with a data axis above 1: a training mesh (the sharded
+    train state, ROADMAP item 18, ``tests/test_torch_fsdp.py``), which
+    serving refuses as the reference's ``TP_SERVE_RULES`` map ``batch``
+    to no mesh axis; tensor-parallel serving itself is ported
     (``tests/test_torch_tp.py``)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 18"):
+    with pytest.raises(NotImplementedError,
+                       match="serving splits no data axis"):
         ServeEngine(built["cfg"], built["params"], device="cpu", **kw)
 
 

@@ -22,8 +22,8 @@ carried over from the reference's ``init_params`` as numpy.
   * Sharded logits against single-device ones, within a stated f32
     tolerance.
   * Errors, not hangs: a follower that raises fails the live requests
-    within the deadline; MoE, a non-dividing head count and a data axis
-    above 1 raise.
+    within the deadline; MoE, a non-dividing head count and, in serving,
+    a data axis above 1 raise.
   * The CLI: ``--mesh 1,2`` prints the same ``sample`` as ``--mesh 1,1``.
 """
 import json
@@ -340,8 +340,9 @@ def test_what_is_not_ported_raises():
     with pytest.raises(NotImplementedError, match="item 9\\)"):
         ServeEngine(cfg, params, device="cpu",
                     mesh=Mesh({"data": 1, "model": 3}))
-    with pytest.raises(NotImplementedError, match="item 18"):
-        make_mesh_from_devices("2,1", device_type="cpu")
+    with pytest.raises(NotImplementedError, match="serving splits no data"):
+        ServeEngine(cfg, params, device="cpu",
+                    mesh=Mesh({"data": 2, "model": 1}))
     with pytest.raises(ValueError, match="tp=True needs"):
         ServeEngine(cfg, params, device="cpu", tp=True)
     with pytest.raises(ValueError, match="want 'DATA,MODEL'"):
