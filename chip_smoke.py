@@ -43,7 +43,11 @@ Phases (each raises on failure, so the script exits non-zero):
    tests, and RMSNorm's backward (through autograd, at qwen2.5-14b's
    training shape 4096 x 5120 and the forward's grid, f32 and bf16: dx
    row by row, dw by its relative error, with the mean term dropped and
-   one row block left out of dw planted); then CUDA-event times of
+   one row block left out of dw planted), and the backward of its
+   given-statistic entry (``check_rms_norm_rstd_bwd``: a row of
+   mamba2-780m's d_inner split over two ranks at 4096 rows, each half's
+   dx and dw against the whole row's plain backward, the row term not
+   summed planted); then CUDA-event times of
    kernel, plain version and one PyTorch library call where there is
    one, beside the least time the card could take (``bound_ms``); for
    the paged decodes, flash attention, the SSD scan and RMSNorm's
@@ -177,15 +181,23 @@ Phases (each raises on failure, so the script exits non-zero):
 5c. fsdp  — the sharded train state (``fsdp_section``; ``--phases
    fsdp``): a 2,1 mesh of this process and one follower (started right
    after the build, as the TP section's), both on the one card over gloo
-   (two cards: nccl); qwen2.5-14b (1 of 48 layers) and mamba2-780m (4 of
-   48) at full width through ``launch.train.MeshTrain``, f32 masters,
-   bf16 compute, remat "full", f32 AdamW (``FSDP_LEGS``); bars (a)-(e)
+   (two cards: nccl); mamba2-780m (4 of 48 layers) at full width through
+   ``launch.train.MeshTrain``, f32 masters, bf16 compute, remat "full",
+   f32 AdamW (``FSDP_LEGS``; qwen2.5-14b's leg moved to 5d); bars (a)-(e)
    in ``fsdp_section``: the sharded gradient step against this
    process's single-rank step, per-rank state bytes, a checkpoint
    restored onto the mesh and onto one device, planted FSDP faults
    (``FSDP_FAULTS``), gathers and sums by formula and the RMSNorm and
    SSD launch identities on both ranks, whose launches the kernel table
    counts.
+5d. tp_train — tensor parallelism in training (``tp_train_section``;
+   ``--phases tp_train``): a 2,2 mesh of this process and three
+   followers on the one card over gloo (four cards: nccl);
+   qwen2.5-14b (1 layer, one step) and mamba2-780m (2 layers, two steps,
+   the planted faults of ``TP_TRAIN_FAULTS``, a checkpoint restored onto
+   one device and onto 2,1) at full width; bars (a)-(f) in
+   ``tp_train_section``.  Each mesh's followers warm their Triton
+   kernels on a thread while the serve phases run (``warm_mesh``).
 6. summary — one ``kernels`` JSON line, then the ``ok`` line.
 
 Nothing of JAX or of the ``repro`` package is imported.
@@ -210,22 +222,32 @@ BF16_FLOPS = 989e12
 F32_FLOPS = 67e12
 
 # the train phases (``train_phase``), each at full width with its depth in
-# ``PHASES``.  qwen2.5-14b at 2 of its 48 layers (4 before, cut for the
-# script's time when the FSDP section came).  Memory, from
+# ``PHASES``.  qwen2.5-14b at 1 of its 48 layers (first 4, then 2, each
+# cut for the script's time when a section came: the FSDP section, then
+# the tensor-parallel train section).  Memory, from
 # configs/archs.py: embedding + untied head 2 x 152064 x 5120 = 1.557 B
-# params, each layer 275.3 M; at 2 layers 2.108 B params x 16 B (f32
-# param, grad, m, v) = 33.7 GB, plus 4.2 GB of bf16 compute copies, the
+# params, each layer 275.3 M; at 1 layer 1.832 B params x 16 B (f32
+# param, grad, m, v) = 29.3 GB, plus 3.7 GB of bf16 compute copies, the
 # f32 logits (2.5 GB a copy at 4096 tokens) and one layer's f32 scores
-# under remat (0.67 GB): about 45 GB (4 layers about 60 GB).  Full depth
-# is about 235 GB.  mamba2-780m at all 48 layers: 0.86 B params x
-# 16 B = 13.7 GB, plus the f32 logits (0.82 GB a copy at 4096 tokens of
-# its 50280 vocab) and one layer's scan under remat.  Both: microbatches
+# under remat (0.67 GB): about 40 GB (2 layers 45 GB, 4 about 60 GB).
+# Full depth is about 235 GB.  mamba2-780m at 24 of its 48 layers (all
+# 48 until the tensor-parallel train section came): 0.51 B params x 16
+# B = 8.1 GB (13.7 GB at 48), plus the f32 logits (0.82 GB a copy at
+# 4096 tokens of its 50280 vocab) and one layer's scan under remat.
+# Both: microbatches
 # of 4 x 1024 tokens, accum 2; AdamW at lr 1e-3 after 2 warmup steps over
 # the phase's 10 steps, on one fixed batch.
 TRAIN = dict(micro=4, seq=1024, accum=2, steps=10, ckpt_at=5,
              hp=dict(lr=1e-3, warmup=2, total_steps=10))
 TRAIN_CUT = ("the train state at full depth, about 235 GB, does not fit "
-             "one 80 GB card; 2 layers take about 45 GB")
+             "one 80 GB card; 1 layer, a whole repeat, takes about 40 GB "
+             "and keeps the script's time")
+# mamba2-780m-train's depth: its planted faults stay far outside the bars
+# at any depth (dw zeroed moves the norm weights by 1.0, a microbatch
+# dropped every leaf by about 0.7, dB times 48 overflows); 24 layers keep
+# the script's time
+TRAIN_CUT_SSM = ("24 of 48 layers keep the script's time; every planted "
+                 "fault stays rejected")
 # (a): the synthetic labels are the tokens themselves (the reference's
 # SyntheticTokenSource), which the embedding and head learn to copy in a
 # few AdamW steps; 10 steps on one batch must take the loss down by at
@@ -247,7 +269,8 @@ LOSS_DROP = 1.0
 # planted SSD-backward fault is dB times the group's 48 heads (what a
 # group sum handed back through the stride-0 view would do).
 TRAIN_TOL = dict(loss=1e-3, grad_norm=1e-2, leaf=5e-2)
-# (c) on mamba2-780m at all 48 layers, whose conv weights the phase
+# (c) on mamba2-780m (measured at all 48 layers; the phase now runs 24,
+# under the same bounds), whose conv weights the phase
 # scales by ``SSM_CONV_W_GAIN`` as the serve phases do: at the repo's init
 # the scan adds about 1e-5 of each mixer's output, so little flows through
 # its backward (on an H100, without the gain, dB times 48 moved the
@@ -628,9 +651,10 @@ PHASES = {
     # backward are its kernels, and on the SSD family the scan forward and
     # backward; attention runs plain (the reference's train mode), and the
     # other kernels raise under autograd.  ``cut``: why the depth is cut
-    "qwen2.5-14b-train": dict(arch="qwen2.5-14b", train=TRAIN, layers=2,
+    "qwen2.5-14b-train": dict(arch="qwen2.5-14b", train=TRAIN, layers=1,
                               cut=TRAIN_CUT),
-    "mamba2-780m-train": dict(arch="mamba2-780m", train=TRAIN,
+    "mamba2-780m-train": dict(arch="mamba2-780m", train=TRAIN, layers=24,
+                              cut=TRAIN_CUT_SSM,
                               tol=TRAIN_TOL_DEEP),
     # jamba at full width and 8 of its 32 layers, one whole block (1
     # attention, 7 SSM, 4 MoE): full depth is 102.9 GB of bf16 weights,
@@ -1255,6 +1279,129 @@ def check_rms_norm_bwd():
             "library_device_ms": l_dev,
             "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
             "bound_ms": bound, "bound_by": bound_by, "library_ms": l_ms}
+
+def check_rms_norm_rstd_bwd():
+    """The given-statistic backward (``rms_norm_dot`` then
+    ``rms_norm_bwd_rstd``, tensor parallelism's gated norm in training)
+    at mamba2-780m's two-rank shape: 4096 rows (a microbatch of 4 x 1024)
+    of d_inner 3072 split into two halves of 1536, the statistic from the
+    whole row, each half's row term ``s_loc`` from the kernel and the two
+    added (the all-reduce over the model group); each half's dx and dw
+    against the plain backward of the whole row (``rms_norm_bwd_ref``),
+    in f32 and bf16: dx elementwise (``TOL``) and in bf16 row by row
+    (``ROW_TOL``), dw by ``DW_TOL``; the row terms against
+    ``rms_norm_dot_ref``.  dy leans along x, as a loss gradient does along
+    the norm's output, so that the statistic's term is large.  Then
+    through autograd (``rms_norm_rstd`` with the sum as its ``reduce``).
+    The planted fault, each half's own ``s_loc`` not summed with the
+    other's, must fail.  Then the times of one half, both launches, in
+    bf16: kernel, plain and its bound; no PyTorch call applies a given
+    statistic."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import (rms_norm_bwd_ref, rms_norm_bwd_rstd,
+                                     rms_norm_bwd_rstd_ref, rms_norm_dot,
+                                     rms_norm_dot_ref, rms_norm_rstd)
+
+    rng = np.random.default_rng(11)
+    rows, width, eps = 4096, 3072, 1e-5
+    half = width // 2
+    worst = {}
+    for dt in (torch.float32, torch.bfloat16):
+        x = torch.tensor(rng.standard_normal((rows, width), np.float32),
+                         device="cuda")
+        dy = (0.5 * x + torch.tensor(rng.standard_normal((rows, width),
+                                                         np.float32),
+                                     device="cuda")).to(dt)
+        x = x.to(dt)
+        w = torch.tensor(rng.standard_normal(width, np.float32) * 0.1 + 1.0,
+                         device="cuda").to(dt)
+        rstd = torch.rsqrt(x.float().square().mean(-1) + eps)
+        pdx, pdw = rms_norm_bwd_ref(x, w, dy, eps)
+        parts = [slice(0, half), slice(half, width)]
+        s_loc = [rms_norm_dot(x[:, p].contiguous(), w[p].contiguous(),
+                              dy[:, p].contiguous()) for p in parts]
+        for p, s in zip(parts, s_loc):
+            want = rms_norm_dot_ref(x[:, p], w[p], dy[:, p])
+            rel = ((s - want).norm() / want.norm()).item()
+            if rel > 1e-5:
+                raise AssertionError(f"rms_norm_dot {dt}: row terms off by "
+                                     f"{rel:.3e}")
+        s = s_loc[0] + s_loc[1]
+        tag = str(dt)[6:]
+        for k, p in enumerate(parts):
+            dx, dw = rms_norm_bwd_rstd(x[:, p].contiguous(), w[p].contiguous(),
+                                       dy[:, p].contiguous(), rstd, s, width)
+            what = f"rms_norm_bwd_rstd ({rows}, {half}) {tag} half {k}"
+            err = close(dx, pdx[:, p], dt, what + " dx")
+            if dt == torch.bfloat16:
+                rows_close(dx, pdx[:, p], what + " dx")
+            rel = ((dw.float() - pdw[p].float()).norm()
+                   / pdw[p].float().norm()).item()
+            if rel > DW_TOL[tag]:
+                raise AssertionError(f"{what}: dw relative error {rel:.3e} "
+                                     f"> {DW_TOL[tag]}")
+            worst[(tag, k)] = (err, rel)
+        # through autograd, the halves' row terms summed by ``reduce``
+        xs = [x[:, p].contiguous().requires_grad_() for p in parts]
+        ws = [w[p].contiguous().requires_grad_() for p in parts]
+        other = [s_loc[1], s_loc[0]]
+        for k in range(2):
+            y = rms_norm_rstd(xs[k], ws[k], rstd, width=width,
+                              reduce=lambda t, o=other[k]: t + o)
+            y.backward(dy[:, parts[k]])
+            close(xs[k].grad, pdx[:, parts[k]], dt,
+                  f"rms_norm_rstd autograd {tag} half {k} dx")
+    log(f"rms_norm_bwd_rstd: both halves of ({rows}, {width}) in f32 and "
+        f"bf16 match the whole row's plain backward (dx {TOL}, bf16 rows "
+        f"{ROW_TOL}; dw {DW_TOL}); worst dx error "
+        f"{max(e for e, _ in worst.values()):.3e}, dw "
+        f"{max(r for _, r in worst.values()):.3e}; the same through autograd")
+
+    # the planted fault (bf16): a half's own row term, not the sum
+    bf16 = torch.bfloat16
+    xh, wh, dyh = (t[:, :half].contiguous() if t.dim() == 2 else
+                   t[:half].contiguous() for t in (x, w, dy))
+    dx, _ = rms_norm_bwd_rstd(xh, wh, dyh, rstd, s_loc[0], width)
+    planted_rows("rms_norm_bwd_rstd dx", f"{rows} x {half}", {
+        "s_loc not all-reduced": (dx, ROW_TOL)}, pdx[:, :half],
+        TOL["bfloat16"])
+
+    # times of one half (one rank's work), both launches, bf16
+    def kernel():
+        rms_norm_bwd_rstd(xh, wh, dyh, rstd,
+                          rms_norm_dot(xh, wh, dyh), width)
+
+    def plain():
+        rms_norm_bwd_rstd_ref(xh, wh, dyh, rstd,
+                              rms_norm_dot_ref(xh, wh, dyh), width)
+
+    k_ms, p_ms = time_ms(kernel), time_ms(plain)
+    k_dev = device_ms(kernel, per_call=3, lead=8)
+    # x and dy read, dx written, w read and dw written, once each; rstd
+    # read, s written by the first entry and read by the second (the
+    # all-reduce between them)
+    nbytes = 3 * xh.numel() * 2 + 2 * wh.numel() * 2 + rows * 4 * 3
+    flops = 12 * xh.numel()
+    bound = max(nbytes / HBM_BPS, flops / F32_FLOPS) * 1e3
+    bound_by = "bytes" if nbytes / HBM_BPS >= flops / F32_FLOPS \
+        else "operations"
+    err, rel = worst[("bfloat16", 0)]
+    log(f"rms_norm_bwd_rstd ({rows}, {half}) bf16: max_err {err:.3e} (dw rel "
+        f"{rel:.3e}) kernel_ms {k_ms:.4f} (rms_norm_dot + rms_norm_bwd_rstd) "
+        f"plain_ms {p_ms:.4f} library_ms none (no call applies a given "
+        f"statistic) bound_ms {bound:.4f} ({bound_by}: {nbytes} B); device "
+        f"time alone (profiler, the three launches) {ms_text(k_dev)}")
+    return {"name": "rms_norm_bwd_rstd", "route": "triton",
+            "source": "src/repro_torch/kernels/rmsnorm/kernel.py",
+            "replaces": "src/repro/models/layers.py:11",
+            "shape": f"mamba2 2 ranks gated norm ({rows}, {half}) bf16, "
+                     "given statistic", "device_ms": k_dev,
+            "library_device_ms": None, "max_abs_err": err, "ms": k_ms,
+            "plain_ms": p_ms, "bound_ms": bound, "bound_by": bound_by,
+            "library_ms": None}
+
 
 
 # ---------------------------------------------------------------- paged MLA
@@ -4091,22 +4238,32 @@ class FixedBatch:
         return self.batch
 
 
-def train_identities(cfg, got, micro_steps):
+def train_identities(cfg, got, micro_steps, tp=False):
     """The train path's launch identities on one process over
     ``micro_steps`` microbatches: RMSNorm forward at every norm site,
     twice under remat "full", and the final norm; its backward once a
     site and the final norm; the SSD scan forward twice and its backward
-    once an SSM layer.  Returns (want, the identities as text, with
-    ``got``'s counts)."""
+    once an SSM layer.  ``tp`` (a model axis above 1): an SSM layer's
+    gated norm takes the given-statistic backward instead, its two
+    entries (``rms_norm_dot``, ``rms_norm_bwd_rstd``) once each.  Returns
+    (want, the identities as text, with ``got``'s counts)."""
     norms, n_ssm = norm_sites(cfg), kind_layers(cfg, "ssm")
+    given = n_ssm if tp else 0
     want = {"rms_norm": micro_steps * (2 * norms + 1),
-            "rms_norm_bwd": micro_steps * (norms + 1)}
+            "rms_norm_bwd": micro_steps * (norms - given + 1)}
+    if tp:
+        want.update(rms_norm_dot=micro_steps * given,
+                    rms_norm_bwd_rstd=micro_steps * given)
     if n_ssm:
         want.update(ssd_scan=micro_steps * 2 * n_ssm,
                     ssd_scan_bwd=micro_steps * n_ssm)
     text = (f"rms_norm {got['rms_norm']} = {micro_steps} x (2 x {norms} + "
             f"1: forward, remat recompute, final norm); rms_norm_bwd "
-            f"{got['rms_norm_bwd']} = {micro_steps} x ({norms} + 1)" + (
+            f"{got['rms_norm_bwd']} = {micro_steps} x ({norms} - {given} + "
+            f"1)" + (f"; rms_norm_dot {got['rms_norm_dot']} and "
+                     f"rms_norm_bwd_rstd {got['rms_norm_bwd_rstd']} = "
+                     f"{micro_steps} x {given} (the gated norms)"
+                     if given else "") + (
                 f"; ssd_scan {got['ssd_scan']} = {micro_steps} x 2 x "
                 f"{n_ssm} (forward, remat recompute); ssd_scan_bwd "
                 f"{got['ssd_scan_bwd']} = {micro_steps} x {n_ssm}"
@@ -5124,19 +5281,15 @@ def tp_section(smi, device="cuda", layers=None, started=None):
 # ``launch.train.MeshTrain`` with seeded f32 masters, bf16 compute, remat
 # "full" and f32 AdamW, on one fixed batch of ``FSDP_BATCH`` (each rank
 # 2 rows) whose first row keeps half its labels, so the global count of
-# labelled tokens is all-reduced.  qwen2.5-14b at 1 of its 48 layers,
-# the fewest that run a whole repeat: its embedding and untied head are
-# 1.557 B params at any depth, a layer 275.3 M, so a step gathers 4.2 GB
-# of bf16 weights and all-reduces 7.3 GB of f32 gradients on each rank,
-# all through the host under gloo: 13.2-19.7 s a step on an H100 80GB
-# HBM3 (700 W) shared by the two ranks, so its leg takes one step.
-# mamba2-780m at 4 of 48 layers, the SSD scan's kernels forward and
-# backward under FSDP, 1.5-3.2 s a step: the planted faults (d) and the
-# checkpoint (c) run there, since on that card qwen's leg took 34.4 s to
-# snapshot its 22 GB state, 61.7 s to restore it onto the mesh (each
-# rank reads every file) and 24.2 s onto one device.
+# labelled tokens is all-reduced.  mamba2-780m at 4 of 48 layers, the SSD
+# scan's kernels forward and backward under FSDP, 1.5-3.2 s a step (an
+# H100 80GB HBM3 at 700 W): the planted faults (d) and the checkpoint
+# (c) run there.  The section's qwen2.5-14b leg (1 layer: 4.2 GB of bf16
+# weights gathered and 7.3 GB of f32 gradients all-reduced a step and
+# rank, 13.2-19.7 s a step on that card) moved onto the tensor-parallel
+# train section's 2,2 mesh (``TP_TRAIN_LEGS``), whose data axis holds
+# the FSDP bars (a), (b) and (e) at that width.
 FSDP_LEGS = {
-    "qwen2.5-14b": dict(layers=1, steps=1, faults=False, ckpt=False),
     "mamba2-780m": dict(layers=4, steps=2, faults=True, ckpt=True),
 }
 FSDP_BATCH = dict(micro=4, seq=1024, accum=1)
@@ -5148,10 +5301,10 @@ FSDP_FAULTS = ("sum_dropped", "blocks_reversed", "clip_norm_local")
 
 
 class FSDPState:
-    """The FSDP legs' train state on every rank: the seeded f32 masters of
-    ``train_phase`` (conv weights times ``SSM_CONV_W_GAIN``) made whole
-    on the rank's device and cut to its blocks, m and v zeros of their
-    shapes."""
+    """The FSDP and TP train legs' state on every rank: the seeded f32
+    masters of ``train_phase`` (conv weights times ``SSM_CONV_W_GAIN``)
+    made whole on the rank's device and cut to its blocks on both axes,
+    m and v zeros of their shapes."""
     per_rank = True
 
     def __init__(self, seed=0):
@@ -5171,9 +5324,11 @@ class FSDPState:
         import torch
 
         from repro_torch.optim import adamw_init
-        from repro_torch.params import fsdp_shard
+        from repro_torch.params import train_shard
 
-        params = fsdp_shard(self.params(cfg, device), cfg, mesh)
+        params = train_shard(self.params(cfg, device), cfg, mesh)
+        if device.type == "cuda":       # the whole params' cache, freed:
+            torch.cuda.empty_cache()    # four ranks share one card
         return {"params": params, "opt": adamw_init(params, cfg.opt_dtype),
                 "step": torch.zeros((), dtype=torch.int32, device=device)}
 
@@ -5182,71 +5337,111 @@ def _batch(rs, tokens, labels):
     return {"tokens": tokens.to(rs.device), "labels": labels.to(rs.device)}
 
 
-def fsdp_single(rs, seed, tokens, labels, turn):
-    """``Session.run``, bar (a)'s single rank: on rank ``turn`` only (the
-    ranks take turns, so that one whole step's memory is on the card at a
-    time), the whole seeded params (``FSDPState``'s) through
-    ``steps.make_grad_step(cfg)`` without a mesh on the whole batch; the
-    rank keeps its blocks of the gradients (``extra["single"]``).
-    Returns (loss, clip norm) there, None on the other ranks."""
-    import gc
+def _train_cfg(rs, dtype):
+    return rs.cfg if dtype is None else rs.cfg.replace(dtype=dtype)
 
-    import torch
 
+def _plan_leaves(rs):
+    """(data dims, model splits) of the session's parameter leaves."""
+    from repro_torch.models.layers import tree_leaves
+    from repro_torch.steps import train_plan
+
+    plan = train_plan(rs.cfg, rs.mesh)
+    return (tree_leaves(plan.dims),
+            tree_leaves(plan.tp))
+
+
+def fsdp_single(rs, seed, tokens, labels, dtype=None):
+    """Bar (a)'s single rank, on rank 0 (``rs``: its ``RankState``,
+    ``Session.local``): the whole seeded params (``FSDPState``'s) through
+    ``steps.make_grad_step(cfg)`` without a mesh on the whole batch
+    (``dtype``: the compute dtype, default the config's).  Returns (loss,
+    clip norm, the gradient leaves); ``single_blocks`` hands every rank
+    its blocks of them."""
     from repro_torch.models.layers import tree_leaves
     from repro_torch.optim import adamw
-    from repro_torch.sharding.fsdp import block
-    from repro_torch.steps import make_grad_step, train_plan
+    from repro_torch.steps import make_grad_step
 
-    if rs.mesh.rank != turn:
-        return None
-    params = FSDPState(seed).params(rs.cfg, rs.device)
-    grads, loss = make_grad_step(rs.cfg)(params, _batch(rs, tokens, labels))
+    cfg = _train_cfg(rs, dtype)
+    params = FSDPState(seed).params(cfg, rs.device)
+    grads, loss = make_grad_step(cfg)(params, _batch(rs, tokens, labels))
     del params
-    dims = tree_leaves(train_plan(rs.cfg, rs.mesh).dims)
-    rs.extra["single"] = [g if d is None else block(g, d, rs.mesh).clone()
-                          for g, d in zip(tree_leaves(grads), dims)]
-    out = float(loss), float(adamw.global_norm(grads))
+    return float(loss), float(adamw.global_norm(grads)), tree_leaves(grads)
+
+
+def single_blocks(rs, grads):
+    """``Session.run``: this rank's blocks on both axes of rank 0's
+    single-rank gradients ``grads`` (``fsdp_single``), kept in
+    ``extra["single"]``.  A follower receives them as CUDA IPC handles of
+    rank 0's tensors (``torch.multiprocessing``'s pickling, on a card
+    every rank can reach), so no gradient goes through the host and no
+    follower runs the whole model: a follower's first whole-model step
+    paid 13-14 s of one-time Triton launches (each kernel's first call in
+    a process), the ranks in turn."""
+    from repro_torch.sharding.fsdp import shard_leaf
+
+    rs.extra["single"] = [shard_leaf(g, d, sp, rs.mesh).to(rs.device)
+                          for g, d, sp in zip(grads, *_plan_leaves(rs))]
+
+
+def single_step(tr, seed, tokens, labels, dtype=None):
+    """Bar (a)'s single rank on a leg's trainer ``tr``: computed on rank 0
+    and each rank's blocks kept (``single_blocks``); returns (loss, clip
+    norm, seconds)."""
+    import torch
+
+    t0 = time.perf_counter()
+    loss, norm, grads = fsdp_single(tr.sess.local, seed, tokens, labels,
+                                    dtype)
+    tr.sess.run(single_blocks, grads)
     del grads
     gc.collect()
-    if rs.device.type == "cuda":
+    if tr.sess.local.device.type == "cuda":
         torch.cuda.empty_cache()
-    return out
+    return loss, norm, time.perf_counter() - t0
 
 
 def _gaps(rs, got, factor=1.0):
     """Per leaf ||got - factor x single|| / ||factor x single|| over the
     whole leaf: this rank's blocks ``got`` against its blocks of the
-    single rank's gradients, the squares summed over the ranks (a whole
-    leaf counted once), uncounted: a check's collective, not the
-    path's."""
+    single rank's gradients, the squares summed over the axes each part
+    of a leaf is split on (a part whole on an axis counted once),
+    uncounted: a check's collectives, not the path's."""
     import torch
 
-    from repro_torch.models.layers import tree_leaves
-    from repro_torch.steps import train_plan
+    from repro_torch.sharding.fsdp import model_parts
 
-    dims = tree_leaves(train_plan(rs.cfg, rs.mesh).dims)
-    sq = torch.zeros((2, len(got)), dtype=torch.float32, device=rs.device)
-    for i, (a, b, d) in enumerate(zip(got, rs.extra["single"], dims)):
-        if d is None and rs.mesh.coords["data"]:
-            continue
+    dims, tps = _plan_leaves(rs)
+    m = rs.mesh.shape["model"]
+    split = torch.zeros((2, len(got)), dtype=torch.float32, device=rs.device)
+    whole = torch.zeros_like(split)
+    for i, (a, b, sp) in enumerate(zip(got, rs.extra["single"], tps)):
         w = b.float() * factor
-        sq[0, i] = (a.float() - w).square().sum()
-        sq[1, i] = w.square().sum()
-    rs.mesh.all_reduce(sq)
-    return (sq[0] / sq[1].clamp_min(1e-30)).sqrt().tolist()
+        for k, t in enumerate((a.float() - w, w)):
+            ps, pw = model_parts(t, sp, m)
+            if ps is not None:
+                split[k, i] = ps.square().sum()
+            if pw is not None:
+                whole[k, i] = pw.square().sum()
+    rs.mesh.all_reduce(split, "model")
+    tot = split + whole
+    on = torch.tensor([d is not None for d in dims], device=rs.device)
+    part = torch.where(on, tot, 0.0).contiguous()
+    rs.mesh.all_reduce(part, "data")
+    tot = part + torch.where(on, 0.0, tot)
+    return (tot[0] / tot[1].clamp_min(1e-30)).sqrt().tolist()
 
 
-def fsdp_probe(rs, state, tokens, labels):
+def fsdp_probe(rs, state, tokens, labels, dtype=None):
     """``Session.run``: one sharded gradient step
-    (``steps.make_grad_step(cfg, mesh)``) on this rank's params, held to
-    the single rank's: (loss, clip norm as AdamW takes it, the leaves'
-    gaps)."""
+    (``steps.make_grad_step(cfg, mesh)``, ``dtype`` the compute dtype) on
+    this rank's params, held to the single rank's: (loss, clip norm as
+    AdamW takes it, the leaves' gaps)."""
     from repro_torch.models.layers import tree_leaves
     from repro_torch.optim import adamw
     from repro_torch.steps import make_grad_step
 
-    grad_step = make_grad_step(rs.cfg, rs.mesh)
+    grad_step = make_grad_step(_train_cfg(rs, dtype), rs.mesh)
     grads, loss = grad_step(state["params"], _batch(rs, tokens, labels))
     norm = adamw.global_norm(grads, grad_step.plan)
     return float(loss), float(norm), _gaps(rs, tree_leaves(grads))
@@ -5285,12 +5480,56 @@ def _fsdp_faults():
             "clip_norm_local": (adamw, "global_norm", clip_norm_local)}
 
 
+def _tp_train_faults():
+    from repro_torch.models import layers, ssm
+    from repro_torch.models.layers import tree_map
+    from repro_torch.optim import adamw
+    from repro_torch.sharding import fsdp
+
+    norm = adamw.global_norm
+
+    def enter_bwd_unsummed(grad, mesh):
+        layers.tp_enter.calls.add()
+        return grad
+
+    def gated_norm_dot_local(s, mesh):
+        layers.tp_norm_dot.calls.add()
+        return s
+
+    def bc_grad_unsummed(t):
+        return t
+
+    def bc_grad_twice(t):
+        return layers.tp_enter(layers.tp_enter(t))
+
+    def clip_norm_replicated_m_times(tree, plan=None):
+        if plan is None:
+            return norm(tree)
+        # every leaf's squares summed over model, whole parts too
+        return norm(tree, plan._replace(tp=tree_map(
+            lambda sp: fsdp.TPSplit(0), plan.tp)))
+
+    def fsdp_over_all_ranks(grad, dim, mesh):
+        fsdp.data_sum.calls.add()
+        return fsdp.block(mesh.all_reduce(grad.float().contiguous(), "all"),
+                          dim, mesh)
+
+    return {"enter_bwd_unsummed": (layers, "_enter_sum", enter_bwd_unsummed),
+            "gated_norm_dot_local": (layers, "_norm_dot_sum",
+                                     gated_norm_dot_local),
+            "bc_grad_unsummed": (ssm, "bc_shared", bc_grad_unsummed),
+            "bc_grad_twice": (ssm, "bc_shared", bc_grad_twice),
+            "clip_norm_replicated_m_times": (
+                adamw, "global_norm", clip_norm_replicated_m_times),
+            "fsdp_over_all_ranks": (fsdp, "sum_blocks", fsdp_over_all_ranks)}
+
+
 def fsdp_on(rs, name):
-    """``Session.run``: plant FSDP fault ``name`` (``FSDP_FAULTS``) on
-    this rank, or ``"deterministic"`` (``deterministic()``), until
-    ``fsdp_off``."""
+    """``Session.run``: plant FSDP fault ``name`` (``FSDP_FAULTS``) or TP
+    train fault ``name`` (``TP_TRAIN_FAULTS``) on this rank, or
+    ``"deterministic"`` (``deterministic()``), until ``fsdp_off``."""
     ctx = (deterministic() if name == "deterministic"
-           else swapped(_fsdp_faults()[name]))
+           else swapped({**_fsdp_faults(), **_tp_train_faults()}[name]))
     ctx.__enter__()
     rs.extra[name] = ctx
     return rs.mesh.rank
@@ -5514,11 +5753,10 @@ def fsdp_leg(mesh, arch, smi, device="cuda", seed=0):
 
         # (a)'s single rank, each rank's blocks of it kept
         t0 = time.perf_counter()
-        one = [r for turn in range(mesh.size) for r in tr.sess.run(
-            fsdp_single, seed, tokens, labels, turn) if r is not None][0]
-        log(f"{name}: the single rank's gradient step (each rank in turn "
-            f"keeps its blocks): loss {one[0]:.6f}, clip norm {one[1]:.6f} "
-            f"({time.perf_counter() - t0:.1f} s)")
+        one = single_step(tr, seed, tokens, labels)
+        log(f"{name}: the single rank's gradient step (on rank 0, each "
+            f"rank keeps its blocks): loss {one[0]:.6f}, clip norm "
+            f"{one[1]:.6f} ({one[2]:.1f} s)")
         # (d) the planted faults, each through a sharded gradient step
         if leg["faults"]:
             got = tr.sess.run(fsdp_probe, tr.state, tokens, labels)[0]
@@ -5598,10 +5836,11 @@ def fsdp_leg(mesh, arch, smi, device="cuda", seed=0):
 
 
 def start_mesh(spec, device="cuda"):
-    """A mesh of two ranks (``spec``: "1,2" for the TP section, "2,1" for
-    the FSDP section; gloo on one card, nccl on two) made on a thread:
-    the follower starts (its imports, the rendezvous) while the kernel
-    checks run.  ``take_mesh`` joins it."""
+    """A mesh (``spec``: "1,2" for the TP section, "2,1" for the FSDP
+    section, "2,2" for the TP train section; gloo on one card, nccl on a
+    card a rank) made on a thread: the followers start (their imports,
+    the rendezvous) while the kernel checks run.  ``take_mesh`` joins
+    it."""
     import threading
 
     import torch
@@ -5613,7 +5852,8 @@ def start_mesh(spec, device="cuda"):
     def make():
         try:
             if device == "cuda":
-                backend = ("gloo" if torch.cuda.device_count() == 1
+                data, model = (int(p) for p in spec.split(","))
+                backend = ("gloo" if torch.cuda.device_count() < data * model
                            else "nccl")
                 box["mesh"] = make_mesh_from_devices(spec, backend=backend)
             else:
@@ -5628,26 +5868,103 @@ def start_mesh(spec, device="cuda"):
     return box
 
 
+# the row widths (and the bf16 and f32 compute) whose RMSNorm kernels a
+# section's follower runs: qwen2.5-14b, mamba2-780m (its gated norm whole
+# and halved), minicpm3-4b (model, q and kv latents), internvl2-2b
+WARM_WIDTHS = (5120, 3072, 2560, 2048, 1536, 768, 256)
+
+
+def mesh_warm(rs):
+    """``Session.run``: on a follower on the card, the first calls of the
+    Triton RMSNorm entries (forward, backward, the given-statistic pair)
+    at ``WARM_WIDTHS`` and at 16, 2048 and 4096 rows, in bf16 and f32,
+    and of cuBLAS.  A Triton kernel's first call in a process costs
+    seconds (its launcher and cubin loaded), so a follower's first
+    whole-model train step took 13.3-14.4 s against rank 0's 0.09 (an
+    H100 80GB HBM3 at 700 W, its disk cache warm); warmed here, on a
+    thread while the serve phases run, a section does not wait for it.
+    Returns the seconds (0 on rank 0 or the CPU)."""
+    import torch
+
+    from repro_torch.kernels import rms_norm, rms_norm_rstd
+
+    if rs.mesh.rank == 0 or rs.device.type != "cuda":
+        return 0.0
+    t0 = time.perf_counter()
+    with torch.enable_grad():
+        for dt in (torch.bfloat16, torch.float32):
+            a = torch.ones(64, 64, device=rs.device, dtype=dt)
+            a @ a
+            for d in WARM_WIDTHS:
+                for rows in (16, 2048, 4096):
+                    x = torch.randn(rows, d, device=rs.device, dtype=dt,
+                                    requires_grad=True)
+                    w = torch.ones(d, device=rs.device, dtype=dt,
+                                   requires_grad=True)
+                    rms_norm(x, w).sum().backward()
+                    r = torch.ones(rows, device=rs.device)
+                    rms_norm_rstd(x, w, r, width=2 * d,
+                                  reduce=lambda s: s).sum().backward()
+    torch.cuda.synchronize(rs.device)
+    return time.perf_counter() - t0
+
+
+def warm_mesh(started):
+    """On a thread: once the mesh ``start_mesh`` started is up, every
+    follower's ``mesh_warm`` in a session of its own; ``take_mesh`` waits
+    for it (its error raised there)."""
+    import threading
+
+    from repro_torch.serve.tp import Session
+
+    def run():
+        started["thread"].join()
+        if "error" in started:
+            return
+        t0 = time.perf_counter()
+        try:
+            mesh = started["mesh"]
+            sess = Session(mesh, None, mesh.device_type)
+            try:
+                started["warm_s"] = (max(sess.run(mesh_warm)),
+                                     time.perf_counter() - t0)
+            finally:
+                sess.close()
+        except BaseException as e:      # noqa: BLE001 — raised by the join
+            started["error"] = e
+    started["warm"] = threading.Thread(target=run, daemon=True,
+                                       name="mesh-warm")
+    started["warm"].start()
+
+
 def take_mesh(started, what):
-    """The mesh ``start_mesh`` started, once up (its error raised)."""
+    """The mesh ``start_mesh`` started, once up and, where ``warm_mesh``
+    ran, its followers warmed (its error raised)."""
     t0 = time.perf_counter()
     started["thread"].join()
+    if "warm" in started:
+        started["warm"].join()
     if "error" in started:
         raise started["error"]
     mesh = started["mesh"]
+    warm = ("" if "warm_s" not in started else
+            "; its followers' kernels warmed in {:.1f} s ({:.1f} s with the "
+            "session)".format(*started["warm_s"]))
     log(f"{what}: {mesh.describe()} (started in {started['s']:.1f} s, "
-        f"waited {time.perf_counter() - t0:.1f} s for it)")
+        f"waited {time.perf_counter() - t0:.1f} s for it{warm})")
     return mesh
 
 
-def fsdp_section(smi, device="cuda", started=None):
+def fsdp_section(smi, device="cuda", started=None, close=True):
     """The FSDP section: the mesh ``start_mesh("2,1")`` started (or one
-    made now), the legs of ``FSDP_LEGS`` in turn, the mesh closed; returns
-    the main paths' launches, every rank's summed.  Bars, each raising and
-    printing its margin: (a) the first sharded train step against the
-    single-rank gradient step on the same batch and state: loss, grad
-    norm, and every leaf of m (then ``(1 - b1)`` times the clipped
-    gradient) against the single rank's gradient, within ``TRAIN_TOL``:
+    made now), the legs of ``FSDP_LEGS`` in turn, the mesh closed (left
+    open for the TP train section's restore when ``close`` is False);
+    returns the main paths' launches, every rank's summed.  Bars, each
+    raising and printing its margin: (a) the first sharded train step
+    against the single-rank gradient step on the same batch and state:
+    loss, grad norm, and every leaf of m (then ``(1 - b1)`` times the
+    clipped gradient) against the single rank's gradient, within
+    ``TRAIN_TOL``:
     each rank's bf16 products over its half of the rows, summed in f32,
     against one bf16 product over all of them, rounded at other places
     as accum 2 x 4 against 1 x 8 is in ``train_phase``; (b) each rank's
@@ -5671,9 +5988,438 @@ def fsdp_section(smi, device="cuda", started=None):
             gc.collect()
             if device == "cuda":
                 torch.cuda.empty_cache()
-    finally:
+    except BaseException:
+        mesh.close()
+        raise
+    if close:
         mesh.close()
     log(f"fsdp section: {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+# ------------------------------------------------------------- tp train
+# The tensor-parallel train section (``tp_train_section``; ``--phases
+# tp_train``): a 2,2 mesh (rank = data x 2 + model), this process and
+# three followers, all on the one card over gloo (four cards: nccl), so
+# it shows the layout and its numbers, not a throughput.  Each leg at full
+# width through ``launch.train.MeshTrain`` with the FSDP section's seeded
+# f32 masters, bf16 compute, remat "full", f32 AdamW and its batch
+# (``FSDP_BATCH``: each data rank 2 of the 4 rows, the two ranks of a
+# model group the same 2), on the MoE-free path.  qwen2.5-14b at 1 layer,
+# 1 step, no faults: its data axis also holds the FSDP bars (a), (b) and
+# (e) that the FSDP section's qwen2.5-14b leg held on 2,1.  Its logits
+# are 2 x 1024 rows x 76032 vocab columns a rank, 0.31 GB in bf16,
+# gathered over the model group to 0.62 GB through the host.
+# mamba2-780m at 2 layers, 2 steps, the planted faults (d) and the
+# checkpoint (f).
+TP_TRAIN_LEGS = {
+    "qwen2.5-14b": dict(layers=1, steps=1, faults=False, ckpt=False),
+    "mamba2-780m": dict(layers=2, steps=2, faults=True, ckpt=True),
+}
+# (d), each on every rank, each must fail bar (a): the enter op's backward
+# not all-reducing; the gated norm's row term s_loc not all-reduced; the
+# SSD's B/C weight gradient not summed over model, or summed twice; the
+# clip norm counting the parts whole on every model rank M times; FSDP's
+# gradient sum over the whole mesh's group in place of the data group
+TP_TRAIN_FAULTS = ("enter_bwd_unsummed", "gated_norm_dot_local",
+                   "bc_grad_unsummed", "bc_grad_twice",
+                   "clip_norm_replicated_m_times", "fsdp_over_all_ranks")
+# (a) and (d) on the faults' leg are also held in f32 compute, by this
+# tighter bound: in bf16 a gradient's rounding differs by up to a few
+# 1e-2 of a leaf between the sharded and the single step (``TRAIN_TOL``),
+# while a wrong row term of the gated norm moves its input's gradient by
+# about 1 / sqrt(2 x d_inner) = 1.3e-2 of its norm at mamba2's d_inner
+# 3072 when the output gradient does not lean along the output, and the
+# clip norm counting the whole parts twice moves it by about 6 % at 2
+# layers (1.2e-4 at the rehearsal's tiny shape); in f32 the sharded and
+# single steps differ only by the order of f32 sums (2.6e-7 in the norm,
+# 1.1e-6 at worst in a leaf, in the rehearsal)
+TRAIN_TOL_F32 = dict(loss=1e-5, grad_norm=1e-5, leaf=1e-4)
+
+
+def tp_train_same(rs, state):
+    """``Session.run``, bar (c): every part of this rank's params, m and v
+    that is whole on every model rank (a leaf the rules leave whole on
+    ``model``, the SSD mixer's B and C columns), gathered over the model
+    group (uncounted: a check's collective) and held bit for bit against
+    this rank's.  Returns (parts checked, their bytes, names that
+    differ)."""
+    import torch
+
+    from repro_torch.models.layers import tree_leaves
+    from repro_torch.sharding.fsdp import model_parts
+    from repro_torch.steps import train_plan
+
+    plan = train_plan(rs.cfg, rs.mesh)
+    m = rs.mesh.shape["model"]
+    n = nbytes = 0
+    bad = []
+    for name, t, sp in zip(leaf_names(state), tree_leaves(state),
+                           tree_leaves(plan.state_tp())):
+        _, part = model_parts(t, sp, m)
+        if part is None:
+            continue
+        n += 1
+        nbytes += part.numel() * part.element_size()
+        parts = rs.mesh.all_gather(part.contiguous(), "model")
+        if not all(torch.equal(p, parts[0]) for p in parts[1:]):
+            bad.append(name)
+    return n, nbytes, bad
+
+
+def tp_train_collectives(cfg, plan, n, accum):
+    """Bar (e)'s collectives of ``n`` steps on one rank by formula, each
+    group's apart.  Model group, per microbatch: the forward all-reduces
+    (the vocab-parallel embedding once; per layer its mixer's output, the
+    gated norm's statistic in an SSD layer, a dense MLP's output; under
+    remat "full" each repeat's again but its last: the recompute stops
+    once it has remade every tensor the backward saved, before the
+    repeat's closing all-reduce), one all-gather of the
+    logits, the backward all-reduces of the enter op (per GQA layer its
+    ``xn``, per MLA layer its q latent, ``ckv`` and ``k_rope``, per SSD
+    layer its ``xn`` and the B/C columns of ``wxBC``, ``conv_w`` and
+    ``conv_b``, per dense MLP its input, the LM head's input once) and of
+    the gated norm's row term (per SSD layer); per step the clip norm's
+    one.  Data group: FSDP's gathers and sums (``fsdp_leg``'s formula).
+    Returns (want, the formula as text)."""
+    from repro_torch.models.layers import tree_leaves
+
+    full = cfg.remat == "full"
+    remat = 2 if full else 1
+    fwd = enter = dot = 0
+    for spec in cfg.pattern:
+        ssm = spec.kind == "ssm"
+        mla = spec.kind == "attn" and spec.attn == "mla"
+        dense = spec.mlp == "dense"
+        fwd += 1 + ssm + dense
+        enter += (4 if ssm else 3 if mla else 1) + dense
+        dot += ssm
+    r = cfg.n_repeats
+    again = r * (fwd - 1) if full else 0
+    want = {"tp_all_reduce": n * accum * (1 + r * fwd + again),
+            "tp_all_gather": n * accum,
+            "tp_enter": n * accum * (1 + r * enter),
+            "tp_norm_dot": n * accum * r * dot, "tp_sum": n}
+    split = [d is not None for d in tree_leaves(plan.dims)]
+    names = leaf_names(plan.dims)
+    in_blocks = r * sum(s for s, p in zip(split, names)
+                        if p.startswith("/blocks"))
+    outside = sum(split) - in_blocks // r
+    want["fsdp_gather"] = n * accum * (remat * in_blocks + outside)
+    want["fsdp_sum"] = n * (accum * (in_blocks + outside) + 4) \
+        if plan.mesh.shape["data"] > 1 else 0
+    text = (f"model group: {want['tp_all_reduce'] // n} all-reduces "
+            f"({accum} x (1 + {r} x {fwd} + {again} in the recompute)), "
+            f"{want['tp_all_gather'] // n} all-gather, "
+            f"{want['tp_enter'] // n} enter all-reduces ({accum} x (1 + {r}"
+            f" x {enter})), {want['tp_norm_dot'] // n} row-term all-reduces,"
+            f" 1 clip-norm sum; data group: {want['fsdp_gather'] // n} "
+            f"gathers ({accum} x ({remat} x {in_blocks} + {outside})), "
+            f"{want['fsdp_sum'] // n} sums")
+    return want, text
+
+
+def tp_train_bytes(cfg, plan, template):
+    """Bar (b)'s bytes of each leaf of a rank's train state by rule:
+    {path: (bytes, class)}; classes "both" (1/(D M)), "data" (1/D),
+    "model" (1/M), "tp_local" (the SSD's x channels 1/M, B and C whole)
+    and "whole"."""
+    from repro_torch.models.layers import tree_leaves
+
+    d_n, m_n = plan.mesh.shape["data"], plan.mesh.shape["model"]
+    out = {}
+    for path, t, d, sp in zip(leaf_names(template), tree_leaves(template),
+                              tree_leaves(plan.state_dims()),
+                              tree_leaves(plan.state_tp())):
+        b = t.numel() * t.element_size()
+        if d is not None:
+            b //= d_n
+        if sp is None:
+            kind = "data" if d is not None else "whole"
+        else:
+            full = t.shape[sp.dim]
+            loc = (full // m_n if sp.width is None
+                   else sp.width // m_n + full - sp.width)
+            b = b * loc // full
+            kind = ("tp_local" if sp.width is not None else
+                    "both" if d is not None else "model")
+        out[path] = (b, kind)
+    return out
+
+
+def tp_train_checkpoint(tr, cfg, hp, n, name, device, mesh21, seed):
+    """Bar (f) on a leg's trainer after ``n`` steps: a save on the 2,2
+    mesh (rank 0's UMT writes, each leaf assembled over both axes), then
+    restored onto one device and onto the 2,1 mesh ``mesh21``, each equal
+    to the saved state byte for byte.  Closes ``tr``."""
+    import shutil
+
+    import numpy as np
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.checkpoint.manager import _host_bytes
+    from repro_torch.core import UMTRuntime
+    from repro_torch.launch.train import MeshTrain
+    from repro_torch.models.layers import tree_leaves
+
+    def differ(got, want):
+        return [i for i, (a, b) in enumerate(zip(got, want))
+                if a[1:] != b[1:] or not np.array_equal(a[0], b[0])]
+
+    ckpt = ROOT / "build" / "tp_train_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    try:
+        with UMTRuntime(n_cores=2, umt=True) as rt:
+            mgr = CheckpointManager(str(ckpt), rt=rt, keep=1)
+            t0 = time.perf_counter()
+            hosts = tr._snapshot(tr.state)
+            t_snap = time.perf_counter() - t0
+            mgr.save(tr.state, n, hosts=hosts, wait=True)
+        tr.close()
+        t0 = time.perf_counter()
+        one, step = mgr.restore(state_meta(cfg), device=device)
+        t_one = time.perf_counter() - t0
+        bad_one = differ([_host_bytes(t) for t in tree_leaves(one)], hosts)
+        del one
+        t0 = time.perf_counter()
+        tr21 = MeshTrain(cfg, hp, mesh21, device, FSDPState(seed))
+        try:
+            tr21.state, step21 = tr21.restore(str(ckpt), tr21.state)
+            bad_21 = differ(tr21._snapshot(tr21.state), hosts)
+        finally:
+            tr21.close()
+        t_21 = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    log(f"{name}: (f) saved on the 2,2 mesh at step {n} (the whole state "
+        f"assembled on rank 0 in {t_snap:.2f} s, {len(hosts)} leaves); "
+        f"restored onto one device in {t_one:.2f} s: {len(bad_one)} leaves "
+        f"differ; onto a 2,1 mesh (restore and its snapshot) in "
+        f"{t_21:.2f} s: {len(bad_21)} leaves differ (byte for byte)")
+    if step != n or step21 != n or bad_one or bad_21:
+        raise AssertionError(f"{name}: (f) the restores are not the saved "
+                             f"state: steps {step} / {step21}, leaves "
+                             f"{bad_one} / {bad_21}")
+
+
+def tp_train_leg(mesh, arch, smi, device="cuda", seed=0, mesh21=None):
+    """One tensor-parallel train leg (``TP_TRAIN_LEGS[arch]``; the bars in
+    ``tp_train_section``); returns the main path's launches, every rank's
+    summed.  ``device="cpu"``: a rehearsal at the tiny config."""
+    import collections
+
+    import torch
+
+    from repro_torch.configs import get
+    from repro_torch.launch.train import MeshTrain
+    from repro_torch.models.layers import tree_leaves
+    from repro_torch.optim import OptHParams
+    from repro_torch.serve.tp import counters, tree_bytes
+    from repro_torch.steps import train_plan
+
+    t_leg = time.perf_counter()
+    leg = TP_TRAIN_LEGS[arch]
+    micro, seq, accum = (FSDP_BATCH[k] for k in ("micro", "seq", "accum"))
+    card = device == "cuda"
+    cfg = get(arch)
+    if card:
+        cfg = cfg.replace(n_layers=leg["layers"])
+    else:                               # the rehearsal's tiny shapes
+        cfg, seq = cfg.tiny(remat="full"), 16
+    assert cfg.remat == "full"
+    n, name = leg["steps"], f"tp_train {arch}"
+    hp = OptHParams(**FSDP_HP)
+    plan = train_plan(cfg, mesh)
+    names = leaf_names(plan.dims)
+    template = state_meta(cfg)
+    n_params = sum(t.numel() for t in tree_leaves(template["params"]))
+    g = torch.Generator(device).manual_seed(seed + 1)
+    tokens = torch.randint(0, cfg.vocab, (accum, micro, seq), generator=g,
+                           device=device, dtype=torch.int32).cpu()
+    labels = tokens.clone()
+    labels[0, 0, :seq // 2] = -1     # data rank 0's rows: fewer labels
+    batch = {"tokens": tokens, "labels": labels}
+    data, model = mesh.shape["data"], mesh.shape["model"]
+    log(f"{name} ({smi}): {cfg.n_layers} of {get(arch).n_layers} layers, "
+        f"d {cfg.d_model}, {n_params / 1e6:.1f} M params ({cfg.param_dtype}"
+        f" masters, {cfg.dtype} compute, {cfg.opt_dtype} AdamW, remat "
+        f"{cfg.remat}); microbatches {micro} x {seq} (each data rank "
+        f"{micro // data} rows), accum {accum}; {mesh.describe()}")
+    tr = MeshTrain(cfg, hp, mesh, device, FSDPState(seed))
+    try:
+        tr.sess.run(tp_peak, True)
+        # (b) each rank's params, m and v by rule
+        want_b = tp_train_bytes(cfg, plan, template)
+        per_rank = tr.sess.run(tree_bytes, tr.state)
+        for rank, held in enumerate(per_rank):
+            bad = {p: (held[p][0], b) for p, (b, _) in want_b.items()
+                   if held[p][0] != b}
+            if bad:
+                raise AssertionError(f"{name}: (b) rank {rank} holds / "
+                                     f"should hold {bad}")
+        kinds = collections.Counter(k for _, k in want_b.values())
+        held = [sum(b for p, (b, _) in h.items() if p != "/step")
+                for h in per_rank]
+        whole_b = sum(t.numel() * t.element_size()
+                      for t in tree_leaves(template))
+        log(f"{name}: (b) params, m and v per rank "
+            f"{[round(h / 1e9, 3) for h in held]} GB of "
+            f"{whole_b / 1e9:.3f}, every leaf by rule: {kinds['both']} "
+            f"split on both axes (1/{data * model}), {kinds['data']} on data "
+            f"(1/{data}), {kinds['model']} on model (1/{model}), "
+            f"{kinds['tp_local']} the SSD's TP_LOCAL (x channels 1/{model}, "
+            "B and C whole), whole on every rank: " + ", ".join(
+                p for p, (_, k) in want_b.items()
+                if k == "whole" and p.startswith("/params")))
+        if leg["faults"]:
+            # (a) in f32 compute, and (d): each planted fault through a
+            # sharded gradient step must fail it
+            t0 = time.perf_counter()
+            one = single_step(tr, seed, tokens, labels, "float32")
+            got = tr.sess.run(fsdp_probe, tr.state, tokens, labels,
+                              "float32")[0]
+            if not fsdp_verdict(name, "(a) a sharded gradient step in f32 "
+                                "compute", got, one, names, TRAIN_TOL_F32):
+                raise AssertionError(f"{name}: (a) the sharded f32 gradient "
+                                     "step disagrees with the single rank's")
+            for fault in TP_TRAIN_FAULTS:
+                tr.sess.run(fsdp_on, fault)
+                got = tr.sess.run(fsdp_probe, tr.state, tokens, labels,
+                                  "float32")[0]
+                tr.sess.run(fsdp_off, fault)
+                if fsdp_verdict(name, f"(d) planted: {fault}", got, one,
+                                names, TRAIN_TOL_F32):
+                    raise AssertionError(f"{name}: (a) does not reject the "
+                                         f"planted fault {fault}")
+            log(f"{name}: (d) in f32 compute {time.perf_counter() - t0:.1f}"
+                " s")
+        # (a)'s single rank, each rank's blocks of it kept
+        one = single_step(tr, seed, tokens, labels)
+        log(f"{name}: the single rank's gradient step (on rank 0, each "
+            f"rank keeps its blocks): loss {one[0]:.6f}, clip norm "
+            f"{one[1]:.6f} ({one[2]:.1f} s)")
+
+        # the main path: ``n`` train steps on every rank, counted; (a) on
+        # its first step, (c) after each
+        tr.sess.run(counters, True)
+        losses, times, same = [], [], []
+        for step in range(n):
+            t0 = time.perf_counter()
+            tr.state, m = tr.step(tr.state, batch)
+            losses.append(float(m["loss"]))
+            times.append(time.perf_counter() - t0)
+            if step == 0:
+                norm0 = float(m["grad_norm"])
+                scale = min(1.0, hp.clip_norm / (one[1] + 1e-9))
+                gaps = tr.sess.run(fsdp_moments, tr.state,
+                                   (1 - hp.b1) * scale)[0]
+            same.append(tr.sess.run(tp_train_same, tr.state))
+        per_rank = tr.sess.run(counters)
+        if not fsdp_verdict(name, "(a) the first train step (its m is (1 - "
+                            "b1) x the clipped gradient)",
+                            (losses[0], norm0, gaps), one, names):
+            raise AssertionError(f"{name}: (a) the sharded train step "
+                                 "disagrees with the single rank's")
+        bad = [(k, r, s[2]) for k, ranks in enumerate(same)
+               for r, s in enumerate(ranks) if s[2]]
+        log(f"{name}: (c) after each step, on every rank, {same[0][0][0]} "
+            f"parts of params, m and v whole on every model rank "
+            f"({same[0][0][1] / 1e6:.1f} MB) equal to the model group's "
+            f"bit for bit: {'no' if not bad else len(bad)} differences")
+        if bad:
+            raise AssertionError(f"{name}: (c) replicated parts differ "
+                                 f"across the model group: {bad[:4]}")
+        # (e) collectives a step on each group, the kernels' identities
+        want, text = tp_train_collectives(cfg, plan, n, accum)
+        ids, id_text = train_identities(cfg, per_rank[0], n * accum,
+                                        tp=model > 1)
+        for rank, c in enumerate(per_rank):
+            bad = {k: (c[k], w) for k, w in want.items() if c[k] != w}
+            if card:
+                bad.update({k: (c[k], w) for k, w in ids.items()
+                            if c[k] != w})
+            if bad:
+                raise AssertionError(f"{name}: (e) rank {rank}: got / want "
+                                     f"{bad}")
+        c0 = per_rank[0]
+        model_b = sum(c0[f"{k}_bytes"] for k in (
+            "tp_all_reduce", "tp_all_gather", "tp_enter", "tp_norm_dot",
+            "tp_sum")) / n / 1e9
+        data_b = (c0["fsdp_gather_bytes"] + c0["fsdp_sum_bytes"]) / n / 1e9
+        log(f"{name}: (e) per rank and step {text}; bytes a step on rank 0: "
+            f"model group {model_b:.3f} GB (the logits' gather "
+            f"{c0['tp_all_gather_bytes'] / n / 1e9:.3f}), data group "
+            f"{data_b:.3f} GB ({c0['fsdp_gather_bytes'] / n / 1e9:.3f} "
+            f"gathered, {c0['fsdp_sum_bytes'] / n / 1e9:.3f} summed); "
+            f"launches on each rank: {id_text}")
+        log(f"{name}: losses {' '.join(f'{x:.4f}' for x in losses)}; "
+            f"s/step {' '.join(f'{t:.3f}' for t in times)}"
+            + (" (four ranks sharing one device over gloo: not a "
+               "throughput)" if mesh.backend == "gloo" else ""))
+        peaks = tr.sess.run(tp_peak)
+        if leg["ckpt"]:
+            tp_train_checkpoint(tr, cfg, hp, n, name, device, mesh21, seed)
+    finally:
+        tr.close()
+    total = collections.Counter()
+    for c in per_rank:
+        total.update({k: v for k, v in c.items()
+                      if not k.startswith(("tp", "fsdp"))})
+    log(f"{name}: peak device memory per rank "
+        f"{[round(p / 1e9, 2) for p in peaks]} GB; leg "
+        f"{time.perf_counter() - t_leg:.1f} s")
+    return dict(total)
+
+
+def tp_train_section(smi, device="cuda", started=None, mesh21=None):
+    """The tensor-parallel train section: the mesh ``start_mesh("2,2")``
+    started (or one made now), the legs of ``TP_TRAIN_LEGS`` in turn, the
+    mesh closed (and ``mesh21``, the 2,1 mesh the checkpoint restores
+    onto: the FSDP section's, or one made now); returns the main paths'
+    launches, every rank's summed.  Bars, each raising and printing its
+    margin: (a) the first train step against the single-rank gradient
+    step on the same batch and state: loss, grad norm and every leaf of m
+    within ``TRAIN_TOL`` (the FSDP section's (a)), and on the faults' leg
+    a sharded gradient step in f32 compute within ``TRAIN_TOL_F32``; (b)
+    each rank's params, m and v bytes by rule (``tp_train_bytes``), the
+    whole leaves listed; (c) after every step, every part whole on every
+    model rank equal across the model group bit for bit
+    (``tp_train_same``); (d) on the faults' leg each planted fault of
+    ``TP_TRAIN_FAULTS`` fails (a) in f32; (e) the collectives a step on
+    each group by formula (``tp_train_collectives``) and the launch
+    identities of RMSNorm (forward, backward and the given-statistic
+    backward's two entries) and of the SSD scan forward and backward on
+    all four ranks; (f) on the checkpoint's leg a save on 2,2 restored
+    onto one device and onto 2,1, byte for byte.  Each leg prints s/step
+    and the bytes a step on each group.  ``device="cpu"``: a rehearsal at
+    the tiny configs."""
+    import torch
+
+    t0 = time.perf_counter()
+    mesh = take_mesh(started or start_mesh("2,2", device), "tp_train")
+    own = mesh21 is None
+    launches = {}
+    # a CPU rehearsal's rank 0 computes on one thread, as its followers
+    # do: bar (c) is the bit-equality of one computation in one order
+    threads = torch.get_num_threads()
+    if device == "cpu":
+        torch.set_num_threads(1)
+    try:
+        if own:
+            mesh21 = take_mesh(start_mesh("2,1", device), "tp_train restore")
+        for arch in TP_TRAIN_LEGS:
+            for k, n in tp_train_leg(mesh, arch, smi, device,
+                                     mesh21=mesh21).items():
+                launches[k] = launches.get(k, 0) + n
+            gc.collect()
+            if device == "cuda":
+                torch.cuda.empty_cache()
+    finally:
+        torch.set_num_threads(threads)
+        mesh.close()
+        if mesh21 is not None:
+            mesh21.close()
+    log(f"tp_train section: {time.perf_counter() - t0:.1f} s")
     return launches
 
 
@@ -5784,7 +6530,7 @@ def check_cli(smi, arch="qwen2.5-14b", seed=1, prompt_len=1000):
 
 
 # the sections on a mesh of two ranks, by their mesh spec ("DATA,MODEL")
-SECTIONS = {"tp": "1,2", "fsdp": "2,1"}
+SECTIONS = {"tp": "1,2", "fsdp": "2,1", "tp_train": "2,2"}
 
 
 def build_all():
@@ -5837,7 +6583,8 @@ def main(argv=None):
     ap.add_argument("--phases", default=",".join((*PHASES, *SECTIONS)),
                     help="comma-separated phases to run (default: all, in "
                          "order; \"tp\" is the tensor-parallel section, "
-                         "\"fsdp\" the sharded train state's)")
+                         "\"fsdp\" the sharded train state's, \"tp_train\" "
+                         "tensor parallelism in training)")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
     if not set(phases) <= {*PHASES, *SECTIONS}:
@@ -5864,18 +6611,26 @@ def main(argv=None):
     meshes = {name: start_mesh(spec) for name, spec in SECTIONS.items()
               if name in phases}
     rows = [*timed(check_paged_decode), timed(check_rms_norm),
-            timed(check_rms_norm_bwd), timed(check_paged_mla),
-            timed(check_ssd), timed(check_ssd_bwd), *timed(check_flash),
-            *timed(check_tp_kernels)]
+            timed(check_rms_norm_bwd), timed(check_rms_norm_rstd_bwd),
+            timed(check_paged_mla), timed(check_ssd), timed(check_ssd_bwd),
+            *timed(check_flash), *timed(check_tp_kernels)]
     log(f"clocks after the kernel timings (sm, power, temp): {clocks()}")
+    for started in meshes.values():     # after the timings: no contention
+        warm_mesh(started)
     from repro_torch.configs import get
 
     launches = {}
     for name in phases:
         if name in SECTIONS:        # every rank's launches, summed
-            got = (timed(tp_section, smi, layers=args.layers or None,
-                         started=meshes[name]) if name == "tp" else
-                   timed(fsdp_section, smi, started=meshes[name]))
+            if name == "tp":
+                got = timed(tp_section, smi, layers=args.layers or None,
+                            started=meshes[name])
+            elif name == "fsdp":    # its mesh is tp_train's 2,1, if it runs
+                got = timed(fsdp_section, smi, started=meshes[name],
+                            close="tp_train" not in phases)
+            else:
+                got = timed(tp_train_section, smi, started=meshes[name],
+                            mesh21=meshes.get("fsdp", {}).get("mesh"))
             for k, n in got.items():
                 launches[k] = launches.get(k, 0) + n
             continue

@@ -30,15 +30,15 @@ On load, leaves are placed on ``device`` (default: each template leaf's
 own device).
 
 Mesh-portable, as the reference's checkpoints are: leaves are stored
-whole whatever the mesh.  On a data mesh (FSDP, ``sharding.fsdp``) the
-save's snapshot (:func:`snapshot`) assembles each split leaf on rank 0's
-host from every rank's block, the other ranks taking part only in the
-gathers, and rank 0 writes the files; a restore onto a mesh
-(``load_checkpoint(..., mesh=)``, the counterpart of the reference's
-``shardings=``) has every rank read the files itself and keep its block
-of each leaf whose template is a ``1/data`` block of it.  So a
-checkpoint saved on one mesh loads on another, on one device and in the
-reference.
+whole whatever the mesh.  On a mesh (``sharding.fsdp``) the save's
+snapshot (:func:`snapshot`) assembles each split leaf on rank 0's host
+from every rank's block, gathered over ``data`` and then over ``model``,
+the other ranks taking part only in the gathers, and rank 0 writes the
+files; a restore onto a mesh (``load_checkpoint(..., mesh=)``, the
+counterpart of the reference's ``shardings=``) has every rank read the
+files itself and keep its block of each leaf by the layout it is given
+(``dims`` and ``tp``, the train step's ``Plan``).  So a checkpoint saved
+on one mesh loads on another, on one device and in the reference.
 """
 from __future__ import annotations
 
@@ -55,7 +55,7 @@ import torch
 
 from ..core import UMTRuntime, io
 from ..models.layers import tree_leaves
-from ..sharding.fsdp import block, whole_on_host
+from ..sharding.fsdp import shard_leaf, whole_on_host
 
 # a restore reads and checks leaves on this many threads (``readinto`` and
 # ``zlib.crc32`` release the GIL), holding at most READ_BYTES of leaves
@@ -98,17 +98,20 @@ def _host_bytes(leaf, copy=True):
     return raw, list(host.shape), str(host.dtype).replace("torch.", "")
 
 
-def snapshot(state, mesh=None, dims=None):
+def snapshot(state, mesh=None, dims=None, tp=None):
     """Every leaf of ``state`` copied to the host now, in ``tree_leaves``
-    order, as ``save_checkpoint`` writes it.  On a data mesh, ``dims`` (a
-    tree like ``state``: the dim each leaf is split along over ``data``,
-    or None) says which leaves are blocks: each is assembled whole on rank
-    0 (``sharding.fsdp.whole_on_host``).  Every rank of the mesh calls it,
+    order, as ``save_checkpoint`` writes it.  On a mesh, ``dims`` and
+    ``tp`` (trees like ``state``: the dim each leaf is split along over
+    ``data``, its ``sharding.fsdp.TPSplit`` over ``model``; None where
+    whole) say which leaves are blocks: each is assembled whole on rank 0
+    (``sharding.fsdp.whole_on_host``).  Every rank of the mesh calls it,
     in the same order; rank 0 gets the snapshot, the others None."""
     if mesh is None:
         return [_host_bytes(leaf) for leaf in tree_leaves(state)]
-    hosts = [whole_on_host(leaf, d, mesh) for leaf, d in
-             zip(tree_leaves(state), tree_leaves(dims))]
+    leaves = tree_leaves(state)
+    tps = [None] * len(leaves) if tp is None else tree_leaves(tp)
+    hosts = [whole_on_host(leaf, d, mesh, sp) for leaf, d, sp in
+             zip(leaves, tree_leaves(dims), tps)]
     return None if mesh.rank else [_host_bytes(h, copy=False)
                                    for h in hosts]
 
@@ -221,33 +224,29 @@ def _read_leaf(path, entry):
     return torch.frombuffer(payload, dtype=dtype).reshape(entry["shape"])
 
 
-def _fit(t, shape, mesh, name):
-    """The stored leaf ``t`` cut to its template's ``shape``: itself where
-    they match; on a data mesh, this rank's block where the template is a
-    ``1/data`` block of it along one dim."""
-    if tuple(t.shape) == shape:
-        return t
-    dims = [d for d, (a, b) in enumerate(zip(t.shape, shape)) if a != b]
-    n = 1 if mesh is None else mesh.shape["data"]
-    if (n == 1 or len(t.shape) != len(shape) or len(dims) != 1
-            or t.shape[dims[0]] != shape[dims[0]] * n):
+def _fit(t, shape, mesh, name, cut=None):
+    """The stored leaf ``t`` cut to its template's ``shape``: this rank's
+    block by ``cut`` (its data dim and model split on ``mesh``) where
+    given, else itself."""
+    if cut is not None:
+        t = shard_leaf(t, *cut, mesh)
+    if tuple(t.shape) != shape:
         raise ValueError(f"{name}: shape {tuple(t.shape)} != the "
-                         f"template's {shape}" + (
-                             f" nor a 1/{n} block of it" if n > 1 else ""))
-    return block(t, dims[0], mesh).clone(
-        memory_format=torch.contiguous_format)
+                         f"template's {shape}")
+    return t
 
 
 def load_checkpoint(dirpath: str, template, step: int | None = None,
-                    device=None, mesh=None, in_place=False):
+                    device=None, mesh=None, in_place=False, dims=None,
+                    tp=None):
     """Load latest (or given) committed step into `template`'s structure.
 
     Each leaf must match its template leaf's shape; it is placed on
     ``device``, or on the template leaf's own device when None (a
-    template on the ``meta`` device costs no memory).  ``mesh`` (a data
-    mesh; this rank reads the files itself): a template leaf that is a
-    ``1/data`` block of the stored one along one dim gets this rank's
-    block of it (``mesh.coords["data"]``), the others the whole leaf.
+    template on the ``meta`` device costs no memory).  ``mesh`` (this
+    rank reads the files itself) with ``dims`` and ``tp`` (trees like the
+    template, as :func:`snapshot` takes them): each leaf is cut to this
+    rank's block by them.
     ``in_place``: each leaf is copied into its template leaf, which is
     returned.  Leaves are read and checked ahead on ``READ_THREADS``
     threads, at most ``READ_BYTES`` of them (or one larger leaf) held on
@@ -261,6 +260,8 @@ def load_checkpoint(dirpath: str, template, step: int | None = None,
         manifest = json.load(f)
     leaves_t = tree_leaves(template)
     assert len(leaves_t) == len(manifest["leaves"]), "tree mismatch"
+    cuts = ([None] * len(leaves_t) if mesh is None
+            else list(zip(tree_leaves(dims), tree_leaves(tp))))
     files = [os.path.join(path, e["name"]) for e in manifest["leaves"]]
     sizes = [os.path.getsize(f) for f in files]
     out, pending, held, nxt = [], collections.deque(), 0, 0
@@ -274,7 +275,7 @@ def load_checkpoint(dirpath: str, template, step: int | None = None,
                 held += sizes[nxt]
                 nxt += 1
             t = _fit(pending.popleft().result(), tuple(np.shape(tleaf)),
-                     mesh, entry["name"])
+                     mesh, entry["name"], cuts[i])
             if in_place:
                 out.append(tleaf.copy_(t))
             else:
@@ -302,7 +303,7 @@ class CheckpointManager:
         self.preempted.set()
 
     def save(self, state, step: int, wait: bool = False, hosts=None):
-        """``hosts``: the leaves' snapshot, taken already (on a data mesh,
+        """``hosts``: the leaves' snapshot, taken already (on a mesh,
         rank 0's from :func:`snapshot`)."""
         w = save_checkpoint(state, step, self.dir, rt=self.rt, wait=wait,
                             hosts=hosts)
@@ -315,11 +316,11 @@ class CheckpointManager:
             w()
         self._pending.clear()
 
-    def restore(self, template, device=None, mesh=None):
+    def restore(self, template, device=None):
         """The latest checkpoint in ``template``'s structure
-        (:func:`load_checkpoint`; ``mesh``: this rank's blocks on a data
-        mesh)."""
-        return load_checkpoint(self.dir, template, device=device, mesh=mesh)
+        (:func:`load_checkpoint`; a mesh's ranks restore through
+        ``launch.train.MeshTrain.restore``)."""
+        return load_checkpoint(self.dir, template, device=device)
 
     def latest_step(self):
         steps = _committed_steps(self.dir)

@@ -15,7 +15,18 @@ call of the reference has a VJP).  With ``xh = x * rstd``:
 ``dx = rstd * (w*dy - xh * mean(xh*w*dy))`` per row, and
 ``dw = sum over rows of dy*xh``, in f32; dx in x's dtype, dw in w's.
 
-What bounds both: bytes, about one FLOP per byte.  The forward reads x
+Backward with the row statistic given — the gradient of the second
+forward entry, tensor parallelism's gated norm in training.  There
+``y = x * rstd * w`` with ``rstd = rsqrt(ss / width + eps)``, ``ss`` the
+row's sum of squares over every rank's columns and ``x`` this rank's.
+Two entries: ``rms_norm_dot_rows`` stores each row's
+``s_loc = sum_j x_j w_j dy_j`` in f32; the caller all-reduces it over
+the ranks (``ops.RMSNormRstdFn``, never in the kernel); then the backward
+kernel with ``LOAD_DOT`` takes that row term in place of its own mean:
+``dx = rstd * (w*dy) - x * rstd^3 * s / width`` and the ``dw`` partials
+as above.
+
+What bounds all of them: bytes, about one FLOP per byte.  The forward reads x
 and writes y; the backward reads x, dy and w and writes dx (plus one f32
 per row of rstd, and dw).  At decode the rows are few (one per live slot)
 and a launch costs more than the bytes.
@@ -77,7 +88,8 @@ def bwd_kernels():
 
     @triton.jit
     def rms_norm_bwd_rows(x_ptr, w_ptr, dy_ptr, rstd_ptr, dx_ptr, dwp_ptr,
-                          r, d, rows_per_prog, BLOCK: tl.constexpr):
+                          s_ptr, r, d, inv_width, rows_per_prog,
+                          BLOCK: tl.constexpr, LOAD_DOT: tl.constexpr):
         pid = tl.program_id(0)
         cols = tl.arange(0, BLOCK)
         mask = cols < d
@@ -94,7 +106,10 @@ def bwd_kernels():
             rstd = tl.load(rstd_ptr + row)
             xh = x * rstd
             wdy = w * dy
-            c = tl.sum(xh * wdy, axis=0) / d
+            if LOAD_DOT:        # the row term given: sum over all ranks
+                c = tl.load(s_ptr + row) * rstd * inv_width
+            else:
+                c = tl.sum(xh * wdy, axis=0) / d
             dx = (wdy - xh * c) * rstd
             tl.store(dx_ptr + off + cols, dx.to(dx_ptr.dtype.element_ty),
                      mask=mask)
@@ -116,6 +131,29 @@ def bwd_kernels():
         tl.store(dw_ptr + cols, acc.to(dw_ptr.dtype.element_ty), mask=cmask)
 
     return rms_norm_bwd_rows, dw_sum
+
+
+@functools.cache
+def dot_kernel():
+    """The given-statistic backward's row term (defined at first use):
+    ``sum_j x_j w_j dy_j`` per row in f32, one program per row."""
+    import triton
+    import triton.language as tl
+
+    @triton.jit
+    def rms_norm_dot_rows(x_ptr, w_ptr, dy_ptr, s_ptr, d,
+                          BLOCK: tl.constexpr):
+        row = tl.program_id(0).to(tl.int64)
+        cols = tl.arange(0, BLOCK)
+        mask = cols < d
+        x = tl.load(x_ptr + row * d + cols, mask=mask,
+                    other=0.0).to(tl.float32)
+        dy = tl.load(dy_ptr + row * d + cols, mask=mask,
+                     other=0.0).to(tl.float32)
+        w = tl.load(w_ptr + cols, mask=mask, other=0.0).to(tl.float32)
+        tl.store(s_ptr + row, tl.sum(x * w * dy, axis=0))
+
+    return rms_norm_dot_rows
 
 
 def _warps(block):
@@ -145,18 +183,32 @@ def programs(r, device):
     return max(1, min(r, 2 * sms))
 
 
-def launch_bwd(x2, w, dy2, rstd, dx, dw, partials):
+def launch_dot(x2, w, dy2, s):
+    """x2, dy2: (R, D) contiguous; w: (D,); ``s``: (R,) f32 output."""
+    import triton
+
+    r, d = x2.shape
+    block = triton.next_power_of_2(d)
+    dot_kernel()[(r,)](x2, w, dy2, s, d, BLOCK=block,
+                       num_warps=_warps(block))
+
+
+def launch_bwd(x2, w, dy2, rstd, dx, dw, partials, s=None, width=None):
     """x2, dy2, dx: (R, D) contiguous; w, dw: (D,); rstd: (R,) f32;
-    ``partials``: (programs, D) f32 scratch."""
+    ``partials``: (programs, D) f32 scratch; ``s`` (R,) f32 and
+    ``width``: the row term and the row's whole width given (the
+    ``LOAD_DOT`` entry), or None."""
     import triton
 
     r, d = x2.shape
     n = partials.shape[0]
     rows_kernel, sum_kernel = bwd_kernels()
     block = triton.next_power_of_2(d)
-    rows_kernel[(n,)](x2, w, dy2, rstd, dx, partials, r, d, triton.cdiv(r, n),
-                      BLOCK=block, num_warps=16 if block >= 4096
-                      else _warps(block))
+    rows_kernel[(n,)](x2, w, dy2, rstd, dx, partials,
+                      rstd if s is None else s, r, d,
+                      1.0 / (width or d), triton.cdiv(r, n),
+                      BLOCK=block, LOAD_DOT=s is not None,
+                      num_warps=16 if block >= 4096 else _warps(block))
     # narrow column strips, so that the sum over the partials spreads over
     # some 160 programs at D 5120 (with 128-wide strips 40 programs waited
     # on their loads: 0.017 ms at 264 x 5120 on an H100)

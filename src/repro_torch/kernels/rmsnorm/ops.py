@@ -9,15 +9,23 @@ tensor launches the kernel or raises — there is no fallback.  Under a
 cost model (``counter.kernel_site``) each call is charged its kernel's
 own work, and on the CPU or meta the plain versions run as
 ``RMSNormFn`` too, so that the backward is charged as the backward
-kernel."""
+kernel.
+
+``rms_norm_rstd`` is the entry with each row's statistic given
+(tensor parallelism's gated norm).  Under autograd it runs as
+``RMSNormRstdFn`` on every device: its backward is ``rms_norm_dot`` (the
+row term ``s_loc``), the caller's ``reduce`` of it (the all-reduce over
+the ranks that share the row), then ``rms_norm_bwd_rstd`` (the backward
+kernel given that term); on the CPU and meta each takes its plain
+version."""
 from __future__ import annotations
 
 import torch
 
-from ..counter import (PLAIN_DEVICES, LaunchCounter, cost_model,
-                       forward_only, kernel_site)
-from .kernel import MAX_D, launch, launch_bwd, programs
-from .ref import rms_norm_bwd_ref, rms_norm_ref, rms_norm_rstd_ref
+from ..counter import PLAIN_DEVICES, LaunchCounter, cost_model, kernel_site
+from .kernel import MAX_D, launch, launch_bwd, launch_dot, programs
+from .ref import (rms_norm_bwd_ref, rms_norm_bwd_rstd_ref, rms_norm_dot_ref,
+                  rms_norm_ref, rms_norm_rstd_ref)
 
 _DTYPES = (torch.float32, torch.bfloat16)
 
@@ -80,27 +88,131 @@ def rstd_work(x, w, rstd):
             + w.numel() * w.element_size() + rstd.numel() * 4)
 
 
-@kernel_site(rstd_work)
-def rms_norm_rstd(x, w, rstd):
-    """The forward kernel's second entry: ``x * rstd * w`` per row with
-    each row's statistic given (``rstd``: f32, x's shape without its last
-    dim), where the row's sum of squares was all-reduced across
-    tensor-parallel ranks first.  Counted as an ``rms_norm`` launch.  A
-    CPU or meta tensor takes the plain version; the serve path only, no
-    autograd."""
-    if x.device.type in PLAIN_DEVICES:
-        return rms_norm_rstd_ref(x, w, rstd)
-    forward_only("rms_norm_rstd", x, w)
-    x2 = _check(x, w)
+def _rows_of(rstd, x2, what):
     r2 = rstd.reshape(-1).float().contiguous()
     if r2.shape != (x2.shape[0],) or r2.device != x2.device:
-        raise ValueError(f"rms_norm_rstd: rstd {tuple(rstd.shape)} does "
-                         f"not match x {tuple(x.shape)}")
+        raise ValueError(f"{what}: row terms {tuple(rstd.shape)} do not "
+                         f"match x {tuple(x2.shape)}")
+    return r2
+
+
+def _forward_rstd(x2, w, r2):
     out = torch.empty(x2.shape, dtype=x2.dtype, device=x2.device)
     if x2.shape[0]:
         launch(x2, w.contiguous(), out, 0.0, r2, load_rstd=True)
         rms_norm.launches.add()
-    return out.reshape(x.shape)
+    return out
+
+
+@kernel_site(rstd_work)
+def rms_norm_rstd(x, w, rstd, width=None, reduce=None):
+    """The forward kernel's second entry: ``x * rstd * w`` per row with
+    each row's statistic given (``rstd``: f32, x's shape without its last
+    dim), where the row's sum of squares was all-reduced across
+    tensor-parallel ranks first.  Counted as an ``rms_norm`` launch.  A
+    CPU or meta tensor takes the plain version.  Where autograd records
+    it, it runs as ``RMSNormRstdFn`` (on the CPU with the plain
+    versions): ``width`` is the whole row's width (default x's last dim)
+    and ``reduce`` sums each row's term ``s_loc`` over the ranks that hold
+    the row's other columns (None: x holds the whole row).  The gradient
+    does not flow into ``rstd``: the Function's ``dx`` carries the path
+    through the statistic."""
+    grad = torch.is_grad_enabled() and (x.requires_grad or w.requires_grad)
+    if grad:
+        return RMSNormRstdFn.apply(x, w, rstd.detach(),
+                                   width or x.shape[-1], reduce)
+    if x.device.type in PLAIN_DEVICES:
+        return rms_norm_rstd_ref(x, w, rstd)
+    x2 = _check(x, w)
+    return _forward_rstd(x2, w, _rows_of(rstd, x2, "rms_norm_rstd")
+                         ).reshape(x.shape)
+
+
+def dot_work(x, w, dy):
+    """(FLOPs, bytes) of an ``rms_norm_dot`` call: x and dy read, w read
+    once, one f32 per row written."""
+    return (3 * x.numel(), 2 * x.numel() * x.element_size()
+            + w.numel() * w.element_size() + x.numel() // x.shape[-1] * 4)
+
+
+@kernel_site(dot_work)
+def rms_norm_dot(x, w, dy):
+    """The given-statistic backward's first entry: each row's ``s_loc =
+    sum_j x_j w_j dy_j`` in f32 (x's shape without its last dim).  A CPU
+    or meta tensor takes the plain version."""
+    if x.device.type in PLAIN_DEVICES:
+        return rms_norm_dot_ref(x, w, dy)
+    x2 = _check(x, w).contiguous()
+    dy2 = dy.reshape(x2.shape).to(x2.dtype).contiguous()
+    s = torch.empty(x2.shape[0], dtype=torch.float32, device=x2.device)
+    if x2.shape[0]:
+        launch_dot(x2, w.contiguous(), dy2, s)
+        rms_norm_dot.launches.add()
+    return s.reshape(x.shape[:-1])
+
+
+def bwd_rstd_work(x, w, dy, rstd, s, width):
+    """(FLOPs, bytes) of an ``rms_norm_bwd_rstd`` call: x, dy and w read,
+    dx written, the two row terms read."""
+    return (9 * x.numel(), 3 * x.numel() * x.element_size()
+            + w.numel() * w.element_size() + 2 * rstd.numel() * 4)
+
+
+@kernel_site(bwd_rstd_work)
+def rms_norm_bwd_rstd(x, w, dy, rstd, s, width):
+    """The given-statistic backward's second entry: ``(dx, dw)`` of
+    ``rms_norm_rstd(x, w, rstd)`` for ``dy``, where ``rstd = rsqrt(ss /
+    width + eps)`` over the whole row and ``s`` is the row term summed
+    over the whole row (``rms_norm_dot`` of every part): the backward
+    kernel with the row term given (``LOAD_DOT``).  dx in x's dtype, dw
+    in w's.  A CPU or meta tensor takes the plain version."""
+    if x.device.type in PLAIN_DEVICES:
+        return rms_norm_bwd_rstd_ref(x, w, dy, rstd, s, width)
+    x2 = _check(x, w).contiguous()
+    d = x2.shape[1]
+    dy2 = dy.reshape(-1, d).to(x2.dtype).contiguous()
+    r2 = _rows_of(rstd, x2, "rms_norm_bwd_rstd")
+    s2 = _rows_of(s, x2, "rms_norm_bwd_rstd")
+    dx = torch.empty_like(x2)
+    dw = torch.empty(d, dtype=w.dtype, device=w.device)
+    r = x2.shape[0]
+    if r == 0:
+        return dx.reshape(x.shape), dw.zero_()
+    partials = torch.empty((programs(r, x2.device), d), dtype=torch.float32,
+                           device=x2.device)
+    launch_bwd(x2, w.contiguous(), dy2, r2, dx, dw, partials, s=s2,
+               width=width)
+    rms_norm_bwd_rstd.launches.add()
+    return dx.reshape(x.shape), dw
+
+
+class RMSNormRstdFn(torch.autograd.Function):
+    """``rms_norm_rstd`` under autograd: the forward entry given the
+    rows' statistic; the backward ``rms_norm_dot``, ``reduce`` (the
+    caller's sum over the ranks: never inside a kernel), then
+    ``rms_norm_bwd_rstd``.  On the CPU and meta the plain versions."""
+
+    @staticmethod
+    def forward(ctx, x, w, rstd, width, reduce):
+        if x.device.type in PLAIN_DEVICES:
+            out = rms_norm_rstd_ref(x, w, rstd)
+        else:
+            x2 = _check(x, w)
+            out = _forward_rstd(x2, w, _rows_of(rstd, x2, "rms_norm_rstd")
+                                ).reshape(x.shape)
+        ctx.save_for_backward(x, w, rstd)
+        ctx.width, ctx.reduce = width, reduce
+        return out
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w, rstd = ctx.saved_tensors
+        s = rms_norm_dot(x, w, dy)
+        if ctx.reduce is not None:
+            s = ctx.reduce(s)
+        dx, dw = rms_norm_bwd_rstd(x, w, dy, rstd, s, ctx.width)
+        return (dx if ctx.needs_input_grad[0] else None,
+                dw if ctx.needs_input_grad[1] else None, None, None, None)
 
 
 @kernel_site(bwd_work)
@@ -162,3 +274,5 @@ class RMSNormFn(torch.autograd.Function):
 
 rms_norm.launches = LaunchCounter()
 rms_norm_bwd.launches = LaunchCounter()
+rms_norm_dot.launches = LaunchCounter()
+rms_norm_bwd_rstd.launches = LaunchCounter()

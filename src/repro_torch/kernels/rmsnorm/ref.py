@@ -1,6 +1,6 @@
 """Plain PyTorch RMSNorm — the math of ``repro/models/layers.py::rms_norm``
 (the Pallas kernel's oracle): statistics in f32, output in x's dtype —
-and its gradient written out, the backward kernel's plain version."""
+and its gradient written out, the backward kernels' plain versions."""
 from __future__ import annotations
 
 import torch
@@ -32,4 +32,25 @@ def rms_norm_bwd_ref(x, w, dy, eps=1e-5):
     wdy = w.float() * dy.float()
     dx = rstd * (wdy - xh * (xh * wdy).mean(dim=-1, keepdim=True))
     dw = (dy.float() * xh).reshape(-1, x.shape[-1]).sum(dim=0)
+    return dx.to(x.dtype), dw.to(w.dtype)
+
+
+def rms_norm_dot_ref(x, w, dy):
+    """The given-statistic backward's row term: ``sum_j x_j w_j dy_j``
+    per row, in f32 (x's shape without its last dim)."""
+    return (x.float() * w.float() * dy.float()).sum(dim=-1)
+
+
+def rms_norm_bwd_rstd_ref(x, w, dy, rstd, s, width):
+    """``(dx, dw)`` of ``rms_norm_rstd_ref(x, w, rstd)`` where ``rstd =
+    rsqrt(ss / width + eps)`` and ``ss`` sums the squares of the whole
+    row, of which x holds some columns: ``s`` is the row term summed over
+    the whole row (``rms_norm_dot_ref`` of every part, added).  In f32:
+    ``dx = rstd * w*dy - x * rstd^3 * s / width``, ``dw`` the sum of
+    ``dy * x * rstd`` over rows; dx in x's dtype, dw in w's."""
+    x32 = x.float()
+    r = rstd.float()[..., None]
+    dx = r * (w.float() * dy.float()) - x32 * r.pow(3) * (
+        s.float()[..., None] / width)
+    dw = (dy.float() * x32 * r).reshape(-1, x.shape[-1]).sum(dim=0)
     return dx.to(x.dtype), dw.to(w.dtype)

@@ -9,9 +9,9 @@ rates at the 700 W limit): 989 TFLOP/s in bf16 on the tensor cores and
 
 Not ported: ``collective_stats`` and ``measure``.  Both read XLA's
 post-partitioning HLO text, which PyTorch does not produce; the port's
-counts come from the aten ops that run (``launch/op_cost.py``).  No
-collective exists before tensor parallelism (ROADMAP.md queue 1, items
-9 and 18): ``Roofline`` is one card's, and its record keeps the
+counts come from the aten ops that run (``launch/op_cost.py``).  The
+cost of a cell's collectives waits for the production meshes (ROADMAP.md
+queue 1, item 20): ``Roofline`` is one card's, and its record keeps the
 reference's collective keys at zero.
 """
 from __future__ import annotations

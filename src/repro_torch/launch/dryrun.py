@@ -24,8 +24,8 @@ failed; the dropless MoE (``moe_impl="ragged"``) cannot run on meta
 (``models.moe.DroplessOnMeta``).
 
 Deviations from the reference: one card and no mesh, so no
-``--multi-pod`` or ``--both-meshes`` and no collectives (tensor
-parallelism, ROADMAP.md queue 1, item 9); aten-level counting in place
+``--multi-pod`` or ``--both-meshes`` and no collectives (the production
+meshes, ROADMAP.md queue 1, item 20); aten-level counting in place
 of HLO-level, so "fused" means elementwise ops left out, not a
 compiler's fusion.
 """

@@ -9,12 +9,26 @@ the caller's process, ranks 1..n-1 are followers started by
 through a ``FileStore`` in a temporary directory (no fixed TCP port) and
 talk on two planes:
 
-  * the data plane, one process group over the ranks (``nccl`` when each
-    rank has a card of its own, ``gloo`` otherwise), carrying the model's
-    collectives (``models.layers.tp_all_reduce`` / ``tp_all_gather``, and
-    FSDP's gathers and gradient sums, ``sharding.fsdp``);
+  * the data plane: a process group over all of the mesh's ranks
+    (``nccl`` when each rank has a card of its own, ``gloo`` otherwise),
+    and one group per axis: for each data coordinate a ``model`` group of
+    the ranks that share it, for each model coordinate a ``data`` group.
+    The model's tensor-parallel collectives (``models.layers``) run over
+    ``model``, FSDP's gathers and gradient sums (``sharding.fsdp``) over
+    ``data``;
   * the control plane, a pipe from rank 0 to each follower, carrying the
     step dispatches in one total order (``serve.tp``).
+
+Ranks are data-major: rank ``d * M + m`` sits at data coordinate ``d``
+and model coordinate ``m`` (``M`` the model axis).  The axis groups are
+built directly on the rendezvous ``FileStore``, each under a prefix of
+its own and with its members' coordinates as ranks, the same as
+``torch.distributed.new_group`` would make them but without a default
+group, so that one process can hold meshes one after another.  Every rank
+builds the model group of its data coordinate first, then the data group
+of its model coordinate, so no rank waits on a peer that is still joining
+another group.  An axis of size 1 has no group: a collective over it is
+the identity.
 
 The backend and each rank's device are chosen explicitly and printed;
 no backend gives way to another.  On ``gloo`` only ``all_reduce``,
@@ -25,11 +39,12 @@ makes rank 0's next collective raise at once.
 
 Either axis may exceed 1.  Serving splits only ``model``
 (``TP_SERVE_RULES`` maps ``batch`` to nothing, and ``steps.check_tp``
-refuses a data axis above 1); training splits only ``data`` (FSDP:
-``sharding.fsdp``; ``steps.check_train_mesh`` refuses a model axis above
-1, ROADMAP item 18b).  So one mesh's collectives run over all its ranks,
-and no axis needs a process group of its own yet.  The production meshes
-(16x16, 2x16x16) of the reference's dry run are not built here.
+refuses a data axis above 1); training splits both (FSDP over ``data``,
+tensor parallelism over ``model``: ``steps.make_train_step``).  A
+collective names its axis; one without an axis runs over all ranks only
+while one axis is 1, and raises on a mesh with both axes above 1.  The
+production meshes (16x16, 2x16x16) of the reference's dry run are not
+built here.
 """
 from __future__ import annotations
 
@@ -47,15 +62,20 @@ from ..device import rank_device
 TIMEOUT_S = 120.0
 
 
+AXES = ("data", "model")
+
+
 class Mesh:
     """Axis sizes (``{"data": d, "model": m}``), this process's rank and
-    its coordinates on each axis, the data plane's process group, the
-    backend and this rank's device.  Rank 0's mesh also owns the
-    follower processes and their pipes (``conns``); :meth:`close` stops
-    and joins them."""
+    its coordinates on each axis, the data plane's process groups (the
+    whole mesh's, ``group``, and this rank's group on each axis,
+    ``groups``), the backend and this rank's device.  Rank 0's mesh also
+    owns the follower processes and their pipes (``conns``); :meth:`close`
+    stops and joins them."""
 
     def __init__(self, shape, rank=0, *, backend=None, group=None,
-                 device_type="cuda", procs=(), conns=(), tmpdir=None):
+                 groups=None, device_type="cuda", procs=(), conns=(),
+                 tmpdir=None):
         self.shape = dict(shape)
         self.size = self.shape["data"] * self.shape["model"]
         self.rank = rank
@@ -63,6 +83,7 @@ class Mesh:
                        "model": rank % self.shape["model"]}
         self.backend = backend
         self.group = group
+        self.groups = dict(groups or {})
         self.device_type = device_type
         self.procs = list(procs)
         self.conns = list(conns)
@@ -89,16 +110,43 @@ class Mesh:
                             for r in range(self.size)))
 
     # ------------------------------------------------------------ data plane
-    def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
-        """Sum ``t`` over the ranks, in place; returns it."""
-        self.group.allreduce([t]).wait()
+    def _group_of(self, axis):
+        """(process group, size) of ``axis`` ("data", "model" or "all")
+        for this rank; an axis of size 1 has no group.  No axis: the
+        whole mesh, while one axis is 1."""
+        if axis is None:
+            if self.shape["data"] > 1 and self.shape["model"] > 1:
+                raise ValueError(
+                    f"mesh {self.shape}: a collective on a mesh with two "
+                    "axes above 1 names its axis ('data', 'model' or "
+                    "'all')")
+            axis = "all"
+        if axis == "all":
+            return self.group, self.size
+        if axis not in AXES:
+            raise ValueError(f"axis {axis!r}: pick 'data', 'model' or 'all'")
+        n = self.shape[axis]
+        if n == 1:
+            return None, 1
+        return (self.group if n == self.size else self.groups[axis]), n
+
+    def all_reduce(self, t: torch.Tensor, axis=None) -> torch.Tensor:
+        """Sum ``t`` over the ranks of ``axis`` (see :meth:`_group_of`),
+        in place; returns it."""
+        group, _ = self._group_of(axis)
+        if group is not None:
+            group.allreduce([t]).wait()
         return t
 
-    def all_gather(self, t: torch.Tensor) -> list[torch.Tensor]:
-        """Every rank's ``t``, in rank order."""
+    def all_gather(self, t: torch.Tensor, axis=None) -> list[torch.Tensor]:
+        """Every rank's ``t`` on ``axis``, in the order of its
+        coordinate."""
+        group, n = self._group_of(axis)
+        if group is None:
+            return [t]
         t = t.contiguous()
-        outs = [torch.empty_like(t) for _ in range(self.size)]
-        self.group.allgather([outs], [t]).wait()
+        outs = [torch.empty_like(t) for _ in range(n)]
+        group.allgather([outs], [t]).wait()
         return outs
 
     # ------------------------------------------------------------- lifetime
@@ -209,13 +257,14 @@ def make_mesh_from_devices(spec: str | None = None, backend: str | None = None,
     return spawn_followers(shape, backend, device_type)
 
 
-def _group(store, rank, size, backend, device):
-    """The data plane's process group, built directly (no global default
-    group, so one process can hold meshes one after another)."""
+def _group(store, rank, size, backend, device, prefix="data"):
+    """A process group of the data plane, built directly (no global
+    default group, so one process can hold meshes one after another) on
+    the store under ``prefix``, this process as ``rank`` of ``size``."""
     import torch.distributed as dist
 
     timeout = datetime.timedelta(seconds=TIMEOUT_S)
-    store = dist.PrefixStore("data", store)
+    store = dist.PrefixStore(prefix, store)
     if backend == "gloo":
         opts = dist.ProcessGroupGloo._Options()
         opts._timeout = timeout
@@ -229,6 +278,20 @@ def _group(store, rank, size, backend, device):
         torch.cuda.set_device(device)
         return dist.ProcessGroupNCCL(store, rank, size, opts)
     raise ValueError(f"backend {backend!r}")
+
+
+def _join(mesh, store):
+    """This rank's groups: the whole mesh's, then, on a mesh with both
+    axes above 1, the model group of its data coordinate and the data
+    group of its model coordinate, in that order on every rank."""
+    dev = mesh.device()
+    mesh.group = _group(store, mesh.rank, mesh.size, mesh.backend, dev)
+    if mesh.shape["data"] > 1 and mesh.shape["model"] > 1:
+        d, m = mesh.coords["data"], mesh.coords["model"]
+        mesh.groups["model"] = _group(store, m, mesh.shape["model"],
+                                      mesh.backend, dev, prefix=f"model{d}")
+        mesh.groups["data"] = _group(store, d, mesh.shape["data"],
+                                     mesh.backend, dev, prefix=f"data{m}")
 
 
 def _store(path, size):
@@ -248,8 +311,7 @@ def _follower_main(rank, shape, backend, device_type, path, conn):
         torch.set_num_threads(1)        # ranks share the host's cores
     conn.send(("up", rank))             # imported: rank 0 may rendezvous
     mesh = Mesh(shape, rank, backend=backend, device_type=device_type)
-    mesh.group = _group(_store(path, mesh.size), rank, mesh.size, backend,
-                        mesh.device())
+    _join(mesh, _store(path, mesh.size))
     tp.follower_loop(mesh, conn)
 
 
@@ -297,8 +359,7 @@ def spawn_followers(shape, backend: str, device_type: str) -> Mesh:
             _await_up(r, p, c)
         mesh = Mesh(shape, 0, backend=backend, device_type=device_type,
                     procs=procs, conns=conns, tmpdir=tmpdir)
-        mesh.group = _group(_store(path, size), 0, size, backend,
-                            mesh.device())
+        _join(mesh, _store(path, size))
     except BaseException:
         for p in procs:
             p.terminate()
@@ -307,5 +368,6 @@ def spawn_followers(shape, backend: str, device_type: str) -> Mesh:
     return mesh
 
 
-__all__ = ["Mesh", "TIMEOUT_S", "make_host_mesh", "make_mesh_from_devices",
+__all__ = ["AXES", "Mesh", "TIMEOUT_S", "make_host_mesh",
+           "make_mesh_from_devices",
            "spawn_followers"]

@@ -21,7 +21,7 @@ charges each of their calls as the kernel's own work and results
 (``kernels/counter.kernel_site``): flash attention's causal half and no
 score matrix, so the bound and the peak are those of the kernels the
 card runs.  The reference's collectives and ``--multi-pod`` wait for
-tensor parallelism (ROADMAP.md queue 1, item 9).
+the production meshes (ROADMAP.md queue 1, item 20).
 """
 from __future__ import annotations
 

@@ -6,8 +6,8 @@ of what the step takes, with no data and no memory, so a step called on
 them is a pass over shapes (``launch/dryrun.py``).  The trees follow
 ``param_meta`` and ``cache_meta`` (``models/lm.py``), and the shapes and
 dtypes equal the reference's ``input_specs(cfg, shape, None)``.  The
-reference's ``to_shardings`` and ``*_axes`` wait for tensor parallelism
-(ROADMAP.md queue 1, item 9).
+reference's ``to_shardings`` and ``*_axes`` wait for the production
+meshes (ROADMAP.md queue 1, item 20).
 """
 from __future__ import annotations
 

@@ -13,10 +13,11 @@ The reference CLI's flags and JSON lines (one per logged step, then the
 closing ``wall_s`` / ``host_cpu_util`` / ``host_wakes`` line), plus
 ``--device {cuda,cpu}`` (default ``cuda``; ``cuda`` without a card
 raises).  The CLI trains on one device, as the reference's does (its
-``train`` builds no mesh but the host's); the sharded train state (FSDP
-over a data mesh) is reached through :func:`build` with ``mesh=``, the
-reference's ``build(cfg, mesh, hp)``, which drives the mesh's ranks from
-this process (:class:`MeshTrain`).  Weights are a seeded
+``train`` builds no mesh but the host's, and it has no ``--mesh``); the
+sharded train state (FSDP over ``data``, tensor parallelism over
+``model``, on any ``D,M`` mesh) is reached through :func:`build` with
+``mesh=``, the reference's ``build(cfg, mesh, hp)``, which drives the
+mesh's ranks from this process (:class:`MeshTrain`).  Weights are a seeded
 ``torch.Generator`` init (seed 0) on the device; batches come from
 ``SyntheticTokenSource`` (seed 1234), as in the reference, with (…, K)
 codebook ids for the audio frontend.  The vision frontend is refused
@@ -43,7 +44,7 @@ from ..ft import HeartbeatMonitor, StragglerDetector
 from ..models.layers import tree_leaves
 from ..models.lm import init_params
 from ..optim import OptHParams, adamw_init
-from ..params import fsdp_shard, shard_train_state
+from ..params import shard_train_state, train_shard
 from ..steps import (check_train_mesh, init_train_state, make_train_step,
                      train_plan)
 
@@ -65,7 +66,7 @@ def build(cfg, hp, device, mesh=None):
 class SeededTrainState:
     """A per-rank train state factory: every rank draws the whole seeded
     master params of ``init_train_state`` on its own device and keeps its
-    blocks (``params.fsdp_shard``), m and v zeros of their shapes, so no
+    blocks (``params.train_shard``), m and v zeros of their shapes, so no
     weight crosses a pipe and no rank holds whole moments.  Picklable, so
     a follower can run it."""
     per_rank = True
@@ -75,7 +76,7 @@ class SeededTrainState:
 
     def __call__(self, cfg, mesh, device):
         check_train_mesh(cfg, mesh)
-        params = fsdp_shard(init_params(
+        params = train_shard(init_params(
             cfg, torch.Generator(device).manual_seed(self.seed), device,
             dtype=cfg.param_dtype), cfg, mesh)
         return {"params": params, "opt": adamw_init(params, cfg.opt_dtype),
@@ -83,7 +84,7 @@ class SeededTrainState:
 
 
 def make_mesh_train_step(cfg, mesh, hp=OptHParams()):
-    """A data mesh rank's train step, ``(state, tokens, labels,
+    """A mesh rank's train step, ``(state, tokens, labels,
     patches=None) -> (state, metrics)``: the batch's leaves come apart,
     since a ``serve.tp.Session`` hands tensors to the ranks as host
     copies, not trees."""
@@ -100,29 +101,33 @@ def make_mesh_train_step(cfg, mesh, hp=OptHParams()):
 
 def make_snapshot_step(cfg, mesh):
     """``(state) -> snapshot``: a checkpoint's host snapshot of a train
-    state on a data mesh (``checkpoint.snapshot``): every rank gathers,
-    rank 0 gets the whole leaves, the others None."""
-    dims = train_plan(cfg, mesh).state_dims()
-    return lambda state: snapshot(state, mesh, dims)
+    state on a mesh (``checkpoint.snapshot``): every rank gathers over
+    both axes, rank 0 gets the whole leaves, the others None."""
+    plan = train_plan(cfg, mesh)
+    dims, tp = plan.state_dims(), plan.state_tp()
+    return lambda state: snapshot(state, mesh, dims, tp)
 
 
 def make_restore_step(cfg, mesh):
-    """``(state, dirpath, step=None) -> (state, step)``: a data mesh
-    rank reads the checkpoint itself and copies its blocks into its state
-    in place (``checkpoint.load_checkpoint(..., mesh=, in_place=True)``);
-    ``step`` None when ``dirpath`` holds none."""
-    del cfg
+    """``(state, dirpath, step=None) -> (state, step)``: a mesh rank
+    reads the checkpoint itself and copies its blocks, cut by the step's
+    layout, into its state in place (``checkpoint.load_checkpoint(...,
+    mesh=, in_place=True)``); ``step`` None when ``dirpath`` holds
+    none."""
+    plan = train_plan(cfg, mesh)
+    dims, tp = plan.state_dims(), plan.state_tp()
 
     def restore_step(state, dirpath, step=None):
         _, got = load_checkpoint(dirpath, state, step, mesh=mesh,
-                                 in_place=True)
+                                 in_place=True, dims=dims, tp=tp)
         return state, got
 
     return restore_step
 
 
 class MeshTrain:
-    """Training on a data mesh (FSDP), driven from rank 0, this process,
+    """Training on a ``D,M`` mesh (FSDP over ``data``, tensor parallelism
+    over ``model``), driven from rank 0, this process,
     which runs the loop, the prefetcher and the ``CheckpointManager`` on
     its UMT runtime: each train step, checkpoint snapshot and restore goes
     to every rank in one order through a ``serve.tp.Session``, the batch

@@ -38,7 +38,20 @@ holds its KV group (the reference's reasoning,
 ``repro/models/attention.py:355-371``).  MLA splits its query heads the
 same way and keeps its latents (``wq_a``, ``wkv_a``, ``ckv``, ``krope``)
 whole on every rank.  Head counts that do not split raise (ROADMAP item
-9).
+20).
+
+In training (``layers.tp_enter``, whose backward all-reduces the
+gradient over ``model``): GQA enters the normed ``xn`` once before
+``wq``/``wk``/``wv``, so ``xn``'s gradient, each rank's a sum over its
+own heads, is summed whole.  MLA's ``wq_a``/``wkv_a`` path is whole on
+every rank, so it enters where each of its tensors first meets the local
+heads: the normed q latent before ``wq_b``, ``ckv`` before
+``wk_b``/``wv_b``, and the roped shared ``k_rope``, which every local
+head reads.  The gradients of ``wq_a``, ``wkv_a``, ``q_ln`` and ``kv_ln``
+then come out whole and equal on every model rank, and so does ``xn``'s:
+an enter of ``xn`` as well would sum that whole gradient once per rank.
+The three latents are also narrower than ``xn`` (768 + 256 + 32 against
+2560 columns on minicpm3-4b).
 """
 from __future__ import annotations
 
@@ -47,7 +60,8 @@ import torch
 from ..kernels import (flash_attention, paged_decode_attention,
                        paged_mla_decode_attention)
 from .layers import (apply_rope, page_gather, page_scatter,
-                     page_scatter_window, rms_norm, tp_all_reduce, tp_heads)
+                     page_scatter_window, rms_norm, tp_all_reduce, tp_enter,
+                     tp_heads)
 
 NEG_INF = -1e30
 
@@ -294,6 +308,8 @@ def gqa_apply(x, p, cfg, spec, *, mode, pos, cache=None, cache_len=None,
     h, hkv, dh = cfg.n_heads // n, cfg.n_kv_heads // n, cfg.head_dim
     dt = x.dtype
     xn = rms_norm(x, p["ln"], cfg.norm_eps)
+    if n > 1:
+        xn = tp_enter(xn)
 
     q = (xn @ p["wq"].to(dt)).view(b, s, h, dh)
     k = (xn @ p["wk"].to(dt)).view(b, s, hkv, dh)
@@ -426,6 +442,8 @@ def _mla_q(xn, p, cfg, dt, h):
     b, s, _ = xn.shape
     dn, dr = cfg.qk_nope_dim, cfg.qk_rope_dim
     qa = rms_norm(xn @ p["wq_a"].to(dt), p["q_ln"], cfg.norm_eps)
+    if h < cfg.n_heads:                 # the latent meets the local heads
+        qa = tp_enter(qa)
     q = (qa @ p["wq_b"].to(dt)).view(b, s, h, dn + dr)
     return q[..., :dn], q[..., dn:]          # q_nope, q_rope
 
@@ -549,6 +567,8 @@ def mla_apply(x, p, cfg, spec, *, mode, pos, cache=None, cache_len=None,
         q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
         k_rope = apply_rope(k_rope[:, :, None, :], positions,
                             cfg.rope_theta)[:, :, 0, :]
+        if n > 1:                       # the latents meet the local heads
+            ckv, k_rope = tp_enter(ckv), tp_enter(k_rope)
         k_nope = (ckv @ p["wk_b"].to(dt)).view(b, s, h, dn)
         vfull = (ckv @ p["wv_b"].to(dt)).view(b, s, h, dv)
         q = torch.cat([q_nope, q_rope], dim=-1)

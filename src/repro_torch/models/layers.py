@@ -4,16 +4,42 @@ port of ``repro/models/layers.py``).
 ``rms_norm`` is the kernel wrapper: the Triton kernel for CUDA tensors,
 the plain version for CPU ones; ``gated_rms_norm`` goes through it too.
 
-Tensor parallelism (``repro_torch.launch.mesh``, under the serve steps'
-``sharding_ctx``): each rank holds its shard of the weights and computes
-on it, and the collectives the reference's GSPMD inserts are written out
-here, each counted (``tp_all_reduce.calls``, ``tp_all_gather.calls``).
-The SwiGLU MLP is row-parallel (local ``w_gate``/``w_up`` columns, local
-``w_down`` rows, one all-reduce), the embedding vocab-parallel (a masked
-local lookup, one all-reduce), the LM head column-parallel (local vocab
+Tensor parallelism (``repro_torch.launch.mesh``, under the serve or
+train steps' ``sharding_ctx``): each rank holds its shard of the weights
+and computes on it, and the collectives the reference's GSPMD inserts
+are written out here, over the mesh's ``model`` group.  The SwiGLU MLP
+is row-parallel (local ``w_gate``/``w_up`` columns, local ``w_down``
+rows, one all-reduce), the embedding vocab-parallel (a masked local
+lookup, one all-reduce), the LM head column-parallel (local vocab
 columns, one all-gather), so every rank ends with the whole logits and
 greedy argmaxes agree across ranks.  A dim the rules cannot split evenly
 stays whole (:func:`tp_shards` is 1) and takes no collective.
+
+In training each collective is an autograd op, and the residual stream
+and its gradient are whole and equal on every model rank:
+
+* :func:`tp_all_reduce` (a row-parallel product's partials, the
+  embedding's rows): forward the f32 sum, rounded once; backward the
+  identity, since every rank's consumer reads the same sum;
+* :func:`tp_enter` at each column-parallel input (a tensor whole on
+  every rank that meets this rank's heads or columns): forward the
+  identity; backward the all-reduce of its gradient, each rank's a
+  partial sum over its own heads;
+* :func:`tp_all_gather` (the vocab-split logits): backward keeps this
+  rank's slice, since every rank computes the same loss on the whole
+  logits;
+* :func:`gated_rms_norm`'s statistic: its forward all-reduce is taken
+  without a gradient, and the norm's backward (``rms_norm_rstd`` under
+  autograd) all-reduces each row's term ``s_loc`` instead
+  (:func:`_norm_dot_sum`): the statistic's consumers are rank-local, so
+  the backward of its all-reduce is an all-reduce, not the identity.
+
+Each collective is counted apart, forward and backward, with its bytes:
+``tp_all_reduce.calls`` and ``tp_all_gather.calls`` (forward; the serve
+paths run only these), ``tp_enter.calls`` and ``tp_norm_dot.calls``
+(backward).  Each op captures its mesh when it is recorded, since a
+backward may run on autograd's device thread, where no
+``sharding_ctx`` is open.
 
 The modality frontends are the reference's stubs: ``audio_codebooks``
 sums K codebook embeddings into one stream and emits K heads'
@@ -36,7 +62,7 @@ from ..sharding import (current_mesh, current_rules, logical_spec,
 
 __all__ = ["rms_norm", "gated_rms_norm", "check_cache_invariant",
            "tp_shards", "tp_size", "tp_coord", "tp_heads", "tp_all_reduce",
-           "tp_all_gather",
+           "tp_all_gather", "tp_enter",
            "page_gather", "page_scatter", "page_scatter_window",
            "rope_freqs", "apply_rope", "sinusoidal_pos", "mlp_dense",
            "embed_tokens", "lm_logits", "softmax_xent", "tree_leaves",
@@ -85,37 +111,114 @@ def tp_heads(*counts: int, logical: str = "heads") -> int:
     when every head count in ``counts`` divides it.  A count that does not
     raises: the reference replicates such heads (strict resolution drops
     the axis), which the port has not ported (ROADMAP.md queue 1, item
-    9)."""
+    20)."""
     n = tp_size(logical)
     if n > 1 and any(c % n for c in counts):
         raise NotImplementedError(
             f"head counts {counts} do not split {n} ways: replicated heads "
             "under tensor parallelism are not ported (ROADMAP.md queue 1, "
-            "item 9)")
+            "item 20)")
     return n
+
+
+def _count(op, t):
+    op.calls.add()
+    op.bytes.add(t.numel() * t.element_size())
+
+
+def _model_sum_f32(x, mesh):
+    """``x`` summed over the model ranks in f32, rounded once to x's
+    dtype (a copy: x is not written)."""
+    buf = x.to(torch.float32, copy=True).contiguous()
+    mesh.all_reduce(buf, "model")
+    return buf.to(x.dtype)
+
+
+class _AllReduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        _count(tp_all_reduce, x)
+        return _model_sum_f32(x, mesh)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
 
 
 def tp_all_reduce(x):
     """Sum ``x`` over the model axis (one collective, counted), rounded
     once to x's dtype: a row-parallel product's partials (each in x's
-    dtype) are summed in f32 on every mesh size, then rounded."""
+    dtype) are summed in f32 on every mesh size, then rounded.  Under
+    autograd its backward is the identity."""
+    return _AllReduce.apply(x, current_mesh())
+
+
+def _enter_sum(grad, mesh):
+    """:func:`tp_enter`'s backward: the gradient summed over the model
+    ranks in f32, rounded once (counted)."""
+    _count(tp_enter, grad)
+    return _model_sum_f32(grad, mesh)
+
+
+class _Enter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _enter_sum(grad, ctx.mesh), None
+
+
+def tp_enter(x):
+    """Where ``x``, whole and equal on every model rank, enters this
+    rank's heads or columns: the identity, whose backward all-reduces the
+    gradient over the model axis (each rank's is a partial sum).  The
+    identity itself, recording nothing, off a model axis or where
+    autograd does not record ``x``."""
     mesh = current_mesh()
-    tp_all_reduce.calls.add()
-    buf = x.float().contiguous()
-    mesh.all_reduce(buf)
-    return buf.to(x.dtype)
+    if mesh is None or mesh.shape["model"] == 1 or not (
+            torch.is_grad_enabled() and x.requires_grad):
+        return x
+    return _Enter.apply(x, mesh)
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, mesh):
+        ctx.dim, ctx.k, ctx.size = dim, mesh.coords["model"], x.shape[dim]
+        out = torch.cat(mesh.all_gather(x, "model"), dim=dim)
+        _count(tp_all_gather, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.narrow(ctx.dim, ctx.k * ctx.size, ctx.size), None, None
 
 
 def tp_all_gather(x, dim: int = -1):
-    """Every rank's ``x`` concatenated along ``dim`` in rank order (one
-    collective, counted)."""
-    mesh = current_mesh()
-    tp_all_gather.calls.add()
-    return torch.cat(mesh.all_gather(x), dim=dim)
+    """Every model rank's ``x`` concatenated along ``dim`` in rank order
+    (one collective, counted).  Under autograd its backward keeps this
+    rank's slice."""
+    return _AllGather.apply(x, dim, current_mesh())
 
 
-tp_all_reduce.calls = LaunchCounter()
-tp_all_gather.calls = LaunchCounter()
+def _norm_dot_sum(s, mesh):
+    """The gated norm's backward collective: each row's term ``s_loc``
+    (f32) summed over the model ranks, in place (counted as
+    ``tp_norm_dot``)."""
+    _count(tp_norm_dot, s)
+    return mesh.all_reduce(s, "model")
+
+
+def tp_norm_dot():
+    """Holds the counters of the gated norm's backward collective
+    (:func:`_norm_dot_sum`): ``tp_norm_dot.calls`` / ``.bytes``."""
+
+
+for _op in (tp_all_reduce, tp_all_gather, tp_enter, tp_norm_dot):
+    _op.calls, _op.bytes = LaunchCounter(), LaunchCounter()
 
 
 def gated_rms_norm(x, z, w, eps=1e-5, width=None):
@@ -123,12 +226,17 @@ def gated_rms_norm(x, z, w, eps=1e-5, width=None):
     ``width`` (tensor parallelism): the whole row's width when x holds
     only this rank's columns of it; the f32 sum of squares of the local
     columns is all-reduced and the kernel applies the row's statistic
-    (``rms_norm_rstd``), since a per-rank statistic would be wrong."""
+    (``rms_norm_rstd``), since a per-rank statistic would be wrong.  Under
+    autograd the statistic's gradient path is the norm's own backward,
+    whose row terms are all-reduced (:func:`_norm_dot_sum`, looked up at
+    each call)."""
     g = x * F.silu(z.float()).to(x.dtype)
     if width is None or width == x.shape[-1]:
         return rms_norm(g, w, eps)
-    ss = tp_all_reduce(g.float().square().sum(dim=-1))
-    return rms_norm_rstd(g, w, torch.rsqrt(ss / width + eps))
+    ss = tp_all_reduce(g.detach().float().square().sum(dim=-1))
+    return rms_norm_rstd(g, w, torch.rsqrt(ss / width + eps), width=width,
+                         reduce=functools.partial(_norm_dot_sum,
+                                                  mesh=current_mesh()))
 
 
 # --------------------------------------------------------- cache invariance
@@ -273,13 +381,16 @@ def sinusoidal_pos(pos, dim: int, device=None):
 # ----------------------------------------------------------------------- MLP
 def mlp_dense(x, p, cfg):
     """SwiGLU MLP. x: (B, S, D); weights cast to x's dtype per use.  Under
-    tensor parallelism the weights are this rank's d_ff shard and the
-    partial products are all-reduced."""
+    tensor parallelism the weights are this rank's d_ff shard, x enters
+    them (:func:`tp_enter`) and the partial products are all-reduced."""
     dt = x.dtype
+    split = tp_shards(cfg.d_ff, "tp") > 1
+    if split:
+        x = tp_enter(x)
     h = x @ p["w_gate"].to(dt)
     u = x @ p["w_up"].to(dt)
     out = (F.silu(h) * u) @ p["w_down"].to(dt)
-    return tp_all_reduce(out) if tp_shards(cfg.d_ff, "tp") > 1 else out
+    return tp_all_reduce(out) if split else out
 
 
 def embed_tokens(tokens, p_embed, cfg, dtype):
@@ -317,8 +428,13 @@ def embed_tokens(tokens, p_embed, cfg, dtype):
 
 def lm_logits(x, params, cfg):
     """x: (B, S, D) -> (B, S, V); audio codebooks: (B, S, K, V), head k
-    from ``lm_head[k]`` (K, D, V)."""
+    from ``lm_head[k]`` (K, D, V).  Vocab-split under tensor parallelism:
+    x enters the local columns (:func:`tp_enter`), the logits are
+    gathered whole."""
     dt = x.dtype
+    split = tp_shards(cfg.vocab, "vocab") > 1
+    if split:
+        x = tp_enter(x)
     if cfg.frontend == "audio_codebooks":
         out = torch.einsum("bsd,kdv->bskv", x, params["lm_head"].to(dt))
     else:
@@ -328,7 +444,7 @@ def lm_logits(x, params, cfg):
             w = params["lm_head"].to(dt)                  # (D, V)
         out = x @ w
     # column-parallel: this rank's vocab columns, gathered whole
-    return tp_all_gather(out) if tp_shards(cfg.vocab, "vocab") > 1 else out
+    return tp_all_gather(out) if split else out
 
 
 def softmax_xent(logits, labels, z_loss=0.0):

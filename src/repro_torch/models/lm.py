@@ -13,6 +13,16 @@ inside it, the reference's ``jax.checkpoint`` of its scan body under
 its ``checkpoint_dots``.  The CUDA kernels launch through ``ctypes``
 below the policy's sight, so under ``"dots"`` they are recomputed.  The
 serve modes run under ``torch.no_grad()``.
+
+Sharded training: on a mesh, train mode takes ``fsdp=`` (the step's
+``sharding.fsdp.Plan``): each split leaf is gathered over ``data`` where
+it is used (the embedding, each repeat's block inside its remat
+checkpoint, the final norm, the head), into this model rank's
+tensor-parallel block.  The model axis's collectives come from the
+active ``sharding_ctx``; a checkpointed repeat reopens the context it
+was recorded under, since its recompute may run on autograd's device
+thread, so under remat "full" the backward runs each repeat's forward
+collectives once more.
 """
 from __future__ import annotations
 
@@ -26,6 +36,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from ..device import resolve_device
+from ..sharding import current_mesh, current_rules, sharding_ctx
 from ..sharding.fsdp import take
 from .blocks import block_apply, block_cache_shapes, block_param_shapes
 from .layers import (embed_tokens, lm_logits, rms_norm, sinusoidal_pos,
@@ -198,10 +209,10 @@ def forward(params, cfg, tokens, *, mode="train", pos=0, cache=None,
     ``attn_extent`` (prefill_chunk): the chunk attends over the first
     ``attn_extent`` cache positions (must cover pos + S);
     ``want_logits=False`` (prefill_chunk) skips the final norm and the LM
-    head of a non-final chunk.  ``fsdp`` (train mode on a data mesh: a
+    head of a non-final chunk.  ``fsdp`` (train mode on a mesh: a
     ``sharding.fsdp.Plan``): ``params`` are this rank's blocks, each split
     leaf gathered where it is used (the embedding, each repeat's weights,
-    the final norm, the head)."""
+    the final norm, the head), over ``data`` only."""
     if mode not in ("train", "prefill", "decode", "prefill_chunk",
                     "verify"):
         raise ValueError(f"unknown forward mode {mode!r}")
@@ -297,8 +308,13 @@ def _forward(params, cfg, tokens, *, mode, pos, cache, patches, cache_len,
                 aux = aux + a
         return x, aux, ncs
 
+    mesh, rules = current_mesh(), current_rules()
+
     def train_repeat(x, aux, r):
-        return repeat(x, aux, r)[:2]
+        # the recompute may run on another thread: reopen the context
+        with (contextlib.nullcontext() if mesh is None
+              else sharding_ctx(mesh, rules)):
+            return repeat(x, aux, r)[:2]
 
     aux = torch.zeros((), dtype=torch.float32, device=x.device) \
         if train else None

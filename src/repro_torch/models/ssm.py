@@ -23,13 +23,25 @@ of B and C.  Layout deviation from the reference, which shards
 ``wxBC``'s whole ``conv_dim`` column-wise (``repro/models/ssm.py:26-27``)
 and so would split mamba2's one group of B and C across ranks: here each
 rank keeps its heads' x channels and every B and C channel, replicated
-(:data:`TP_LOCAL`, :func:`tp_local`), and the scan reads them with its
-group stride 0 as it does on one device.  The same numbers; the ``conv``
-leaf's bytes per rank are ``(d_inner/n + 2 N G) / conv_dim`` of the
-whole, not 1/n.  The gated norm normalises over the whole ``d_inner``:
+(:data:`TP_LOCAL`, cut by ``steps.tp_splits``), and the scan reads them
+with its group stride 0 as it does on one device.  The same numbers; the
+``conv`` leaf's bytes per rank are ``(d_inner/n + 2 N G) / conv_dim`` of
+the whole, not 1/n.  The gated norm normalises over the whole ``d_inner``:
 the f32 sum of squares of the local channels is all-reduced and the
 kernel applies that statistic (``layers.gated_rms_norm(width=)``).  One
 all-reduce after ``out_proj``.
+
+In training (``layers.tp_enter``: identity forward, all-reduce over
+``model`` backward), the layout has a trap: ``xn @ wxBC`` yields this
+rank's x channels and the whole of B and C, and each rank reads B and C
+only through its own heads, so its gradient of B and C is a partial sum
+over its heads.  The choice made here: ``xn`` enters the mixer once
+(before ``wz``, ``wxBC`` and ``wdt``), which sums ``xn``'s gradient over
+the ranks, the B/C path's partials with the rest, each exactly once; and
+the B and C columns of ``wxBC``, ``conv_w`` and ``conv_b`` enter too
+(:func:`bc_shared` on the compute copy of those columns), so their
+weight gradients are summed over ``model`` exactly once and come out
+whole and equal on every rank, as the columns themselves are.
 """
 from __future__ import annotations
 
@@ -38,7 +50,7 @@ import torch.nn.functional as F
 
 from ..kernels import ssd_scan
 from .layers import (gated_rms_norm, rms_norm, tp_all_reduce, tp_coord,
-                     tp_heads)
+                     tp_enter, tp_heads)
 
 
 def conv_dim(cfg) -> int:
@@ -57,24 +69,25 @@ TP_LOCAL = {"wxBC": "conv", "conv_w": "conv", "conv_b": "conv",
             "A_log": "heads", "Dskip": "heads", "norm_w": "inner"}
 
 
-def tp_local(name, t, cfg, k: int, n: int):
-    """Rank ``k`` of ``n``'s slice of the full leaf ``t`` (its last dim)
-    by :data:`TP_LOCAL`."""
-    kind = TP_LOCAL[name]
-    di, h = cfg.d_inner, cfg.ssm_nheads
-    if kind == "heads":
-        return t[..., k * h // n:(k + 1) * h // n]
-    if kind == "inner":
-        return t[..., k * di // n:(k + 1) * di // n]
-    return torch.cat([t[..., k * di // n:(k + 1) * di // n], t[..., di:]],
-                     dim=-1)
-
-
 def tp_local_width(name, cfg, n: int) -> int:
     """The last dim of a rank's ``name`` leaf under :data:`TP_LOCAL`."""
     kind = TP_LOCAL[name]
     return {"heads": cfg.ssm_nheads // n, "inner": cfg.d_inner // n,
             "conv": conv_dim(cfg) - cfg.d_inner + cfg.d_inner // n}[kind]
+
+
+def bc_shared(t):
+    """The B and C columns of a mixer weight (the compute copy) where
+    every model rank holds them whole: their gradient, each rank's a sum
+    over its own heads, is summed over ``model`` (``layers.tp_enter``).
+    Looked up at each call."""
+    return tp_enter(t)
+
+
+def _with_bc_shared(w, di):
+    """``w`` (last dim: this rank's ``di`` x channels, then B and C) with
+    its B and C columns through :func:`bc_shared`."""
+    return torch.cat([w[..., :di], bc_shared(w[..., di:])], dim=-1)
 
 
 def ssm_param_shapes(cfg):
@@ -197,9 +210,16 @@ def ssm_apply(x, p, cfg, spec, *, mode, pos, cache=None, cache_len=None,
     h0 = tp_coord("ssm_heads") * h          # this rank's first head
     dt_ = x.dtype
     xn = rms_norm(x, p["ln"], cfg.norm_eps)
+    w_xbc, conv_w, conv_b = (p[k].to(dt_) for k in ("wxBC", "conv_w",
+                                                    "conv_b"))
+    if k_tp > 1:
+        xn = tp_enter(xn)
+        if torch.is_grad_enabled():
+            w_xbc, conv_w, conv_b = (_with_bc_shared(t, di) for t in (
+                w_xbc, conv_w, conv_b))
 
     z = xn @ p["wz"].to(dt_)
-    xbc = xn @ p["wxBC"].to(dt_)
+    xbc = xn @ w_xbc
     dt = F.softplus((xn @ p["wdt"].to(dt_)).float()
                     + p["dt_bias"].float())
     a_coef = -torch.exp(p["A_log"].float())                # (H,)
@@ -208,11 +228,11 @@ def ssm_apply(x, p, cfg, spec, *, mode, pos, cache=None, cache_len=None,
     if mode == "decode":
         conv_c = cache["conv"]
         win = torch.cat([conv_c.to(dt_), xbc], dim=1)       # (B,W,C)
-        conv = F.silu(torch.einsum("bwc,wc->bc", win, p["conv_w"].to(dt_))
-                      + p["conv_b"].to(dt_))[:, None, :]    # (B,1,C)
+        conv = F.silu(torch.einsum("bwc,wc->bc", win, conv_w)
+                      + conv_b)[:, None, :]                 # (B,1,C)
         conv_c.copy_(win[:, 1:])                            # in place
     elif mode in ("train", "prefill"):
-        conv = _causal_conv(xbc, p["conv_w"].to(dt_), p["conv_b"].to(dt_))
+        conv = _causal_conv(xbc, conv_w, conv_b)
         new_conv = xbc[:, -(cw - 1):] if s >= cw - 1 else None
     else:
         raise ValueError(f"unknown mode {mode!r}")

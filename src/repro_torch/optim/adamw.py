@@ -9,11 +9,14 @@ updates params, m and v in place (the master weights and both moments
 are the bulk of a training card's memory; a second copy would not fit at
 full width) and returns the same trees.
 
-On a data mesh (FSDP, ``sharding.fsdp``) each rank holds its blocks of
-params, grads, m and v: the update stays elementwise on them, and the
-clip norm is the whole gradient's (the reference's, whose leaves are
-whole): the split leaves' squares summed over ``data``, each whole
-leaf's counted once.
+On a mesh (``sharding.fsdp.Plan``) each rank holds its blocks of
+params, grads, m and v: the update stays elementwise on them, so a leaf
+that is whole and equal on every model rank, with a gradient that is
+too, stays bit-equal across them; and the clip norm is the whole
+gradient's (the reference's, whose leaves are whole): each leaf's
+squares summed over the axes it is split on, its parts that are whole
+on an axis counted once (the SSD mixer's B and C columns, whole on every
+model rank inside leaves whose x channels are split: ``TPSplit.width``).
 """
 from __future__ import annotations
 
@@ -23,7 +26,7 @@ from typing import NamedTuple
 import torch
 
 from ..models.layers import tree_leaves, tree_map
-from ..sharding.fsdp import data_sum
+from ..sharding.fsdp import data_sum, model_parts, model_sum
 
 
 class OptHParams(NamedTuple):
@@ -58,19 +61,31 @@ def adamw_init(params, opt_dtype="float32"):
     return {"m": tree_map(zeros, params), "v": tree_map(zeros, params)}
 
 
+def _sq(x):
+    return torch.linalg.vector_norm(x, dtype=torch.float32).square()
+
+
 def global_norm(tree, plan=None):
     """sqrt of the sum of squares of every leaf, in f32 (0-d tensor).
-    ``plan`` (a ``sharding.fsdp.Plan``): ``tree`` holds this rank's blocks
-    of the split leaves, whose squares are summed over ``data``, and whole
-    leaves, counted once."""
-    sq = torch.stack([torch.linalg.vector_norm(x, dtype=torch.float32)
-                      for x in tree_leaves(tree)]).square()
+    ``plan`` (a ``sharding.fsdp.Plan``): ``tree`` holds this rank's blocks.
+    Each leaf's squares are taken in two parts, the part split over
+    ``model`` (summed over it, in one all-reduce of every leaf's) and the
+    part whole on every model rank (counted once); then the leaves split
+    over ``data`` are summed over it (one all-reduce), and the leaves
+    whole there counted once.  Every rank gets the same bits."""
+    leaves = tree_leaves(tree)
     if plan is None:
-        return sq.sum().sqrt()
-    split = torch.tensor([d is not None for d in tree_leaves(plan.dims)],
-                         device=sq.device)
-    part = data_sum(sq[split].sum().reshape(1), plan.mesh)[0]
-    return (part + sq[~split].sum()).sqrt()
+        return torch.stack([_sq(x) for x in leaves]).sum().sqrt()
+    zero = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
+    parts = [[zero if p is None else _sq(p) for p in model_parts(
+        x, sp, plan.mesh.shape["model"])]
+        for x, sp in zip(leaves, tree_leaves(plan.tp))]
+    split, whole = (torch.stack(col) for col in zip(*parts))
+    sq = model_sum(split, plan.mesh) + whole
+    on_data = torch.tensor([d is not None for d in tree_leaves(plan.dims)],
+                           device=sq.device)
+    part = data_sum(sq[on_data].sum().reshape(1), plan.mesh)[0]
+    return (part + sq[~on_data].sum()).sqrt()
 
 
 @torch.no_grad()
@@ -80,7 +95,7 @@ def adamw_update(grads, opt_state, params, step, hp: OptHParams,
     are updated where they lie; ``grads`` are read, not written.  Returns
     (params, opt_state, metrics) with metrics ``grad_norm`` (before
     clipping) and ``lr``, 0-d f32 tensors.  ``plan``: the trees are this
-    rank's FSDP shards (:func:`global_norm`)."""
+    rank's shards on a mesh (:func:`global_norm`)."""
     gnorm = global_norm(grads, plan)
     scale = torch.clamp(hp.clip_norm / (gnorm + 1e-9), max=1.0)
     step = torch.as_tensor(step, device=gnorm.device)

@@ -7,13 +7,15 @@ leading ``n_repeats`` axis — exactly the layout ``repro_torch.models.lm``
 consumes, so nothing is reshaped here; every leaf is checked against
 ``param_meta``.
 
-Under a tensor-parallel mesh (``launch.mesh``) a rank holds only its
-shard: :func:`shard_params` cuts each leaf by its logical axes under
-``steps.TP_SERVE_RULES`` (strictly: a dim that does not split evenly
-stays whole), and the SSD mixer's leaves by the port's own layout
-(``models.ssm.TP_LOCAL``).  A train state on a data mesh (FSDP) is cut
-by :func:`shard_train_state` under the reference's ``LOGICAL_RULES``
-(``"fsdp"`` -> ``data``).
+On a mesh (``launch.mesh``) a rank holds only its shard, by the layout
+of ``steps.train_plan``: each leaf's logical axes under the reference's
+``LOGICAL_RULES``, strictly (a dim that does not split evenly stays
+whole; ``"tp"``, ``heads``, ``vocab``, ``ssm_heads`` -> ``model``,
+``"fsdp"`` -> ``data``), the SSD mixer's leaves by the port's own
+layout (``models.ssm.TP_LOCAL``).  Serving cuts the weights over
+``model`` (:func:`shard_params`; its rules differ from training's only
+in activations' axes), training cuts a whole train state over both
+axes (:func:`shard_train_state`).
 """
 from __future__ import annotations
 
@@ -22,11 +24,9 @@ import torch
 
 from .device import resolve_device
 from .models.layers import tree_map
-from .models.lm import LeafMeta, _is_meta, param_meta
-from .models.ssm import TP_LOCAL, tp_local
-from .sharding import local_shard, logical_spec
-from .steps import (TP_SERVE_RULES, check_tp, check_train_mesh, data_size,
-                    model_size)
+from .models.lm import LeafMeta, param_meta
+from .sharding.fsdp import shard_leaf
+from .steps import check_tp, model_size, tp_splits, train_plan
 
 
 def _tensor(arr):
@@ -43,41 +43,15 @@ def _tensor(arr):
 def shard_params(tree, cfg, mesh):
     """This rank's shard of the full parameter tree ``tree`` (torch
     tensors in the reference layout) on ``mesh`` (``mesh.coords`` names
-    the rank): every leaf cut to its block, copied, so that the full
-    tree can be freed.  The tree itself without a mesh or on a model axis
-    of 1.  Raises where ``steps.check_tp`` refuses the config."""
+    the rank): every leaf cut to its block over ``model``
+    (``steps.tp_splits``), copied, so that the full tree can be freed.
+    The tree itself without a mesh or on a model axis of 1.  Raises where
+    ``steps.check_tp`` refuses the config."""
     check_tp(cfg, mesh)
-    n = model_size(mesh)
-    if n == 1:
+    if model_size(mesh) == 1:
         return tree
-    ssm_blocks = {i for i, spec in enumerate(cfg.pattern)
-                  if spec.kind == "ssm"}
-
-    def cut(meta, t, name, ssm):
-        if ssm and name in TP_LOCAL:
-            out = tp_local(name, t, cfg, mesh.coords["model"], n)
-        else:
-            spec = logical_spec(meta.shape, meta.axes, mesh, TP_SERVE_RULES,
-                                strict=True)
-            out = local_shard(t, spec, mesh)
-        return out.clone(memory_format=torch.contiguous_format)
-
-    def walk(meta, t, name="", ssm=False):
-        if isinstance(meta, LeafMeta):
-            return cut(meta, t, name, ssm)
-        if isinstance(meta, dict):
-            return {k: walk(meta[k], t[k], k, ssm) for k in meta}
-        return tuple(walk(m, x) for m, x in zip(meta, t))
-
-    meta = param_meta(cfg)
-    out = {k: walk(meta[k], tree[k], k) for k in meta if k != "blocks"}
-    out["blocks"] = tuple(
-        {part: {k: walk(bm[part][k], tree["blocks"][i][part][k], k,
-                        part == "mixer" and i in ssm_blocks)
-                for k in bm[part]}
-         for part in bm}
-        for i, bm in enumerate(meta["blocks"]))
-    return out
+    return tree_map(lambda t, sp: shard_leaf(t, None, sp, mesh), tree,
+                    tp_splits(cfg, mesh))
 
 
 def params_from_numpy(tree, cfg, device="cuda", dtype=None, mesh=None):
@@ -120,31 +94,31 @@ def _to(tree, device):
     return tree.to(device)
 
 
-def fsdp_shard(tree, cfg, mesh):
+def train_shard(tree, cfg, mesh):
     """This rank's blocks of a whole parameter-shaped tree (params, m or v)
-    on a data mesh: each leaf cut by its logical axes under the
-    reference's ``LOGICAL_RULES`` (``"fsdp"`` -> ``data``) strictly, so a
-    dim that ``data`` does not divide stays whole; each block copied, so
-    that the whole tree can be freed."""
-    def cut(m, t):
-        spec = logical_spec(m.shape, m.axes, mesh, strict=True)
-        return local_shard(t, spec, mesh).clone(
-            memory_format=torch.contiguous_format)
-
-    return tree_map(cut, param_meta(cfg), tree, is_leaf=_is_meta)
+    on a mesh, by the step's layout (``steps.train_plan``): each leaf cut
+    over ``model`` (its logical axes under the reference's
+    ``LOGICAL_RULES``, strictly, or ``models.ssm.TP_LOCAL``), then over
+    ``data`` (its ``"fsdp"`` dim), so a dim an axis does not divide stays
+    whole on it; each block copied, so that the whole tree can be
+    freed.  The tree itself without a mesh or on one rank."""
+    plan = train_plan(cfg, mesh)
+    if plan is None:
+        return tree
+    return tree_map(lambda t, d, sp: shard_leaf(t, d, sp, mesh), tree,
+                    plan.dims, plan.tp)
 
 
 def shard_train_state(tree, cfg, mesh):
     """This rank's shard of the whole train state ``tree`` (``{"params",
-    "opt": {"m", "v"}, "step"}``, torch tensors) on a data mesh: params, m
-    and v cut alike (:func:`fsdp_shard`), ``step`` copied whole.  The tree
-    itself without a mesh or on a data axis of 1; raises where
+    "opt": {"m", "v"}, "step"}``, torch tensors) on a mesh: params, m and
+    v cut alike (:func:`train_shard`), ``step`` copied whole.  The tree
+    itself without a mesh or on one rank; raises where
     ``steps.check_train_mesh`` refuses."""
-    check_train_mesh(cfg, mesh)
-    if data_size(mesh) == 1:
+    if train_plan(cfg, mesh) is None:
         return tree
-    return {"params": fsdp_shard(tree["params"], cfg, mesh),
-            "opt": {k: fsdp_shard(tree["opt"][k], cfg, mesh)
+    return {"params": train_shard(tree["params"], cfg, mesh),
+            "opt": {k: train_shard(tree["opt"][k], cfg, mesh)
                     for k in ("m", "v")},
             "step": tree["step"].clone()}
 
@@ -154,7 +128,7 @@ def train_state_from_numpy(tree, cfg, device="cuda", mesh=None):
     {"m", "v"}, "step"}``, as numpy) as the port's train state: master
     params in ``cfg.param_dtype`` (not ``cfg.dtype``, which is the compute
     copy's), m and v in ``cfg.opt_dtype``, ``step`` a 0-d int32 tensor.
-    With ``mesh`` (a data mesh), this rank's shard
+    With ``mesh``, this rank's shard
     (:func:`shard_train_state`), cut on the host before it moves to
     ``device``."""
     device = resolve_device(device)

@@ -36,7 +36,7 @@ That needs what this module provides, and the reference needs none of:
   never complete) and refuses every later call.  The engine fails its
   live requests, as its ``_fail_live`` does.
 
-The same dispatch drives training on a data mesh (FSDP):
+The same dispatch drives training on a mesh (FSDP, tensor parallelism):
 ``launch.train.MeshTrain`` loads a train state's shards on every rank
 and sends each train step, checkpoint snapshot and restore through a
 :class:`Session`.
@@ -443,8 +443,9 @@ def seen(state, key):
 
 def counters(state, reset=False):
     """``Session.run`` probe: this rank's kernel launch counts, its
-    tensor-parallel collective counts and its FSDP gathers and sums with
-    their bytes (zeroed after reading when ``reset``)."""
+    tensor-parallel collective counts (forward and backward) and its FSDP
+    gathers and sums, each with its bytes (zeroed after reading when
+    ``reset``)."""
     from .. import kernels
     from ..models import layers
 
@@ -454,13 +455,17 @@ def counters(state, reset=False):
     counts = {name: getattr(kernels, name).launches for name in (
         "flash_attention", "paged_decode_attention",
         "paged_mla_decode_attention", "rms_norm", "rms_norm_bwd",
-        "ssd_scan", "ssd_scan_bwd")}
-    counts.update({name: getattr(layers, name).calls
-                   for name in ("tp_all_reduce", "tp_all_gather")})
+        "rms_norm_dot", "rms_norm_bwd_rstd", "ssd_scan", "ssd_scan_bwd")}
+    for name in ("tp_all_reduce", "tp_all_gather", "tp_enter",
+                 "tp_norm_dot"):
+        op = getattr(layers, name)
+        counts.update({name: op.calls, f"{name}_bytes": op.bytes})
     counts.update(fsdp_gather=fsdp.gather.calls,
                   fsdp_gather_bytes=fsdp.gather.bytes,
                   fsdp_sum=fsdp.data_sum.calls,
-                  fsdp_sum_bytes=fsdp.data_sum.bytes)
+                  fsdp_sum_bytes=fsdp.data_sum.bytes,
+                  tp_sum=fsdp.model_sum.calls,
+                  tp_sum_bytes=fsdp.model_sum.bytes)
     for name, c in counts.items():
         out[name] = c.value
         if reset:

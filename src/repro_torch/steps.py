@@ -17,19 +17,28 @@ block tables and logits are whole on every rank.  One rank's step is
 only part of the computation: ``serve.tp`` runs the same step on every
 rank, in one order.
 
-Sharded training (FSDP): ``make_train_step(cfg, hp, mesh=)`` on a mesh
-whose ``data`` axis is above 1 runs on this rank's blocks of params, m
-and v (``params.shard_train_state``), each split leaf gathered where the
-model uses it and its gradient summed back to the blocks
-(``sharding.fsdp``), and on this rank's ``micro / data`` rows of every
-microbatch.  The loss divides by the global count of labelled tokens,
-whole leaves' gradients are summed over ``data``, and the clip norm is
-the whole gradient's.  The model axis must be 1 in training
+Sharded training: ``make_train_step(cfg, hp, mesh=)`` on any ``D,M``
+mesh runs on this rank's blocks of params, m and v
+(``params.shard_train_state``), cut by the reference's
+``LOGICAL_RULES``: each weight's ``"fsdp"`` dim over ``data`` (FSDP:
+each split leaf gathered over ``data`` where the model uses it and its
+gradient summed back to the blocks, ``sharding.fsdp``), its ``"tp"``,
+``heads``, ``vocab`` and ``ssm_heads`` dims over ``model`` (tensor
+parallelism: the forward runs under ``sharding_ctx(mesh)`` and the
+model's collectives carry their backwards, ``models.layers``), the SSD
+mixer's leaves by the port's own layout (``models.ssm.TP_LOCAL``).  A
+rank computes on its ``micro / D`` rows of every microbatch; the ranks
+of one model group hold the same rows and labels.  The loss divides by
+the global count of labelled tokens (summed over ``data``), whole-on-
+``data`` leaves' gradients are summed over ``data``, and the clip norm
+is the whole gradient's (``optim.adamw.global_norm``).  MoE layers under
+a mesh and head counts the model axis does not divide raise
 (:func:`check_train_mesh`).
 """
 from __future__ import annotations
 
 import contextlib
+import functools
 
 import torch
 
@@ -40,7 +49,7 @@ from .models.lm import LeafMeta, cache_meta, forward, init_params
 from .models.ssm import TP_LOCAL, tp_local_width
 from .optim import OptHParams, adamw_init, adamw_update
 from .sharding import logical_spec, shard_shape, sharding_ctx
-from .sharding.fsdp import Plan, data_dims, data_sum
+from .sharding.fsdp import Plan, TPSplit, data_dims, data_sum
 
 DECODE_RULES = {"heads": ()}  # decode shards cache-seq, not heads
 
@@ -86,11 +95,28 @@ def data_size(mesh) -> int:
     return 1 if mesh is None else mesh.shape.get("data", 1)
 
 
+def _check_heads(cfg, n) -> None:
+    """Raise where the model axis ``n`` does not divide a head count of
+    ``cfg`` (ROADMAP item 20: the reference replicates such heads)."""
+    counts = set()
+    for spec in cfg.pattern:
+        if spec.kind == "ssm":
+            counts.add(cfg.ssm_nheads)
+        else:
+            counts.update((cfg.n_heads,) if spec.attn == "mla"
+                          else (cfg.n_heads, cfg.n_kv_heads))
+    if any(c % n for c in counts):
+        raise NotImplementedError(
+            f"{cfg.name}: head counts {sorted(counts)} do not split {n} "
+            "ways; replicated heads under tensor parallelism are not "
+            "ported (ROADMAP.md queue 1, item 20)")
+
+
 def check_tp(cfg, mesh) -> None:
     """Raise where tensor-parallel serving of ``cfg`` on ``mesh`` is not
     ported: a data axis above 1 (a training mesh: serving maps ``batch``
     to no mesh axis), MoE layers (ROADMAP item 9b), head counts the model
-    axis does not divide (item 9: the reference replicates them).  A
+    axis does not divide (item 20: the reference replicates them).  A
     no-op without a mesh or with a model axis of 1."""
     n = model_size(mesh)
     if data_size(mesh) > 1:
@@ -104,18 +130,7 @@ def check_tp(cfg, mesh) -> None:
         raise NotImplementedError(
             f"{cfg.name}: MoE layers under tensor parallelism are not "
             "ported (ROADMAP.md queue 1, item 9b)")
-    counts = set()
-    for spec in cfg.pattern:
-        if spec.kind == "ssm":
-            counts.add(cfg.ssm_nheads)
-        else:
-            counts.update((cfg.n_heads,) if spec.attn == "mla"
-                          else (cfg.n_heads, cfg.n_kv_heads))
-    if any(c % n for c in counts):
-        raise NotImplementedError(
-            f"{cfg.name}: head counts {sorted(counts)} do not split {n} "
-            "ways; replicated heads under tensor parallelism are not "
-            "ported (ROADMAP.md queue 1, item 9)")
+    _check_heads(cfg, n)
 
 
 def _tp(mesh):
@@ -191,11 +206,11 @@ def _token_loss(out, labels, cfg, count=None):
 
 def check_train_mesh(cfg, mesh, micro: int | None = None) -> None:
     """Raise where training ``cfg`` on ``mesh`` is not ported: MoE layers
-    under a mesh (ROADMAP item 9b), a model axis above 1 (item 18b: the
-    tensor-parallel collectives have no backward), a microbatch of
-    ``micro`` rows that the data axis does not divide (deviation: the
-    reference's strict rule would replicate such a batch).  A no-op
-    without a mesh or on a (1, 1) mesh."""
+    under a mesh (ROADMAP item 9b), head counts a model axis above 1 does
+    not divide (item 20: the reference replicates such heads), a
+    microbatch of ``micro`` rows that the data axis does not divide
+    (deviation: the reference's strict rule would replicate such a
+    batch).  A no-op without a mesh or on a (1, 1) mesh."""
     if mesh is None or mesh.shape["data"] * mesh.shape["model"] == 1:
         return
     if any(spec.mlp == "moe" for spec in cfg.pattern):
@@ -203,10 +218,7 @@ def check_train_mesh(cfg, mesh, micro: int | None = None) -> None:
             f"{cfg.name}: MoE layers under a mesh are not ported "
             "(ROADMAP.md queue 1, item 9b)")
     if model_size(mesh) > 1:
-        raise NotImplementedError(
-            f"mesh {mesh.shape}: training with a model axis above 1 is not "
-            "ported (ROADMAP.md queue 1, item 18b: tensor parallelism in "
-            "training)")
+        _check_heads(cfg, model_size(mesh))
     if micro is not None and micro % data_size(mesh):
         raise NotImplementedError(
             f"a microbatch of {micro} rows does not split "
@@ -214,14 +226,54 @@ def check_train_mesh(cfg, mesh, micro: int | None = None) -> None:
             "replicate it; the port needs micro divisible by data)")
 
 
-def train_plan(cfg, mesh):
-    """The FSDP layout of ``cfg``'s parameters on ``mesh``
-    (``sharding.fsdp.Plan``), or None where nothing is split: no mesh, or
-    a data axis of 1.  Raises where :func:`check_train_mesh` does."""
-    check_train_mesh(cfg, mesh)
-    if data_size(mesh) == 1:
+def tp_splits(cfg, mesh):
+    """Per parameter leaf of ``cfg``, its split over ``model`` on
+    ``mesh`` (a ``sharding.fsdp.TPSplit``) or None where it is whole on
+    every model rank: the dim its logical axes put on ``model`` under
+    ``LOGICAL_RULES``, strictly; the SSD mixer's leaves by
+    ``models.ssm.TP_LOCAL`` (the last dim: one entry per head or inner
+    channel, or this rank's x channels and every B and C channel).  All
+    None on a model axis of 1."""
+    n = model_size(mesh)
+
+    def split(m, name, ssm):
+        if n == 1:
+            return None
+        if ssm and name in TP_LOCAL:
+            return TPSplit(len(m.shape) - 1, cfg.d_inner
+                           if TP_LOCAL[name] == "conv" else None)
+        spec = logical_spec(m.shape, m.axes, mesh, strict=True)
+        for d, part in enumerate(spec):
+            if "model" in ((part,) if isinstance(part, str) else part or ()):
+                return TPSplit(d)
         return None
-    return Plan(mesh, data_dims(lm.param_meta(cfg), mesh))
+
+    def walk(m, name="", ssm=False):
+        if isinstance(m, LeafMeta):
+            return split(m, name, ssm)
+        if isinstance(m, dict):
+            return {k: walk(v, k, ssm) for k, v in m.items()}
+        return tuple(walk(v) for v in m)
+
+    meta = lm.param_meta(cfg)
+    out = {k: walk(v, k) for k, v in meta.items() if k != "blocks"}
+    out["blocks"] = tuple(
+        {part: {k: walk(v, k, part == "mixer" and spec.kind == "ssm")
+                for k, v in blk[part].items()} for part in blk}
+        for spec, blk in zip(cfg.pattern, meta["blocks"]))
+    return out
+
+
+def train_plan(cfg, mesh):
+    """The layout of ``cfg``'s parameters on ``mesh``
+    (``sharding.fsdp.Plan``: each leaf's data dim and model split), or
+    None where nothing is split: no mesh, or one rank.  Raises where
+    :func:`check_train_mesh` does."""
+    check_train_mesh(cfg, mesh)
+    if mesh is None or mesh.size == 1:
+        return None
+    return Plan(mesh, data_dims(lm.param_meta(cfg), mesh),
+                tp_splits(cfg, mesh))
 
 
 def _on(batch, device):
@@ -239,14 +291,19 @@ def make_grad_step(cfg, mesh=None):
     ``batch["patches"]`` (vision), when present, rides each microbatch;
     audio labels are (…, K), one per codebook, as the tokens.
 
-    On a data mesh (``mesh``; the layout is the step's ``plan``),
-    ``params`` are this rank's blocks and so are the gradients; the rank
-    computes on rows ``[c m / D, (c + 1) m / D)`` of each microbatch of
-    ``m`` rows (``c`` its data coordinate, ``D`` the axis), divides by the
-    microbatch's global count of labelled tokens, and sums the whole
-    leaves' gradients and the loss over ``data``.  ``aux`` is summed as
-    the rest; it is 0 here, since MoE under a mesh raises."""
+    On a mesh (``mesh``; the layout is the step's ``plan``), ``params``
+    are this rank's blocks and so are the gradients; the rank computes on
+    rows ``[c m / D, (c + 1) m / D)`` of each microbatch of ``m`` rows
+    (``c`` its data coordinate, ``D`` the axis), divides by the
+    microbatch's global count of labelled tokens, and sums the whole-on-
+    ``data`` leaves' gradients and the loss over ``data``.  On a model
+    axis above 1 the forward and its backward run under
+    ``sharding_ctx(mesh)`` (the reference's ``LOGICAL_RULES``).  ``aux``
+    is summed as the rest; it is 0 here, since MoE under a mesh
+    raises."""
     plan = train_plan(cfg, mesh)
+    tp = (functools.partial(sharding_ctx, mesh) if model_size(mesh) > 1
+          else contextlib.nullcontext)
 
     def grad_step(params, batch):
         live = tree_map(lambda p: p.detach().requires_grad_(
@@ -263,7 +320,7 @@ def make_grad_step(cfg, mesh=None):
             counts = data_sum((batch["labels"] >= 0).reshape(
                 accum, -1).sum(1).float(), mesh)
         lsum = torch.zeros((), dtype=torch.float32, device=device)
-        with torch.enable_grad():
+        with torch.enable_grad(), tp():
             for a in range(accum):
                 out = forward(cast_tree(live, cfg.dtype), cfg,
                               batch["tokens"][a], mode="train",
@@ -288,11 +345,12 @@ def make_grad_step(cfg, mesh=None):
 
 
 def _sum_whole(grads, plan):
-    """The whole leaves' gradients summed over ``data`` in place, in one
-    all-reduce of their concatenation."""
+    """The whole-on-``data`` leaves' gradients summed over ``data`` in
+    place, in one all-reduce of their concatenation (none on a data axis
+    of 1)."""
     whole = [g for g, d in zip(tree_leaves(grads), tree_leaves(plan.dims))
              if d is None]
-    if not whole:
+    if not whole or data_size(plan.mesh) == 1:
         return
     flat = data_sum(torch.cat([g.reshape(-1) for g in whole]), plan.mesh)
     for g, part in zip(whole, flat.split([g.numel() for g in whole])):
@@ -304,7 +362,7 @@ def make_train_step(cfg, hp: OptHParams = OptHParams(), mesh=None):
     batch's ``accum`` microbatches (``make_grad_step``) and AdamW, the
     state updated in place (``step`` too).  Metrics: ``loss``,
     ``grad_norm`` and ``lr``, 0-d f32 tensors on the state's device.  On
-    a data mesh the state is this rank's shard (``params.
+    a mesh the state is this rank's shard (``params.
     shard_train_state``), the batch whole, and every rank of the mesh
     runs the step (``serve.tp.Session``)."""
     grad_step = make_grad_step(cfg, mesh)
@@ -675,5 +733,6 @@ __all__ = ["cast_tree", "make_prefill_step", "make_serve_step",
            "make_verify_step", "make_pool_step", "make_row_cache_step",
            "init_cache", "TP_SERVE_RULES", "DECODE_RULES",
            "SERVE_CACHE_AXES", "serve_cache_axes", "local_cache_meta",
-           "check_tp", "check_train_mesh", "train_plan", "data_size",
+           "check_tp", "check_train_mesh", "tp_splits", "train_plan",
+           "data_size",
            "make_grad_step", "make_train_step", "init_train_state"]

@@ -175,7 +175,18 @@ def test_evict_restore_under_a_tight_pool_equals_oneshot_and_reference(
     restored (prefill-replay on qwen2.5-14b, minicpm3-4b and the two
     frontends, decode-replay on mamba2-780m and mixtral-8x7b).  The
     tokens equal the never-evicted one-shot run, bit for bit, and the
-    reference engine's on the same inputs and pool."""
+    reference engine's on the same inputs and pool.
+
+    The reference engine runs with its prefix cache off.  With it on, a
+    blocked head drops only its own prefix hold while the rows queued
+    behind it keep theirs (``repro/serve/engine.py``, ``_do_inserts``),
+    so whether the pool frees depends on how the worker threads
+    interleave: under load it never did (the reference's decode loop
+    failed 6.1 million page allocations in 120 s, no slot live, the
+    queued holds pinning the pages; ROADMAP queue 3).  The port's own
+    engine keeps its prefix cache (``_drop_queued_holds``).  The tokens
+    do not depend on the cache: both runs are still held to the port's
+    one-shot rows bit for bit, and each must evict and restore."""
     from repro.serve import Request as JRequest
     from repro.serve import ServeEngine as JServeEngine
 
@@ -190,7 +201,8 @@ def test_evict_restore_under_a_tight_pool_equals_oneshot_and_reference(
     jreqs = _requests(b, JRequest)
     eng = JServeEngine(b["cfg"], b["jp"], slots=3, cache_len=CACHE_LEN,
                        n_cores=4, page_size=PS, num_pages=P_PAGES + W_PAGES,
-                       policy="ondemand", paged_kernel=True).start()
+                       policy="ondemand", paged_kernel=True,
+                       prefix_cache="off").start()
     for r in jreqs:
         eng.submit(r)
     jstats = drain(eng, jreqs, TIMEOUT_S)

@@ -13,6 +13,12 @@ tiny f32 configs; the reference runs and bars of ``tests/fsdp_ref.py``).
     device: each restore equal to the saved state byte for byte, and each
     continuation, like the uninterrupted 4,1 run, ends at the reference's
     four steps by the bars of ``fsdp_ref``.
+  * Across 2-D meshes (tensor parallelism in training): mamba2-780m
+    saved on 2,2 after two of three steps (each leaf assembled over both
+    axes, the SSD mixer's B and C columns once), restored onto 1,2, 2,1
+    and one device, each equal to the saved state byte for byte and each
+    continuation at the reference's third step; the same checkpoint
+    loads in the reference.
   * The elastic restart: data 4 at accum 1, a checkpoint, then data 2
     at accum x ``plan_remesh(...).accum_scale`` (2), which keeps the
     global batch.  Every label kept, so each microbatch's count of
@@ -21,8 +27,9 @@ tiny f32 configs; the reference runs and bars of ``tests/fsdp_ref.py``).
     reference's uninterrupted data-4 run by the same bars.
   * ``launch.train.build`` on a mesh: rank 0's shard of the seeded state,
     the same loss as on one device.
-  * Refusals: MoE under a mesh (item 9b), a model axis above 1 in
-    training (item 18b), a microbatch the data axis does not divide.
+  * Refusals: MoE under a mesh (item 9b), head counts a model axis
+    does not divide (item 20), a microbatch the data axis does not
+    divide; a model axis above 1 builds (item 18b is done).
   * A follower that raises mid-step fails the step with ``TPError``.
   * ``chip_smoke.fsdp_section`` rehearsed at a tiny config.
 """
@@ -173,6 +180,69 @@ def test_save_on_4_restore_on_2_and_on_one_device(mesh2, mesh4, tmp_path):
     assert misses(ref, metrics, tree_leaves(state), first=2) == []
 
 
+ARCH_2D = "mamba2-780m"
+
+
+@pytest.fixture(scope="module")
+def saved_2_2(tmp_path_factory):
+    """Two of three reference steps of ``ARCH_2D`` on a 2,2 mesh, saved:
+    (the checkpoint's directory, the saved state's whole leaves)."""
+    ref = reference(ARCH_2D)
+    path = tmp_path_factory.mktemp("ckpt_2_2")
+    with make_mesh_from_devices("2,2", device_type="cpu") as mesh:
+        tr = mesh_train(ARCH_2D, mesh, ref.state0)
+        try:
+            metrics = steps_on(tr, ref.batches[:2])
+            tr.save(CheckpointManager(str(path)), tr.state, 2, wait=True)
+            saved = whole_leaves(tr)
+        finally:
+            tr.close()
+    assert misses(ref, metrics, saved) == []
+    return path, saved
+
+
+@pytest.fixture(scope="module")
+def mesh12():
+    with make_mesh_from_devices("1,2", device_type="cpu") as m:
+        yield m
+
+
+@pytest.mark.parametrize("target", ["1,2", "2,1", "one device",
+                                    "reference"])
+def test_a_2_2_checkpoint_restores_onto_any_mesh(target, saved_2_2, mesh2,
+                                                 mesh12):
+    path, saved = saved_2_2
+    ref = reference(ARCH_2D)
+    if target == "reference":
+        loaded, step = jload(str(path), jax.tree.map(jnp.asarray,
+                                                     ref.state0))
+        assert step == 2
+        same(jax.tree.leaves(loaded), saved)
+        return
+    if target == "one device":
+        cfg = get(ARCH_2D).tiny()
+        state, step = load_checkpoint(str(path), train_state_from_numpy(
+            ref.state0, cfg, "cpu"))
+        assert step == 2
+        same(tree_leaves(state), saved)
+        train = make_train_step(cfg, OptHParams(**HP))
+        state, m = train(state, ref.batches[2])
+        metrics, leaves = [{k: float(v) for k, v in m.items()}], \
+            tree_leaves(state)
+    else:
+        tr = mesh_train(ARCH_2D, {"1,2": mesh12, "2,1": mesh2}[target],
+                        ref.state0)
+        try:
+            tr.state, step = tr.restore(str(path), tr.state)
+            assert step == 2
+            same(whole_leaves(tr), saved)
+            metrics = steps_on(tr, ref.batches[2:])
+            leaves = whole_leaves(tr)
+        finally:
+            tr.close()
+    assert misses(ref, metrics, leaves, first=2) == []
+
+
 def test_elastic_restart_from_data_4_to_data_2(mesh2, mesh4, tmp_path):
     ref = reference(ARCH, micro=4, accum=1, steps=4, masked=False)
     plan = plan_remesh(2, chips_per_host=1, old_mesh=(4, 1),
@@ -223,16 +293,25 @@ def test_what_is_not_ported_raises():
     with pytest.raises(NotImplementedError, match="item 9b"):
         check_train_mesh(get("mixtral-8x7b").tiny(),
                          Mesh({"data": 2, "model": 1}))
-    with pytest.raises(NotImplementedError, match="item 18b"):
-        make_train_step(get(ARCH).tiny(), OptHParams(),
-                        Mesh({"data": 2, "model": 2}))
-    with pytest.raises(NotImplementedError, match="item 18b"):
-        shard_train_state({}, get(ARCH).tiny(),
-                          Mesh({"data": 1, "model": 2}))
-    # a microbatch of 3 rows on data 2: the step raises before any
-    # collective (rank 0's view of a mesh, no processes)
+    # a model axis above 1 trains (item 18b): the step builds on a 2,2
+    # mesh and the state is cut on 1,2 (rank 0's view, no processes;
+    # tests/test_torch_tp_train.py runs the steps)
     cfg = get(ARCH).tiny()
     ref = reference(ARCH)
+    assert callable(make_train_step(cfg, OptHParams(),
+                                    Mesh({"data": 2, "model": 2})))
+    whole = train_state_from_numpy(ref.state0, cfg, "cpu")
+    part = shard_train_state(whole, cfg, Mesh({"data": 1, "model": 2}))
+    assert part["params"]["lm_head"].shape == (cfg.d_model, cfg.vocab // 2)
+    assert part["opt"]["m"]["blocks"][0]["mixer"]["wq"].shape == (
+        cfg.n_repeats, cfg.d_model, cfg.n_heads * cfg.head_dim // 2)
+    assert torch.equal(part["params"]["final_norm"],
+                       whole["params"]["final_norm"])
+    # head counts the model axis does not divide (item 20)
+    with pytest.raises(NotImplementedError, match="item 20"):
+        make_train_step(cfg, OptHParams(), Mesh({"data": 1, "model": 3}))
+    # a microbatch of 3 rows on data 2: the step raises before any
+    # collective (rank 0's view of a mesh, no processes)
     mesh = Mesh({"data": 2, "model": 1})
     state = train_state_from_numpy(ref.state0, cfg, "cpu", mesh)
     odd = {k: v[:, :3] for k, v in ref.batches[0].items()}

@@ -337,7 +337,7 @@ def test_what_is_not_ported_raises():
     with pytest.raises(NotImplementedError, match="item 9b"):
         ServeEngine(get("mixtral-8x7b").tiny(), lambda: None, device="cpu",
                     mesh=Mesh({"data": 1, "model": 2}))
-    with pytest.raises(NotImplementedError, match="item 9\\)"):
+    with pytest.raises(NotImplementedError, match="item 20\\)"):
         ServeEngine(cfg, params, device="cpu",
                     mesh=Mesh({"data": 1, "model": 3}))
     with pytest.raises(NotImplementedError, match="serving splits no data"):
