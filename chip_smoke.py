@@ -62,7 +62,7 @@ Phases (each raises on failure, so the script exits non-zero):
    layers), mamba2-780m (SSD, ``page_size="auto"``; 12 of 48), each with
    32 requests with prompt lengths from {256, 512, 1024, 2048} and 16
    slots; then mixtral-8x7b (MoE, sliding-window rings, flash prefill) at
-   8 of its 32 layers (the whole model does not fit one card), 16
+   4 of its 32 layers (the whole model does not fit one card), 16
    requests, each prompt length of {1024, 2048, 6144, 8192} four times,
    8 slots; then the two frontends at full width with the prefix trie
    on (internvl2-2b at 12 of 24 layers, musicgen-large at 12 of 48):
@@ -165,23 +165,26 @@ Phases (each raises on failure, so the script exits non-zero):
    (``repro_torch.launch.mesh``, started on a thread right after the
    build so the follower's start overlaps the kernel checks), both on
    the one card over gloo when the machine has one card, on two cards
-   over nccl when it has more (printed); qwen2.5-14b (4 of 48 layers,
-   qwen's mix of 16 requests), minicpm3-4b and mamba2-780m (4 layers, 8
-   requests) in turn at full
+   over nccl when it has more (printed); qwen2.5-14b (2 of 48 layers,
+   qwen's mix of 16 requests), minicpm3-4b (2 layers) and mamba2-780m
+   (4 layers), 8 requests each, and mixtral-8x7b (2 of 32 layers, 8 of
+   mixtral's requests to 8192 tokens, the dropless MoE: every expert on
+   both ranks at half its d_ff columns) in turn at full
    width through ``ServeEngine(mesh=...)``; each leg's bars on rank 0
    against the single-device forward from the same full weights (the
    teacher-forced token check, the TP step path's logits within
    ``REL_TOL``), planted TP faults on every rank that must fail them
    (``TP_LEGS``), and per rank the launch identities, the collectives
    per tick, the pool bytes against the single-device pool and the last
-   tick's tokens, mask and block table (the same bytes on every rank).
-   Phase 3
+   tick's tokens, mask and block table (the same bytes on every rank);
+   mixtral's also the route check on the TP step path, the ranks'
+   expert ids equal by digest and the per-rank expert bytes.  Phase 3
    also holds every serve kernel at the two ranks' local shapes
    (``check_tp_kernels``).
 5c. fsdp  — the sharded train state (``fsdp_section``; ``--phases
    fsdp``): a 2,1 mesh of this process and one follower (started right
    after the build, as the TP section's), both on the one card over gloo
-   (two cards: nccl); mamba2-780m (4 of 48 layers) at full width through
+   (two cards: nccl); mamba2-780m (2 of 48 layers) at full width through
    ``launch.train.MeshTrain``, f32 masters, bf16 compute, remat "full",
    f32 AdamW (``FSDP_LEGS``; qwen2.5-14b's leg moved to 5d); bars (a)-(e)
    in ``fsdp_section``: the sharded gradient step against this
@@ -193,9 +196,11 @@ Phases (each raises on failure, so the script exits non-zero):
 5d. tp_train — tensor parallelism in training (``tp_train_section``;
    ``--phases tp_train``): a 2,2 mesh of this process and three
    followers on the one card over gloo (four cards: nccl);
-   qwen2.5-14b (1 layer, one step) and mamba2-780m (2 layers, two steps,
+   qwen2.5-14b (1 layer, one step), mamba2-780m (2 layers, two steps,
    the planted faults of ``TP_TRAIN_FAULTS``, a checkpoint restored onto
-   one device and onto 2,1) at full width; bars (a)-(f) in
+   one device and onto 2,1) and mixtral-8x7b (1 layer, one step, the
+   capacity MoE dispatch, its experts split on both axes) at full width;
+   bars (a)-(f) in
    ``tp_train_section``.  Each mesh's followers warm their Triton
    kernels on a thread while the serve phases run (``warm_mesh``).
 6. summary — one ``kernels`` JSON line, then the ``ok`` line.
@@ -546,13 +551,14 @@ FRONTEND_DECODE = {"musicgen": ((16, 32, 32, 64, 2080, 8), 0),
 # mamba2-780m and musicgen-large (each from 24 to 12, to make room for
 # the TP section), internvl2-2b and qwen2.5-14b's spec phase at 12
 # layers; qwen2.5-14b's prefix and on-demand phases and the on-demand
-# mamba2-780m at 6 (from 12);
-# mixtral-8x7b and jamba at 8; minicpm3-4b's cold phase at 48 of 62.  Every layer of a family runs the same kernels at
-# the same widths.  At their deeper depth these phases' planted faults
-# trailed the forward by 0.48 or more in relative logit error and by 1.8
-# or more in its argmax, against bars of 0.3 and 1.0 (PERF.md section
-# 6).  minicpm3-4b's prefix phase keeps all 62 layers: at 31 two of its
-# faults were no longer rejected, and at 62 one trails by 1.08.
+# mamba2-780m at 6 (from 12); jamba at 8, mixtral-8x7b at 4 (8 before
+# the TP section's mixtral leg); minicpm3-4b's cold phase at 48 of 62.
+# Every layer of a family runs the same kernels at the same widths.  At
+# their deeper depth these phases' planted faults trailed the forward by
+# 0.48 or more in relative logit error and by 1.8 or more in its argmax,
+# against bars of 0.3 and 1.0 (PERF.md section 6).  minicpm3-4b's prefix
+# phase keeps all 62 layers: at 31 two of its faults were no longer
+# rejected, and at 62 one trails by 1.08.
 PHASES = {
     "qwen2.5-14b": dict(paged_kernel=True, traffic=TRAFFIC, layers=12,
                         kernels={"paged_decode_attention": "decode",
@@ -564,9 +570,11 @@ PHASES = {
                         verify_faults=("window_late",)),
     "mamba2-780m": dict(paged_kernel=False, traffic=TRAFFIC, layers=12,
                         kernels={"ssd_scan": "prefill"}),
-    # 8 of 32 layers: full depth is 93.4 GB of bf16 weights, more than
+    # 4 of 32 layers: full depth is 93.4 GB of bf16 weights, more than
     # the card holds; 16 layers would be 46.4 GB + 0.5 GB of embedding and
-    # head, 8 keep the script's time.
+    # head; 8 kept the script's time until the TP section's mixtral leg
+    # (4 since then: at 8 its narrowest planted fault trailed by 1.3749
+    # relative and 6.2109 logits against 0.3 / 1.0).
     # The dropless MoE dispatch, as Mixtral is served: at this init the
     # capacity dispatch (the registry's default) drops some (token, pick)
     # pairs of every long prompt, and which ones depends on the sequence
@@ -574,7 +582,7 @@ PHASES = {
     # + tokens would differ by construction (``check_capacity_dispatch``
     # holds that dispatch on the card).
     "mixtral-8x7b": dict(paged_kernel=True, traffic=MIXTRAL_TRAFFIC,
-                         layers=8, moe_impl="ragged",
+                         layers=4, moe_impl="ragged",
                          kernels={"flash_attention": "prefill",
                                   "paged_decode_attention": None}),
     # the frontends at full width (internvl2-2b at 12 of its 24 layers,
@@ -774,6 +782,36 @@ def device_ms(fn, iters=20, per_call=None, lead=1):
 
 def ms_text(ms):
     return "not measured" if ms is None else f"{ms:.4f}"
+
+
+# The H100's L2 holds 50 MB: a kernel called again and again on inputs
+# smaller than that reads them from L2, not HBM, and can beat its bytes
+# bound.  Such a kernel is timed over copies of its inputs, taken in turn,
+# that together pass ``ROTATE_BYTES``, so that each call's inputs were
+# last read two L2-fulls ago.
+L2_BYTES = 50e6
+ROTATE_BYTES = 100e6
+
+
+def rotated(fn, args, nbytes):
+    """A call of ``fn`` that takes the next of ``n`` copies of its tensor
+    ``args`` in turn (other arguments shared), ``n`` enough that the copies
+    pass ``ROTATE_BYTES`` (``nbytes``: what one call reads and writes), or
+    ``fn(*args)`` itself for a working set above L2.  Returns (the call,
+    ``n``)."""
+    import torch
+
+    if nbytes >= L2_BYTES:
+        return (lambda: fn(*args)), 1
+    n = -(-int(ROTATE_BYTES) // int(nbytes)) + 1
+    copies = [args] + [tuple(a.clone() if isinstance(a, torch.Tensor) else a
+                             for a in args) for _ in range(n - 1)]
+    turn = [0]
+
+    def call():
+        turn[0] = (turn[0] + 1) % n
+        return fn(*copies[turn[0]])
+    return call, n
 
 
 def clocks():
@@ -1369,20 +1407,21 @@ def check_rms_norm_rstd_bwd():
         TOL["bfloat16"])
 
     # times of one half (one rank's work), both launches, bf16
-    def kernel():
-        rms_norm_bwd_rstd(xh, wh, dyh, rstd,
-                          rms_norm_dot(xh, wh, dyh), width)
-
     def plain():
         rms_norm_bwd_rstd_ref(xh, wh, dyh, rstd,
                               rms_norm_dot_ref(xh, wh, dyh), width)
 
-    k_ms, p_ms = time_ms(kernel), time_ms(plain)
-    k_dev = device_ms(kernel, per_call=3, lead=8)
     # x and dy read, dx written, w read and dw written, once each; rstd
     # read, s written by the first entry and read by the second (the
     # all-reduce between them)
     nbytes = 3 * xh.numel() * 2 + 2 * wh.numel() * 2 + rows * 4 * 3
+    # 38 MB, under L2: the kernel timed over rotating copies of its inputs
+    rot, n_rot = rotated(lambda a, b, c, r: rms_norm_bwd_rstd(
+        a, b, c, r, rms_norm_dot(a, b, c), width), (xh, wh, dyh, rstd),
+        nbytes)
+    k_ms, p_ms = time_ms(rot), time_ms(plain)
+    k_dev = device_ms(rot, per_call=3, lead=8)
+    del rot
     flops = 12 * xh.numel()
     bound = max(nbytes / HBM_BPS, flops / F32_FLOPS) * 1e3
     bound_by = "bytes" if nbytes / HBM_BPS >= flops / F32_FLOPS \
@@ -1392,7 +1431,8 @@ def check_rms_norm_rstd_bwd():
         f"{rel:.3e}) kernel_ms {k_ms:.4f} (rms_norm_dot + rms_norm_bwd_rstd) "
         f"plain_ms {p_ms:.4f} library_ms none (no call applies a given "
         f"statistic) bound_ms {bound:.4f} ({bound_by}: {nbytes} B); device "
-        f"time alone (profiler, the three launches) {ms_text(k_dev)}")
+        f"time alone (profiler, the three launches) {ms_text(k_dev)}; the "
+        f"kernel timed over {n_rot} rotating copies of its inputs")
     return {"name": "rms_norm_bwd_rstd", "route": "triton",
             "source": "src/repro_torch/kernels/rmsnorm/kernel.py",
             "replaces": "src/repro/models/layers.py:11",
@@ -1535,7 +1575,12 @@ def check_paged_mla():
         want, TOL["bfloat16"])
     del acc, m, l
 
-    k_ms = time_ms(lambda: kern(*args, **kw))
+    live = int((pos.long() + 1).sum().item())
+    nbytes = (live * (256 + 32) * 2 + (ql.numel() + qr.numel()) * 2
+              + ql.numel() * 2 + table.numel() * 4 + pos.numel() * 4)
+    # 10.3 MB, under L2: timed over rotating copies of its inputs
+    rot, n_rot = rotated(lambda *a: kern(*a, **kw), args, nbytes)
+    k_ms = time_ms(rot)
     p_ms = time_ms(lambda: plain(*args, **kw), iters=5)
     # library yardstick: SDPA over [ckv || krope] keys (E 288) and ckv
     # values (Ev 256) gathered dense beforehand, one kv head broadcast to
@@ -1552,11 +1597,9 @@ def check_paged_mla():
         return sdpa(qh, kd, cd, attn_mask=mask, scale=kw["scale"],
                     enable_gqa=True)
     l_ms = time_ms(library)
-    k_dev = device_ms(lambda: kern(*args, **kw), per_call=2)  # + combine
+    k_dev = device_ms(rot, per_call=2, lead=8)  # + combine
     l_dev = device_ms(library, lead=8)
-    live = int((pos.long() + 1).sum().item())
-    nbytes = (live * (256 + 32) * 2 + (ql.numel() + qr.numel()) * 2
-              + ql.numel() * 2 + table.numel() * 4 + pos.numel() * 4)
+    del rot
     flops = live * 40 * (256 + 32 + 256) * 2
     bound = max(nbytes / HBM_BPS, flops / BF16_FLOPS) * 1e3
     bound_by = "bytes" if nbytes / HBM_BPS >= flops / BF16_FLOPS \
@@ -1566,7 +1609,8 @@ def check_paged_mla():
         f"{errs[bf16]:.3e} kernel_ms {k_ms:.4f} plain_ms {p_ms:.4f} "
         f"library_ms {l_ms:.4f} bound_ms {bound:.4f} ({bound_by}: {nbytes} "
         f"B, {flops} FLOP); device time alone (profiler): kernel "
-        f"{ms_text(k_dev)} library {ms_text(l_dev)}")
+        f"{ms_text(k_dev)} library {ms_text(l_dev)}; the kernel timed over "
+        f"{n_rot} rotating copies of its inputs")
     return {"name": "paged_mla_decode_attention", "route": "cuda",
             "device_ms": k_dev, "library_device_ms": l_dev,
             "source": "src/repro_torch/csrc/paged_mla_decode.cu",
@@ -2254,10 +2298,11 @@ def check_tp_kernels():
     sdpa = torch.nn.functional.scaled_dot_product_attention
 
     def row(name, shape, source, replaces, err, k_ms, p_ms, k_dev, nbytes,
-            flops, peak, library=None):
+            flops, peak, library=None, n_rot=1):
         """``library``: one PyTorch call computing the same function on
         the same inputs (timed here, used nowhere in the port), or None
-        where there is none."""
+        where there is none; ``n_rot``: the rotating copies of its inputs
+        the kernel was timed over (``rotated``)."""
         l_ms = l_dev = None
         if library is not None:
             l_ms = time_ms(library)
@@ -2270,7 +2315,9 @@ def check_tp_kernels():
         log(f"{name} [{shape}] bf16: max_err {err:.3e} kernel_ms "
             f"{k_ms:.4f} plain_ms {p_ms:.4f} library_ms {lib_text} "
             f"bound_ms {bound:.4f} ({bound_by}: {nbytes} B, {flops} FLOP); "
-            f"device time alone (profiler) {ms_text(k_dev)}")
+            f"device time alone (profiler) {ms_text(k_dev)}"
+            + (f"; timed over {n_rot} rotating copies of its inputs"
+               if n_rot > 1 else ""))
         rows.append({"name": name, "shape": shape, "route": (
             "triton" if name == "rms_norm" else "cuda"), "device_ms": k_dev,
             "library_device_ms": l_dev,
@@ -2314,6 +2361,10 @@ def check_tp_kernels():
     rows_close(got, want, "paged_mla_decode 2 ranks")
     ql, qr, cp, kp, table, pos = args
     live = int((pos.long() + 1).sum().item())
+    nbytes = (live * (256 + 32) * 2 + (ql.numel() + qr.numel()) * 2
+              + ql.numel() * 2 + table.numel() * 4 + pos.numel() * 4)
+    rot, n_rot = rotated(lambda *a: paged_mla_decode_attention(*a, **kw),
+                         args, nbytes)
     # library yardstick, as ``check_paged_mla``'s: SDPA over [ckv || krope]
     # keys and ckv values gathered dense beforehand, one kv head broadcast
     # to the 20 query heads (the gather is not timed)
@@ -2325,16 +2376,14 @@ def check_tp_kernels():
     row("paged_mla_decode_attention", "minicpm3 2 ranks (16 slots, 20 "
         "heads: tiles of 16 + 4)", "src/repro_torch/csrc/paged_mla_decode.cu",
         "src/repro/kernels/paged_attention/kernel.py:200", err,
-        time_ms(lambda: paged_mla_decode_attention(*args, **kw)),
+        time_ms(rot),
         time_ms(lambda: paged_mla_decode_attention_ref(*args, **kw),
                 iters=5),
-        device_ms(lambda: paged_mla_decode_attention(*args, **kw), lead=8),
-        live * (256 + 32) * 2 + (ql.numel() + qr.numel()) * 2
-        + ql.numel() * 2 + table.numel() * 4 + pos.numel() * 4,
+        device_ms(rot, lead=8), nbytes,
         live * 20 * (256 + 32 + 256) * 2, BF16_FLOPS,
         lambda: sdpa(qh, kd, cd, attn_mask=mask, scale=kw["scale"],
-                     enable_gqa=True))
-    del args, ql, qr, cp, kp, cd, kd, qh, got, want
+                     enable_gqa=True), n_rot)
+    del args, ql, qr, cp, kp, cd, kd, qh, got, want, rot
     # flash attention, qwen2.5-14b's prefill at 20 / 4 heads per rank
     q, k, v = flash_case(1, 2048, 2048, 20, 4, 128, bf16, seed=0)
     got, want = flash_attention(q, k, v), flash_attention_ref(q, k, v)
@@ -2384,14 +2433,15 @@ def check_tp_kernels():
     got, want = rms_norm_rstd(x, w, r), rms_norm_rstd_ref(x, w, r)
     err = close(got, want, bf16, "rms_norm_rstd 2 ranks")
     rows_close(got, want, "rms_norm_rstd 2 ranks")
+    nbytes = 2 * x.numel() * 2 + w.numel() * 2 + r.numel() * 4
+    rot, n_rot = rotated(rms_norm_rstd, (x, w, r), nbytes)
     row("rms_norm", "mamba2 2 ranks gated norm (2048, 1536), given rstd",
         "src/repro_torch/kernels/rmsnorm/kernel.py",
-        "src/repro/kernels/rmsnorm/kernel.py:27", err,
-        time_ms(lambda: rms_norm_rstd(x, w, r)),
+        "src/repro/kernels/rmsnorm/kernel.py:27", err, time_ms(rot),
         time_ms(lambda: rms_norm_rstd_ref(x, w, r)),
-        device_ms(lambda: rms_norm_rstd(x, w, r), per_call=1, lead=8),
-        2 * x.numel() * 2 + w.numel() * 2 + r.numel() * 4, 2 * x.numel(),
-        F32_FLOPS)
+        device_ms(rot, per_call=1, lead=8), nbytes, 2 * x.numel(),
+        F32_FLOPS, n_rot=n_rot)
+    del rot
     torch.cuda.empty_cache()
     return rows
 
@@ -2788,9 +2838,9 @@ def planted(fault, cfg=None):
         topv, topi, lb = route(*args, **kw)
         return topv * torch.tensor([1.0, 0.0], device=topv.device), topi, lb
 
-    def moe_ids_permuted(xn, router, cfg, aux=True):
+    def moe_ids_permuted(xn, router, cfg, aux=True, data=None):
         # each pick goes to the next expert, with its own weight
-        topv, topi, lb = route(xn, router, cfg, aux)
+        topv, topi, lb = route(xn, router, cfg, aux, data)
         return topv, (topi + 1) % cfg.n_experts, lb
 
     def ring_not_rolled(t, ring):
@@ -3294,24 +3344,27 @@ def path_routes(store, cfg, lens, slots, gen):
 @contextlib.contextmanager
 def routes_forced(layers, flips):
     """MoE layers route, in call order, to the expert ids ``layers`` gives
-    (their weights still come from this forward's own router); ``flips``
-    gets, per layer, which positions would have picked another top-k set
-    on their own, and the margin between the forward's own k-th and
-    (k+1)-th router probabilities there."""
+    (a serve path's (S, K) per request, or a train step's (B, S, K));
+    their weights and load-balance term come from this forward's own
+    router.  ``flips`` gets, per call, which (row, position) pairs would
+    have picked another top-k set on their own, and the margin between
+    the forward's own k-th and (k+1)-th router probabilities there."""
     from repro_torch.models import moe
 
     it = iter(layers)
 
-    def forced(xn, router, cfg, aux=True):
+    def forced(xn, router, cfg, aux=True, data=None):
         probs = moe.router_probs(xn, router)
-        topi = next(it)[None]
+        topi = next(it).to(probs.device).reshape(
+            probs.shape[:-1] + (cfg.top_k,))
         own_v, own = probs.topk(cfg.top_k + 1, dim=-1)
         own = own[..., :cfg.top_k]
         flips.append(((own.sort(-1).values != topi.sort(-1).values)
-                      .any(-1)[0],
-                      (own_v[..., -2] - own_v[..., -1])[0]))
+                      .any(-1).reshape(-1),
+                      (own_v[..., -2] - own_v[..., -1]).reshape(-1)))
         topv = probs.gather(-1, topi)
-        return topv / topv.sum(dim=-1, keepdim=True), topi, None
+        return (topv / topv.sum(dim=-1, keepdim=True), topi,
+                moe.load_balance(probs, topi, cfg, data) if aux else None)
     with swapped((moe, "route", forced)):
         yield
 
@@ -3329,21 +3382,24 @@ def recorded_routes(cfg, params, plist, toks, device, phase, fault=None):
                        phase["traffic"]["slots"], len(toks[0]))
 
 
-def route_check(flips, n_moe, starts):
+def route_check(flips, n_moe, starts, layers=None):
     """Route check over the ``flips`` of ``routes_forced`` (one forward
     per request, in order; ``starts``: each request's first checked
-    position).  Returns its figures; ``wide_flips`` counts the (layer,
-    position) pairs whose margin is above the layer's bound
-    (``ROUTE_MARGIN_FIRST`` in the first MoE layer, ``ROUTE_MARGIN`` after
-    it) and whose path picked another top-k set."""
+    position; ``layers``: per call, its MoE layer, by default the calls'
+    order modulo ``n_moe``).  Returns its figures; ``wide_flips`` counts
+    the (layer, position) pairs whose margin is above the layer's bound
+    (``ROUTE_MARGIN_FIRST`` in the first MoE layer, ``ROUTE_MARGIN``
+    after it) and whose path picked another top-k set."""
     import torch
 
+    if layers is None:
+        layers = [k % n_moe for k in range(len(flips))]
     flip = torch.cat([f for f, _ in flips])
     margin = torch.cat([m for _, m in flips])
     checked = torch.cat([
         torch.arange(len(f), device=f.device) >= starts[k // n_moe]
         for k, (f, _) in enumerate(flips)])
-    first = torch.cat([torch.full_like(f, k % n_moe == 0)
+    first = torch.cat([torch.full_like(f, layers[k] == 0)
                        for k, (f, _) in enumerate(flips)])
     sure = margin > torch.where(first, ROUTE_MARGIN_FIRST, ROUTE_MARGIN)
     at_flips = margin[flip]
@@ -3358,8 +3414,9 @@ def route_check(flips, n_moe, starts):
         if at_flips.numel() else 0.0,
         "wide_flips": (flip & sure).sum().item(),
         "widest_by_layer": [
-            max((m[f].max().item() for f, m in flips[i::n_moe] if f.any()),
-                default=0.0) for i in range(n_moe)]}
+            max((m[f].max().item() for (f, m), j in zip(flips, layers)
+                 if j == i and f.any()), default=0.0)
+            for i in range(n_moe)]}
 
 
 def route_line(what, f):
@@ -4815,14 +4872,15 @@ def check_tools(smi):
 
 # ------------------------------------------------------ tensor parallelism
 # The TP section (``tp_section``): one pair of ranks (this process and one
-# follower, ``repro_torch.launch.mesh``) serves three families in turn at
+# follower, ``repro_torch.launch.mesh``) serves four families in turn at
 # full width: two ranks on the one card over gloo when the machine has
 # one card, on two cards over nccl when it has two or more.  qwen2.5-14b
 # is the main path (flash prefill and the paged insert, paged-kernel
-# decode) at 4 of 48 layers (12 before, cut for the script's time when
-# the FSDP section came: its planted faults trailed by 1.3405 / 8.5938
-# and 1.4377 / 9.5469 at 12, by 1.3090 / 8.8750 and 1.4297 / 9.1719 at
-# 6, against bars of 0.3 / 1.0) with qwen's mix,
+# decode) at 2 of 48 layers (12 before, cut for the script's time when
+# the FSDP section came, 4 until the mixtral leg came: its planted faults
+# trailed by 1.3405 / 8.5938 and 1.4377 / 9.5469 at 12, by 1.2699 /
+# 7.2734 and 1.4204 / 10.2656 at 4, against bars of 0.3 / 1.0) with
+# qwen's mix,
 # 16 requests of {256, 512,
 # 1024, 2048} tokens, each length four times, 16 slots, cache_len 2080,
 # page 8; minicpm3-4b (the paged MLA decode) and mamba2-780m (the SSD scan
@@ -4836,7 +4894,7 @@ def check_tools(smi):
 TP_TRAFFIC = dict(slots=16, cache_len=2080, lens=(256, 512, 1024, 2048),
                   each=True, gen=32)
 TP_LEGS = {
-    "qwen2.5-14b": dict(layers=4, n_req=16, paged_kernel=True,
+    "qwen2.5-14b": dict(layers=2, n_req=16, paged_kernel=True,
                         faults=("wo_all_reduce_left_out", "wq_next_rank"),
                         kernels={"paged_decode_attention": "decode",
                                  "flash_attention": "prefill"}),
@@ -4853,7 +4911,29 @@ TP_LEGS = {
     "mamba2-780m": dict(layers=4, n_req=8, paged_kernel=False,
                         faults=("gated_norm_per_rank",), fault_req=8,
                         fault_pos=32, kernels={"ssd_scan": "prefill"}),
+    # MoE under tensor parallelism: every expert on both ranks at half its
+    # d_ff columns, the dropless dispatch as its single-rank phase serves
+    # it, mixtral's traffic (prompts of 1024 to 8192 tokens: half of them
+    # pass the 4096 window, 6144 no multiple of it, so every rank rolls
+    # its ring of its 4 KV heads).  Its sliding-window rings decode
+    # without the paged kernel, as in the single-rank phase.  Planted: the
+    # rank's partial MoE output added unsummed; each rank's w_gate columns
+    # taken from the next rank's.  The route check and the expert ids'
+    # digests run on the step path as built (``tp_path_check``)
+    "mixtral-8x7b": dict(layers=2, n_req=8, paged_kernel=True,
+                         traffic=MIXTRAL_TRAFFIC, moe_impl="ragged",
+                         faults=("moe_all_reduce_left_out",
+                                 "moe_ff_next_rank"),
+                         kernels={"flash_attention": "prefill",
+                                  "paged_decode_attention": None}),
 }
+# a leg's traffic (``traffic``, by default TP_TRAFFIC; ``n_req`` is the
+# leg's, each length n_req / 4 times); on the CPU (a rehearsal at the
+# tiny configs) prompts of 8 to 32 tokens, and the windowed configs'
+# window cut to ``TP_CPU_WINDOW`` so that prompts pass it (24: no
+# multiple)
+TP_CPU_TRAFFIC = dict(slots=8, cache_len=48, lens=(8, 16, 24, 32), gen=8)
+TP_CPU_WINDOW = 16
 # the planted faults' path check runs over this many of a leg's requests,
 # the shortest prompts first, and their first this many positions (the
 # as-built path over every request and position), unless the leg says
@@ -4923,14 +5003,18 @@ def tp_fault_on(state, name):
     """``Session.run``: plant TP fault ``name`` on this rank (kept in
     ``state.extra`` until ``tp_fault_off``)."""
     from repro_torch.models import attention as att
-    from repro_torch.models import ssm
+    from repro_torch.models import moe, ssm
 
     if name == "wo_all_reduce_left_out":
         ctx = swapped((att, "tp_all_reduce", _wo_all_reduce_left_out))
+    elif name == "moe_all_reduce_left_out":
+        ctx = swapped((moe, "tp_all_reduce", _wo_all_reduce_left_out))
     elif name == "gated_norm_per_rank":
         ctx = swapped((ssm, "gated_rms_norm", _per_rank_gated_norm))
     elif name == "wq_next_rank":
-        ctx = _next_rank_wq(state)
+        ctx = _next_rank(state, "mixer", ("wq", "bq", "wq_b"))
+    elif name == "moe_ff_next_rank":
+        ctx = _next_rank(state, "mlp", ("w_gate",), moe=True)
     else:
         raise ValueError(name)
     ctx.__enter__()
@@ -4943,28 +5027,34 @@ def tp_fault_off(state, name):
 
 
 @contextlib.contextmanager
-def _next_rank_wq(state):
-    """Each rank's query columns (``wq``, ``bq``; MLA ``wq_b``) replaced by
-    the next rank's, gathered over the data plane; restored after."""
+def _next_rank(state, part, keys, moe=False):
+    """Each rank's block of the leaves ``keys`` of each layer's ``part``
+    (``"mixer"``: its query columns ``wq``, ``bq``, MLA ``wq_b``;
+    ``"mlp"`` of the MoE layers (``moe``): the experts' ``w_gate``
+    columns) replaced by the next rank's, gathered over the data plane;
+    restored after."""
     import torch
 
     mesh, n = state.mesh, state.mesh.size
     saved = []
     for blk in state.params["blocks"]:
-        mix = blk["mixer"]
-        for key in ("wq", "bq", "wq_b"):
-            if key in mix:
-                parts = mesh.all_gather(mix[key].float())
-                saved.append((mix, key, mix[key]))
-                mix[key] = parts[(mesh.rank + 1) % n].to(mix[key].dtype)
+        leaves = blk.get(part, {})
+        if moe and "router" not in leaves:
+            continue
+        for key in keys:
+            if key in leaves:
+                parts = mesh.all_gather(leaves[key].float())
+                saved.append((leaves, key, leaves[key]))
+                leaves[key] = parts[(mesh.rank + 1) % n].to(
+                    leaves[key].dtype)
                 del parts
     if state.device.type == "cuda":
         torch.cuda.empty_cache()
     try:
         yield
     finally:
-        for mix, key, t in saved:
-            mix[key] = t
+        for leaves, key, t in saved:
+            leaves[key] = t
 
 
 def tp_peak(state, reset=False):
@@ -4980,24 +5070,59 @@ def tp_peak(state, reset=False):
     return peak
 
 
+def tp_routes_on(state):
+    """``Session.run``: record this rank's MoE expert ids
+    (``routes_recorded``) into ``state.extra["routes"]`` until
+    ``tp_routes_off``."""
+    store = state.extra["routes"] = []
+    ctx = routes_recorded(store)
+    ctx.__enter__()
+    state.extra["routes_ctx"] = ctx
+    return state.mesh.rank
+
+
+def tp_routes_off(state, send=False):
+    """``Session.run``: stop recording; (MoE calls, the ``serve.tp.
+    digest`` of every recorded expert id in call order).  Rank 0 keeps
+    its ids in ``state.extra["routes"]``, the followers drop theirs;
+    with ``send`` every rank drops them and returns them too, on the
+    host, as a third item."""
+    import torch
+
+    from repro_torch.serve.tp import digest
+
+    state.extra.pop("routes_ctx").__exit__(None, None, None)
+    store = state.extra["routes"]
+    ids = (torch.cat([t.reshape(-1) for t in store]).to("cpu", torch.int32)
+           if store else torch.zeros(0, dtype=torch.int32))
+    if state.mesh.rank or send:
+        del state.extra["routes"]
+    if send:
+        return len(store), digest(ids), [t.cpu() for t in store]
+    return len(store), digest(ids)
+
+
 def tp_path_check(sess, cfg, prompts, toks, ref, idx, faults,
                   paged_kernel, device, fault_req=TP_FAULT_REQ,
-                  fault_pos=TP_FAULT_POS):
+                  fault_pos=TP_FAULT_POS, traffic=TP_TRAFFIC):
     """The TP step path teacher-forced with the engine's tokens, on every
     rank: each prompt of ``idx`` through the prefill step and the insert
-    into a pool of 16 slots, then the tokens one tick at a time through
-    the decode forward (paged kernel where the leg has one), as built
-    (``None``) and under each planted fault of ``faults`` (on every
-    rank).  Returns (name -> the ``summary`` of ``tally``, the as-built
-    logits)."""
+    into a pool of ``traffic``'s slots, then the tokens one tick at a
+    time through the decode forward (paged kernel where the leg has one),
+    as built (``None``) and under each planted fault of ``faults`` (on
+    every rank).  ``ref``: the forward's logits per request, or, with MoE
+    layers, a function that makes them from the expert ids of the path as
+    built (``routes_recorded``'s store, rank 0's): every rank records its
+    ids on that run, and their digests must be equal.  Returns (name ->
+    the ``summary`` of ``tally``, the as-built logits, the ranks' (MoE
+    calls, digest) or None)."""
     import numpy as np
     import torch
 
     from repro_torch.steps import (make_batched_insert_step,
                                    make_pool_step, make_prefill_step)
 
-    t = TP_TRAFFIC
-    slots, cache_len = t["slots"], t["cache_len"]
+    slots, cache_len = traffic["slots"], traffic["cache_len"]
     ps = 8 if paged_kernel else None
     sp = sess.params
     prefill = sess.step("fprefill", make_prefill_step, cache_len=cache_len)
@@ -5010,10 +5135,13 @@ def tp_path_check(sess, cfg, prompts, toks, ref, idx, faults,
                        page_size=ps, paged_kernel=paged_kernel)
     gen = len(toks[0])
     pps = cache_len // 8
-    acc, built = {}, None
+    acc, built, ids = {}, None, None
     for name in (None, *faults):
         if name is not None:
             sess.run(tp_fault_on, name)
+        routed = name is None and callable(ref)
+        if routed:
+            sess.run(tp_routes_on)
         sel = idx if name is None else idx[:fault_req]
         pad = slots - len(sel)
         pool = pool_step(1 + slots * pps if ps else None)
@@ -5040,27 +5168,37 @@ def tp_path_check(sess, cfg, prompts, toks, ref, idx, faults,
             lg, pool = decode(*args)
             out.append(lg[:len(sel)])
         lg = torch.stack(out, dim=1)                  # (round, gen, V)
+        del pool, out
+        if routed:
+            ids = sess.run(tp_routes_off)
+            if any(d != ids[0] for d in ids):
+                raise AssertionError(f"tp {cfg.name}: the ranks picked "
+                                     f"other experts: {ids}")
+            ref = ref(sess.local.extra.pop("routes"))
         if name is None:
             built = lg
         acc[name] = new_tally()
         tally(acc[name], lg, built[:len(sel), :n_pos],
               [r[:n_pos] for r in ref], [t[:n_pos] for t in toks], sel)
-        del pool, out
         if name is not None:
             sess.run(tp_fault_off, name)
-    return summary(acc), built
+    return summary(acc), built, ids
 
 
 def tp_leg(mesh, arch, smi, device="cuda", seed=0, layers=None):
     """One TP leg: the engine on both ranks, the checks on rank 0; returns
-    the per-rank launch counts (summed) for the ``kernels`` line."""
+    the per-rank launch counts (summed) for the ``kernels`` line.
+    ``device="cpu"``: a rehearsal at the tiny config and
+    ``TP_CPU_TRAFFIC``."""
     import collections
+    import dataclasses
     import threading
 
     import numpy as np
     import torch
 
     from repro_torch.configs import get
+    from repro_torch.models.lm import param_meta
     from repro_torch.serve import Request, ServeEngine
     from repro_torch.serve.tp import counters, seen, tree_bytes
     from repro_torch.serve.watchdog import abandon
@@ -5068,11 +5206,19 @@ def tp_leg(mesh, arch, smi, device="cuda", seed=0, layers=None):
 
     leg = TP_LEGS[arch]
     t_leg = time.perf_counter()
+    cuda = device == "cuda"
     cfg = get(arch)
+    t = leg.get("traffic", TP_TRAFFIC)
+    if not cuda:                        # the rehearsal's tiny shapes
+        cfg, t = cfg.tiny(), TP_CPU_TRAFFIC
+        cfg = cfg.replace(pattern=tuple(
+            dataclasses.replace(spec, window=TP_CPU_WINDOW)
+            if spec.window else spec for spec in cfg.pattern))
     n_layers = layers or leg["layers"]
     if n_layers != cfg.n_layers:
         cfg = cfg.replace(n_layers=n_layers)
-    t = TP_TRAFFIC
+    cfg = cfg.replace(moe_impl=leg.get("moe_impl", cfg.moe_impl))
+    moe = any(spec.mlp == "moe" for spec in cfg.pattern)
     slots, cache_len, gen, n_req = (t["slots"], t["cache_len"], t["gen"],
                                     leg["n_req"])
     rng = np.random.default_rng(seed)
@@ -5080,7 +5226,6 @@ def tp_leg(mesh, arch, smi, device="cuda", seed=0, layers=None):
     prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32) for n in lens]
     gaps = rng.exponential(0.03, n_req)
     paged = leg["paged_kernel"]
-    cuda = device == "cuda"
     eng = ServeEngine(cfg, TPWeights(seed), slots=slots, cache_len=cache_len,
                       mesh=mesh, page_size=8 if paged else "auto",
                       paged_kernel=paged, sync_ticks=True, device=device)
@@ -5121,6 +5266,7 @@ def tp_leg(mesh, arch, smi, device="cuda", seed=0, layers=None):
     per_rank = sess.run(counters)
     peaks = sess.run(tp_peak)
     pools = sess.run(tree_bytes, eng.kv.cache)
+    held = sess.run(tree_bytes, sess.params)
     handed = sess.run(seen, "decode")   # the last tick's tensor arguments
     num_pages = eng.kv.pager.capacity + 1 if eng.paged else None
     toks = [np.asarray(r.wait(), np.int32) for r in reqs]
@@ -5206,27 +5352,79 @@ def tp_leg(mesh, arch, smi, device="cuda", seed=0, layers=None):
         + (f" (conv: (d_inner/2 + 2 N G) / conv_dim = {conv_share:.4f})"
            if conv_share else ""))
     del whole
+    if moe:
+        # every expert on every rank at half its d_ff columns, the router
+        # whole: per-rank expert bytes half of one device's
+        size = torch.finfo(getattr(torch, cfg.dtype)).bits // 8
+        experts = router = 0
+        for i, (spec, blk) in enumerate(zip(cfg.pattern,
+                                            param_meta(cfg)["blocks"])):
+            if spec.mlp != "moe":
+                continue
+            for k, m in blk["mlp"].items():
+                full_b = int(np.prod(m.shape)) * size
+                share = 0.5 if k in ("w_gate", "w_up", "w_down") else 1.0
+                for rank, h in enumerate(held):
+                    got = h[f"/blocks[{i}]/mlp/{k}"][0]
+                    if got != full_b * share:
+                        raise AssertionError(
+                            f"tp {arch} rank {rank}: blocks[{i}] mlp {k} "
+                            f"holds {got} B, want {share} x {full_b}")
+                experts += full_b * (share < 1)
+                router += full_b * (k == "router")
+        per = [sum(b for p, (b, _) in h.items() if p.rsplit("/", 1)[-1]
+                   in ("w_gate", "w_up", "w_down")) for h in held]
+        log(f"  expert bytes per rank: {[round(b / 1e9, 3) for b in per]}"
+            f" GB of one device's {experts / 1e9:.3f} (1/2: each rank every "
+            f"expert at half its d_ff columns); router {router / 1e6:.2f} "
+            "MB whole on each rank")
 
     # the checks: the single-device forward on rank 0 from the same full
     # weights, then the TP step path on every rank (as built and under each
-    # fault) in the engine's session, its pool still held
+    # fault) in the engine's session, its pool still held.  With MoE the
+    # forward takes the expert ids of the TP path as built (the reason is
+    # in ``serve``), recorded on every rank, and the route check holds
+    # them where the forward's own choice is clear
     full = TPWeights(seed)(cfg, None, device)
-    ref, gaps_all = [], []
-    for p, tk in zip(prompts, toks):
-        lg = forced_logits(cfg, full, p, tk, device)
-        ref.append(lg)
-        gaps_all.append(token_gaps(lg, tk).max().item())
-    del full
-    worst = max(gaps_all)
     order = sorted(range(n_req), key=lambda i: len(prompts[i]))
+    box = {"flips": []}
+
+    def forward_refs(store=None):
+        nonlocal full
+        per = (None if store is None else path_routes(
+            store, cfg, [len(prompts[i]) for i in order], slots, gen))
+        ref = [None] * n_req
+        for k, i in enumerate(order):
+            with (routes_forced(per[k], box["flips"]) if per
+                  else contextlib.nullcontext()):
+                ref[i] = forced_logits(cfg, full, prompts[i], toks[i],
+                                       device)
+        full = None
+        box["ref"] = ref
+        return ref
+    if not moe:
+        forward_refs()
     try:
-        res, _ = tp_path_check(sess, cfg, prompts, toks, ref, order,
-                               leg["faults"], paged, device,
-                               leg.get("fault_req", TP_FAULT_REQ),
-                               leg.get("fault_pos", TP_FAULT_POS))
+        res, _, ids = tp_path_check(
+            sess, cfg, prompts, toks, forward_refs if moe else box["ref"],
+            order, leg["faults"], paged, device,
+            leg.get("fault_req", TP_FAULT_REQ),
+            leg.get("fault_pos", TP_FAULT_POS), traffic=t)
     finally:
         eng.shutdown()
+    ref = box["ref"]
+    worst = max(token_gaps(lg, tk).max().item()
+                for lg, tk in zip(ref, toks))
     del eng, sess, ref
+    routes = None
+    if moe:
+        routes = route_check(box["flips"], moe_layers(cfg),
+                             [len(prompts[i]) - 1 for i in order])
+        log(route_line(f"tp route check [{arch}, as built]", routes))
+        log(f"  expert ids of the step path as built, on every rank: "
+            f"{ids[0][0]} MoE calls, digest {ids[0][1][0]} "
+            f"{ids[0][1][1]} crc {ids[0][1][2]:08x} (the same on "
+            f"{len(ids)} ranks)")
     log_checks("tp logit check", arch, {None: res[None]}, n_req * gen)
     log_checks("tp logit check", arch, {n: res[n] for n in leg["faults"]},
                min(leg.get("fault_req", TP_FAULT_REQ), n_req)
@@ -5239,6 +5437,11 @@ def tp_leg(mesh, arch, smi, device="cuda", seed=0, layers=None):
     if res[None]["rel_max"] > REL_TOL:
         raise AssertionError(f"tp {arch}: step-path logits off the "
                              f"forward's by {res[None]['rel_max']:.4f}")
+    if routes is not None and routes["wide_flips"]:
+        raise AssertionError(
+            f"tp {arch}: the step path's experts differ from the forward's "
+            f"own at {routes['wide_flips']} (layer, position) pairs whose "
+            "margin is above the bound")
     missed = [n for n in leg["faults"] if res[n]["rel_max"] <= REL_TOL
               or res[n]["gap"] <= LOGIT_TOL]
     if missed:
@@ -5281,16 +5484,19 @@ def tp_section(smi, device="cuda", layers=None, started=None):
 # ``launch.train.MeshTrain`` with seeded f32 masters, bf16 compute, remat
 # "full" and f32 AdamW, on one fixed batch of ``FSDP_BATCH`` (each rank
 # 2 rows) whose first row keeps half its labels, so the global count of
-# labelled tokens is all-reduced.  mamba2-780m at 4 of 48 layers, the SSD
-# scan's kernels forward and backward under FSDP, 1.5-3.2 s a step (an
-# H100 80GB HBM3 at 700 W): the planted faults (d) and the checkpoint
-# (c) run there.  The section's qwen2.5-14b leg (1 layer: 4.2 GB of bf16
+# labelled tokens is all-reduced.  mamba2-780m at 2 of 48 layers (4
+# until the TP section's mixtral leg came; at 4 its planted faults moved
+# a leaf by 0.709 and 1.416 and the clip norm by 0.29 against a bar of
+# 0.05 and 0.01: none of them a per-layer effect), the SSD scan's kernels
+# forward and backward under FSDP, 1.4-1.7 s a step at 4 layers (an H100
+# 80GB HBM3 at 700 W): the planted faults (d) and the checkpoint (c) run
+# there.  The section's qwen2.5-14b leg (1 layer: 4.2 GB of bf16
 # weights gathered and 7.3 GB of f32 gradients all-reduced a step and
 # rank, 13.2-19.7 s a step on that card) moved onto the tensor-parallel
 # train section's 2,2 mesh (``TP_TRAIN_LEGS``), whose data axis holds
 # the FSDP bars (a), (b) and (e) at that width.
 FSDP_LEGS = {
-    "mamba2-780m": dict(layers=4, steps=2, faults=True, ckpt=True),
+    "mamba2-780m": dict(layers=2, steps=2, faults=True, ckpt=True),
 }
 FSDP_BATCH = dict(micro=4, seq=1024, accum=1)
 FSDP_HP = dict(lr=1e-3, warmup=2, total_steps=10)
@@ -5351,20 +5557,24 @@ def _plan_leaves(rs):
             tree_leaves(plan.tp))
 
 
-def fsdp_single(rs, seed, tokens, labels, dtype=None):
+def fsdp_single(rs, seed, tokens, labels, dtype=None, routes=None):
     """Bar (a)'s single rank, on rank 0 (``rs``: its ``RankState``,
     ``Session.local``): the whole seeded params (``FSDPState``'s) through
     ``steps.make_grad_step(cfg)`` without a mesh on the whole batch
-    (``dtype``: the compute dtype, default the config's).  Returns (loss,
-    clip norm, the gradient leaves); ``single_blocks`` hands every rank
-    its blocks of them."""
+    (``dtype``: the compute dtype, default the config's; ``routes``: a
+    MoE step's (expert ids per call, flips), forced by
+    ``routes_forced``).  Returns (loss, clip norm, the gradient leaves);
+    ``single_blocks`` hands every rank its blocks of them."""
     from repro_torch.models.layers import tree_leaves
     from repro_torch.optim import adamw
     from repro_torch.steps import make_grad_step
 
     cfg = _train_cfg(rs, dtype)
     params = FSDPState(seed).params(cfg, rs.device)
-    grads, loss = make_grad_step(cfg)(params, _batch(rs, tokens, labels))
+    with (routes_forced(*routes) if routes is not None
+          else contextlib.nullcontext()):
+        grads, loss = make_grad_step(cfg)(params,
+                                          _batch(rs, tokens, labels))
     del params
     return float(loss), float(adamw.global_norm(grads)), tree_leaves(grads)
 
@@ -5384,15 +5594,15 @@ def single_blocks(rs, grads):
                           for g, d, sp in zip(grads, *_plan_leaves(rs))]
 
 
-def single_step(tr, seed, tokens, labels, dtype=None):
+def single_step(tr, seed, tokens, labels, dtype=None, routes=None):
     """Bar (a)'s single rank on a leg's trainer ``tr``: computed on rank 0
-    and each rank's blocks kept (``single_blocks``); returns (loss, clip
-    norm, seconds)."""
+    (``routes``: ``fsdp_single``'s) and each rank's blocks kept
+    (``single_blocks``); returns (loss, clip norm, seconds)."""
     import torch
 
     t0 = time.perf_counter()
     loss, norm, grads = fsdp_single(tr.sess.local, seed, tokens, labels,
-                                    dtype)
+                                    dtype, routes)
     tr.sess.run(single_blocks, grads)
     del grads
     gc.collect()
@@ -5524,12 +5734,42 @@ def _tp_train_faults():
             "fsdp_over_all_ranks": (fsdp, "sum_blocks", fsdp_over_all_ranks)}
 
 
+def _moe_train_faults():
+    import torch
+
+    from repro_torch.models import layers, moe
+    from repro_torch.sharding import fsdp
+
+    class SummedBackward(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x, mesh):
+            ctx.mesh = mesh
+            return fsdp.data_sum(x.clone(), mesh)
+
+        @staticmethod
+        def backward(ctx, grad):
+            return fsdp.data_sum(grad.clone(), ctx.mesh), None
+
+    def weights_not_entered(xn, topv):
+        return layers.tp_enter(xn), topv
+
+    def aux_local(stats, mesh):
+        return stats
+
+    return {"moe_weights_enter_left_out": (moe, "enter",
+                                           weights_not_entered),
+            "aux_local": (moe, "global_stats", aux_local),
+            "aux_bwd_summed": (moe, "data_all_reduce", SummedBackward.apply)}
+
+
 def fsdp_on(rs, name):
-    """``Session.run``: plant FSDP fault ``name`` (``FSDP_FAULTS``) or TP
-    train fault ``name`` (``TP_TRAIN_FAULTS``) on this rank, or
-    ``"deterministic"`` (``deterministic()``), until ``fsdp_off``."""
+    """``Session.run``: plant FSDP fault ``name`` (``FSDP_FAULTS``), TP
+    train fault ``name`` (``TP_TRAIN_FAULTS``) or MoE train fault
+    ``name`` (``MOE_TRAIN_FAULTS``) on this rank, or ``"deterministic"``
+    (``deterministic()``), until ``fsdp_off``."""
     ctx = (deterministic() if name == "deterministic"
-           else swapped({**_fsdp_faults(), **_tp_train_faults()}[name]))
+           else swapped({**_fsdp_faults(), **_tp_train_faults(),
+                         **_moe_train_faults()}[name]))
     ctx.__enter__()
     rs.extra[name] = ctx
     return rs.mesh.rank
@@ -6003,18 +6243,27 @@ def fsdp_section(smi, device="cuda", started=None, close=True):
 # three followers, all on the one card over gloo (four cards: nccl), so
 # it shows the layout and its numbers, not a throughput.  Each leg at full
 # width through ``launch.train.MeshTrain`` with the FSDP section's seeded
-# f32 masters, bf16 compute, remat "full", f32 AdamW and its batch
-# (``FSDP_BATCH``: each data rank 2 of the 4 rows, the two ranks of a
-# model group the same 2), on the MoE-free path.  qwen2.5-14b at 1 layer,
+# f32 masters, bf16 compute, remat "full", the config's AdamW (bf16
+# moments for mixtral) and its batch (``FSDP_BATCH``: each data rank 2
+# of the 4 rows, the two ranks of a model group the same 2).  qwen2.5-14b
+# at 1 layer,
 # 1 step, no faults: its data axis also holds the FSDP bars (a), (b) and
 # (e) that the FSDP section's qwen2.5-14b leg held on 2,1.  Its logits
 # are 2 x 1024 rows x 76032 vocab columns a rank, 0.31 GB in bf16,
 # gathered over the model group to 0.62 GB through the host.
 # mamba2-780m at 2 layers, 2 steps, the planted faults (d) and the
-# checkpoint (f).
+# checkpoint (f).  mixtral-8x7b at 1 layer, 1 step: its bar (a)'s single
+# rank takes the sharded step's expert ids (``moe_single``), held by a
+# route check.  The MoE faults are planted in the CPU tests
+# (``MOE_TRAIN_FAULTS``).
 TP_TRAIN_LEGS = {
     "qwen2.5-14b": dict(layers=1, steps=1, faults=False, ckpt=False),
     "mamba2-780m": dict(layers=2, steps=2, faults=True, ckpt=True),
+    # MoE under FSDP and tensor parallelism: every expert's d_model rows
+    # over data and its d_ff columns over model, the registry's capacity
+    # dispatch, the load-balance term's means over both data ranks'
+    # rows; 1 of 32 layers (1.70 B params with the embedding and head)
+    "mixtral-8x7b": dict(layers=1, steps=1, faults=False, ckpt=False),
 }
 # (d), each on every rank, each must fail bar (a): the enter op's backward
 # not all-reducing; the gated norm's row term s_loc not all-reduced; the
@@ -6024,6 +6273,13 @@ TP_TRAIN_LEGS = {
 TP_TRAIN_FAULTS = ("enter_bwd_unsummed", "gated_norm_dot_local",
                    "bc_grad_unsummed", "bc_grad_twice",
                    "clip_norm_replicated_m_times", "fsdp_over_all_ranks")
+# a MoE layer's, planted in the CPU tests (tests/test_torch_moe_mesh.py),
+# each on every rank, each must fail the bars there: the combine weights
+# not entering this rank's expert columns (the router's gradient from
+# the token loss a per-rank partial sum); each data rank's own
+# load-balance term; the term's data sum with a summing backward
+MOE_TRAIN_FAULTS = ("moe_weights_enter_left_out", "aux_local",
+                    "aux_bwd_summed")
 # (a) and (d) on the faults' leg are also held in f32 compute, by this
 # tighter bound: in bf16 a gradient's rounding differs by up to a few
 # 1e-2 of a leaf between the sharded and the single step (``TRAIN_TOL``),
@@ -6071,29 +6327,33 @@ def tp_train_collectives(cfg, plan, n, accum):
     """Bar (e)'s collectives of ``n`` steps on one rank by formula, each
     group's apart.  Model group, per microbatch: the forward all-reduces
     (the vocab-parallel embedding once; per layer its mixer's output, the
-    gated norm's statistic in an SSD layer, a dense MLP's output; under
-    remat "full" each repeat's again but its last: the recompute stops
-    once it has remade every tensor the backward saved, before the
+    gated norm's statistic in an SSD layer, a dense or MoE MLP's output;
+    under remat "full" each repeat's again but its last: the recompute
+    stops once it has remade every tensor the backward saved, before the
     repeat's closing all-reduce), one all-gather of the
     logits, the backward all-reduces of the enter op (per GQA layer its
     ``xn``, per MLA layer its q latent, ``ckv`` and ``k_rope``, per SSD
     layer its ``xn`` and the B/C columns of ``wxBC``, ``conv_w`` and
-    ``conv_b``, per dense MLP its input, the LM head's input once) and of
-    the gated norm's row term (per SSD layer); per step the clip norm's
-    one.  Data group: FSDP's gathers and sums (``fsdp_leg``'s formula).
-    Returns (want, the formula as text)."""
+    ``conv_b``, per dense MLP its input, per MoE layer its input and its
+    combine weights, the LM head's input once) and of the gated norm's
+    row term (per SSD layer); per step the clip norm's one.  Data group:
+    FSDP's gathers and sums (``fsdp_leg``'s formula) and, per MoE layer
+    and microbatch, the load-balance term's means (again in the
+    recompute under remat "full").  Returns (want, the formula as
+    text)."""
     from repro_torch.models.layers import tree_leaves
 
     full = cfg.remat == "full"
     remat = 2 if full else 1
-    fwd = enter = dot = 0
+    fwd = enter = dot = moe = 0
     for spec in cfg.pattern:
         ssm = spec.kind == "ssm"
         mla = spec.kind == "attn" and spec.attn == "mla"
-        dense = spec.mlp == "dense"
-        fwd += 1 + ssm + dense
-        enter += (4 if ssm else 3 if mla else 1) + dense
+        mlp = spec.mlp != "none"
+        fwd += 1 + ssm + mlp
+        enter += (4 if ssm else 3 if mla else 1) + mlp + (spec.mlp == "moe")
         dot += ssm
+        moe += spec.mlp == "moe"
     r = cfg.n_repeats
     again = r * (fwd - 1) if full else 0
     want = {"tp_all_reduce": n * accum * (1 + r * fwd + again),
@@ -6106,8 +6366,8 @@ def tp_train_collectives(cfg, plan, n, accum):
                         if p.startswith("/blocks"))
     outside = sum(split) - in_blocks // r
     want["fsdp_gather"] = n * accum * (remat * in_blocks + outside)
-    want["fsdp_sum"] = n * (accum * (in_blocks + outside) + 4) \
-        if plan.mesh.shape["data"] > 1 else 0
+    want["fsdp_sum"] = n * (accum * (in_blocks + outside + remat * r * moe)
+                            + 4) if plan.mesh.shape["data"] > 1 else 0
     text = (f"model group: {want['tp_all_reduce'] // n} all-reduces "
             f"({accum} x (1 + {r} x {fwd} + {again} in the recompute)), "
             f"{want['tp_all_gather'] // n} all-gather, "
@@ -6115,7 +6375,10 @@ def tp_train_collectives(cfg, plan, n, accum):
             f" x {enter})), {want['tp_norm_dot'] // n} row-term all-reduces,"
             f" 1 clip-norm sum; data group: {want['fsdp_gather'] // n} "
             f"gathers ({accum} x ({remat} x {in_blocks} + {outside})), "
-            f"{want['fsdp_sum'] // n} sums")
+            f"{want['fsdp_sum'] // n} sums"
+            + (f" ({accum} x {remat} x {r * moe} of them the MoE "
+               "load-balance term's means)" if moe and want["fsdp_sum"]
+               else ""))
     return want, text
 
 
@@ -6200,6 +6463,60 @@ def tp_train_checkpoint(tr, cfg, hp, n, name, device, mesh21, seed):
         raise AssertionError(f"{name}: (f) the restores are not the saved "
                              f"state: steps {step} / {step21}, leaves "
                              f"{bad_one} / {bad_21}")
+
+
+def moe_single(tr, cfg, ids, seed, tokens, labels, hp, name):
+    """Bar (a)'s single rank for a MoE leg, after its one sharded step:
+    the step's expert ids, recorded on every rank (``tp_routes_off``),
+    must be equal across each model group by digest; the single-rank
+    step routes to them in call order (each call's ids: the data ranks'
+    rows in rank order) and the route check holds them where the single
+    step's own choice is clear (``ROUTE_MARGIN_FIRST`` in the first MoE
+    layer, which follows one attention layer; the calls in the order the
+    step makes them: every repeat's forward, then under remat "full" the
+    repeats' recomputes last to first).  At random init two bf16
+    computations flip near-tied picks (1.6 % of the (layer, position)
+    pairs of mixtral's TP serve path), and a flipped token's gradient is
+    another token's: unforced, mixtral's single and sharded first steps
+    differed by 7.6 % in the median leaf of m (an H100 80GB HBM3 at
+    700 W).  Returns
+    (``single_step``'s result, the leaves' gaps of m)."""
+    import torch
+
+    d_n, m_n = tr.sess.mesh.shape["data"], tr.sess.mesh.shape["model"]
+    for d in range(d_n):
+        group = ids[d * m_n:(d + 1) * m_n]
+        if any(g[:2] != group[0][:2] for g in group):
+            raise AssertionError(f"{name}: the model ranks of data group {d} "
+                                 "picked other experts: "
+                                 f"{[g[:2] for g in group]}")
+    forced = [torch.cat([ids[d * m_n][2][j] for d in range(d_n)])
+              for j in range(ids[0][0])]
+    flips = []
+    one = single_step(tr, seed, tokens, labels, routes=(forced, flips))
+    scale = min(1.0, hp.clip_norm / (one[1] + 1e-9))
+    gaps = tr.sess.run(fsdp_moments, tr.state, (1 - hp.b1) * scale)[0]
+    per_rep = sum(spec.mlp == "moe" for spec in cfg.pattern)
+    order = list(range(cfg.n_repeats))
+    if cfg.remat == "full":
+        order += order[::-1]
+    layers = [r * per_rep + i for r in order for i in range(per_rep)]
+    layers *= len(flips) // len(layers)
+    assert len(layers) == len(flips), (len(layers), len(flips))
+    f = route_check(flips, moe_layers(cfg), [0] * len(flips), layers)
+    log(f"{name}: the single rank's gradient step (on rank 0, each rank "
+        f"keeps its blocks), routed as the sharded step ({ids[0][0]} MoE "
+        f"calls, digests equal in each model group: "
+        + ", ".join(f"crc {g[1][2]:08x}" for g in ids[::m_n])
+        + f"): loss {one[0]:.6f}, clip norm {one[1]:.6f} ({one[2]:.1f} s)")
+    log(route_line(f"{name}: route check", f)
+        + f" (the recompute's calls counted again; {len(flips[0][0])} "
+        "pairs a call)")
+    if f["wide_flips"]:
+        raise AssertionError(f"{name}: the sharded step's experts differ from "
+                             f"the single step's own at {f['wide_flips']} "
+                             "pairs whose margin is above the bound")
+    return one, gaps
 
 
 def tp_train_leg(mesh, arch, smi, device="cuda", seed=0, mesh21=None):
@@ -6293,15 +6610,22 @@ def tp_train_leg(mesh, arch, smi, device="cuda", seed=0, mesh21=None):
                                          f"planted fault {fault}")
             log(f"{name}: (d) in f32 compute {time.perf_counter() - t0:.1f}"
                 " s")
-        # (a)'s single rank, each rank's blocks of it kept
-        one = single_step(tr, seed, tokens, labels)
-        log(f"{name}: the single rank's gradient step (on rank 0, each "
-            f"rank keeps its blocks): loss {one[0]:.6f}, clip norm "
-            f"{one[1]:.6f} ({one[2]:.1f} s)")
+        # (a)'s single rank, each rank's blocks of it kept; with MoE it
+        # takes the expert ids of the sharded step (recorded on every
+        # rank, ``moe_single``), so it runs after that step
+        moe = moe_layers(cfg) > 0
+        if not moe:
+            one = single_step(tr, seed, tokens, labels)
+            log(f"{name}: the single rank's gradient step (on rank 0, each "
+                f"rank keeps its blocks): loss {one[0]:.6f}, clip norm "
+                f"{one[1]:.6f} ({one[2]:.1f} s)")
 
         # the main path: ``n`` train steps on every rank, counted; (a) on
         # its first step, (c) after each
         tr.sess.run(counters, True)
+        if moe:
+            assert n == 1, "a MoE leg's bar (a) follows its one step"
+            tr.sess.run(tp_routes_on)
         losses, times, same = [], [], []
         for step in range(n):
             t0 = time.perf_counter()
@@ -6310,11 +6634,17 @@ def tp_train_leg(mesh, arch, smi, device="cuda", seed=0, mesh21=None):
             times.append(time.perf_counter() - t0)
             if step == 0:
                 norm0 = float(m["grad_norm"])
-                scale = min(1.0, hp.clip_norm / (one[1] + 1e-9))
-                gaps = tr.sess.run(fsdp_moments, tr.state,
-                                   (1 - hp.b1) * scale)[0]
+                if moe:
+                    ids = tr.sess.run(tp_routes_off, True)
+                else:
+                    scale = min(1.0, hp.clip_norm / (one[1] + 1e-9))
+                    gaps = tr.sess.run(fsdp_moments, tr.state,
+                                       (1 - hp.b1) * scale)[0]
             same.append(tr.sess.run(tp_train_same, tr.state))
         per_rank = tr.sess.run(counters)
+        if moe:
+            one, gaps = moe_single(tr, cfg, ids, seed, tokens, labels, hp,
+                                   name)
         if not fsdp_verdict(name, "(a) the first train step (its m is (1 - "
                             "b1) x the clipped gradient)",
                             (losses[0], norm0, gaps), one, names):
@@ -6380,7 +6710,9 @@ def tp_train_section(smi, device="cuda", started=None, mesh21=None):
     margin: (a) the first train step against the single-rank gradient
     step on the same batch and state: loss, grad norm and every leaf of m
     within ``TRAIN_TOL`` (the FSDP section's (a)), and on the faults' leg
-    a sharded gradient step in f32 compute within ``TRAIN_TOL_F32``; (b)
+    a sharded gradient step in f32 compute within ``TRAIN_TOL_F32``; on
+    a MoE leg the single rank routes as the sharded step did, its route
+    check held (``moe_single``); (b)
     each rank's params, m and v bytes by rule (``tp_train_bytes``), the
     whole leaves listed; (c) after every step, every part whole on every
     model rank equal across the model group bit for bit

@@ -46,13 +46,14 @@ def block_cache_shapes(cfg, spec, batch, seq):
 
 
 def block_apply(x, p, cfg, spec, *, mode, pos, cache=None, cache_len=None,
-                pages=None, attn_extent=None, n_tok=None):
+                pages=None, attn_extent=None, n_tok=None, data=None):
     """Returns ``(x, new_cache, aux)``: the new residual stream, the
     block's new cache and its MoE load-balance term — a 0-d f32 tensor
     from a MoE block in train mode, else 0.0 (the serve modes never ask
-    for it).  ``n_tok`` (verify mode) is passed to the mixer only when
-    set, so the SSD mixer, which never verifies (``steps.speculatable``),
-    keeps its signature."""
+    for it), its means over the global batch on the train mesh ``data``
+    (``moe.global_stats``).  ``n_tok`` (verify mode) is passed to the
+    mixer only when set, so the SSD mixer, which never verifies
+    (``steps.speculatable``), keeps its signature."""
     _, _, apply_fn = _mixer(spec)
     kw = {} if n_tok is None else {"n_tok": n_tok}
     out, new_cache = apply_fn(x, p["mixer"], cfg, spec, mode=mode, pos=pos,
@@ -68,7 +69,7 @@ def block_apply(x, p, cfg, spec, *, mode, pos, cache=None, cache_len=None,
             y = mlp_dense(xn, p["mlp"], cfg)
         else:
             fn = moe_mlp_ragged if cfg.moe_impl == "ragged" else moe_mlp
-            y, lb = fn(xn, p["mlp"], cfg, aux=mode == "train")
+            y, lb = fn(xn, p["mlp"], cfg, aux=mode == "train", data=data)
             aux = 0.0 if lb is None else lb
         x = x + y
     return x, new_cache, aux

@@ -18,11 +18,12 @@ Sharded training: on a mesh, train mode takes ``fsdp=`` (the step's
 ``sharding.fsdp.Plan``): each split leaf is gathered over ``data`` where
 it is used (the embedding, each repeat's block inside its remat
 checkpoint, the final norm, the head), into this model rank's
-tensor-parallel block.  The model axis's collectives come from the
-active ``sharding_ctx``; a checkpointed repeat reopens the context it
-was recorded under, since its recompute may run on autograd's device
-thread, so under remat "full" the backward runs each repeat's forward
-collectives once more.
+tensor-parallel block, and a MoE layer's load-balance term takes its
+means over the plan's data axis (``models.moe.global_stats``).  The
+model axis's collectives come from the active ``sharding_ctx``; a
+checkpointed repeat reopens the context it was recorded under, since
+its recompute may run on autograd's device thread, so under remat
+"full" the backward runs each repeat's forward collectives once more.
 """
 from __future__ import annotations
 
@@ -212,7 +213,8 @@ def forward(params, cfg, tokens, *, mode="train", pos=0, cache=None,
     head of a non-final chunk.  ``fsdp`` (train mode on a mesh: a
     ``sharding.fsdp.Plan``): ``params`` are this rank's blocks, each split
     leaf gathered where it is used (the embedding, each repeat's weights,
-    the final norm, the head), over ``data`` only."""
+    the final norm, the head), over ``data`` only; the MoE load-balance
+    term's means span the global batch (``models.moe.global_stats``)."""
     if mode not in ("train", "prefill", "decode", "prefill_chunk",
                     "verify"):
         raise ValueError(f"unknown forward mode {mode!r}")
@@ -302,7 +304,8 @@ def _forward(params, cfg, tokens, *, mode, pos, cache, patches, cache_len,
             x, nc, a = block_apply(x, w, cfg, spec, mode=mode, pos=pos,
                                    cache=bc, cache_len=cache_len,
                                    pages=pages, attn_extent=attn_extent,
-                                   n_tok=n_tok)
+                                   n_tok=n_tok,
+                                   data=None if fsdp is None else fsdp.mesh)
             ncs.append(nc)
             if not isinstance(a, float):
                 aux = aux + a

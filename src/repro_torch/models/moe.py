@@ -18,23 +18,41 @@ term ``lb`` is computed only when asked for (training; the serve path
 never asks).  Both are differentiable: the capacity dispatch's scatter
 goes into a fresh zero buffer, and the gate product runs out of place
 where autograd records it.
+
+Under a mesh (the reference's layout, ``moe_param_shapes``: ``w_gate``
+and ``w_up`` on ``("experts", "fsdp", "tp")``, ``w_down`` on
+``("experts", "tp", "fsdp")``, ``"experts"`` on no mesh axis) every rank
+holds every expert at its own d_ff columns, and routing is token-local,
+so no all-to-all is needed:
+
+* the router and the dispatch run the same on every model rank from the
+  whole ``xn`` and the whole router (slots, capacity drops, the dropless
+  sort and its host read of segment bounds): every rank picks the same
+  experts;
+* ``xn`` enters this rank's expert columns (``layers.tp_enter``), and so
+  do the combine weights ``topv``: whole on every rank, they multiply
+  this rank's partial outputs, so their gradient is a partial sum per
+  rank;
+* the rank's partial ``y`` (B, S, D) is summed over ``model`` once,
+  after the sum over picks (``layers.tp_all_reduce``): a MoE layer takes
+  one all-reduce a pass, as a dense MLP does, not the ``top_k`` times
+  larger per-pick rows;
+* the load-balance term comes from the whole ``probs``, so it is equal
+  on every model rank and counted once.  In training on a data axis its
+  expert fractions and mean probabilities are the global batch's, as
+  GSPMD computes the reference's: each rank's means summed over ``data``
+  (``sharding.fsdp.data_all_reduce``, whose backward is the identity)
+  and divided by the axis (:func:`global_stats`).  Each rank then adds
+  the same term and differentiates it through its own rows' ``probs``
+  only, so the sum of the ranks' gradients is the global one.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from .layers import tp_size
-
-
-def no_tp(cfg):
-    """Raise under a tensor-parallel mesh: the experts' FFN width on
-    "tp" (``repro/models/moe.py:22-25``), the dropless dispatch's host
-    read and mixtral's rings under a mesh are ROADMAP item 9b."""
-    if tp_size("tp") > 1:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE layers under tensor parallelism are not "
-            "ported (ROADMAP.md queue 1, item 9b)")
+from ..sharding.fsdp import data_all_reduce
+from .layers import tp_all_reduce, tp_enter, tp_shards
 
 
 def moe_param_shapes(cfg):
@@ -62,19 +80,44 @@ def router_probs(xn, router):
     return torch.softmax(gates, dim=-1)
 
 
-def route(xn, router, cfg, aux=True):
+def global_stats(stats, mesh):
+    """The load-balance term's per-expert means ``stats`` (this rank's
+    rows) over the global batch: summed over ``data`` and divided by the
+    axis (the ranks hold equal rows).  ``stats`` itself without a mesh
+    or on a data axis of 1."""
+    n = 1 if mesh is None else mesh.shape["data"]
+    if n == 1:
+        return stats
+    return data_all_reduce(stats, mesh) / n
+
+
+def route(xn, router, cfg, aux=True, data=None):
     """f32 router: softmax over experts, top-k, renormalised.  Returns
     (topv, topi, lb): (B, S, K) weights and expert ids, and the
-    load-balance term ``E * sum_e f_e * p_e`` (None unless ``aux``)."""
+    load-balance term (:func:`load_balance`; None unless ``aux``)."""
     probs = router_probs(xn, router)
     topv, topi = torch.topk(probs, cfg.top_k, dim=-1)
     topv = topv / topv.sum(dim=-1, keepdim=True)
-    lb = None
-    if aux:
-        e = cfg.n_experts
-        frac = F.one_hot(topi[..., 0], e).float().mean(dim=(0, 1))
-        lb = e * (frac * probs.mean(dim=(0, 1))).sum()
-    return topv, topi, lb
+    return topv, topi, load_balance(probs, topi, cfg, data) if aux else None
+
+
+def load_balance(probs, topi, cfg, data=None):
+    """The Switch-style load-balance term ``E * sum_e f_e * p_e``: ``f_e``
+    the share of tokens whose first pick is expert e, ``p_e`` its mean
+    router probability, both over the global batch on ``data``'s data
+    axis (:func:`global_stats`)."""
+    e = cfg.n_experts
+    frac = F.one_hot(topi[..., 0], e).float().mean(dim=(0, 1))
+    frac, pmean = global_stats(
+        torch.stack([frac, probs.mean(dim=(0, 1))]), data)
+    return e * (frac * pmean).sum()
+
+
+def enter(xn, topv):
+    """``xn`` and the combine weights ``topv`` entering this rank's expert
+    columns (``layers.tp_enter``: the identity, whose backward sums the
+    gradient over ``model``)."""
+    return tp_enter(xn), tp_enter(topv)
 
 
 def dispatch_slots(topi, cfg, c):
@@ -88,13 +131,16 @@ def dispatch_slots(topi, cfg, c):
     return eid, slot, slot < c
 
 
-def moe_mlp(xn, p, cfg, aux=True):
-    """xn: (B, S, D) pre-normed.  Returns (y, lb)."""
-    no_tp(cfg)
+def moe_mlp(xn, p, cfg, aux=True, data=None):
+    """xn: (B, S, D) pre-normed; ``data``: the train mesh, whose data axis
+    the load-balance term's means span.  Returns (y, lb)."""
     b, s, d = xn.shape
     e, k = cfg.n_experts, cfg.top_k
     dt = xn.dtype
-    topv, topi, lb = route(xn, p["router"], cfg, aux)
+    topv, topi, lb = route(xn, p["router"], cfg, aux, data)
+    split = tp_shards(cfg.d_ff, "tp") > 1
+    if split:
+        xn, topv = enter(xn, topv)
     c = capacity(s, cfg)
     eid, slot, keep = dispatch_slots(topi, cfg, c)
     slot_w = torch.where(keep, slot, c)                   # overflow -> pad
@@ -115,7 +161,7 @@ def moe_mlp(xn, p, cfg, aux=True):
     got = got * keep[..., None].to(dt)
     w = topv.reshape(b, s * k).to(dt)[..., None]
     y = (got * w).view(b, s, k, d).sum(dim=2)
-    return y, lb
+    return (tp_all_reduce(y) if split else y), lb
 
 
 class DroplessOnMeta(RuntimeError):
@@ -123,20 +169,23 @@ class DroplessOnMeta(RuntimeError):
     a meta tensor does not hold, and no routing is made up for it."""
 
 
-def moe_mlp_ragged(xn, p, cfg, aux=True):
+def moe_mlp_ragged(xn, p, cfg, aux=True, data=None):
     """Dropless variant: (token, pick) rows sorted by expert, one matmul
     per expert's contiguous segment.  The segment bounds are read on the
-    host (``DroplessOnMeta`` on meta tensors).  Returns (y, lb)."""
+    host (``DroplessOnMeta`` on meta tensors); under a mesh every model
+    rank reads the same bounds.  Returns (y, lb)."""
     if xn.device.type == "meta":
         raise DroplessOnMeta(
             f"{cfg.name}: moe_impl='ragged' reads each expert's segment "
             "bounds on the host, and a meta tensor holds no routing; dry-run "
             "it with moe_impl='onehot'")
-    no_tp(cfg)
     b, s, d = xn.shape
     e, k = cfg.n_experts, cfg.top_k
     dt = xn.dtype
-    topv, topi, lb = route(xn, p["router"], cfg, aux)
+    topv, topi, lb = route(xn, p["router"], cfg, aux, data)
+    split = tp_shards(cfg.d_ff, "tp") > 1
+    if split:
+        xn, topv = enter(xn, topv)
     eid = topi.reshape(-1)
     order = torch.argsort(eid, stable=True)
     xs = xn.reshape(b * s, d).repeat_interleave(k, dim=0)[order]
@@ -152,4 +201,4 @@ def moe_mlp_ragged(xn, p, cfg, aux=True):
     out = out[torch.argsort(order)]
     w = topv.reshape(-1).to(dt)[:, None]
     y = (out * w).view(b, s, k, d).sum(dim=2)
-    return y, lb
+    return (tp_all_reduce(y) if split else y), lb

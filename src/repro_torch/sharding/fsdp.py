@@ -29,7 +29,12 @@ one process per rank, so both are written out:
 * :func:`data_sum`: a sum over the data ranks in place: whole leaves'
   gradients, the labelled-token counts, the loss, the clip norm's
   squares; :func:`model_sum` the same over the model ranks (the clip
-  norm's squares of the leaves split over ``model``).
+  norm's squares of the leaves split over ``model``);
+  :func:`data_all_reduce` the data axis's twin of
+  ``models.layers.tp_all_reduce``: an autograd op, the sum forward and
+  the identity backward (the MoE load-balance term's means over the
+  global batch, ``models.moe.global_stats``), counted as a
+  :func:`data_sum`.
 
 Every gather and every sum is counted with the bytes it carries, per
 axis (``gather.calls`` / ``gather.bytes`` and ``data_sum.calls`` /
@@ -198,6 +203,26 @@ def data_sum(t, mesh):
     return mesh.all_reduce(t, "data")
 
 
+class _DataAllReduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        return data_sum(x.clone(memory_format=torch.contiguous_format),
+                        mesh)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def data_all_reduce(x, mesh):
+    """``x`` summed over the data ranks (a copy; one all-reduce, counted
+    as :func:`data_sum`).  Under autograd its backward is the identity:
+    every data rank's consumer reads the same sum, so the ranks'
+    gradients, summed over ``data`` as every gradient is, make the
+    global one."""
+    return _DataAllReduce.apply(x, mesh)
+
+
 def model_sum(t, mesh):
     """Sum ``t`` over the model ranks, in place (one all-reduce, counted;
     nothing on a model axis of 1); returns it."""
@@ -274,5 +299,5 @@ model_sum.bytes = LaunchCounter()
 
 __all__ = ["Plan", "TPSplit", "data_dims", "block", "model_block",
            "model_parts", "model_whole", "shard_leaf", "data_sum",
-           "model_sum", "gather",
+           "model_sum", "data_all_reduce", "gather",
            "take", "gather_blocks", "sum_blocks", "whole_on_host"]

@@ -31,9 +31,11 @@ rank computes on its ``micro / D`` rows of every microbatch; the ranks
 of one model group hold the same rows and labels.  The loss divides by
 the global count of labelled tokens (summed over ``data``), whole-on-
 ``data`` leaves' gradients are summed over ``data``, and the clip norm
-is the whole gradient's (``optim.adamw.global_norm``).  MoE layers under
-a mesh and head counts the model axis does not divide raise
-(:func:`check_train_mesh`).
+is the whole gradient's (``optim.adamw.global_norm``).  A MoE layer's
+experts are split over ``model`` by their d_ff columns and over
+``data`` by their d_model rows, and its load-balance term is the global
+batch's (``models.moe``).  Head counts the model axis does not divide
+raise (:func:`check_train_mesh`).
 """
 from __future__ import annotations
 
@@ -115,9 +117,9 @@ def _check_heads(cfg, n) -> None:
 def check_tp(cfg, mesh) -> None:
     """Raise where tensor-parallel serving of ``cfg`` on ``mesh`` is not
     ported: a data axis above 1 (a training mesh: serving maps ``batch``
-    to no mesh axis), MoE layers (ROADMAP item 9b), head counts the model
-    axis does not divide (item 20: the reference replicates them).  A
-    no-op without a mesh or with a model axis of 1."""
+    to no mesh axis), head counts the model axis does not divide (ROADMAP
+    item 20: the reference replicates them).  A no-op without a mesh or
+    with a model axis of 1."""
     n = model_size(mesh)
     if data_size(mesh) > 1:
         raise NotImplementedError(
@@ -126,10 +128,6 @@ def check_tp(cfg, mesh) -> None:
             "above 1 is a training mesh (FSDP)")
     if n == 1:
         return
-    if any(spec.mlp == "moe" for spec in cfg.pattern):
-        raise NotImplementedError(
-            f"{cfg.name}: MoE layers under tensor parallelism are not "
-            "ported (ROADMAP.md queue 1, item 9b)")
     _check_heads(cfg, n)
 
 
@@ -205,18 +203,14 @@ def _token_loss(out, labels, cfg, count=None):
 
 
 def check_train_mesh(cfg, mesh, micro: int | None = None) -> None:
-    """Raise where training ``cfg`` on ``mesh`` is not ported: MoE layers
-    under a mesh (ROADMAP item 9b), head counts a model axis above 1 does
-    not divide (item 20: the reference replicates such heads), a
-    microbatch of ``micro`` rows that the data axis does not divide
-    (deviation: the reference's strict rule would replicate such a
-    batch).  A no-op without a mesh or on a (1, 1) mesh."""
+    """Raise where training ``cfg`` on ``mesh`` is not ported: head counts
+    a model axis above 1 does not divide (ROADMAP item 20: the reference
+    replicates such heads), a microbatch of ``micro`` rows that the data
+    axis does not divide (deviation: the reference's strict rule would
+    replicate such a batch).  A no-op without a mesh or on a (1, 1)
+    mesh."""
     if mesh is None or mesh.shape["data"] * mesh.shape["model"] == 1:
         return
-    if any(spec.mlp == "moe" for spec in cfg.pattern):
-        raise NotImplementedError(
-            f"{cfg.name}: MoE layers under a mesh are not ported "
-            "(ROADMAP.md queue 1, item 9b)")
     if model_size(mesh) > 1:
         _check_heads(cfg, model_size(mesh))
     if micro is not None and micro % data_size(mesh):
@@ -299,8 +293,10 @@ def make_grad_step(cfg, mesh=None):
     ``data`` leaves' gradients and the loss over ``data``.  On a model
     axis above 1 the forward and its backward run under
     ``sharding_ctx(mesh)`` (the reference's ``LOGICAL_RULES``).  ``aux``
-    is summed as the rest; it is 0 here, since MoE under a mesh
-    raises."""
+    is the same on every rank: each MoE layer's term takes its means over
+    the global batch (``models.moe.global_stats``), and each rank
+    differentiates it through its own rows only, so the gradients' sum
+    over ``data`` is the global term's gradient."""
     plan = train_plan(cfg, mesh)
     tp = (functools.partial(sharding_ctx, mesh) if model_size(mesh) > 1
           else contextlib.nullcontext)

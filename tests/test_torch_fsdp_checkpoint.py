@@ -27,9 +27,9 @@ tiny f32 configs; the reference runs and bars of ``tests/fsdp_ref.py``).
     reference's uninterrupted data-4 run by the same bars.
   * ``launch.train.build`` on a mesh: rank 0's shard of the seeded state,
     the same loss as on one device.
-  * Refusals: MoE under a mesh (item 9b), head counts a model axis
-    does not divide (item 20), a microbatch the data axis does not
-    divide; a model axis above 1 builds (item 18b is done).
+  * Refusals: head counts a model axis does not divide (item 20), a
+    microbatch the data axis does not divide; a model axis above 1 and
+    MoE under a mesh build (items 18b and 9b are done).
   * A follower that raises mid-step fails the step with ``TPError``.
   * ``chip_smoke.fsdp_section`` rehearsed at a tiny config.
 """
@@ -290,9 +290,19 @@ def test_build_on_a_mesh_drives_the_ranks(mesh2):
 
 
 def test_what_is_not_ported_raises():
-    with pytest.raises(NotImplementedError, match="item 9b"):
-        check_train_mesh(get("mixtral-8x7b").tiny(),
-                         Mesh({"data": 2, "model": 1}))
+    # MoE under a mesh is ported: mixtral's step builds on 2,1 and rank
+    # 0's shard holds every expert at half its d_model rows
+    # (tests/test_torch_moe_mesh.py trains it)
+    moe_cfg = get("mixtral-8x7b").tiny()
+    mesh21 = Mesh({"data": 2, "model": 1})
+    check_train_mesh(moe_cfg, mesh21)
+    assert callable(make_train_step(moe_cfg, OptHParams(), mesh21))
+    moe_ref = reference("mixtral-8x7b")
+    moe_part = shard_train_state(train_state_from_numpy(
+        moe_ref.state0, moe_cfg, "cpu"), moe_cfg, mesh21)["params"]
+    assert moe_part["blocks"][0]["mlp"]["w_gate"].shape == (
+        moe_cfg.n_repeats, moe_cfg.n_experts, moe_cfg.d_model // 2,
+        moe_cfg.d_ff)
     # a model axis above 1 trains (item 18b): the step builds on a 2,2
     # mesh and the state is cut on 1,2 (rank 0's view, no processes;
     # tests/test_torch_tp_train.py runs the steps)

@@ -22,8 +22,9 @@ carried over from the reference's ``init_params`` as numpy.
   * Sharded logits against single-device ones, within a stated f32
     tolerance.
   * Errors, not hangs: a follower that raises fails the live requests
-    within the deadline; MoE, a non-dividing head count and, in serving,
-    a data axis above 1 raise.
+    within the deadline; a non-dividing head count and, in serving, a
+    data axis above 1 raise; MoE builds (``tests/test_torch_moe_mesh.py``
+    serves it).
   * The CLI: ``--mesh 1,2`` prints the same ``sample`` as ``--mesh 1,1``.
 """
 import json
@@ -44,7 +45,7 @@ from repro.configs import get as jget
 from repro.models.lm import init_params as jax_init_params
 from repro_torch.configs import get
 from repro_torch.launch.mesh import Mesh, make_mesh_from_devices
-from repro_torch.params import params_from_numpy
+from repro_torch.params import params_from_numpy, shard_params
 from repro_torch.serve import KVState, Request, ServeEngine, drain
 from repro_torch.serve.tp import (Session, TPError, counters, seen,
                                   tree_bytes)
@@ -334,9 +335,19 @@ def test_a_failing_follower_fails_the_live_requests():
 
 def test_what_is_not_ported_raises():
     cfg, params, _, _ = build("qwen2.5-14b")
-    with pytest.raises(NotImplementedError, match="item 9b"):
-        ServeEngine(get("mixtral-8x7b").tiny(), lambda: None, device="cpu",
-                    mesh=Mesh({"data": 1, "model": 2}))
+    # MoE under a mesh is ported: mixtral's steps build on 1,2 and rank
+    # 0's shard holds every expert at half its d_ff columns (rank 0's
+    # view of a mesh, no processes; tests/test_torch_moe_mesh.py serves)
+    moe_cfg, moe_params, _, _ = build("mixtral-8x7b")
+    mesh12 = Mesh({"data": 1, "model": 2})
+    assert callable(make_prefill_step(moe_cfg, cache_len=CACHE_LEN,
+                                      mesh=mesh12))
+    assert callable(make_serve_step(moe_cfg, mesh=mesh12))
+    part = shard_params(moe_params, moe_cfg, mesh12)
+    mlp, whole = part["blocks"][0]["mlp"], moe_params["blocks"][0]["mlp"]
+    assert mlp["w_gate"].shape[-1] * 2 == whole["w_gate"].shape[-1]
+    assert mlp["w_down"].shape[-2] * 2 == whole["w_down"].shape[-2]
+    assert torch.equal(mlp["router"], whole["router"])
     with pytest.raises(NotImplementedError, match="item 20\\)"):
         ServeEngine(cfg, params, device="cpu",
                     mesh=Mesh({"data": 1, "model": 3}))

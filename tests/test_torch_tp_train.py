@@ -12,12 +12,15 @@ gloo, tiny f32 configs, the state carried over from the reference's
     reference's own sharded step does not run on this jax (ROADMAP queue
     3), so the oracle is its single-device step.
   * Per-rank bytes of params, m and v on 2,2 by rule: 1/4 of a leaf split
-    on both axes, 1/2 of a leaf split on one, the SSD mixer's
-    ``TP_LOCAL`` leaves by their formula, replicated leaves whole.
+    on both axes (mixtral's experts among them), 1/2 of a leaf split on
+    one, the SSD mixer's ``TP_LOCAL`` leaves by their formula, replicated
+    leaves whole.
   * Collectives a step on each group by formula, under remat "full" and
-    "none".
+    "none" (a MoE layer: a dense MLP's, one more enter for its combine
+    weights, and its load-balance term's data sums).
   * The parts of params, m and v whole on every model rank stay equal
-    across the model group bit for bit after every one of three steps.
+    across the model group bit for bit after every one of three steps
+    (mixtral's router too).
   * Each planted fault of ``chip_smoke``'s TP train section fails the
     bars.
   * The given-statistic backward's plain path, a row split over two
@@ -106,7 +109,7 @@ def share(cfg, path, meta, ssm):
 
 
 @pytest.mark.parametrize("arch", ["qwen2.5-14b", "mamba2-780m",
-                                  "minicpm3-4b"])
+                                  "minicpm3-4b", "mixtral-8x7b"])
 def test_each_rank_holds_its_share_by_rule(arch, mesh22):
     cfg = get(arch).tiny()
     ref = reference(arch)
@@ -136,37 +139,42 @@ def formula(cfg, remat):
     """The collectives of one step of ``ACCUM`` microbatches on a rank of
     a 2,2 mesh.  Model group: per microbatch the embedding's all-reduce,
     per layer its mixer's output (and an SSD layer's gated-norm
-    statistic) and a dense MLP's output, under remat "full" each
+    statistic) and a dense or MoE MLP's output, under remat "full" each
     repeat's again but its closing one (the recompute stops at the last
     tensor the backward saved); one all-gather of the logits; the enter
     op's backward per GQA layer 1, per MLA layer 3, per SSD layer 4 (xn
-    and the B/C columns of three leaves), per dense MLP 1, and the LM
-    head's 1; per SSD layer the gated norm's row term; the clip norm's
-    one a step.  Data group: each split leaf gathered once a microbatch
-    and once more in the recompute, its gradient summed once, plus four
-    sums (whole leaves' gradients, label counts, loss, clip norm)."""
+    and the B/C columns of three leaves), per dense MLP 1, per MoE layer
+    2 (its input and its combine weights), and the LM head's 1; per SSD
+    layer the gated norm's row term; the clip norm's one a step.  Data
+    group: each split leaf gathered once a microbatch and once more in
+    the recompute, its gradient summed once, plus four sums (whole
+    leaves' gradients, label counts, loss, clip norm), plus per MoE layer
+    and microbatch the load-balance term's means, again in the
+    recompute."""
     spec = cfg.pattern[0]
     ssm, mla = spec.kind == "ssm", spec.attn == "mla"
-    dense = spec.mlp == "dense"
-    fwd = 1 + ssm + dense
+    dense, moe = spec.mlp == "dense", spec.mlp == "moe"
+    fwd = 1 + ssm + dense + moe
     layers = cfg.n_repeats          # one layer a repeat
     again = layers * (fwd - 1) if remat == "full" else 0
-    enter = (4 if ssm else 3 if mla else 1) + dense
+    remats = 2 if remat == "full" else 1
+    enter = (4 if ssm else 3 if mla else 1) + dense + 2 * moe
     split = [m for _, m, _ in leaf_paths(cfg) if "fsdp" in m.axes]
     in_blocks = layers * sum(m.axes[0] == "stack" for m in split)
     outside = len(split) - in_blocks // layers
     return {"tp_all_reduce": ACCUM * (1 + layers * fwd + again),
             "tp_all_gather": ACCUM, "tp_enter": ACCUM * (1 + layers * enter),
             "tp_norm_dot": ACCUM * layers * ssm, "tp_sum": 1,
-            "fsdp_gather": ACCUM * ((2 if remat == "full" else 1)
-                                    * in_blocks + outside),
-            "fsdp_sum": ACCUM * (in_blocks + outside) + 4}
+            "fsdp_gather": ACCUM * (remats * in_blocks + outside),
+            "fsdp_sum": ACCUM * (in_blocks + outside
+                                 + remats * layers * moe) + 4}
 
 
 @pytest.mark.parametrize("arch,remat", [("qwen2.5-14b", "full"),
                                         ("qwen2.5-14b", "none"),
                                         ("mamba2-780m", "full"),
-                                        ("minicpm3-4b", "none")])
+                                        ("minicpm3-4b", "none"),
+                                        ("mixtral-8x7b", "full")])
 def test_collectives_follow_the_formula(arch, remat, mesh22):
     cfg = get(arch).tiny(remat=remat)
     ref = reference(arch)
@@ -185,11 +193,13 @@ def test_collectives_follow_the_formula(arch, remat, mesh22):
                    if k.startswith("tp") and want[k])
 
 
-@pytest.mark.parametrize("arch", ["mamba2-780m", "minicpm3-4b"])
+@pytest.mark.parametrize("arch", ["mamba2-780m", "minicpm3-4b",
+                                  "mixtral-8x7b"])
 def test_replicated_parts_stay_bit_equal_across_model_ranks(arch, mesh22):
     """mamba2's B and C columns and norm weights, minicpm3's ``wq_a``,
-    ``wkv_a`` and latent norms: equal on both ranks of each model group
-    after each of three steps, in params, m and v.  Rank 0 computes on
+    ``wkv_a`` and latent norms, mixtral's router and norms: equal on both
+    ranks of each model group after each of three steps, in params, m
+    and v.  Rank 0 computes on
     one thread, as the CPU followers do: bit-equality is that of one
     computation in one order on every rank (on the card the ranks run
     the same kernels), and a CPU product on more threads may sum in
