@@ -732,15 +732,28 @@ def time_ms(fn, iters=20, warmup=5, reps=5):
 def device_ms(fn, iters=20, per_call=None, lead=1):
     """Device time per call: the kernels' time in a ``torch.profiler``
     trace of ``iters`` calls after warm-up, summed over every kernel the
-    call launches.  Unlike ``time_ms`` it leaves out the host's time to
-    enqueue, which on a slow host exceeds a short kernel's.  The trace
-    must hold every launch, or the sum would read low: ``lead`` more
-    calls run first inside the trace (the profiler can miss a window's
-    first launches: of 21 and of 9 flash calls of 0.1-1.3 ms it held 16
-    and 5), and of each kernel name, launched k times a call, the last
-    k * ``iters`` launches are summed, which the trace must hold — each
-    with a duration, and ``per_call`` kernels a call where the caller
-    knows the number.  Otherwise it returns None (no device time)."""
+    call launches (``device_ms_by_kernel``, logged by kernel).  Unlike
+    ``time_ms`` it leaves out the host's time to enqueue, which on a slow
+    host exceeds a short kernel's.  None where the trace misses a
+    launch."""
+    by_kernel = device_ms_by_kernel(fn, iters, per_call, lead)
+    if by_kernel is None:
+        return None
+    log("  device ms per call by kernel: " + ", ".join(
+        f"{k} {v:.4f}" for k, v in by_kernel.items()))
+    return sum(by_kernel.values())
+
+
+def device_ms_by_kernel(fn, iters=20, per_call=None, lead=1):
+    """Device ms per call by kernel name, from a ``torch.profiler`` trace
+    of ``iters`` calls after warm-up.  The trace must hold every launch,
+    or a sum would read low: ``lead`` more calls run first inside the
+    trace (the profiler can miss a window's first launches: of 21 and of
+    9 flash calls of 0.1-1.3 ms it held 16 and 5), and of each kernel
+    name, launched k times a call, the last k * ``iters`` launches are
+    summed, which the trace must hold — each with a duration, and
+    ``per_call`` kernels a call where the caller knows the number.
+    Otherwise it returns None (no device time)."""
     import collections
 
     import torch
@@ -775,9 +788,7 @@ def device_ms(fn, iters=20, per_call=None, lead=1):
     for e in kernels:      # "void (anonymous namespace)::f<T>(args)" -> f<T>
         name = e.name.replace("(anonymous namespace)::", "")
         by_kernel[name.split("(")[0].split()[-1]] += e.time_range.elapsed_us()
-    log("  device ms per call by kernel: " + ", ".join(
-        f"{k} {v / iters / 1e3:.4f}" for k, v in by_kernel.items()))
-    return sum(e.time_range.elapsed_us() for e in kernels) / iters / 1e3
+    return {k: v / iters / 1e3 for k, v in by_kernel.items()}
 
 
 def ms_text(ms):
@@ -1319,22 +1330,26 @@ def check_rms_norm_bwd():
             "bound_ms": bound, "bound_by": bound_by, "library_ms": l_ms}
 
 def check_rms_norm_rstd_bwd():
-    """The given-statistic backward (``rms_norm_dot`` then
-    ``rms_norm_bwd_rstd``, tensor parallelism's gated norm in training)
-    at mamba2-780m's two-rank shape: 4096 rows (a microbatch of 4 x 1024)
-    of d_inner 3072 split into two halves of 1536, the statistic from the
-    whole row, each half's row term ``s_loc`` from the kernel and the two
-    added (the all-reduce over the model group); each half's dx and dw
-    against the plain backward of the whole row (``rms_norm_bwd_ref``),
-    in f32 and bf16: dx elementwise (``TOL``) and in bf16 row by row
-    (``ROW_TOL``), dw by ``DW_TOL``; the row terms against
-    ``rms_norm_dot_ref``.  dy leans along x, as a loss gradient does along
-    the norm's output, so that the statistic's term is large.  Then
-    through autograd (``rms_norm_rstd`` with the sum as its ``reduce``).
-    The planted fault, each half's own ``s_loc`` not summed with the
-    other's, must fail.  Then the times of one half, both launches, in
-    bf16: kernel, plain and its bound; no PyTorch call applies a given
-    statistic."""
+    """The given-statistic backward (pass 1 ``rms_norm_dot``, then pass 2
+    ``rms_norm_bwd_rstd``: tensor parallelism's gated norm in training)
+    at mamba2-780m's two-rank shape, 4096 rows (a microbatch of 4 x 1024)
+    of d_inner 3072 in two halves of 1536, and at its model-4 shape, four
+    quarters of 768: the statistic from the whole row, each part's row
+    term ``s_loc`` from pass 1 and the parts' terms added (the all-reduce
+    over the model group); each part's dx and dw against the plain
+    backward of the whole row (``rms_norm_bwd_ref``), in f32 and bf16: dx
+    elementwise (``TOL``) and in bf16 row by row (``ROW_TOL``), dw by
+    ``DW_TOL``; the row terms and the sum of pass 1's ``dw`` partials
+    against ``rms_norm_dot_ref``.  dy leans along x, as a loss gradient
+    does along the norm's output, so that the statistic's term is large.
+    Then the halves through autograd (``rms_norm_rstd`` with the sum as
+    its ``reduce``).  Two planted faults must fail: each half's own
+    ``s_loc`` not summed with the other's (dx, row by row), and one of
+    pass 1's ``dw`` partials left out of pass 2's sum (dw, ``DW_TOL``).
+    Then the times of one half, both launches, in bf16: device time over
+    rotating inputs and CUDA-event time beside the bound with x and dy
+    read once (which pass 2 reaches only from L2) and read twice, and
+    the plain version; no PyTorch call applies a given statistic."""
     import numpy as np
     import torch
 
@@ -1357,82 +1372,114 @@ def check_rms_norm_rstd_bwd():
                          device="cuda").to(dt)
         rstd = torch.rsqrt(x.float().square().mean(-1) + eps)
         pdx, pdw = rms_norm_bwd_ref(x, w, dy, eps)
-        parts = [slice(0, half), slice(half, width)]
-        s_loc = [rms_norm_dot(x[:, p].contiguous(), w[p].contiguous(),
-                              dy[:, p].contiguous()) for p in parts]
-        for p, s in zip(parts, s_loc):
-            want = rms_norm_dot_ref(x[:, p], w[p], dy[:, p])
-            rel = ((s - want).norm() / want.norm()).item()
-            if rel > 1e-5:
-                raise AssertionError(f"rms_norm_dot {dt}: row terms off by "
-                                     f"{rel:.3e}")
-        s = s_loc[0] + s_loc[1]
         tag = str(dt)[6:]
-        for k, p in enumerate(parts):
-            dx, dw = rms_norm_bwd_rstd(x[:, p].contiguous(), w[p].contiguous(),
-                                       dy[:, p].contiguous(), rstd, s, width)
-            what = f"rms_norm_bwd_rstd ({rows}, {half}) {tag} half {k}"
-            err = close(dx, pdx[:, p], dt, what + " dx")
-            if dt == torch.bfloat16:
-                rows_close(dx, pdx[:, p], what + " dx")
-            rel = ((dw.float() - pdw[p].float()).norm()
-                   / pdw[p].float().norm()).item()
-            if rel > DW_TOL[tag]:
-                raise AssertionError(f"{what}: dw relative error {rel:.3e} "
-                                     f"> {DW_TOL[tag]}")
-            worst[(tag, k)] = (err, rel)
+        for ranks in (2, 4):
+            cut = width // ranks
+            parts = [slice(k * cut, (k + 1) * cut) for k in range(ranks)]
+            ops = [(x[:, p].contiguous(), w[p].contiguous(),
+                    dy[:, p].contiguous()) for p in parts]
+            dots = [rms_norm_dot(*o, rstd) for o in ops]
+            for o, (s_k, partials) in zip(ops, dots):
+                want, want_dw = rms_norm_dot_ref(*o, rstd)
+                rel = ((s_k - want).norm() / want.norm()).item()
+                rel_dw = ((partials.sum(0) - want_dw[0]).norm()
+                          / want_dw[0].norm()).item()
+                if rel > 1e-5 or rel_dw > 1e-5:
+                    raise AssertionError(
+                        f"rms_norm_dot {tag} ({rows}, {cut}): row terms off "
+                        f"by {rel:.3e}, the dw partials' sum by {rel_dw:.3e}")
+            s = sum(s_k for s_k, _ in dots)
+            for k, p in enumerate(parts):
+                dx, dw = rms_norm_bwd_rstd(*ops[k], rstd, s, width,
+                                           dots[k][1])
+                what = f"rms_norm_bwd_rstd ({rows}, {cut}) {tag} part {k}"
+                err = close(dx, pdx[:, p], dt, what + " dx")
+                if dt == torch.bfloat16:
+                    rows_close(dx, pdx[:, p], what + " dx")
+                rel = ((dw.float() - pdw[p].float()).norm()
+                       / pdw[p].float().norm()).item()
+                if rel > DW_TOL[tag]:
+                    raise AssertionError(f"{what}: dw relative error "
+                                         f"{rel:.3e} > {DW_TOL[tag]}")
+                worst[(tag, ranks, k)] = (err, rel)
         # through autograd, the halves' row terms summed by ``reduce``
-        xs = [x[:, p].contiguous().requires_grad_() for p in parts]
-        ws = [w[p].contiguous().requires_grad_() for p in parts]
-        other = [s_loc[1], s_loc[0]]
+        halves = [slice(0, half), slice(half, width)]
+        s_loc = [rms_norm_dot_ref(x[:, p], w[p], dy[:, p], rstd)[0]
+                 for p in halves]
+        xs = [x[:, p].contiguous().requires_grad_() for p in halves]
+        ws = [w[p].contiguous().requires_grad_() for p in halves]
         for k in range(2):
             y = rms_norm_rstd(xs[k], ws[k], rstd, width=width,
-                              reduce=lambda t, o=other[k]: t + o)
-            y.backward(dy[:, parts[k]])
-            close(xs[k].grad, pdx[:, parts[k]], dt,
+                              reduce=lambda t, o=s_loc[1 - k]: t + o)
+            y.backward(dy[:, halves[k]])
+            close(xs[k].grad, pdx[:, halves[k]], dt,
                   f"rms_norm_rstd autograd {tag} half {k} dx")
-    log(f"rms_norm_bwd_rstd: both halves of ({rows}, {width}) in f32 and "
-        f"bf16 match the whole row's plain backward (dx {TOL}, bf16 rows "
-        f"{ROW_TOL}; dw {DW_TOL}); worst dx error "
+    log(f"rms_norm_bwd_rstd: the halves and the quarters of ({rows}, "
+        f"{width}) in f32 and bf16 match the whole row's plain backward (dx "
+        f"{TOL}, bf16 rows {ROW_TOL}; dw {DW_TOL}); worst dx error "
         f"{max(e for e, _ in worst.values()):.3e}, dw "
-        f"{max(r for _, r in worst.values()):.3e}; the same through autograd")
+        f"{max(r for _, r in worst.values()):.3e}; the halves the same "
+        f"through autograd")
 
-    # the planted fault (bf16): a half's own row term, not the sum
+    # the planted faults (bf16): a half's own row term, not the sum; one
+    # of pass 1's dw partials left out of pass 2's sum
     bf16 = torch.bfloat16
     xh, wh, dyh = (t[:, :half].contiguous() if t.dim() == 2 else
                    t[:half].contiguous() for t in (x, w, dy))
-    dx, _ = rms_norm_bwd_rstd(xh, wh, dyh, rstd, s_loc[0], width)
+    s_own, partials = rms_norm_dot(xh, wh, dyh, rstd)
+    dx, _ = rms_norm_bwd_rstd(xh, wh, dyh, rstd, s_own, width, partials)
     planted_rows("rms_norm_bwd_rstd dx", f"{rows} x {half}", {
         "s_loc not all-reduced": (dx, ROW_TOL)}, pdx[:, :half],
         TOL["bfloat16"])
+    n = partials.shape[0]
+    short = partials.clone()
+    short[n // 2] = 0.0
+    _, dw = rms_norm_bwd_rstd(xh, wh, dyh, rstd, s_own + s_loc[1], width,
+                              short)
+    rel = ((dw.float() - pdw[:half].float()).norm()
+           / pdw[:half].float().norm()).item()
+    log(f"rms_norm_bwd_rstd planted fault (one dw partial of {n} left out, "
+        f"{rows} x {half}): dw relative error {rel:.3e}")
+    if rel <= DW_TOL["bfloat16"]:
+        raise AssertionError("rms_norm_bwd_rstd: the dw check does not "
+                             "reject one dw partial left out")
 
     # times of one half (one rank's work), both launches, bf16
     def plain():
-        rms_norm_bwd_rstd_ref(xh, wh, dyh, rstd,
-                              rms_norm_dot_ref(xh, wh, dyh), width)
+        s_p, parts_p = rms_norm_dot_ref(xh, wh, dyh, rstd)
+        rms_norm_bwd_rstd_ref(xh, wh, dyh, rstd, s_p, width, parts_p)
+
+    def both(a, b, c, r):
+        s_k, parts_k = rms_norm_dot(a, b, c, r)
+        return rms_norm_bwd_rstd(a, b, c, r, s_k, width, parts_k)
 
     # x and dy read, dx written, w read and dw written, once each; rstd
-    # read, s written by the first entry and read by the second (the
-    # all-reduce between them)
+    # read, s written by pass 1 and read by pass 2 (the all-reduce between
+    # them); pass 2 reads x and dy again, from L2 at best
     nbytes = 3 * xh.numel() * 2 + 2 * wh.numel() * 2 + rows * 4 * 3
+    nbytes2 = nbytes + 2 * xh.numel() * 2
     # 38 MB, under L2: the kernel timed over rotating copies of its inputs
-    rot, n_rot = rotated(lambda a, b, c, r: rms_norm_bwd_rstd(
-        a, b, c, r, rms_norm_dot(a, b, c), width), (xh, wh, dyh, rstd),
-        nbytes)
+    rot, n_rot = rotated(both, (xh, wh, dyh, rstd), nbytes)
     k_ms, p_ms = time_ms(rot), time_ms(plain)
-    k_dev = device_ms(rot, per_call=3, lead=8)
+    k_dev = device_ms(rot, per_call=2, lead=8)
     del rot
-    flops = 12 * xh.numel()
+    flops = 11 * xh.numel()
     bound = max(nbytes / HBM_BPS, flops / F32_FLOPS) * 1e3
+    bound2 = max(nbytes2 / HBM_BPS, flops / F32_FLOPS) * 1e3
     bound_by = "bytes" if nbytes / HBM_BPS >= flops / F32_FLOPS \
         else "operations"
-    err, rel = worst[("bfloat16", 0)]
+    share = ("not measured" if k_dev is None else
+             f"{bound / k_dev:.0%} of the one-read bound, "
+             f"{bound2 / k_dev:.0%} of the two-read bound")
+    err, rel = worst[("bfloat16", 2, 0)]
     log(f"rms_norm_bwd_rstd ({rows}, {half}) bf16: max_err {err:.3e} (dw rel "
-        f"{rel:.3e}) kernel_ms {k_ms:.4f} (rms_norm_dot + rms_norm_bwd_rstd) "
-        f"plain_ms {p_ms:.4f} library_ms none (no call applies a given "
-        f"statistic) bound_ms {bound:.4f} ({bound_by}: {nbytes} B); device "
-        f"time alone (profiler, the three launches) {ms_text(k_dev)}; the "
-        f"kernel timed over {n_rot} rotating copies of its inputs")
+        f"{rel:.3e}) kernel_ms {k_ms:.4f} by events (rms_norm_dot + "
+        f"rms_norm_bwd_rstd, 2 launches a call) plain_ms {p_ms:.4f} "
+        f"library_ms none (no call applies a given statistic) bound_ms "
+        f"{bound:.4f} ({bound_by}: {nbytes} B, x and dy read once) and "
+        f"{bound2:.4f} (read twice: {nbytes2} B); device time alone "
+        f"(profiler, the 2 launches) {ms_text(k_dev)}: {share}; timed over "
+        f"{n_rot} rotating copies of its inputs")
     return {"name": "rms_norm_bwd_rstd", "route": "triton",
             "source": "src/repro_torch/kernels/rmsnorm/kernel.py",
             "replaces": "src/repro/models/layers.py:11",
@@ -1440,7 +1487,7 @@ def check_rms_norm_rstd_bwd():
                      "given statistic", "device_ms": k_dev,
             "library_device_ms": None, "max_abs_err": err, "ms": k_ms,
             "plain_ms": p_ms, "bound_ms": bound, "bound_by": bound_by,
-            "library_ms": None}
+            "bound_two_reads_ms": bound2, "library_ms": None}
 
 
 

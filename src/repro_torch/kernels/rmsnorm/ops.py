@@ -14,16 +14,18 @@ kernel.
 ``rms_norm_rstd`` is the entry with each row's statistic given
 (tensor parallelism's gated norm).  Under autograd it runs as
 ``RMSNormRstdFn`` on every device: its backward is ``rms_norm_dot`` (the
-row term ``s_loc``), the caller's ``reduce`` of it (the all-reduce over
-the ranks that share the row), then ``rms_norm_bwd_rstd`` (the backward
-kernel given that term); on the CPU and meta each takes its plain
+row term ``s_loc`` and the ``dw`` partials), the caller's ``reduce`` of
+the row term (the all-reduce over the ranks that share the row), then
+``rms_norm_bwd_rstd`` (dx given that term, and dw from pass 1's
+partials): two launches; on the CPU and meta each takes its plain
 version."""
 from __future__ import annotations
 
 import torch
 
 from ..counter import PLAIN_DEVICES, LaunchCounter, cost_model, kernel_site
-from .kernel import MAX_D, launch, launch_bwd, launch_dot, programs
+from .kernel import (MAX_D, given_plan, launch, launch_bwd, launch_dot,
+                     launch_dx, programs, sm_count)
 from .ref import (rms_norm_bwd_ref, rms_norm_bwd_rstd_ref, rms_norm_dot_ref,
                   rms_norm_ref, rms_norm_rstd_ref)
 
@@ -41,7 +43,7 @@ def _check(x, w):
                          f"match x {tuple(x.shape)} on {x.device}")
     if x.dtype not in _DTYPES or w.dtype not in _DTYPES:
         raise TypeError(f"rms_norm kernel: dtypes {x.dtype}/{w.dtype}")
-    x2 = x.reshape(-1, d)
+    x2 = x if x.dim() == 2 else x.reshape(-1, d)
     if x2.stride(-1) != 1:
         raise ValueError("rms_norm kernel: rows must be contiguous")
     return x2
@@ -89,7 +91,7 @@ def rstd_work(x, w, rstd):
 
 
 def _rows_of(rstd, x2, what):
-    r2 = rstd.reshape(-1).float().contiguous()
+    r2 = (rstd if rstd.dim() == 1 else rstd.reshape(-1)).float().contiguous()
     if r2.shape != (x2.shape[0],) or r2.device != x2.device:
         raise ValueError(f"{what}: row terms {tuple(rstd.shape)} do not "
                          f"match x {tuple(x2.shape)}")
@@ -128,69 +130,103 @@ def rms_norm_rstd(x, w, rstd, width=None, reduce=None):
                          ).reshape(x.shape)
 
 
-def dot_work(x, w, dy):
-    """(FLOPs, bytes) of an ``rms_norm_dot`` call: x and dy read, w read
-    once, one f32 per row written."""
-    return (3 * x.numel(), 2 * x.numel() * x.element_size()
-            + w.numel() * w.element_size() + x.numel() // x.shape[-1] * 4)
+def dot_work(x, w, dy, rstd):
+    """(FLOPs, bytes) of an ``rms_norm_dot`` call: x and dy read, w and
+    the rows' ``rstd`` read once, one f32 per row written (the ``dw``
+    partials, a few rows of D, not counted)."""
+    rows = x.numel() // x.shape[-1]
+    return (5 * x.numel(), 2 * x.numel() * x.element_size()
+            + w.numel() * w.element_size() + 2 * rows * 4)
+
+
+def _given(x, w, dy, rstd, what):
+    """The given-statistic backward's operands on the card, checked once:
+    x and dy as (R, D) contiguous in x's dtype (on the TP train path both
+    already are: no copy), w contiguous, the rows' ``rstd`` as (R,)
+    f32."""
+    x2 = _check(x, w).contiguous()
+    dy2 = dy if dy.shape == x2.shape else dy.reshape(x2.shape)
+    return (x2, w.contiguous(), dy2.to(x2.dtype).contiguous(),
+            _rows_of(rstd, x2, what))
+
+
+def _plan(x2):
+    return given_plan(x2.shape[0], x2.shape[1], x2.element_size(),
+                      sm_count(x2.device))
+
+
+def _dot(x2, w, dy2, r2):
+    """Pass 1 on checked operands: (s, dw partials), counted."""
+    plan = _plan(x2)
+    s = torch.empty(x2.shape[0], dtype=torch.float32, device=x2.device)
+    partials = torch.empty((plan["programs"], x2.shape[1]),
+                           dtype=torch.float32, device=x2.device)
+    if x2.shape[0]:
+        launch_dot(x2, w, dy2, r2, s, partials, plan)
+        rms_norm_dot.launches.add()
+    return s, partials
+
+
+def _dx(x2, w, dy2, r2, s2, width, partials):
+    """Pass 2 on checked operands: (dx, dw), counted."""
+    dx = torch.empty_like(x2)
+    dw = torch.empty(x2.shape[1], dtype=w.dtype, device=w.device)
+    if x2.shape[0] == 0:
+        return dx, dw.zero_()
+    launch_dx(x2, w, dy2, r2, s2, width, dx, dw, partials, _plan(x2))
+    rms_norm_bwd_rstd.launches.add()
+    return dx, dw
 
 
 @kernel_site(dot_work)
-def rms_norm_dot(x, w, dy):
-    """The given-statistic backward's first entry: each row's ``s_loc =
-    sum_j x_j w_j dy_j`` in f32 (x's shape without its last dim).  A CPU
-    or meta tensor takes the plain version."""
+def rms_norm_dot(x, w, dy, rstd):
+    """The given-statistic backward's pass 1: ``(s, partials)``, each
+    row's ``s_loc = sum_j x_j w_j dy_j`` in f32 (x's shape without its
+    last dim) and the ``dw`` partials ``(P, D)`` in f32 whose sum over P
+    is ``sum over rows of dy * x * rstd`` (P: the kernel's programs).  A
+    CPU or meta tensor takes the plain version (P = 1)."""
     if x.device.type in PLAIN_DEVICES:
-        return rms_norm_dot_ref(x, w, dy)
-    x2 = _check(x, w).contiguous()
-    dy2 = dy.reshape(x2.shape).to(x2.dtype).contiguous()
-    s = torch.empty(x2.shape[0], dtype=torch.float32, device=x2.device)
-    if x2.shape[0]:
-        launch_dot(x2, w.contiguous(), dy2, s)
-        rms_norm_dot.launches.add()
-    return s.reshape(x.shape[:-1])
+        return rms_norm_dot_ref(x, w, dy, rstd)
+    s, partials = _dot(*_given(x, w, dy, rstd, "rms_norm_dot"))
+    return s.reshape(x.shape[:-1]), partials
 
 
-def bwd_rstd_work(x, w, dy, rstd, s, width):
-    """(FLOPs, bytes) of an ``rms_norm_bwd_rstd`` call: x, dy and w read,
-    dx written, the two row terms read."""
-    return (9 * x.numel(), 3 * x.numel() * x.element_size()
-            + w.numel() * w.element_size() + 2 * rstd.numel() * 4)
+def bwd_rstd_work(x, w, dy, rstd, s, width, partials):
+    """(FLOPs, bytes) of an ``rms_norm_bwd_rstd`` call: x and dy read, dx
+    written, w read and dw written, the two row terms read (the partials
+    summed into dw not counted)."""
+    return (6 * x.numel(), 3 * x.numel() * x.element_size()
+            + 2 * w.numel() * w.element_size() + 2 * rstd.numel() * 4)
 
 
 @kernel_site(bwd_rstd_work)
-def rms_norm_bwd_rstd(x, w, dy, rstd, s, width):
-    """The given-statistic backward's second entry: ``(dx, dw)`` of
+def rms_norm_bwd_rstd(x, w, dy, rstd, s, width, partials):
+    """The given-statistic backward's pass 2: ``(dx, dw)`` of
     ``rms_norm_rstd(x, w, rstd)`` for ``dy``, where ``rstd = rsqrt(ss /
-    width + eps)`` over the whole row and ``s`` is the row term summed
-    over the whole row (``rms_norm_dot`` of every part): the backward
-    kernel with the row term given (``LOAD_DOT``).  dx in x's dtype, dw
-    in w's.  A CPU or meta tensor takes the plain version."""
+    width + eps)`` over the whole row, ``s`` is the row term summed over
+    the whole row (``rms_norm_dot``'s of every part, added) and
+    ``partials`` is pass 1's ``dw`` partials, summed here.  dx in x's
+    dtype, dw in w's.  A CPU or meta tensor takes the plain version."""
     if x.device.type in PLAIN_DEVICES:
-        return rms_norm_bwd_rstd_ref(x, w, dy, rstd, s, width)
-    x2 = _check(x, w).contiguous()
-    d = x2.shape[1]
-    dy2 = dy.reshape(-1, d).to(x2.dtype).contiguous()
-    r2 = _rows_of(rstd, x2, "rms_norm_bwd_rstd")
-    s2 = _rows_of(s, x2, "rms_norm_bwd_rstd")
-    dx = torch.empty_like(x2)
-    dw = torch.empty(d, dtype=w.dtype, device=w.device)
-    r = x2.shape[0]
-    if r == 0:
-        return dx.reshape(x.shape), dw.zero_()
-    partials = torch.empty((programs(r, x2.device), d), dtype=torch.float32,
-                           device=x2.device)
-    launch_bwd(x2, w.contiguous(), dy2, r2, dx, dw, partials, s=s2,
-               width=width)
-    rms_norm_bwd_rstd.launches.add()
+        return rms_norm_bwd_rstd_ref(x, w, dy, rstd, s, width, partials)
+    x2, w2, dy2, r2 = _given(x, w, dy, rstd, "rms_norm_bwd_rstd")
+    if partials.dim() != 2 or partials.shape[1] != x2.shape[1] \
+            or partials.dtype != torch.float32 \
+            or partials.device != x2.device:
+        raise ValueError(f"rms_norm_bwd_rstd: dw partials "
+                         f"{tuple(partials.shape)} {partials.dtype} do not "
+                         f"match x {tuple(x2.shape)}")
+    dx, dw = _dx(x2, w2, dy2, r2, _rows_of(s, x2, "rms_norm_bwd_rstd"),
+                 width, partials.contiguous())
     return dx.reshape(x.shape), dw
 
 
 class RMSNormRstdFn(torch.autograd.Function):
     """``rms_norm_rstd`` under autograd: the forward entry given the
-    rows' statistic; the backward ``rms_norm_dot``, ``reduce`` (the
-    caller's sum over the ranks: never inside a kernel), then
-    ``rms_norm_bwd_rstd``.  On the CPU and meta the plain versions."""
+    rows' statistic; the backward ``rms_norm_dot`` (pass 1), ``reduce``
+    (the caller's sum over the ranks: never inside a kernel), then
+    ``rms_norm_bwd_rstd`` (pass 2).  On the card the operands are checked
+    once for both passes; on the CPU and meta the plain versions."""
 
     @staticmethod
     def forward(ctx, x, w, rstd, width, reduce):
@@ -207,10 +243,18 @@ class RMSNormRstdFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         x, w, rstd = ctx.saved_tensors
-        s = rms_norm_dot(x, w, dy)
-        if ctx.reduce is not None:
-            s = ctx.reduce(s)
-        dx, dw = rms_norm_bwd_rstd(x, w, dy, rstd, s, ctx.width)
+        reduce = ctx.reduce or (lambda t: t)
+        if x.device.type in PLAIN_DEVICES:
+            s, partials = rms_norm_dot(x, w, dy, rstd)
+            dx, dw = rms_norm_bwd_rstd(x, w, dy, rstd, reduce(s), ctx.width,
+                                       partials)
+        else:
+            ops = _given(x, w, dy, rstd, "rms_norm_rstd backward")
+            s, partials = _dot(*ops)
+            s = _rows_of(reduce(s.reshape(x.shape[:-1])), ops[0],
+                         "rms_norm_rstd backward")
+            dx, dw = _dx(*ops, s, ctx.width, partials)
+            dx = dx.reshape(x.shape)
         return (dx if ctx.needs_input_grad[0] else None,
                 dw if ctx.needs_input_grad[1] else None, None, None, None)
 

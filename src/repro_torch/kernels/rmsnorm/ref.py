@@ -35,22 +35,30 @@ def rms_norm_bwd_ref(x, w, dy, eps=1e-5):
     return dx.to(x.dtype), dw.to(w.dtype)
 
 
-def rms_norm_dot_ref(x, w, dy):
-    """The given-statistic backward's row term: ``sum_j x_j w_j dy_j``
-    per row, in f32 (x's shape without its last dim)."""
-    return (x.float() * w.float() * dy.float()).sum(dim=-1)
+def rms_norm_dot_ref(x, w, dy, rstd, parts=1):
+    """The given-statistic backward's pass 1: ``(s, partials)``, each
+    row's term ``sum_j x_j w_j dy_j`` in f32 (x's shape without its last
+    dim) and the ``dw`` partials ``(parts, D)`` in f32, part ``p`` the sum
+    of ``dy * x * rstd`` over rows ``p, p + parts, ...`` (the kernel's
+    programs each sum their own rows so)."""
+    x32, dy32 = x.float(), dy.float()
+    s = (x32 * w.float() * dy32).sum(dim=-1)
+    d = x.shape[-1]
+    g = (dy32 * x32 * rstd.float()[..., None]).reshape(-1, d)
+    g = torch.cat([g, g.new_zeros((-g.shape[0]) % parts, d)])
+    return s, g.reshape(-1, parts, d).sum(dim=0)
 
 
-def rms_norm_bwd_rstd_ref(x, w, dy, rstd, s, width):
-    """``(dx, dw)`` of ``rms_norm_rstd_ref(x, w, rstd)`` where ``rstd =
-    rsqrt(ss / width + eps)`` and ``ss`` sums the squares of the whole
-    row, of which x holds some columns: ``s`` is the row term summed over
-    the whole row (``rms_norm_dot_ref`` of every part, added).  In f32:
-    ``dx = rstd * w*dy - x * rstd^3 * s / width``, ``dw`` the sum of
-    ``dy * x * rstd`` over rows; dx in x's dtype, dw in w's."""
+def rms_norm_bwd_rstd_ref(x, w, dy, rstd, s, width, partials):
+    """Pass 2: ``(dx, dw)`` of ``rms_norm_rstd_ref(x, w, rstd)`` where
+    ``rstd = rsqrt(ss / width + eps)`` and ``ss`` sums the squares of the
+    whole row, of which x holds some columns: ``s`` is the row term
+    summed over the whole row (``rms_norm_dot_ref`` of every part, added)
+    and ``partials`` pass 1's ``dw`` partials.  In f32: ``dx = rstd *
+    w*dy - x * rstd^3 * s / width``, ``dw`` the partials' sum; dx in x's
+    dtype, dw in w's."""
     x32 = x.float()
     r = rstd.float()[..., None]
     dx = r * (w.float() * dy.float()) - x32 * r.pow(3) * (
         s.float()[..., None] / width)
-    dw = (dy.float() * x32 * r).reshape(-1, x.shape[-1]).sum(dim=0)
-    return dx.to(x.dtype), dw.to(w.dtype)
+    return dx.to(x.dtype), partials.sum(dim=0).to(w.dtype)

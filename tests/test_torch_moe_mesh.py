@@ -21,15 +21,19 @@ states carried over from the reference's ``init_params`` /
     same expert ids on every rank by digest.
   * Training (``MeshTrain``) against the reference's single-device step
     over two steps by ``tests/fsdp_ref.py``'s bars: mixtral at 2,1, 1,2
-    and 2,2, jamba (one block) at 2,2.  The load-balance term is in the
+    and 2,2, jamba at 2,2.  The load-balance term is in the
     loss.  AdamW's moments are f32 here: the registry stores mixtral's
     and jamba's in bf16, whose rounding (2^-9) moves a parameter by up to
     about 3e-6 in two steps, past the bars, in the port's single-device
-    run as much as on a mesh.  jamba runs one block of its pattern (every
-    layer kind): at the tiny default of two blocks the port's own
-    single-device run misses the parameter bar at the second step (21
-    leaves by up to 2.7e-6, elements whose two steps' gradients nearly
-    cancel in AdamW's m), so no mesh run could be held to it.
+    run as much as on a mesh.  jamba runs its tiny two blocks (16
+    layers), each step from the reference's state before it, here and on
+    one device: straight through two steps, step 1 leaves apart 42
+    elements whose gradient lay under ``fsdp_ref.SENSITIVE`` (by up to
+    3.0e-5, within their 2 lr), and through the second step's forward
+    they move 20 param leaves by up to 2.7e-6 and one v leaf by 1.3e-4
+    relative, past the bars, on one device as on a mesh; from the
+    reference's state the port's step 2 meets every bar and routes every
+    token as the reference does (``tests/jamba_drift.py``).
   * Planted faults, each failing its bar in f32 by more than ten times
     it: the rank's partial MoE output added unsummed and each rank's
     ``w_gate`` columns taken from the next rank's (served prefill logits
@@ -49,13 +53,16 @@ import numpy as np
 import pytest
 import torch
 
-from fsdp_ref import chip_smoke, misses, reference, run_mesh
+from fsdp_ref import HP, chip_smoke, misses, reference, run_mesh
 from repro_torch.configs import get
 from repro_torch.launch.mesh import make_mesh_from_devices
+from repro_torch.models.layers import tree_leaves
 from repro_torch.models.lm import LeafMeta, forward, init_params, param_meta
+from repro_torch.optim import OptHParams
+from repro_torch.params import train_state_from_numpy
 from repro_torch.serve import Request, ServeEngine, drain
 from repro_torch.serve.tp import Session, counters, tree_bytes
-from repro_torch.steps import make_prefill_step
+from repro_torch.steps import make_prefill_step, make_train_step
 from test_torch_tp import CACHE_LEN, DRAIN_S, GEN_MAX, build, run_leg
 
 F32_OPT = dict(opt_dtype="float32")
@@ -238,22 +245,55 @@ TRAIN_CASES = [("mixtral-8x7b", "2,1"), ("mixtral-8x7b", "1,2"),
                ("mixtral-8x7b", "2,2"), ("jamba-v0.1-52b", "2,2")]
 
 
-def train_over(arch):
-    return dict(F32_OPT, **({"n_layers": 8} if arch == "jamba-v0.1-52b"
-                            else {}))
+# jamba trains at its tiny two blocks (16 layers), each step from the
+# reference's state before it: straight through two steps, the elements
+# step 1 may leave apart (AdamW's sensitive ones) move step 2's gradients
+# past the bars, on one device as on a mesh (``tests/jamba_drift.py``)
+STEPWISE = ("jamba-v0.1-52b",)
+
+
+def stepwise(ref):
+    """``ref``'s steps one at a time, each from the reference's state
+    before it: (the step's index, the run ``run_mesh`` takes) pairs."""
+    return [(k, ref._replace(state0=ref.states[k - 1] if k else ref.state0,
+                             batches=ref.batches[k:k + 1]))
+            for k in range(len(ref.batches))]
 
 
 @pytest.mark.parametrize("arch,spec", TRAIN_CASES)
 def test_moe_training_matches_the_reference(arch, spec, mesh12, mesh21,
                                             mesh22):
     mesh = {"1,2": mesh12, "2,1": mesh21, "2,2": mesh22}[spec]
-    ref = reference(arch, steps=2, **train_over(arch))
-    metrics, leaves, count = run_mesh(arch, mesh, ref, **train_over(arch))
-    assert misses(ref, metrics, leaves) == []
-    # the load-balance term's means crossed the data axis: once a MoE
-    # layer and microbatch (remat "none" at the tiny config)
-    if mesh.shape["data"] > 1:
-        assert all(c["fsdp_sum"] > 4 for c in count)
+    ref = reference(arch, steps=2, **F32_OPT)
+    runs = stepwise(ref) if arch in STEPWISE else [(0, ref)]
+    for first, run in runs:
+        metrics, leaves, count = run_mesh(arch, mesh, run, **F32_OPT)
+        assert misses(ref, metrics, leaves, first) == [], first
+        # the load-balance term's means crossed the data axis: once a MoE
+        # layer and microbatch (remat "none" at the tiny config)
+        if mesh.shape["data"] > 1:
+            assert all(c["fsdp_sum"] > 4 for c in count)
+
+
+def test_jamba_two_blocks_train_steps_match_the_reference_on_one_device():
+    """jamba's tiny two blocks on one device, each of two steps from the
+    reference's state before it, by the same bars: the single-device
+    comparison whose second step drifted straight through
+    (``tests/jamba_drift.py``)."""
+    arch = "jamba-v0.1-52b"
+    ref = reference(arch, steps=2, **F32_OPT)
+    cfg = get(arch).tiny(**F32_OPT)
+    assert cfg.n_layers == 16
+    step = make_train_step(cfg, OptHParams(**HP))
+    for first, run in stepwise(ref):
+        state, m = step(train_state_from_numpy(run.state0, cfg, "cpu"),
+                        run.batches[0])
+        leaves = ([x.detach() for k in ("m", "v")
+                   for x in tree_leaves(state["opt"][k])]
+                  + [x.detach() for x in tree_leaves(state["params"])]
+                  + [state["step"]])
+        assert misses(ref, [{k: float(v) for k, v in m.items()}], leaves,
+                      first) == [], first
 
 
 ROUTER_BAR = 1e-4       # fsdp_ref's bound on m's relative L2 error

@@ -24,7 +24,9 @@ gloo, tiny f32 configs, the state carried over from the reference's
   * Each planted fault of ``chip_smoke``'s TP train section fails the
     bars.
   * The given-statistic backward's plain path, a row split over two
-    ranks, equals autograd through the whole row's norm.
+    and over four ranks, equals the reference's ``jax.vjp`` of the whole
+    row's norm; a local row term and one ``dw`` partial left out each
+    fail.
   * ``chip_smoke.tp_train_section`` rehearsed at the tiny configs.
 
 Checkpoints across 2-D meshes: ``tests/test_torch_fsdp_checkpoint.py``.
@@ -241,57 +243,105 @@ def _row_case(seed=3, rows=24, width=32):
     return x, w, dy
 
 
-def test_given_statistic_backward_split_over_two_ranks_equals_autograd():
-    """A row of 32 split into two ranks' 16: each half's forward given the
-    whole row's statistic, each half's row term summed with the other's
-    (what the all-reduce over the model group gives), and the halves'
-    dx and dw equal autograd through the whole row's ``rms_norm`` in f32
-    (and the reference's ``jax.vjp``); with the sum left out, dx is
-    off."""
+def _whole_row_grads(x, w, dy, eps):
+    """dx and dw of the whole row's norm: autograd through ``rms_norm_ref``
+    (f32), held to the reference's ``jax.vjp``; returned as numpy."""
     import jax
     import jax.numpy as jnp
 
     from repro.models.layers import rms_norm as jrms
 
-    x, w, dy = _row_case()
-    eps, width = 1e-5, x.shape[1]
     xg, wg = x.clone().requires_grad_(), w.clone().requires_grad_()
     rms_norm_ref(xg, wg, eps).backward(dy)
     _, vjp = jax.vjp(lambda a, b: jrms(a, b, eps), jnp.asarray(x.numpy()),
                      jnp.asarray(w.numpy()))
-    jdx, jdw = vjp(jnp.asarray(dy.numpy()))
-    np.testing.assert_allclose(xg.grad.numpy(), np.asarray(jdx), rtol=1e-5,
-                               atol=1e-6)
+    jdx, jdw = (np.asarray(t) for t in vjp(jnp.asarray(dy.numpy())))
+    np.testing.assert_allclose(xg.grad.numpy(), jdx, rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(wg.grad.numpy(), jdw, rtol=1e-5, atol=1e-5)
+    return jdx, jdw
+
+
+def _split_equals_the_whole_row(ranks):
+    """A row of 32 split into ``ranks`` equal parts: each part's forward
+    given the whole row's statistic, each part's row term summed with the
+    others' (what the all-reduce over the model group gives), and each
+    part's dx and dw equal the reference's ``jax.vjp`` of the whole row's
+    ``rms_norm`` (and autograd through ``rms_norm_ref``) in f32, through
+    autograd and through the two entries called directly; with the sum
+    left out (the planted local row term), dx is off."""
+    x, w, dy = _row_case()
+    eps, width = 1e-5, x.shape[1]
+    jdx, jdw = _whole_row_grads(x, w, dy, eps)
     rstd = torch.rsqrt(x.square().mean(-1) + eps)
-    halves = [slice(0, width // 2), slice(width // 2, width)]
-    dots = [rms_norm_dot(x[:, h], w[h], dy[:, h]) for h in halves]
-    np.testing.assert_allclose(dots[0].numpy(), rms_norm_dot_ref(
-        x[:, halves[0]], w[halves[0]], dy[:, halves[0]]).numpy())
-    for k, h in enumerate(halves):
-        other = dots[1 - k]
+    cut = width // ranks
+    parts = [slice(k * cut, (k + 1) * cut) for k in range(ranks)]
+    dots = [rms_norm_dot(x[:, h], w[h], dy[:, h], rstd) for h in parts]
+    for (s, partials), h in zip(dots, parts):
+        want = rms_norm_dot_ref(x[:, h], w[h], dy[:, h], rstd)
+        np.testing.assert_allclose(s.numpy(), want[0].numpy())
+        assert partials.shape == (1, cut)
+    total = sum(s for s, _ in dots)
+    for k, h in enumerate(parts):
+        others = total - dots[k][0]
         xk, wk = x[:, h].clone().requires_grad_(), \
             w[h].clone().requires_grad_()
         y = rms_norm_rstd(xk, wk, rstd, width=width,
-                          reduce=lambda s, o=other: s + o)
+                          reduce=lambda s, o=others: s + o)
         np.testing.assert_allclose(y.detach().numpy(),
                                    rms_norm_ref(x, w, eps)[:, h].numpy(),
                                    rtol=1e-5, atol=1e-6)
         y.backward(dy[:, h])
-        np.testing.assert_allclose(xk.grad.numpy(), xg.grad[:, h].numpy(),
-                                   rtol=1e-5, atol=1e-6)
-        np.testing.assert_allclose(wk.grad.numpy(), wg.grad[h].numpy(),
-                                   rtol=1e-5, atol=1e-5)
-        np.testing.assert_allclose(wk.grad.numpy(), np.asarray(jdw)[h],
-                                   rtol=1e-5, atol=1e-5)
-        # the entries called directly, and the planted local row term
-        dx, _ = rms_norm_bwd_rstd(x[:, h], w[h], dy[:, h], rstd,
-                                  dots[0] + dots[1], width)
-        np.testing.assert_allclose(dx.numpy(), xg.grad[:, h].numpy(),
-                                   rtol=1e-5, atol=1e-6)
+        np.testing.assert_allclose(xk.grad.numpy(), jdx[:, h], rtol=1e-5,
+                                   atol=1e-6)
+        np.testing.assert_allclose(wk.grad.numpy(), jdw[h], rtol=1e-5,
+                                   atol=1e-5)
+        # the entries called directly, pass 1's dw in three partials
+        _, partials = rms_norm_dot_ref(x[:, h], w[h], dy[:, h], rstd,
+                                       parts=3)
+        dx, dw = rms_norm_bwd_rstd(x[:, h], w[h], dy[:, h], rstd, total,
+                                   width, partials)
+        np.testing.assert_allclose(dx.numpy(), jdx[:, h], rtol=1e-5,
+                                   atol=1e-6)
+        np.testing.assert_allclose(dw.numpy(), jdw[h], rtol=1e-5, atol=1e-5)
         local, _ = rms_norm_bwd_rstd_ref(x[:, h], w[h], dy[:, h], rstd,
-                                         dots[k], width)
-        assert not np.allclose(local.numpy(), xg.grad[:, h].numpy(),
-                               rtol=1e-2, atol=1e-3)
+                                         dots[k][0], width, partials)
+        assert not np.allclose(local.numpy(), jdx[:, h], rtol=1e-2,
+                               atol=1e-3)
+
+
+def test_given_statistic_backward_split_over_two_ranks_equals_autograd():
+    """Halves of the row (model 2): ``_split_equals_the_whole_row``."""
+    _split_equals_the_whole_row(2)
+
+
+def test_given_statistic_backward_split_over_four_ranks_equals_autograd():
+    """Quarters of the row (model 4): ``_split_equals_the_whole_row``."""
+    _split_equals_the_whole_row(4)
+
+
+def test_given_statistic_backward_dw_partial_left_out_fails():
+    """The planted fault of the two-pass design: pass 1's ``dw`` partials
+    of one rank's half, one of four left out of pass 2's sum (zeroed), so
+    dw misses the reference's ``jax.vjp`` by far more than its
+    tolerance; the four kept give it within 1e-5, dx either way."""
+    x, w, dy = _row_case()
+    eps, width = 1e-5, x.shape[1]
+    jdx, jdw = _whole_row_grads(x, w, dy, eps)
+    rstd = torch.rsqrt(x.square().mean(-1) + eps)
+    halves = [slice(0, width // 2), slice(width // 2, width)]
+    total = sum(rms_norm_dot_ref(x[:, h], w[h], dy[:, h], rstd)[0]
+                for h in halves)
+    h = halves[0]
+    _, partials = rms_norm_dot_ref(x[:, h], w[h], dy[:, h], rstd, parts=4)
+    dx, dw = rms_norm_bwd_rstd(x[:, h], w[h], dy[:, h], rstd, total, width,
+                               partials)
+    np.testing.assert_allclose(dw.numpy(), jdw[h], rtol=1e-5, atol=1e-5)
+    partials[1] = 0.0
+    bad_dx, bad = rms_norm_bwd_rstd(x[:, h], w[h], dy[:, h], rstd, total,
+                                    width, partials)
+    np.testing.assert_allclose(bad_dx.numpy(), dx.numpy())
+    rel = np.linalg.norm(bad.numpy() - jdw[h]) / np.linalg.norm(jdw[h])
+    assert rel > 100 * 1e-5, rel
 
 
 def test_chip_smoke_tp_train_section_rehearses_on_the_cpu():
@@ -325,7 +375,7 @@ def test_given_statistic_backward_kernels_match_plain(dtype, cuda):
     x, w, dy = (t.to(cuda) for t in _row_case(5, 4096, 3072))
     rstd = torch.rsqrt(x.square().mean(-1) + 1e-5)
     h = slice(0, 1536)
-    other = rms_norm_dot_ref(x[:, 1536:], w[1536:], dy[:, 1536:])
+    other, _ = rms_norm_dot_ref(x[:, 1536:], w[1536:], dy[:, 1536:], rstd)
     xk = x[:, h].to(dt).contiguous().requires_grad_()
     wk = w[h].to(dt).contiguous().requires_grad_()
     d0 = rms_norm_dot.launches.value
@@ -337,9 +387,9 @@ def test_given_statistic_backward_kernels_match_plain(dtype, cuda):
     assert rms_norm_dot.launches.value == d0 + 1
     assert rms_norm_bwd_rstd.launches.value == b0 + 1
     xd, wd, dyd = xk.detach(), wk.detach(), dy[:, h].to(dt)
-    dx, dw = rms_norm_bwd_rstd_ref(xd, wd, dyd, rstd,
-                                   rms_norm_dot_ref(xd, wd, dyd) + other,
-                                   3072)
+    s, partials = rms_norm_dot_ref(xd, wd, dyd, rstd)
+    dx, dw = rms_norm_bwd_rstd_ref(xd, wd, dyd, rstd, s + other, 3072,
+                                   partials)
     np.testing.assert_allclose(xk.grad.float().cpu().numpy(),
                                dx.float().cpu().numpy(), **tol)
     rel = ((wk.grad.float() - dw.float()).norm() / dw.float().norm()).item()
