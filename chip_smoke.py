@@ -989,6 +989,22 @@ def check_paged_decode():
         held(kern(*args, **kw), plain(*args, **kw), dt,
              f"future pages {dt}")
         n += 1
+        # a view of a pool's heads, read in place (replicated KV heads
+        # under tensor parallelism: mixtral on 16, a rank's 2 query heads
+        # read KV head 2 of 8; grok on 16, 3 heads of 8); planted: KV head
+        # 0's view in its place must differ
+        for h, first in ((2, 2), (3, 5)):
+            args, kw = paged_case(3, h, 8, 128, 40, 8, dt, seed=13)
+            q, kp, vp, table, pos = args
+            view = (kp[:, :, first:first + 1], vp[:, :, first:first + 1])
+            got = kern(q, *view, table, pos, **kw)
+            held(got, plain(q, *view, table, pos, **kw), dt,
+                 f"head view {first} of 8, {h} query heads {dt}")
+            wrong = plain(q, kp[:, :, :1], vp[:, :, :1], table, pos, **kw)
+            if (got.float() - wrong.float()).abs().max().item() < 0.1:
+                raise AssertionError(f"head view {first} of 8 ({dt}): the "
+                                     "kernel read KV head 0")
+            n += 1
     # split boundaries at qwen's width: positions at and around the split
     # length, a slot at 0, a window that empties whole splits
     n_split, split_len = paged_ops.split_plan(2080, 8)
@@ -4928,10 +4944,13 @@ def check_tools(smi):
 # trailed by 1.3405 / 8.5938 and 1.4377 / 9.5469 at 12, by 1.2699 /
 # 7.2734 and 1.4204 / 10.2656 at 4, against bars of 0.3 / 1.0) with
 # qwen's mix,
-# 16 requests of {256, 512,
-# 1024, 2048} tokens, each length four times, 16 slots, cache_len 2080,
-# page 8; minicpm3-4b (the paged MLA decode) and mamba2-780m (the SSD scan
-# in prefill, conv weights times ``SSM_CONV_W_GAIN``), 8 requests each:
+# 8 requests of {256, 512,
+# 1024, 2048} tokens, each length twice (16 until the replicated-heads
+# section came: its 1,3 leg's time paid for by this cut and mixtral's;
+# the faults' check runs the 4 shortest requests either way), 16 slots,
+# cache_len 2080, page 8; minicpm3-4b (the paged MLA decode) and
+# mamba2-780m (the SSD scan in prefill, conv weights times
+# ``SSM_CONV_W_GAIN``), 8 requests each:
 # minicpm3-4b at 2 layers (4 before, cut for the script's time),
 # mamba2-780m at 4.  Planted TP faults, each on every rank: the all-reduce
 # after the attention output projection left out (each rank adds only
@@ -4941,7 +4960,7 @@ def check_tools(smi):
 TP_TRAFFIC = dict(slots=16, cache_len=2080, lens=(256, 512, 1024, 2048),
                   each=True, gen=32)
 TP_LEGS = {
-    "qwen2.5-14b": dict(layers=2, n_req=16, paged_kernel=True,
+    "qwen2.5-14b": dict(layers=2, n_req=8, paged_kernel=True,
                         faults=("wo_all_reduce_left_out", "wq_next_rank"),
                         kernels={"paged_decode_attention": "decode",
                                  "flash_attention": "prefill"}),
@@ -4962,17 +4981,46 @@ TP_LEGS = {
     # d_ff columns, the dropless dispatch as its single-rank phase serves
     # it, mixtral's traffic (prompts of 1024 to 8192 tokens: half of them
     # pass the 4096 window, 6144 no multiple of it, so every rank rolls
-    # its ring of its 4 KV heads).  Its sliding-window rings decode
+    # its ring of its 4 KV heads; 4 requests, each length once, since the
+    # replicated-heads section came: 8 before, whose 8192-token prefills
+    # each all-reduced 5 x 134 MB of f32 through gloo; the faults' check
+    # runs the 4 either way).  Its sliding-window rings decode
     # without the paged kernel, as in the single-rank phase.  Planted: the
     # rank's partial MoE output added unsummed; each rank's w_gate columns
     # taken from the next rank's.  The route check and the expert ids'
     # digests run on the step path as built (``tp_path_check``)
-    "mixtral-8x7b": dict(layers=2, n_req=8, paged_kernel=True,
+    "mixtral-8x7b": dict(layers=2, n_req=4, paged_kernel=True,
                          traffic=MIXTRAL_TRAFFIC, moe_impl="ragged",
                          faults=("moe_all_reduce_left_out",
                                  "moe_ff_next_rank"),
                          kernels={"flash_attention": "prefill",
                                   "paged_decode_attention": None}),
+}
+# Replicated heads (``tp_heads_section``; ``--phases tp_heads``): three
+# ranks on a 1,3 mesh (gloo on the one card, nccl on three), qwen2.5-14b
+# at full width and 2 of 48 layers as the TP section's qwen leg: 40 query
+# and 8 KV heads do not split 3 ways, and neither do wq's, wo's 5120
+# columns, so every rank holds and runs every head (flash and the paged
+# decode at 40/8 against a whole pool of 8 KV heads) with no collective
+# after the attention; d_ff 13824 and the vocab 152064 split in thirds.
+# 8 requests.  Planted: each rank's w_gate columns taken from the next
+# rank's (its MLP's thirds misplaced) and the whole attention output
+# all-reduced, as a cut wo's partials would be (3 times the output: a
+# fault of replicated heads).  The mid-head gather of 16-way layouts runs
+# in the CPU tests only (``tests/test_torch_tp_heads.py``): 16 ranks on
+# one card do not fit the script's time.
+TP_HEADS_LEGS = {
+    "qwen2.5-14b-heads": dict(arch="qwen2.5-14b", layers=2, n_req=8,
+                              paged_kernel=True,
+                              faults=("ff_next_rank",
+                                      "wo_whole_all_reduced"),
+                              kernels={"paged_decode_attention": "decode",
+                                       "flash_attention": "prefill"},
+                              # the CPU rehearsal's tiny shape keeps the
+                              # layout: heads and wq whole, d_ff and the
+                              # vocab in thirds
+                              tiny=dict(n_heads=10, n_kv_heads=2, d_ff=192,
+                                        vocab=264)),
 }
 # a leg's traffic (``traffic``, by default TP_TRAFFIC; ``n_req`` is the
 # leg's, each length n_req / 4 times); on the CPU (a rehearsal at the
@@ -5062,6 +5110,10 @@ def tp_fault_on(state, name):
         ctx = _next_rank(state, "mixer", ("wq", "bq", "wq_b"))
     elif name == "moe_ff_next_rank":
         ctx = _next_rank(state, "mlp", ("w_gate",), moe=True)
+    elif name == "ff_next_rank":
+        ctx = _next_rank(state, "mlp", ("w_gate",))
+    elif name in HEADS_FAULTS:
+        ctx = swapped(_heads_faults()[name])
     else:
         raise ValueError(name)
     ctx.__enter__()
@@ -5232,10 +5284,48 @@ def tp_path_check(sess, cfg, prompts, toks, ref, idx, faults,
     return summary(acc), built, ids
 
 
+def tp_collectives(cfg, n):
+    """(all-reduces a pass through the model, all-gathers a pass that
+    makes logits, all-gathers a pass) of ``cfg`` on a model axis of
+    ``n``, from its layout (``models.attention``, ``models.layers``): the
+    vocab-parallel embedding's all-reduce and the logits' gather where
+    the vocab splits; per layer an SSD mixer's two (the gated norm's
+    statistic, the output), an attention's one where ``wo``'s rows are
+    cut, and one gather where its heads are whole but a projection's
+    columns are cut (GQA's q, k and v, or MLA's up-projections, in one
+    collective); a dense or MoE MLP's one where d_ff splits."""
+    reduces = gathers = 0
+    for spec in cfg.pattern * (cfg.n_layers // len(cfg.pattern)):
+        if spec.kind == "ssm":
+            reduces += 2
+        elif spec.attn == "mla":
+            h = cfg.n_heads
+            reduces += h * cfg.v_head_dim % n == 0
+            gathers += h % n != 0 and any(
+                c % n == 0 for c in (h * (cfg.qk_nope_dim + cfg.qk_rope_dim),
+                                     h * cfg.qk_nope_dim,
+                                     h * cfg.v_head_dim))
+        else:
+            h, hkv = cfg.n_heads, cfg.n_kv_heads
+            q, kv = h * cfg.head_dim, hkv * cfg.head_dim
+            # query heads whole where n does not divide them, or where a
+            # split would read KV heads of uneven groups (``tp_heads``)
+            q_whole = h % n != 0 or (hkv % n != 0
+                                     and (h // hkv) % (h // n) != 0)
+            reduces += q % n == 0
+            gathers += (q % n == 0 and q_whole) or (
+                kv % n == 0 and hkv % n != 0)
+        reduces += spec.mlp != "none" and cfg.d_ff % n == 0
+    split = cfg.vocab % n == 0
+    return reduces + split, int(split), gathers
+
+
 def tp_leg(mesh, arch, smi, device="cuda", seed=0, layers=None):
-    """One TP leg: the engine on both ranks, the checks on rank 0; returns
-    the per-rank launch counts (summed) for the ``kernels`` line.
-    ``device="cpu"``: a rehearsal at the tiny config and
+    """One TP leg (``arch``: a key of ``TP_LEGS`` or ``TP_HEADS_LEGS``,
+    whose ``arch`` names the family where it differs): the engine on
+    every rank, the checks on rank 0; returns the per-rank launch counts
+    (summed) for the ``kernels`` line.  ``device="cpu"``: a rehearsal at
+    the tiny config (with the leg's ``tiny`` overrides) and
     ``TP_CPU_TRAFFIC``."""
     import collections
     import dataclasses
@@ -5251,13 +5341,14 @@ def tp_leg(mesh, arch, smi, device="cuda", seed=0, layers=None):
     from repro_torch.serve.watchdog import abandon
     from repro_torch.steps import init_paged_slot_cache, init_slot_cache
 
-    leg = TP_LEGS[arch]
+    leg = {**TP_LEGS, **TP_HEADS_LEGS}[arch]
+    name, arch = arch, leg.get("arch", arch)
     t_leg = time.perf_counter()
     cuda = device == "cuda"
     cfg = get(arch)
     t = leg.get("traffic", TP_TRAFFIC)
     if not cuda:                        # the rehearsal's tiny shapes
-        cfg, t = cfg.tiny(), TP_CPU_TRAFFIC
+        cfg, t = cfg.tiny(**leg.get("tiny", {})), TP_CPU_TRAFFIC
         cfg = cfg.replace(pattern=tuple(
             dataclasses.replace(spec, window=TP_CPU_WINDOW)
             if spec.window else spec for spec in cfg.pattern))
@@ -5322,9 +5413,10 @@ def tp_leg(mesh, arch, smi, device="cuda", seed=0, layers=None):
             raise AssertionError(f"tp {arch}: request {r.rid}: {len(tk)} "
                                  "tokens")
     shared = mesh.backend == "gloo"
-    label = ("two ranks sharing one card (gloo)" if shared
-             else f"two cards ({mesh.backend})")
-    log(f"tp [{arch}] {label}, {smi}: d {cfg.d_model} layers "
+    n_tp = mesh.shape["model"]
+    label = (f"{n_tp} ranks sharing one card (gloo)" if shared
+             else f"{n_tp} cards ({mesh.backend})")
+    log(f"tp [{name}] {label}, {smi}: d {cfg.d_model} layers "
         f"{cfg.n_layers} {cfg.dtype}, {n_req} requests x {gen} tokens, "
         f"{slots} slots; tokens_s {stats['tokens_out'] / wall:.2f} wall_s "
         f"{wall:.3f} p50_ttft_s {stats['p50_ttft_s']:.4f} p50_tick_s "
@@ -5342,25 +5434,30 @@ def tp_leg(mesh, arch, smi, device="cuda", seed=0, layers=None):
         log(f"  rank {rank} launches: " + ", ".join(
             f"{k} {got[k]}" for k in (*leg["kernels"], "rms_norm")))
     # collectives: per pass through the model (a decode tick, a prefill,
-    # a chunk, a replay step) 2 all-reduces a layer (after the mixer's
-    # output projection — or the SSD's gated-norm statistic and its
-    # output projection — and after the MLP's) and one for the
-    # vocab-parallel embedding; one all-gather of the logits where the
-    # pass makes logits (not a chunk that skips the LM head)
-    per_pass = 2 * cfg.n_layers + 1
+    # a chunk, a replay step) by the layout (``tp_collectives``: at model
+    # 2 two all-reduces a layer, after the mixer's output projection, or
+    # the SSD's gated-norm statistic and its output projection, and after
+    # the MLP's, and one for the vocab-parallel embedding; on 1,3 the
+    # attention's whole heads take none), and one all-gather of the
+    # logits where the pass makes logits (not a chunk that skips the LM
+    # head)
+    per_pass, lm_gather, attn_gather = tp_collectives(cfg, n_tp)
     heads = (calls["decode"] + calls["prefill"] + calls["chunk"]
              + calls["replay"])
     passes = heads + calls["chunk_mid"]
+    want_gather = lm_gather * heads + attn_gather * passes
     for rank, got in enumerate(per_rank):
         if got["tp_all_reduce"] != per_pass * passes or \
-                got["tp_all_gather"] != heads:
+                got["tp_all_gather"] != want_gather:
             raise AssertionError(
-                f"tp {arch} rank {rank}: {got['tp_all_reduce']} all-reduces"
+                f"tp {name} rank {rank}: {got['tp_all_reduce']} all-reduces"
                 f" (want {per_pass} x {passes}), {got['tp_all_gather']} "
-                f"all-gathers (want {heads})")
+                f"all-gathers (want {want_gather})")
     log(f"  collectives per decode tick on each rank: {per_pass} "
-        f"all-reduces (2 x {cfg.n_layers} layers + the embedding) + 1 "
-        f"all-gather (the logits); on each rank {calls['decode']} ticks, "
+        f"all-reduces ({cfg.n_layers} layers + the embedding, by the "
+        f"layout on model {n_tp}) + {lm_gather + attn_gather} "
+        f"all-gathers (the logits, the layers' columns); on each rank "
+        f"{calls['decode']} ticks, "
         f"{calls['prefill']} prefills, {calls['chunk']} + "
         f"{calls['chunk_mid']} chunks (with and without the LM head), "
         f"{calls['gather']} gathers, {stats['prefix_hits']} prefix hits")
@@ -5370,17 +5467,22 @@ def tp_leg(mesh, arch, smi, device="cuda", seed=0, layers=None):
                                    "meta") if paged else
              init_slot_cache(cfg, slots, cache_len, dt, "meta"))
     want = {k: b for k, (b, _) in tree_bytes(None, whole).items()}
+    # K/V on their heads where the model axis divides them (whole on every
+    # rank where it does not), the SSM state on its heads, the conv tail
+    # by the port's layout
     conv_share = None
     if arch == "mamba2-780m":
         tail = 2 * cfg.ssm_ngroups * cfg.ssm_state
-        conv_share = (cfg.d_inner // 2 + tail) / (cfg.d_inner + tail)
+        conv_share = (cfg.d_inner // n_tp + tail) / (cfg.d_inner + tail)
+    kv_share = 1 / n_tp if cfg.n_kv_heads % n_tp == 0 else 1.0
     for rank, pool in enumerate(pools):
         for path, full_b in want.items():
-            name, got = path.rsplit("/", 1)[-1], pool[path][0]
-            share = (0.5 if name in ("k", "v", "state") else conv_share
-                     if name == "conv" else 1.0)
+            leaf, got = path.rsplit("/", 1)[-1], pool[path][0]
+            share = (kv_share if leaf in ("k", "v") else 1 / n_tp
+                     if leaf == "state" else conv_share
+                     if leaf == "conv" else 1.0)
             if got != full_b * share:
-                raise AssertionError(f"tp {arch} rank {rank}: {path} holds "
+                raise AssertionError(f"tp {name} rank {rank}: {path} holds "
                                      f"{got} B, want {share} x {full_b}")
     # the last tick's tokens, mask and block table: whole on every rank,
     # the same bytes (shape, dtype, crc32)
@@ -5494,7 +5596,7 @@ def tp_leg(mesh, arch, smi, device="cuda", seed=0, layers=None):
     if missed:
         raise AssertionError(f"tp {arch}: the checks do not reject the "
                              f"planted TP faults {missed}")
-    log(f"phase tp {arch}: {time.perf_counter() - t_leg:.1f} s")
+    log(f"phase tp {name}: {time.perf_counter() - t_leg:.1f} s")
     total = collections.Counter()
     for got in per_rank:
         total.update({k: v for k, v in got.items() if not k.startswith("tp")})
@@ -5521,6 +5623,29 @@ def tp_section(smi, device="cuda", layers=None, started=None):
     finally:
         mesh.close()
     log(f"tp section: {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def tp_heads_section(smi, device="cuda", layers=None, started=None):
+    """The replicated-heads section: the mesh ``start_mesh("1,3")``
+    started (or one made now), the legs of ``TP_HEADS_LEGS`` in turn,
+    the mesh closed; returns the launches of every rank, summed."""
+    import torch
+
+    t0 = time.perf_counter()
+    mesh = take_mesh(started or start_mesh("1,3", device), "tp_heads")
+    launches = {}
+    try:
+        for name in TP_HEADS_LEGS:
+            for k, n in tp_leg(mesh, name, smi, device, layers=layers
+                               ).items():
+                launches[k] = launches.get(k, 0) + n
+            gc.collect()
+            if device == "cuda":
+                torch.cuda.empty_cache()
+    finally:
+        mesh.close()
+    log(f"tp_heads section: {time.perf_counter() - t0:.1f} s")
     return launches
 
 
@@ -5809,14 +5934,59 @@ def _moe_train_faults():
             "aux_bwd_summed": (moe, "data_all_reduce", SummedBackward.apply)}
 
 
+def _heads_faults():
+    """The planted faults of replicated heads (``models.attention``), each
+    a swap of one of its module's names: the whole attention output
+    all-reduced where ``wo`` is whole (serving and training: the output
+    n times over); each rank's query heads reading its KV view counted
+    from KV head 0 (``Heads.reads`` with ``q0`` 0: only rank 0's heads
+    read theirs); in training, the normed input entering the layer as a
+    whole (``rms_norm``'s outputs entered: the gradient of ``xn`` and of
+    MLA's latents summed n times over), and the whole output narrowed to
+    the rank's rows of ``wo`` without entering (the whole attention's
+    backward on each rank from its own columns only)."""
+    from repro_torch.models import attention as att
+    from repro_torch.models import layers
+
+    def out_all_reduced(out, wo, cut, whole):
+        if cut and whole:
+            c = wo.shape[0]
+            out = layers.tp_enter(out).narrow(-1, layers.tp_coord("tp") * c,
+                                              c)
+        return layers.tp_all_reduce(out @ wo)
+
+    def out_unentered(out, wo, cut, whole):
+        if cut and whole:
+            c = wo.shape[0]
+            out = out.narrow(-1, layers.tp_coord("tp") * c, c)
+        y = out @ wo
+        return layers.tp_all_reduce(y) if cut else y
+
+    def heads_from_0(n_heads, n_kv_heads=None):
+        return layers.tp_heads(n_heads, n_kv_heads)._replace(q0=0)
+
+    def entered_norm(*a, **kw):
+        return layers.tp_enter(layers.rms_norm(*a, **kw))
+
+    return {"wo_whole_all_reduced": (att, "_out_proj", out_all_reduced),
+            "kv_read_from_0": (att, "tp_heads", heads_from_0),
+            "xn_enters_whole": (att, "rms_norm", entered_norm),
+            "out_narrowed_unentered": (att, "_out_proj", out_unentered)}
+
+
+HEADS_FAULTS = ("wo_whole_all_reduced", "kv_read_from_0", "xn_enters_whole",
+                "out_narrowed_unentered")
+
+
 def fsdp_on(rs, name):
     """``Session.run``: plant FSDP fault ``name`` (``FSDP_FAULTS``), TP
     train fault ``name`` (``TP_TRAIN_FAULTS``) or MoE train fault
-    ``name`` (``MOE_TRAIN_FAULTS``) on this rank, or ``"deterministic"``
+    ``name`` (``MOE_TRAIN_FAULTS``), a fault of replicated heads
+    (``HEADS_FAULTS``) on this rank, or ``"deterministic"``
     (``deterministic()``), until ``fsdp_off``."""
     ctx = (deterministic() if name == "deterministic"
            else swapped({**_fsdp_faults(), **_tp_train_faults(),
-                         **_moe_train_faults()}[name]))
+                         **_moe_train_faults(), **_heads_faults()}[name]))
     ctx.__enter__()
     rs.extra[name] = ctx
     return rs.mesh.rank
@@ -6908,8 +7078,8 @@ def check_cli(smi, arch="qwen2.5-14b", seed=1, prompt_len=1000):
     del params
 
 
-# the sections on a mesh of two ranks, by their mesh spec ("DATA,MODEL")
-SECTIONS = {"tp": "1,2", "fsdp": "2,1", "tp_train": "2,2"}
+# the sections on a mesh, by their mesh spec ("DATA,MODEL")
+SECTIONS = {"tp": "1,2", "tp_heads": "1,3", "fsdp": "2,1", "tp_train": "2,2"}
 
 
 def build_all():
@@ -6962,6 +7132,7 @@ def main(argv=None):
     ap.add_argument("--phases", default=",".join((*PHASES, *SECTIONS)),
                     help="comma-separated phases to run (default: all, in "
                          "order; \"tp\" is the tensor-parallel section, "
+                         "\"tp_heads\" its replicated heads on 1,3, "
                          "\"fsdp\" the sharded train state's, \"tp_train\" "
                          "tensor parallelism in training)")
     args = ap.parse_args(argv)
@@ -7001,8 +7172,9 @@ def main(argv=None):
     launches = {}
     for name in phases:
         if name in SECTIONS:        # every rank's launches, summed
-            if name == "tp":
-                got = timed(tp_section, smi, layers=args.layers or None,
+            if name in ("tp", "tp_heads"):
+                section = tp_section if name == "tp" else tp_heads_section
+                got = timed(section, smi, layers=args.layers or None,
                             started=meshes[name])
             elif name == "fsdp":    # its mesh is tp_train's 2,1, if it runs
                 got = timed(fsdp_section, smi, started=meshes[name],

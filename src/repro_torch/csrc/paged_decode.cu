@@ -12,7 +12,11 @@
 // group - 1 (kv-head-major, the order _expand_kv broadcasts in) score
 // logical positions t with t <= pos[b] (and t > pos[b] - window when a
 // window is set).  Position t lives at physical page table[b, t / ps],
-// row t % ps, of the pools (P, ps, Hkv, Dh).  The softmax is in f32; a
+// row t % ps, of the pools (P, ps, Hs, Dh), whose heads the kernel reads
+// from the first of its pointers on: Hs is the pool's heads per row, Hkv
+// (<= Hs) the heads read, so that a rank whose query heads read one KV head
+// of a pool replicated across tensor-parallel ranks passes a view of that
+// head in place.  The softmax is in f32; a
 // row with no valid position writes zeros.  Output (B, 1, H, Dh) in q's
 // type.
 //
@@ -170,9 +174,9 @@ paged_split_mma_kernel(const bf16* __restrict__ q,
                        const int* __restrict__ table,
                        const int* __restrict__ pos, bf16* __restrict__ out,
                        float* __restrict__ pacc, float* __restrict__ pm,
-                       float* __restrict__ pl, int B, int H, int Hkv, int G,
-                       int pps, int ps, int window, float scale_log2, int L,
-                       int direct) {
+                       float* __restrict__ pl, int B, int H, int Hkv,
+                       int Hs, int G, int pps, int ps, int window,
+                       float scale_log2, int L, int direct) {
   constexpr int LD = DH + 8;           // shared row stride (elements)
   constexpr int KS = DH / 16;          // k-steps of Q.K^T
   constexpr int DN = DH / 8;           // d n-tiles of the output
@@ -192,7 +196,7 @@ paged_split_mma_kernel(const bf16* __restrict__ q,
   }
   const int n_tiles = (r.hi - r.lo + kTile) / kTile;
   const int* trow = table + (size_t)b * pps;
-  const size_t row_stride = (size_t)Hkv * DH;
+  const size_t row_stride = (size_t)Hs * DH;
 
   auto load_tile = [&](int stage, int t0) {
     bf16* ks = ring + (size_t)stage * 2 * kTile * LD;
@@ -398,9 +402,9 @@ paged_split_simt_kernel(const float* __restrict__ q,
                         const int* __restrict__ table,
                         const int* __restrict__ pos, float* __restrict__ out,
                         float* __restrict__ pacc, float* __restrict__ pm,
-                        float* __restrict__ pl, int B, int H, int Hkv, int G,
-                        int pps, int ps, int window, float scale_log2, int L,
-                        int direct) {
+                        float* __restrict__ pl, int B, int H, int Hkv,
+                        int Hs, int G, int pps, int ps, int window,
+                        float scale_log2, int L, int direct) {
   constexpr int kVecPerRow = DH / 4;
   constexpr int kRowGroups = kThreads / DH;     // threads sharing a column
   constexpr int kAcc = (kMaxGroup + kRowGroups - 1) / kRowGroups;
@@ -438,7 +442,7 @@ paged_split_simt_kernel(const float* __restrict__ q,
 #pragma unroll
   for (int i = 0; i < kAcc; ++i) acc[i] = 0.f;
 
-  const size_t row_stride = (size_t)Hkv * DH;
+  const size_t row_stride = (size_t)Hs * DH;
   for (int it = 0; it < n_tiles; ++it) {
     const int t0 = lo + it * kSimtTile;
     const int n_valid = min(kSimtTile, hi - t0 + 1);
@@ -510,7 +514,7 @@ template <int DH>
 cudaError_t launch_mma(const void* q, const void* k, const void* v,
                        const int* table, const int* pos, void* out,
                        float* pacc, float* pm, float* pl, int B, int H,
-                       int Hkv, int pps, int ps, int window,
+                       int Hkv, int Hs, int pps, int ps, int window,
                        float scale_log2, int n_split, int L, int direct,
                        cudaStream_t stream) {
   constexpr int smem = mma_smem_bytes<DH>();
@@ -530,7 +534,7 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v,
                                stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), table, pos, static_cast<bf16*>(out),
-      pacc, pm, pl, B, H, Hkv, H / Hkv, pps, ps, window, scale_log2, L,
+      pacc, pm, pl, B, H, Hkv, Hs, H / Hkv, pps, ps, window, scale_log2, L,
       direct);
   return cudaGetLastError();
 }
@@ -539,14 +543,14 @@ template <int DH>
 cudaError_t launch_simt(const void* q, const void* k, const void* v,
                         const int* table, const int* pos, void* out,
                         float* pacc, float* pm, float* pl, int B, int H,
-                        int Hkv, int pps, int ps, int window,
+                        int Hkv, int Hs, int pps, int ps, int window,
                         float scale_log2, int n_split, int L, int direct,
                         cudaStream_t stream) {
   paged_split_simt_kernel<DH><<<dim3(Hkv, B, n_split), kThreads, 0,
                                 stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), table, pos, static_cast<float*>(out),
-      pacc, pm, pl, B, H, Hkv, H / Hkv, pps, ps, window, scale_log2, L,
+      pacc, pm, pl, B, H, Hkv, Hs, H / Hkv, pps, ps, window, scale_log2, L,
       direct);
   return cudaGetLastError();
 }
@@ -554,13 +558,13 @@ cudaError_t launch_simt(const void* q, const void* k, const void* v,
 cudaError_t launch_split(int dtype, const void* q, const void* k,
                          const void* v, const int* table, const int* pos,
                          void* out, float* pacc, float* pm, float* pl, int B,
-                         int H, int Hkv, int Dh, int pps, int ps, int window,
-                         float scale, int n_split, int L, int direct,
-                         cudaStream_t st) {
+                         int H, int Hkv, int Hs, int Dh, int pps, int ps,
+                         int window, float scale, int n_split, int L,
+                         int direct, cudaStream_t st) {
   const float sl = scale * kLog2e;
 #define REPRO_SPLIT(FN, D)                                                   \
-  return FN<D>(q, k, v, table, pos, out, pacc, pm, pl, B, H, Hkv, pps, ps,   \
-               window, sl, n_split, L, direct, st)
+  return FN<D>(q, k, v, table, pos, out, pacc, pm, pl, B, H, Hkv, Hs, pps,  \
+               ps, window, sl, n_split, L, direct, st)
   if (dtype == 0) {
     switch (Dh) {
       case 16: REPRO_SPLIT(launch_simt, 16);
@@ -580,9 +584,10 @@ cudaError_t launch_split(int dtype, const void* q, const void* k,
   return cudaErrorInvalidValue;
 }
 
-bool bad_args(int B, int H, int Hkv, int pps, int ps, int n_split, int L) {
-  return Hkv <= 0 || H % Hkv != 0 || H / Hkv > kMaxGroup || B <= 0 ||
-         B > 65535 || ps <= 0 || pps <= 0 || n_split <= 0 ||
+bool bad_args(int B, int H, int Hkv, int Hs, int pps, int ps, int n_split,
+              int L) {
+  return Hkv <= 0 || Hs < Hkv || H % Hkv != 0 || H / Hkv > kMaxGroup ||
+         B <= 0 || B > 65535 || ps <= 0 || pps <= 0 || n_split <= 0 ||
          n_split > 65535 || L <= 0 || (long long)n_split * L < (long long)pps * ps;
 }
 
@@ -598,10 +603,10 @@ extern "C" int repro_paged_decode(int dtype, const void* q, const void* k,
                                   const void* v, const void* table,
                                   const void* pos, void* out, void* acc,
                                   void* m, void* l, int B, int H, int Hkv,
-                                  int Dh, int pps, int ps, int window,
-                                  float scale, int n_split, int split_len,
-                                  void* stream) {
-  if (bad_args(B, H, Hkv, pps, ps, n_split, split_len))
+                                  int Hs, int Dh, int pps, int ps,
+                                  int window, float scale, int n_split,
+                                  int split_len, void* stream) {
+  if (bad_args(B, H, Hkv, Hs, pps, ps, n_split, split_len))
     return (int)cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
   auto* pacc = static_cast<float*>(acc);
@@ -610,8 +615,8 @@ extern "C" int repro_paged_decode(int dtype, const void* q, const void* k,
   const bool direct = n_split == 1;
   cudaError_t err = launch_split(
       dtype, q, k, v, static_cast<const int*>(table),
-      static_cast<const int*>(pos), out, pacc, pm, pl, B, H, Hkv, Dh, pps,
-      ps, window, scale, n_split, split_len, direct, st);
+      static_cast<const int*>(pos), out, pacc, pm, pl, B, H, Hkv, Hs, Dh,
+      pps, ps, window, scale, n_split, split_len, direct, st);
   if (err != cudaSuccess || direct) return (int)err;
   return dtype == 0
              ? (int)launch_combine<float>(pacc, pm, pl, out, n_split, B * H,
@@ -626,17 +631,18 @@ extern "C" int repro_paged_decode_split(int dtype, const void* q,
                                         const void* k, const void* v,
                                         const void* table, const void* pos,
                                         void* acc, void* m, void* l, int B,
-                                        int H, int Hkv, int Dh, int pps,
-                                        int ps, int window, float scale,
-                                        int n_split, int split_len,
-                                        void* stream) {
-  if (bad_args(B, H, Hkv, pps, ps, n_split, split_len))
+                                        int H, int Hkv, int Hs, int Dh,
+                                        int pps, int ps, int window,
+                                        float scale, int n_split,
+                                        int split_len, void* stream) {
+  if (bad_args(B, H, Hkv, Hs, pps, ps, n_split, split_len))
     return (int)cudaErrorInvalidValue;
   return (int)launch_split(
       dtype, q, k, v, static_cast<const int*>(table),
       static_cast<const int*>(pos), nullptr, static_cast<float*>(acc),
-      static_cast<float*>(m), static_cast<float*>(l), B, H, Hkv, Dh, pps, ps,
-      window, scale, n_split, split_len, 0, static_cast<cudaStream_t>(stream));
+      static_cast<float*>(m), static_cast<float*>(l), B, H, Hkv, Hs, Dh, pps,
+      ps, window, scale, n_split, split_len, 0,
+      static_cast<cudaStream_t>(stream));
 }
 
 // The combine kernel alone: partials as above -> out (rows, Dh) in dtype.

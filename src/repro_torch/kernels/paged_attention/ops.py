@@ -41,12 +41,12 @@ def library() -> ctypes.CDLL:
     fn = lib.repro_paged_decode
     if fn.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [i, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, f,
-                       i, i, p]
+        fn.argtypes = [i, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i,
+                       f, i, i, p]
         fn.restype = i
         lib.repro_paged_decode_split.argtypes = [i, p, p, p, p, p, p, p, p,
-                                                 i, i, i, i, i, i, i, f, i,
-                                                 i, p]
+                                                 i, i, i, i, i, i, i, i, f,
+                                                 i, i, p]
         lib.repro_paged_decode_split.restype = i
         lib.repro_paged_decode_combine.argtypes = [i, p, p, p, p, i, i, i, p]
         lib.repro_paged_decode_combine.restype = i
@@ -99,11 +99,28 @@ def _check(q, k_pool, v_pool, table, pos, page_size):
                     ("table", table), ("pos", pos)):
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
-        if not t.is_contiguous():
+        if name not in ("k_pool", "v_pool") and not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    _pool_heads(k_pool, v_pool)
     for name, t in (("q", q), ("k_pool", k_pool), ("v_pool", v_pool)):
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
+
+
+def _pool_heads(k_pool, v_pool) -> int:
+    """The heads per position row of the pools ``k_pool`` / ``v_pool``
+    are views of: a pool itself, or a view of some of its heads (a
+    narrow of dim 2, as a tensor-parallel rank whose query heads read one
+    KV head of a pool whole on every rank passes it).  Anything else
+    raises."""
+    _, ps, hkv, dh = k_pool.shape
+    st = k_pool.stride()
+    if v_pool.stride() != st or st[3] != 1 or st[2] != dh \
+            or st[1] % dh or st[1] < hkv * dh or st[0] != ps * st[1]:
+        raise ValueError(f"k/v pools with strides {st} / {v_pool.stride()}:"
+                         " need a pool (P, page_size, Hs, Dh), contiguous, "
+                         "or a view of some of its heads")
+    return st[1] // dh
 
 
 def _live(table, pos, page_size, window=None) -> int:
@@ -138,7 +155,8 @@ def work(q, k_pool, v_pool, table, pos, *, page_size, window=None,
 def paged_decode_attention(q, k_pool, v_pool, table, pos, *, page_size,
                            window=None, scale=None):
     """q: (B, 1, H, Dh) — one decode token per slot; k/v pools:
-    (P, page_size, Hkv, Dh); table: (B, pages_per_slot) int32 block
+    (P, page_size, Hkv, Dh), or views of Hkv of a pool's heads
+    (``_pool_heads``), read in place; table: (B, pages_per_slot) int32 block
     table (page 0 = garbage page); pos: (B,) int32 per-slot positions.
     Returns (B, 1, H, Dh) in q's dtype."""
     if q.device.type in PLAIN_DEVICES:
@@ -162,8 +180,9 @@ def paged_decode_attention(q, k_pool, v_pool, table, pos, *, page_size,
     err = library().repro_paged_decode(
         _DTYPES[q.dtype], q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         table.data_ptr(), pos.data_ptr(), out.data_ptr(), *parts, b, h, hkv,
-        dh, pps, page_size, 0 if window is None else int(window), scale,
-        n_split, split_len, torch.cuda.current_stream(q.device).cuda_stream)
+        _pool_heads(k_pool, v_pool), dh, pps, page_size,
+        0 if window is None else int(window), scale, n_split, split_len,
+        torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"paged_decode kernel launch failed: CUDA error "
                            f"{err}")
@@ -212,7 +231,7 @@ def paged_decode_partials(q, k_pool, v_pool, table, pos, *, page_size,
         _DTYPES[q.dtype], q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         table.data_ptr(), pos.data_ptr(), *_part_ptrs(scratch.data_ptr(),
                                                       rows, dh),
-        b, h, hkv, dh, pps, page_size,
+        b, h, hkv, _pool_heads(k_pool, v_pool), dh, pps, page_size,
         0 if window is None else int(window), scale, n_split, split_len,
         torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:

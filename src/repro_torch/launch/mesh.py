@@ -19,16 +19,17 @@ talk on two planes:
   * the control plane, a pipe from rank 0 to each follower, carrying the
     step dispatches in one total order (``serve.tp``).
 
-Ranks are data-major: rank ``d * M + m`` sits at data coordinate ``d``
-and model coordinate ``m`` (``M`` the model axis).  The axis groups are
-built directly on the rendezvous ``FileStore``, each under a prefix of
-its own and with its members' coordinates as ranks, the same as
+Ranks are pod-major, then data-major: rank ``(p * D + d) * M + m`` sits
+at pod coordinate ``p``, data coordinate ``d`` and model coordinate
+``m`` (``D``, ``M`` the data and model axes).  The axis groups are built
+directly on the rendezvous ``FileStore``, each under a prefix of its own
+and with its members' coordinates as ranks, the same as
 ``torch.distributed.new_group`` would make them but without a default
 group, so that one process can hold meshes one after another.  Every rank
-builds the model group of its data coordinate first, then the data group
-of its model coordinate, so no rank waits on a peer that is still joining
-another group.  An axis of size 1 has no group: a collective over it is
-the identity.
+builds the model group of its (pod, data) coordinates first, then the
+data group of its (pod, model), then the pod group of its (data, model),
+so no rank waits on a peer that is still joining another group.  An axis
+of size 1 has no group: a collective over it is the identity.
 
 The backend and each rank's device are chosen explicitly and printed;
 no backend gives way to another.  On ``gloo`` only ``all_reduce``,
@@ -37,18 +38,29 @@ no backend gives way to another.  On ``gloo`` only ``all_reduce``,
 times out (``TIMEOUT_S``) rather than hangs, and a follower that dies
 makes rank 0's next collective raise at once.
 
-Either axis may exceed 1.  Serving splits only ``model``
-(``TP_SERVE_RULES`` maps ``batch`` to nothing, and ``steps.check_tp``
-refuses a data axis above 1); training splits both (FSDP over ``data``,
-tensor parallelism over ``model``: ``steps.make_train_step``).  A
+The axes are the reference's ``("pod", "data", "model")``; ``pod`` is 1
+unless a spec names it (``"POD,DATA,MODEL"``), and a mesh whose pod axis
+is 1 has no ``pod`` entry in its shape, so every two-axis mesh is as it
+was.  Serving splits only ``model`` (``TP_SERVE_RULES`` maps ``batch``
+to nothing, and ``steps.check_tp`` refuses a data or pod axis above 1);
+training splits all three (``LOGICAL_RULES``: the batch over pod x data,
+FSDP over ``data`` alone, so parameters and moments are whole across
+pods, tensor parallelism over ``model``: ``steps.make_train_step``).  A
 collective names its axis; one without an axis runs over all ranks only
-while one axis is 1, and raises on a mesh with both axes above 1.  The
-production meshes (16x16, 2x16x16) of the reference's dry run are not
-built here.
+while at most one axis is above 1, and raises otherwise.
+
+The production meshes of the reference's dry run, 16x16 ``("data",
+"model")`` and 2x16x16 ``("pod", "data", "model")``, are layouts, not 256
+or 512 ranks: :func:`make_production_mesh` returns a :class:`LayoutMesh`
+at rank 0's coordinates with no processes, whose collectives take meta
+tensors only, return the shapes a real collective would and record each
+call (kind, axis, group size, result bytes; ``launch.analysis.
+CollectiveStats`` counts them).
 """
 from __future__ import annotations
 
 import datetime
+import math
 import os
 import shutil
 import tempfile
@@ -62,13 +74,26 @@ from ..device import rank_device
 TIMEOUT_S = 120.0
 
 
-AXES = ("data", "model")
+AXES = ("pod", "data", "model")
+
+
+def _full_shape(shape) -> dict:
+    """``shape`` (a mapping axis -> size, or a (data, model) or (pod,
+    data, model) tuple) as the mesh keeps it: data and model always, pod
+    only where it is above 1, in ``AXES`` order."""
+    if not isinstance(shape, dict):
+        shape = dict(zip(AXES[-len(shape):], shape))
+    out = {a: int(shape.get(a, 1)) for a in AXES}
+    if out["pod"] == 1:
+        del out["pod"]
+    return out
 
 
 class Mesh:
-    """Axis sizes (``{"data": d, "model": m}``), this process's rank and
-    its coordinates on each axis, the data plane's process groups (the
-    whole mesh's, ``group``, and this rank's group on each axis,
+    """Axis sizes (``{"data": d, "model": m}``, with ``"pod"`` first where
+    it is above 1), this process's rank and its coordinates on each axis
+    (``pod`` among them, 0 without one), the data plane's process groups
+    (the whole mesh's, ``group``, and this rank's group on each axis,
     ``groups``), the backend and this rank's device.  Rank 0's mesh also
     owns the follower processes and their pipes (``conns``); :meth:`close`
     stops and joins them."""
@@ -76,11 +101,12 @@ class Mesh:
     def __init__(self, shape, rank=0, *, backend=None, group=None,
                  groups=None, device_type="cuda", procs=(), conns=(),
                  tmpdir=None):
-        self.shape = dict(shape)
-        self.size = self.shape["data"] * self.shape["model"]
+        self.shape = _full_shape(shape)
+        d, m = self.shape["data"], self.shape["model"]
+        self.size = math.prod(self.shape.values())
         self.rank = rank
-        self.coords = {"data": rank // self.shape["model"],
-                       "model": rank % self.shape["model"]}
+        self.coords = {"pod": rank // (d * m), "data": rank // m % d,
+                       "model": rank % m}
         self.backend = backend
         self.group = group
         self.groups = dict(groups or {})
@@ -104,28 +130,33 @@ class Mesh:
                     device_type=self.device_type)
 
     def describe(self) -> str:
-        return (f"mesh data={self.shape['data']} model={self.shape['model']}"
-                f" backend={self.backend} ranks on "
+        return ("mesh " + " ".join(f"{a}={n}" for a, n in self.shape.items())
+                + f" backend={self.backend} ranks on "
                 + ", ".join(str(self.for_rank(r).device())
                             for r in range(self.size)))
 
     # ------------------------------------------------------------ data plane
-    def _group_of(self, axis):
-        """(process group, size) of ``axis`` ("data", "model" or "all")
-        for this rank; an axis of size 1 has no group.  No axis: the
-        whole mesh, while one axis is 1."""
+    def _axis(self, axis):
+        """(axis, its size): ``axis`` is "pod", "data", "model" or "all";
+        no axis is the whole mesh, while at most one axis is above 1."""
         if axis is None:
-            if self.shape["data"] > 1 and self.shape["model"] > 1:
+            if sum(n > 1 for n in self.shape.values()) > 1:
                 raise ValueError(
                     f"mesh {self.shape}: a collective on a mesh with two "
-                    "axes above 1 names its axis ('data', 'model' or "
-                    "'all')")
+                    "axes above 1 names its axis ('pod', 'data', 'model' "
+                    "or 'all')")
             axis = "all"
         if axis == "all":
-            return self.group, self.size
+            return axis, self.size
         if axis not in AXES:
-            raise ValueError(f"axis {axis!r}: pick 'data', 'model' or 'all'")
-        n = self.shape[axis]
+            raise ValueError(f"axis {axis!r}: pick 'pod', 'data', 'model' "
+                             "or 'all'")
+        return axis, self.shape.get(axis, 1)
+
+    def _group_of(self, axis):
+        """(process group, size) of ``axis`` (:meth:`_axis`) for this
+        rank; an axis of size 1 has no group."""
+        axis, n = self._axis(axis)
         if n == 1:
             return None, 1
         return (self.group if n == self.size else self.groups[axis]), n
@@ -190,6 +221,63 @@ class Mesh:
         return f"<Mesh rank {self.rank} of {self.shape} {self.backend}>"
 
 
+class LayoutMesh(Mesh):
+    """A mesh as a layout: its axis sizes and one rank's coordinates (rank
+    0's by default), no processes and no process groups.  A step run
+    under it on meta tensors (``launch.dryrun``) takes the rank's local
+    shapes and meets every collective it would run on a real mesh of this
+    shape: :meth:`all_reduce` and :meth:`all_gather` accept meta tensors
+    only, return what the collective would (the tensor, or ``n`` of its
+    shape), and append ``(kind, axis, group size, result bytes)`` to
+    :attr:`records` (an axis of size 1 runs no collective and records
+    nothing).  On a tensor with data they raise: a layout is not
+    ``size`` ranks."""
+
+    def __init__(self, shape, rank=0):
+        super().__init__(shape, rank, device_type="meta")
+        self.records: list[tuple[str, str, int, int]] = []
+
+    def device(self, device_type=None) -> torch.device:
+        return torch.device("meta")
+
+    def _size_of(self, axis, t, kind):
+        if t.device.type != "meta":
+            raise RuntimeError(
+                f"{kind} on a {t.device.type} tensor: a layout mesh "
+                f"{self.shape} takes meta tensors only (it is not "
+                f"{self.size} ranks)")
+        return self._axis(axis)
+
+    def all_reduce(self, t, axis=None):
+        axis, n = self._size_of(axis, t, "all_reduce")
+        if n > 1:
+            self.records.append(("all-reduce", axis, n,
+                                 t.numel() * t.element_size()))
+        return t
+
+    def all_gather(self, t, axis=None):
+        axis, n = self._size_of(axis, t, "all_gather")
+        if n == 1:
+            return [t]
+        self.records.append(("all-gather", axis, n,
+                             n * t.numel() * t.element_size()))
+        return [torch.empty_like(t, memory_format=torch.contiguous_format)
+                for _ in range(n)]
+
+    def close(self, timeout_s: float = 30.0) -> None:
+        self.closed = True
+
+    def __repr__(self):
+        return f"<LayoutMesh rank {self.rank} of {self.shape}>"
+
+
+def make_production_mesh(multi_pod: bool = False) -> LayoutMesh:
+    """The reference's production mesh as a layout (:class:`LayoutMesh`,
+    rank 0's coordinates): 16x16 ``("data", "model")``, or with
+    ``multi_pod`` 2x16x16 ``("pod", "data", "model")``."""
+    return LayoutMesh((2, 16, 16) if multi_pod else (16, 16))
+
+
 def make_host_mesh(device_type="cuda") -> Mesh:
     """The (1, 1) mesh: one rank, no process group (the axes are present,
     so sharding annotations need no no-mesh special case)."""
@@ -205,9 +293,9 @@ def _parse(spec: str):
         shape = tuple(int(p) for p in spec.split(","))
     except ValueError:
         shape = ()
-    if len(shape) != 2 or any(p < 1 for p in shape):
-        raise ValueError(f"mesh spec {spec!r}: want 'DATA,MODEL' positive "
-                         "sizes")
+    if len(shape) not in (2, 3) or any(p < 1 for p in shape):
+        raise ValueError(f"mesh spec {spec!r}: want 'DATA,MODEL' or "
+                         "'POD,DATA,MODEL' positive sizes")
     return shape
 
 
@@ -215,17 +303,19 @@ def make_mesh_from_devices(spec: str | None = None, backend: str | None = None,
                            device_type: str | None = None) -> Mesh:
     """The (data, model) mesh over the visible devices, by the reference's
     rules: by default every device on the model axis (``(1, n)``); a single
-    visible device is the (1, 1) host mesh; ``spec`` ("DATA,MODEL")
-    overrides the shape, and its sizes must multiply to the visible device
-    count.  Its ranks then run one per card on ``nccl``.
+    visible device is the (1, 1) host mesh; ``spec`` ("DATA,MODEL", or
+    "POD,DATA,MODEL" for the reference's third axis) overrides the shape,
+    and its sizes must multiply to the visible device count.  Its ranks
+    then run one per card on ``nccl``.
 
     ``backend="gloo"`` is the explicit opt-in to ranks that share a
     card: any mesh size, every rank on the one card there is
     (``cuda:0``), or rank r on card r mod count.  ``backend="nccl"`` asks
     for one card per rank and raises without them.  On the CPU
     (``device_type="cpu"``, the tests) every rank computes on the host,
-    no card is counted, and the backend is gloo.  A ``data`` axis above 1
-    is a training mesh (FSDP); serving refuses it (``steps.check_tp``).
+    no card is counted, and the backend is gloo.  A ``data`` or ``pod``
+    axis above 1 is a training mesh (FSDP, the batch over pod x data);
+    serving refuses it (``steps.check_tp``).
 
     ``device_type`` (default: ``cuda`` when a card is visible, else
     ``cpu``) is where the followers compute; the engine on rank 0 is
@@ -236,15 +326,16 @@ def make_mesh_from_devices(spec: str | None = None, backend: str | None = None,
         device_type = "cuda" if torch.cuda.is_available() else "cpu"
     n = _visible_devices()
     shape = (1, n) if spec is None else _parse(spec)
+    size = math.prod(shape)
     if device_type == "cpu":
         if backend == "nccl":
             raise ValueError("backend nccl needs cards; the CPU ranks use "
                              "gloo")
         backend = "gloo"
-    elif backend != "gloo" and shape[0] * shape[1] != n:
-        raise ValueError(f"mesh spec {spec!r}: {shape[0]}x{shape[1]} != "
-                         f"{n} visible devices")
-    size = shape[0] * shape[1]
+    elif backend != "gloo" and size != n:
+        raise ValueError(f"mesh spec {spec!r}: "
+                         f"{'x'.join(map(str, shape))} != {n} visible "
+                         "devices")
     if size == 1:
         return make_host_mesh(device_type)
     if backend is None:
@@ -281,17 +372,19 @@ def _group(store, rank, size, backend, device, prefix="data"):
 
 
 def _join(mesh, store):
-    """This rank's groups: the whole mesh's, then, on a mesh with both
-    axes above 1, the model group of its data coordinate and the data
-    group of its model coordinate, in that order on every rank."""
+    """This rank's groups: the whole mesh's, then the group of each axis
+    above 1 that is not the whole mesh, in ``AXES``' reverse order (model,
+    data, pod) on every rank, each keyed by the rank's coordinates on the
+    other axes."""
     dev = mesh.device()
     mesh.group = _group(store, mesh.rank, mesh.size, mesh.backend, dev)
-    if mesh.shape["data"] > 1 and mesh.shape["model"] > 1:
-        d, m = mesh.coords["data"], mesh.coords["model"]
-        mesh.groups["model"] = _group(store, m, mesh.shape["model"],
-                                      mesh.backend, dev, prefix=f"model{d}")
-        mesh.groups["data"] = _group(store, d, mesh.shape["data"],
-                                     mesh.backend, dev, prefix=f"data{m}")
+    for axis in reversed(AXES):
+        n = mesh.shape.get(axis, 1)
+        if 1 < n < mesh.size:
+            key = ".".join(str(mesh.coords[a]) for a in AXES if a != axis)
+            mesh.groups[axis] = _group(store, mesh.coords[axis], n,
+                                       mesh.backend, dev,
+                                       prefix=f"{axis}{key}")
 
 
 def _store(path, size):
@@ -338,8 +431,8 @@ def spawn_followers(shape, backend: str, device_type: str) -> Mesh:
     the data plane, and return rank 0's mesh, which owns the followers."""
     import multiprocessing as mp
 
-    shape = {"data": shape[0], "model": shape[1]}
-    size = shape["data"] * shape["model"]
+    shape = _full_shape(shape)
+    size = math.prod(shape.values())
     tmpdir = tempfile.mkdtemp(prefix="repro_torch_mesh_")
     path = os.path.join(tmpdir, "store")
     ctx = mp.get_context("spawn")
@@ -368,6 +461,6 @@ def spawn_followers(shape, backend: str, device_type: str) -> Mesh:
     return mesh
 
 
-__all__ = ["AXES", "Mesh", "TIMEOUT_S", "make_host_mesh",
-           "make_mesh_from_devices",
+__all__ = ["AXES", "LayoutMesh", "Mesh", "TIMEOUT_S", "make_host_mesh",
+           "make_mesh_from_devices", "make_production_mesh",
            "spawn_followers"]

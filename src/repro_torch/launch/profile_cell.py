@@ -20,8 +20,14 @@ analysis.py``) and the share bound / device ms; the meta peak estimate
 charges each of their calls as the kernel's own work and results
 (``kernels/counter.kernel_site``): flash attention's causal half and no
 score matrix, so the bound and the peak are those of the kernels the
-card runs.  The reference's collectives and ``--multi-pod`` wait for
-the production meshes (ROADMAP.md queue 1, item 20).
+card runs.  ``--multi-pod`` adds the cut cell's collectives on the
+2x16x16 production mesh by kind (count, bytes moved per chip,
+``t_collective``; ``profile(multi_pod=False)``: on 16x16), counted by a
+meta pass of its sharded step on that mesh as a layout
+(``dryrun.cell_inputs``, ``launch.mesh.make_production_mesh``), beside
+the one-card profile: the card runs no
+mesh here.  Train cells only; a serving cell's line says it waits for
+ROADMAP.md item 20b.
 """
 from __future__ import annotations
 
@@ -37,8 +43,9 @@ from ..configs import SHAPES, get
 from ..device import resolve_device
 from ..models.lm import init_cache, init_params
 from ..steps import init_train_state
-from .analysis import Roofline
-from .dryrun import cell_step
+from .analysis import Roofline, collective_stats
+from .dryrun import SERVE_ON_MESH, cell_inputs, cell_step, mesh_name
+from .mesh import make_production_mesh
 from .op_cost import op_cost
 from .specs import input_specs
 
@@ -136,10 +143,37 @@ def _profiled(fn):
                                           for k, v in by.most_common()]
 
 
+def mesh_collectives(cfg, shape, multi_pod):
+    """The collectives of ``cfg``'s ``shape`` train step on a production
+    mesh (``multi_pod``: 2x16x16, else 16x16), from one meta pass of the
+    step on the layout at rank 0's local shapes: an
+    ``analysis.CollectiveStats``."""
+    mesh = make_production_mesh(multi_pod)
+    cell_step(cfg, shape, mesh)(**cell_inputs(cfg, shape, mesh)[1])
+    return collective_stats(mesh.records)
+
+
+def collectives_line(cfg, shape, multi_pod):
+    """``mesh_collectives`` as one printed line, or why there is none."""
+    where = mesh_name(multi_pod)
+    if shape.kind != "train":
+        return f"collectives on {where}: skipped ({SERVE_ON_MESH})"
+    try:
+        st = mesh_collectives(cfg, shape, multi_pod)
+    except NotImplementedError as e:
+        return f"collectives on {where}: not run ({e})"
+    rl = Roofline(0.0, 0.0, st.per_chip_bytes, 1)
+    return (f"collectives on {where} (a meta pass, rank 0): " + ", ".join(
+        f"{k} {n} calls {b:.4e} B a chip" for k, (n, b) in
+        sorted(st.by_kind.items()))
+        + f"; t_collective {rl.t_collective * 1e3:.3f} ms")
+
+
 def profile(arch, shape_name, layers=0, batch=0, seq=0, accum=0,
-            remat=None, moe_impl=None):
+            remat=None, moe_impl=None, multi_pod=None):
     """Profile one cut cell on the card; prints it and returns its figures
-    as a dict."""
+    as a dict.  ``multi_pod`` (not None): also the cell's collectives on
+    the 2x16x16 (True) or 16x16 (False) production mesh, as a line."""
     device = resolve_device("cuda")
     cfg, shape, cuts = cut_cell(arch, shape_name, layers, batch, seq, accum,
                                 remat, moe_impl)
@@ -157,6 +191,10 @@ def profile(arch, shape_name, layers=0, batch=0, seq=0, accum=0,
           f"{cost.bytes_min:.4e}, bytes_fused {cost.bytes_fused:.4e}, "
           f"bytes {cost.bytes:.4e}; bound {rl.t_bound * 1e3:.3f} ms "
           f"({rl.bottleneck})")
+    coll = (None if multi_pod is None
+            else collectives_line(cfg, shape, multi_pod))
+    if coll:
+        print(coll)
 
     args = real_inputs(cfg, shape, device)
     step(**args)                               # builds, compiles, warms
@@ -194,7 +232,8 @@ def profile(arch, shape_name, layers=0, batch=0, seq=0, accum=0,
             "bound_ms": rl.t_bound * 1e3, "bottleneck": rl.bottleneck,
             "host_ms": host_s * 1e3, "device_ms": device_ms,
             "share": share, "top": top[:12], "launches": launches,
-            "peak_meta": est, "peak": peak, "meta_s": meta_s}
+            "peak_meta": est, "peak": peak, "meta_s": meta_s,
+            "collectives": coll}
 
 
 def main(argv=None):
@@ -213,9 +252,12 @@ def main(argv=None):
                     choices=("none", "dots", "full"))
     ap.add_argument("--moe-impl", default=None,
                     choices=("onehot", "ragged"))
+    ap.add_argument("--multi-pod", action="store_true",
+                    help="print the cell's collectives on the 2x16x16 "
+                         "production mesh")
     a = ap.parse_args(argv)
     return profile(a.arch, a.shape, a.layers, a.batch, a.seq, a.accum,
-                   a.remat, a.moe_impl)
+                   a.remat, a.moe_impl, True if a.multi_pod else None)
 
 
 if __name__ == "__main__":

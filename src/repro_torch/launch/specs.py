@@ -5,9 +5,18 @@ Each leaf is a ``torch.empty(..., device="meta")``: the shape and dtype
 of what the step takes, with no data and no memory, so a step called on
 them is a pass over shapes (``launch/dryrun.py``).  The trees follow
 ``param_meta`` and ``cache_meta`` (``models/lm.py``), and the shapes and
-dtypes equal the reference's ``input_specs(cfg, shape, None)``.  The
-reference's ``to_shardings`` and ``*_axes`` wait for the production
-meshes (ROADMAP.md queue 1, item 20).
+dtypes equal the reference's ``input_specs(cfg, shape, None)``.
+
+``state_axes``, ``batch_axes`` and ``cache_axes`` are the reference's
+logical-axes trees, and ``to_shardings`` maps them, leaf by leaf, to the
+strict spec tuples of ``sharding.logical_spec`` (a mesh axis, a tuple of
+them or None per dim: what the reference hands to ``jax.jit``).
+``input_specs(cfg, shape, mesh)`` with a mesh (a ``launch.mesh.
+LayoutMesh`` of the production meshes) gives this rank's local shapes:
+the train state cut by ``params.shard_train_state`` (the step's own
+layout: the rules' specs, but the SSD mixer's ``TP_LOCAL`` leaves) and
+the batch by its rows over pod x data.  Serving cells on a mesh raise
+(ROADMAP.md item 20b).
 """
 from __future__ import annotations
 
@@ -17,6 +26,8 @@ from ..configs.base import ModelConfig, RunShape
 from ..models.layers import tree_map
 from ..models.lm import _is_meta, cache_meta, param_meta
 from ..optim import adamw_init
+from ..params import shard_train_state
+from ..sharding import logical_spec, shard_shape
 
 META = torch.device("meta")
 
@@ -100,13 +111,78 @@ def prefill_specs(cfg: ModelConfig, shape: RunShape):
     return out
 
 
-def input_specs(cfg: ModelConfig, shape: RunShape):
+def batch_axes(cfg: ModelConfig):
+    """The train batch's logical axes (the reference's)."""
+    out = {"tokens": (None, "batch", "seq"), "labels": (None, "batch", "seq")}
+    if cfg.frontend == "audio_codebooks":
+        out = {k: v + (None,) for k, v in out.items()}
+    if cfg.frontend == "vision_patches":
+        out["patches"] = (None, "batch", None, "embed")
+    return out
+
+
+def _axes(meta):
+    return tree_map(lambda m: tuple(m.axes), meta, is_leaf=_is_meta)
+
+
+def state_axes(cfg: ModelConfig):
+    """The train state's logical axes: the params' (``param_meta``), the
+    same for m and v, none for ``step``."""
+    ax = _axes(param_meta(cfg))
+    return {"params": ax, "opt": {"m": ax, "v": ax}, "step": ()}
+
+
+def cache_axes(cfg: ModelConfig, batch: int, seq: int):
+    """The decode cache's logical axes (``cache_meta``)."""
+    return _axes(cache_meta(cfg, batch, seq))
+
+
+def _is_axes(x):
+    return isinstance(x, tuple) and all(isinstance(e, (str, type(None)))
+                                        for e in x)
+
+
+def to_shardings(axes_tree, specs_tree, mesh, rules=None):
+    """(logical-axes tree, specs tree) -> a tree of spec tuples: each
+    leaf's ``logical_spec`` on ``mesh`` under ``rules``, strict (a dim an
+    axis does not divide stays whole on it), the reference's argument
+    shardings."""
+    def walk(ax, spec):
+        if _is_axes(ax):
+            return logical_spec(tuple(spec.shape), ax, mesh, rules,
+                                strict=True)
+        if isinstance(ax, dict):
+            return {k: walk(ax[k], spec[k]) for k in ax}
+        return tuple(walk(a, x) for a, x in zip(ax, spec))
+
+    return walk(axes_tree, specs_tree)
+
+
+def local_batch(cfg: ModelConfig, shape: RunShape, mesh):
+    """The train batch at this rank's shapes on ``mesh``: each leaf cut
+    by its rule's spec (the batch over pod x data)."""
+    specs = batch_specs(cfg, shape)
+    parts = to_shardings(batch_axes(cfg), specs, mesh)
+    return {k: _empty(shard_shape(tuple(v.shape), parts[k], mesh), v.dtype)
+            for k, v in specs.items()}
+
+
+def input_specs(cfg: ModelConfig, shape: RunShape, mesh=None):
     """The step's keyword arguments as meta tensors: ``{"state",
     "batch"}`` (train), ``{"params", "tokens"[, "patches"]}`` (prefill)
-    or ``{"params", "tokens", "cache"}`` (decode)."""
+    or ``{"params", "tokens", "cache"}`` (decode); with ``mesh``, this
+    rank's local shapes (the module's docstring)."""
     if shape.kind == "train":
-        return {"state": state_specs(cfg), "batch": batch_specs(cfg, shape)}
+        if mesh is None:
+            return {"state": state_specs(cfg),
+                    "batch": batch_specs(cfg, shape)}
+        return {"state": shard_train_state(state_specs(cfg), cfg, mesh),
+                "batch": local_batch(cfg, shape, mesh)}
+    if mesh is not None:
+        raise NotImplementedError(
+            f"{shape.name} on a mesh: serving cells on a production mesh "
+            "wait for ROADMAP.md item 20b")
+    params = serve_param_specs(cfg)
     if shape.kind == "prefill":
-        return {"params": serve_param_specs(cfg),
-                **prefill_specs(cfg, shape)}
-    return {"params": serve_param_specs(cfg), **decode_specs(cfg, shape)}
+        return {"params": params, **prefill_specs(cfg, shape)}
+    return {"params": params, **decode_specs(cfg, shape)}

@@ -15,7 +15,8 @@ closing ``wall_s`` / ``host_cpu_util`` / ``host_wakes`` line), plus
 raises).  The CLI trains on one device, as the reference's does (its
 ``train`` builds no mesh but the host's, and it has no ``--mesh``); the
 sharded train state (FSDP over ``data``, tensor parallelism over
-``model``, on any ``D,M`` mesh) is reached through :func:`build` with
+``model``, the batch over pod x data, on any ``D,M`` or ``P,D,M`` mesh)
+is reached through :func:`build` with
 ``mesh=``, the reference's ``build(cfg, mesh, hp)``, which drives the
 mesh's ranks from this process (:class:`MeshTrain`).  Weights are a seeded
 ``torch.Generator`` init (seed 0) on the device; batches come from
@@ -126,8 +127,9 @@ def make_restore_step(cfg, mesh):
 
 
 class MeshTrain:
-    """Training on a ``D,M`` mesh (FSDP over ``data``, tensor parallelism
-    over ``model``), driven from rank 0, this process,
+    """Training on a ``D,M`` or ``P,D,M`` mesh (FSDP over ``data``, tensor
+    parallelism over ``model``, the batch over pod x data), driven from
+    rank 0, this process,
     which runs the loop, the prefetcher and the ``CheckpointManager`` on
     its UMT runtime: each train step, checkpoint snapshot and restore goes
     to every rank in one order through a ``serve.tp.Session``, the batch

@@ -28,17 +28,42 @@ of S tokens per slot and scores every lane against the cache, causally
 within the window; a paged leaf takes the gather path there, as in the
 reference (scatter the window, ``page_gather``, plain attention).
 
-Tensor parallelism (under a mesh: ``models.layers.tp_heads``): each rank
-holds ``H/n`` query heads and ``Hkv/n`` KV heads — their columns of
-``wq``/``wk``/``wv``, their rows of ``wo`` — and runs every path above
-on its local heads as they are (the flash prefill, the paged decode
-kernel, verify), then one all-reduce after ``wo``.  Heads are
-kv-head-major, so an even split keeps each query head on the rank that
-holds its KV group (the reference's reasoning,
-``repro/models/attention.py:355-371``).  MLA splits its query heads the
-same way and keeps its latents (``wq_a``, ``wkv_a``, ``ckv``, ``krope``)
-whole on every rank.  Head counts that do not split raise (ROADMAP item
-20).
+Tensor parallelism (under a mesh: ``models.layers.tp_heads``): a head
+count the model axis ``n`` divides is split, ``H/n`` query or ``Hkv/n``
+KV heads a rank; one it does not divide is whole on every rank, as the
+reference's strict rules replicate it (``"heads"`` / ``"kv_heads"``
+resolve to no axis).  The weights stay cut by the rules whatever the
+heads do (``steps.tp_splits``): ``wq``/``wk``/``wv``'s columns and
+``wo``'s rows split over model wherever their width divides, mid-head
+included (qwen2.5-14b on 16: 2.5 query heads' and half a KV head's
+columns a rank), so per-device weight bytes are the rules'.  Each rank
+then runs every path above on the heads it holds (the flash prefill, the
+paged decode kernel, verify) and one all-reduce after ``wo`` where
+``wo``'s rows are cut.  Heads are kv-head-major, so an even split keeps
+each query head on the rank that holds its KV group (the reference's
+reasoning, ``repro/models/attention.py:355-371``); where the query heads
+split and the KV heads do not (mixtral on 16: rank r's query heads 2r
+and 2r + 1 read KV head r // 2 of the whole pool), the rank's query
+heads read a view of just their KV head (``Heads.reads``), which the
+paged kernel reads in place through the pool's strides.
+
+How whole heads are made from mid-head columns is chosen per family.
+GQA gathers the projected activations' columns (``layers.
+tp_gather_cols``: q, k and v in one collective, the bias added before,
+RoPE after): a decode tick moves ``B (H + 2 Hkv) dh`` values, far less
+than the weights.  MLA gathers ``wq_b``, ``wk_b`` and ``wv_b``'s columns
+once a forward instead: its absorbed decode multiplies q by ``wk_b``
+per head, so ``wk_b`` must be whole per head, and its latents
+(``wq_a``, ``wkv_a``, ``ckv``, ``krope``) are whole on every rank
+already.  Where every rank computes whole heads and ``wo``'s rows are
+cut, each rank narrows the attention output to its rows of ``wo``
+(qwen2.5-14b on 16: 320 of 5120) before the all-reduce; where ``wo`` is
+not cut either (40 heads on 3 ranks: 5120 rows do not split 3 ways),
+the whole output comes out on every rank with no collective.  MLA splits
+its query heads as GQA does where they divide and keeps its latents
+whole on every rank.  Query heads whose split would give a rank heads
+of uneven KV groups are whole on every rank too (no ``REGISTRY`` family
+on 16).
 
 In training (``layers.tp_enter``, whose backward all-reduces the
 gradient over ``model``): GQA enters the normed ``xn`` once before
@@ -52,6 +77,18 @@ then come out whole and equal on every model rank, and so does ``xn``'s:
 an enter of ``xn`` as well would sum that whole gradient once per rank.
 The three latents are also narrower than ``xn`` (768 + 256 + 32 against
 2560 columns on minicpm3-4b).
+
+Whole heads in training keep the gradient whole by the same rule: a
+tensor whole and equal on every rank enters (``tp_enter``) exactly where
+a rank goes on with only its own part of it.  ``xn`` enters only the
+products with a weight's cut columns (a product with a whole weight
+gives every rank the whole gradient already); the whole attention output
+enters before it narrows to the rank's rows of ``wo``, so its gradient,
+each rank's zero outside its own columns, is summed whole before the
+whole attention's backward; the whole K and V enter before a rank's
+query heads read their view of them.  A gather of columns (activations
+or MLA's weights) then keeps this rank's block of a gradient that is
+whole and equal on every rank, which is its backward.
 """
 from __future__ import annotations
 
@@ -60,8 +97,8 @@ import torch
 from ..kernels import (flash_attention, paged_decode_attention,
                        paged_mla_decode_attention)
 from .layers import (apply_rope, page_gather, page_scatter,
-                     page_scatter_window, rms_norm, tp_all_reduce, tp_enter,
-                     tp_heads)
+                     page_scatter_window, rms_norm, tp_all_reduce, tp_coord,
+                     tp_enter, tp_gather_cols, tp_heads, tp_shards)
 
 NEG_INF = -1e30
 
@@ -304,20 +341,43 @@ def gqa_apply(x, p, cfg, spec, *, mode, pos, cache=None, cache_len=None,
     at per-slot positions ``pos`` (B,), lanes ``>= n_tok`` masked, and
     scores every lane (:func:`verify_attention`)."""
     b, s, _ = x.shape
-    n = tp_heads(cfg.n_heads, cfg.n_kv_heads)      # 1 off a mesh
-    h, hkv, dh = cfg.n_heads // n, cfg.n_kv_heads // n, cfg.head_dim
+    hd = tp_heads(cfg.n_heads, cfg.n_kv_heads)     # whole off a mesh
+    h, hkv, dh = hd.h, hd.hkv, cfg.head_dim
+    q_cut = tp_shards(cfg.n_heads * dh) > 1        # wq's columns, wo's rows
+    kv_cut = tp_shards(cfg.n_kv_heads * dh) > 1
     dt = x.dtype
     xn = rms_norm(x, p["ln"], cfg.norm_eps)
-    if n > 1:
-        xn = tp_enter(xn)
+    # a product with this rank's columns of a weight takes xn entered (its
+    # gradient there is this rank's partial sum); one with a whole weight
+    # takes xn as it is (its gradient is whole on every rank)
+    xe = tp_enter(xn) if q_cut or kv_cut else xn
 
-    q = (xn @ p["wq"].to(dt)).view(b, s, h, dh)
-    k = (xn @ p["wk"].to(dt)).view(b, s, hkv, dh)
-    v = (xn @ p["wv"].to(dt)).view(b, s, hkv, dh)
-    if cfg.qkv_bias:
-        q = q + p["bq"].to(dt).view(h, dh)
-        k = k + p["bk"].to(dt).view(hkv, dh)
-        v = v + p["bv"].to(dt).view(hkv, dh)
+    def proj(w, bias, cut):
+        y = (xe if cut else xn) @ p[w].to(dt)
+        return y + p[bias].to(dt) if cfg.qkv_bias else y
+
+    cols = [proj("wq", "bq", q_cut), proj("wk", "bk", kv_cut),
+            proj("wv", "bv", kv_cut)]
+    # columns cut mid-head where the heads are whole on every rank: the
+    # rank's columns (bias added: it is per column) gathered whole, in one
+    # collective; RoPE pairs columns within a head, so it comes after
+    q_mid = q_cut and h == cfg.n_heads
+    kv_mid = kv_cut and hkv == cfg.n_kv_heads
+    mid = [i for i, m in enumerate((q_mid, kv_mid, kv_mid)) if m]
+    if mid:
+        for i, t in zip(mid, tp_gather_cols(*(cols[i] for i in mid))):
+            cols[i] = t
+    q = cols[0].view(b, s, h, dh)
+    k = cols[1].view(b, s, hkv, dh)
+    v = cols[2].view(b, s, hkv, dh)
+    first, count = hd.reads
+
+    def reads(t):
+        """The KV heads (dim 2) this rank's query heads read; entered,
+        since every rank reads only its own of a tensor whole on all."""
+        if count == t.shape[2]:
+            return t
+        return tp_enter(t).narrow(2, first, count)
 
     if mode == "decode":
         pos = torch.as_tensor(pos, device=x.device)
@@ -332,19 +392,20 @@ def gqa_apply(x, p, cfg, spec, *, mode, pos, cache=None, cache_len=None,
             page_scatter(kc, table, ps, pos, k)
             page_scatter(vc, table, ps, pos, v)
             if pages.get("kernel"):
+                # the kernel reads a view of the pool's heads in place
                 pv = pos if pos.dim() == 1 else pos.expand(b)
                 out = paged_decode_attention(
-                    q.contiguous(), kc, vc, table.int(), pv.int(),
-                    page_size=ps, window=w)
+                    q.contiguous(), reads(kc), reads(vc), table.int(),
+                    pv.int(), page_size=ps, window=w)
             else:
-                out = decode_attention(q, page_gather(kc, table, ps),
-                                       page_gather(vc, table, ps), pos,
-                                       window=w)
+                out = decode_attention(q, page_gather(reads(kc), table, ps),
+                                       page_gather(reads(vc), table, ps),
+                                       pos, window=w)
         else:
             idx = torch.remainder(pos, kc.shape[1]) if w is not None else pos
             _cache_update(kc, k, idx)
             _cache_update(vc, v, idx)
-            out = decode_attention(q, kc, vc, pos, window=w)
+            out = decode_attention(q, reads(kc), reads(vc), pos, window=w)
         new_cache = {"k": kc, "v": vc}
     elif mode == "verify":
         # a linear cache (steps.speculatable): logical index == position;
@@ -360,12 +421,12 @@ def gqa_apply(x, p, cfg, spec, *, mode, pos, cache=None, cache_len=None,
             table, ps = pages["table"], pages["page_size"]
             page_scatter_window(kc, table, ps, pos, k, n_tok)
             page_scatter_window(vc, table, ps, pos, v, n_tok)
-            out = verify_attention(q, page_gather(kc, table, ps),
-                                   page_gather(vc, table, ps), pos)
+            out = verify_attention(q, page_gather(reads(kc), table, ps),
+                                   page_gather(reads(vc), table, ps), pos)
         else:
             _cache_update_window(kc, k, pos, n_tok)
             _cache_update_window(vc, v, pos, n_tok)
-            out = verify_attention(q, kc, vc, pos)
+            out = verify_attention(q, reads(kc), reads(vc), pos)
         new_cache = {"k": kc, "v": vc}
     else:
         positions = pos + torch.arange(s, device=x.device)
@@ -380,13 +441,14 @@ def gqa_apply(x, p, cfg, spec, *, mode, pos, cache=None, cache_len=None,
             kc[:, pos:pos + s] = k.to(kc.dtype)
             vc[:, pos:pos + s] = v.to(vc.dtype)
             ext = kc.shape[1] if attn_extent is None else attn_extent
-            out = full_attention(q, kc[:, :ext], vc[:, :ext], q_off=pos)
+            out = full_attention(q, reads(kc[:, :ext]), reads(vc[:, :ext]),
+                                 q_off=pos)
             new_cache = {"k": kc, "v": vc}
         elif mode == "prefill":
             # the flash kernel on the card, its plain version on the CPU
             # (the reference runs qchunk_attention here: same function)
-            out = flash_attention(q.contiguous(), k.contiguous(),
-                                  v.contiguous(), causal=True,
+            out = flash_attention(q.contiguous(), reads(k).contiguous(),
+                                  reads(v).contiguous(), causal=True,
                                   window=spec.window)
             w = spec.window
             if w is not None:
@@ -401,13 +463,28 @@ def gqa_apply(x, p, cfg, spec, *, mode, pos, cache=None, cache_len=None,
                 kc, vc = _pad_seq(k, cache_len), _pad_seq(v, cache_len)
             new_cache = {"k": kc, "v": vc}
         elif mode == "train":
-            out = full_attention(q, k, v, window=spec.window)
+            out = full_attention(q, reads(k), reads(v), window=spec.window)
             new_cache = None
         else:
             raise ValueError(f"unknown mode {mode!r}")
 
-    out = out.reshape(b, s, h * dh) @ p["wo"].to(dt)
-    return (tp_all_reduce(out) if n > 1 else out), new_cache
+    return _out_proj(out.reshape(b, s, h * dh), p["wo"].to(dt), q_cut,
+                     h == cfg.n_heads), new_cache
+
+
+def _out_proj(out, wo, cut, whole):
+    """The output projection: ``out`` (this rank's heads, or all of them
+    where ``whole``) through ``wo``.  With ``wo``'s rows cut over model
+    (``cut``) the products are partial and one all-reduce sums them;
+    whole heads then first narrow to this rank's rows, entered (each
+    rank's gradient there holds only its own columns, and the whole
+    attention behind it needs the sum).  An uncut ``wo`` takes whole
+    heads to the whole output on every rank, with no collective."""
+    if cut and whole:
+        c = wo.shape[0]
+        out = tp_enter(out).narrow(-1, tp_coord("tp") * c, c)
+    y = out @ wo
+    return tp_all_reduce(y) if cut else y
 
 
 # ====================================================================== MLA
@@ -438,14 +515,32 @@ def mla_cache_shapes(cfg, spec, batch, seq):
                       ("batch", "seq_shard", None))}
 
 
-def _mla_q(xn, p, cfg, dt, h):
+def _mla_q(xn, p, cfg, dt, h, wq_b):
     b, s, _ = xn.shape
     dn, dr = cfg.qk_nope_dim, cfg.qk_rope_dim
     qa = rms_norm(xn @ p["wq_a"].to(dt), p["q_ln"], cfg.norm_eps)
     if h < cfg.n_heads:                 # the latent meets the local heads
         qa = tp_enter(qa)
-    q = (qa @ p["wq_b"].to(dt)).view(b, s, h, dn + dr)
+    q = (qa @ wq_b).view(b, s, h, dn + dr)
     return q[..., :dn], q[..., dn:]          # q_nope, q_rope
+
+
+def _mla_up(p, cfg, dt, h):
+    """``wq_b``, ``wk_b`` and ``wv_b`` in ``dt`` for this rank's ``h``
+    heads.  Where the heads are whole on every rank but a weight's
+    columns are cut over model (mid-head), its columns are gathered
+    whole, all of them in one collective once a forward: the absorbed
+    decode needs ``wk_b`` whole per head, and every rank then runs the
+    whole attention."""
+    dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    ws = {k: p[k].to(dt) for k in ("wq_b", "wk_b", "wv_b")}
+    if h == cfg.n_heads:
+        whole = {"wq_b": h * (dn + dr), "wk_b": h * dn, "wv_b": h * dv}
+        cut = [k for k in ws if tp_shards(whole[k]) > 1]
+        if cut:
+            for k, t in zip(cut, tp_gather_cols(*(ws[k] for k in cut))):
+                ws[k] = t
+    return ws
 
 
 def mla_apply(x, p, cfg, spec, *, mode, pos, cache=None, cache_len=None,
@@ -460,15 +555,16 @@ def mla_apply(x, p, cfg, spec, *, mode, pos, cache=None, cache_len=None,
     the absorbed decode form over the window's S lanes (positions ``pos_b
     + j``, lanes ``>= n_tok`` not written), as the reference does."""
     b, s, _ = x.shape
-    n = tp_heads(cfg.n_heads)                      # 1 off a mesh
-    h = cfg.n_heads // n
+    h = tp_heads(cfg.n_heads).h                    # whole off a mesh
+    split = h < cfg.n_heads
     rkv, dn, dr, dv = (cfg.kv_lora_rank, cfg.qk_nope_dim, cfg.qk_rope_dim,
                        cfg.v_head_dim)
     dt = x.dtype
     scale = (dn + dr) ** -0.5
     xn = rms_norm(x, p["ln"], cfg.norm_eps)
+    ws = _mla_up(p, cfg, dt, h)
 
-    q_nope, q_rope = _mla_q(xn, p, cfg, dt, h)
+    q_nope, q_rope = _mla_q(xn, p, cfg, dt, h, ws["wq_b"])
     kva = xn @ p["wkv_a"].to(dt)
     ckv = rms_norm(kva[..., :rkv], p["kv_ln"], cfg.norm_eps)   # (B,S,rkv)
     k_rope = kva[..., rkv:]                                    # (B,S,dr)
@@ -493,7 +589,7 @@ def mla_apply(x, p, cfg, spec, *, mode, pos, cache=None, cache_len=None,
             _cache_update(cc, ckv, pos)
             _cache_update(kr, k_rope, pos)
             cd, kd = cc, kr
-        wk_b = p["wk_b"].to(dt).view(rkv, h, dn)
+        wk_b = ws["wk_b"].view(rkv, h, dn)
         # absorb q_nope through wk_b: (B,1,H,rkv)
         q_lat = torch.einsum("bshn,rhn->bshr", q_nope, wk_b)
         if fused:
@@ -512,7 +608,7 @@ def mla_apply(x, p, cfg, spec, *, mode, pos, cache=None, cache_len=None,
             probs = torch.softmax(scores, dim=-1).to(dt)
             lat = torch.einsum("bhst,btr->bshr", probs, cd)  # (B,1,H,rkv)
         out = torch.einsum("bshr,rhv->bshv", lat,
-                           p["wv_b"].to(dt).view(rkv, h, dv))
+                           ws["wv_b"].view(rkv, h, dv))
         new_cache = {"ckv": cc, "krope": kr}
     elif mode == "verify":
         # the absorbed decode form over S lanes, with a per-lane mask; the
@@ -532,7 +628,7 @@ def mla_apply(x, p, cfg, spec, *, mode, pos, cache=None, cache_len=None,
             _cache_update_window(cc, ckv, pos, n_tok)
             _cache_update_window(kr, k_rope, pos, n_tok)
             cd, kd = cc, kr
-        wk_b = p["wk_b"].to(dt).view(rkv, h, dn)
+        wk_b = ws["wk_b"].view(rkv, h, dn)
         q_lat = torch.einsum("bshn,rhn->bshr", q_nope, wk_b)   # (B,S,H,rkv)
         scores = (torch.einsum("bshr,btr->bhst", q_lat, cd)
                   + torch.einsum("bshr,btr->bhst", q_rope, kd))
@@ -543,7 +639,7 @@ def mla_apply(x, p, cfg, spec, *, mode, pos, cache=None, cache_len=None,
         probs = torch.softmax(scores, dim=-1).to(dt)
         lat = torch.einsum("bhst,btr->bshr", probs, cd)          # (B,S,H,rkv)
         out = torch.einsum("bshr,rhv->bshv", lat,
-                           p["wv_b"].to(dt).view(rkv, h, dv))
+                           ws["wv_b"].view(rkv, h, dv))
         new_cache = {"ckv": cc, "krope": kr}
     elif mode == "prefill_chunk":
         positions = pos + torch.arange(s, device=x.device)
@@ -555,8 +651,8 @@ def mla_apply(x, p, cfg, spec, *, mode, pos, cache=None, cache_len=None,
         kr[:, pos:pos + s] = k_rope.to(kr.dtype)
         sk = cc.shape[1] if attn_extent is None else attn_extent
         cs = cc[:, :sk].to(dt)
-        k_nope = (cs @ p["wk_b"].to(dt)).view(b, sk, h, dn)
-        vfull = (cs @ p["wv_b"].to(dt)).view(b, sk, h, dv)
+        k_nope = (cs @ ws["wk_b"]).view(b, sk, h, dn)
+        vfull = (cs @ ws["wv_b"]).view(b, sk, h, dv)
         q = torch.cat([q_nope, q_rope], dim=-1)
         k = torch.cat([k_nope, kr[:, :sk].to(dt)[:, :, None, :].expand(
             b, sk, h, dr)], dim=-1)
@@ -567,10 +663,10 @@ def mla_apply(x, p, cfg, spec, *, mode, pos, cache=None, cache_len=None,
         q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
         k_rope = apply_rope(k_rope[:, :, None, :], positions,
                             cfg.rope_theta)[:, :, 0, :]
-        if n > 1:                       # the latents meet the local heads
+        if split:                       # the latents meet the local heads
             ckv, k_rope = tp_enter(ckv), tp_enter(k_rope)
-        k_nope = (ckv @ p["wk_b"].to(dt)).view(b, s, h, dn)
-        vfull = (ckv @ p["wv_b"].to(dt)).view(b, s, h, dv)
+        k_nope = (ckv @ ws["wk_b"]).view(b, s, h, dn)
+        vfull = (ckv @ ws["wv_b"]).view(b, s, h, dv)
         q = torch.cat([q_nope, q_rope], dim=-1)
         k = torch.cat([k_nope, k_rope[:, :, None, :].expand(b, s, h, dr)],
                       dim=-1)
@@ -584,5 +680,5 @@ def mla_apply(x, p, cfg, spec, *, mode, pos, cache=None, cache_len=None,
     else:
         raise ValueError(f"unknown mode {mode!r}")
 
-    out = out.reshape(b, s, h * dv) @ p["wo"].to(dt)
-    return (tp_all_reduce(out) if n > 1 else out), new_cache
+    return _out_proj(out.reshape(b, s, h * dv), p["wo"].to(dt),
+                     tp_shards(cfg.n_heads * dv) > 1, not split), new_cache

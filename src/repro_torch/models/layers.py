@@ -27,7 +27,9 @@ and its gradient are whole and equal on every model rank:
   partial sum over its own heads;
 * :func:`tp_all_gather` (the vocab-split logits): backward keeps this
   rank's slice, since every rank computes the same loss on the whole
-  logits;
+  logits; :func:`tp_gather_cols` the same for several tensors' column
+  blocks in one collective (an attention layer's heads whole on every
+  rank from weights cut mid-head, ``models.attention``);
 * :func:`gated_rms_norm`'s statistic: its forward all-reduce is taken
   without a gradient, and the norm's backward (``rms_norm_rstd`` under
   autograd) all-reduces each row's term ``s_loc`` instead
@@ -50,6 +52,7 @@ take ``sinusoidal_pos`` where the config says so.
 from __future__ import annotations
 
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -61,8 +64,9 @@ from ..sharding import (current_mesh, current_rules, logical_spec,
                         resolved_axes)
 
 __all__ = ["rms_norm", "gated_rms_norm", "check_cache_invariant",
-           "tp_shards", "tp_size", "tp_coord", "tp_heads", "tp_all_reduce",
-           "tp_all_gather", "tp_enter",
+           "tp_shards", "tp_size", "tp_coord", "Heads", "tp_heads",
+           "tp_ssm_heads", "tp_all_reduce", "tp_all_gather",
+           "tp_gather_cols", "tp_enter",
            "page_gather", "page_scatter", "page_scatter_window",
            "rope_freqs", "apply_rope", "sinusoidal_pos", "mlp_dense",
            "embed_tokens", "lm_logits", "softmax_xent", "tree_leaves",
@@ -106,18 +110,64 @@ def tp_size(logical: str = "tp") -> int:
     return n
 
 
-def tp_heads(*counts: int, logical: str = "heads") -> int:
-    """The split of a head axis: the mesh size ``logical`` resolves to,
-    when every head count in ``counts`` divides it.  A count that does not
-    raises: the reference replicates such heads (strict resolution drops
-    the axis), which the port has not ported (ROADMAP.md queue 1, item
-    20)."""
-    n = tp_size(logical)
-    if n > 1 and any(c % n for c in counts):
+class Heads(NamedTuple):
+    """One attention layer's heads on this rank (:func:`tp_heads`): ``h``
+    query heads from global head ``q0``, ``hkv`` KV heads from global KV
+    head ``kv0``, ``group`` the model's query heads per KV head.  A head
+    count the model axis divides is split (``h = H / n``); one it does not
+    divide is whole on every rank (``h = H``, ``q0 = 0``), as the
+    reference's strict rules replicate it."""
+    h: int
+    hkv: int
+    q0: int
+    kv0: int
+    group: int
+
+    @property
+    def reads(self) -> tuple[int, int]:
+        """(first, count) of this rank's ``hkv`` KV heads that its query
+        heads read: all of them, but where the query heads split and the
+        KV heads do not (one KV head, ``q0 // group``)."""
+        if not self.hkv:
+            return 0, 0
+        first = self.q0 // self.group - self.kv0
+        return first, max(1, self.h // self.group)
+
+
+def tp_heads(n_heads: int, n_kv_heads: int | None = None) -> Heads:
+    """This rank's heads of an attention layer of ``n_heads`` query and
+    ``n_kv_heads`` KV heads (none for MLA) under the active context: each
+    count split ``n`` ways on a model axis of ``n`` that divides it (the
+    reference's ``heads`` / ``kv_heads`` -> model), else whole on every
+    rank.  Where the query heads split and the KV heads do not, a rank's
+    query heads must all read one KV head (``group`` a multiple of
+    ``H / n``, as for every ``REGISTRY`` family on 16); where they would
+    read KV heads of uneven groups, the query heads are whole on every
+    rank too."""
+    hkv_all = n_kv_heads or 0
+    group = n_heads // hkv_all if hkv_all else 1
+    n = tp_size("heads")
+    k = tp_coord("heads") if n > 1 else 0
+    h, q0 = (n_heads // n, k * (n_heads // n)) if n_heads % n == 0 \
+        else (n_heads, 0)
+    hkv, kv0 = ((hkv_all // n, k * (hkv_all // n)) if hkv_all % n == 0
+                else (hkv_all, 0))
+    if hkv_all and h < n_heads and hkv == hkv_all and group % h:
+        h, q0 = n_heads, 0
+    return Heads(h, hkv, q0, kv0, group)
+
+
+def tp_ssm_heads(count: int) -> int:
+    """The split of an SSD mixer's ``count`` heads: the model axis under
+    the active context (1 without a mesh).  A count it does not divide
+    raises: SSD heads replicated under tensor parallelism are not ported
+    (ROADMAP.md queue 1, item 20b)."""
+    n = tp_size("ssm_heads")
+    if n > 1 and count % n:
         raise NotImplementedError(
-            f"head counts {counts} do not split {n} ways: replicated heads "
+            f"{count} SSD heads do not split {n} ways: replicated SSD heads "
             "under tensor parallelism are not ported (ROADMAP.md queue 1, "
-            "item 20)")
+            "item 20b)")
     return n
 
 
@@ -202,6 +252,37 @@ def tp_all_gather(x, dim: int = -1):
     (one collective, counted).  Under autograd its backward keeps this
     rank's slice."""
     return _AllGather.apply(x, dim, current_mesh())
+
+
+class _GatherRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, flat, mesh):
+        ctx.k = mesh.coords["model"]
+        out = torch.stack(mesh.all_gather(flat, "model"))
+        _count(tp_all_gather, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad[ctx.k], None
+
+
+def tp_gather_cols(*ts):
+    """Each of ``ts`` (``(..., c)``: this rank's block of ``c`` columns)
+    made whole, ``(..., n c)``, every model rank's block in rank order, in
+    one collective for all of them (counted as a :func:`tp_all_gather`).
+    Under autograd each keeps this rank's block of its gradient, which is
+    right where that gradient is whole and equal on every rank."""
+    mesh = current_mesh()
+    n = mesh.shape["model"]
+    rows = _GatherRows.apply(torch.cat([t.reshape(-1) for t in ts]), mesh)
+    out, off = [], 0
+    for t in ts:
+        part = rows[:, off:off + t.numel()].reshape((n,) + tuple(t.shape))
+        out.append(part.movedim(0, -2).reshape(
+            tuple(t.shape[:-1]) + (n * t.shape[-1],)))
+        off += t.numel()
+    return out
 
 
 def _norm_dot_sum(s, mesh):

@@ -15,8 +15,9 @@ The SSM cache (conv tail + recurrent state) is O(1) per slot and never
 paged.  Decode writes both leaves in place (the port's forward keeps the
 same cache tensors); chunked prefill raises, as in the reference.
 
-Tensor parallelism (under a mesh: ``models.layers.tp_heads`` on
-``ssm_heads``): each rank holds ``H/n`` heads — their ``d_inner/n``
+Tensor parallelism (under a mesh: ``models.layers.tp_ssm_heads`` on
+``ssm_heads``; a head count the model axis does not divide raises,
+ROADMAP item 20b): each rank holds ``H/n`` heads — their ``d_inner/n``
 channels of ``z`` and ``x``, their ``dt``, ``A_log``, ``Dskip`` and
 ``norm_w`` entries, their rows of ``out_proj`` and their state — and all
 of B and C.  Layout deviation from the reference, which shards
@@ -50,7 +51,7 @@ import torch.nn.functional as F
 
 from ..kernels import ssd_scan
 from .layers import (gated_rms_norm, rms_norm, tp_all_reduce, tp_coord,
-                     tp_enter, tp_heads)
+                     tp_enter, tp_ssm_heads)
 
 
 def conv_dim(cfg) -> int:
@@ -203,7 +204,7 @@ def ssm_apply(x, p, cfg, spec, *, mode, pos, cache=None, cache_len=None,
         raise NotImplementedError(
             "chunked prefill is not supported for SSM blocks")
     b, s, _ = x.shape
-    k_tp = tp_heads(cfg.ssm_nheads, logical="ssm_heads")   # 1 off a mesh
+    k_tp = tp_ssm_heads(cfg.ssm_nheads)                   # 1 off a mesh
     h, pd, n, g = (cfg.ssm_nheads // k_tp, cfg.ssm_headdim, cfg.ssm_state,
                    cfg.ssm_ngroups)
     di, cw = cfg.d_inner // k_tp, cfg.ssm_conv

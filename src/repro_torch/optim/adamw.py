@@ -82,10 +82,15 @@ def global_norm(tree, plan=None):
         for x, sp in zip(leaves, tree_leaves(plan.tp))]
     split, whole = (torch.stack(col) for col in zip(*parts))
     sq = model_sum(split, plan.mesh) + whole
-    on_data = torch.tensor([d is not None for d in tree_leaves(plan.dims)],
-                           device=sq.device)
-    part = data_sum(sq[on_data].sum().reshape(1), plan.mesh)[0]
-    return (part + sq[~on_data].sum()).sqrt()
+    # the leaves split over data, and the rest, picked by index (a
+    # boolean mask has no shape on meta, where the dry run takes it)
+    dims = tree_leaves(plan.dims)
+    on, off = (torch.tensor([i for i, d in enumerate(dims)
+                             if (d is None) == whole],
+                            dtype=torch.long, device=sq.device)
+               for whole in (False, True))
+    part = data_sum(sq.index_select(0, on).sum().reshape(1), plan.mesh)[0]
+    return (part + sq.index_select(0, off).sum()).sqrt()
 
 
 @torch.no_grad()

@@ -465,7 +465,9 @@ def counters(state, reset=False):
                   fsdp_sum=fsdp.data_sum.calls,
                   fsdp_sum_bytes=fsdp.data_sum.bytes,
                   tp_sum=fsdp.model_sum.calls,
-                  tp_sum_bytes=fsdp.model_sum.bytes)
+                  tp_sum_bytes=fsdp.model_sum.bytes,
+                  pod_sum=fsdp.pod_sum.calls,
+                  pod_sum_bytes=fsdp.pod_sum.bytes)
     for name, c in counts.items():
         out[name] = c.value
         if reset:

@@ -29,17 +29,21 @@ one process per rank, so both are written out:
 * :func:`data_sum`: a sum over the data ranks in place: whole leaves'
   gradients, the labelled-token counts, the loss, the clip norm's
   squares; :func:`model_sum` the same over the model ranks (the clip
-  norm's squares of the leaves split over ``model``);
-  :func:`data_all_reduce` the data axis's twin of
-  ``models.layers.tp_all_reduce``: an autograd op, the sum forward and
-  the identity backward (the MoE load-balance term's means over the
-  global batch, ``models.moe.global_stats``), counted as a
-  :func:`data_sum`.
+  norm's squares of the leaves split over ``model``); :func:`pod_sum`
+  over the pod ranks, and :func:`batch_sum` over both axes that split
+  the batch (``LOGICAL_RULES``' ``"batch"``: pod x data): every leaf's
+  gradient, the counts and the loss are summed over pod too, since the
+  parameters are whole across pods; :func:`data_all_reduce` the batch
+  axes' twin of ``models.layers.tp_all_reduce``: an autograd op, the
+  sum forward and the identity backward (the MoE load-balance term's
+  means over the global batch, ``models.moe.global_stats``), counted as
+  its :func:`data_sum` and :func:`pod_sum`.
 
 Every gather and every sum is counted with the bytes it carries, per
 axis (``gather.calls`` / ``gather.bytes`` and ``data_sum.calls`` /
 ``data_sum.bytes`` on ``data``, ``model_sum.calls`` / ``model_sum.bytes``
-on ``model``).  On an axis of size 1 they are no collective and count
+on ``model``, ``pod_sum.calls`` / ``pod_sum.bytes`` on ``pod``).  On an
+axis of size 1 they are no collective and count
 nothing.  The checkpoint's assembly of whole leaves
 (:func:`whole_on_host`) gathers over both axes; its model gathers are
 not counted.
@@ -203,11 +207,27 @@ def data_sum(t, mesh):
     return mesh.all_reduce(t, "data")
 
 
+def pod_sum(t, mesh):
+    """Sum ``t`` over the pod ranks, in place (one all-reduce, counted;
+    nothing without a pod axis above 1); returns it."""
+    if mesh.shape.get("pod", 1) == 1:
+        return t
+    pod_sum.calls.add()
+    pod_sum.bytes.add(t.numel() * t.element_size())
+    return mesh.all_reduce(t, "pod")
+
+
+def batch_sum(t, mesh):
+    """Sum ``t`` over the ranks that split the batch (``LOGICAL_RULES``:
+    pod x data), in place: :func:`data_sum`, then :func:`pod_sum`."""
+    return pod_sum(data_sum(t, mesh), mesh)
+
+
 class _DataAllReduce(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, mesh):
-        return data_sum(x.clone(memory_format=torch.contiguous_format),
-                        mesh)
+        return batch_sum(x.clone(memory_format=torch.contiguous_format),
+                         mesh)
 
     @staticmethod
     def backward(ctx, grad):
@@ -215,11 +235,11 @@ class _DataAllReduce(torch.autograd.Function):
 
 
 def data_all_reduce(x, mesh):
-    """``x`` summed over the data ranks (a copy; one all-reduce, counted
-    as :func:`data_sum`).  Under autograd its backward is the identity:
-    every data rank's consumer reads the same sum, so the ranks'
-    gradients, summed over ``data`` as every gradient is, make the
-    global one."""
+    """``x`` summed over the ranks that split the batch (a copy;
+    :func:`batch_sum`: over data, then over pod where there is one).
+    Under autograd its backward is the identity: every such rank's
+    consumer reads the same sum, so the ranks' gradients, summed over
+    pod and data as every gradient is, make the global one."""
     return _DataAllReduce.apply(x, mesh)
 
 
@@ -296,8 +316,11 @@ data_sum.calls = LaunchCounter()
 data_sum.bytes = LaunchCounter()
 model_sum.calls = LaunchCounter()
 model_sum.bytes = LaunchCounter()
+pod_sum.calls = LaunchCounter()
+pod_sum.bytes = LaunchCounter()
 
 __all__ = ["Plan", "TPSplit", "data_dims", "block", "model_block",
            "model_parts", "model_whole", "shard_leaf", "data_sum",
-           "model_sum", "data_all_reduce", "gather",
+           "model_sum", "pod_sum", "batch_sum", "data_all_reduce",
+           "gather",
            "take", "gather_blocks", "sum_blocks", "whole_on_host"]

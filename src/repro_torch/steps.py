@@ -18,7 +18,7 @@ only part of the computation: ``serve.tp`` runs the same step on every
 rank, in one order.
 
 Sharded training: ``make_train_step(cfg, hp, mesh=)`` on any ``D,M``
-mesh runs on this rank's blocks of params, m and v
+or ``P,D,M`` mesh runs on this rank's blocks of params, m and v
 (``params.shard_train_state``), cut by the reference's
 ``LOGICAL_RULES``: each weight's ``"fsdp"`` dim over ``data`` (FSDP:
 each split leaf gathered over ``data`` where the model uses it and its
@@ -27,15 +27,20 @@ gradient summed back to the blocks, ``sharding.fsdp``), its ``"tp"``,
 parallelism: the forward runs under ``sharding_ctx(mesh)`` and the
 model's collectives carry their backwards, ``models.layers``), the SSD
 mixer's leaves by the port's own layout (``models.ssm.TP_LOCAL``).  A
-rank computes on its ``micro / D`` rows of every microbatch; the ranks
-of one model group hold the same rows and labels.  The loss divides by
-the global count of labelled tokens (summed over ``data``), whole-on-
-``data`` leaves' gradients are summed over ``data``, and the clip norm
-is the whole gradient's (``optim.adamw.global_norm``).  A MoE layer's
-experts are split over ``model`` by their d_ff columns and over
-``data`` by their d_model rows, and its load-balance term is the global
-batch's (``models.moe``).  Head counts the model axis does not divide
-raise (:func:`check_train_mesh`).
+rank computes on its ``micro / (P D)`` rows of every microbatch (the
+``"batch"`` rule: pod x data, its block at its pod and data
+coordinates, row-major); the ranks of one model group hold the same rows
+and labels.  The loss divides by the global count of labelled tokens
+(summed over pod and data), whole-on-``data`` leaves' gradients are
+summed over ``data``, every leaf's gradient over ``pod`` (the
+parameters and moments are whole across pods: ``"fsdp"`` is ``data``
+alone), and the clip norm is the whole gradient's (``optim.adamw.
+global_norm``).  A MoE layer's experts are split over ``model`` by their
+d_ff columns and over ``data`` by their d_model rows, and its
+load-balance term is the global batch's (``models.moe``).  Attention
+head counts the model axis does not divide train whole on every rank
+(``models.attention``); SSD head counts it does not divide raise
+(:func:`check_train_mesh`, ROADMAP item 20b).
 """
 from __future__ import annotations
 
@@ -51,7 +56,8 @@ from .models.lm import LeafMeta, cache_meta, forward, init_params
 from .models.ssm import TP_LOCAL, tp_local_width
 from .optim import OptHParams, adamw_init, adamw_update
 from .sharding import logical_spec, shard_shape, sharding_ctx
-from .sharding.fsdp import Plan, TPSplit, data_dims, data_sum
+from .sharding.fsdp import (Plan, TPSplit, batch_sum, data_dims, data_sum,
+                            pod_sum)
 
 DECODE_RULES = {"heads": ()}  # decode shards cache-seq, not heads
 
@@ -97,35 +103,44 @@ def data_size(mesh) -> int:
     return 1 if mesh is None else mesh.shape.get("data", 1)
 
 
+def pod_size(mesh) -> int:
+    """The mesh's pod axis (1 without a mesh or one)."""
+    return 1 if mesh is None else mesh.shape.get("pod", 1)
+
+
+def batch_size(mesh) -> int:
+    """The ways ``batch`` splits under ``LOGICAL_RULES``: pod x data."""
+    return pod_size(mesh) * data_size(mesh)
+
+
 def _check_heads(cfg, n) -> None:
-    """Raise where the model axis ``n`` does not divide a head count of
-    ``cfg`` (ROADMAP item 20: the reference replicates such heads)."""
-    counts = set()
+    """Raise where the port cannot lay ``cfg``'s heads out on a model axis
+    of ``n``: an SSD head count ``n`` does not divide (ROADMAP item 20b).
+    Attention head counts that ``n`` does not divide are whole on every
+    rank, as the reference's strict rules replicate them
+    (``models.attention``)."""
     for spec in cfg.pattern:
-        if spec.kind == "ssm":
-            counts.add(cfg.ssm_nheads)
-        else:
-            counts.update((cfg.n_heads,) if spec.attn == "mla"
-                          else (cfg.n_heads, cfg.n_kv_heads))
-    if any(c % n for c in counts):
-        raise NotImplementedError(
-            f"{cfg.name}: head counts {sorted(counts)} do not split {n} "
-            "ways; replicated heads under tensor parallelism are not "
-            "ported (ROADMAP.md queue 1, item 20)")
+        if spec.kind == "ssm" and cfg.ssm_nheads % n:
+            raise NotImplementedError(
+                f"{cfg.name}: {cfg.ssm_nheads} SSD heads do not split {n} "
+                "ways; replicated SSD heads under tensor parallelism are "
+                "not ported (ROADMAP.md queue 1, item 20b)")
 
 
 def check_tp(cfg, mesh) -> None:
     """Raise where tensor-parallel serving of ``cfg`` on ``mesh`` is not
-    ported: a data axis above 1 (a training mesh: serving maps ``batch``
-    to no mesh axis), head counts the model axis does not divide (ROADMAP
-    item 20: the reference replicates them).  A no-op without a mesh or
-    with a model axis of 1."""
+    ported: a data or pod axis above 1 (a training mesh: serving maps
+    ``batch`` to no mesh axis; serving cells on a production mesh are
+    ROADMAP item 20b), or heads :func:`_check_heads` refuses.  Head
+    counts the model axis does not divide serve, whole on every rank.  A
+    no-op without a mesh or with a model axis of 1."""
     n = model_size(mesh)
-    if data_size(mesh) > 1:
+    if data_size(mesh) > 1 or pod_size(mesh) > 1:
         raise NotImplementedError(
-            f"mesh {mesh.shape}: serving splits no data axis "
-            "(TP_SERVE_RULES maps batch to no mesh axis); a data axis "
-            "above 1 is a training mesh (FSDP)")
+            f"mesh {mesh.shape}: serving splits no data axis and no pod "
+            "axis (TP_SERVE_RULES maps batch to no mesh axis); a data axis "
+            "above 1 is a training mesh (FSDP), and serving on a "
+            "production mesh waits (ROADMAP.md queue 1, item 20b)")
     if n == 1:
         return
     _check_heads(cfg, n)
@@ -203,21 +218,21 @@ def _token_loss(out, labels, cfg, count=None):
 
 
 def check_train_mesh(cfg, mesh, micro: int | None = None) -> None:
-    """Raise where training ``cfg`` on ``mesh`` is not ported: head counts
-    a model axis above 1 does not divide (ROADMAP item 20: the reference
-    replicates such heads), a microbatch of ``micro`` rows that the data
-    axis does not divide (deviation: the reference's strict rule would
-    replicate such a batch).  A no-op without a mesh or on a (1, 1)
-    mesh."""
-    if mesh is None or mesh.shape["data"] * mesh.shape["model"] == 1:
+    """Raise where training ``cfg`` on ``mesh`` is not ported: heads
+    :func:`_check_heads` refuses on a model axis above 1 (attention head
+    counts the axis does not divide train, whole on every rank), a
+    microbatch of ``micro`` rows that ``pod x data`` does not divide
+    (deviation: the reference's strict rule would replicate such a
+    batch).  A no-op without a mesh or on a mesh of one rank."""
+    if mesh is None or mesh.size == 1:
         return
     if model_size(mesh) > 1:
         _check_heads(cfg, model_size(mesh))
-    if micro is not None and micro % data_size(mesh):
+    if micro is not None and micro % batch_size(mesh):
         raise NotImplementedError(
             f"a microbatch of {micro} rows does not split "
-            f"{data_size(mesh)} ways over data (the reference would "
-            "replicate it; the port needs micro divisible by data)")
+            f"{batch_size(mesh)} ways over pod x data (the reference would "
+            "replicate it; the port needs micro divisible by pod x data)")
 
 
 def tp_splits(cfg, mesh):
@@ -310,10 +325,11 @@ def make_grad_step(cfg, mesh=None):
         counts = None
         if plan is not None:
             check_train_mesh(cfg, mesh, micro)
-            rows = micro // data_size(mesh)
-            first = mesh.coords["data"] * rows
+            rows = micro // batch_size(mesh)
+            first = (mesh.coords["pod"] * data_size(mesh)
+                     + mesh.coords["data"]) * rows
             batch = {k: v[:, first:first + rows] for k, v in batch.items()}
-            counts = data_sum((batch["labels"] >= 0).reshape(
+            counts = batch_sum((batch["labels"] >= 0).reshape(
                 accum, -1).sum(1).float(), mesh)
         lsum = torch.zeros((), dtype=torch.float32, device=device)
         with torch.enable_grad(), tp():
@@ -333,7 +349,8 @@ def make_grad_step(cfg, mesh=None):
                          else torch.zeros_like(p, dtype=torch.float32), live)
         if plan is not None:
             _sum_whole(grads, plan)
-            lsum = data_sum(lsum.reshape(1), mesh)[0]
+            _sum_pods(grads, plan)
+            lsum = batch_sum(lsum.reshape(1), mesh)[0]
         return grads, lsum / accum
 
     grad_step.plan = plan
@@ -350,6 +367,19 @@ def _sum_whole(grads, plan):
         return
     flat = data_sum(torch.cat([g.reshape(-1) for g in whole]), plan.mesh)
     for g, part in zip(whole, flat.split([g.numel() for g in whole])):
+        g.copy_(part.view_as(g))
+
+
+def _sum_pods(grads, plan):
+    """Every leaf's gradient summed over ``pod`` in place, in one
+    all-reduce of their concatenation (none without a pod axis above 1):
+    the parameters are whole across pods, each pod's gradients a partial
+    sum over its rows of the batch."""
+    if pod_size(plan.mesh) == 1:
+        return
+    leaves = tree_leaves(grads)
+    flat = pod_sum(torch.cat([g.reshape(-1) for g in leaves]), plan.mesh)
+    for g, part in zip(leaves, flat.split([g.numel() for g in leaves])):
         g.copy_(part.view_as(g))
 
 
@@ -729,6 +759,7 @@ __all__ = ["cast_tree", "make_prefill_step", "make_serve_step",
            "make_verify_step", "make_pool_step", "make_row_cache_step",
            "init_cache", "TP_SERVE_RULES", "DECODE_RULES",
            "SERVE_CACHE_AXES", "serve_cache_axes", "local_cache_meta",
-           "check_tp", "check_train_mesh", "tp_splits", "train_plan",
+           "check_tp", "check_train_mesh", "pod_size", "batch_size",
+           "tp_splits", "train_plan",
            "data_size",
            "make_grad_step", "make_train_step", "init_train_state"]

@@ -27,7 +27,7 @@ tiny f32 configs; the reference runs and bars of ``tests/fsdp_ref.py``).
     reference's uninterrupted data-4 run by the same bars.
   * ``launch.train.build`` on a mesh: rank 0's shard of the seeded state,
     the same loss as on one device.
-  * Refusals: head counts a model axis does not divide (item 20), a
+  * Refusals: SSD head counts a model axis does not divide (item 20b), a
     microbatch the data axis does not divide; a model axis above 1 and
     MoE under a mesh build (items 18b and 9b are done).
   * A follower that raises mid-step fails the step with ``TPError``.
@@ -317,9 +317,14 @@ def test_what_is_not_ported_raises():
         cfg.n_repeats, cfg.d_model, cfg.n_heads * cfg.head_dim // 2)
     assert torch.equal(part["params"]["final_norm"],
                        whole["params"]["final_norm"])
-    # head counts the model axis does not divide (item 20)
-    with pytest.raises(NotImplementedError, match="item 20"):
-        make_train_step(cfg, OptHParams(), Mesh({"data": 1, "model": 3}))
+    # attention head counts the model axis does not divide train, whole
+    # on every rank (item 20); SSD head counts it does not divide
+    # (mamba2-780m-tiny's 8 at model 3) raise (item 20b)
+    assert callable(make_train_step(cfg, OptHParams(),
+                                    Mesh({"data": 1, "model": 3})))
+    with pytest.raises(NotImplementedError, match="item 20b"):
+        make_train_step(get("mamba2-780m").tiny(), OptHParams(),
+                        Mesh({"data": 1, "model": 3}))
     # a microbatch of 3 rows on data 2: the step raises before any
     # collective (rank 0's view of a mesh, no processes)
     mesh = Mesh({"data": 2, "model": 1})

@@ -770,3 +770,29 @@ def test_paged_mla_kernel_garbage_page_bit_identical_bf16(shape, cuda):
     args[2][0], args[3][0] = 1e4, 1e4
     poisoned = paged_mla_decode_attention(*args, **kw)
     assert torch.equal(clean, poisoned) and torch.isfinite(poisoned).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_decode_reads_a_head_view_of_the_pool(dtype, cuda):
+    """mixtral's layout on 16 in the kernel (replicated KV heads under
+    tensor parallelism): a rank's 2 query heads read KV head 2 of a pool
+    of 8, passed as a view; the kernel against its plain version on the
+    same view, and apart from KV head 0's."""
+    dt = getattr(torch, dtype)
+    g = torch.Generator().manual_seed(5)
+    b, ps, pps, dh = 3, 8, 5, 128
+    q = torch.randn(b, 1, 2, dh, generator=g).to(cuda, dt)
+    kp = torch.randn(1 + b * pps, ps, 8, dh, generator=g).to(cuda, dt)
+    vp = torch.randn(1 + b * pps, ps, 8, dh, generator=g).to(cuda, dt)
+    table = torch.arange(1, 1 + b * pps, dtype=torch.int32,
+                         device=cuda).view(b, pps)
+    pos = torch.tensor([39, 17, 3], dtype=torch.int32, device=cuda)
+    view = (kp[:, :, 2:3], vp[:, :, 2:3])
+    got = paged_decode_attention(q, *view, table, pos, page_size=ps)
+    want = paged_decode_attention_ref(q, *view, table, pos, page_size=ps)
+    _close(got.float().cpu(), want.float().cpu(), dtype)
+    other = paged_decode_attention_ref(q, kp[:, :, :1], vp[:, :, :1], table,
+                                       pos, page_size=ps)
+    assert (got.float() - other.float()).abs().max().item() > \
+        10 * TOL[dtype]["atol"]

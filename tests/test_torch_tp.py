@@ -22,9 +22,10 @@ carried over from the reference's ``init_params`` as numpy.
   * Sharded logits against single-device ones, within a stated f32
     tolerance.
   * Errors, not hangs: a follower that raises fails the live requests
-    within the deadline; a non-dividing head count and, in serving, a
-    data axis above 1 raise; MoE builds (``tests/test_torch_moe_mesh.py``
-    serves it).
+    within the deadline; a non-dividing SSD head count and, in serving, a
+    data axis above 1 raise; a non-dividing attention head count and MoE
+    build (``tests/test_torch_tp_heads.py`` and
+    ``tests/test_torch_moe_mesh.py`` serve them).
   * The CLI: ``--mesh 1,2`` prints the same ``sample`` as ``--mesh 1,1``.
 """
 import json
@@ -348,9 +349,19 @@ def test_what_is_not_ported_raises():
     assert mlp["w_gate"].shape[-1] * 2 == whole["w_gate"].shape[-1]
     assert mlp["w_down"].shape[-2] * 2 == whole["w_down"].shape[-2]
     assert torch.equal(mlp["router"], whole["router"])
-    with pytest.raises(NotImplementedError, match="item 20\\)"):
-        ServeEngine(cfg, params, device="cpu",
-                    mesh=Mesh({"data": 1, "model": 3}))
+    # head counts the model axis does not divide serve (item 20), whole
+    # on every rank: the steps build at model 3 and rank 0 holds every
+    # head; SSD heads it does not divide (mamba2-780m-tiny's 8) still
+    # raise (item 20b)
+    mesh13 = Mesh({"data": 1, "model": 3})
+    assert callable(make_prefill_step(cfg, cache_len=CACHE_LEN,
+                                      mesh=mesh13))
+    assert callable(make_serve_step(cfg, mesh=mesh13))
+    mixer = shard_params(params, cfg, mesh13)["blocks"][0]["mixer"]
+    assert torch.equal(mixer["wq"], params["blocks"][0]["mixer"]["wq"])
+    ssm_cfg, ssm_params, _, _ = build("mamba2-780m")
+    with pytest.raises(NotImplementedError, match="item 20b"):
+        ServeEngine(ssm_cfg, ssm_params, device="cpu", mesh=mesh13)
     with pytest.raises(NotImplementedError, match="serving splits no data"):
         ServeEngine(cfg, params, device="cpu",
                     mesh=Mesh({"data": 2, "model": 1}))
